@@ -1,0 +1,27 @@
+"""The port's kernels, as the model code calls them, and their launch counts.
+
+Each wrapper validates its inputs, launches its hand-written kernel for CUDA
+tensors, runs its plain PyTorch version for CPU tensors, and counts its
+launches in a plain int attribute (``embedding_bag.launches``).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.fused_mlp import fused_mlp_layer
+from repro_torch.kernels.interaction import dot_interaction
+
+KERNELS = {
+    "embedding_bag": embedding_bag,
+    "dot_interaction": dot_interaction,
+    "fused_mlp": fused_mlp_layer,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,39 @@
+"""MLP stack (twin of ``repro/models/mlp.py``).
+
+bf16 inputs and weights, fp32 accumulation, bf16 between layers and fp32 out
+of the last layer.  ``impl="pallas"`` runs every layer through the fused_mlp
+kernel (the name the reference gives its kernel path); ``impl="xla"`` leaves
+the product to ``torch.matmul``, as the reference leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def mlp_forward(params: dict, x: torch.Tensor, final_activation: bool = False,
+                impl: str = "xla") -> torch.Tensor:
+    """Apply the stack; ReLU between layers, optionally on the last one."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown mlp impl {impl!r}")
+    n = len(params["w"])
+    h = x
+    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+        act = final_activation or i < n - 1
+        last = i == n - 1
+        if impl == "pallas":
+            h = ops.fused_mlp_layer(h.to(torch.bfloat16), w.to(torch.bfloat16), b,
+                                    activation="relu" if act else "none",
+                                    out_dtype=torch.float32 if last else torch.bfloat16)
+        else:
+            y = h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float() + b.float()
+            h = torch.relu(y) if act else y
+            if not last:
+                h = h.to(torch.bfloat16)
+    return h  # final layer fp32
+
+
+def mlp_sizes(params: dict) -> list[int]:
+    return [params["w"][0].shape[0]] + [w.shape[1] for w in params["w"]]

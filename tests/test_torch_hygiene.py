@@ -1,0 +1,75 @@
+"""The port stands alone: no file of ``src/repro_torch/``, ``chip_smoke.py``
+or ``tools/`` imports ``jax`` or anything of ``repro``, importing the port
+leaves JAX unloaded, the entry points that default to CUDA raise where there
+is none instead of moving to the CPU, and the kernels build inside the
+checkout (or, installed, under ``HOME``)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
+
+
+def _imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_repro(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.serve, repro_torch.weights, "
+            "repro_torch.kernels.ops, repro_torch.configs.dlrm_paper, repro_torch.data.synthetic; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_default_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import resolve_device, weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core.dlrm import init_dense_params
+    from repro_torch.serve import make_bucket_scorers, make_snapshot_score_step
+
+    cfg = dlrm_small()
+    for call in (lambda: resolve_device(),
+                 lambda: make_snapshot_score_step(cfg),
+                 lambda: make_bucket_scorers(cfg, (8,), lambda: None),
+                 lambda: init_dense_params(cfg, torch.Generator()),
+                 lambda: weights.init_snapshot(cfg, torch.Generator()),
+                 lambda: weights.snapshot_from_numpy({}, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_kernels_build_inside_the_checkout_or_under_home(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    assert build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    installed = tmp_path / "lib" / "python3" / "site-packages" / "repro_torch"
+    assert build.build_dir(installed) == tmp_path / "home" / ".cache" / "repro_torch" / "torch_kernels"
+    stray_src = tmp_path / "src" / "repro_torch"       # a src/ with no project around it
+    assert build.build_dir(stray_src).is_relative_to(tmp_path / "home")
