@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DLRM serving path on one CUDA card.
+"""Drive the PyTorch port's DLRM serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,27 +7,43 @@ from the root of a checkout.  Phases, each of which fails the run:
 
 1. build: compile every kernel of ``src/repro_torch/csrc/`` (one ``nvcc``
    each, all at once) and print what ``ptxas`` reports;
-2. kernels: call each kernel's wrapper at dlrm-small's shapes, at the
-   config's batch (8192) and at every serving bucket (8, 32, 128), hold the
-   result against the kernel's plain PyTorch version on the same inputs on
-   the card, and, at 8192, time kernel, plain version and a PyTorch library
-   call that computes the same function (a yardstick the port never calls);
-   the bag also on uniform indices, whose rows are nearly all distinct;
+2. kernels: call each serving kernel's wrapper at dlrm-small's shapes, at
+   the config's batch (8192) and at every serving bucket (8, 32, 128), hold
+   the result against the kernel's plain PyTorch version on the same inputs
+   on the card, and, at 8192, time kernel, plain version and a PyTorch
+   library call that computes the same function (a yardstick the port never
+   calls); the bag also on uniform indices, whose rows are nearly all
+   distinct;
 3. serving: dlrm-small at full size (8 tables x 1,000,000 rows x 64, bf16-hi,
    pooling 50; random weights from a seeded ``torch.Generator``) published to
    a ``SnapshotRegistry`` and served by a ``ContinuousBatchingServer`` on
    buckets (8, 32, 128): 1024 requests with zipf(1.05) indices, in bursts
    that reach every bucket.  Every score must be finite and in (0, 1), and
    its logit must match the plain-version forward's on the card; every
-   kernel must have been launched, fused_mlp 8 times a batch;
+   serving kernel must have been launched, fused_mlp 8 times a batch;
 4. breakdown: per bucket, the host's padding, the score fn's wall time and
-   the device's busy time in it (torch.profiler).
+   the device's busy time in it (torch.profiler);
+5. row kernels: the fused row update (split store and fp32 store) and the
+   flat Split-SGD step, bit for bit against their plain versions at
+   dlrm-small's shapes (the training stream's first zipf batch and a uniform
+   one; the dense update's 3,811,396 values), timed, with the byte bound and
+   the serial-chain floor of the longest run;
+6. training: dlrm-small at full size (the 2.05 GB split store), batch 8192,
+   lr 0.1, ``make_train_step`` over 20 staged zipf batches: every loss
+   finite, one launch a step of the bag, interaction, row-update and
+   Split-SGD kernels and none of fused_mlp, one step held to the same step
+   on the CPU (every kernel's plain version), one step under
+   ``torch.cuda.set_sync_debug_mode("error")``, samples per second, each
+   stage's time and the device's busy share (torch.profiler);
+7. sgd: 3 steps with the fp32 store (``sparse_optimizer="sgd"``), which runs
+   the fp32 row-update kernel.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up; ``bound_ms`` from this run's bytes and operations over
-the card's published peaks); then the card's name and power limit from
-``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.  Exits
-non-zero, printing no result, without a CUDA device.
+the card's published peaks; ``launches`` from each kernel's own path); then
+the card's name and power limit from ``nvidia-smi``; the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -65,6 +81,14 @@ FUSED_MLP_BF16_TOL = (2 ** -7, 1e-4)     # a bf16 output may round to the neighb
 # layers may fall the other way (1.27e-4 on the scores, about 5e-4 on the
 # logits, measured); the logits of this random model span about +-0.08
 LOGIT_TOL = 3e-3
+SERVING_KERNELS = ("embedding_bag", "dot_interaction", "fused_mlp")
+N_TRAIN = 20  # staged zipf batches of the training phase
+# a kernel train step against the same step on the CPU (every kernel's plain
+# version): the loss within 1e-4 relative; the store and the dense weights
+# within 1e-2 of the step's largest update: the two sum the dense network
+# in other orders, so a bf16 cotangent may round to its neighbour (2^-8
+# relative) and the row sums carry that into the update
+TRAIN_TOL = {"loss": 1e-4, "update": 1e-2}
 
 
 def log(*a):
@@ -300,10 +324,11 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     ok = np.isfinite(scores).all() and ((scores > 0) & (scores < 1)).all()
     if not ok or scores.shape != (N_REQUESTS,):
         failures.append(f"served scores: shape {scores.shape}, finite and in (0, 1): {ok}")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in SERVING_KERNELS) == 0:
         failures.append(f"a kernel was not launched on the main path: {counts}")
     if counts["fused_mlp"] != 8 * n_batches or counts["embedding_bag"] != n_batches \
-            or counts["dot_interaction"] != n_batches:
+            or counts["dot_interaction"] != n_batches \
+            or any(v for k, v in counts.items() if k not in SERVING_KERNELS):
         failures.append(f"launches {counts} do not match {n_batches} batches (fused_mlp 8 each)")
 
     # every served score's logit against the plain-version forward's logit
@@ -357,6 +382,301 @@ def breakdown_phase(cfg, reg, reqs, dev) -> None:
                         f"{e.count // reps}" for e in top))
 
 
+def sm_clock_ghz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(out) / 1e3
+
+
+def bitwise_or_fail(name, got, want, failures) -> float:
+    """Bitwise equality of two tensors of one type; returns the max abs
+    difference of their values (0.0 when equal)."""
+    import torch
+    ib = torch.int16 if got.element_size() == 2 else torch.int32
+    same = got.shape == want.shape and bool((got.view(ib) == want.view(ib)).all())
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    log(f"  {name}: bitwise {same}, max_abs_err {err:.3e}")
+    if not same:
+        failures.append(f"{name}: not bitwise equal to its plain version (max_abs_err {err:.3e})")
+    return err
+
+
+def master(store):
+    """The fp32 master rows of an embedding store."""
+    from repro_torch.optim.split_sgd import combine_split
+    return store["w"] if "w" in store else combine_split(store["hi"], store["lo"])
+
+
+def dense_master(dense):
+    """The fp32 master values of the dense state, padding included."""
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.optim.split_sgd import combine_split
+    return combine_split(dp.flat_hi(dense["hi"], dense["lo"].numel()), dense["lo"])
+
+
+def row_kernel_phase(cfg, state, offsets, batch, dev, rng, failures) -> list[dict]:
+    """Rows 5 and 6 (the fused row update, split and fp32 store) and row 4
+    (the flat Split-SGD step) against their plain versions, bit for bit, at
+    dlrm-small's shapes: the main path's first zipf(1.05) batch and a
+    uniform one, with a bf16 cotangent of the wire's shape [B * S, E]; the
+    plain row update sums on CPU copies to fix its order.  Timed with CUDA
+    events; returns the kernel entries of the JSON line."""
+    import torch
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import data_parallel as dp
+
+    B, S, P, E = cfg.batch, len(cfg.table_rows), cfg.pooling, cfg.emb_dim
+    rows = state["emb"]["hi"].shape[0]
+    lr = cfg.lr
+    ghz = sm_clock_ghz()
+    dY = (torch.randn((B * S, E), device=dev) * 1e-3).to(torch.bfloat16)
+    W32 = master(state["emb"])
+    uidx = torch.from_numpy(np.stack([rng.integers(0, m, (B, P)) for m in cfg.table_rows],
+                                     axis=1).astype(np.int32)).to(dev)
+    entries = {"embedding_update": {"name": "embedding_update", "max_abs_err": 0.0},
+               "embedding_update_fp32": {"name": "embedding_update_fp32", "max_abs_err": 0.0}}
+    for tag, idx in (("zipf", batch["idx"]), ("uniform", uidx)):
+        stream = eu.sort_lookups((idx + offsets[None, :, None]).reshape(-1), None, rows, P)
+        L = stream[0].numel()
+        _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+        U, longest = counts.numel(), int(counts.max())
+        # each touched row read and written once, dY and the sorted stream read once
+        base = dY.numel() * 2 + L * 16
+        flops = L * E * 2 + U * E * 2
+        chain_ms = longest * 4 / (ghz * 1e9) * 1e3  # one dependent fp32 add (4 cycles) a lookup
+        log(f"row update, {tag} indices: L {L}, {U} runs, longest {longest} lookups; the serial "
+            f"chain of the longest run: {chain_ms:.4f} ms at {ghz:.3f} GHz (4-cycle fp32 add)")
+        for name, keys in (("embedding_update", ("hi", "lo")), ("embedding_update_fp32", ("w",))):
+            e = entries[name]
+            # the plain version, timed on the host clock (it syncs with the
+            # host to sum on the CPU), then the kernel on a copy of the table
+            if keys == ("w",):
+                store, want = {"w": W32.clone()}, {"w": W32.clone()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref.fused_update_fp32(want["w"], *stream, dY, lr)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                ops.fused_update_fp32(store["w"], *stream, dY, lr)
+            else:
+                store = {k: state["emb"][k].clone() for k in keys}
+                want = {k: state["emb"][k].clone() for k in keys}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref.fused_update_split(want["hi"], want["lo"], *stream, dY, lr)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                ops.fused_update_split(store["hi"], store["lo"], *stream, dY, lr)
+            torch.cuda.synchronize()
+            for k in keys:
+                err = bitwise_or_fail(f"{name} [{L} lookups -> {rows}x{E}] {tag}, {k}", store[k],
+                                      want[k], failures)
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+            bms, by = bound_ms(base + U * E * 4 * 2, flops, FP32_FLOPS)
+            if keys == ("w",):
+                def kern():
+                    ops.fused_update_fp32(store["w"], *stream, dY, lr)
+            else:
+                def kern():
+                    ops.fused_update_split(store["hi"], store["lo"], *stream, dY, lr)
+            t = dict(ms=time_ms(kern), plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, chain_ms=chain_ms, longest=longest, runs=U)
+            if keys == ("w",):
+                # the library yardstick: index_add_ of pre-gathered rows (atomics: no fixed order)
+                g = torch.where(stream[2][:, None] != 0, dY[stream[1].long()].float(), 0.0)
+                r64 = stream[0].long()
+                t["library_ms"] = time_ms(lambda: store["w"].index_add_(0, r64, g, alpha=-lr))
+                del g
+            else:
+                t["library_ms"] = None  # no PyTorch call splits fp32 into halves
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            log(f"  {name} {tag}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, "
+                f"library {lib}, bound {bms:.4f} ms ({by}, {(base + U * E * 8) / 1e6:.1f} MB), "
+                f"{t['ms'] / chain_ms:.2f}x the longest run's serial chain")
+            if tag == "zipf":
+                e.update(t)
+            else:
+                e["uniform"] = t
+            del store, want
+
+    # row 4 at the dense update's shape: the padded dense vector of dlrm-small
+    lo = state["dense"]["lo"]
+    n = lo.numel()
+    hi = dp.flat_hi(state["dense"]["hi"], n).clone()
+    lo = lo.clone()
+    g = torch.randn(n, device=dev) * 1e-3
+    want_h, want_l = ref.split_sgd(hi.clone(), lo.clone(), g, lr)
+    ops.split_sgd(hi, lo, g, lr)
+    torch.cuda.synchronize()
+    e = {"name": "split_sgd", "max_abs_err": max(
+        bitwise_or_fail(f"split_sgd [{n}] hi", hi, want_h, failures),
+        bitwise_or_fail(f"split_sgd [{n}] lo", lo, want_l, failures))}
+    bms, by = bound_ms(n * 12, n * 2, FP32_FLOPS)
+    e.update(ms=time_ms(lambda: ops.split_sgd(hi, lo, g, lr)),
+             plain_ms=time_ms(lambda: ref.split_sgd(hi, lo, g, lr)), bound_ms=bms, bound_by=by,
+             library_ms=None)  # no PyTorch call splits fp32 into halves
+    log(f"  split_sgd [{n}]: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}, {n * 12 / 1e6:.1f} MB)")
+    return [entries["embedding_update"], entries["embedding_update_fp32"], e]
+
+
+def stage_batches(cfg, n: int, dev) -> list[dict]:
+    """n zipf(1.05) batches from the port's synthetic stream, on the card."""
+    import torch
+    from repro_torch.data.synthetic import dlrm_stream
+    out = []
+    for b, _ in zip(dlrm_stream(SEED, cfg, ALPHA), range(n)):
+        out.append({"idx": torch.from_numpy(b["idx"]).to(dev),
+                    "dense_x": torch.from_numpy(b["dense_x"]).to(dev).to(torch.bfloat16),
+                    "labels": torch.from_numpy(b["labels"]).to(dev)})
+    return out
+
+
+def training_phase(cfg, state, batches, dev, failures) -> dict:
+    """The main path of training: make_train_step over the staged batches,
+    every loss finite, one launch a step of each training kernel, one step
+    without a host sync, one step against the same step on the CPU (every
+    kernel's plain version), samples per second, and where a step's time
+    goes.  Returns the launch counts of the timed steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.kernels import ops
+    from repro_torch.optim import row as row_optim
+
+    step = dlrm.make_train_step(cfg, device=dev)
+    cpu_step = dlrm.make_train_step(cfg, device="cpu")
+
+    # one step against the plain versions, from a copy of the state on the CPU
+    ref_state = weights.state_to(state, "cpu")
+    before = weights.state_to(state, "cpu")
+    t0 = time.perf_counter()
+    ref_state, ref_loss = cpu_step(ref_state, {k: v.cpu() for k, v in batches[0].items()})
+    cpu_s = time.perf_counter() - t0
+    state, loss = step(state, batches[0])
+    torch.cuda.synchronize()
+    log(f"one step against the plain versions on the CPU ({cpu_s:.1f} s there): loss {float(loss):.7f} "
+        f"vs {float(ref_loss):.7f}")
+    close_or_fail("train step loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"], 0.0,
+                  failures)
+    for part, fn in (("embedding store", master), ("dense weights", dense_master)):
+        key = "emb" if part == "embedding store" else "dense"
+        got, want, old = fn(state[key]).cpu(), fn(ref_state[key]), fn(before[key])
+        upd = float((want - old).abs().max())
+        close_or_fail(f"train step, {part} vs plain step (atol {TRAIN_TOL['update']:g} x the "
+                      f"largest update, {upd:.3e})", got, want, 0.0, TRAIN_TOL["update"] * upd,
+                      failures)
+    del ref_state, before
+
+    # no host sync between the batch's arrival and the returned loss
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batches[1])
+    except RuntimeError as e:
+        failures.append(f"the train step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("one train step under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    ops.reset_launches()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, loss = step(state, b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    losses = torch.stack(losses).cpu().numpy()
+    n = len(batches)
+    log(f"trained {n} steps of B={cfg.batch} in {wall:.3f} s: {n * cfg.batch / wall:.0f} samples/s, "
+        f"{wall / n * 1e3:.2f} ms a step; losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    log(f"kernel launches in {n} steps: {counts}")
+    if not np.isfinite(losses).all():
+        failures.append(f"a loss is not finite: {losses}")
+    want = {**{k: 0 for k in counts}, "embedding_bag": n, "dot_interaction": n,
+            "embedding_update": n, "split_sgd": n}
+    if counts != want:
+        failures.append(f"launches {counts}, want {want} (one a step, fused_mlp none)")
+
+    # where a step's time goes: the stages one by one between CUDA events
+    st = step.stages
+    layout = se.make_layout(cfg.spec, 1)
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+    opt = row_optim.resolve(cfg)
+    names = ("sort", "bag fwd", "dense fwd+bwd", "row update", "dense update")
+    totals = dict.fromkeys(names, 0.0)
+    reps = 5
+    for b in batches[:reps]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        g = (b["idx"] + offsets[None, :, None]).reshape(-1)
+        stream = se._row_sorted_streams(layout, g, cfg.pooling)
+        ev[1].record()
+        emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), b["idx"])
+        ev[2].record()
+        _, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b)
+        dY = st.dY_exchange(d_emb)
+        ev[3].record()
+        row_optim.apply_sparse(opt, state["emb"], stream, dY.reshape(-1, cfg.emb_dim), cfg.lr)
+        ev[4].record()
+        state["dense"] = st.dense_update(state["dense"], g_dense)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            totals[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    log("a step by stage (ms, CUDA events, mean of 5): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in totals.items()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[:reps]:
+            state, loss = step(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"train step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
+        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.4f} ms x"
+                    f"{e.count // reps}" for e in top))
+    return counts
+
+
+def sgd_phase(cfg, dev, batches, failures) -> dict:
+    """3 steps with the fp32 table (``sparse_optimizer="sgd"``): the row 6
+    kernel on a path.  Returns the launch counts of those steps."""
+    import torch
+    from repro_torch.core import dlrm
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    state = dlrm.init_state(cfg, gen, device=dev)
+    log(f"sgd state: w {tuple(state['emb']['w'].shape)} fp32, "
+        f"{state['emb']['w'].numel() * 4 / 1e9:.3f} GB")
+    step = dlrm.make_train_step(cfg, device=dev)
+    ops.reset_launches()
+    losses = []
+    for b in batches:
+        state, loss = step(state, b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"sgd: {len(batches)} steps, losses {losses}; launches {counts}")
+    if not np.isfinite(losses).all():
+        failures.append(f"sgd: a loss is not finite: {losses}")
+    if counts["embedding_update_fp32"] != len(batches) or counts["embedding_update"] != 0:
+        failures.append(f"sgd: launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -367,6 +687,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.serve import SnapshotRegistry
     from repro_torch import weights
+    from repro_torch.core import dlrm
     from repro_torch.core import sharded_embedding as se
 
     # plain fp32 products in full fp32, not TF32, on the card
@@ -410,24 +731,62 @@ def main() -> int:
         raise SystemExit("serving phase failed:\n" + "\n".join(failures))
     breakdown_phase(cfg, reg, reqs, dev)
 
+    # training: dlrm-small at full size, split_sgd, then sgd
+    t_cfg = dlrm_small()
+    t0 = time.perf_counter()
+    state = dlrm.init_state(t_cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    batches = stage_batches(t_cfg, N_TRAIN, dev)
+    torch.cuda.synchronize()
+    log(f"train state: hi {tuple(state['emb']['hi'].shape)} bf16 + lo int16, "
+        f"{sum(v.numel() * v.element_size() for v in state['emb'].values()) / 1e9:.3f} GB, dense "
+        f"{state['dense']['lo'].numel()} values padded; {N_TRAIN} batches staged; "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernels += row_kernel_phase(t_cfg, state, offsets, batches[0], dev, rng, failures)
+    if failures:
+        raise SystemExit("row kernel phase failed:\n" + "\n".join(failures))
+    train_counts = training_phase(t_cfg, state, batches, dev, failures)
+    if failures:
+        raise SystemExit("training phase failed:\n" + "\n".join(failures))
+    del state
+    torch.cuda.empty_cache()
+    sgd_counts = sgd_phase(dataclasses.replace(t_cfg, sparse_optimizer="sgd"), dev, batches[:3],
+                           failures)
+    if failures:
+        raise SystemExit("sgd phase failed:\n" + "\n".join(failures))
+    counts.update(embedding_update=train_counts["embedding_update"],
+                  split_sgd=train_counts["split_sgd"],
+                  embedding_update_fp32=sgd_counts["embedding_update_fp32"])
+
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
               "dot_interaction": ("src/repro_torch/csrc/interaction.cu",
                                   "src/repro/kernels/interaction.py:22"),
               "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
-                            "src/repro/kernels/fused_mlp.py:22")}
+                            "src/repro/kernels/fused_mlp.py:22"),
+              "embedding_update": ("src/repro_torch/csrc/embedding_update.cu",
+                                   "src/repro/kernels/embedding_update.py:82"),
+              "embedding_update_fp32": ("src/repro_torch/csrc/embedding_update.cu",
+                                        "src/repro/kernels/embedding_update.py:114"),
+              "split_sgd": ("src/repro_torch/csrc/split_sgd.cu",
+                            "src/repro/kernels/split_sgd.py:18")}
     line = []
     u = kernels[0]["uniform"]
     log(f"embedding_bag, uniform indices: kernel {u['ms']:.4f} ms, library {u['library_ms']:.4f} ms, "
         f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% of bound")
+    for k in kernels[3:5]:
+        u = k["uniform"]
+        log(f"{k['name']}, uniform indices: kernel {u['ms']:.4f} ms, plain {u['plain_ms']:.1f} ms, "
+            f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "
+            f"of bound; zipf: longest run {k['longest']}, serial chain {k['chain_ms']:.4f} ms")
     for k in kernels:
         src, replaces = routes[k["name"]]
         line.append({"name": k["name"], "route": "cuda", "source": src, "replaces": replaces,
                      "launches": counts[k["name"]], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-            f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+            f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
             f"{k['bound_ms'] / k['ms'] * 100:.1f}% of bound")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,11 @@
-"""DLRM forward for serving (twin of ``repro/core/dlrm.py``).
+"""DLRM forward, loss and train step (twin of ``repro/core/dlrm.py``).
 
 The dense part of the model: bottom MLP -> dot interaction -> top MLP, on
 the bf16 dense parameters ``{"bot"|"top": {"w": [...], "b": [...]}}``, with
 the reference's dtype at every seam: ``dense_x`` bf16, the bottom MLP's last
 layer fp32, the interaction fp32, its output cast to bf16 for the top MLP,
-the top MLP's last layer fp32 and then a sigmoid.
+the top MLP's last layer fp32 and then a sigmoid (serving) or the
+binary cross-entropy on the logits (training, :func:`make_train_step`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from repro_torch.models.mlp import mlp_forward
 
 @dataclasses.dataclass(frozen=True)
 class DLRMConfig:
-    """The fields of the reference's ``DLRMConfig`` that serving reads."""
+    """The fields of the reference's ``DLRMConfig`` that serving and the
+    single-rank train step read."""
 
     name: str
     num_dense: int                  # dense-feature width (bottom MLP input)
@@ -35,6 +37,8 @@ class DLRMConfig:
     emb_mode: str = "row"           # the port has 'row' only
     sparse_optimizer: Optional[str] = None  # 'split_sgd' (default) | 'sgd'
     mlp_impl: str = "xla"           # 'xla' | 'pallas' (the fused_mlp kernel)
+    lr: float = 0.1                 # SGD step of the dense and the embedding update
+    microbatches: int = 1           # the port trains with 1
 
     @property
     def spec(self) -> EmbeddingSpec:
@@ -85,3 +89,32 @@ def dlrm_dense_score(cfg: DLRMConfig):
     def score(dense_hi, emb_out, batch):
         return torch.sigmoid(forward_local(dense_hi, emb_out, batch["dense_x"], cfg.mlp_impl))
     return score
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample binary cross-entropy on logits, in the reference's form."""
+    x, y = logits.float(), labels.float()
+    return torch.clamp_min(x, 0) - x * y + torch.log1p(torch.exp(-x.abs()))
+
+
+def dlrm_dense_loss(cfg: DLRMConfig):
+    """Stage-shaped loss: (dense_hi, emb_out, batch) -> the SUM loss over
+    the batch (the pipeline's dense_fwd_bwd stage divides by the batch)."""
+    def loss(dense_hi, emb_out, batch):
+        logits = forward_local(dense_hi, emb_out, batch["dense_x"], cfg.mlp_impl)
+        return bce_with_logits(logits, batch["labels"]).sum()
+    return loss
+
+
+def init_state(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> dict:
+    """A train state drawn from ``generator`` (see
+    :func:`repro_torch.core.hybrid.init_state`)."""
+    from repro_torch.core import hybrid
+    return hybrid.init_state(cfg, generator, device)
+
+
+def make_train_step(cfg: DLRMConfig, device="cuda"):
+    """The single-rank train step, ``step(state, batch) -> (state, loss)``
+    (see :func:`repro_torch.core.pipeline.make_pipelined_train_step`)."""
+    from repro_torch.core import pipeline
+    return pipeline.make_pipelined_train_step(cfg, device, cfg.microbatches)

@@ -1,0 +1,62 @@
+"""Train-state layout and initialisation (twin of the state builders of
+``repro/core/hybrid.py``), at one rank.
+
+The state is the reference's pytree:
+
+    {"emb": {"hi": [rows, E] bf16, "lo": [rows, E] int16}    (split_sgd)
+            | {"w": [rows, E] fp32},                          (sgd)
+     "dense": {"hi": {"bot"|"top": {"w": [...], "b": [...]}} bf16,
+               "lo": [padded] int16, "err": None}}
+
+``lo`` holds the bits of the reference's uint16 slabs as int16, since
+PyTorch has no arithmetic on uint16.  The dense ``hi`` leaves are views
+into one flat bf16 buffer (``optim.data_parallel.pack_hi``), which the
+dense update steps in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import sharded_embedding as se
+from repro_torch.core.pipeline import NUM_BUCKETS
+from repro_torch.optim import data_parallel as dp
+from repro_torch.optim import row as row_optim
+
+
+def state_struct(cfg) -> dict:
+    """``(shape, dtype)`` of every leaf of the train state of ``cfg``
+    (``None`` for the absent error-feedback slab)."""
+    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
+    E = cfg.emb_dim
+    emb = ({"hi": ((rows, E), torch.bfloat16), "lo": ((rows, E), torch.int16)}
+           if row_optim.resolve(cfg) == "split_sgd" else {"w": ((rows, E), torch.float32)})
+    hi, n = {}, 0
+    for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
+        pairs = list(zip(sizes[:-1], sizes[1:]))
+        hi[part] = {"w": [((i, o), torch.bfloat16) for i, o in pairs],
+                    "b": [((o,), torch.bfloat16) for _, o in pairs]}
+        n += sum(i * o + o for i, o in pairs)
+    return {"emb": emb, "dense": {"hi": hi, "lo": ((dp.padded_size(n, 1, NUM_BUCKETS),), torch.int16),
+                                  "err": None}}
+
+
+def init_state(cfg, generator: torch.Generator, device="cuda") -> dict:
+    """A train state drawn from ``generator`` (which must live on
+    ``device``) with the reference's distributions: table rows
+    ~ U(-a, a), a = 1 / sqrt(mean table rows); dense weights as
+    ``core.dlrm.init_dense_params``.  The numbers differ from the
+    reference's ``jax.random`` draw; ``weights.state_from_numpy`` carries a
+    JAX state across instead."""
+    from repro_torch.core.dlrm import init_dense_params
+
+    dev = resolve_device(device)
+    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
+    a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
+    W = torch.empty((rows, cfg.emb_dim), device=dev).uniform_(-a, a, generator=generator)
+    emb = row_optim.init_store(row_optim.resolve(cfg), W)
+    del W
+    dense = dp.dp_global_arrays(init_dense_params(cfg, generator, dev), 1, NUM_BUCKETS)
+    return {"emb": emb, "dense": dense}

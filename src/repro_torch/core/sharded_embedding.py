@@ -1,11 +1,12 @@
-"""Row-sharded embedding forward (twin of ``repro/core/sharded_embedding.py``).
+"""Row-sharded embedding forward and sparse update (twin of
+``repro/core/sharded_embedding.py``).
 
 Row mode on ONE shard: the shard owns the whole unified row space, so the
-reference's reduce-scatter over the model axes is the identity.  What the
-reference does on its wire still happens here: the partial bag is rounded to
-bf16 and back before it leaves the shard, so the port scores what the
-reference scores.  Table mode, weighted bags and more than one shard come
-with the distributed slice.
+reference's reduce-scatter over the model axes and its all-gather of the
+cotangent are the identity.  What the reference does on its wires still
+happens here: the partial bag and the cotangent are both rounded to bf16,
+so the port trains and scores what the reference does.  Table mode,
+weighted bags and more than one shard come with the distributed slice.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 
 from repro_torch.core.embedding import EmbeddingSpec, _round_up
 from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_update import sort_lookups
+from repro_torch.optim import row as row_optim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +68,42 @@ def row_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
     gidx = idx + row_offsets[None, :, None]  # the shard starts at row 0
     part = ops.embedding_bag(W_local, gidx, layout.rows_per_shard)
     return part.to(torch.bfloat16).float()
+
+
+def gather_dY(layout: ShardedEmbeddingLayout, dY_mp: torch.Tensor) -> torch.Tensor:
+    """The cotangent [B, S, E] as the rows scatter from it: at one shard the
+    all-gather is the identity, and what is left is the row-mode wire's
+    round to bf16, which the reference makes at one shard too.  Returns the
+    bf16 payload; its fp32 value is the reference's result, exactly."""
+    if layout.num_shards != 1:
+        raise NotImplementedError("more than one shard needs the distributed slice")
+    return dY_mp.to(torch.bfloat16)
+
+
+def _row_sorted_streams(layout: ShardedEmbeddingLayout, g_flat: torch.Tensor,
+                        pooling: int) -> tuple[torch.Tensor, ...]:
+    """The sorted stream of the row-mode update from the GLOBAL row ids
+    ``g_flat`` [L]: one stable sort of the keys (ids outside the row space
+    keyed past its end).  The reference then localises the stream into a
+    shard's window; at one shard the window starts at 0 and is the whole
+    space, so this is :func:`sort_lookups` over it."""
+    if layout.num_shards != 1:
+        raise NotImplementedError("more than one shard needs the distributed slice")
+    return sort_lookups(g_flat, None, layout.total_rows, pooling)
+
+
+def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer: str,
+                 idx_local: torch.Tensor, dY: torch.Tensor, lr: float,
+                 row_offsets: Optional[torch.Tensor] = None) -> dict:
+    """The sparse update of the train step, row mode, one shard, in place on
+    ``store``: ``idx_local`` [B, S, P] table-local ids, ``dY`` [B, S, E] the
+    bag cotangents from :func:`gather_dY`.  Lookups outside the row space
+    add nothing.  The stream is sorted once on the device and handed to the
+    fused row kernel (``optim.row.apply_sparse``), as the reference's fused
+    path does; the kernel never builds the [B, S, P, E] gradient."""
+    if row_offsets is None:
+        row_offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32,
+                                      device=idx_local.device)
+    g = idx_local + row_offsets[None, :, None]
+    streams = _row_sorted_streams(layout, g.reshape(-1), idx_local.shape[-1])
+    return row_optim.apply_sparse(optimizer, store, streams, dY.reshape(-1, dY.shape[-1]), lr)

@@ -1,11 +1,16 @@
-"""Synthetic index streams (copy of ``zipf_indices`` from
-``repro/data/synthetic.py``, so the port needs nothing of ``repro``).
+"""Synthetic batches (copies of ``zipf_indices``, ``SparseBatchSpec``,
+``sparse_batch`` and ``dlrm_stream`` from ``repro/data/synthetic.py``, so the
+port needs nothing of ``repro``).  Seeded, host-side numpy: the same seed
+gives both packages the same batches.
 
 ``alpha`` sets a Zipf-like skew: real click logs reuse a few rows heavily,
-which is what the serving table's caches see.
+which is what the tables' caches and the sparse update's runs see.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -20,3 +25,41 @@ def zipf_indices(rng: np.random.Generator, vocab: int, size, alpha: float) -> np
     with np.errstate(over="ignore"):
         ranks = np.clip(u ** (-1.0 / alpha) - 1.0, 0.0, float(vocab - 1))
     return ranks.astype(np.int64)
+
+
+@dataclasses.dataclass
+class SparseBatchSpec:
+    table_rows: tuple               # rows per TABLE
+    slot_to_table: Optional[tuple]  # slot -> table (None = identity)
+    pooling: int
+    batch: int
+    num_dense: int = 0
+    alpha: float = 0.0              # index skew
+    labels: bool = True
+
+    @property
+    def slots(self):
+        return (self.slot_to_table if self.slot_to_table is not None
+                else tuple(range(len(self.table_rows))))
+
+
+def sparse_batch(rng: np.random.Generator, spec: SparseBatchSpec) -> dict:
+    """One global batch (original slot order): ``idx`` [B, S, P] int32,
+    ``dense_x`` [B, num_dense] fp32, ``labels`` [B] fp32 in {0, 1}."""
+    B, P = spec.batch, spec.pooling
+    cols = [zipf_indices(rng, spec.table_rows[t], (B, P), spec.alpha) for t in spec.slots]
+    batch = {"idx": np.stack(cols, axis=1).astype(np.int32)}
+    if spec.num_dense:
+        batch["dense_x"] = rng.standard_normal((B, spec.num_dense)).astype(np.float32)
+    if spec.labels:
+        batch["labels"] = rng.integers(0, 2, (B,)).astype(np.float32)
+    return batch
+
+
+def dlrm_stream(seed: int, cfg, alpha: float = 0.0) -> Iterator[dict]:
+    """Batches for a ``DLRMConfig`` (row mode slot order)."""
+    rng = np.random.default_rng(seed)
+    spec = SparseBatchSpec(cfg.table_rows, None, cfg.pooling, cfg.batch,
+                           num_dense=cfg.num_dense, alpha=alpha)
+    while True:
+        yield sparse_batch(rng, spec)

@@ -8,13 +8,18 @@ launches in a plain int attribute (``embedding_bag.launches``).
 from __future__ import annotations
 
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_update import fused_update_fp32, fused_update_split
 from repro_torch.kernels.fused_mlp import fused_mlp_layer
 from repro_torch.kernels.interaction import dot_interaction
+from repro_torch.kernels.split_sgd import split_sgd
 
 KERNELS = {
     "embedding_bag": embedding_bag,
     "dot_interaction": dot_interaction,
     "fused_mlp": fused_mlp_layer,
+    "embedding_update": fused_update_split,
+    "embedding_update_fp32": fused_update_fp32,
+    "split_sgd": split_sgd,
 }
 
 

@@ -1,0 +1,142 @@
+"""Dense data-parallel Split-SGD (twin of ``repro/optim/data_parallel.py``),
+at one rank.
+
+The dense state is ``{"hi": tree, "lo": [padded] int16, "err": None}``: the
+bf16 upper halves as the parameter tree the forward reads, and the lower
+halves as one flat vector in the reference's raveled order, padded to a
+multiple of ``ranks * num_buckets`` (the bucketed layout of
+``to_bucketed_layout``, which at one rank is padding only).  The port keeps
+the ``hi`` leaves as views into one flat bf16 buffer of the padded length,
+so the flat Split-SGD kernel updates them in place with one launch.
+
+The raveled order is JAX's pytree order: dict keys sorted, list items in
+order, so for a DLRM ``bot.b[...]``, ``bot.w[...]``, ``top.b[...]``,
+``top.w[...]``.  More than one rank needs the distributed slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.optim.split_sgd import split_fp32
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in JAX's pytree order
+    (``None`` is an empty subtree)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves) -> object:
+    """A tree shaped like ``tree`` holding ``leaves`` (pytree order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: None for k in t}
+            for k in sorted(t):
+                out[k] = build(t[k])
+            return out
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return None if t is None else next(it)
+    return build(tree)
+
+
+def ravel_size(tree) -> int:
+    return sum(int(t.numel()) for t in tree_leaves(tree))
+
+
+def padded_size(n: int, ranks: int = 1, num_buckets: int = 4) -> int:
+    m = ranks * num_buckets
+    return -(-n // m) * m
+
+
+def to_bucketed_layout(flat: torch.Tensor, ns: int, nb: int) -> torch.Tensor:
+    """Natural flat layout -> bucket-major-within-shard layout, zero-padded
+    to a multiple of ``ns * nb`` (at ``ns = 1``: the padding alone)."""
+    padded = torch.cat([flat, flat.new_zeros(padded_size(flat.numel(), ns, nb) - flat.numel())])
+    bchunk = padded.numel() // (ns * nb)
+    return padded.view(nb, ns, bchunk).transpose(0, 1).reshape(-1)
+
+
+def _views(flat: torch.Tensor, tree) -> object:
+    """``tree`` rebuilt as consecutive views of ``flat``, in pytree order."""
+    views, pos = [], 0
+    for leaf in tree_leaves(tree):
+        views.append(flat[pos:pos + leaf.numel()].view(leaf.shape))
+        pos += leaf.numel()
+    return tree_unflatten(tree, views)
+
+
+def pack_hi(hi_tree, padded: int) -> tuple[torch.Tensor, object]:
+    """(flat bf16 [padded], the tree as views into it): the leaves copied in
+    pytree order, the padding zero."""
+    leaves = tree_leaves(hi_tree)
+    flat = torch.zeros(padded, dtype=torch.bfloat16, device=leaves[0].device)
+    flat[:ravel_size(hi_tree)] = torch.cat([t.reshape(-1).to(torch.bfloat16) for t in leaves])
+    return flat, _views(flat, hi_tree)
+
+
+def flat_hi(hi_tree, padded: int) -> torch.Tensor | None:
+    """The flat buffer behind a tree that :func:`pack_hi` made, or None when
+    the leaves are not consecutive views of one such buffer."""
+    leaves = tree_leaves(hi_tree)
+    base = leaves[0]._base
+    if base is None or base.dtype != torch.bfloat16 or base.shape != (padded,):
+        return None
+    pos = 0
+    for leaf in leaves:
+        if leaf._base is not base or not leaf.is_contiguous() \
+                or leaf.data_ptr() != base.data_ptr() + 2 * pos:
+            return None
+        pos += leaf.numel()
+    return base
+
+
+def dp_global_arrays(params_fp32, ns: int = 1, num_buckets: int = 4) -> dict:
+    """The dense state from fp32 parameters: ``{"hi": tree of bf16 views,
+    "lo": [padded] int16, "err": None}`` (the fp32 wire keeps no error)."""
+    if ns != 1:
+        raise NotImplementedError("more than one rank needs the distributed slice")
+    flat = torch.cat([t.float().reshape(-1) for t in tree_leaves(params_fp32)])
+    hi_flat, lo_flat = split_fp32(flat)
+    hi_buf = torch.zeros(padded_size(flat.numel(), ns, num_buckets), dtype=torch.bfloat16,
+                         device=flat.device)
+    hi_buf[:flat.numel()] = hi_flat
+    hi = _views(hi_buf, params_fp32)
+    return {"hi": hi, "lo": to_bucketed_layout(lo_flat, ns, num_buckets), "err": None}
+
+
+def rs_ag_split_sgd(state: dict, grads, lr: float, ranks: int = 1, num_buckets: int = 4) -> dict:
+    """One dense Split-SGD step.  At one rank the reduce-scatter and the
+    all-gather are the identity (the reference's ``mean=False`` sum over one
+    rank is its gradient) and the buckets are consecutive slices of
+    the padded vector, so the step is one flat Split-SGD pass
+    (``kernels.split_sgd``) over it: ``g`` is the raveled gradient in fp32,
+    zero on the padding.  ``state["hi"]`` is updated in place when it is
+    :func:`pack_hi`'s views (else it is packed first); returns the new
+    state."""
+    if ranks != 1:
+        raise NotImplementedError("more than one rank needs the distributed slice")
+    lo = state["lo"]
+    padded = lo.numel()
+    if padded != padded_size(ravel_size(state["hi"]), ranks, num_buckets):
+        raise ValueError(f"lo holds {padded} values, the parameters need "
+                         f"{padded_size(ravel_size(state['hi']), ranks, num_buckets)}")
+    flat = flat_hi(state["hi"], padded)
+    hi = state["hi"]
+    if flat is None:
+        flat, hi = pack_hi(hi, padded)
+    n = ravel_size(hi)
+    g = torch.cat([t.reshape(-1).float() for t in tree_leaves(grads)]
+                  + [torch.zeros(padded - n, dtype=torch.float32, device=lo.device)])
+    ops.split_sgd(flat, lo, g, lr)
+    return {"hi": hi, "lo": lo, "err": None}

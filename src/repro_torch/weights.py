@@ -7,6 +7,10 @@
   the same weights; the JAX random generator is not ported.
 * :func:`init_snapshot` draws a port-native snapshot from a
   ``torch.Generator``, with the reference's distributions.
+* :func:`state_from_numpy` and :func:`state_to_numpy` carry a whole train
+  state across, both ways, bit for bit: the embedding store, the dense
+  ``hi`` tree and the dense ``lo`` vector.  :func:`state_to` copies a train
+  state to another device.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
 from repro_torch.core.dlrm import DLRMConfig, init_dense_params
 from repro_torch.models.mlp import mlp_sizes
+from repro_torch.core.pipeline import NUM_BUCKETS
+from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.split_sgd import split_fp32
 from repro_torch.serve.snapshot import _tree_map
@@ -84,3 +90,59 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
     del W
     dense = init_dense_params(cfg, generator, dev)
     return {"emb_w": emb_w, "dense_hi": _tree_map(lambda t: split_fp32(t)[0], dense)}
+
+
+def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
+    """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
+    state)``: ``emb`` {hi bf16, lo uint16} or {w fp32}, ``dense`` {hi tree
+    bf16, lo [padded] uint16, err None}) -> the port's train state on
+    ``device``, bit for bit, laid out as ``core.hybrid.init_state`` lays it
+    out (uint16 slabs as their int16 bits, the dense ``hi`` leaves as views
+    of one flat buffer)."""
+    dev = resolve_device(device)
+    if state_np["dense"].get("err") is not None:
+        raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
+    name = row_optim.resolve(cfg)
+    keys = ("hi", "lo") if name == "split_sgd" else ("w",)
+    if set(state_np["emb"]) != set(keys):
+        raise ValueError(f"the {name} store holds {keys}, got {sorted(state_np['emb'])}")
+    emb = {k: to_torch(state_np["emb"][k], dev) for k in keys}
+    _check({"emb_w": emb[keys[0]], "dense_hi": state_np["dense"]["hi"]}, cfg)
+    lo = to_torch(state_np["dense"]["lo"], dev)
+    hi_tree = _tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
+    if lo.numel() != dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS):
+        raise ValueError(f"dense lo holds {lo.numel()} values, the config needs "
+                         f"{dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS)}")
+    _, hi = dp.pack_hi(hi_tree, lo.numel())
+    return {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's train state -> numpy arrays in the JAX package's types:
+    bf16 slabs as ``ml_dtypes.bfloat16`` (the type JAX hands out), int16
+    ``lo`` slabs as uint16, fp32 as fp32.  ``state_from_numpy`` of the
+    result gives the state back, bit for bit."""
+    import ml_dtypes
+
+    def to_np(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        if t.dtype == torch.int16:
+            return t.numpy().view(np.uint16)
+        return t.numpy()
+
+    return {"emb": {k: to_np(v) for k, v in state["emb"].items()},
+            "dense": {"hi": _tree_map(to_np, state["dense"]["hi"]),
+                      "lo": to_np(state["dense"]["lo"]), "err": None}}
+
+
+def state_to(state: dict, device) -> dict:
+    """A copy of a train state on ``device``, laid out as
+    ``core.hybrid.init_state`` lays it out."""
+    dev = resolve_device(device)
+    lo = state["dense"]["lo"].to(dev, copy=True)
+    hi = dp.tree_unflatten(state["dense"]["hi"],
+                           [t.to(dev) for t in dp.tree_leaves(state["dense"]["hi"])])
+    return {"emb": {k: v.to(dev, copy=True) for k, v in state["emb"].items()},
+            "dense": {"hi": dp.pack_hi(hi, lo.numel())[1], "lo": lo, "err": None}}

@@ -102,5 +102,162 @@ def test_serving_step_on_card_matches_cpu(dev):
     ops.reset_launches()
     got = make_snapshot_score_step(cfg, device=dev)[0](to_dev, {k: v.to(dev) for k, v in batch.items()})
     torch.cuda.synchronize()
-    assert ops.launches() == {"embedding_bag": 1, "dot_interaction": 1, "fused_mlp": 5}
+    assert ops.launches() == {"embedding_bag": 1, "dot_interaction": 1, "fused_mlp": 5,
+                              "embedding_update": 0, "embedding_update_fp32": 0, "split_sgd": 0}
     assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def _split_table(M, E, gen):
+    from repro_torch.optim.split_sgd import split_fp32
+    return split_fp32(torch.rand((M, E), generator=gen) - 0.5)
+
+
+def _row_stream(case, M, P, gen):
+    """(tgt [L] int32, valid [L] bool) for a case: ragged runs, one run of
+    10^5 lookups, all runs of length 1, an all-masked tail, or no lookups."""
+    if case == "empty":
+        return torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.bool)
+    if case == "long_run":
+        tgt = torch.randint(0, M, (100_000 + 3 * P,), generator=gen, dtype=torch.int32)
+        tgt[: 100_000] = 7
+    elif case == "distinct":
+        tgt = torch.randperm(M, generator=gen)[: (M // P) * P].to(torch.int32)
+    else:
+        tgt = torch.randint(-3, M + 3, (40 * P,), generator=gen, dtype=torch.int32)
+    valid = torch.rand(tgt.shape, generator=gen) > 0.1
+    if case == "masked_tail":
+        valid[:] = False
+    return tgt, valid
+
+
+@pytest.mark.parametrize("E", [16, 64, 128])
+@pytest.mark.parametrize("case", ["ragged", "long_run", "distinct", "masked_tail", "empty"])
+def test_row_update_kernels_bitwise_to_plain(dev, E, case):
+    """Both row kernels (split and fp32 store) against their plain versions,
+    bit for bit: the sums run in the same sorted order, the step is one
+    FMA on both sides."""
+    from repro_torch.kernels import embedding_update as eu
+    gen = torch.Generator().manual_seed(E)
+    M, P, lr = 300, 5, 0.1
+    tgt, valid = _row_stream(case, M, P, gen)
+    dY = torch.randn((max(tgt.numel() // P, 1), E), generator=gen).to(torch.bfloat16)
+    hi, lo = _split_table(M, E, gen)
+    W = torch.rand((M, E), generator=gen)
+    stream = eu.sort_lookups(tgt, valid, M, P)
+    want_h, want_l = ref.fused_update_split(hi.clone(), lo.clone(), *stream, dY, lr)
+    want_w = ref.fused_update_fp32(W.clone(), *stream, dY, lr)
+    d_stream = eu.sort_lookups(tgt.to(dev), valid.to(dev), M, P)
+    for a, b in zip(d_stream, stream):
+        assert torch.equal(a.cpu(), b)
+    before = ops.launches()
+    got_h, got_l = ops.fused_update_split(hi.to(dev), lo.to(dev), *d_stream, dY.to(dev), lr)
+    got_w = ops.fused_update_fp32(W.to(dev), *d_stream, dY.to(dev), lr)
+    torch.cuda.synchronize()
+    after = ops.launches()
+    assert after["embedding_update"] == before["embedding_update"] + 1
+    assert after["embedding_update_fp32"] == before["embedding_update_fp32"] + 1
+    for got, want in ((got_h, want_h), (got_l, want_l), (got_w, want_w)):
+        assert torch.equal(got.cpu().view(torch.int16 if got.element_size() == 2 else torch.int32),
+                           want.view(torch.int16 if want.element_size() == 2 else torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 1001, 4096 * 3 + 5, 3_811_396])
+def test_split_sgd_kernel_bitwise_to_plain(dev, n):
+    """The flat Split-SGD kernel against its plain version, bit for bit, at
+    odd lengths (the tail of n % 8 elements) and at dlrm-small's padded
+    dense size."""
+    from repro_torch.optim.split_sgd import split_fp32
+    gen = torch.Generator().manual_seed(n)
+    hi, lo = split_fp32(torch.randn(n, generator=gen))
+    g = torch.randn(n, generator=gen) * 1e-2
+    want_h, want_l = ref.split_sgd(hi.clone(), lo.clone(), g, 0.1)
+    before = ops.split_sgd.launches
+    got_h, got_l = ops.split_sgd(hi.to(dev), lo.to(dev), g.to(dev), 0.1)
+    torch.cuda.synchronize()
+    assert ops.split_sgd.launches == before + 1
+    assert torch.equal(got_h.cpu().view(torch.int16), want_h.view(torch.int16))
+    assert torch.equal(got_l.cpu(), want_l)
+
+
+def test_new_kernels_refuse_bad_inputs(dev):
+    """A non-contiguous input, a wrong dtype or an fp32 cotangent raises
+    before any launch."""
+    from repro_torch.kernels import embedding_update as eu
+    hi = torch.zeros(8, 16, dtype=torch.bfloat16, device=dev)
+    lo = torch.zeros(8, 16, dtype=torch.int16, device=dev)
+    stream = eu.sort_lookups(torch.zeros(4, dtype=torch.int32, device=dev), None, 8, 2)
+    dY = torch.zeros(2, 16, dtype=torch.bfloat16, device=dev)
+    before = ops.launches()
+    with pytest.raises(TypeError):
+        ops.fused_update_split(hi, lo, *stream, dY.float(), 0.1)
+    with pytest.raises(ValueError):
+        ops.fused_update_split(hi.t().contiguous().t(), lo, *stream, dY, 0.1)
+    with pytest.raises(ValueError):
+        ops.fused_update_fp32(torch.zeros(16, 8, device=dev).t(), *stream, dY, 0.1)
+    with pytest.raises(ValueError):
+        ops.split_sgd(hi[:, 0], lo[:, 0], torch.zeros(8, device=dev), 0.1)
+    with pytest.raises(TypeError):
+        ops.split_sgd(hi.view(-1), lo.view(-1), torch.zeros(128, device=dev, dtype=torch.float64),
+                      0.1)
+    assert ops.launches() == before
+
+
+def _small_train_cfg(**over):
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    return dataclasses.replace(dlrm_small(batch=64), table_rows=(1000, 37, 250, 13), num_dense=16,
+                               bottom=(32, 64), top=(32, 16), **over)
+
+
+def _small_batches(cfg, n, dev):
+    from repro_torch.data.synthetic import dlrm_stream
+    out = []
+    for b, _ in zip(dlrm_stream(0, cfg, 1.05), range(n)):
+        out.append({"idx": torch.from_numpy(b["idx"]).to(dev),
+                    "dense_x": torch.from_numpy(b["dense_x"]).to(dev).to(torch.bfloat16),
+                    "labels": torch.from_numpy(b["labels"]).to(dev)})
+    return out
+
+
+@pytest.mark.parametrize("opt", ["split_sgd", "sgd"])
+def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
+    """Two steps on the card (kernels) against the same steps on the CPU
+    (plain versions) from one state: losses within 1e-4 relative, the fp32
+    master rows of the store within 1e-2 of the second step's largest
+    update (the matmuls and the interaction sum in other orders on the
+    card, so a bf16 cotangent may round to its neighbour, 2^-8 relative,
+    and the row sums carry that into the update).  Each step launches the bag, the
+    interaction, the row update and the dense update once, fused_mlp never,
+    and makes no host sync (``set_sync_debug_mode("error")``)."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    cfg = _small_train_cfg(sparse_optimizer=opt)
+    cpu_state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = weights.state_to(cpu_state, dev)
+    batches = _small_batches(cfg, 2, dev)
+    step, cpu_step = dlrm.make_train_step(cfg, device=dev), dlrm.make_train_step(cfg, device="cpu")
+    step(state, batches[0])  # builds the kernels before the sync check
+    torch.cuda.synchronize()
+    cpu_state, _ = cpu_step(cpu_state, {k: v.cpu() for k, v in batches[0].items()})
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    row = "embedding_update" if opt == "split_sgd" else "embedding_update_fp32"
+    assert counts == {**{k: 0 for k in counts}, "embedding_bag": 1, "dot_interaction": 1,
+                      row: 1, "split_sgd": 1}
+    from repro_torch.optim.split_sgd import combine_split
+
+    def master(store):
+        return store["w"] if "w" in store else combine_split(store["hi"], store["lo"])
+
+    old = master(cpu_state["emb"]).clone()
+    cpu_state, cpu_loss = cpu_step(cpu_state, {k: v.cpu() for k, v in batches[1].items()})
+    assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=0)
+    want = master(cpu_state["emb"])
+    largest = float((want - old).abs().max())
+    assert largest > 0
+    assert_close(master(state["emb"]).cpu(), want, rtol=0, atol=1e-2 * largest)

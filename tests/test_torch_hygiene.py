@@ -37,7 +37,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.weights, "
-            "repro_torch.kernels.ops, repro_torch.configs.dlrm_paper, repro_torch.data.synthetic; "
+            "repro_torch.kernels.ops, repro_torch.configs.dlrm_paper, repro_torch.data.synthetic, "
+            "repro_torch.core.pipeline, repro_torch.core.hybrid; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -51,7 +52,7 @@ def test_cuda_default_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present")
     from repro_torch import resolve_device, weights
     from repro_torch.configs.dlrm_paper import dlrm_small
-    from repro_torch.core.dlrm import init_dense_params
+    from repro_torch.core.dlrm import init_dense_params, init_state, make_train_step
     from repro_torch.serve import make_bucket_scorers, make_snapshot_score_step
 
     cfg = dlrm_small()
@@ -60,7 +61,11 @@ def test_cuda_default_entry_points_raise_without_cuda():
                  lambda: make_bucket_scorers(cfg, (8,), lambda: None),
                  lambda: init_dense_params(cfg, torch.Generator()),
                  lambda: weights.init_snapshot(cfg, torch.Generator()),
-                 lambda: weights.snapshot_from_numpy({}, cfg)):
+                 lambda: weights.snapshot_from_numpy({}, cfg),
+                 lambda: make_train_step(cfg),
+                 lambda: init_state(cfg, torch.Generator()),
+                 lambda: weights.state_from_numpy({}, cfg),
+                 lambda: weights.state_to({}, "cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -151,4 +151,13 @@ def test_cpu_tensors_launch_nothing():
     ops.dot_interaction(torch.zeros(1, 4), torch.zeros(1, 2, 4))
     ops.fused_mlp_layer(torch.zeros(1, 4, dtype=torch.bfloat16),
                         torch.zeros(4, 2, dtype=torch.bfloat16), torch.zeros(2))
-    assert ops.launches() == {"embedding_bag": 0, "dot_interaction": 0, "fused_mlp": 0}
+    stream = (torch.zeros(2, dtype=torch.int32),) * 3 + (torch.ones(2),)
+    dY = torch.zeros(1, 8, dtype=torch.bfloat16)
+    ops.fused_update_split(torch.zeros(4, 8, dtype=torch.bfloat16),
+                           torch.zeros(4, 8, dtype=torch.int16), *stream, dY, 0.1)
+    ops.fused_update_fp32(torch.zeros(4, 8), *stream, dY, 0.1)
+    ops.split_sgd(torch.zeros(3, dtype=torch.bfloat16), torch.zeros(3, dtype=torch.int16),
+                  torch.zeros(3), 0.1)
+    assert ops.launches() == {name: 0 for name in ops.KERNELS}
+    assert set(ops.KERNELS) == {"embedding_bag", "dot_interaction", "fused_mlp",
+                                "embedding_update", "embedding_update_fp32", "split_sgd"}
