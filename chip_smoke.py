@@ -36,7 +36,17 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``torch.cuda.set_sync_debug_mode("error")``, samples per second, each
    stage's time and the device's busy share (torch.profiler);
 7. sgd: 3 steps with the fp32 store (``sparse_optimizer="sgd"``), which runs
-   the fp32 row-update kernel.
+   the fp32 row-update kernel;
+8. stateful row kernels: the four fused row updates of the stateful
+   optimizers (momentum, Adagrad, row-wise Adagrad, frequency-adaptive), bit
+   for bit against their plain versions on the weights and on the state, at
+   dlrm-small's shapes on the zipf and the uniform stream, timed, with the
+   byte bound and the longest run's serial chain;
+9. row-wise Adagrad training: phase 6 again with
+   ``sparse_optimizer="adagrad_rowwise"`` (the fp32 table and one
+   accumulator a row) at lr 0.01;
+10. momentum, Adagrad, frequency-adaptive: 3 steps each, every loss finite
+    and the optimizer's row kernel launched once a step.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up; ``bound_ms`` from this run's bytes and operations over
@@ -87,8 +97,23 @@ N_TRAIN = 20  # staged zipf batches of the training phase
 # version): the loss within 1e-4 relative; the store and the dense weights
 # within 1e-2 of the step's largest update: the two sum the dense network
 # in other orders, so a bf16 cotangent may round to its neighbour (2^-8
-# relative) and the row sums carry that into the update
+# relative) and the row sums carry that into the update (the Adagrad kinds'
+# store is not held to it: see training_phase)
 TRAIN_TOL = {"loss": 1e-4, "update": 1e-2}
+# the learning rate of the Adagrad kinds: a step moves each touched value by
+# about lr, and at 0.1 (100 times the tables' init scale) dlrm-small's loss
+# reached NaN within 4 steps in a CPU run at its widths; 0.01 trained
+ADAGRAD_LR = 0.01
+# each sparse optimizer's row kernel (the name of its wrapper in ops.KERNELS)
+ROW_KERNEL = {"split_sgd": "embedding_update", "sgd": "embedding_update_fp32",
+              "momentum": "embedding_update_momentum", "adagrad": "embedding_update_adagrad",
+              "adagrad_rowwise": "embedding_update_adagrad_rowwise",
+              "adagrad_freq": "embedding_update_freq"}
+# the stateful kernels: (optimizer, wrapper and plain-version name, hyperparameter)
+STATEFUL = (("momentum", "fused_update_momentum", "beta"),
+            ("adagrad", "fused_update_adagrad", "eps"),
+            ("adagrad_rowwise", "fused_update_adagrad_rowwise", "eps"),
+            ("adagrad_freq", "fused_update_freq", "eps"))
 
 
 def log(*a):
@@ -521,6 +546,84 @@ def row_kernel_phase(cfg, state, offsets, batch, dev, rng, failures) -> list[dic
     return [entries["embedding_update"], entries["embedding_update_fp32"], e]
 
 
+def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[dict]:
+    """Rows 7, 8, 9 and 12: the stateful row kernels against their plain
+    versions, bit for bit on ``w`` and on the state, at dlrm-small's shapes
+    (the main path's first zipf batch and a uniform one, a bf16 cotangent
+    [B * S, E]) from a random state (the counts of ``adagrad_freq`` bumped
+    by this stream first, as ``optim.row.apply_sparse`` does).  Timed with
+    CUDA events; returns the kernel entries of the JSON line."""
+    import torch
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import row as row_optim
+
+    B, S, P, E = cfg.batch, len(cfg.table_rows), cfg.pooling, cfg.emb_dim
+    rows = W32.shape[0]
+    lr = cfg.lr
+    ghz = sm_clock_ghz()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    dY = (torch.randn((B * S, E), device=dev, generator=gen) * 1e-3).to(torch.bfloat16)
+    uidx = torch.from_numpy(np.stack([rng.integers(0, m, (B, P)) for m in cfg.table_rows],
+                                     axis=1).astype(np.int32)).to(dev)
+    entries = {}
+    for tag, idx in (("zipf", batch["idx"]), ("uniform", uidx)):
+        stream = eu.sort_lookups((idx + offsets[None, :, None]).reshape(-1), None, rows, P)
+        L = stream[0].numel()
+        _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+        U, longest = counts.numel(), int(counts.max())
+        chain_ms = longest * 4 / (ghz * 1e9) * 1e3
+        log(f"stateful row updates, {tag} indices: L {L}, {U} runs, longest {longest} lookups, "
+            f"serial chain {chain_ms:.4f} ms")
+        for name, fn_name, hp_key in STATEFUL:
+            opt = row_optim.get(name)
+            key, width, dtype = opt.state[0]
+            shape = (rows, width or E)
+            if dtype == torch.int32:
+                S0 = torch.randint(0, 1000, shape, device=dev, dtype=dtype, generator=gen)
+                row_optim.bump_counters(S0, stream[0], stream[2])
+            elif name == "momentum":
+                S0 = torch.randn(shape, device=dev, generator=gen) * 1e-3
+            else:
+                S0 = torch.rand(shape, device=dev, generator=gen) * 1e-6
+            hp = getattr(opt, hp_key)
+            want = (W32.clone(), S0.clone())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(ref, fn_name)(*want, *stream, dY, lr, hp)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = (W32.clone(), S0.clone())
+            kernel = getattr(ops, fn_name)
+            kernel(*got, *stream, dY, lr, hp)
+            torch.cuda.synchronize()
+            kname = ROW_KERNEL[name]
+            e = entries.setdefault(kname, {"name": kname, "max_abs_err": 0.0})
+            for k, g, w in (("w", got[0], want[0]), (key, got[1], want[1])):
+                err = bitwise_or_fail(f"{kname} [{L} lookups -> {rows}x{E}] {tag}, {k}", g, w,
+                                      failures)
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+            del want
+            # touched rows: w read and written (8 B a value); an [M, E] state
+            # as much again, the row-wise acc 8 B a row, cnt 4 B a row read;
+            # the cotangent and the sorted stream read once
+            state_bytes = {0: U * E * 8, 1: U * 8}[width] if dtype == torch.float32 else U * 4
+            nbytes = dY.numel() * 2 + L * 16 + U * E * 8 + state_bytes
+            bms, by = bound_ms(nbytes, L * E * 2 + U * E * 6, FP32_FLOPS)
+            t = dict(ms=time_ms(lambda: kernel(*got, *stream, dY, lr, hp)), plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, chain_ms=chain_ms, longest=longest, runs=U,
+                     library_ms=None)  # no PyTorch call computes a row optimizer's fused step
+            del got, S0
+            log(f"  {kname} {tag}: kernel {t['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), "
+                f"{t['ms'] / chain_ms:.2f}x the longest run's serial chain")
+            if tag == "zipf":
+                e.update(t)
+            else:
+                e["uniform"] = t
+    return [entries[ROW_KERNEL[name]] for name, _, _ in STATEFUL]
+
+
 def stage_batches(cfg, n: int, dev) -> list[dict]:
     """n zipf(1.05) batches from the port's synthetic stream, on the card."""
     import torch
@@ -535,10 +638,12 @@ def stage_batches(cfg, n: int, dev) -> list[dict]:
 
 def training_phase(cfg, state, batches, dev, failures) -> dict:
     """The main path of training: make_train_step over the staged batches,
-    every loss finite, one launch a step of each training kernel, one step
-    without a host sync, one step against the same step on the CPU (every
-    kernel's plain version), samples per second, and where a step's time
-    goes.  Returns the launch counts of the timed steps."""
+    every loss finite, one launch a step of each training kernel (the row
+    kernel of the config's optimizer), one step without a host sync, one
+    step against the same step on the CPU (every kernel's plain version)
+    and its sparse update bit for bit against the plain update of the
+    card's own cotangent, samples per second, and where a step's time goes.
+    Returns the launch counts of the timed steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -551,26 +656,58 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     step = dlrm.make_train_step(cfg, device=dev)
     cpu_step = dlrm.make_train_step(cfg, device="cpu")
 
-    # one step against the plain versions, from a copy of the state on the CPU
+    # one step against the plain versions, from a copy of the state on the CPU;
+    # on the card the step's stages in step()'s order, keeping its cotangent
+    opt = row_optim.resolve(cfg)
     ref_state = weights.state_to(state, "cpu")
     before = weights.state_to(state, "cpu")
+    b0 = batches[0]
     t0 = time.perf_counter()
-    ref_state, ref_loss = cpu_step(ref_state, {k: v.cpu() for k, v in batches[0].items()})
+    ref_state, ref_loss = cpu_step(ref_state, {k: v.cpu() for k, v in b0.items()})
     cpu_s = time.perf_counter() - t0
-    state, loss = step(state, batches[0])
+    st = step.stages
+    idx_fwd, idx_upd = st.index_exchange(b0["idx"])
+    emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd)
+    loss, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b0)
+    dY = st.dY_exchange(d_emb)
+    state["emb"] = st.sparse_update(state["emb"], idx_upd, dY)
+    state["dense"] = st.dense_update(state["dense"], g_dense)
     torch.cuda.synchronize()
     log(f"one step against the plain versions on the CPU ({cpu_s:.1f} s there): loss {float(loss):.7f} "
         f"vs {float(ref_loss):.7f}")
     close_or_fail("train step loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"], 0.0,
                   failures)
-    for part, fn in (("embedding store", master), ("dense weights", dense_master)):
-        key = "emb" if part == "embedding store" else "dense"
-        got, want, old = fn(state[key]).cpu(), fn(ref_state[key]), fn(before[key])
+    # the sparse update against its plain version on the card's own cotangent
+    layout = se.make_layout(cfg.spec, 1)
+    g = (idx_upd.cpu() + torch.as_tensor(layout.row_offsets, dtype=torch.int32)[None, :, None])
+    plain = row_optim.apply_sparse(opt, {k: v.clone() for k, v in before["emb"].items()},
+                                   se._row_sorted_streams(layout, g.reshape(-1), cfg.pooling),
+                                   dY.reshape(-1, cfg.emb_dim).cpu(), cfg.lr)
+    for k, v in plain.items():
+        bitwise_or_fail(f"train step, {k} vs the plain update of the card's cotangent",
+                        state["emb"][k].cpu(), v, failures)
+    parts = [("dense weights", dense_master(state["dense"]).cpu(), dense_master(ref_state["dense"]),
+              dense_master(before["dense"]))]
+    got_w, want_w, old_w = master(state["emb"]).cpu(), master(ref_state["emb"]), master(before["emb"])
+    if "acc" in opt.state_keys:
+        # Adagrad scales each row's step by 1 / sqrt(acc): a row whose few
+        # cotangents the card and the CPU compute apart, relative to the
+        # row's own size (the dense network's sums in other orders, with bf16
+        # between its layers), takes a full step in another direction.  So
+        # the store is compared and not held; the cotangent's path is held by
+        # the loss and the dense weights, the update by the bitwise check.
+        d, upd = (got_w - want_w).abs(), float((want_w - old_w).abs().max())
+        log(f"  train step, embedding store vs plain step (not held, above): max_abs_err "
+            f"{float(d.max()):.3e}, largest update {upd:.3e}, "
+            f"{int((d > TRAIN_TOL['update'] * upd).sum())} values beyond {TRAIN_TOL['update']:g} of it")
+    else:
+        parts.insert(0, ("embedding store", got_w, want_w, old_w))
+    for part, got, want, old in parts:
         upd = float((want - old).abs().max())
         close_or_fail(f"train step, {part} vs plain step (atol {TRAIN_TOL['update']:g} x the "
                       f"largest update, {upd:.3e})", got, want, 0.0, TRAIN_TOL["update"] * upd,
                       failures)
-    del ref_state, before
+    del ref_state, before, plain, got_w, want_w, old_w
 
     # no host sync between the batch's arrival and the returned loss
     torch.cuda.set_sync_debug_mode("error")
@@ -595,21 +732,20 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     counts = ops.launches()
     losses = torch.stack(losses).cpu().numpy()
     n = len(batches)
-    log(f"trained {n} steps of B={cfg.batch} in {wall:.3f} s: {n * cfg.batch / wall:.0f} samples/s, "
+    log(f"{opt.name} at lr {cfg.lr:g}: trained {n} steps of B={cfg.batch} in {wall:.3f} s: "
+        f"{n * cfg.batch / wall:.0f} samples/s, "
         f"{wall / n * 1e3:.2f} ms a step; losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    log(f"losses: {np.array2string(losses, precision=6, max_line_width=200)}")
     log(f"kernel launches in {n} steps: {counts}")
     if not np.isfinite(losses).all():
         failures.append(f"a loss is not finite: {losses}")
     want = {**{k: 0 for k in counts}, "embedding_bag": n, "dot_interaction": n,
-            "embedding_update": n, "split_sgd": n}
+            ROW_KERNEL[opt.name]: n, "split_sgd": n}
     if counts != want:
         failures.append(f"launches {counts}, want {want} (one a step, fused_mlp none)")
 
     # where a step's time goes: the stages one by one between CUDA events
-    st = step.stages
-    layout = se.make_layout(cfg.spec, 1)
     offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
-    opt = row_optim.resolve(cfg)
     names = ("sort", "bag fwd", "dense fwd+bwd", "row update", "dense update")
     totals = dict.fromkeys(names, 0.0)
     reps = 5
@@ -650,16 +786,18 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     return counts
 
 
-def sgd_phase(cfg, dev, batches, failures) -> dict:
-    """3 steps with the fp32 table (``sparse_optimizer="sgd"``): the row 6
-    kernel on a path.  Returns the launch counts of those steps."""
+def short_phase(cfg, dev, batches, failures) -> dict:
+    """A few steps of ``cfg``'s optimizer from a fresh state: every loss
+    finite and its row kernel launched once a step, no other row kernel.
+    Returns the launch counts of those steps."""
     import torch
     from repro_torch.core import dlrm
     from repro_torch.kernels import ops
+    name = cfg.sparse_optimizer
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     state = dlrm.init_state(cfg, gen, device=dev)
-    log(f"sgd state: w {tuple(state['emb']['w'].shape)} fp32, "
-        f"{state['emb']['w'].numel() * 4 / 1e9:.3f} GB")
+    log(f"{name} state: " + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in state["emb"].items())
+        + f", {sum(v.numel() * v.element_size() for v in state['emb'].values()) / 1e9:.3f} GB")
     step = dlrm.make_train_step(cfg, device=dev)
     ops.reset_launches()
     losses = []
@@ -669,11 +807,14 @@ def sgd_phase(cfg, dev, batches, failures) -> dict:
     torch.cuda.synchronize()
     counts = ops.launches()
     losses = torch.stack(losses).cpu().numpy()
-    log(f"sgd: {len(batches)} steps, losses {losses}; launches {counts}")
+    log(f"{name}: {len(batches)} steps at lr {cfg.lr:g}, losses {losses}; launches {counts}")
     if not np.isfinite(losses).all():
-        failures.append(f"sgd: a loss is not finite: {losses}")
-    if counts["embedding_update_fp32"] != len(batches) or counts["embedding_update"] != 0:
-        failures.append(f"sgd: launches {counts}")
+        failures.append(f"{name}: a loss is not finite: {losses}")
+    rows = {k: counts[k] for k in ROW_KERNEL.values()}
+    if rows != {**{k: 0 for k in rows}, ROW_KERNEL[name]: len(batches)}:
+        failures.append(f"{name}: launches {counts}")
+    del state, step
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -744,18 +885,38 @@ def main() -> int:
     kernels += row_kernel_phase(t_cfg, state, offsets, batches[0], dev, rng, failures)
     if failures:
         raise SystemExit("row kernel phase failed:\n" + "\n".join(failures))
+    kernels += stateful_kernel_phase(t_cfg, master(state["emb"]), offsets, batches[0], dev, rng,
+                                     failures)
+    if failures:
+        raise SystemExit("stateful row kernel phase failed:\n" + "\n".join(failures))
+    torch.cuda.empty_cache()
     train_counts = training_phase(t_cfg, state, batches, dev, failures)
     if failures:
         raise SystemExit("training phase failed:\n" + "\n".join(failures))
     del state
     torch.cuda.empty_cache()
-    sgd_counts = sgd_phase(dataclasses.replace(t_cfg, sparse_optimizer="sgd"), dev, batches[:3],
-                           failures)
-    if failures:
-        raise SystemExit("sgd phase failed:\n" + "\n".join(failures))
     counts.update(embedding_update=train_counts["embedding_update"],
-                  split_sgd=train_counts["split_sgd"],
-                  embedding_update_fp32=sgd_counts["embedding_update_fp32"])
+                  split_sgd=train_counts["split_sgd"])
+    for name in ("sgd", "momentum", "adagrad", "adagrad_freq"):
+        c = short_phase(dataclasses.replace(t_cfg, sparse_optimizer=name,
+                                            lr=ADAGRAD_LR if name == "adagrad" else t_cfg.lr),
+                        dev, batches[:3], failures)
+        if failures:
+            raise SystemExit(f"{name} phase failed:\n" + "\n".join(failures))
+        counts[ROW_KERNEL[name]] = c[ROW_KERNEL[name]]
+
+    # the production default of the repo's 100M example: row-wise Adagrad
+    r_cfg = dataclasses.replace(t_cfg, sparse_optimizer="adagrad_rowwise", lr=ADAGRAD_LR)
+    state = dlrm.init_state(r_cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    log("adagrad_rowwise train state: " + ", ".join(
+        f"{k} {tuple(v.shape)} {v.dtype} {v.numel() * v.element_size() / 1e9:.3f} GB"
+        for k, v in state["emb"].items()))
+    r_counts = training_phase(r_cfg, state, batches, dev, failures)
+    if failures:
+        raise SystemExit("adagrad_rowwise training phase failed:\n" + "\n".join(failures))
+    del state
+    torch.cuda.empty_cache()
+    counts[ROW_KERNEL["adagrad_rowwise"]] = r_counts[ROW_KERNEL["adagrad_rowwise"]]
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
@@ -768,12 +929,20 @@ def main() -> int:
               "embedding_update_fp32": ("src/repro_torch/csrc/embedding_update.cu",
                                         "src/repro/kernels/embedding_update.py:114"),
               "split_sgd": ("src/repro_torch/csrc/split_sgd.cu",
-                            "src/repro/kernels/split_sgd.py:18")}
+                            "src/repro/kernels/split_sgd.py:18"),
+              "embedding_update_momentum": ("src/repro_torch/csrc/embedding_update.cu",
+                                            "src/repro/kernels/embedding_update.py:151"),
+              "embedding_update_adagrad": ("src/repro_torch/csrc/embedding_update.cu",
+                                           "src/repro/kernels/embedding_update.py:169"),
+              "embedding_update_adagrad_rowwise": ("src/repro_torch/csrc/embedding_update.cu",
+                                                   "src/repro/kernels/embedding_update.py:190"),
+              "embedding_update_freq": ("src/repro_torch/csrc/embedding_update.cu",
+                                        "src/repro/kernels/embedding_update.py:219")}
     line = []
     u = kernels[0]["uniform"]
     log(f"embedding_bag, uniform indices: kernel {u['ms']:.4f} ms, library {u['library_ms']:.4f} ms, "
         f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% of bound")
-    for k in kernels[3:5]:
+    for k in kernels[3:5] + kernels[6:]:
         u = k["uniform"]
         log(f"{k['name']}, uniform indices: kernel {u['ms']:.4f} ms, plain {u['plain_ms']:.1f} ms, "
             f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "

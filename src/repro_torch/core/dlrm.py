@@ -35,7 +35,11 @@ class DLRMConfig:
     pooling: int                    # P look-ups per table
     batch: int = 2048
     emb_mode: str = "row"           # the port has 'row' only
-    sparse_optimizer: Optional[str] = None  # 'split_sgd' (default) | 'sgd'
+    # 'split_sgd' (default) | 'sgd' | 'momentum' | 'adagrad' | 'adagrad_rowwise'
+    # | 'adagrad_freq'; opt_beta / opt_eps override the optimizer's defaults
+    sparse_optimizer: Optional[str] = None
+    opt_beta: Optional[float] = None
+    opt_eps: Optional[float] = None
     mlp_impl: str = "xla"           # 'xla' | 'pallas' (the fused_mlp kernel)
     lr: float = 0.1                 # SGD step of the dense and the embedding update
     microbatches: int = 1           # the port trains with 1

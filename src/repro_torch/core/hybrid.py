@@ -4,12 +4,15 @@
 The state is the reference's pytree:
 
     {"emb": {"hi": [rows, E] bf16, "lo": [rows, E] int16}    (split_sgd)
-            | {"w": [rows, E] fp32},                          (sgd)
+            | {"w": [rows, E] fp32, + state slabs}            (the others)
      "dense": {"hi": {"bot"|"top": {"w": [...], "b": [...]}} bf16,
                "lo": [padded] int16, "err": None}}
 
 ``lo`` holds the bits of the reference's uint16 slabs as int16, since
-PyTorch has no arithmetic on uint16.  The dense ``hi`` leaves are views
+PyTorch has no arithmetic on uint16.  The state slabs are the optimizer's
+(``optim.row.RowOptimizer.state``): ``mom`` or ``acc`` [rows, E] fp32,
+``acc`` [rows, 1] fp32 (row-wise Adagrad) or ``cnt`` [rows, 1] int32, zero
+at the start.  The dense ``hi`` leaves are views
 into one flat bf16 buffer (``optim.data_parallel.pack_hi``), which the
 dense update steps in place.
 """
@@ -31,8 +34,7 @@ def state_struct(cfg) -> dict:
     (``None`` for the absent error-feedback slab)."""
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
     E = cfg.emb_dim
-    emb = ({"hi": ((rows, E), torch.bfloat16), "lo": ((rows, E), torch.int16)}
-           if row_optim.resolve(cfg) == "split_sgd" else {"w": ((rows, E), torch.float32)})
+    emb = row_optim.resolve(cfg).store_struct(rows, E)
     hi, n = {}, 0
     for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
         pairs = list(zip(sizes[:-1], sizes[1:]))

@@ -12,7 +12,8 @@ stage's time and its reference line up:
                      interaction's forward is the dot_interaction kernel)
     dY_exchange      the cotangent rounded to bf16, as the row-mode wire is
     sparse_update    one stable sort of the lookups, then the fused sparse
-                     backward + row update (embedding_update kernel)
+                     backward + row update of the config's optimizer (one
+                     of the embedding_update kernels, picked by optim.row)
     dense_update     the flat Split-SGD step over the raveled dense
                      gradient (split_sgd kernel)
 
@@ -58,7 +59,8 @@ class PipelineStages:
 
 
 def validate_pipeline(cfg, microbatches: int) -> None:
-    """Refuse what the port does not train yet."""
+    """Refuse what the port does not train yet.  Every optimizer of
+    ``optim.row.OPTIMIZERS`` trains; the compressed-state ones raise."""
     if cfg.emb_mode != "row":
         raise NotImplementedError(f"emb_mode {cfg.emb_mode!r}: the port trains in row mode only")
     if cfg.mlp_impl != "xla":

@@ -92,15 +92,17 @@ def _row_sorted_streams(layout: ShardedEmbeddingLayout, g_flat: torch.Tensor,
     return sort_lookups(g_flat, None, layout.total_rows, pooling)
 
 
-def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer: str,
+def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer,
                  idx_local: torch.Tensor, dY: torch.Tensor, lr: float,
                  row_offsets: Optional[torch.Tensor] = None) -> dict:
     """The sparse update of the train step, row mode, one shard, in place on
     ``store``: ``idx_local`` [B, S, P] table-local ids, ``dY`` [B, S, E] the
     bag cotangents from :func:`gather_dY`.  Lookups outside the row space
-    add nothing.  The stream is sorted once on the device and handed to the
-    fused row kernel (``optim.row.apply_sparse``), as the reference's fused
-    path does; the kernel never builds the [B, S, P, E] gradient."""
+    add nothing.  ``optimizer``: a ``RowOptimizer`` of ``optim.row`` or its
+    name.  The stream is sorted once on the device and handed to the
+    optimizer's fused row kernel (``optim.row.apply_sparse``), as the
+    reference's fused path does; the kernel never builds the [B, S, P, E]
+    gradient."""
     if row_offsets is None:
         row_offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32,
                                       device=idx_local.device)

@@ -1,7 +1,9 @@
 // Fused sparse backward + row update on the sorted lookup stream: for each run
-// of equal rows, acc = sum(wgt * dY[bag]) in sorted order, then
-// w = fmaf(-lr, acc, w) on that row only, in place.  The store is the split
-// pair hi (bf16 bits) / lo (low 16 bits) or an fp32 W.  The design note is in
+// of equal rows, acc = sum(wgt * dY[bag]) in sorted order, then one step of
+// the row's optimizer on that row only, in place.  The stores: the split pair
+// hi (bf16 bits) / lo (low 16 bits) or an fp32 W, stepped w = fmaf(-lr, acc, w);
+// or an fp32 W with one state slab S (momentum, Adagrad, row-wise Adagrad,
+// the frequency-adaptive step).  The design note is in
 // repro_torch/kernels/embedding_update.py.
 #include <cuda_runtime.h>
 
@@ -219,6 +221,204 @@ int launch(const void* rows, const void* bags, const void* msk, const void* wgt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The stateful kinds' walk: update_run's steps, as a function of their own.
+// One warp adds the run that starts at s, columns c and c + 1 (two a lane),
+// to (a0, a1) in sorted order, onto the values they hold (+0 for a sum).
+// With kLive, returns whether any lookup of the run is valid (msk != 0): a
+// ballot over the run's positions in each segment, so a run of the masked
+// tail alone is dead, and the last row's run, which holds its valid lookups
+// and then the masked tail, is live.  The split and fp32 kinds keep their
+// own copy of the walk above: run through this one, they compiled to other
+// code that was slower on a skewed stream.
+template <bool kLive>
+__device__ __forceinline__ bool sum_run(int64_t s, int32_t row, const int32_t* __restrict__ rows,
+                                        const int32_t* __restrict__ bags,
+                                        const int32_t* __restrict__ msk,
+                                        const float* __restrict__ wgt,
+                                        const uint16_t* __restrict__ dY, int64_t L, int E, int c,
+                                        bool active, float& a0, float& a1) {
+  const int lane = threadIdx.x & 31;
+  bool live = false;
+  int64_t base = s;
+  Seg sa = load_seg(rows, bags, msk, wgt, base + lane, L);
+  Plan pa = plan_seg(sa, row);
+  uint32_t va[kSeg];
+  load_rows(va, sa, pa, dY, E, c, active);
+  Seg sb = pa.n == kSeg ? load_seg(rows, bags, msk, wgt, base + kSeg + lane, L) : Seg{-1, -1, 0.f};
+  while (pa.n > 0) {
+    const Plan pb = pa.n == kSeg ? plan_seg(sb, row) : Plan{0, 0u, true};
+    uint32_t vb[kSeg];
+    load_rows(vb, sb, pb, dY, E, c, active);
+    const Seg sc = pb.n == kSeg ? load_seg(rows, bags, msk, wgt, base + 2 * kSeg + lane, L)
+                                : Seg{-1, -1, 0.f};
+    if (kLive) live = live || __any_sync(kFull, lane < pa.n && sa.bag >= 0);
+    add_rows(a0, a1, va, sa, pa);
+#pragma unroll
+    for (int u = 0; u < kSeg; ++u) va[u] = vb[u];
+    sa = sb;
+    pa = pb;
+    sb = sc;
+    base += kSeg;
+  }
+  return live;
+}
+
+// The row's step.  Every operation rounds where the plain version
+// (repro_torch/kernels/ref.py) rounds, which is where jitted JAX rounds: an
+// FMA where it contracts one (w - lr*acc, s + acc*acc, w - lr*m), every other
+// product, quotient, root and sum on its own.  No fast math.  Momentum's new
+// m is the run's lookups added in order onto beta*m (rounded once), not
+// beta*m + acc: jitted XLA folds beta*m + segment_sum into a scatter-add
+// that starts from beta*m.
+enum class Op { kMomentum, kAdagrad, kRowwise, kFreq };
+
+// Adagrad's weight step: w - (lr * acc) / d, unfused.
+__device__ __forceinline__ float scaled_step(float w, float a, float lr, float d) {
+  return __fsub_rn(w, __fdiv_rn(__fmul_rn(lr, a), d));
+}
+
+// The store of a stateful kind: W and the state slab S, [M, E] fp32 (mom,
+// acc), [M] fp32 (the row-wise acc) or [M] int32 (cnt).  hp is beta
+// (momentum) or eps (the Adagrad kinds).
+struct Store {
+  float* W;
+  void* S;
+  float lr, hp;
+};
+
+// Row-wise Adagrad needs the whole row's sum of acc^2 before it writes any
+// column.  Pass one walks each block of 64 columns and adds this lane's two
+// squares to q, block after block (each product and each add rounded on its
+// own); a butterfly of __shfl_xor_sync (16, 8, 4, 2, 1) then leaves the same
+// sum in every lane; s += sum / E.  Pass two steps the columns from the last
+// block back, walking the run again for every block but the last, whose sums
+// are still held: the same walk gives the same bits.
+__device__ void update_rowwise(int64_t s, int32_t row, const int32_t* __restrict__ rows,
+                               const int32_t* __restrict__ bags, const int32_t* __restrict__ msk,
+                               const float* __restrict__ wgt, const uint16_t* __restrict__ dY,
+                               const Store& st, int64_t L, int E) {
+  const int lane = threadIdx.x & 31;
+  float* acc = static_cast<float*>(st.S);
+  const float s_old = acc[row];
+  float q = 0.f, a0 = 0.f, a1 = 0.f;
+  bool live = false;
+  for (int cb = 0; cb < E; cb += 64) {
+    const int c = cb + 2 * lane;
+    a0 = a1 = 0.f;
+    live = sum_run<true>(s, row, rows, bags, msk, wgt, dY, L, E, c, c < E, a0, a1);
+    if (c < E) {
+      q = __fadd_rn(q, __fmul_rn(a0, a0));
+      q = __fadd_rn(q, __fmul_rn(a1, a1));
+    }
+  }
+  if (!live) return;  // warp-uniform
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) q = __fadd_rn(q, __shfl_xor_sync(kFull, q, off));
+  const float s_new = __fadd_rn(s_old, __fdiv_rn(q, static_cast<float>(E)));
+  const float d = __fadd_rn(__fsqrt_rn(s_new), st.hp);
+  const int last = (E - 1) / 64 * 64;
+  for (int cb = last; cb >= 0; cb -= 64) {
+    const int c = cb + 2 * lane;
+    if (cb != last) {
+      a0 = a1 = 0.f;
+      sum_run<false>(s, row, rows, bags, msk, wgt, dY, L, E, c, c < E, a0, a1);
+    }
+    if (c < E) {
+      float2* w = reinterpret_cast<float2*>(st.W + static_cast<int64_t>(row) * E + c);
+      const float2 old = *w;
+      *w = make_float2(scaled_step(old.x, a0, st.lr, d), scaled_step(old.y, a1, st.lr, d));
+    }
+  }
+  if (lane == 0) acc[row] = s_new;
+}
+
+// One warp walks the run that starts at s to its end, 64 columns at a time,
+// and steps its row as the kind does.  A stateful kind writes nothing for a
+// dead run: beta * m is no no-op, nor is a rewrite of the accumulator.
+template <Op kOp>
+__device__ void update_run_state(int64_t s, int32_t row, const int32_t* __restrict__ rows,
+                                 const int32_t* __restrict__ bags, const int32_t* __restrict__ msk,
+                                 const float* __restrict__ wgt, const uint16_t* __restrict__ dY,
+                                 const Store& st, int64_t L, int E) {
+  if constexpr (kOp == Op::kRowwise) {
+    update_rowwise(s, row, rows, bags, msk, wgt, dY, st, L, E);
+  } else {
+    constexpr bool kState = kOp != Op::kFreq;  // an [M, E] slab
+    const int lane = threadIdx.x & 31;
+    const float lr = st.lr;
+    // the frequency-adaptive denominator: one count a row, already bumped
+    const float d_freq =
+        kOp == Op::kFreq
+            ? __fadd_rn(__fsqrt_rn(fmaxf(__int2float_rn(static_cast<const int32_t*>(st.S)[row]), 1.f)),
+                        st.hp)
+            : 0.f;
+    for (int cb = 0; cb < E; cb += 64) {
+      const int c = cb + 2 * lane;
+      const bool active = c < E;
+      const int64_t off = static_cast<int64_t>(row) * E + c;
+      float2 w = make_float2(0.f, 0.f), m = make_float2(0.f, 0.f);
+      if (active) {  // the old row and its state, loaded while the sums run
+        w = *reinterpret_cast<const float2*>(st.W + off);
+        if (kState) m = *reinterpret_cast<const float2*>(static_cast<const float*>(st.S) + off);
+      }
+      // the sums start from +0; momentum's from beta*m
+      float a0 = kOp == Op::kMomentum ? __fmul_rn(st.hp, m.x) : 0.f;
+      float a1 = kOp == Op::kMomentum ? __fmul_rn(st.hp, m.y) : 0.f;
+      const bool live = sum_run<true>(s, row, rows, bags, msk, wgt, dY, L, E, c, active, a0, a1);
+      if (!active || !live) continue;
+      if constexpr (kOp == Op::kMomentum) {  // m = beta*m + the run's lookups; w = w - lr*m
+        *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = make_float2(a0, a1);
+        *reinterpret_cast<float2*>(st.W + off) =
+            make_float2(__fmaf_rn(-lr, a0, w.x), __fmaf_rn(-lr, a1, w.y));
+      } else if constexpr (kOp == Op::kAdagrad) {  // s = s + acc*acc; w = w - lr*acc/(sqrt(s)+eps)
+        m = make_float2(__fmaf_rn(a0, a0, m.x), __fmaf_rn(a1, a1, m.y));
+        *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = m;
+        *reinterpret_cast<float2*>(st.W + off) =
+            make_float2(scaled_step(w.x, a0, lr, __fadd_rn(__fsqrt_rn(m.x), st.hp)),
+                        scaled_step(w.y, a1, lr, __fadd_rn(__fsqrt_rn(m.y), st.hp)));
+      } else {  // kFreq: w = w - lr*acc/(sqrt(max(cnt, 1))+eps)
+        *reinterpret_cast<float2*>(st.W + off) =
+            make_float2(scaled_step(w.x, a0, lr, d_freq), scaled_step(w.y, a1, lr, d_freq));
+      }
+    }
+  }
+}
+
+// row_update_kernel's search for the runs, for the stateful kinds: each warp
+// looks at a window of 32 positions and walks the runs that start in it.
+template <Op kOp>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    state_update_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ bags,
+                        const int32_t* __restrict__ msk, const float* __restrict__ wgt,
+                        const uint16_t* __restrict__ dY, Store st, int64_t L, int E) {
+  const int lane = threadIdx.x & 31;
+  const int64_t w0 = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) * kSeg;
+  if (w0 >= L) return;
+  const int64_t p = w0 + lane;
+  const int32_t r = p < L ? __ldg(rows + p) : -1;
+  const int32_t prev = (p < L && p > 0) ? __ldg(rows + p - 1) : -1;
+  unsigned starts = __ballot_sync(kFull, p < L && (p == 0 || r != prev));
+  while (starts) {
+    const int k = __ffs(starts) - 1;
+    starts &= starts - 1;
+    update_run_state<kOp>(w0 + k, __shfl_sync(kFull, r, k), rows, bags, msk, wgt, dY, st, L, E);
+  }
+}
+
+template <Op kOp>
+int launch_state(const void* rows, const void* bags, const void* msk, const void* wgt,
+                 const void* dY, Store st, int64_t L, int E, void* stream) {
+  if (L == 0) return 0;
+  const int64_t warps = (L + kSeg - 1) / kSeg;
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  state_update_kernel<kOp><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(bags),
+      static_cast<const int32_t*>(msk), static_cast<const float*>(wgt),
+      static_cast<const uint16_t*>(dY), st, L, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Sorted stream rows/bags/msk [L] int32, wgt [L] fp32; dY [bags, E] bf16;
@@ -235,3 +435,20 @@ extern "C" int embedding_update_fp32(const void* rows, const void* bags, const v
                                      float lr, void* stream) {
   return launch<false>(rows, bags, msk, wgt, dY, nullptr, nullptr, W, L, E, lr, stream);
 }
+
+// The stateful kinds: W [M, E] fp32 and the state slab S, both in place; hp
+// is beta (momentum) or eps (the others).  S is mom [M, E] fp32 (momentum),
+// acc [M, E] fp32 (adagrad), acc [M] fp32 (adagrad_rowwise) or cnt [M] int32,
+// already bumped, read only (freq).
+#define STATEFUL_LAUNCHER(name, op)                                                            \
+  extern "C" int name(const void* rows, const void* bags, const void* msk, const void* wgt,   \
+                      const void* dY, void* W, void* S, int64_t L, int E, float lr, float hp, \
+                      void* stream) {                                                          \
+    return launch_state<op>(rows, bags, msk, wgt, dY, Store{static_cast<float*>(W), S, lr, hp}, \
+                            L, E, stream);                                                     \
+  }
+
+STATEFUL_LAUNCHER(embedding_update_momentum, Op::kMomentum)
+STATEFUL_LAUNCHER(embedding_update_adagrad, Op::kAdagrad)
+STATEFUL_LAUNCHER(embedding_update_adagrad_rowwise, Op::kRowwise)
+STATEFUL_LAUNCHER(embedding_update_freq, Op::kFreq)

@@ -1,22 +1,40 @@
 """Fused sparse embedding backward + row update on Hopper
 (``csrc/embedding_update.cu``).
 
-Replaces the TPU kernels ``repro/kernels/embedding_update.py::_kernel_split``
-(via ``fused_update_split_pallas``; the paper's Alg. 3 + C5) and
-``::_kernel_fp32`` (via ``fused_update_fp32_pallas``), one source templated
-on the store.  The embedding backward is no gradient tensor: for each run of
-equal rows in the sorted lookup stream, ``acc = sum(wgt * dY[bag])`` in fp32
-in sorted flat order, then ``w = fmaf(-lr, acc, w)`` on that row, in place
-(``w = (hi << 16) | lo``, re-split, for the Split-SGD store).  Rows nobody
-looked up are never read or written: the TPU kernel's
-``input_output_aliases``.
+Replaces the TPU kernels of ``repro/kernels/embedding_update.py``, in one
+source: the first two templated on the store, the other four on the
+optimizer's step:
+
+- ``_kernel_split`` (via ``fused_update_split_pallas``; the paper's Alg. 3 +
+  C5) and ``_kernel_fp32`` (via ``fused_update_fp32_pallas``): ``w =
+  fmaf(-lr, acc, w)`` on the Split-SGD store (``w = (hi << 16) | lo``,
+  re-split) or an fp32 ``W``;
+- ``_kernel_momentum`` (via ``fused_update_momentum_pallas``): ``m`` = the
+  run's lookups added in order onto ``beta * m``, ``w = fmaf(-lr, m, w)``
+  (what the jitted reference computes; the TPU kernel adds ``beta * m`` to
+  the run's sum, the same terms in another order);
+- ``_kernel_adagrad`` (via ``fused_update_adagrad_pallas``, ``rowwise=False``):
+  ``s = fmaf(acc, acc, s)``, ``w = w - (lr * acc) / (sqrt(s) + eps)``;
+- ``_make_kernel_adagrad_rowwise`` (the same wrapper, ``rowwise=True``): one
+  accumulator a row, ``s += sum_e acc^2 / E``, then the Adagrad step;
+- ``_kernel_freq`` (via ``fused_update_freq_pallas``): ``w = w - (lr * acc) /
+  (sqrt(max(cnt, 1)) + eps)``, reading the row's touch count, which the
+  caller has bumped.
+
+The embedding backward is no gradient tensor: for each run of equal rows in
+the sorted lookup stream, ``acc = sum(wgt * dY[bag])`` in fp32 in sorted
+flat order, then one step on that row, in place.  Rows nobody looked up are
+never read or written: the TPU kernels' ``input_output_aliases``.  A run
+made only of masked lookups (the sorted tail) writes neither the row nor its
+state, since ``beta * m`` is no no-op: the TPU kernels' liveness flag.
 
 What bounds it: device-memory bytes, and on a skewed stream the in-order sum.
-The touched rows are read and written once (8 bytes a value for the split
-store), the cotangent rows and the sorted stream read once.  The sum of a
-run is a serial chain of dependent fp32 adds, one a lookup: zipf(1.05) sends
-about half of a table's lookups to one row, so at B = 8192, pooling 50, one
-run holds some 200 K lookups and its adds alone take about 0.5 ms.
+The touched rows are read and written once (8 bytes a value of ``w``, and as
+much again for an ``[M, E]`` state slab), the cotangent rows and the sorted
+stream read once.  The sum of a run is a serial chain of dependent fp32 adds,
+one a lookup: zipf(1.05) sends about half of a table's lookups to one row,
+so at B = 8192, pooling 50, one run holds some 200 K lookups and its adds
+alone take about 0.4 ms.
 
 Design: one launch, no host sync.  Each warp looks at a window of 32 sorted
 positions, finds the runs that start in it (``rows[i] != rows[i-1]``) with
@@ -27,11 +45,19 @@ segment, consecutive lookups of one bag with one weight form a group (zipf's
 hot rows: some 26 lookups of row 0 a bag); a segment of at most 4 groups
 loads one cotangent row and rounds one product a group, then adds it once a
 lookup, in order; other segments go a position at a time.  Both give the
-same adds with the same operands.  The old row is loaded at the run's start,
-beside the sums.  The product ``wgt * dY`` and each add round on their own,
-and the step is one ``fmaf``, as jitted JAX contracts ``w - lr * acc``.
-``dY`` is read as bf16, the row-mode wire's own type, exact in fp32.  Row
-addresses are int64.
+same adds with the same operands.  The old row and its state are loaded at
+the run's start, beside the sums.  The stateful kinds OR a ballot of the
+valid positions over the run's segments into its liveness.  The product
+``wgt * dY`` and each add round on their own; the step rounds exactly where
+the plain versions in ``kernels/ref.py`` do: an FMA where jitted JAX
+contracts one, each other operation on its own.  Row-wise Adagrad needs the
+whole row's sum of squares before it writes a column: a butterfly of
+``__shfl_xor_sync`` over the warp, after a first walk over every block of 64
+columns; a second walk recomputes the sums of the blocks before the last
+(the same walk, the same bits) and steps them.  The Split-SGD and fp32
+kinds keep their own copy of the walk, as it was before the stateful kinds
+came: compiled through the shared one they ran slower on zipf.  ``dY`` is read as bf16, the
+row-mode wire's own type, exact in fp32.  Row addresses are int64.
 
 Where its time goes (H100, ``PERF.md``, ``tools/ablate_row_update.py``): a
 long run's walk costs some 1,300–2,000 cycles a segment whatever the segment
@@ -55,6 +81,8 @@ _ARGS_SPLIT = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_fl
                                        ctypes.c_void_p]
 _ARGS_FP32 = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
                                       ctypes.c_void_p]
+_ARGS_STATE = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                       ctypes.c_float, ctypes.c_void_p]
 
 
 def sort_lookups(tgt: torch.Tensor, valid: torch.Tensor | None, num_rows: int, pooling: int,
@@ -160,5 +188,78 @@ def fused_update_fp32(W: torch.Tensor, srows: torch.Tensor, sbags: torch.Tensor,
     return W
 
 
-fused_update_split.launches = 0
-fused_update_fp32.launches = 0
+def _stateful(wrapper, cname: str, plain, W: torch.Tensor, S: torch.Tensor, per_row: bool,
+              dtype: torch.dtype, stream: tuple, dY: torch.Tensor, lr: float, hp: float):
+    """Check, then launch ``cname`` on CUDA tensors (counted on ``wrapper``)
+    or run ``plain`` on CPU tensors.  ``S`` is the state slab: [M, 1] when
+    ``per_row``, else [M, E]; ``hp`` is beta or eps."""
+    _check(W, *stream, dY)
+    want = (W.shape[0], 1 if per_row else W.shape[1])
+    if W.dtype != torch.float32 or S.dtype != dtype or tuple(S.shape) != want:
+        raise TypeError(f"need an fp32 table and a {dtype} state of shape {want}, got "
+                        f"{W.dtype} {tuple(W.shape)}, {S.dtype} {tuple(S.shape)}")
+    if S.device != W.device:
+        raise ValueError(f"the table on {W.device}, its state on {S.device}")
+    if W.device.type == "cpu":
+        return plain(W, S, *stream, dY, lr, hp)
+    E = _check_cuda((W, S, *stream), dY)
+    fn = build.function("embedding_update", cname, _ARGS_STATE)
+    with torch.cuda.device(W.device):
+        err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), W.data_ptr(), S.data_ptr(),
+                 stream[0].shape[0], E, float(np.float32(lr)), float(np.float32(hp)),
+                 torch.cuda.current_stream().cuda_stream)
+        wrapper.launches += 1
+    if err:
+        raise RuntimeError(f"{cname} kernel launch failed with CUDA error {err}")
+    return W, S
+
+
+def fused_update_momentum(W: torch.Tensor, mom: torch.Tensor, srows: torch.Tensor,
+                          sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                          dY: torch.Tensor, lr: float, beta: float
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + momentum, in place on ``W`` [M, E] fp32 and
+    ``mom`` [M, E] fp32 (``ref.fused_update_momentum`` on CPU tensors).
+    Returns ``(W, mom)``."""
+    return _stateful(fused_update_momentum, "embedding_update_momentum", ref.fused_update_momentum,
+                     W, mom, False, torch.float32, (srows, sbags, smsk, swgt), dY, lr, beta)
+
+
+def fused_update_adagrad(W: torch.Tensor, acc: torch.Tensor, srows: torch.Tensor,
+                         sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                         dY: torch.Tensor, lr: float, eps: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + elementwise Adagrad, in place on ``W`` [M, E]
+    and ``acc`` [M, E] fp32 (``ref.fused_update_adagrad`` on CPU tensors).
+    Returns ``(W, acc)``."""
+    return _stateful(fused_update_adagrad, "embedding_update_adagrad", ref.fused_update_adagrad,
+                     W, acc, False, torch.float32, (srows, sbags, smsk, swgt), dY, lr, eps)
+
+
+def fused_update_adagrad_rowwise(W: torch.Tensor, acc: torch.Tensor, srows: torch.Tensor,
+                                 sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                                 dY: torch.Tensor, lr: float, eps: float
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + row-wise Adagrad, in place on ``W`` [M, E]
+    and ``acc`` [M, 1] fp32, one accumulator a row
+    (``ref.fused_update_adagrad_rowwise`` on CPU tensors).  Returns
+    ``(W, acc)``."""
+    return _stateful(fused_update_adagrad_rowwise, "embedding_update_adagrad_rowwise",
+                     ref.fused_update_adagrad_rowwise, W, acc, True, torch.float32,
+                     (srows, sbags, smsk, swgt), dY, lr, eps)
+
+
+def fused_update_freq(W: torch.Tensor, cnt: torch.Tensor, srows: torch.Tensor,
+                      sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                      dY: torch.Tensor, lr: float, eps: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + the frequency-adaptive step, in place on ``W``
+    [M, E] fp32, reading the bumped touch counts ``cnt`` [M, 1] int32
+    (``ref.fused_update_freq`` on CPU tensors).  Returns ``(W, cnt)``."""
+    return _stateful(fused_update_freq, "embedding_update_freq", ref.fused_update_freq,
+                     W, cnt, True, torch.int32, (srows, sbags, smsk, swgt), dY, lr, eps)
+
+
+for _fn in (fused_update_split, fused_update_fp32, fused_update_momentum, fused_update_adagrad,
+            fused_update_adagrad_rowwise, fused_update_freq):
+    _fn.launches = 0

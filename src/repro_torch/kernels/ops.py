@@ -2,13 +2,17 @@
 
 Each wrapper validates its inputs, launches its hand-written kernel for CUDA
 tensors, runs its plain PyTorch version for CPU tensors, and counts its
-launches in a plain int attribute (``embedding_bag.launches``).
+launches in a plain int attribute (``embedding_bag.launches``).  Nothing
+here branches on an optimizer: ``optim.row`` picks the row kernel.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.embedding_update import fused_update_fp32, fused_update_split
+from repro_torch.kernels.embedding_update import (fused_update_adagrad,
+                                                  fused_update_adagrad_rowwise, fused_update_fp32,
+                                                  fused_update_freq, fused_update_momentum,
+                                                  fused_update_split)
 from repro_torch.kernels.fused_mlp import fused_mlp_layer
 from repro_torch.kernels.interaction import dot_interaction
 from repro_torch.kernels.split_sgd import split_sgd
@@ -20,6 +24,10 @@ KERNELS = {
     "embedding_update": fused_update_split,
     "embedding_update_fp32": fused_update_fp32,
     "split_sgd": split_sgd,
+    "embedding_update_momentum": fused_update_momentum,
+    "embedding_update_adagrad": fused_update_adagrad,
+    "embedding_update_adagrad_rowwise": fused_update_adagrad_rowwise,
+    "embedding_update_freq": fused_update_freq,
 }
 
 

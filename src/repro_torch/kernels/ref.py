@@ -77,22 +77,29 @@ def _split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _run_sums(srows: torch.Tensor, sbags: torch.Tensor, smsk: torch.Tensor,
-              swgt: torch.Tensor, dY: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rows [U] int64, acc [U, E] fp32) of the sorted stream, on the CPU:
-    one entry per run of equal rows, ``acc = sum(wgt * dY[bag])`` over the
-    run, masked lookups adding exact 0.0.  The order is fixed: each run sums
-    in its sorted flat order, starting from 0.0 (``index_add_`` on the CPU
-    walks its index in order), as ``segment_sum`` on sorted segments and the
-    TPU kernel's sequential grid do."""
+              swgt: torch.Tensor, dY: torch.Tensor, start=None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rows [U] int64, acc [U, E] fp32, live [U] bool) of the sorted stream,
+    on the CPU: one entry per run of equal rows, ``acc = sum(wgt * dY[bag])``
+    over the run, masked lookups adding exact 0.0, and whether any lookup of
+    the run is valid (the sorted masked tail alone is a dead run).  The order
+    is fixed: each run sums in its sorted flat order (``index_add_`` on the
+    CPU walks its index in order), as ``segment_sum`` on sorted segments and
+    the TPU kernel's sequential grid do, from 0.0 or from ``start(rows)``
+    [U, E] fp32 where given."""
     rows = srows.cpu().long()
-    start = torch.ones_like(rows, dtype=torch.bool)
-    start[1:] = rows[1:] != rows[:-1]
-    run = torch.cumsum(start.long(), 0) - 1
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    run = torch.cumsum(first.long(), 0) - 1
+    valid = smsk.cpu() != 0
     g = dY.cpu()[sbags.cpu().long()].float() * swgt.cpu().float()[:, None]
-    g = torch.where(smsk.cpu()[:, None] != 0, g, 0.0)
-    acc = torch.zeros((int(start.sum()), dY.shape[1]), dtype=torch.float32)
+    g = torch.where(valid[:, None], g, 0.0)
+    U = int(first.sum())
+    acc = (torch.zeros((U, dY.shape[1]), dtype=torch.float32) if start is None
+           else start(rows[first]).float().cpu().clone())
     acc.index_add_(0, run, g)
-    return rows[start], acc
+    live = torch.zeros(U, dtype=torch.int64).index_add_(0, run, valid.long()) > 0
+    return rows[first], acc, live
 
 
 def fused_update_split(hi: torch.Tensor, lo: torch.Tensor, srows: torch.Tensor,
@@ -104,7 +111,7 @@ def fused_update_split(hi: torch.Tensor, lo: torch.Tensor, srows: torch.Tensor,
     ``w = combine(hi, lo)[row]``, ``w = fma32(-lr, acc, w)``, re-split.  Rows
     outside the stream are not written.  Sums run on the CPU to fix their
     order (:func:`_run_sums`); the result goes back to the table's device."""
-    rows, acc = _run_sums(srows, sbags, smsk, swgt, dY)
+    rows, acc, _ = _run_sums(srows, sbags, smsk, swgt, dY)
     r = rows.to(hi.device)
     w = fma32(-np.float32(lr), acc, _combine(hi[r], lo[r]).cpu())
     nh, nl = _split(w)
@@ -118,10 +125,133 @@ def fused_update_fp32(W: torch.Tensor, srows: torch.Tensor, sbags: torch.Tensor,
                       lr: float) -> torch.Tensor:
     """:func:`fused_update_split` on an fp32 table ``W`` [M, E], in place:
     ``W[row] = fma32(-lr, acc, W[row])`` once per run."""
-    rows, acc = _run_sums(srows, sbags, smsk, swgt, dY)
+    rows, acc, _ = _run_sums(srows, sbags, smsk, swgt, dY)
     r = rows.to(W.device)
     W[r] = fma32(-np.float32(lr), acc, W[r].cpu()).to(W.device)
     return W
+
+
+def _f32(x) -> torch.Tensor:
+    """A Python number as a 0-d fp32 tensor, so that every operation with it
+    rounds in fp32."""
+    return torch.tensor(np.float32(x))
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The square root of fp32 values >= 0, correctly rounded, as
+    ``__fsqrt_rn`` and XLA round it; torch's CPU ``sqrt`` is not (in fp32 or
+    f64).  A candidate from f64 is within one fp32 ulp; it moves by one where
+    the exact f64 square of the midpoint to its neighbour (25 bits, so 50
+    bits squared) says the root lies beyond it."""
+    x = x.float()
+    r = torch.sqrt(x.double()).float()
+    inf = torch.tensor(float("inf"))
+    up, dn = torch.nextafter(r, inf), torch.nextafter(r, -inf)
+    xd, rd = x.double(), r.double()
+    hi, lo = (rd + up.double()) / 2, (rd + dn.double()) / 2
+    r = torch.where(hi * hi < xd, up, r)
+    return torch.where((lo * lo > xd) & (x > 0), dn, r)
+
+
+def _live_runs(W: torch.Tensor, srows, sbags, smsk, swgt, dY, start=None):
+    """(rows on W's device, acc [U, E] fp32 on the CPU) of the runs that hold
+    a valid lookup: the stateful kinds step only those."""
+    rows, acc, live = _run_sums(srows, sbags, smsk, swgt, dY, start)
+    return rows[live].to(W.device), acc[live]
+
+
+def scaled_step(w: torch.Tensor, acc: torch.Tensor, lr: float, denom: torch.Tensor) -> torch.Tensor:
+    """``w - (lr * acc) / denom``, each operation rounded on its own in fp32:
+    jitted JAX contracts none of them (no product is added)."""
+    return w - (_f32(lr) * acc) / denom
+
+
+def fused_update_momentum(W: torch.Tensor, mom: torch.Tensor, srows: torch.Tensor,
+                          sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                          dY: torch.Tensor, lr: float, beta: float
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + heavy-ball momentum, in place on ``W`` [M, E]
+    fp32 and ``mom`` [M, E] fp32: for each live run, ``m`` = the run's
+    lookups added in order onto ``beta * m`` (rounded once), then ``w =
+    fma32(-lr, m, w)``.  That is jitted JAX's ``beta * m + acc``: XLA folds
+    the add of the segment sum into a scatter-add that starts from
+    ``beta * m``, and contracts ``w - lr * m``.  Dead runs and untouched rows
+    are not written."""
+    r, m = _live_runs(W, srows, sbags, smsk, swgt, dY,
+                      start=lambda rows: _f32(beta) * mom[rows.to(mom.device)].cpu())
+    W[r] = fma32(-np.float32(lr), m, W[r].cpu()).to(W.device)
+    mom[r] = m.to(mom.device)
+    return W, mom
+
+
+def fused_update_adagrad(W: torch.Tensor, acc_slab: torch.Tensor, srows: torch.Tensor,
+                         sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                         dY: torch.Tensor, lr: float, eps: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + elementwise Adagrad, in place on ``W`` and
+    ``acc_slab`` [M, E] fp32: for each live run, ``s = fma32(acc, acc, s)``
+    (jitted JAX contracts it), ``w = scaled_step(w, acc, lr, sqrt32(s) + eps)``."""
+    r, acc = _live_runs(W, srows, sbags, smsk, swgt, dY)
+    s = fma32(acc, acc, acc_slab[r].cpu())
+    W[r] = scaled_step(W[r].cpu(), acc, lr, sqrt32(s) + _f32(eps)).to(W.device)
+    acc_slab[r] = s.to(acc_slab.device)
+    return W, acc_slab
+
+
+def row_square_sum(acc: torch.Tensor) -> torch.Tensor:
+    """``sum_e acc[:, e]^2`` [U] in the row-wise Adagrad kernel's order.  Lane
+    l of a warp holds columns 64b + 2l and 64b + 2l + 1 of each block b of 64
+    columns; it adds their squares to its sum ``q_l``, block after block, the
+    even column first (each product and each add rounded on its own; columns
+    past E add nothing).  A butterfly then adds ``q_l + q_(l xor k)`` for
+    k = 16, 8, 4, 2, 1, which leaves the same sum in every lane."""
+    U, E = acc.shape
+    nb = -(-E // 64)
+    a = torch.zeros((U, nb * 64), dtype=torch.float32)
+    a[:, :E] = acc
+    a = a.view(U, nb, 32, 2)
+    q = torch.zeros((U, 32), dtype=torch.float32)
+    for b in range(nb):
+        for j in range(2):
+            q = q + a[:, b, :, j] * a[:, b, :, j]
+    lanes = torch.arange(32)
+    for k in (16, 8, 4, 2, 1):
+        q = q + q[:, lanes ^ k]
+    return q[:, 0]
+
+
+def fused_update_adagrad_rowwise(W: torch.Tensor, acc_row: torch.Tensor, srows: torch.Tensor,
+                                 sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                                 dY: torch.Tensor, lr: float, eps: float
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + row-wise Adagrad (one accumulator a row), in
+    place on ``W`` [M, E] and ``acc_row`` [M, 1] fp32: for each live run,
+    ``s = s + row_square_sum(acc) / E``, then ``w = scaled_step(w, acc, lr,
+    sqrt(s) + eps)``; every operation rounded on its own.  Jitted JAX sums
+    the squares in an order of its own, so this matches it within a
+    tolerance, not bit for bit."""
+    r, acc = _live_runs(W, srows, sbags, smsk, swgt, dY)
+    tot = row_square_sum(acc)
+    s = acc_row[r, 0].cpu() + tot / torch.full_like(tot, float(acc.shape[1]))
+    denom = (sqrt32(s) + _f32(eps))[:, None]
+    W[r] = scaled_step(W[r].cpu(), acc, lr, denom).to(W.device)
+    acc_row[r, 0] = s.to(acc_row.device)
+    return W, acc_row
+
+
+def fused_update_freq(W: torch.Tensor, cnt: torch.Tensor, srows: torch.Tensor,
+                      sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                      dY: torch.Tensor, lr: float, eps: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + the frequency-adaptive step, in place on ``W``
+    [M, E] fp32: for each live run, ``w = scaled_step(w, acc, lr,
+    sqrt(max(cnt, 1)) + eps)`` with ``cnt`` [M, 1] int32 the row's touch
+    count, already bumped (``optim.row.bump_counters``) and only read."""
+    r, acc = _live_runs(W, srows, sbags, smsk, swgt, dY)
+    c = cnt[r, 0].cpu().float()
+    denom = (sqrt32(torch.clamp_min(c, 1.0)) + _f32(eps))[:, None]
+    W[r] = scaled_step(W[r].cpu(), acc, lr, denom).to(W.device)
+    return W, cnt
 
 
 def split_sgd(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor,

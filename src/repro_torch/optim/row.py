@@ -1,57 +1,167 @@
-"""Sparse row optimizers (twin of ``repro/optim/row.py``): ``sgd`` and
-``split_sgd``.
+"""Sparse row optimizers (twin of ``repro/optim/row.py``): one table of
+optimizers keyed by name, and :func:`apply_sparse`, the one place that picks
+a row kernel.
 
-The store of ``split_sgd`` is ``{hi, lo}`` (the bf16 upper and the int16
-lower halves of the fp32 master rows), that of ``sgd`` is ``{w}`` (fp32).
-The forward pass reads one slab: ``hi`` or ``w``.  The update runs on the
-sorted lookup stream of ``kernels.embedding_update.sort_lookups``: the
-hand-written kernel for CUDA tensors, its plain version for CPU tensors
-(the wrappers in ``kernels.ops`` decide).  The stateful optimizers of the
-reference are not ported yet.
+An optimizer's store is its weight slab(s) and its state slabs, all
+row-aligned: ``{hi, lo}`` (the bf16 upper and the int16 lower halves of the
+fp32 master rows) for ``split_sgd``, else ``{w}`` (fp32), plus ``mom``
+[rows, E] (``momentum``), ``acc`` [rows, E] (``adagrad``) or [rows, 1]
+(``adagrad_rowwise``: one accumulator a row, not padded to any lane width),
+or ``cnt`` [rows, 1] int32 (``adagrad_freq``: the touch counts).  The
+forward pass reads one slab: ``hi`` or ``w``.  The update runs on the sorted
+lookup stream of ``kernels.embedding_update.sort_lookups``: the
+hand-written kernel for CUDA tensors, its plain version for CPU tensors (the
+wrappers in ``kernels.ops`` decide).  ``kernels.ops``,
+``core.sharded_embedding`` and ``core.pipeline`` hold no branch on an
+optimizer: a new one is an entry of :data:`OPTIMIZERS` and its kernel.  The
+compressed-state kinds of the reference (``momentum_bf16``,
+``adagrad_bf16``) need its seeded stochastic rounding and are not ported
+yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.optim.split_sgd import split_fp32
 
-# optimizer -> the store key its forward reads
-FWD_KEY = {"split_sgd": "hi", "sgd": "w"}
+# the reference's compressed-state kinds, which come with the stochastic rounding
+NOT_PORTED = ("momentum_bf16", "adagrad_bf16")
 
 
-def resolve(cfg) -> str:
-    """The sparse optimizer of a config; unset means ``split_sgd``."""
-    name = getattr(cfg, "sparse_optimizer", None) or "split_sgd"
-    if name not in FWD_KEY:
-        raise NotImplementedError(f"sparse optimizer {name!r} is not ported; "
-                                  f"the port has {sorted(FWD_KEY)}")
-    return name
+@dataclasses.dataclass(frozen=True)
+class RowOptimizer:
+    """A sparse embedding optimizer: its store and its row kernel.
+
+    ``state`` lists the state slabs as ``(key, width, dtype)``, width 0
+    meaning E; ``kernel(opt, store, stream, dY, lr)`` steps the store in
+    place on the sorted stream."""
+
+    name: str
+    kernel: Callable
+    split: bool = False
+    state: tuple = ()
+    beta: float = 0.0   # momentum coefficient
+    eps: float = 1e-8   # Adagrad denominator floor
+
+    @property
+    def weight_keys(self) -> tuple:
+        return ("hi", "lo") if self.split else ("w",)
+
+    @property
+    def state_keys(self) -> tuple:
+        return tuple(key for key, _, _ in self.state)
+
+    def store_struct(self, rows: int, E: int) -> dict:
+        """``(shape, dtype)`` of each slab of the store of a [rows, E] table."""
+        out = ({"hi": ((rows, E), torch.bfloat16), "lo": ((rows, E), torch.int16)} if self.split
+               else {"w": ((rows, E), torch.float32)})
+        for key, width, dtype in self.state:
+            out[key] = ((rows, width or E), dtype)
+        return out
 
 
-def fwd_weights(name: str, store: dict):
+def _k_split_sgd(opt, store, stream, dY, lr):
+    ops.fused_update_split(store["hi"], store["lo"], *stream, dY, lr)
+
+
+def _k_sgd(opt, store, stream, dY, lr):
+    ops.fused_update_fp32(store["w"], *stream, dY, lr)
+
+
+def _k_momentum(opt, store, stream, dY, lr):
+    ops.fused_update_momentum(store["w"], store["mom"], *stream, dY, lr, opt.beta)
+
+
+def _k_adagrad(opt, store, stream, dY, lr):
+    ops.fused_update_adagrad(store["w"], store["acc"], *stream, dY, lr, opt.eps)
+
+
+def _k_adagrad_rowwise(opt, store, stream, dY, lr):
+    ops.fused_update_adagrad_rowwise(store["w"], store["acc"], *stream, dY, lr, opt.eps)
+
+
+def _k_adagrad_freq(opt, store, stream, dY, lr):
+    ops.fused_update_freq(store["w"], store["cnt"], *stream, dY, lr, opt.eps)
+
+
+# the reference's registrations (repro/optim/row.py:677-710) with their defaults
+OPTIMIZERS = {opt.name: opt for opt in (
+    RowOptimizer("sgd", _k_sgd),
+    RowOptimizer("split_sgd", _k_split_sgd, split=True),
+    RowOptimizer("momentum", _k_momentum, state=(("mom", 0, torch.float32),), beta=0.9),
+    RowOptimizer("adagrad_rowwise", _k_adagrad_rowwise, state=(("acc", 1, torch.float32),)),
+    RowOptimizer("adagrad", _k_adagrad, state=(("acc", 0, torch.float32),)),
+    RowOptimizer("adagrad_freq", _k_adagrad_freq, state=(("cnt", 1, torch.int32),)),
+)}
+
+
+def get(spec, *, beta: Optional[float] = None, eps: Optional[float] = None) -> RowOptimizer:
+    """The optimizer named ``spec`` (or ``spec`` itself), with ``beta`` and
+    ``eps`` overriding its defaults where given."""
+    opt = spec
+    if not isinstance(spec, RowOptimizer):
+        if spec in NOT_PORTED:
+            raise NotImplementedError(
+                f"sparse optimizer {spec!r} is not ported yet: its compressed state needs the "
+                "seeded stochastic rounding of the reference's optim/stochastic.py, which comes "
+                "with the next slice")
+        if spec not in OPTIMIZERS:
+            raise ValueError(f"unknown sparse optimizer {spec!r}; the port has {sorted(OPTIMIZERS)}")
+        opt = OPTIMIZERS[spec]
+    over = {k: float(v) for k, v in (("beta", beta), ("eps", eps)) if v is not None}
+    return dataclasses.replace(opt, **over) if over else opt
+
+
+def resolve(cfg) -> RowOptimizer:
+    """The sparse optimizer of a config (unset means ``split_sgd``), with its
+    ``opt_beta`` / ``opt_eps`` applied."""
+    return get(getattr(cfg, "sparse_optimizer", None) or "split_sgd",
+               beta=getattr(cfg, "opt_beta", None), eps=getattr(cfg, "opt_eps", None))
+
+
+def fwd_weights(opt, store: dict):
     """The slab the forward pass reads (bf16 ``hi`` or fp32 ``w``)."""
-    return store[FWD_KEY[name]]
+    return store["hi"] if get(opt).split else store["w"]
 
 
-def init_store(name: str, W: torch.Tensor) -> dict:
-    """The store from fp32 master rows ``W`` [rows, E]."""
-    if name == "split_sgd":
+def init_store(opt, W: torch.Tensor) -> dict:
+    """The store from fp32 master rows ``W`` [rows, E], state slabs zero."""
+    opt = get(opt)
+    if opt.split:
         hi, lo = split_fp32(W)
-        return {"hi": hi, "lo": lo}
-    return {"w": W.float()}
+        out = {"hi": hi, "lo": lo}
+    else:
+        out = {"w": W.float()}
+    for key, width, dtype in opt.state:
+        out[key] = torch.zeros((W.shape[0], width or W.shape[1]), dtype=dtype, device=W.device)
+    return out
 
 
-def apply_sparse(name: str, store: dict, stream: tuple, dY: torch.Tensor, lr: float) -> dict:
+def bump_counters(cnt: torch.Tensor, srows: torch.Tensor, smsk: torch.Tensor) -> torch.Tensor:
+    """+1 per valid lookup on the touch counts ``cnt`` [rows, 1] int32, in
+    place, from the sorted stream: ``msk`` added at ``rows``, so masked
+    lookups add 0 and nothing waits for the host.  Integer adds, so any
+    order gives the reference's counts (``repro/optim/row.py:128``)."""
+    return cnt.index_add_(0, srows, smsk[:, None])
+
+
+def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float) -> dict:
     """One fused sparse backward + row update, in place on ``store``.
 
     ``stream``: the sorted ``(rows, bags, msk, wgt)`` [L] arrays; ``dY``
-    [bags, E] the bag cotangents (bf16, the row-mode wire).  Each run of
-    equal rows sums ``wgt * dY[bag]`` in sorted order and steps its row once;
-    rows outside the stream are not touched.  Returns ``store``."""
-    if name == "split_sgd":
-        ops.fused_update_split(store["hi"], store["lo"], *stream, dY, lr)
-    else:
-        ops.fused_update_fp32(store["w"], *stream, dY, lr)
+    [bags, E] the bag cotangents (bf16, the row-mode wire).  A ``cnt`` state
+    slab is bumped first (:func:`bump_counters`), so the kernel reads the
+    count after this step's lookups.  Each run of equal rows sums
+    ``wgt * dY[bag]`` in sorted order and steps its row once; rows outside
+    the stream, and runs of masked lookups only, are not touched.  Returns
+    ``store``."""
+    opt = get(opt)
+    if "cnt" in opt.state_keys:
+        bump_counters(store["cnt"], stream[0], stream[2])
+    opt.kernel(opt, store, stream, dY, lr)
     return store

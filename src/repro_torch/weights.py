@@ -8,7 +8,8 @@
 * :func:`init_snapshot` draws a port-native snapshot from a
   ``torch.Generator``, with the reference's distributions.
 * :func:`state_from_numpy` and :func:`state_to_numpy` carry a whole train
-  state across, both ways, bit for bit: the embedding store, the dense
+  state across, both ways, bit for bit: the embedding store with its
+  optimizer's state slabs, the dense
   ``hi`` tree and the dense ``lo`` vector.  :func:`state_to` copies a train
   state to another device.
 """
@@ -85,8 +86,7 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
     a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
     W = torch.empty((rows, cfg.emb_dim), device=dev).uniform_(-a, a, generator=generator)
-    split = row_optim.resolve(cfg) == "split_sgd"
-    emb_w = split_fp32(W)[0] if split else W
+    emb_w = split_fp32(W)[0] if row_optim.resolve(cfg).split else W
     del W
     dense = init_dense_params(cfg, generator, dev)
     return {"emb_w": emb_w, "dense_hi": _tree_map(lambda t: split_fp32(t)[0], dense)}
@@ -94,20 +94,27 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
 
 def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
     """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
-    state)``: ``emb`` {hi bf16, lo uint16} or {w fp32}, ``dense`` {hi tree
-    bf16, lo [padded] uint16, err None}) -> the port's train state on
+    state)``: ``emb`` {hi bf16, lo uint16} or {w fp32} and the optimizer's
+    state slabs (``mom``, ``acc``, ``cnt``), ``dense`` {hi tree bf16, lo
+    [padded] uint16, err None}) -> the port's train state on
     ``device``, bit for bit, laid out as ``core.hybrid.init_state`` lays it
     out (uint16 slabs as their int16 bits, the dense ``hi`` leaves as views
     of one flat buffer)."""
     dev = resolve_device(device)
     if state_np["dense"].get("err") is not None:
         raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
-    name = row_optim.resolve(cfg)
-    keys = ("hi", "lo") if name == "split_sgd" else ("w",)
-    if set(state_np["emb"]) != set(keys):
-        raise ValueError(f"the {name} store holds {keys}, got {sorted(state_np['emb'])}")
-    emb = {k: to_torch(state_np["emb"][k], dev) for k in keys}
-    _check({"emb_w": emb[keys[0]], "dense_hi": state_np["dense"]["hi"]}, cfg)
+    opt = row_optim.resolve(cfg)
+    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
+    struct = opt.store_struct(rows, cfg.emb_dim)
+    if set(state_np["emb"]) != set(struct):
+        raise ValueError(f"the {opt.name} store holds {sorted(struct)}, got "
+                         f"{sorted(state_np['emb'])}")
+    emb = {k: to_torch(state_np["emb"][k], dev) for k in struct}
+    for k, (shape, dtype) in struct.items():
+        if tuple(emb[k].shape) != shape or emb[k].dtype != dtype:
+            raise ValueError(f"emb[{k!r}] is {emb[k].dtype} {tuple(emb[k].shape)}, the config "
+                             f"needs {dtype} {shape}")
+    _check({"emb_w": emb[opt.weight_keys[0]], "dense_hi": state_np["dense"]["hi"]}, cfg)
     lo = to_torch(state_np["dense"]["lo"], dev)
     hi_tree = _tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
     if lo.numel() != dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS):

@@ -102,8 +102,8 @@ def test_serving_step_on_card_matches_cpu(dev):
     ops.reset_launches()
     got = make_snapshot_score_step(cfg, device=dev)[0](to_dev, {k: v.to(dev) for k, v in batch.items()})
     torch.cuda.synchronize()
-    assert ops.launches() == {"embedding_bag": 1, "dot_interaction": 1, "fused_mlp": 5,
-                              "embedding_update": 0, "embedding_update_fp32": 0, "split_sgd": 0}
+    assert ops.launches() == {**{k: 0 for k in ops.KERNELS}, "embedding_bag": 1,
+                              "dot_interaction": 1, "fused_mlp": 5}
     assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
@@ -159,6 +159,91 @@ def test_row_update_kernels_bitwise_to_plain(dev, E, case):
     for got, want in ((got_h, want_h), (got_l, want_l), (got_w, want_w)):
         assert torch.equal(got.cpu().view(torch.int16 if got.element_size() == 2 else torch.int32),
                            want.view(torch.int16 if want.element_size() == 2 else torch.int32))
+
+
+# the stateful row kernels: (wrapper, state width (0 = E), state dtype, hp)
+STATEFUL = {"momentum": ("fused_update_momentum", 0, torch.float32, 0.9),
+            "adagrad": ("fused_update_adagrad", 0, torch.float32, 1e-8),
+            "adagrad_rowwise": ("fused_update_adagrad_rowwise", 1, torch.float32, 1e-8),
+            "adagrad_freq": ("fused_update_freq", 1, torch.int32, 1e-8)}
+
+
+def _stateful_stream(case, M, P, gen):
+    """(tgt [L] int32, valid [L] bool): a run of 300 lookups (ten segments)
+    amid ragged ones, with out-of-range ids and masked lookups; the last
+    row's live run followed by the masked tail; or every lookup masked."""
+    tgt = torch.randint(-3, M + 3, (60 * P,), generator=gen, dtype=torch.int32)
+    valid = torch.rand(tgt.shape, generator=gen) > 0.1
+    if case == "long_run":
+        tgt[:300] = 11
+    elif case == "live_tail":
+        tgt[-2 * P:] = M - 1
+        valid[-2 * P:] = True
+        valid[: 4 * P] = False
+    else:
+        valid[:] = False
+    return tgt, valid
+
+
+def _state(name, M, E, gen):
+    _, width, dtype, _ = STATEFUL[name]
+    shape = (M, width or E)
+    if dtype == torch.int32:
+        return torch.randint(0, 50, shape, generator=gen, dtype=torch.int32)
+    if name == "momentum":
+        return torch.randn(shape, generator=gen) * 0.1
+    return torch.rand(shape, generator=gen) * 0.05
+
+
+@pytest.mark.parametrize("E", [64, 128, 96])
+@pytest.mark.parametrize("case", ["long_run", "live_tail", "all_masked"])
+@pytest.mark.parametrize("name", list(STATEFUL))
+def test_stateful_row_kernels_bitwise_to_plain(dev, name, case, E):
+    """The four stateful row kernels against their plain versions, bit for
+    bit on the weights and the state, at E = 64, 128 and 96 (a ragged last
+    block of columns): a run longer than one segment, the last row's live
+    run that holds the masked tail, and an all-masked stream (nothing
+    written).  The counts of ``adagrad_freq`` are bumped first, as
+    ``optim.row.apply_sparse`` does."""
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.optim.row import bump_counters
+    wrapper, _, _, hp = STATEFUL[name]
+    gen = torch.Generator().manual_seed(E + len(case))
+    M, P, lr = 200, 5, 0.1
+    tgt, valid = _stateful_stream(case, M, P, gen)
+    dY = torch.randn((tgt.numel() // P, E), generator=gen).to(torch.bfloat16)
+    W, S = torch.rand((M, E), generator=gen) - 0.5, _state(name, M, E, gen)
+    stream = eu.sort_lookups(tgt, valid, M, P)
+    if name == "adagrad_freq":
+        bump_counters(S, stream[0], stream[2])
+    want_w, want_s = getattr(ref, wrapper)(W.clone(), S.clone(), *stream, dY, lr, hp)
+    before = getattr(ops, wrapper).launches
+    got_w, got_s = getattr(ops, wrapper)(W.to(dev), S.to(dev), *(t.to(dev) for t in stream),
+                                         dY.to(dev), lr, hp)
+    torch.cuda.synchronize()
+    assert getattr(ops, wrapper).launches == before + 1
+    assert torch.equal(got_w.cpu().view(torch.int32), want_w.view(torch.int32))
+    assert torch.equal(got_s.cpu().view(torch.int32), want_s.view(torch.int32))
+    if case == "all_masked":
+        assert torch.equal(want_w, W) and torch.equal(want_s, S)
+    else:
+        assert not torch.equal(want_w, W)
+
+
+def test_stateful_row_kernels_refuse_bad_state(dev):
+    """A state slab of the wrong width or type raises before any launch."""
+    from repro_torch.kernels import embedding_update as eu
+    W = torch.zeros(8, 16, device=dev)
+    stream = eu.sort_lookups(torch.zeros(4, dtype=torch.int32, device=dev), None, 8, 2)
+    dY = torch.zeros(2, 16, dtype=torch.bfloat16, device=dev)
+    before = ops.launches()
+    with pytest.raises(TypeError):
+        ops.fused_update_adagrad_rowwise(W, torch.zeros(8, 16, device=dev), *stream, dY, 0.1, 1e-8)
+    with pytest.raises(TypeError):
+        ops.fused_update_freq(W, torch.zeros(8, 1, device=dev), *stream, dY, 0.1, 1e-8)
+    with pytest.raises(TypeError):
+        ops.fused_update_momentum(W, torch.zeros(8, 1, device=dev), *stream, dY, 0.1, 0.9)
+    assert ops.launches() == before
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 1001, 4096 * 3 + 5, 3_811_396])
@@ -218,7 +303,13 @@ def _small_batches(cfg, n, dev):
     return out
 
 
-@pytest.mark.parametrize("opt", ["split_sgd", "sgd"])
+ROW_KERNEL = {"split_sgd": "embedding_update", "sgd": "embedding_update_fp32",
+              "momentum": "embedding_update_momentum", "adagrad": "embedding_update_adagrad",
+              "adagrad_rowwise": "embedding_update_adagrad_rowwise",
+              "adagrad_freq": "embedding_update_freq"}
+
+
+@pytest.mark.parametrize("opt", list(ROW_KERNEL))
 def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
     """Two steps on the card (kernels) against the same steps on the CPU
     (plain versions) from one state: losses within 1e-4 relative, the fp32
@@ -246,9 +337,8 @@ def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     counts = ops.launches()
-    row = "embedding_update" if opt == "split_sgd" else "embedding_update_fp32"
     assert counts == {**{k: 0 for k in counts}, "embedding_bag": 1, "dot_interaction": 1,
-                      row: 1, "split_sgd": 1}
+                      ROW_KERNEL[opt]: 1, "split_sgd": 1}
     from repro_torch.optim.split_sgd import combine_split
 
     def master(store):

@@ -156,8 +156,15 @@ def test_cpu_tensors_launch_nothing():
     ops.fused_update_split(torch.zeros(4, 8, dtype=torch.bfloat16),
                            torch.zeros(4, 8, dtype=torch.int16), *stream, dY, 0.1)
     ops.fused_update_fp32(torch.zeros(4, 8), *stream, dY, 0.1)
+    ops.fused_update_momentum(torch.zeros(4, 8), torch.zeros(4, 8), *stream, dY, 0.1, 0.9)
+    ops.fused_update_adagrad(torch.zeros(4, 8), torch.zeros(4, 8), *stream, dY, 0.1, 1e-8)
+    ops.fused_update_adagrad_rowwise(torch.zeros(4, 8), torch.zeros(4, 1), *stream, dY, 0.1, 1e-8)
+    ops.fused_update_freq(torch.zeros(4, 8), torch.zeros(4, 1, dtype=torch.int32), *stream, dY,
+                          0.1, 1e-8)
     ops.split_sgd(torch.zeros(3, dtype=torch.bfloat16), torch.zeros(3, dtype=torch.int16),
                   torch.zeros(3), 0.1)
     assert ops.launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"embedding_bag", "dot_interaction", "fused_mlp",
-                                "embedding_update", "embedding_update_fp32", "split_sgd"}
+                                "embedding_update", "embedding_update_fp32", "split_sgd",
+                                "embedding_update_momentum", "embedding_update_adagrad",
+                                "embedding_update_adagrad_rowwise", "embedding_update_freq"}
