@@ -13,7 +13,9 @@ from the root of a checkout.  Phases, each of which fails the run:
    on the card, and, at 8192, time kernel, plain version and a PyTorch
    library call that computes the same function (a yardstick the port never
    calls); the bag also on uniform indices, whose rows are nearly all
-   distinct;
+   distinct, and weighted (weights U[0.5, 1.5), its library call
+   ``F.embedding_bag(per_sample_weights=...)``), all-ones weights bit for
+   bit the unweighted bag;
 3. serving: dlrm-small at full size (8 tables x 1,000,000 rows x 64, bf16-hi,
    pooling 50; random weights from a seeded ``torch.Generator``) published to
    a ``SnapshotRegistry`` and served by a ``ContinuousBatchingServer`` on
@@ -37,16 +39,26 @@ from the root of a checkout.  Phases, each of which fails the run:
    stage's time and the device's busy share (torch.profiler);
 7. sgd: 3 steps with the fp32 store (``sparse_optimizer="sgd"``), which runs
    the fp32 row-update kernel;
-8. stateful row kernels: the four fused row updates of the stateful
-   optimizers (momentum, Adagrad, row-wise Adagrad, frequency-adaptive), bit
-   for bit against their plain versions on the weights and on the state, at
+8. stateful row kernels: the six fused row updates of the stateful
+   optimizers (momentum, Adagrad, row-wise Adagrad, frequency-adaptive, and
+   momentum and Adagrad with a bf16 state rounded stochastically), bit for
+   bit against their plain versions on the weights and on the state, at
    dlrm-small's shapes on the zipf and the uniform stream, timed, with the
-   byte bound and the longest run's serial chain;
-9. row-wise Adagrad training: phase 6 again with
-   ``sparse_optimizer="adagrad_rowwise"`` (the fp32 table and one
-   accumulator a row) at lr 0.01;
-10. momentum, Adagrad, frequency-adaptive: 3 steps each, every loss finite
-    and the optimizer's row kernel launched once a step.
+   byte bound and the longest run's serial chain; the two bf16 kinds again
+   at a second seed, which must change the state and not the weights;
+9. weighted row kernels: all eight row updates bit for bit against their
+   plain versions on the zipf stream with weights U[0.5, 1.5), zero on one
+   table;
+10. row-wise Adagrad training: phase 6 again with
+    ``sparse_optimizer="adagrad_rowwise"`` (the fp32 table and one
+    accumulator a row) at lr 0.01;
+11. momentum, Adagrad, frequency-adaptive, bf16 Adagrad (lr 0.01): 3 steps
+    each, every loss finite and the optimizer's row kernel launched once a
+    step;
+12. weighted momentum_bf16 training: phase 6 again with
+    ``sparse_optimizer="momentum_bf16"`` and ``weighted=True`` (the fp32
+    table, the bf16 momentum, weights U[0.5, 1.5) in every batch), the
+    stochastic rounding's seed ``sr`` advancing by one a step on the card.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up; ``bound_ms`` from this run's bytes and operations over
@@ -97,7 +109,7 @@ N_TRAIN = 20  # staged zipf batches of the training phase
 # version): the loss within 1e-4 relative; the store and the dense weights
 # within 1e-2 of the step's largest update: the two sum the dense network
 # in other orders, so a bf16 cotangent may round to its neighbour (2^-8
-# relative) and the row sums carry that into the update (the Adagrad kinds'
+# relative) and the row sums carry that into the update (the stateful kinds'
 # store is not held to it: see training_phase)
 TRAIN_TOL = {"loss": 1e-4, "update": 1e-2}
 # the learning rate of the Adagrad kinds: a step moves each touched value by
@@ -108,12 +120,19 @@ ADAGRAD_LR = 0.01
 ROW_KERNEL = {"split_sgd": "embedding_update", "sgd": "embedding_update_fp32",
               "momentum": "embedding_update_momentum", "adagrad": "embedding_update_adagrad",
               "adagrad_rowwise": "embedding_update_adagrad_rowwise",
-              "adagrad_freq": "embedding_update_freq"}
+              "adagrad_freq": "embedding_update_freq",
+              "momentum_bf16": "embedding_update_momentum_bf16",
+              "adagrad_bf16": "embedding_update_adagrad_bf16"}
 # the stateful kernels: (optimizer, wrapper and plain-version name, hyperparameter)
 STATEFUL = (("momentum", "fused_update_momentum", "beta"),
             ("adagrad", "fused_update_adagrad", "eps"),
             ("adagrad_rowwise", "fused_update_adagrad_rowwise", "eps"),
-            ("adagrad_freq", "fused_update_freq", "eps"))
+            ("adagrad_freq", "fused_update_freq", "eps"),
+            ("momentum_bf16", "fused_update_momentum_bf16", "beta"),
+            ("adagrad_bf16", "fused_update_adagrad_bf16", "eps"))
+# the stochastic rounding's seeds of the bf16 kinds' checks: the first
+# near 2^31, the second negative (both wrap through uint32 in the hash)
+SR_SEEDS = (2 ** 31 - 7, -3)
 
 
 def log(*a):
@@ -246,6 +265,8 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             log(f"  embedding_bag, uniform indices: {u_unique} distinct rows, {u_bytes / 1e6:.1f} MB "
                 f"needed; kernel {e['uniform']['ms']:.4f} ms, F.embedding_bag "
                 f"{e['uniform']['library_ms']:.4f} ms, bound {u_bms:.4f} ms ({u_by})")
+            e["weighted"] = weighted_bag(W, gidx, rows, rng, unique, failures)
+            e["max_abs_err"] = max(e["max_abs_err"], e["weighted"]["max_abs_err"])
         emb = got.to(torch.bfloat16).float()
 
         # fused_mlp, layer by layer on the forward's own activations
@@ -315,6 +336,39 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                       else "bytes")
     del fm["flops"], fm["bytes"]
     return [entries[k] for k in ("embedding_bag", "dot_interaction", "fused_mlp")]
+
+
+def weighted_bag(W, gidx, rows, rng, unique, failures) -> dict:
+    """The weighted bag at the zipf indices ``gidx`` [B, S, P], weights
+    U[0.5, 1.5) from ``rng``: against its plain version, all-ones weights
+    bit for bit the unweighted kernel's output, timed against the plain
+    version and ``F.embedding_bag(per_sample_weights=...)`` (which wants
+    the weights in the table's dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    B, S, P = gidx.shape
+    E = W.shape[1]
+    wgt = torch.from_numpy(rng.uniform(0.5, 1.5, gidx.shape).astype(np.float32)).to(gidx.device)
+    err = close_or_fail(f"embedding_bag, weighted [{B},{S},{P}]", ops.embedding_bag(W, gidx, rows, wgt),
+                        ref.embedding_bag(W, gidx, rows, wgt), *KERNEL_TOL["embedding_bag"], failures)
+    bitwise_or_fail("embedding_bag, all-ones weights vs unweighted",
+                    ops.embedding_bag(W, gidx, rows, torch.ones_like(wgt)),
+                    ops.embedding_bag(W, gidx, rows), failures)
+    # the distinct rows, the indices and the weights read once, the sums written once
+    nbytes = unique * E * W.element_size() + gidx.numel() * 8 + B * S * E * 4
+    bms, by = bound_ms(nbytes, gidx.numel() * E * 2, FP32_FLOPS)
+    flat, wflat = gidx.view(B * S, P), wgt.view(B * S, P).to(W.dtype)
+    t = dict(max_abs_err=err, ms=time_ms(lambda: ops.embedding_bag(W, gidx, rows, wgt)),
+             plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows, wgt)),
+             library_ms=time_ms(lambda: F.embedding_bag(flat, W, mode="sum",
+                                                        per_sample_weights=wflat)),
+             bound_ms=bms, bound_by=by)
+    log(f"  embedding_bag, weighted: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"F.embedding_bag(per_sample_weights) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return t
 
 
 def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
@@ -546,13 +600,38 @@ def row_kernel_phase(cfg, state, offsets, batch, dev, rng, failures) -> list[dic
     return [entries["embedding_update"], entries["embedding_update_fp32"], e]
 
 
+def random_state(name, shape, dev, gen, stream):
+    """A random state slab of ``name``'s optimizer (the counts bumped by
+    ``stream`` first, as ``optim.row.apply_sparse`` does)."""
+    import torch
+    from repro_torch.optim import row as row_optim
+    dtype = row_optim.get(name).state[0][2]
+    if dtype == torch.int32:
+        S0 = torch.randint(0, 1000, shape, device=dev, dtype=dtype, generator=gen)
+        return row_optim.bump_counters(S0, stream[0], stream[2])
+    if name.startswith("momentum"):
+        return (torch.randn(shape, device=dev, generator=gen) * 1e-3).to(dtype)
+    return (torch.rand(shape, device=dev, generator=gen) * 1e-6).to(dtype)
+
+
+def seed_args(name, seed, dev) -> tuple:
+    """The seed argument of a compressed-state kernel, () for the others."""
+    import torch
+    from repro_torch.optim import row as row_optim
+    if not row_optim.get(name).stochastic_round:
+        return ()
+    return (torch.tensor(seed, dtype=torch.int32, device=dev),)
+
+
 def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[dict]:
-    """Rows 7, 8, 9 and 12: the stateful row kernels against their plain
-    versions, bit for bit on ``w`` and on the state, at dlrm-small's shapes
-    (the main path's first zipf batch and a uniform one, a bf16 cotangent
-    [B * S, E]) from a random state (the counts of ``adagrad_freq`` bumped
-    by this stream first, as ``optim.row.apply_sparse`` does).  Timed with
-    CUDA events; returns the kernel entries of the JSON line."""
+    """Rows 7-12: the stateful row kernels against their plain versions,
+    bit for bit on ``w`` and on the state, at dlrm-small's shapes (the main
+    path's first zipf batch and a uniform one, a bf16 cotangent [B * S, E])
+    from a random state (the counts of ``adagrad_freq`` bumped by this
+    stream first, as ``optim.row.apply_sparse`` does).  The bf16 kinds round
+    at ``SR_SEEDS[0]``, then again from the same state at ``SR_SEEDS[1]``:
+    the same weights, another stored state.  Timed with CUDA events; returns
+    the kernel entries of the JSON line."""
     import torch
     from repro_torch.kernels import embedding_update as eu
     from repro_torch.kernels import ops, ref
@@ -578,24 +657,18 @@ def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[
         for name, fn_name, hp_key in STATEFUL:
             opt = row_optim.get(name)
             key, width, dtype = opt.state[0]
-            shape = (rows, width or E)
-            if dtype == torch.int32:
-                S0 = torch.randint(0, 1000, shape, device=dev, dtype=dtype, generator=gen)
-                row_optim.bump_counters(S0, stream[0], stream[2])
-            elif name == "momentum":
-                S0 = torch.randn(shape, device=dev, generator=gen) * 1e-3
-            else:
-                S0 = torch.rand(shape, device=dev, generator=gen) * 1e-6
+            S0 = random_state(name, (rows, width or E), dev, gen, stream)
             hp = getattr(opt, hp_key)
+            sr = seed_args(name, SR_SEEDS[0], dev)
             want = (W32.clone(), S0.clone())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            getattr(ref, fn_name)(*want, *stream, dY, lr, hp)
+            getattr(ref, fn_name)(*want, *stream, dY, lr, hp, *sr)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
             got = (W32.clone(), S0.clone())
             kernel = getattr(ops, fn_name)
-            kernel(*got, *stream, dY, lr, hp)
+            kernel(*got, *stream, dY, lr, hp, *sr)
             torch.cuda.synchronize()
             kname = ROW_KERNEL[name]
             e = entries.setdefault(kname, {"name": kname, "max_abs_err": 0.0})
@@ -604,13 +677,30 @@ def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[
                                       failures)
                 e["max_abs_err"] = max(e["max_abs_err"], err)
             del want
+            if sr:  # the second seed, from the same state
+                sr2 = seed_args(name, SR_SEEDS[1], dev)
+                want2 = getattr(ref, fn_name)(W32.clone(), S0.clone(), *stream, dY, lr, hp, *sr2)
+                got2 = kernel(W32.clone(), S0.clone(), *stream, dY, lr, hp, *sr2)
+                torch.cuda.synchronize()
+                for k, g, w in (("w", got2[0], want2[0]), (key, got2[1], want2[1])):
+                    err = bitwise_or_fail(f"{kname} {tag}, seed {SR_SEEDS[1]}, {k}", g, w, failures)
+                    e["max_abs_err"] = max(e["max_abs_err"], err)
+                same_w = bool(torch.equal(got2[0], got[0]))
+                moved = int((got2[1].view(torch.int16) != got[1].view(torch.int16)).sum())
+                log(f"  {kname} {tag}: seed {SR_SEEDS[1]} vs {SR_SEEDS[0]}: weights equal {same_w}, "
+                    f"{moved} stored state values differ")
+                if not same_w or not moved:
+                    failures.append(f"{kname} {tag}: a second seed gave weights equal {same_w} and "
+                                    f"{moved} other state values")
+                del want2, got2
             # touched rows: w read and written (8 B a value); an [M, E] state
-            # as much again, the row-wise acc 8 B a row, cnt 4 B a row read;
-            # the cotangent and the sorted stream read once
-            state_bytes = {0: U * E * 8, 1: U * 8}[width] if dtype == torch.float32 else U * 4
+            # as much again (4 B a value in bf16), the row-wise acc 8 B a row,
+            # cnt 4 B a row read; the cotangent and the sorted stream read once
+            state_bytes = ({0: U * E * 2 * S0.element_size(), 1: U * 8}[width]
+                           if dtype != torch.int32 else U * 4)
             nbytes = dY.numel() * 2 + L * 16 + U * E * 8 + state_bytes
             bms, by = bound_ms(nbytes, L * E * 2 + U * E * 6, FP32_FLOPS)
-            t = dict(ms=time_ms(lambda: kernel(*got, *stream, dY, lr, hp)), plain_ms=plain_ms,
+            t = dict(ms=time_ms(lambda: kernel(*got, *stream, dY, lr, hp, *sr)), plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, chain_ms=chain_ms, longest=longest, runs=U,
                      library_ms=None)  # no PyTorch call computes a row optimizer's fused step
             del got, S0
@@ -624,15 +714,77 @@ def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[
     return [entries[ROW_KERNEL[name]] for name, _, _ in STATEFUL]
 
 
+def weighted_row_phase(cfg, state, offsets, batch, dev, rng, failures) -> dict:
+    """Rows 5-12 on the main path's first zipf batch with weights
+    U[0.5, 1.5) from ``rng``, zero on the last table's lookups, bit for bit
+    against their plain versions on the weights and the state, and timed
+    (weights that differ inside a bag split the groups of equal bag and
+    weight that the walk sums with one load and one product).  Returns the
+    largest difference seen per kernel (0.0 when bitwise)."""
+    import torch
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import row as row_optim
+
+    B, S, P, E = cfg.batch, len(cfg.table_rows), cfg.pooling, cfg.emb_dim
+    W32 = master(state["emb"])
+    rows = W32.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dY = (torch.randn((B * S, E), device=dev, generator=gen) * 1e-3).to(torch.bfloat16)
+    w = rng.uniform(0.5, 1.5, batch["idx"].shape).astype(np.float32)
+    w[:, -1, :] = 0.0
+    wgt = torch.from_numpy(w).to(dev)
+    stream = eu.sort_lookups((batch["idx"] + offsets[None, :, None]).reshape(-1), None, rows, P,
+                             wgt.reshape(-1))
+    def groups(st):  # runs of equal (row, bag, weight) in the sorted stream
+        r, b, _, w = st
+        return 1 + int(((r[1:] != r[:-1]) | (b[1:] != b[:-1]) | (w[1:] != w[:-1])).sum())
+
+    plain_stream = eu.sort_lookups((batch["idx"] + offsets[None, :, None]).reshape(-1), None, rows, P)
+    log(f"weighted row updates, zipf indices: {int(torch.unique(stream[3]).numel())} distinct "
+        f"weights; {stream[0].numel()} lookups in {groups(stream)} groups of equal (row, bag, "
+        f"weight), {groups(plain_stream)} unweighted")
+    errs = {}
+    for name in ROW_KERNEL:
+        opt = row_optim.get(name)
+        if opt.split:
+            store = (state["emb"]["hi"], state["emb"]["lo"])
+            fn_name, extra = "fused_update_split", ()
+        elif not opt.state:
+            store, fn_name, extra = (W32,), "fused_update_fp32", ()
+        else:
+            _, width, _ = opt.state[0]
+            store = (W32, random_state(name, (rows, width or E), dev, gen, stream))
+            _, fn_name, hp_key = next(k for k in STATEFUL if k[0] == name)
+            extra = (getattr(opt, hp_key), *seed_args(name, SR_SEEDS[0], dev))
+        want = [t.clone() for t in store]
+        getattr(ref, fn_name)(*want, *stream, dY, cfg.lr, *extra)
+        got = [t.clone() for t in store]
+        getattr(ops, fn_name)(*got, *stream, dY, cfg.lr, *extra)
+        torch.cuda.synchronize()
+        errs[ROW_KERNEL[name]] = max(
+            bitwise_or_fail(f"{ROW_KERNEL[name]} weighted zipf, slab {i}", g, w_, failures)
+            for i, (g, w_) in enumerate(zip(got, want)))
+        ms = time_ms(lambda: getattr(ops, fn_name)(*got, *stream, dY, cfg.lr, *extra))
+        log(f"  {ROW_KERNEL[name]} weighted zipf: kernel {ms:.4f} ms")
+        del want, got, store
+    return errs
+
+
 def stage_batches(cfg, n: int, dev) -> list[dict]:
-    """n zipf(1.05) batches from the port's synthetic stream, on the card."""
+    """n zipf(1.05) batches from the port's synthetic stream, on the card;
+    with ``cfg.weighted``, weights U[0.5, 1.5) from a numpy generator."""
     import torch
     from repro_torch.data.synthetic import dlrm_stream
+    rng = np.random.default_rng(SEED + 4)
     out = []
     for b, _ in zip(dlrm_stream(SEED, cfg, ALPHA), range(n)):
         out.append({"idx": torch.from_numpy(b["idx"]).to(dev),
                     "dense_x": torch.from_numpy(b["dense_x"]).to(dev).to(torch.bfloat16),
                     "labels": torch.from_numpy(b["labels"]).to(dev)})
+        if cfg.weighted:
+            w = rng.uniform(0.5, 1.5, b["idx"].shape).astype(np.float32)
+            out[-1]["weights"] = torch.from_numpy(w).to(dev)
     return out
 
 
@@ -643,6 +795,8 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     step against the same step on the CPU (every kernel's plain version)
     and its sparse update bit for bit against the plain update of the
     card's own cotangent, samples per second, and where a step's time goes.
+    The timed steps run under ``set_sync_debug_mode("error")``; a state
+    with ``sr`` must come out of them with ``sr`` advanced by one a step.
     Returns the launch counts of the timed steps."""
     import torch
     from torch.autograd import DeviceType
@@ -666,12 +820,16 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     ref_state, ref_loss = cpu_step(ref_state, {k: v.cpu() for k, v in b0.items()})
     cpu_s = time.perf_counter() - t0
     st = step.stages
+    sr = state.get("sr")
     idx_fwd, idx_upd = st.index_exchange(b0["idx"])
-    emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd)
+    wgt_fwd, wgt_upd = st.index_exchange(b0["weights"]) if cfg.weighted else (None, None)
+    emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd, wgt_fwd)
     loss, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b0)
     dY = st.dY_exchange(d_emb)
-    state["emb"] = st.sparse_update(state["emb"], idx_upd, dY)
+    state["emb"] = st.sparse_update(state["emb"], idx_upd, dY, wgt_upd, sr)
     state["dense"] = st.dense_update(state["dense"], g_dense)
+    if sr is not None:
+        sr.add_(1)
     torch.cuda.synchronize()
     log(f"one step against the plain versions on the CPU ({cpu_s:.1f} s there): loss {float(loss):.7f} "
         f"vs {float(ref_loss):.7f}")
@@ -680,22 +838,27 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     # the sparse update against its plain version on the card's own cotangent
     layout = se.make_layout(cfg.spec, 1)
     g = (idx_upd.cpu() + torch.as_tensor(layout.row_offsets, dtype=torch.int32)[None, :, None])
-    plain = row_optim.apply_sparse(opt, {k: v.clone() for k, v in before["emb"].items()},
-                                   se._row_sorted_streams(layout, g.reshape(-1), cfg.pooling),
-                                   dY.reshape(-1, cfg.emb_dim).cpu(), cfg.lr)
+    plain = row_optim.apply_sparse(
+        opt, {k: v.clone() for k, v in before["emb"].items()},
+        se._row_sorted_streams(layout, g.reshape(-1), cfg.pooling,
+                               b0["weights"].reshape(-1).cpu() if cfg.weighted else None),
+        dY.reshape(-1, cfg.emb_dim).cpu(), cfg.lr, seed=before.get("sr"))
     for k, v in plain.items():
         bitwise_or_fail(f"train step, {k} vs the plain update of the card's cotangent",
                         state["emb"][k].cpu(), v, failures)
     parts = [("dense weights", dense_master(state["dense"]).cpu(), dense_master(ref_state["dense"]),
               dense_master(before["dense"]))]
     got_w, want_w, old_w = master(state["emb"]).cpu(), master(ref_state["emb"]), master(before["emb"])
-    if "acc" in opt.state_keys:
-        # Adagrad scales each row's step by 1 / sqrt(acc): a row whose few
-        # cotangents the card and the CPU compute apart, relative to the
-        # row's own size (the dense network's sums in other orders, with bf16
-        # between its layers), takes a full step in another direction.  So
-        # the store is compared and not held; the cotangent's path is held by
-        # the loss and the dense weights, the update by the bitwise check.
+    if opt.state_keys:
+        # The stateful kinds' stores are compared and not held.  Adagrad
+        # scales each row's step by 1 / sqrt(acc): a row whose few cotangents
+        # the card and the CPU compute apart, relative to the row's own size
+        # (the dense network's sums in other orders, with bf16 between its
+        # layers), takes a full step in another direction.  The weighted
+        # momentum cell's hot rows sum some 200 K such cotangents, each
+        # scaled by its weight, and a few values end up past 1e-2 of the
+        # largest update.  The cotangent's path is held by the loss and the
+        # dense weights, the update by the bitwise check.
         d, upd = (got_w - want_w).abs(), float((want_w - old_w).abs().max())
         log(f"  train step, embedding store vs plain step (not held, above): max_abs_err "
             f"{float(d.max()):.3e}, largest update {upd:.3e}, "
@@ -720,13 +883,21 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     torch.cuda.synchronize()
     log("one train step under torch.cuda.set_sync_debug_mode('error'): no host sync")
 
+    sr0 = state["sr"].clone() if "sr" in state else None
     ops.reset_launches()
     losses = []
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in batches:
-        state, loss = step(state, b)
-        losses.append(loss)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(loss)
+    except RuntimeError as e:
+        failures.append(f"a timed train step synchronised with the host: {e}")
+        return ops.launches()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launches()
@@ -743,6 +914,11 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
             ROW_KERNEL[opt.name]: n, "split_sgd": n}
     if counts != want:
         failures.append(f"launches {counts}, want {want} (one a step, fused_mlp none)")
+    if sr0 is not None:
+        sr_from, sr_to = int(sr0), int(state["sr"])
+        log(f"sr: {sr_from} -> {sr_to} over {n} steps under set_sync_debug_mode('error')")
+        if sr_to - sr_from != n:
+            failures.append(f"sr advanced from {sr_from} to {sr_to} in {n} steps")
 
     # where a step's time goes: the stages one by one between CUDA events
     offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
@@ -753,14 +929,17 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         g = (b["idx"] + offsets[None, :, None]).reshape(-1)
-        stream = se._row_sorted_streams(layout, g, cfg.pooling)
+        wgt = b.get("weights")
+        stream = se._row_sorted_streams(layout, g, cfg.pooling,
+                                        None if wgt is None else wgt.reshape(-1))
         ev[1].record()
-        emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), b["idx"])
+        emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), b["idx"], wgt)
         ev[2].record()
         _, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b)
         dY = st.dY_exchange(d_emb)
         ev[3].record()
-        row_optim.apply_sparse(opt, state["emb"], stream, dY.reshape(-1, cfg.emb_dim), cfg.lr)
+        row_optim.apply_sparse(opt, state["emb"], stream, dY.reshape(-1, cfg.emb_dim), cfg.lr,
+                               seed=state.get("sr"))
         ev[4].record()
         state["dense"] = st.dense_update(state["dense"], g_dense)
         ev[5].record()
@@ -889,6 +1068,11 @@ def main() -> int:
                                      failures)
     if failures:
         raise SystemExit("stateful row kernel phase failed:\n" + "\n".join(failures))
+    weighted_errs = weighted_row_phase(t_cfg, state, offsets, batches[0], dev, rng, failures)
+    if failures:
+        raise SystemExit("weighted row kernel phase failed:\n" + "\n".join(failures))
+    for k in kernels:  # rows 5-12 on a weighted stream: their largest error too
+        k["max_abs_err"] = max(k["max_abs_err"], weighted_errs.get(k["name"], 0.0))
     torch.cuda.empty_cache()
     train_counts = training_phase(t_cfg, state, batches, dev, failures)
     if failures:
@@ -897,9 +1081,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update(embedding_update=train_counts["embedding_update"],
                   split_sgd=train_counts["split_sgd"])
-    for name in ("sgd", "momentum", "adagrad", "adagrad_freq"):
+    for name in ("sgd", "momentum", "adagrad", "adagrad_freq", "adagrad_bf16"):
         c = short_phase(dataclasses.replace(t_cfg, sparse_optimizer=name,
-                                            lr=ADAGRAD_LR if name == "adagrad" else t_cfg.lr),
+                                            lr=ADAGRAD_LR if name in ("adagrad", "adagrad_bf16")
+                                            else t_cfg.lr),
                         dev, batches[:3], failures)
         if failures:
             raise SystemExit(f"{name} phase failed:\n" + "\n".join(failures))
@@ -917,6 +1102,21 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     counts[ROW_KERNEL["adagrad_rowwise"]] = r_counts[ROW_KERNEL["adagrad_rowwise"]]
+
+    # the compressed momentum with weighted bags: the fp32 table, the bf16
+    # momentum, a weight on every lookup, the seed counter on the card
+    m_cfg = dataclasses.replace(t_cfg, sparse_optimizer="momentum_bf16", weighted=True)
+    state = dlrm.init_state(m_cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    log("momentum_bf16 train state: " + ", ".join(
+        f"{k} {tuple(v.shape)} {v.dtype} {v.numel() * v.element_size() / 1e9:.3f} GB"
+        for k, v in state["emb"].items()) + f", sr {int(state['sr'])}")
+    del batches
+    m_counts = training_phase(m_cfg, state, stage_batches(m_cfg, N_TRAIN, dev), dev, failures)
+    if failures:
+        raise SystemExit("weighted momentum_bf16 training phase failed:\n" + "\n".join(failures))
+    del state
+    torch.cuda.empty_cache()
+    counts[ROW_KERNEL["momentum_bf16"]] = m_counts[ROW_KERNEL["momentum_bf16"]]
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
@@ -937,11 +1137,17 @@ def main() -> int:
               "embedding_update_adagrad_rowwise": ("src/repro_torch/csrc/embedding_update.cu",
                                                    "src/repro/kernels/embedding_update.py:190"),
               "embedding_update_freq": ("src/repro_torch/csrc/embedding_update.cu",
-                                        "src/repro/kernels/embedding_update.py:219")}
+                                        "src/repro/kernels/embedding_update.py:219"),
+              "embedding_update_momentum_bf16": ("src/repro_torch/csrc/embedding_update.cu",
+                                                 "src/repro/kernels/embedding_update.py:243"),
+              "embedding_update_adagrad_bf16": ("src/repro_torch/csrc/embedding_update.cu",
+                                                "src/repro/kernels/embedding_update.py:268")}
     line = []
-    u = kernels[0]["uniform"]
-    log(f"embedding_bag, uniform indices: kernel {u['ms']:.4f} ms, library {u['library_ms']:.4f} ms, "
-        f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% of bound")
+    for tag in ("uniform", "weighted"):
+        u = kernels[0][tag]
+        log(f"embedding_bag, {tag}: kernel {u['ms']:.4f} ms, library {u['library_ms']:.4f} ms, "
+            f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "
+            "of bound")
     for k in kernels[3:5] + kernels[6:]:
         u = k["uniform"]
         log(f"{k['name']}, uniform indices: kernel {u['ms']:.4f} ms, plain {u['plain_ms']:.1f} ms, "

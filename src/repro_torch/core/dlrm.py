@@ -36,13 +36,19 @@ class DLRMConfig:
     batch: int = 2048
     emb_mode: str = "row"           # the port has 'row' only
     # 'split_sgd' (default) | 'sgd' | 'momentum' | 'adagrad' | 'adagrad_rowwise'
-    # | 'adagrad_freq'; opt_beta / opt_eps override the optimizer's defaults
+    # | 'adagrad_freq' | 'momentum_bf16' | 'adagrad_bf16'; opt_beta / opt_eps
+    # override the optimizer's defaults
     sparse_optimizer: Optional[str] = None
     opt_beta: Optional[float] = None
     opt_eps: Optional[float] = None
     mlp_impl: str = "xla"           # 'xla' | 'pallas' (the fused_mlp kernel)
     lr: float = 0.1                 # SGD step of the dense and the embedding update
     microbatches: int = 1           # the port trains with 1
+    # weighted bags: the batch carries 'weights' [B, S, P] fp32 in idx's layout
+    weighted: bool = False
+    # the first per-step seed of the stochastic rounding (the train state's
+    # 'sr', present when the optimizer rounds its state stochastically)
+    sr_seed: int = 0
 
     @property
     def spec(self) -> EmbeddingSpec:

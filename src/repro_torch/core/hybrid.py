@@ -11,8 +11,11 @@ The state is the reference's pytree:
 ``lo`` holds the bits of the reference's uint16 slabs as int16, since
 PyTorch has no arithmetic on uint16.  The state slabs are the optimizer's
 (``optim.row.RowOptimizer.state``): ``mom`` or ``acc`` [rows, E] fp32,
-``acc`` [rows, 1] fp32 (row-wise Adagrad) or ``cnt`` [rows, 1] int32, zero
-at the start.  The dense ``hi`` leaves are views
+``acc`` [rows, 1] fp32 (row-wise Adagrad), ``cnt`` [rows, 1] int32, or
+``mom`` / ``acc`` [rows, E] bf16 (the compressed-state kinds), zero at the
+start.  An optimizer that rounds its state stochastically adds ``"sr"``, the
+per-step seed: a 0-d int32 tensor, ``cfg.sr_seed`` at the start, one more
+after each step.  The dense ``hi`` leaves are views
 into one flat bf16 buffer (``optim.data_parallel.pack_hi``), which the
 dense update steps in place.
 """
@@ -41,8 +44,11 @@ def state_struct(cfg) -> dict:
         hi[part] = {"w": [((i, o), torch.bfloat16) for i, o in pairs],
                     "b": [((o,), torch.bfloat16) for _, o in pairs]}
         n += sum(i * o + o for i, o in pairs)
-    return {"emb": emb, "dense": {"hi": hi, "lo": ((dp.padded_size(n, 1, NUM_BUCKETS),), torch.int16),
-                                  "err": None}}
+    out = {"emb": emb, "dense": {"hi": hi, "lo": ((dp.padded_size(n, 1, NUM_BUCKETS),), torch.int16),
+                                 "err": None}}
+    if row_optim.resolve(cfg).stochastic_round:
+        out["sr"] = ((), torch.int32)
+    return out
 
 
 def init_state(cfg, generator: torch.Generator, device="cuda") -> dict:
@@ -58,7 +64,11 @@ def init_state(cfg, generator: torch.Generator, device="cuda") -> dict:
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
     a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
     W = torch.empty((rows, cfg.emb_dim), device=dev).uniform_(-a, a, generator=generator)
-    emb = row_optim.init_store(row_optim.resolve(cfg), W)
+    opt = row_optim.resolve(cfg)
+    emb = row_optim.init_store(opt, W)
     del W
     dense = dp.dp_global_arrays(init_dense_params(cfg, generator, dev), 1, NUM_BUCKETS)
-    return {"emb": emb, "dense": dense}
+    state = {"emb": emb, "dense": dense}
+    if opt.stochastic_round:
+        state["sr"] = torch.tensor(cfg.sr_seed, dtype=torch.int32, device=dev)
+    return state

@@ -5,8 +5,9 @@ Row mode on ONE shard: the shard owns the whole unified row space, so the
 reference's reduce-scatter over the model axes and its all-gather of the
 cotangent are the identity.  What the reference does on its wires still
 happens here: the partial bag and the cotangent are both rounded to bf16,
-so the port trains and scores what the reference does.  Table mode,
-weighted bags and more than one shard come with the distributed slice.
+so the port trains and scores what the reference does.  Bags may be
+weighted (one fp32 weight a lookup, in idx's layout).  Table mode and more
+than one shard come with the distributed slice.
 """
 
 from __future__ import annotations
@@ -51,13 +52,14 @@ def make_layout(spec: EmbeddingSpec, num_shards: int, mode: str = "row",
 
 
 def row_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
-                        idx: torch.Tensor,
-                        row_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        idx: torch.Tensor, row_offsets: Optional[torch.Tensor] = None,
+                        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row-mode forward of a one-shard layout.
 
     ``idx`` [B, S, P] int32 table-local ids; ``row_offsets`` the layout's
     offsets as an int32 tensor on ``idx``'s device (built from the layout
-    when not given).  Returns ``[B, S, E]`` fp32 bag sums through the
+    when not given); ``weights`` [B, S, P] fp32 per-lookup bag weights or
+    None.  Returns ``[B, S, E]`` fp32 bag sums through the
     embedding_bag kernel (whose plain version is the reference's
     ``_partial_bag_masked``), rounded through bf16 as the reference's
     reduce-scatter wire is."""
@@ -66,7 +68,7 @@ def row_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
     if row_offsets is None:
         row_offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=idx.device)
     gidx = idx + row_offsets[None, :, None]  # the shard starts at row 0
-    part = ops.embedding_bag(W_local, gidx, layout.rows_per_shard)
+    part = ops.embedding_bag(W_local, gidx, layout.rows_per_shard, weights)
     return part.to(torch.bfloat16).float()
 
 
@@ -81,31 +83,38 @@ def gather_dY(layout: ShardedEmbeddingLayout, dY_mp: torch.Tensor) -> torch.Tens
 
 
 def _row_sorted_streams(layout: ShardedEmbeddingLayout, g_flat: torch.Tensor,
-                        pooling: int) -> tuple[torch.Tensor, ...]:
+                        pooling: int, weights_flat: Optional[torch.Tensor] = None
+                        ) -> tuple[torch.Tensor, ...]:
     """The sorted stream of the row-mode update from the GLOBAL row ids
     ``g_flat`` [L]: one stable sort of the keys (ids outside the row space
-    keyed past its end).  The reference then localises the stream into a
-    shard's window; at one shard the window starts at 0 and is the whole
-    space, so this is :func:`sort_lookups` over it."""
+    keyed past its end), the weights ``weights_flat`` [L] (None: all 1)
+    gathered in the sorted order.  The reference then localises the stream
+    into a shard's window; at one shard the window starts at 0 and is the
+    whole space, so this is :func:`sort_lookups` over it."""
     if layout.num_shards != 1:
         raise NotImplementedError("more than one shard needs the distributed slice")
-    return sort_lookups(g_flat, None, layout.total_rows, pooling)
+    return sort_lookups(g_flat, None, layout.total_rows, pooling, weights_flat)
 
 
 def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer,
                  idx_local: torch.Tensor, dY: torch.Tensor, lr: float,
-                 row_offsets: Optional[torch.Tensor] = None) -> dict:
+                 row_offsets: Optional[torch.Tensor] = None,
+                 weights: Optional[torch.Tensor] = None, seed=None) -> dict:
     """The sparse update of the train step, row mode, one shard, in place on
     ``store``: ``idx_local`` [B, S, P] table-local ids, ``dY`` [B, S, E] the
-    bag cotangents from :func:`gather_dY`.  Lookups outside the row space
-    add nothing.  ``optimizer``: a ``RowOptimizer`` of ``optim.row`` or its
-    name.  The stream is sorted once on the device and handed to the
-    optimizer's fused row kernel (``optim.row.apply_sparse``), as the
-    reference's fused path does; the kernel never builds the [B, S, P, E]
-    gradient."""
+    bag cotangents from :func:`gather_dY`, ``weights`` [B, S, P] the bag
+    weights (each lookup's cotangent scaled by its own) or None.  Lookups
+    outside the row space add nothing.  ``optimizer``: a ``RowOptimizer`` of
+    ``optim.row`` or its name; ``seed`` the stochastic rounding's per-step
+    seed, for the optimizers that round their state so.  The stream is
+    sorted once on the device and handed to the optimizer's fused row kernel
+    (``optim.row.apply_sparse``), as the reference's fused path does; the
+    kernel never builds the [B, S, P, E] gradient."""
     if row_offsets is None:
         row_offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32,
                                       device=idx_local.device)
     g = idx_local + row_offsets[None, :, None]
-    streams = _row_sorted_streams(layout, g.reshape(-1), idx_local.shape[-1])
-    return row_optim.apply_sparse(optimizer, store, streams, dY.reshape(-1, dY.shape[-1]), lr)
+    streams = _row_sorted_streams(layout, g.reshape(-1), idx_local.shape[-1],
+                                  None if weights is None else weights.reshape(-1))
+    return row_optim.apply_sparse(optimizer, store, streams, dY.reshape(-1, dY.shape[-1]), lr,
+                                  seed=seed)

@@ -3,7 +3,8 @@
 // the row's optimizer on that row only, in place.  The stores: the split pair
 // hi (bf16 bits) / lo (low 16 bits) or an fp32 W, stepped w = fmaf(-lr, acc, w);
 // or an fp32 W with one state slab S (momentum, Adagrad, row-wise Adagrad,
-// the frequency-adaptive step).  The design note is in
+// the frequency-adaptive step, and momentum and Adagrad with a bf16 S written
+// back with the seeded stochastic rounding).  The design note is in
 // repro_torch/kernels/embedding_update.py.
 #include <cuda_runtime.h>
 
@@ -269,8 +270,34 @@ __device__ __forceinline__ bool sum_run(int64_t s, int32_t row, const int32_t* _
 // product, quotient, root and sum on its own.  No fast math.  Momentum's new
 // m is the run's lookups added in order onto beta*m (rounded once), not
 // beta*m + acc: jitted XLA folds beta*m + segment_sum into a scatter-add
-// that starts from beta*m.
-enum class Op { kMomentum, kAdagrad, kRowwise, kFreq };
+// that starts from beta*m.  The bf16 kinds decode their state exactly, step in
+// fp32 as above, and round only what they store.
+enum class Op { kMomentum, kAdagrad, kRowwise, kFreq, kMomentumBf16, kAdagradBf16 };
+
+// The stochastic rounding of repro_torch/optim/stochastic.py: lowbias32 in
+// uint32 arithmetic (wrapping, as the reference's), keyed on the seed, the
+// row and the column of each value.
+constexpr uint32_t kMix1 = 0x7FEB352Du, kMix2 = 0x846CA68Bu;
+constexpr uint32_t kGold = 0x9E3779B1u, kRowC = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * kMix1;
+  x = (x ^ (x >> 15)) * kMix2;
+  return x ^ (x >> 16);
+}
+
+// The hash of a row under the seed: mix32((seed * GOLD) ^ (row * ROWC)).
+__device__ __forceinline__ uint32_t row_hash(const int32_t* seed, int32_t row) {
+  return mix32(static_cast<uint32_t>(__ldg(seed)) * kGold ^ static_cast<uint32_t>(row) * kRowC);
+}
+
+// The bf16 bits of v rounded with the dither of column c of the row whose
+// hash is base: the low 16 bits of the noise added to v's bits (the carry may
+// run into the exponent), the upper half kept.
+__device__ __forceinline__ uint32_t sr_bf16(float v, uint32_t base, int c) {
+  const uint32_t noise = mix32(base ^ (static_cast<uint32_t>(c) * kGold + 1u));
+  return (__float_as_uint(v) + (noise & 0xffffu)) >> 16;
+}
 
 // Adagrad's weight step: w - (lr * acc) / d, unfused.
 __device__ __forceinline__ float scaled_step(float w, float a, float lr, float d) {
@@ -278,12 +305,15 @@ __device__ __forceinline__ float scaled_step(float w, float a, float lr, float d
 }
 
 // The store of a stateful kind: W and the state slab S, [M, E] fp32 (mom,
-// acc), [M] fp32 (the row-wise acc) or [M] int32 (cnt).  hp is beta
-// (momentum) or eps (the Adagrad kinds).
+// acc), [M, E] bf16 (the compressed mom, acc), [M] fp32 (the row-wise acc) or
+// [M] int32 (cnt).  hp is beta (momentum) or eps (the Adagrad kinds).  seed
+// points at the stochastic rounding's int32 seed on the device (the bf16
+// kinds; read there, so the host never waits for it).
 struct Store {
   float* W;
   void* S;
   float lr, hp;
+  const int32_t* seed;
 };
 
 // Row-wise Adagrad needs the whole row's sum of acc^2 before it writes any
@@ -334,7 +364,9 @@ __device__ void update_rowwise(int64_t s, int32_t row, const int32_t* __restrict
 
 // One warp walks the run that starts at s to its end, 64 columns at a time,
 // and steps its row as the kind does.  A stateful kind writes nothing for a
-// dead run: beta * m is no no-op, nor is a rewrite of the accumulator.
+// dead run: beta * m is no no-op, nor is a rewrite of the accumulator.  What
+// only the step needs (the count's denominator, the row's hash) is computed
+// after the walk: a value held live across it slowed the walk of a long run.
 template <Op kOp>
 __device__ void update_run_state(int64_t s, int32_t row, const int32_t* __restrict__ rows,
                                  const int32_t* __restrict__ bags, const int32_t* __restrict__ msk,
@@ -343,15 +375,11 @@ __device__ void update_run_state(int64_t s, int32_t row, const int32_t* __restri
   if constexpr (kOp == Op::kRowwise) {
     update_rowwise(s, row, rows, bags, msk, wgt, dY, st, L, E);
   } else {
+    constexpr bool kBf16 = kOp == Op::kMomentumBf16 || kOp == Op::kAdagradBf16;
+    constexpr bool kMom = kOp == Op::kMomentum || kOp == Op::kMomentumBf16;
     constexpr bool kState = kOp != Op::kFreq;  // an [M, E] slab
     const int lane = threadIdx.x & 31;
     const float lr = st.lr;
-    // the frequency-adaptive denominator: one count a row, already bumped
-    const float d_freq =
-        kOp == Op::kFreq
-            ? __fadd_rn(__fsqrt_rn(fmaxf(__int2float_rn(static_cast<const int32_t*>(st.S)[row]), 1.f)),
-                        st.hp)
-            : 0.f;
     for (int cb = 0; cb < E; cb += 64) {
       const int c = cb + 2 * lane;
       const bool active = c < E;
@@ -359,24 +387,43 @@ __device__ void update_run_state(int64_t s, int32_t row, const int32_t* __restri
       float2 w = make_float2(0.f, 0.f), m = make_float2(0.f, 0.f);
       if (active) {  // the old row and its state, loaded while the sums run
         w = *reinterpret_cast<const float2*>(st.W + off);
-        if (kState) m = *reinterpret_cast<const float2*>(static_cast<const float*>(st.S) + off);
+        if (kBf16) {  // two bf16 values, decoded exactly
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(st.S) + off);
+          m = make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+        } else if (kState) {
+          m = *reinterpret_cast<const float2*>(static_cast<const float*>(st.S) + off);
+        }
       }
       // the sums start from +0; momentum's from beta*m
-      float a0 = kOp == Op::kMomentum ? __fmul_rn(st.hp, m.x) : 0.f;
-      float a1 = kOp == Op::kMomentum ? __fmul_rn(st.hp, m.y) : 0.f;
+      float a0 = kMom ? __fmul_rn(st.hp, m.x) : 0.f;
+      float a1 = kMom ? __fmul_rn(st.hp, m.y) : 0.f;
       const bool live = sum_run<true>(s, row, rows, bags, msk, wgt, dY, L, E, c, active, a0, a1);
       if (!active || !live) continue;
-      if constexpr (kOp == Op::kMomentum) {  // m = beta*m + the run's lookups; w = w - lr*m
-        *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = make_float2(a0, a1);
+      if constexpr (kMom) {  // m = beta*m + the run's lookups; w = w - lr*m
+        if constexpr (kBf16) {
+          const uint32_t base = row_hash(st.seed, row);
+          *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.S) + off) =
+              sr_bf16(a0, base, c) | (sr_bf16(a1, base, c + 1) << 16);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = make_float2(a0, a1);
+        }
         *reinterpret_cast<float2*>(st.W + off) =
             make_float2(__fmaf_rn(-lr, a0, w.x), __fmaf_rn(-lr, a1, w.y));
-      } else if constexpr (kOp == Op::kAdagrad) {  // s = s + acc*acc; w = w - lr*acc/(sqrt(s)+eps)
+      } else if constexpr (kState) {  // s = s + acc*acc; w = w - lr*acc/(sqrt(s)+eps)
         m = make_float2(__fmaf_rn(a0, a0, m.x), __fmaf_rn(a1, a1, m.y));
-        *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = m;
+        if constexpr (kBf16) {  // the step below reads the unrounded s
+          const uint32_t base = row_hash(st.seed, row);
+          *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.S) + off) =
+              sr_bf16(m.x, base, c) | (sr_bf16(m.y, base, c + 1) << 16);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = m;
+        }
         *reinterpret_cast<float2*>(st.W + off) =
             make_float2(scaled_step(w.x, a0, lr, __fadd_rn(__fsqrt_rn(m.x), st.hp)),
                         scaled_step(w.y, a1, lr, __fadd_rn(__fsqrt_rn(m.y), st.hp)));
-      } else {  // kFreq: w = w - lr*acc/(sqrt(max(cnt, 1))+eps)
+      } else {  // kFreq: w = w - lr*acc/(sqrt(max(cnt, 1))+eps), the count already bumped
+        const float d_freq = __fadd_rn(
+            __fsqrt_rn(fmaxf(__int2float_rn(static_cast<const int32_t*>(st.S)[row]), 1.f)), st.hp);
         *reinterpret_cast<float2*>(st.W + off) =
             make_float2(scaled_step(w.x, a0, lr, d_freq), scaled_step(w.y, a1, lr, d_freq));
       }
@@ -444,11 +491,26 @@ extern "C" int embedding_update_fp32(const void* rows, const void* bags, const v
   extern "C" int name(const void* rows, const void* bags, const void* msk, const void* wgt,   \
                       const void* dY, void* W, void* S, int64_t L, int E, float lr, float hp, \
                       void* stream) {                                                          \
-    return launch_state<op>(rows, bags, msk, wgt, dY, Store{static_cast<float*>(W), S, lr, hp}, \
-                            L, E, stream);                                                     \
+    return launch_state<op>(rows, bags, msk, wgt, dY,                                          \
+                            Store{static_cast<float*>(W), S, lr, hp, nullptr}, L, E, stream);  \
   }
 
 STATEFUL_LAUNCHER(embedding_update_momentum, Op::kMomentum)
 STATEFUL_LAUNCHER(embedding_update_adagrad, Op::kAdagrad)
 STATEFUL_LAUNCHER(embedding_update_adagrad_rowwise, Op::kRowwise)
 STATEFUL_LAUNCHER(embedding_update_freq, Op::kFreq)
+
+// The compressed-state kinds: S is mom or acc [M, E] bf16; seed points at the
+// int32 seed of the stochastic rounding on the device.
+#define STATEFUL_SR_LAUNCHER(name, op)                                                         \
+  extern "C" int name(const void* rows, const void* bags, const void* msk, const void* wgt,   \
+                      const void* dY, void* W, void* S, const void* seed, int64_t L, int E,   \
+                      float lr, float hp, void* stream) {                                      \
+    return launch_state<op>(                                                                   \
+        rows, bags, msk, wgt, dY,                                                              \
+        Store{static_cast<float*>(W), S, lr, hp, static_cast<const int32_t*>(seed)}, L, E,    \
+        stream);                                                                               \
+  }
+
+STATEFUL_SR_LAUNCHER(embedding_update_momentum_bf16, Op::kMomentumBf16)
+STATEFUL_SR_LAUNCHER(embedding_update_adagrad_bf16, Op::kAdagradBf16)

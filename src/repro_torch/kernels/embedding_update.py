@@ -2,7 +2,7 @@
 (``csrc/embedding_update.cu``).
 
 Replaces the TPU kernels of ``repro/kernels/embedding_update.py``, in one
-source: the first two templated on the store, the other four on the
+source: the first two templated on the store, the other six on the
 optimizer's step:
 
 - ``_kernel_split`` (via ``fused_update_split_pallas``; the paper's Alg. 3 +
@@ -19,7 +19,17 @@ optimizer's step:
   accumulator a row, ``s += sum_e acc^2 / E``, then the Adagrad step;
 - ``_kernel_freq`` (via ``fused_update_freq_pallas``): ``w = w - (lr * acc) /
   (sqrt(max(cnt, 1)) + eps)``, reading the row's touch count, which the
-  caller has bumped.
+  caller has bumped;
+- ``_kernel_momentum_bf16`` and ``_kernel_adagrad_bf16`` (via
+  ``fused_update_momentum_bf16_pallas`` and ``..._adagrad_bf16_pallas``):
+  momentum and Adagrad with the state slab stored as bf16.  The state is
+  decoded exactly, the step runs in fp32 as above (Adagrad's weight step
+  divides by the root of the unrounded ``s``), and the new state is stored
+  rounded stochastically (``optim/stochastic.py``): ``lowbias32`` in uint32
+  arithmetic keyed on the seed, the run's row and each value's column (a
+  lane holds columns ``c`` and ``c + 1``).  The seed is read on the device
+  through a pointer to the train state's ``sr`` counter: passed by value it
+  would need ``.item()``, a host sync.
 
 The embedding backward is no gradient tensor: for each run of equal rows in
 the sorted lookup stream, ``acc = sum(wgt * dY[bag])`` in fp32 in sorted
@@ -83,6 +93,7 @@ _ARGS_FP32 = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_flo
                                       ctypes.c_void_p]
 _ARGS_STATE = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_float, ctypes.c_void_p]
+_ARGS_STATE_SR = [ctypes.c_void_p] * 8 + _ARGS_STATE[7:]
 
 
 def sort_lookups(tgt: torch.Tensor, valid: torch.Tensor | None, num_rows: int, pooling: int,
@@ -189,11 +200,19 @@ def fused_update_fp32(W: torch.Tensor, srows: torch.Tensor, sbags: torch.Tensor,
 
 
 def _stateful(wrapper, cname: str, plain, W: torch.Tensor, S: torch.Tensor, per_row: bool,
-              dtype: torch.dtype, stream: tuple, dY: torch.Tensor, lr: float, hp: float):
+              dtype: torch.dtype, stream: tuple, dY: torch.Tensor, lr: float, hp: float,
+              seed: torch.Tensor | None = None):
     """Check, then launch ``cname`` on CUDA tensors (counted on ``wrapper``)
     or run ``plain`` on CPU tensors.  ``S`` is the state slab: [M, 1] when
-    ``per_row``, else [M, E]; ``hp`` is beta or eps."""
+    ``per_row``, else [M, E]; ``hp`` is beta or eps; ``seed``, for the
+    compressed-state kinds, the 0-d int32 seed on ``W``'s device, whose
+    pointer the kernel reads."""
     _check(W, *stream, dY)
+    sr = () if seed is None else (seed,)
+    if seed is not None and (seed.dtype != torch.int32 or seed.dim() != 0
+                             or seed.device != W.device):
+        raise TypeError(f"need a 0-d int32 seed on {W.device}, got {seed.dtype} "
+                        f"{tuple(seed.shape)} on {seed.device}")
     want = (W.shape[0], 1 if per_row else W.shape[1])
     if W.dtype != torch.float32 or S.dtype != dtype or tuple(S.shape) != want:
         raise TypeError(f"need an fp32 table and a {dtype} state of shape {want}, got "
@@ -201,13 +220,13 @@ def _stateful(wrapper, cname: str, plain, W: torch.Tensor, S: torch.Tensor, per_
     if S.device != W.device:
         raise ValueError(f"the table on {W.device}, its state on {S.device}")
     if W.device.type == "cpu":
-        return plain(W, S, *stream, dY, lr, hp)
+        return plain(W, S, *stream, dY, lr, hp, *sr)
     E = _check_cuda((W, S, *stream), dY)
-    fn = build.function("embedding_update", cname, _ARGS_STATE)
+    fn = build.function("embedding_update", cname, _ARGS_STATE_SR if sr else _ARGS_STATE)
     with torch.cuda.device(W.device):
         err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), W.data_ptr(), S.data_ptr(),
-                 stream[0].shape[0], E, float(np.float32(lr)), float(np.float32(hp)),
-                 torch.cuda.current_stream().cuda_stream)
+                 *(t.data_ptr() for t in sr), stream[0].shape[0], E, float(np.float32(lr)),
+                 float(np.float32(hp)), torch.cuda.current_stream().cuda_stream)
         wrapper.launches += 1
     if err:
         raise RuntimeError(f"{cname} kernel launch failed with CUDA error {err}")
@@ -260,6 +279,34 @@ def fused_update_freq(W: torch.Tensor, cnt: torch.Tensor, srows: torch.Tensor,
                      W, cnt, True, torch.int32, (srows, sbags, smsk, swgt), dY, lr, eps)
 
 
+def fused_update_momentum_bf16(W: torch.Tensor, mom: torch.Tensor, srows: torch.Tensor,
+                               sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                               dY: torch.Tensor, lr: float, beta: float, seed: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + momentum with the momentum stored as bf16, in
+    place on ``W`` [M, E] fp32 and ``mom`` [M, E] bf16, the new momentum
+    rounded stochastically under ``seed`` (0-d int32 on ``W``'s device)
+    (``ref.fused_update_momentum_bf16`` on CPU tensors).  Returns
+    ``(W, mom)``."""
+    return _stateful(fused_update_momentum_bf16, "embedding_update_momentum_bf16",
+                     ref.fused_update_momentum_bf16, W, mom, False, torch.bfloat16,
+                     (srows, sbags, smsk, swgt), dY, lr, beta, seed)
+
+
+def fused_update_adagrad_bf16(W: torch.Tensor, acc: torch.Tensor, srows: torch.Tensor,
+                              sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                              dY: torch.Tensor, lr: float, eps: float, seed: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sparse backward + elementwise Adagrad with the accumulator
+    stored as bf16, in place on ``W`` [M, E] fp32 and ``acc`` [M, E] bf16,
+    rounded stochastically under ``seed`` (``ref.fused_update_adagrad_bf16``
+    on CPU tensors).  Returns ``(W, acc)``."""
+    return _stateful(fused_update_adagrad_bf16, "embedding_update_adagrad_bf16",
+                     ref.fused_update_adagrad_bf16, W, acc, False, torch.bfloat16,
+                     (srows, sbags, smsk, swgt), dY, lr, eps, seed)
+
+
 for _fn in (fused_update_split, fused_update_fp32, fused_update_momentum, fused_update_adagrad,
-            fused_update_adagrad_rowwise, fused_update_freq):
+            fused_update_adagrad_rowwise, fused_update_freq, fused_update_momentum_bf16,
+            fused_update_adagrad_bf16):
     _fn.launches = 0

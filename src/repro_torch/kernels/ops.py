@@ -9,10 +9,10 @@ here branches on an optimizer: ``optim.row`` picks the row kernel.
 from __future__ import annotations
 
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.embedding_update import (fused_update_adagrad,
+from repro_torch.kernels.embedding_update import (fused_update_adagrad, fused_update_adagrad_bf16,
                                                   fused_update_adagrad_rowwise, fused_update_fp32,
                                                   fused_update_freq, fused_update_momentum,
-                                                  fused_update_split)
+                                                  fused_update_momentum_bf16, fused_update_split)
 from repro_torch.kernels.fused_mlp import fused_mlp_layer
 from repro_torch.kernels.interaction import dot_interaction
 from repro_torch.kernels.split_sgd import split_sgd
@@ -28,6 +28,8 @@ KERNELS = {
     "embedding_update_adagrad": fused_update_adagrad,
     "embedding_update_adagrad_rowwise": fused_update_adagrad_rowwise,
     "embedding_update_freq": fused_update_freq,
+    "embedding_update_momentum_bf16": fused_update_momentum_bf16,
+    "embedding_update_adagrad_bf16": fused_update_adagrad_bf16,
 }
 
 

@@ -11,12 +11,16 @@ import numpy as np
 import torch
 
 
-def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int) -> torch.Tensor:
+def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's masked partial bag (``_partial_bag_masked``): W [M, E],
     gidx [B, S, P] rows -> [B, S, E] fp32 sums; a row outside
-    [0, rows_per_shard) adds zero."""
+    [0, rows_per_shard) adds zero.  With ``weights`` [B, S, P] each row is
+    first multiplied by its lookup's fp32 weight (rounded on its own)."""
     valid = (gidx >= 0) & (gidx < rows_per_shard)
     rows = W[gidx.clamp(0, W.shape[0] - 1).long()].float()
+    if weights is not None:
+        rows = rows * weights.float()[..., None]
     return torch.where(valid[..., None], rows, 0.0).sum(dim=2)
 
 
@@ -195,6 +199,47 @@ def fused_update_adagrad(W: torch.Tensor, acc_slab: torch.Tensor, srows: torch.T
     s = fma32(acc, acc, acc_slab[r].cpu())
     W[r] = scaled_step(W[r].cpu(), acc, lr, sqrt32(s) + _f32(eps)).to(W.device)
     acc_slab[r] = s.to(acc_slab.device)
+    return W, acc_slab
+
+
+def _sr_store(S: torch.Tensor, r: torch.Tensor, new: torch.Tensor, seed) -> None:
+    """``S[r] = sr_round_bf16(new, sr_noise(seed, r, E))``: the bf16 state
+    rows of the live runs, rounded stochastically on ``S``'s device (the
+    hash is elementwise, so any device gives the same bits)."""
+    from repro_torch.optim.stochastic import sr_noise, sr_round_bf16
+    new = new.to(S.device)
+    S[r] = sr_round_bf16(new, sr_noise(seed, r, new.shape[1]))
+
+
+def fused_update_momentum_bf16(W: torch.Tensor, mom: torch.Tensor, srows: torch.Tensor,
+                               sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                               dY: torch.Tensor, lr: float, beta: float, seed
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_update_momentum` with ``mom`` [M, E] stored as bf16:
+    for each live run, ``m`` = the run's lookups added in order onto
+    ``beta * decode(m)`` (the decode is exact; jitted XLA folds the add into
+    its scatter-add here too), ``w = fma32(-lr, m, w)``, and only the stored
+    ``m`` rounds, stochastically under ``seed`` (an int or a 0-d int32
+    tensor) with the dither of ``(seed, row, column)``."""
+    r, m = _live_runs(W, srows, sbags, smsk, swgt, dY,
+                      start=lambda rows: _f32(beta) * mom[rows.to(mom.device)].float().cpu())
+    W[r] = fma32(-np.float32(lr), m, W[r].cpu()).to(W.device)
+    _sr_store(mom, r, m, seed)
+    return W, mom
+
+
+def fused_update_adagrad_bf16(W: torch.Tensor, acc_slab: torch.Tensor, srows: torch.Tensor,
+                              sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
+                              dY: torch.Tensor, lr: float, eps: float, seed
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_update_adagrad` with ``acc_slab`` [M, E] stored as bf16:
+    for each live run, ``s = fma32(acc, acc, decode(s))``, the weight step
+    divides by the root of this UNROUNDED ``s``, and only the stored ``s``
+    rounds, stochastically under ``seed``."""
+    r, acc = _live_runs(W, srows, sbags, smsk, swgt, dY)
+    s = fma32(acc, acc, acc_slab[r].float().cpu())
+    W[r] = scaled_step(W[r].cpu(), acc, lr, sqrt32(s) + _f32(eps)).to(W.device)
+    _sr_store(acc_slab, r, s, seed)
     return W, acc_slab
 
 

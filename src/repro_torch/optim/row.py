@@ -7,16 +7,16 @@ row-aligned: ``{hi, lo}`` (the bf16 upper and the int16 lower halves of the
 fp32 master rows) for ``split_sgd``, else ``{w}`` (fp32), plus ``mom``
 [rows, E] (``momentum``), ``acc`` [rows, E] (``adagrad``) or [rows, 1]
 (``adagrad_rowwise``: one accumulator a row, not padded to any lane width),
-or ``cnt`` [rows, 1] int32 (``adagrad_freq``: the touch counts).  The
+or ``cnt`` [rows, 1] int32 (``adagrad_freq``: the touch counts); the
+compressed-state kinds (``momentum_bf16``, ``adagrad_bf16``) keep ``mom`` or
+``acc`` [rows, E] as bf16, rounded stochastically under the train state's
+per-step seed (``optim.stochastic``).  The
 forward pass reads one slab: ``hi`` or ``w``.  The update runs on the sorted
 lookup stream of ``kernels.embedding_update.sort_lookups``: the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors (the
 wrappers in ``kernels.ops`` decide).  ``kernels.ops``,
 ``core.sharded_embedding`` and ``core.pipeline`` hold no branch on an
-optimizer: a new one is an entry of :data:`OPTIMIZERS` and its kernel.  The
-compressed-state kinds of the reference (``momentum_bf16``,
-``adagrad_bf16``) need its seeded stochastic rounding and are not ported
-yet.
+optimizer: a new one is an entry of :data:`OPTIMIZERS` and its kernel.
 """
 
 from __future__ import annotations
@@ -29,17 +29,15 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.optim.split_sgd import split_fp32
 
-# the reference's compressed-state kinds, which come with the stochastic rounding
-NOT_PORTED = ("momentum_bf16", "adagrad_bf16")
-
-
 @dataclasses.dataclass(frozen=True)
 class RowOptimizer:
     """A sparse embedding optimizer: its store and its row kernel.
 
     ``state`` lists the state slabs as ``(key, width, dtype)``, width 0
-    meaning E; ``kernel(opt, store, stream, dY, lr)`` steps the store in
-    place on the sorted stream."""
+    meaning E; ``kernel(opt, store, stream, dY, lr, seed)`` steps the store
+    in place on the sorted stream.  ``stochastic_round``: the state is
+    stored rounded under a per-step seed, which the train state carries as
+    ``sr``."""
 
     name: str
     kernel: Callable
@@ -47,6 +45,7 @@ class RowOptimizer:
     state: tuple = ()
     beta: float = 0.0   # momentum coefficient
     eps: float = 1e-8   # Adagrad denominator floor
+    stochastic_round: bool = False
 
     @property
     def weight_keys(self) -> tuple:
@@ -65,28 +64,36 @@ class RowOptimizer:
         return out
 
 
-def _k_split_sgd(opt, store, stream, dY, lr):
+def _k_split_sgd(opt, store, stream, dY, lr, seed):
     ops.fused_update_split(store["hi"], store["lo"], *stream, dY, lr)
 
 
-def _k_sgd(opt, store, stream, dY, lr):
+def _k_sgd(opt, store, stream, dY, lr, seed):
     ops.fused_update_fp32(store["w"], *stream, dY, lr)
 
 
-def _k_momentum(opt, store, stream, dY, lr):
+def _k_momentum(opt, store, stream, dY, lr, seed):
     ops.fused_update_momentum(store["w"], store["mom"], *stream, dY, lr, opt.beta)
 
 
-def _k_adagrad(opt, store, stream, dY, lr):
+def _k_adagrad(opt, store, stream, dY, lr, seed):
     ops.fused_update_adagrad(store["w"], store["acc"], *stream, dY, lr, opt.eps)
 
 
-def _k_adagrad_rowwise(opt, store, stream, dY, lr):
+def _k_adagrad_rowwise(opt, store, stream, dY, lr, seed):
     ops.fused_update_adagrad_rowwise(store["w"], store["acc"], *stream, dY, lr, opt.eps)
 
 
-def _k_adagrad_freq(opt, store, stream, dY, lr):
+def _k_adagrad_freq(opt, store, stream, dY, lr, seed):
     ops.fused_update_freq(store["w"], store["cnt"], *stream, dY, lr, opt.eps)
+
+
+def _k_momentum_bf16(opt, store, stream, dY, lr, seed):
+    ops.fused_update_momentum_bf16(store["w"], store["mom"], *stream, dY, lr, opt.beta, seed)
+
+
+def _k_adagrad_bf16(opt, store, stream, dY, lr, seed):
+    ops.fused_update_adagrad_bf16(store["w"], store["acc"], *stream, dY, lr, opt.eps, seed)
 
 
 # the reference's registrations (repro/optim/row.py:677-710) with their defaults
@@ -96,6 +103,10 @@ OPTIMIZERS = {opt.name: opt for opt in (
     RowOptimizer("momentum", _k_momentum, state=(("mom", 0, torch.float32),), beta=0.9),
     RowOptimizer("adagrad_rowwise", _k_adagrad_rowwise, state=(("acc", 1, torch.float32),)),
     RowOptimizer("adagrad", _k_adagrad, state=(("acc", 0, torch.float32),)),
+    RowOptimizer("momentum_bf16", _k_momentum_bf16, state=(("mom", 0, torch.bfloat16),), beta=0.9,
+                 stochastic_round=True),
+    RowOptimizer("adagrad_bf16", _k_adagrad_bf16, state=(("acc", 0, torch.bfloat16),),
+                 stochastic_round=True),
     RowOptimizer("adagrad_freq", _k_adagrad_freq, state=(("cnt", 1, torch.int32),)),
 )}
 
@@ -105,11 +116,6 @@ def get(spec, *, beta: Optional[float] = None, eps: Optional[float] = None) -> R
     ``eps`` overriding its defaults where given."""
     opt = spec
     if not isinstance(spec, RowOptimizer):
-        if spec in NOT_PORTED:
-            raise NotImplementedError(
-                f"sparse optimizer {spec!r} is not ported yet: its compressed state needs the "
-                "seeded stochastic rounding of the reference's optim/stochastic.py, which comes "
-                "with the next slice")
         if spec not in OPTIMIZERS:
             raise ValueError(f"unknown sparse optimizer {spec!r}; the port has {sorted(OPTIMIZERS)}")
         opt = OPTIMIZERS[spec]
@@ -150,11 +156,16 @@ def bump_counters(cnt: torch.Tensor, srows: torch.Tensor, smsk: torch.Tensor) ->
     return cnt.index_add_(0, srows, smsk[:, None])
 
 
-def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float) -> dict:
+def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float,
+                 seed=None) -> dict:
     """One fused sparse backward + row update, in place on ``store``.
 
     ``stream``: the sorted ``(rows, bags, msk, wgt)`` [L] arrays; ``dY``
-    [bags, E] the bag cotangents (bf16, the row-mode wire).  A ``cnt`` state
+    [bags, E] the bag cotangents (bf16, the row-mode wire); ``seed`` the
+    stochastic rounding's per-step seed (the train state's ``sr``, an int or
+    a 0-d int32 tensor; None means 0, as in the reference), handed to the
+    kernel as a 0-d int32 tensor on the store's device, which the kernel
+    reads through its pointer: no host sync.  A ``cnt`` state
     slab is bumped first (:func:`bump_counters`), so the kernel reads the
     count after this step's lookups.  Each run of equal rows sums
     ``wgt * dY[bag]`` in sorted order and steps its row once; rows outside
@@ -163,5 +174,8 @@ def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float) -
     opt = get(opt)
     if "cnt" in opt.state_keys:
         bump_counters(store["cnt"], stream[0], stream[2])
-    opt.kernel(opt, store, stream, dY, lr)
+    if opt.stochastic_round:
+        dev = store[opt.weight_keys[0]].device
+        seed = torch.as_tensor(0 if seed is None else seed, dtype=torch.int32, device=dev)
+    opt.kernel(opt, store, stream, dY, lr, seed)
     return store

@@ -1,6 +1,6 @@
 """Read-only serving snapshots and the snapshot score step (twin of
 ``repro/serve/snapshot.py``; one device, row mode, replicated indices,
-unweighted bags).
+weighted bags with ``cfg.weighted``).
 
 A snapshot holds exactly the slabs the forward pass reads: ``emb_w``, the
 bf16 ``hi`` slab of a Split-SGD store (the fp32 ``w`` slab for ``sgd``), and
@@ -143,8 +143,11 @@ class SnapshotRegistry:
 def batch_struct(cfg: DLRMConfig, batch: Optional[int] = None) -> dict:
     """``{field: (shape, dtype)}`` of one scoring batch."""
     B = batch or cfg.batch
-    return {"idx": ((B, len(cfg.table_rows), cfg.pooling), torch.int32),
-            "dense_x": ((B, cfg.num_dense), torch.bfloat16)}
+    out = {"idx": ((B, len(cfg.table_rows), cfg.pooling), torch.int32),
+           "dense_x": ((B, cfg.num_dense), torch.bfloat16)}
+    if cfg.weighted:
+        out["weights"] = ((B, len(cfg.table_rows), cfg.pooling), torch.float32)
+    return out
 
 
 def make_snapshot_score_step(cfg: DLRMConfig, batch: Optional[int] = None, *, device="cuda"):
@@ -152,7 +155,8 @@ def make_snapshot_score_step(cfg: DLRMConfig, batch: Optional[int] = None, *, de
 
     Returns ``(fn, bstructs)``; call as ``scores = fn(snapshot.state,
     batch)`` with ``batch = {"idx": [B, S, P] int32, "dense_x": [B,
-    num_dense] bf16}`` on ``device``; ``scores`` is [B] fp32 on ``device``."""
+    num_dense] bf16}`` on ``device``, and ``"weights"`` [B, S, P] fp32 with
+    ``cfg.weighted``; ``scores`` is [B] fp32 on ``device``."""
     if cfg.emb_mode != "row":
         raise NotImplementedError(f"embedding mode {cfg.emb_mode!r}: the port has row mode only")
     dev = resolve_device(device)
@@ -161,7 +165,8 @@ def make_snapshot_score_step(cfg: DLRMConfig, batch: Optional[int] = None, *, de
     score = dlrm_dense_score(cfg)
 
     def fn(snap: dict, batch_d: dict) -> torch.Tensor:
-        emb_out = se.row_sharded_bag_fwd(layout, snap["emb_w"], batch_d["idx"], offsets)
+        emb_out = se.row_sharded_bag_fwd(layout, snap["emb_w"], batch_d["idx"], offsets,
+                                         weights=batch_d["weights"] if cfg.weighted else None)
         return score(snap["dense_hi"], emb_out, batch_d)
 
     return fn, batch_struct(cfg, batch)
@@ -177,8 +182,9 @@ def make_bucket_scorers(cfg: DLRMConfig, buckets: tuple[int, ...], source: Calla
     batches is picked up at once.  Returns ``(score_fns, pad_batch)``:
     ``score_fns[bucket](batch)`` -> numpy [bucket] scores, and
     ``pad_batch(payloads, bucket)``, which stacks the payloads' ``idx``
-    [S, P] and ``dense_x`` [num_dense] (numpy), zero-pads them to the
-    bucket and moves them to ``device`` in the batch's dtypes."""
+    [S, P], ``dense_x`` [num_dense] and, with ``cfg.weighted``, ``weights``
+    [S, P] (numpy), zero-pads them to the bucket and moves them to
+    ``device`` in the batch's dtypes."""
     dev = resolve_device(device)
     steps, structs_by = {}, {}
     for b in sorted(buckets):

@@ -9,9 +9,10 @@
   ``torch.Generator``, with the reference's distributions.
 * :func:`state_from_numpy` and :func:`state_to_numpy` carry a whole train
   state across, both ways, bit for bit: the embedding store with its
-  optimizer's state slabs, the dense
-  ``hi`` tree and the dense ``lo`` vector.  :func:`state_to` copies a train
-  state to another device.
+  optimizer's state slabs (bf16 ones too), the dense ``hi`` tree, the dense
+  ``lo`` vector and the stochastic rounding's seed ``sr`` where the
+  optimizer has one.  :func:`state_to` copies a train state to another
+  device.
 """
 
 from __future__ import annotations
@@ -95,11 +96,12 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
 def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
     """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
     state)``: ``emb`` {hi bf16, lo uint16} or {w fp32} and the optimizer's
-    state slabs (``mom``, ``acc``, ``cnt``), ``dense`` {hi tree bf16, lo
-    [padded] uint16, err None}) -> the port's train state on
-    ``device``, bit for bit, laid out as ``core.hybrid.init_state`` lays it
-    out (uint16 slabs as their int16 bits, the dense ``hi`` leaves as views
-    of one flat buffer)."""
+    state slabs (``mom``, ``acc``, ``cnt``; bf16 ones as ``ml_dtypes``
+    arrays), ``dense`` {hi tree bf16, lo [padded] uint16, err None} and,
+    for a stochastically rounding optimizer, ``sr`` 0-d int32) -> the port's
+    train state on ``device``, bit for bit, laid out as
+    ``core.hybrid.init_state`` lays it out (16-bit slabs as their int16
+    bits, the dense ``hi`` leaves as views of one flat buffer)."""
     dev = resolve_device(device)
     if state_np["dense"].get("err") is not None:
         raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
@@ -121,7 +123,14 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
         raise ValueError(f"dense lo holds {lo.numel()} values, the config needs "
                          f"{dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS)}")
     _, hi = dp.pack_hi(hi_tree, lo.numel())
-    return {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
+    state = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
+    if ("sr" in state_np) != opt.stochastic_round:
+        raise ValueError(f"the {opt.name} state {'needs' if opt.stochastic_round else 'has no'} "
+                         "the stochastic rounding's seed 'sr'")
+    if opt.stochastic_round:
+        state["sr"] = torch.tensor(int(np.asarray(state_np["sr"], np.int32)), dtype=torch.int32,
+                                   device=dev)
+    return state
 
 
 def state_to_numpy(state: dict) -> dict:
@@ -139,9 +148,12 @@ def state_to_numpy(state: dict) -> dict:
             return t.numpy().view(np.uint16)
         return t.numpy()
 
-    return {"emb": {k: to_np(v) for k, v in state["emb"].items()},
-            "dense": {"hi": _tree_map(to_np, state["dense"]["hi"]),
-                      "lo": to_np(state["dense"]["lo"]), "err": None}}
+    out = {"emb": {k: to_np(v) for k, v in state["emb"].items()},
+           "dense": {"hi": _tree_map(to_np, state["dense"]["hi"]),
+                     "lo": to_np(state["dense"]["lo"]), "err": None}}
+    if "sr" in state:
+        out["sr"] = to_np(state["sr"])
+    return out
 
 
 def state_to(state: dict, device) -> dict:
@@ -151,5 +163,8 @@ def state_to(state: dict, device) -> dict:
     lo = state["dense"]["lo"].to(dev, copy=True)
     hi = dp.tree_unflatten(state["dense"]["hi"],
                            [t.to(dev) for t in dp.tree_leaves(state["dense"]["hi"])])
-    return {"emb": {k: v.to(dev, copy=True) for k, v in state["emb"].items()},
-            "dense": {"hi": dp.pack_hi(hi, lo.numel())[1], "lo": lo, "err": None}}
+    out = {"emb": {k: v.to(dev, copy=True) for k, v in state["emb"].items()},
+           "dense": {"hi": dp.pack_hi(hi, lo.numel())[1], "lo": lo, "err": None}}
+    if "sr" in state:
+        out["sr"] = state["sr"].to(dev, copy=True)
+    return out

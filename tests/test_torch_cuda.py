@@ -49,6 +49,32 @@ def test_embedding_bag_kernel_matches_plain(dev, dtype, E, P):
     assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,P", [(16, 3), (64, 50), (128, 1), (256, 33)])
+def test_weighted_bag_kernel_matches_plain(dev, dtype, E, P):
+    """The weighted variant against its plain version: the same rounded
+    products summed in another order, rtol = atol = 1e-5; an out-of-range
+    row adds nothing whatever its weight; all-ones weights give the
+    unweighted kernel's bits."""
+    gen = torch.Generator().manual_seed(E * 10 + P)
+    rows, rows_per_shard = 300, 290
+    W = _randn(rows, E, gen=gen).to(dtype)
+    g = torch.randint(-20, rows + 20, (7, 5, P), generator=gen, dtype=torch.int32)
+    w = torch.rand(g.shape, generator=gen) * 4 - 2
+    w[0, 0] = 0.0
+    g[1, 1, 0], w[1, 1, 0] = rows + 3, float("inf")
+    want = ref.embedding_bag(W, g, rows_per_shard, w)
+    before = ops.embedding_bag.launches
+    got = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, w.to(dev))
+    ones = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, torch.ones(g.shape, device=dev))
+    plain = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard)
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.launches == before + 3
+    assert bool(torch.isfinite(got).all()) and not bool(got[0, 0].any())
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ones.view(torch.int32), plain.view(torch.int32))
+
+
 @pytest.mark.parametrize("b,f,e", [(20, 9, 64), (8, 27, 128), (5, 65, 32), (3, 2, 16)])
 def test_interaction_kernel_matches_plain(dev, b, f, e):
     """fp32 dot products of length E in another order: rtol 1e-5, atol 1e-4."""
@@ -165,7 +191,16 @@ def test_row_update_kernels_bitwise_to_plain(dev, E, case):
 STATEFUL = {"momentum": ("fused_update_momentum", 0, torch.float32, 0.9),
             "adagrad": ("fused_update_adagrad", 0, torch.float32, 1e-8),
             "adagrad_rowwise": ("fused_update_adagrad_rowwise", 1, torch.float32, 1e-8),
-            "adagrad_freq": ("fused_update_freq", 1, torch.int32, 1e-8)}
+            "adagrad_freq": ("fused_update_freq", 1, torch.int32, 1e-8),
+            "momentum_bf16": ("fused_update_momentum_bf16", 0, torch.bfloat16, 0.9),
+            "adagrad_bf16": ("fused_update_adagrad_bf16", 0, torch.bfloat16, 1e-8)}
+
+
+def _seed_args(name, seed, device):
+    """The seed argument of a compressed-state kernel (none for the others)."""
+    if STATEFUL[name][2] != torch.bfloat16:
+        return ()
+    return (torch.tensor(seed, dtype=torch.int32, device=device),)
 
 
 def _stateful_stream(case, M, P, gen):
@@ -190,21 +225,22 @@ def _state(name, M, E, gen):
     shape = (M, width or E)
     if dtype == torch.int32:
         return torch.randint(0, 50, shape, generator=gen, dtype=torch.int32)
-    if name == "momentum":
-        return torch.randn(shape, generator=gen) * 0.1
-    return torch.rand(shape, generator=gen) * 0.05
+    if name.startswith("momentum"):
+        return (torch.randn(shape, generator=gen) * 0.1).to(dtype)
+    return (torch.rand(shape, generator=gen) * 0.05).to(dtype)
 
 
 @pytest.mark.parametrize("E", [64, 128, 96])
 @pytest.mark.parametrize("case", ["long_run", "live_tail", "all_masked"])
 @pytest.mark.parametrize("name", list(STATEFUL))
 def test_stateful_row_kernels_bitwise_to_plain(dev, name, case, E):
-    """The four stateful row kernels against their plain versions, bit for
+    """The six stateful row kernels against their plain versions, bit for
     bit on the weights and the state, at E = 64, 128 and 96 (a ragged last
     block of columns): a run longer than one segment, the last row's live
     run that holds the masked tail, and an all-masked stream (nothing
     written).  The counts of ``adagrad_freq`` are bumped first, as
-    ``optim.row.apply_sparse`` does."""
+    ``optim.row.apply_sparse`` does; the compressed-state kinds round at a
+    seed near 2^31."""
     from repro_torch.kernels import embedding_update as eu
     from repro_torch.optim.row import bump_counters
     wrapper, _, _, hp = STATEFUL[name]
@@ -216,18 +252,112 @@ def test_stateful_row_kernels_bitwise_to_plain(dev, name, case, E):
     stream = eu.sort_lookups(tgt, valid, M, P)
     if name == "adagrad_freq":
         bump_counters(S, stream[0], stream[2])
-    want_w, want_s = getattr(ref, wrapper)(W.clone(), S.clone(), *stream, dY, lr, hp)
+    want_w, want_s = getattr(ref, wrapper)(W.clone(), S.clone(), *stream, dY, lr, hp,
+                                           *_seed_args(name, 2 ** 31 - 3, "cpu"))
     before = getattr(ops, wrapper).launches
     got_w, got_s = getattr(ops, wrapper)(W.to(dev), S.to(dev), *(t.to(dev) for t in stream),
-                                         dY.to(dev), lr, hp)
+                                         dY.to(dev), lr, hp, *_seed_args(name, 2 ** 31 - 3, dev))
     torch.cuda.synchronize()
     assert getattr(ops, wrapper).launches == before + 1
     assert torch.equal(got_w.cpu().view(torch.int32), want_w.view(torch.int32))
-    assert torch.equal(got_s.cpu().view(torch.int32), want_s.view(torch.int32))
+    bits = torch.int16 if S.element_size() == 2 else torch.int32
+    assert torch.equal(got_s.cpu().view(bits), want_s.view(bits))
     if case == "all_masked":
         assert torch.equal(want_w, W) and torch.equal(want_s, S)
     else:
         assert not torch.equal(want_w, W)
+
+
+@pytest.mark.parametrize("name", ["momentum_bf16", "adagrad_bf16"])
+def test_compressed_state_kernels_follow_the_seed(dev, name):
+    """Two seeds on one stream: each bitwise to its plain version, the
+    same weights, a different stored state; the seed is read on the card,
+    so the launch makes no host sync."""
+    from repro_torch.kernels import embedding_update as eu
+    wrapper, _, _, hp = STATEFUL[name]
+    gen = torch.Generator().manual_seed(7)
+    M, P, E = 200, 5, 64
+    tgt, valid = _stateful_stream("long_run", M, P, gen)
+    dY = torch.randn((tgt.numel() // P, E), generator=gen).to(torch.bfloat16)
+    W, S = torch.rand((M, E), generator=gen) - 0.5, _state(name, M, E, gen)
+    stream = eu.sort_lookups(tgt, valid, M, P)
+    d_stream = tuple(t.to(dev) for t in stream)
+    out = {}
+    for seed in (1, -5):
+        want = getattr(ref, wrapper)(W.clone(), S.clone(), *stream, dY, 0.1, hp,
+                                     torch.tensor(seed, dtype=torch.int32))
+        args = (W.clone().to(dev), S.clone().to(dev), *d_stream, dY.to(dev), 0.1, hp,
+                torch.tensor(seed, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = getattr(ops, wrapper)(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            bits = torch.int16 if w.element_size() == 2 else torch.int32
+            assert torch.equal(g.cpu().view(bits), w.view(bits))
+        out[seed] = [t.cpu().clone() for t in got]
+    assert torch.equal(out[1][0], out[-5][0])
+    assert not torch.equal(out[1][1].view(torch.int16), out[-5][1].view(torch.int16))
+
+
+def _weighted_stream(M, P, gen):
+    """(tgt, valid, wgt) [L]: runs of 40 lookups of a row in one bag group
+    whose weights change inside the group, ragged runs, masked lookups,
+    zero and negative weights."""
+    tgt = torch.randint(-3, M + 3, (60 * P,), generator=gen, dtype=torch.int32)
+    tgt[:40] = 11
+    tgt[100:200] = 5
+    valid = torch.rand(tgt.shape, generator=gen) > 0.1
+    wgt = torch.rand(tgt.shape, generator=gen) + 0.5
+    wgt[:20] = 0.75
+    wgt[20:40] = 1.25
+    wgt[100:130] = 0.0
+    wgt[130:140] = -0.5
+    return tgt, valid, wgt
+
+
+@pytest.mark.parametrize("E", [64, 96])
+@pytest.mark.parametrize("name", ["split_sgd", "sgd", *STATEFUL])
+def test_row_kernels_bitwise_to_plain_on_weighted_stream(dev, name, E):
+    """Rows 5-12 on a stream with weights other than 1 (groups of equal bag
+    whose weight changes, zero and negative weights), bit for bit against
+    their plain versions on the weights and the state."""
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.optim.row import bump_counters
+    gen = torch.Generator().manual_seed(E + len(name))
+    M, P, lr = 200, 5, 0.1
+    tgt, valid, wgt = _weighted_stream(M, P, gen)
+    dY = torch.randn((tgt.numel() // P, E), generator=gen).to(torch.bfloat16)
+    stream = eu.sort_lookups(tgt, valid, M, P, wgt)
+    assert len(set(stream[3].tolist())) > 2
+    d_stream = tuple(t.to(dev) for t in stream)
+    if name == "split_sgd":
+        store = _split_table(M, E, gen)
+        wrapper, extra = "fused_update_split", ()
+    elif name == "sgd":
+        store = (torch.rand((M, E), generator=gen) - 0.5,)
+        wrapper, extra = "fused_update_fp32", ()
+    else:
+        store = (torch.rand((M, E), generator=gen) - 0.5, _state(name, M, E, gen))
+        wrapper, _, _, hp = STATEFUL[name]
+        extra = (hp,)
+        if name == "adagrad_freq":
+            bump_counters(store[1], stream[0], stream[2])
+    want = getattr(ref, wrapper)(*(t.clone() for t in store), *stream, dY, lr, *extra,
+                                 *(_seed_args(name, 9, "cpu") if name in STATEFUL else ()))
+    want = want if isinstance(want, tuple) else (want,)
+    got = getattr(ops, wrapper)(*(t.clone().to(dev) for t in store), *d_stream, dY.to(dev), lr,
+                                *extra,
+                                *(_seed_args(name, 9, dev) if name in STATEFUL else ()))
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        bits = torch.int16 if w.element_size() == 2 else torch.int32
+        assert torch.equal(g.cpu().view(bits), w.view(bits))
+    assert not torch.equal(want[0], store[0])
 
 
 def test_stateful_row_kernels_refuse_bad_state(dev):
@@ -294,19 +424,26 @@ def _small_train_cfg(**over):
 
 
 def _small_batches(cfg, n, dev):
+    """n zipf batches on ``dev``; with ``cfg.weighted``, weights U[0.5, 1.5)."""
     from repro_torch.data.synthetic import dlrm_stream
+    rng = np.random.default_rng(1)
     out = []
     for b, _ in zip(dlrm_stream(0, cfg, 1.05), range(n)):
         out.append({"idx": torch.from_numpy(b["idx"]).to(dev),
                     "dense_x": torch.from_numpy(b["dense_x"]).to(dev).to(torch.bfloat16),
                     "labels": torch.from_numpy(b["labels"]).to(dev)})
+        if cfg.weighted:
+            w = rng.uniform(0.5, 1.5, b["idx"].shape).astype(np.float32)
+            out[-1]["weights"] = torch.from_numpy(w).to(dev)
     return out
 
 
 ROW_KERNEL = {"split_sgd": "embedding_update", "sgd": "embedding_update_fp32",
               "momentum": "embedding_update_momentum", "adagrad": "embedding_update_adagrad",
               "adagrad_rowwise": "embedding_update_adagrad_rowwise",
-              "adagrad_freq": "embedding_update_freq"}
+              "adagrad_freq": "embedding_update_freq",
+              "momentum_bf16": "embedding_update_momentum_bf16",
+              "adagrad_bf16": "embedding_update_adagrad_bf16"}
 
 
 @pytest.mark.parametrize("opt", list(ROW_KERNEL))
@@ -321,7 +458,7 @@ def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
     and makes no host sync (``set_sync_debug_mode("error")``)."""
     from repro_torch import weights
     from repro_torch.core import dlrm
-    cfg = _small_train_cfg(sparse_optimizer=opt)
+    cfg = _small_train_cfg(sparse_optimizer=opt, weighted=opt.endswith("bf16"))
     cpu_state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
     state = weights.state_to(cpu_state, dev)
     batches = _small_batches(cfg, 2, dev)
@@ -339,6 +476,8 @@ def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
     counts = ops.launches()
     assert counts == {**{k: 0 for k in counts}, "embedding_bag": 1, "dot_interaction": 1,
                       ROW_KERNEL[opt]: 1, "split_sgd": 1}
+    if "sr" in state:  # two steps from sr_seed 0, each adding one on the card
+        assert int(state["sr"]) == 2
     from repro_torch.optim.split_sgd import combine_split
 
     def master(store):

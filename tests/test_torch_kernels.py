@@ -111,8 +111,10 @@ def test_embedding_bag_checks():
         ops.embedding_bag(W, g.long(), 10)
     with pytest.raises(ValueError):
         ops.embedding_bag(W, g[0], 10)
-    with pytest.raises(NotImplementedError):
-        ops.embedding_bag(W, g, 10, weights=torch.ones(2, 3, 4))
+    with pytest.raises(ValueError):
+        ops.embedding_bag(W, g, 10, weights=torch.ones(2, 3, 5))
+    with pytest.raises(ValueError):
+        ops.embedding_bag(W, g, 10, weights=torch.ones(2, 3, 4, dtype=torch.float64))
 
 
 # ------------------------------------------------------------ interaction --
@@ -161,10 +163,16 @@ def test_cpu_tensors_launch_nothing():
     ops.fused_update_adagrad_rowwise(torch.zeros(4, 8), torch.zeros(4, 1), *stream, dY, 0.1, 1e-8)
     ops.fused_update_freq(torch.zeros(4, 8), torch.zeros(4, 1, dtype=torch.int32), *stream, dY,
                           0.1, 1e-8)
+    seed = torch.tensor(3, dtype=torch.int32)
+    for fn, hp in ((ops.fused_update_momentum_bf16, 0.9), (ops.fused_update_adagrad_bf16, 1e-8)):
+        fn(torch.zeros(4, 8), torch.zeros(4, 8, dtype=torch.bfloat16), *stream, dY, 0.1, hp, seed)
+    ops.embedding_bag(torch.zeros(4, 8), torch.zeros(1, 1, 2, dtype=torch.int32), 4,
+                      torch.ones(1, 1, 2))
     ops.split_sgd(torch.zeros(3, dtype=torch.bfloat16), torch.zeros(3, dtype=torch.int16),
                   torch.zeros(3), 0.1)
     assert ops.launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"embedding_bag", "dot_interaction", "fused_mlp",
                                 "embedding_update", "embedding_update_fp32", "split_sgd",
                                 "embedding_update_momentum", "embedding_update_adagrad",
-                                "embedding_update_adagrad_rowwise", "embedding_update_freq"}
+                                "embedding_update_adagrad_rowwise", "embedding_update_freq",
+                                "embedding_update_momentum_bf16", "embedding_update_adagrad_bf16"}

@@ -230,16 +230,22 @@ def test_row_square_sum_follows_the_kernel_order():
 
 
 def test_resolve_applies_overrides_and_refuses_what_is_not_ported():
+    """Every optimizer of the reference's registry resolves in the port,
+    with its defaults, its state slabs and their types and its stochastic
+    rounding; a name neither knows raises."""
     _, t_cfg = _configs("momentum", opt_beta=0.5, opt_eps=1e-4)
     opt = t_row.resolve(t_cfg)
     assert (opt.name, opt.beta, opt.eps) == ("momentum", 0.5, 1e-4)
-    for name in STATEFUL:
+    assert sorted(t_row.OPTIMIZERS) == sorted(j_row.names())
+    for name in j_row.names():
         ref_opt = j_row.get(name)
         opt = t_row.get(name)
-        assert (opt.beta, opt.eps, opt.split) == (ref_opt.beta, ref_opt.eps, ref_opt.split)
+        assert (opt.beta, opt.eps, opt.split, opt.stochastic_round) == (
+            ref_opt.beta, ref_opt.eps, ref_opt.split, ref_opt.stochastic_round)
         assert opt.state_keys == ref_opt.state_keys
-    with pytest.raises(NotImplementedError, match="next slice"):
-        t_row.get("adagrad_bf16")
+        for (key, width, dtype), (r_key, r_width, *r_dtype) in zip(opt.state, ref_opt.state):
+            assert (key, width) == (r_key, r_width)
+            assert str(dtype).removeprefix("torch.") == (r_dtype or ["float32"])[0]
     with pytest.raises(ValueError, match="unknown sparse optimizer"):
         t_row.get("rmsprop")
 
@@ -260,7 +266,7 @@ def test_no_per_optimizer_branch_outside_the_optimizer_table():
     """As in the reference (``kernels/ops.py:80``): the kernels' dispatch,
     the sharded embedding and the pipeline compare nothing with an
     optimizer's name; ``optim.row`` alone picks a row kernel."""
-    names = set(t_row.OPTIMIZERS) | set(t_row.NOT_PORTED)
+    names = set(t_row.OPTIMIZERS)
     for rel in ("kernels/ops.py", "core/sharded_embedding.py", "core/pipeline.py"):
         assert not _compared_strings(ROOT / "src" / "repro_torch" / rel) & names, rel
 

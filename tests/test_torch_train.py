@@ -392,8 +392,7 @@ def test_gather_dY_and_apply_update_mask_out_of_range_rows():
 
 @pytest.mark.parametrize("over,match", [({"emb_mode": "table"}, "row mode"),
                                         ({"mlp_impl": "pallas"}, "no backward"),
-                                        ({"microbatches": 2}, "microbatches"),
-                                        ({"sparse_optimizer": "momentum_bf16"}, "not ported")])
+                                        ({"microbatches": 2}, "microbatches")])
 def test_train_step_refuses_what_is_not_ported(over, match):
     _, t_cfg = _configs(**over)
     with pytest.raises(NotImplementedError, match=match):
