@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DLRM serving and training paths on one CUDA card.
+"""Drive the PyTorch port's DLRM serving and training paths and its LM serving
+path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -58,7 +59,23 @@ from the root of a checkout.  Phases, each of which fails the run:
 12. weighted momentum_bf16 training: phase 6 again with
     ``sparse_optimizer="momentum_bf16"`` and ``weighted=True`` (the fp32
     table, the bf16 momentum, weights U[0.5, 1.5) in every batch), the
-    stochastic rounding's seed ``sr`` advancing by one a step on the card.
+    stochastic rounding's seed ``sr`` advancing by one a step on the card;
+13. attention kernel: the flash-attention kernel against its plain version
+    on the card at internlm2-1.8b's prefill shape (4 x 4096 tokens, 16
+    heads on 8 KV heads, causal), gemma2's local (window 4096, softcap 50)
+    and global layers at 8192 tokens (the global one also without the
+    softcap), ragged, right-aligned, non-causal and blind queries, timed beside its bound, its plain version and (at
+    the first shape) ``F.scaled_dot_product_attention``;
+14. LM serving: internlm2-1.8b at full size (1.89 B parameters, bf16 from a
+    seeded ``torch.Generator``), ``attn_impl="pallas"``: 4 prompts of 4096
+    tokens through ``make_prefill_step`` (one kernel launch a layer), 32
+    greedy steps through ``make_decode_step`` (none), every logit finite,
+    the prefill's logits and cache held to the same prefill with the plain
+    attention, two faults planted in the plain attention (a wrong KV head, the
+    diagonal masked) rejected by both gates, and the first decode step's
+    logits held to a prefill of 4097 tokens; time to first
+    token, tokens/s, ms a decode step, the device's busy time, and one
+    prefill of 32,768 tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up; ``bound_ms`` from this run's bytes and operations over
@@ -133,6 +150,43 @@ STATEFUL = (("momentum", "fused_update_momentum", "beta"),
 # the stochastic rounding's seeds of the bf16 kinds' checks: the first
 # near 2^31, the second negative (both wrap through uint32 in the hash)
 SR_SEEDS = (2 ** 31 - 7, -3)
+# the attention kernel phase: (case, B, H, Hkv, Lq, Lk, causal, window, softcap); the
+# first is the main path's shape (internlm2-1.8b's prefill of 4 x 4096 tokens), gemma2
+# reaches the rest of the kernel's options (softcap 50, window 4096; its global layer
+# also without the softcap, to price it), and the last case's first 400 queries see
+# no key
+ATTN_CASES = (("internlm2 prefill", 4, 16, 8, 4096, 4096, True, 0, 0.0),
+              ("gemma2 local layer", 1, 32, 16, 8192, 8192, True, 4096, 50.0),
+              ("gemma2 global layer", 1, 32, 16, 8192, 8192, True, 0, 50.0),
+              ("gemma2 global layer, no softcap", 1, 32, 16, 8192, 8192, True, 0, 0.0),
+              ("ragged", 2, 16, 8, 1000, 1000, True, 0, 0.0),
+              ("right-aligned", 4, 16, 8, 200, 1000, True, 0, 0.0),
+              ("non-causal", 2, 16, 8, 1000, 1000, False, 0, 0.0),
+              ("no visible key", 2, 16, 8, 1000, 600, True, 0, 0.0))
+# (rtol, atol) of the flash kernel against its plain version (the same 128-key tiles):
+# the fp32 score sums and the exponentials differ in their last bits, so a p or an
+# output may round to its bf16 neighbour (2^-8 to 2^-7 relative).  An output near 0 is
+# a sum of terms that cancel, so a p rounded the other way moves it by a share of
+# the v scale (about 1), not of its own value: each output is held to 2^-7 of both.
+# The shares below keep the many small outputs to their own ulps: on an H100 up to
+# 0.95% of outputs differed and up to 0.12% by more than one bf16 ulp of their value
+ATTN_TOL = (2 ** -7, 2 ** -7)
+ATTN_MAX_UNEQUAL = 0.02     # share of outputs not equal
+ATTN_MAX_PAST_ULP = 0.0025  # share of outputs more than one bf16 ulp of their value apart
+# LM serving: internlm2-1.8b at full size, 4 prompts of 4096 tokens (the repo's
+# prefill_32k shape, B 32 x L 32768, cut to one card), then 32 greedy decode steps
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 32
+LM_LONG = 32768  # one prefill at the repo's prefill length, B = 1
+# atol for the full model's fp32 logits (max |logit| about 4.7 with these random
+# weights) and for every layer's bf16 k and v cache (values up to about 6): any two
+# right implementations drift apart through 24 layers, since a bf16 rounding that
+# falls the other way in one layer moves every layer above it.  On an H100 the
+# kernel's prefill and the plain attention's differed by 0.078 in the logits and
+# 0.098 in the cache, and the plain and the chunked path's (the reference's two
+# attention paths, no kernel on either side) by 0.078 to 0.084 in the logits; the run
+# prints that yardstick.  Each run also plants two faults in the plain attention
+# and fails unless both gates reject them (the weakest moved the logits by 1.12)
+LM_TOL = 0.2
 
 
 def log(*a):
@@ -428,13 +482,35 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     return counts
 
 
+def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
+    """``fn`` run ``reps`` times under torch.profiler: wall ms a run (ending
+    in a synchronise), the device's busy ms a run (its kernels' time summed)
+    and its kernels as (name, ms a run, launches a run), the longest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    return wall_ms, busy_ms, [(e.key[:48], e.self_device_time_total / reps / 1e3, e.count // reps)
+                              for e in kernels]
+
+
+def top_kernels(top: list) -> str:
+    return "; ".join(f"{name} {ms:.4f} ms x{n}" for name, ms, n in top)
+
+
 def breakdown_phase(cfg, reg, reqs, dev) -> None:
     """Where one batch's time goes, per bucket: padding on the host, the
     score fn's wall time until the scores are on the host, and the device's
     busy time in it from torch.profiler (kernels by name)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import make_bucket_scorers
 
     fns, pad = make_bucket_scorers(cfg, BUCKETS, lambda: reg.current().state, device=dev)
@@ -447,18 +523,10 @@ def breakdown_phase(cfg, reg, reqs, dev) -> None:
         pad_ms = (time.perf_counter() - t0) / reps * 1e3
         for _ in range(3):
             fns[b](batch)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fns[b](batch)
-            wall_ms = (time.perf_counter() - t0) / reps * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        wall_ms, busy_ms, top = device_busy_ms(lambda: fns[b](batch), reps)
         log(f"bucket {b}: pad {pad_ms:.3f} ms; score fn {wall_ms:.3f} ms wall, device busy "
             f"{busy_ms:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
-            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.4f} ms x"
-                        f"{e.count // reps}" for e in top))
+            + top_kernels(top[:6]))
 
 
 def sm_clock_ghz() -> float:
@@ -799,8 +867,6 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     with ``sr`` must come out of them with ``sr`` advanced by one a step.
     Returns the launch counts of the timed steps."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import weights
     from repro_torch.core import dlrm
     from repro_torch.core import sharded_embedding as se
@@ -948,20 +1014,10 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
             totals[k] += ev[i].elapsed_time(ev[i + 1]) / reps
     log("a step by stage (ms, CUDA events, mean of 5): "
         + "; ".join(f"{k} {v:.3f}" for k, v in totals.items()))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for b in batches[:reps]:
-            state, loss = step(state, b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    it = iter(batches[:reps])
+    wall_ms, busy_ms, top = device_busy_ms(lambda: step(state, next(it)), reps)
     log(f"train step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
-        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
-        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.4f} ms x"
-                    f"{e.count // reps}" for e in top))
+        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: " + top_kernels(top[:8]))
     return counts
 
 
@@ -994,6 +1050,251 @@ def short_phase(cfg, dev, batches, failures) -> dict:
         failures.append(f"{name}: launches {counts}")
     del state, step
     torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of ``want``'s own value."""
+    import torch
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(w)) - 7)
+
+
+def visible_pairs(Lq: int, Lk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs attention computes for one head: query i at
+    key position Lk - Lq + i sees the keys its mask lets through."""
+    p = np.arange(Lq, dtype=np.int64) + (Lk - Lq)
+    hi = np.minimum(p, Lk - 1) if causal else np.full(Lq, Lk - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros(Lq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_kernel_phase(dev, failures) -> dict:
+    """The flash kernel against its plain version on the card at each of
+    ATTN_CASES, timed with CUDA events beside its bound (the visible pairs'
+    two products at the bf16 tensor rate against q, k, v and o read or
+    written once), the plain version's time and, at the main path's shape,
+    ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
+    it).  Returns the kernel's entry of the JSON line, at the main path's
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    entry = {"name": "flash_attention", "max_abs_err": 0.0}
+    for case, B, H, Hkv, Lq, Lk, causal, window, softcap in ATTN_CASES:
+        D = 128
+        q = torch.randn((B, H, Lq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, Hkv, Lk, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        tag = (f"flash_attention {case}: q [{B},{H},{Lq},{D}], k/v [{B},{Hkv},{Lk},{D}], "
+               f"causal {causal}, window {window}, softcap {softcap:g}")
+        err = close_or_fail(tag, got, want, *ATTN_TOL, failures)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        unequal = float((got != want).float().mean())
+        past_ulp = float((bf16_ulps(got, want) > 1).float().mean())
+        if unequal > ATTN_MAX_UNEQUAL or past_ulp > ATTN_MAX_PAST_ULP:
+            failures.append(f"{case}: {unequal:.3%} of outputs not equal, {past_ulp:.3%} more "
+                            f"than one bf16 ulp apart (at most {ATTN_MAX_UNEQUAL:.2%} and "
+                            f"{ATTN_MAX_PAST_ULP:.2%})")
+        blind = list(range(Lq - Lk)) if causal else []   # queries left of every key
+        if blind and not bool((got[:, :, blind] == 0).all()):
+            failures.append(f"{case}: a query that sees no key did not give 0")
+        pairs = B * H * visible_pairs(Lq, Lk, causal, window)
+        nbytes = 2 * (2 * B * H * Lq * D + 2 * B * Hkv * Lk * D)
+        bms, by = bound_ms(nbytes, 4.0 * pairs * D, BF16_TENSOR_FLOPS)
+        t = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                 plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=3, warmup=1),
+                 bound_ms=bms, bound_by=by, library_ms=None)
+        if case == ATTN_CASES[0][0]:
+            t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            entry.update(t)
+        lib = "" if t["library_ms"] is None else f", SDPA {t['library_ms']:.4f} ms"
+        log(f"  {unequal * 100:.4f}% of outputs not equal, {past_ulp * 100:.4f}% more than one "
+            f"bf16 ulp apart; {len(blind)} queries see no key; "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms{lib}, bound {bms:.4f} ms "
+            f"({by}), {bms / t['ms'] * 100:.1f}% of bound, "
+            f"{4.0 * pairs * D / t['ms'] / 1e9:.1f} TFLOP/s")
+    return entry
+
+
+def lm_serving_phase(dev, failures) -> dict:
+    """internlm2-1.8b at full size (bf16 weights drawn on the card from a
+    seeded generator), ``attn_impl="pallas"``: LM_BATCH prompts of LM_PROMPT
+    tokens through ``make_prefill_step`` (time to first token, exactly one
+    kernel launch a layer), LM_DECODE greedy steps through
+    ``make_decode_step`` on the cache grown to LM_PROMPT + LM_DECODE (no
+    kernel launch), every logit finite; then the prefill's logits and cache
+    held to the same prefill with the kernel's plain version in its place,
+    and again with two faults planted in it, which must fail; the first decode
+    step to a prefill of LM_PROMPT + 1 tokens, prefill tokens/s, decode ms a
+    step and the device's busy time (torch.profiler), and one prefill of
+    LM_LONG tokens.  Returns the launch counts of the main path's run."""
+    import contextlib
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.internlm2_1_8b import config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention, lm_steps
+
+    cfg = dataclasses.replace(config(), attn_impl="pallas")
+    B, L, N = LM_BATCH, LM_PROMPT, LM_DECODE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = weights.init_lm_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+    nparams = count(params)
+    log(f"{cfg.name}: {nparams} parameters, {nparams * 2 / 1e9:.3f} GB bf16, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if nparams != cfg.param_count() + cfg.d_model:   # param_count leaves out the final norm
+        failures.append(f"{nparams} parameters, the config counts {cfg.param_count()} + "
+                        f"{cfg.d_model}")
+    prefill, _ = lm_steps.make_prefill_step(cfg, B, L, device=dev)
+    decode, (_, cstructs, _, _) = lm_steps.make_decode_step(cfg, B, L + N, device=dev)
+    prefill(params, toks)  # warm-up: cuBLAS's plans for these shapes
+    torch.cuda.synchronize()
+
+    # the main path: prefill, then greedy decode, the counts read after both
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)
+    nxt = logits.argmax(-1).to(torch.int32)
+    first = nxt.cpu()
+    ttft = time.perf_counter() - t0
+    grown = {k: torch.zeros(shape, dtype=dtype, device=dev)
+             for k, (shape, dtype) in cstructs.items()}
+    for k in grown:
+        grown[k][..., :L, :] = cache[k]
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    step_logits = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(N):
+        out, grown = decode(params, grown, nxt, pos)
+        step_logits.append(out if i == 0 else out.isfinite().all())
+        nxt = out.argmax(-1).to(torch.int32)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) / N * 1e3
+    counts = ops.launches()
+    log(f"prefill {B} x {L} tokens: time to first token {ttft * 1e3:.2f} ms "
+        f"({B * L / ttft:.0f} tokens/s); {N} greedy decode steps: {decode_ms:.3f} ms a step "
+        f"({B / decode_ms * 1e3:.1f} tokens/s); launches {counts}")
+    want = {**{k: 0 for k in counts}, "flash_attention": cfg.n_layers}
+    if counts != want:
+        failures.append(f"LM serving launches {counts}, want {want} (one a layer in the prefill)")
+    finite = bool(logits.isfinite().all()) and all(bool(f) for f in step_logits[1:]) \
+        and bool(step_logits[0].isfinite().all())
+    if tuple(logits.shape) != (B, cfg.vocab) or not finite:
+        failures.append(f"LM logits: shape {tuple(logits.shape)}, all finite {finite}")
+    log(f"prefill logits: |max| {float(logits.abs().max()):.4f}, std {float(logits.std()):.4f}; "
+        f"first tokens {first.tolist()}, last tokens {nxt.tolist()}")
+
+    # the prefill with the kernel's plain version in its place
+    @contextlib.contextmanager
+    def attention_as(fn):
+        kernel = attention.ops.flash_attention
+        attention.ops.flash_attention = fn
+        try:
+            yield
+        finally:
+            attention.ops.flash_attention = kernel
+
+    def cache_gap(a, b):
+        return max(float((a[kv][i].float() - b[kv][i].float()).abs().max())
+                   for kv in ("k", "v") for i in range(cfg.n_layers))
+
+    with attention_as(ref.flash_attention):
+        p_logits, p_cache = prefill(params, toks)
+    close_or_fail(f"prefill logits, kernel against plain attention [{B},{cfg.vocab}]", logits,
+                  p_logits, 0.0, LM_TOL, failures)
+    gap = cache_gap(cache, p_cache)
+    log(f"  prefill k and v cache, kernel against plain attention [{cfg.n_layers},{B},"
+        f"{cfg.n_kv_heads},{L},{cfg.d_head}]: max_abs_err {gap:.3e} (atol {LM_TOL:g})")
+    if not gap <= LM_TOL:
+        failures.append(f"prefill cache: max_abs_err {gap:.3e} past {LM_TOL:g}")
+
+    # the gates' power: two faults planted in the plain attention must fail both
+    def wrong_kv_head(q, k, v, **kw):   # head h reads KV head h % Hkv, not h // (H / Hkv)
+        idx = torch.arange(q.shape[1], device=q.device) % k.shape[1]
+        return ref.flash_attention(q, k[:, idx], v[:, idx], **kw)
+
+    def diagonal_masked(q, k, v, **kw):  # query at p sees keys < p, not <= p
+        return ref.flash_attention(q, k[:, :, :-1], v[:, :, :-1], **kw)
+
+    for name, fault in (("KV head h % Hkv", wrong_kv_head), ("diagonal masked", diagonal_masked)):
+        with attention_as(fault):
+            f_logits, f_cache = prefill(params, toks)
+        lgap, cgap = float((f_logits - logits).abs().max()), cache_gap(f_cache, cache)
+        log(f"  planted fault, {name}: logits max_abs_err {lgap:.3e}, cache {cgap:.3e}")
+        if not (lgap > LM_TOL and cgap > LM_TOL):
+            failures.append(f"planted fault {name} passes the LM gate ({lgap:.3e}, {cgap:.3e})")
+        del f_cache
+    chunked, _ = lm_steps.make_prefill_step(dataclasses.replace(cfg, attn_impl="chunked"), B, L,
+                                            device=dev)
+    c_logits, _ = chunked(params, toks)
+    log(f"  top-1 tokens equal in {int((logits.argmax(-1) == p_logits.argmax(-1)).sum())} of {B}; "
+        f"last layer's v cache max_abs_err "
+        f"{float((cache['v'][-1].float() - p_cache['v'][-1].float()).abs().max()):.3e}; the "
+        f"yardstick, plain against chunked attention: max_abs_err "
+        f"{float((p_logits - c_logits).abs().max()):.3e}")
+    del p_cache, cache
+    # the first decode step against the prefill of the prompt and its first token
+    full, _ = lm_steps.make_prefill_step(cfg, B, L + 1, device=dev)
+    f_logits, _ = full(params, torch.cat([toks, first.to(dev)[:, None]], dim=1))
+    close_or_fail(f"first decode step against a prefill of {L + 1} tokens", step_logits[0],
+                  f_logits, 0.0, LM_TOL, failures)
+    log(f"  top-1 tokens equal in {int((step_logits[0].argmax(-1) == f_logits.argmax(-1)).sum())} "
+        f"of {B}")
+
+    # steady times under torch.profiler: wall clock (ending in a sync) and device busy time
+    wall_ms, busy_ms, top = device_busy_ms(lambda: prefill(params, toks), 3)
+    log(f"prefill under torch.profiler: {wall_ms:.3f} ms wall ({B * L / wall_ms * 1e3:.0f} "
+        f"tokens/s), device busy {busy_ms:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); "
+        "top kernels: " + top_kernels(top[:6]))
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    wall_ms, busy_ms, top = device_busy_ms(lambda: decode(params, grown, nxt, pos), 8)
+    log(f"decode step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
+        + top_kernels(top[:6]))
+    del grown
+    torch.cuda.empty_cache()
+
+    # the repo's prefill length, one prompt: the kernel's causal skip at length
+    long_toks = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen, device=dev,
+                              dtype=torch.int32)
+    long_prefill, _ = lm_steps.make_prefill_step(cfg, 1, LM_LONG, device=dev)
+    long_prefill(params, long_toks)
+    torch.cuda.synchronize()
+    before = ops.flash_attention.launches
+    t0 = time.perf_counter()
+    l_logits, _ = long_prefill(params, long_toks)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(l_logits.isfinite().all()) or ops.flash_attention.launches - before != cfg.n_layers:
+        failures.append(f"the {LM_LONG}-token prefill: finite {bool(l_logits.isfinite().all())}, "
+                        f"{ops.flash_attention.launches - before} launches")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn((1, H, LM_LONG, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, Hkv, LM_LONG, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    k_ms = time_ms(lambda: ops.flash_attention(q, k, v), iters=5, warmup=1)
+    pairs = H * visible_pairs(LM_LONG, LM_LONG, True, 0)
+    bms, by = bound_ms(2 * (2 * H * LM_LONG * D + 2 * Hkv * LM_LONG * D), 4.0 * pairs * D,
+                       BF16_TENSOR_FLOPS)
+    log(f"prefill 1 x {LM_LONG} tokens: {long_ms:.2f} ms ({LM_LONG / long_ms * 1e3:.0f} tokens/s); "
+        f"the kernel alone at [1,{H},{LM_LONG},{D}] causal: {k_ms:.4f} ms a layer, bound "
+        f"{bms:.4f} ms ({by}), {bms / k_ms * 100:.1f}% of bound, "
+        f"{4.0 * pairs * D / k_ms / 1e9:.1f} TFLOP/s")
     return counts
 
 
@@ -1118,6 +1419,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts[ROW_KERNEL["momentum_bf16"]] = m_counts[ROW_KERNEL["momentum_bf16"]]
 
+    # LM serving: the flash-attention kernel, then internlm2-1.8b's prefill and decode
+    attn_entry = attention_kernel_phase(dev, failures)
+    if failures:
+        raise SystemExit("attention kernel phase failed:\n" + "\n".join(failures))
+    torch.cuda.empty_cache()
+    lm_counts = lm_serving_phase(dev, failures)
+    if failures:
+        raise SystemExit("LM serving phase failed:\n" + "\n".join(failures))
+    torch.cuda.empty_cache()
+    counts["flash_attention"] = lm_counts["flash_attention"]
+
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
               "dot_interaction": ("src/repro_torch/csrc/interaction.cu",
@@ -1141,7 +1453,9 @@ def main() -> int:
               "embedding_update_momentum_bf16": ("src/repro_torch/csrc/embedding_update.cu",
                                                  "src/repro/kernels/embedding_update.py:243"),
               "embedding_update_adagrad_bf16": ("src/repro_torch/csrc/embedding_update.cu",
-                                                "src/repro/kernels/embedding_update.py:268")}
+                                                "src/repro/kernels/embedding_update.py:268"),
+              "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:27")}
     line = []
     for tag in ("uniform", "weighted"):
         u = kernels[0][tag]
@@ -1153,6 +1467,7 @@ def main() -> int:
         log(f"{k['name']}, uniform indices: kernel {u['ms']:.4f} ms, plain {u['plain_ms']:.1f} ms, "
             f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "
             f"of bound; zipf: longest run {k['longest']}, serial chain {k['chain_ms']:.4f} ms")
+    kernels.append(attn_entry)
     for k in kernels:
         src, replaces = routes[k["name"]]
         line.append({"name": k["name"], "route": "cuda", "source": src, "replaces": replaces,

@@ -13,6 +13,7 @@ from repro_torch.kernels.embedding_update import (fused_update_adagrad, fused_up
                                                   fused_update_adagrad_rowwise, fused_update_fp32,
                                                   fused_update_freq, fused_update_momentum,
                                                   fused_update_momentum_bf16, fused_update_split)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_mlp import fused_mlp_layer
 from repro_torch.kernels.interaction import dot_interaction
 from repro_torch.kernels.split_sgd import split_sgd
@@ -30,6 +31,7 @@ KERNELS = {
     "embedding_update_freq": fused_update_freq,
     "embedding_update_momentum_bf16": fused_update_momentum_bf16,
     "embedding_update_adagrad_bf16": fused_update_adagrad_bf16,
+    "flash_attention": flash_attention,
 }
 
 

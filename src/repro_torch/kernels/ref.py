@@ -307,3 +307,50 @@ def split_sgd(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor,
     hi.copy_(nh)
     lo.copy_(nl)
     return hi, lo
+
+
+# the flash kernel's score for a masked (query, key) pair
+# (repro/kernels/flash_attention.py: NEG_INF)
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    softcap: float = 0.0, window: int = 0, scale: float | None = None,
+                    bk: int = 128) -> torch.Tensor:
+    """The flash kernel's recurrence (``repro/kernels/flash_attention.py::
+    _kernel``) over key tiles of ``bk``: q [B, H, Lq, D], k, v [B, Hkv, Lk,
+    D] -> [B, H, Lq, D] in q's dtype.  Head h reads KV head ``h // (H /
+    Hkv)``; query i sits at absolute position ``Lk - Lq + i``.  Per tile the
+    scores are ``scale · q kᵀ`` in fp32, soft-capped after the scale, masked
+    to ``NEG_INF``; the running max ``m``, sum ``l`` and ``acc`` are fp32,
+    and ``p = exp(s - m)`` is rounded to v's dtype before the PV product, so
+    the bits depend on where the tiles split the keys.  A row that sees no
+    key gives 0."""
+    B, H, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Hkv, rep, Lq, D).float()
+    qpos = (torch.arange(Lq, device=q.device) + (Lk - Lq))[:, None]
+    m = torch.full((B, Hkv, rep, Lq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, rep, Lq, v.shape[-1]), device=q.device)
+    for k0 in range(0, Lk, bk):
+        kpos = torch.arange(k0, min(k0 + bk, Lk), device=q.device)[None, :]
+        s = (qg @ k[:, :, None, k0:k0 + bk].float().transpose(-1, -2)) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = torch.ones((Lq, kpos.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ v[:, :, None, k0:k0 + bk].float()
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).to(q.dtype).reshape(B, H, Lq, v.shape[-1])

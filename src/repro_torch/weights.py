@@ -13,6 +13,9 @@
   ``lo`` vector and the stochastic rounding's seed ``sr`` where the
   optimizer has one.  :func:`state_to` copies a train state to another
   device.
+* :func:`lm_params_from_numpy`, :func:`init_lm_params` and
+  :func:`lm_params_to` do the same for an LM's serving parameters (bf16,
+  in the reference's stacked layout).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
 from repro_torch.core.dlrm import DLRMConfig, init_dense_params
+from repro_torch.models import lm_steps
+from repro_torch.models import transformer as tf
 from repro_torch.models.mlp import mlp_sizes
 from repro_torch.core.pipeline import NUM_BUCKETS
 from repro_torch.optim import data_parallel as dp
@@ -168,3 +173,41 @@ def state_to(state: dict, device) -> dict:
     if "sr" in state:
         out["sr"] = state["sr"].to(dev, copy=True)
     return out
+
+
+def lm_params_from_numpy(params_np: dict, cfg: tf.TransformerConfig, device="cuda") -> dict:
+    """The reference's LM parameter tree as numpy arrays, in bf16
+    (``jax.tree.map(np.asarray, params)`` of the serving step's params) ->
+    the port's serving parameters on ``device``, bit for bit."""
+    dev = resolve_device(device)
+
+    def walk(tree, structs, path):
+        if set(tree) != set(structs):
+            raise ValueError(f"params{path} holds {sorted(tree)}, the config needs "
+                             f"{sorted(structs)}")
+        out = {}
+        for k, want in structs.items():
+            if isinstance(want, dict):
+                out[k] = walk(tree[k], want, f"{path}[{k!r}]")
+                continue
+            t = to_torch(tree[k], dev)
+            if tuple(t.shape) != want[0] or t.dtype != want[1]:
+                raise ValueError(f"params{path}[{k!r}] is {t.dtype} {tuple(t.shape)}, the "
+                                 f"config needs {want[1]} {want[0]}")
+            out[k] = t
+        return out
+
+    return walk(params_np, lm_steps.param_structs(cfg), "")
+
+
+def init_lm_params(cfg: tf.TransformerConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Port-native serving parameters in bf16, drawn on ``device``
+    (``generator`` must live there) by
+    :func:`repro_torch.models.transformer.init_params`."""
+    return tf.init_params(cfg, generator, device)
+
+
+def lm_params_to(params: dict, device) -> dict:
+    """A copy of an LM parameter tree on ``device``."""
+    dev = resolve_device(device)
+    return _tree_map(lambda t: t.to(dev, copy=True), params)

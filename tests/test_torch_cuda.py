@@ -490,3 +490,122 @@ def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
     largest = float((want - old).abs().max())
     assert largest > 0
     assert_close(master(state["emb"]).cpu(), want, rtol=0, atol=1e-2 * largest)
+
+
+# the kernel phase's attention cases at a small size: (B, H, Hkv, Lq, Lk, D, causal, window,
+# softcap); the last two rows have queries that see no key (Lq > Lk, causal)
+FLASH_CASES = {
+    "internlm2 prefill": (2, 4, 2, 300, 300, 128, True, 0, 0.0),
+    "gemma2 local": (1, 4, 2, 700, 700, 128, True, 256, 50.0),
+    "gemma2 global": (1, 4, 2, 700, 700, 128, True, 0, 50.0),
+    "ragged": (1, 2, 1, 200, 200, 64, True, 0, 0.0),
+    "right-aligned": (2, 4, 4, 70, 300, 128, True, 0, 0.0),
+    "non-causal": (1, 4, 2, 100, 257, 64, False, 0, 0.0),
+    "one query": (3, 4, 2, 1, 300, 128, True, 100, 0.0),
+    "no visible key": (1, 2, 2, 150, 100, 128, True, 0, 0.0),
+    "no visible key, window": (1, 2, 1, 300, 200, 64, True, 50, 30.0),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(dev, case):
+    """The kernel against its plain version (the same 128-key tiles) on the
+    same bf16 inputs on the card: rtol = atol = 2^-7.  Both round p to bf16
+    against the running max, but the fp32 score sums and the exponentials
+    differ in their last bits, so a p or an output may round to its bf16
+    neighbour (2^-8 to 2^-7 relative); an output near 0 is a sum that
+    cancels, so its error is a share of the v scale (about 1).  At most 2%
+    of the outputs differ, and at most 0.25% by more than one bf16 ulp of
+    their own value (chip_smoke's attention phase measured up to 0.95% and
+    0.12%).  A query that sees no key gives exactly 0."""
+    B, H, Hkv, Lq, Lk, D, causal, window, softcap = FLASH_CASES[case]
+    gen = torch.Generator().manual_seed(Lq * 7 + Lk)
+    q, k, v = (_randn(B, h, n, D, gen=gen).to(torch.bfloat16)
+               for h, n in ((H, Lq), (Hkv, Lk), (Hkv, Lk)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = ref.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert_close(got, want, rtol=2 ** -7, atol=2 ** -7, what=case)
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    ulps = (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(w)) - 7)
+    assert float((got != want).float().mean()) <= 0.02, case
+    assert float((ulps > 1).float().mean()) <= 0.0025, case
+    if case.startswith("no visible key"):
+        blind = want.float().abs().amax(dim=(0, 1, 3)) == 0
+        assert blind.any() and (got[:, :, blind] == 0).all()
+
+
+def test_flash_attention_refuses_bad_inputs(dev):
+    """An fp32 or fp16 tensor, a head dim other than 64 or 128, a
+    non-contiguous tensor or H % Hkv != 0 raises before any launch."""
+    q = torch.zeros(1, 4, 16, 128, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=dev)
+    before = ops.flash_attention.launches
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.float(), k.float(), k.float())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.half(), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                            k[..., :96].contiguous())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, :3].contiguous(), k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k.cpu())
+    assert ops.flash_attention.launches == before
+
+
+def _small_lm(name):
+    """A reduced LM at a head dim the kernel takes: 4 layers, d_model 256."""
+    from repro_torch.configs import gemma2_27b, internlm2_1_8b
+    base = {"internlm2-1.8b": internlm2_1_8b, "gemma2-27b": gemma2_27b}[name].config()
+    return dataclasses.replace(base, n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                               d_head=64, d_ff=512, vocab=1000, window=48, attn_impl="pallas")
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma2-27b"])
+def test_lm_serving_on_card_matches_cpu(dev, name):
+    """Prefill and one decode step of a reduced LM on the card (the flash
+    kernel, cuBLAS) against the same on the CPU (the plain version): logits
+    within 2e-2 and the cache (values of standard deviation about 1) within
+    5e-2: the bf16 activations round apart when the sums run in another
+    order, and the roundings carry through four layers; the decode step
+    within 5e-2 of the CPU's prefill of L + 1 tokens, the tolerance of
+    tests/test_models.py::test_decode_matches_prefill.  The kernel launched
+    once a layer in the prefill and never in the decode."""
+    from repro_torch import weights
+    from repro_torch.models import lm_steps
+    cfg = _small_lm(name)
+    B, L = 2, 100
+    params = weights.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (B, L + 1), generator=torch.Generator().manual_seed(1))
+    prefill_cpu, _ = lm_steps.make_prefill_step(cfg, B, L, device="cpu")
+    prefill, _ = lm_steps.make_prefill_step(cfg, B, L, device=dev)
+    want, want_cache = prefill_cpu(params, toks[:, :L])
+    gpu_params = weights.lm_params_to(params, dev)
+    ops.reset_launches()
+    got, cache = prefill(gpu_params, toks[:, :L].to(dev))
+    torch.cuda.synchronize()
+    assert ops.launches() == {**{k: 0 for k in ops.KERNELS}, "flash_attention": cfg.n_layers}
+    assert_close(got, want, rtol=0, atol=2e-2, what="prefill logits")
+    for k in ("k", "v"):
+        assert_close(cache[k], want_cache[k], rtol=0, atol=5e-2, what=f"{k} cache")
+
+    grown = {k: torch.zeros(v.shape[:-2] + (L + 4, v.shape[-1]), dtype=v.dtype, device=dev)
+             for k, v in cache.items()}
+    for k in grown:
+        grown[k][..., :L, :] = cache[k]
+    decode, _ = lm_steps.make_decode_step(cfg, B, L + 4, device=dev)
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    logits, grown = decode(gpu_params, grown, toks[:, L].to(dev), pos)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == 0
+    want_next, _ = lm_steps.make_prefill_step(cfg, B, L + 1, device="cpu")[0](params, toks)
+    assert_close(logits, want_next, rtol=0, atol=5e-2, what="decode logits")

@@ -38,7 +38,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.weights, "
             "repro_torch.kernels.ops, repro_torch.configs.dlrm_paper, repro_torch.data.synthetic, "
-            "repro_torch.core.pipeline, repro_torch.core.hybrid; "
+            "repro_torch.core.pipeline, repro_torch.core.hybrid, repro_torch.models.lm_steps, "
+            "repro_torch.configs.internlm2_1_8b, repro_torch.configs.gemma2_27b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -52,10 +53,13 @@ def test_cuda_default_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present")
     from repro_torch import resolve_device, weights
     from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.configs.internlm2_1_8b import config as internlm2
     from repro_torch.core.dlrm import init_dense_params, init_state, make_train_step
+    from repro_torch.models import lm_steps, transformer
     from repro_torch.serve import make_bucket_scorers, make_snapshot_score_step
 
     cfg = dlrm_small()
+    lm = internlm2()
     for call in (lambda: resolve_device(),
                  lambda: make_snapshot_score_step(cfg),
                  lambda: make_bucket_scorers(cfg, (8,), lambda: None),
@@ -65,7 +69,13 @@ def test_cuda_default_entry_points_raise_without_cuda():
                  lambda: make_train_step(cfg),
                  lambda: init_state(cfg, torch.Generator()),
                  lambda: weights.state_from_numpy({}, cfg),
-                 lambda: weights.state_to({}, "cuda")):
+                 lambda: weights.state_to({}, "cuda"),
+                 lambda: lm_steps.make_prefill_step(lm, 1, 8),
+                 lambda: lm_steps.make_decode_step(lm, 1, 8),
+                 lambda: transformer.init_params(lm, torch.Generator()),
+                 lambda: weights.init_lm_params(lm, torch.Generator()),
+                 lambda: weights.lm_params_from_numpy({}, lm),
+                 lambda: weights.lm_params_to({}, "cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -170,9 +170,12 @@ def test_cpu_tensors_launch_nothing():
                       torch.ones(1, 1, 2))
     ops.split_sgd(torch.zeros(3, dtype=torch.bfloat16), torch.zeros(3, dtype=torch.int16),
                   torch.zeros(3), 0.1)
+    ops.flash_attention(torch.zeros(1, 2, 5, 8, dtype=torch.bfloat16),
+                        *(torch.zeros(1, 1, 5, 8, dtype=torch.bfloat16),) * 2)
     assert ops.launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"embedding_bag", "dot_interaction", "fused_mlp",
                                 "embedding_update", "embedding_update_fp32", "split_sgd",
                                 "embedding_update_momentum", "embedding_update_adagrad",
                                 "embedding_update_adagrad_rowwise", "embedding_update_freq",
-                                "embedding_update_momentum_bf16", "embedding_update_adagrad_bf16"}
+                                "embedding_update_momentum_bf16", "embedding_update_adagrad_bf16",
+                                "flash_attention"}
