@@ -7,11 +7,14 @@ path on one CUDA card.
 from the root of a checkout.  Phases, each of which fails the run:
 
 1. build: compile every kernel of ``src/repro_torch/csrc/`` (one ``nvcc``
-   each, all at once) and print what ``ptxas`` reports;
+   each, all at once) and print what ``ptxas`` reports; the two
+   warp-specialised TMA + wgmma kernels (flash attention, fused_mlp's wgmma
+   route) must not spill;
 2. kernels: call each serving kernel's wrapper at dlrm-small's shapes, at
    the config's batch (8192) and at every serving bucket (8, 32, 128), hold
    the result against the kernel's plain PyTorch version on the same inputs
-   on the card, and, at 8192, time kernel, plain version and a PyTorch
+   on the card (each fused_mlp layer names its route, wgmma or mma.sync),
+   and, at 8192, time kernel, plain version and a PyTorch
    library call that computes the same function (a yardstick the port never
    calls); the bag also on uniform indices, whose rows are nearly all
    distinct, and weighted (weights U[0.5, 1.5), its library call
@@ -23,7 +26,8 @@ from the root of a checkout.  Phases, each of which fails the run:
    buckets (8, 32, 128): 1024 requests with zipf(1.05) indices, in bursts
    that reach every bucket.  Every score must be finite and in (0, 1), and
    its logit must match the plain-version forward's on the card; every
-   serving kernel must have been launched, fused_mlp 8 times a batch;
+   serving kernel must have been launched, fused_mlp 8 times a batch, 6 of
+   them (every layer whose K and N are multiples of 8) on the wgmma route;
 4. breakdown: per bucket, the host's padding, the score fn's wall time and
    the device's busy time in it (torch.profiler);
 5. row kernels: the fused row update (split store and fp32 store) and the
@@ -169,7 +173,7 @@ ATTN_CASES = (("internlm2 prefill", 4, 16, 8, 4096, 4096, True, 0, 0.0),
 # a sum of terms that cancel, so a p rounded the other way moves it by a share of
 # the v scale (about 1), not of its own value: each output is held to 2^-7 of both.
 # The shares below keep the many small outputs to their own ulps: on an H100 up to
-# 0.95% of outputs differed and up to 0.12% by more than one bf16 ulp of their value
+# 1.02% of outputs differed and up to 0.13% by more than one bf16 ulp of their value
 ATTN_TOL = (2 ** -7, 2 ** -7)
 ATTN_MAX_UNEQUAL = 0.02     # share of outputs not equal
 ATTN_MAX_PAST_ULP = 0.0025  # share of outputs more than one bf16 ulp of their value apart
@@ -267,7 +271,7 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
     import torch
     import torch.nn.functional as F
     from repro_torch.core.interaction import tril_indices
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import fused_mlp, ops, ref
 
     W = snap["emb_w"]
     rows, E = W.shape
@@ -335,16 +339,18 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                 tol = KERNEL_TOL["fused_mlp"] if last else FUSED_MLP_BF16_TOL
                 M, K = h.shape
                 N = w.shape[1]
-                err = close_or_fail(f"fused_mlp {tag}{i} [{M}x{K}]@[{K}x{N}] {act} -> {out_dtype}",
-                                    k_out, p_out, *tol, failures)
+                path = fused_mlp.route(M, K, N)
+                err = close_or_fail(f"fused_mlp {tag}{i} [{M}x{K}]@[{K}x{N}] {act} -> {out_dtype} "
+                                    f"({path})", k_out, p_out, *tol, failures)
                 e = entries.setdefault("fused_mlp", {"name": "fused_mlp", "max_abs_err": 0.0,
                                                      "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                                     "library_ms": 0.0, "flops": 0.0, "bytes": 0.0})
+                                                     "library_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+                                                     "layers": []})
                 e["max_abs_err"] = max(e["max_abs_err"], err)
                 if timed:
                     nbytes = (M * K + K * N) * 2 + N * b.element_size() + M * N * k_out.element_size()
                     flops = 2.0 * M * K * N
-                    bms, _ = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+                    bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
                     lib = torch.relu if act == "relu" else (lambda y: y)
                     t = dict(ms=time_ms(lambda: ops.fused_mlp_layer(h, w, b, act, out_dtype)),
                              plain_ms=time_ms(lambda: ref.fused_mlp_layer(h, w, b, act, out_dtype)),
@@ -354,8 +360,11 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                         e[key] += v
                     e["flops"] += flops
                     e["bytes"] += nbytes
-                    log(f"    {tag}{i}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                        f"addmm {t['library_ms']:.4f} ms, bound {bms:.4f} ms, "
+                    e["layers"].append(dict(layer=f"{tag}{i}", M=M, K=K, N=N, route=path, **t,
+                                            bound_by=by))
+                    log(f"    {tag}{i} [{M}x{K}]@[{K}x{N}], {path}: kernel {t['ms']:.4f} ms, "
+                        f"plain {t['plain_ms']:.4f} ms, addmm {t['library_ms']:.4f} ms, bound "
+                        f"{bms:.4f} ms ({by}), {bms / t['ms'] * 100:.1f}% of bound, "
                         f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
                 h = p_out
             return h
@@ -386,6 +395,11 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
         layers(snap["dense_hi"]["top"], want.to(torch.bfloat16), False, "top")
 
     fm = entries["fused_mlp"]
+    for path in ("wgmma", "mma_sync"):
+        ls = [x for x in fm["layers"] if x["route"] == path]
+        log(f"fused_mlp at B={cfg.batch}, {path} route ({len(ls)} layers): kernel "
+            f"{sum(x['ms'] for x in ls):.4f} ms, addmm {sum(x['library_ms'] for x in ls):.4f} ms, "
+            f"bound {sum(x['bound_ms'] for x in ls):.4f} ms")
     fm["bound_by"] = ("operations" if fm["flops"] / BF16_TENSOR_FLOPS >= fm["bytes"] / HBM_BYTES_PER_S
                       else "bytes")
     del fm["flops"], fm["bytes"]
@@ -430,7 +444,7 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     wait for the last to be answered (BURSTS), so that every bucket serves.
     Returns the launch counts of this run."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_mlp, ops
     from repro_torch.serve import ContinuousBatchingServer, make_bucket_scorers
 
     fns, pad = make_bucket_scorers(cfg, BUCKETS, lambda: reg.current().state, device=dev)
@@ -446,6 +460,7 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
         stats = srv.stats()
     wall = time.perf_counter() - t0
     counts = ops.launches()
+    routes = dict(ops.fused_mlp_layer.route_launches)
     scores = np.array(scores, dtype=np.float32)
     n_batches = sum(stats["batches"].values())
     log(f"served {stats['requests']} requests in {n_batches} batches {stats['batches']} "
@@ -463,6 +478,16 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
             or counts["dot_interaction"] != n_batches \
             or any(v for k, v in counts.items() if k not in SERVING_KERNELS):
         failures.append(f"launches {counts} do not match {n_batches} batches (fused_mlp 8 each)")
+    # dlrm-small's layers by route: every layer whose K and N a tensor map takes on wgmma
+    layers = [(k, n) for sizes in (cfg.bottom_sizes, cfg.top_sizes)
+              for k, n in zip(sizes, sizes[1:])]
+    want_routes = {path: n_batches * sum(fused_mlp.route(BUCKETS[0], k, n) == path
+                                         for k, n in layers)
+                   for path in ("wgmma", "mma_sync")}
+    log(f"fused_mlp launches by route: {routes} (want {want_routes}: of the {len(layers)} layers "
+        f"{want_routes['wgmma'] // max(n_batches, 1)} on wgmma)")
+    if routes != want_routes:
+        failures.append(f"fused_mlp routes {routes}, want {want_routes}")
 
     # every served score's logit against the plain-version forward's logit
     # of the same rows (fp32 scores near 0.5 invert to within about 3e-7)
@@ -479,6 +504,7 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     log(f"  scores: min {scores.min():.6f}, max {scores.max():.6f}, mean {scores.mean():.6f}; "
         f"logits: min {float(got.min()):.6f}, max {float(got.max()):.6f}; zeroing the bags "
         f"would move the logits by up to {float((no_bag - want).abs().max()):.3e}")
+    counts["fused_mlp_routes"] = routes
     return counts
 
 
@@ -1328,6 +1354,21 @@ def main() -> int:
         info = [ln.strip() for ln in rec["ptxas"].splitlines()
                 if "registers" in ln or "spill" in ln or "error" in ln]
         log(f"  {stem}: nvcc {rec['seconds']:.1f} s; " + " | ".join(info))
+    for stem in ("flash_attention", "fused_mlp"):  # the warp-specialised TMA + wgmma kernels
+        report = build.ptxas_report(stem)
+        if not report:
+            log(f"  {stem}: no ptxas report (the library was already built)")
+        for r in report:
+            if "warning" in r:
+                log(f"  {stem}: {r['warning']}")
+                continue
+            spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+            log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, {r.get('smem')} bytes "
+                f"static smem, {r.get('spill_stores')} bytes spill stores, "
+                f"{r.get('spill_loads')} bytes spill loads")
+            if spills and r["kernel"].startswith(("flash_attention_kernel",
+                                                  "fused_mlp_wgmma_kernel")):
+                raise SystemExit(f"build failed: {r['kernel']} spills {spills} bytes")
 
     cfg = dataclasses.replace(dlrm_small(), mlp_impl="pallas")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1474,6 +1515,8 @@ def main() -> int:
                      "launches": counts[k["name"]], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+        if k["name"] == "fused_mlp":  # the serving run's launches by kernel (wgmma or mma.sync)
+            line[-1]["route_launches"] = counts["fused_mlp_routes"]
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

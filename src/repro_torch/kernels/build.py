@@ -8,8 +8,14 @@ seconds (``tools/time_torch_build.py`` times this route against
 at once, one ``nvcc`` each, at the first launch of any kernel, into
 ``build/torch_kernels/`` at the root of the checkout, or, for an installed
 copy of the package, into ``~/.cache/repro_torch/torch_kernels/``.  A library
-is named after the hash of its source and flags, so an unchanged source is
-not compiled twice.
+is named after the hash of its source, of every header beside it
+(``csrc/*.cuh``, which any source may include) and of the flags, so an
+unchanged source is not compiled twice and an edited header rebuilds every
+library.
+
+TMA tensor maps are encoded on the host by libcuda's
+``cuTensorMapEncodeTiled``, which ``csrc/hopper.cuh`` looks up through the
+runtime (``cudaGetDriverEntryPointByVersion``), so nothing links ``-lcuda``.
 
 Importing this module needs no CUDA toolkit.
 """
@@ -19,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,8 +66,13 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{h}.so"
+    """The library ``src`` builds into: named after the hash of ``src``, of
+    the headers in its directory and of the flags."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
 def load() -> dict[str, ctypes.CDLL]:
@@ -95,6 +107,30 @@ def load() -> dict[str, ctypes.CDLL]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         _libs.update({src.stem: ctypes.CDLL(str(_target(src))) for src in sources})
         return _libs
+
+
+def ptxas_report(stem: str) -> list[dict]:
+    """What ptxas said of each kernel of ``csrc/<stem>.cu`` when this
+    process compiled it: ``{"kernel", "registers", "smem", "spill_stores",
+    "spill_loads"}`` a kernel (``kernel`` the mangled name's identifier and
+    template arguments, as ``flash_attention_kernel<128>``), plus every
+    ptxas warning and numbered note (such as C7514, wgmma serialized) as
+    ``{"warning": line}``.  Empty when the library was already built."""
+    out: list[dict] = []
+    for line in build_log.get(stem, {}).get("ptxas", "").splitlines():
+        if m := re.search(r"Compiling entry function '_Z\w*?([a-z][a-z_]*_kernel)(\w*)'", line):
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            out.append({"kernel": m.group(1) + (f"<{', '.join(args)}>" if args else "")})
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            if out and "kernel" in out[-1]:
+                out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            if out and "kernel" in out[-1]:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[-1].update(registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+        elif "warning" in line.lower() or re.search(r"\(C\d{4}\)", line):
+            out.append({"warning": line.strip()})
+    return out
 
 
 def function(stem: str, name: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -13,22 +13,33 @@ L = 4096, D = 128, causal) it does 2.7e11 operations on 134 MB of q, k, v
 and o, about 2,000 operations a byte against the card's bf16 balance of
 about 295.
 
-Design (the simple first version): one block of 4 warps per (query tile of
-64, head, batch), in place of the TPU's sequential key-block grid axis and
-its VMEM scratch; each warp owns 16 query rows and keeps their running max,
-sum and fp32 output accumulator in registers.  The block walks only the key
-tiles of 128 that its queries can see (causal, window and ``Lk``), which is
-the TPU kernel's ``pl.when(needed)`` skip and what makes gemma2's local
-layers cost O(L·W).  Head h reads KV head ``h // (H / Hkv)`` by index, so no
-repeated K/V copy is made.  Both products are bf16 ``mma.sync.m16n8k16``
-with fragments loaded by ``ldmatrix``; the score fragments become the PV
-product's A fragments in registers.  The next tile's keys are fetched with
-``cp.async`` behind the softmax and its values behind the score product.
-Ragged Lq and Lk are zero-filled and masked in the kernel.  The key tile is
-128, as the TPU kernel's ``bk``: ``p`` is rounded to bf16 against the
-running max, so where the tiles split the keys fixes the bits, and the plain
-version (``ref.flash_attention``, ``bk=128``) follows the same split.  No
-``wgmma``, TMA or warp specialisation yet.
+Design (Hopper, warp-specialised): one block of three warpgroups per (128
+queries, head, batch), in place of the TPU's sequential key-block grid axis
+and its VMEM scratch.  The producer warpgroup lowers its registers
+(``setmaxnreg``) and one of its threads loads the Q tile once and the
+visible K and V tiles of 128 keys by TMA (3-D tensor maps over ``[B·H, Lq,
+D]`` and ``[B·Hkv, Lk, D]``, 128-byte swizzle, zero fill past ``Lq`` and
+``Lk``) into two-stage rings with full and empty mbarriers; head h reads KV
+row ``b·Hkv + h // (H / Hkv)``, so no repeated K/V copy is made.  The two
+consumer warpgroups own 64 query rows each and keep their running max, sum
+and fp32 output in registers: ``S = Q Kᵀ`` is ``wgmma m64n128k16`` with both
+operands in shared memory, the softmax runs on the accumulator layout (in
+log2 units, the scale folded into one FMA before ``ex2.approx``; the
+soft-cap and the masks are template paths, so a tile pays for neither where
+it has none), and ``O += bf16(P) V`` is ``wgmma`` with P's fragments in
+registers and V, stored ``[keys, D]``, as an MN-major operand.  Each chain
+of ``wgmma`` is one asm statement: written as separate statements, the
+compiler copied accumulators between two in-flight ``wgmma`` and ptxas
+serialized them.  Each consumer issues tile i's score
+product and tile i-1's PV product in one turn, ordered against the other
+consumer's turn by named barriers, and runs tile i's softmax while the
+other's products run.  The block walks only the key tiles its queries can
+see (causal, window and ``Lk``), the TPU kernel's ``pl.when(needed)`` skip
+that makes gemma2's local layers cost O(L·W).  The key tile is 128, as the
+TPU kernel's ``bk``: ``p`` is rounded to bf16 against the running max, so
+where the tiles split the keys fixes the bits, and the plain version
+(``ref.flash_attention``, ``bk=128``) follows the same split.  The
+soft-cap keeps the accurate ``tanhf``.
 """
 
 from __future__ import annotations

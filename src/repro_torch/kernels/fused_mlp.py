@@ -6,16 +6,30 @@ and the activation (relu, sigmoid or none) applied while the output tile is
 still on chip, and the output written in ``out_dtype``, so the bf16 cast
 between the layers of ``mlp_forward`` fuses into the epilogue.
 
-What bounds it: operations.  At M = 8192 a 1024 x 1024 layer does 17 GFLOP
-on 18.9 MB (about 900 operations per byte), above the card's bf16 balance
-of about 295; the thin layers (K = 100, N = 64, N = 1) are bound by bytes.
+What bounds it: operations on the wide layers, bytes on the thin ones.  At
+M = 8192 a 1024 x 1024 layer does 17 GFLOP on 18.9 MB (about 900 operations
+per byte), above the card's bf16 balance of about 295; the thin layers
+(K = 100, N = 64, N = 1) are bound by bytes.
 
-Design (the simple first version): 128 x 128 output tiles, 8 warps each
-owning a 64 x 32 sub-tile of bf16 ``mma.sync.m16n8k16`` products with fp32
-accumulators in registers; K advances in steps of 32 through shared memory,
-with 16-byte loads where the row stride allows.  Ragged M, N and K are
-masked in the kernel.  No TMA, no ``wgmma``, no multi-stage pipeline yet:
-those are the known next steps.
+Two routes, chosen by ``route(M, K, N)`` before the launch:
+
+- ``"wgmma"`` (K and N multiples of 8, the row strides a TMA tensor map
+  takes): 128 x 256 output tiles where the grid still has about one for
+  every SM (half the x traffic a flop of 128 x 128), else 128 x 128; a
+  producer warp streams 64-deep K slices of x (K-major) and w (kept
+  ``[K, N]`` as the model holds it, so an MN-major operand) by TMA into a
+  4-stage ring of 128-byte-swizzled shared memory with full and empty
+  mbarriers; two consumer warpgroups, 64 rows each, run ``wgmma
+  m64n256k16`` (or ``m64n128k16``) from shared memory with one slice's
+  products in flight behind the next, and ``setmaxnreg`` gives them the
+  producer's registers.  TMA zero-fills the ragged M, N and K edges.
+- ``"mma_sync"`` (every other shape: dlrm-small's K = 100 and N = 1
+  layers): the first version, 8 warps of ``mma.sync.m16n8k16`` over
+  128 x 128 tiles, K in steps of 32 through one shared buffer.
+
+Each route counts its launches in ``fused_mlp_layer.route_launches``;
+``fused_mlp_layer.launches`` is their total.  A failed build or launch of
+either route raises: neither stands in for the other.
 """
 
 from __future__ import annotations
@@ -29,8 +43,17 @@ from repro_torch.kernels import build, ref
 plain = ref.fused_mlp_layer
 
 _ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
+_LAUNCHERS = {"wgmma": "fused_mlp_wgmma_fwd", "mma_sync": "fused_mlp_fwd"}
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def route(M: int, K: int, N: int) -> str:
+    """The kernel that computes a layer of this shape on the card: "wgmma"
+    where a TMA tensor map can describe x [M, K] and w [K, N] (row strides
+    of a multiple of 16 bytes: K and N multiples of 8, K > 0), else
+    "mma_sync".  M does not enter: TMA zero-fills a ragged last tile."""
+    return "wgmma" if K > 0 and K % 8 == 0 and N % 8 == 0 else "mma_sync"
 
 
 def fused_mlp_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, activation: str = "relu",
@@ -64,15 +87,18 @@ def fused_mlp_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, activatio
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M * N == 0:
         return out
-    fn = build.function("fused_mlp", "fused_mlp_fwd", _ARGS)
+    path = route(M, K, N)
+    fn = build.function("fused_mlp", _LAUNCHERS[path], _ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                  int(b.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
                  _ACTIVATIONS[activation], torch.cuda.current_stream().cuda_stream)
         fused_mlp_layer.launches += 1
+        fused_mlp_layer.route_launches[path] += 1
     if err:
-        raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"fused_mlp {path} kernel launch failed with CUDA error {err}")
     return out
 
 
 fused_mlp_layer.launches = 0
+fused_mlp_layer.route_launches = {"wgmma": 0, "mma_sync": 0}

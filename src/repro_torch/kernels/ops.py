@@ -38,6 +38,8 @@ KERNELS = {
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for path in fused_mlp_layer.route_launches:
+        fused_mlp_layer.route_launches[path] = 0
 
 
 def launches() -> dict[str, int]:

@@ -105,6 +105,54 @@ def test_fused_mlp_kernel_matches_plain(dev, m, k, n, act):
             assert_close(got, want, rtol=rtol, atol=atol, what=f"{b.dtype} bias, {out_dtype} out")
 
 
+def _fused_mlp_case(dev, m, k, n, act, path):
+    """One layer against its plain version (tolerances as above), with the
+    launch counted on route ``path`` and on no other."""
+    from repro_torch.kernels import fused_mlp
+    assert fused_mlp.route(m, k, n) == path
+    gen = torch.Generator().manual_seed(m * k + n)
+    x = _randn(m, k, gen=gen).to(torch.bfloat16)
+    w = _randn(k, n, gen=gen, scale=0.05).to(torch.bfloat16)
+    for b in (_randn(n, gen=gen), _randn(n, gen=gen).to(torch.bfloat16)):
+        for out_dtype, rtol, atol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2 ** -7, 1e-4)):
+            before = dict(ops.fused_mlp_layer.route_launches)
+            want = ref.fused_mlp_layer(x.to(dev), w.to(dev), b.to(dev), act, out_dtype)
+            got = ops.fused_mlp_layer(x.to(dev), w.to(dev), b.to(dev), act, out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            assert ops.fused_mlp_layer.route_launches == {
+                **before, path: before[path] + 1}
+            assert_close(got, want, rtol=rtol, atol=atol,
+                         what=f"{path} [{m}x{k}]@[{k}x{n}], {b.dtype} bias, {out_dtype} out")
+
+
+@pytest.mark.parametrize("n", [64, 200, 1024])
+@pytest.mark.parametrize("k", [8, 520, 1024])
+@pytest.mark.parametrize("m", [1, 8, 200, 8192])
+def test_fused_mlp_wgmma_route_matches_plain(dev, m, k, n):
+    """The TMA + wgmma kernel at the edges of its 128 x 128 tile and its
+    64-deep K slices (K = 8 is one ragged slice, 520 ends 8 into one), at
+    the serving buckets' M and at the batch; the plain version runs on the
+    card too (fp32 products of bf16 values, exact)."""
+    _fused_mlp_case(dev, m, k, n, "relu", "wgmma")
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 64, 264), (4000, 72, 1000), (8192, 1024, 512)])
+def test_fused_mlp_wide_tile_matches_plain(dev, m, k, n):
+    """Grids with a tile for about every SM take 128 x 256 output tiles
+    (wgmma m64n256k16), here with ragged M and N."""
+    _fused_mlp_case(dev, m, k, n, "relu", "wgmma")
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 100, 1024), (200, 100, 64), (8192, 1024, 1), (8, 100, 1),
+                                   (129, 36, 12)])
+@pytest.mark.parametrize("act", ["none", "sigmoid"])
+def test_fused_mlp_mma_sync_route_matches_plain(dev, m, k, n, act):
+    """Shapes a tensor map cannot take (K = 100, dlrm-small's first top
+    layer; N = 1, its last) go to the mma.sync kernel."""
+    _fused_mlp_case(dev, m, k, n, act, "mma_sync")
+
+
 def test_serving_step_on_card_matches_cpu(dev):
     """The whole slice at a small size: the same snapshot scored on the card
     (kernels) and on the CPU (plain versions), within the bf16 tolerance
@@ -504,6 +552,15 @@ FLASH_CASES = {
     "one query": (3, 4, 2, 1, 300, 128, True, 100, 0.0),
     "no visible key": (1, 2, 2, 150, 100, 128, True, 0, 0.0),
     "no visible key, window": (1, 2, 1, 300, 200, 64, True, 50, 30.0),
+    # the edges of the kernel's 128-query block and its 64-row consumers
+    "Lq 127": (1, 4, 2, 127, 127, 128, True, 0, 0.0),
+    "Lq 128": (1, 4, 2, 128, 128, 64, True, 0, 0.0),
+    "Lq 129": (2, 4, 2, 129, 129, 128, True, 0, 0.0),
+    "Lq 257": (1, 4, 1, 257, 257, 64, True, 0, 0.0),
+    "Lq 129, non-causal": (1, 2, 1, 129, 257, 64, False, 0, 0.0),
+    "one query, 4096 keys": (2, 4, 2, 1, 4096, 128, True, 0, 0.0),
+    "window ends inside a block": (1, 4, 2, 500, 500, 128, True, 100, 0.0),
+    "window inside a block, softcap": (1, 4, 2, 300, 300, 64, True, 70, 30.0),
 }
 
 
@@ -516,8 +573,8 @@ def test_flash_attention_kernel_matches_plain(dev, case):
     neighbour (2^-8 to 2^-7 relative); an output near 0 is a sum that
     cancels, so its error is a share of the v scale (about 1).  At most 2%
     of the outputs differ, and at most 0.25% by more than one bf16 ulp of
-    their own value (chip_smoke's attention phase measured up to 0.95% and
-    0.12%).  A query that sees no key gives exactly 0."""
+    their own value (chip_smoke's attention phase measured up to 1.02% and
+    0.13%).  A query that sees no key gives exactly 0."""
     B, H, Hkv, Lq, Lk, D, causal, window, softcap = FLASH_CASES[case]
     gen = torch.Generator().manual_seed(Lq * 7 + Lk)
     q, k, v = (_randn(B, h, n, D, gen=gen).to(torch.bfloat16)

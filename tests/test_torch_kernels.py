@@ -53,6 +53,32 @@ def test_fused_mlp_plain_matches_pallas(m, k, n, act):
     assert_close(out16, got_ref.astype(jnp.bfloat16), rtol=2e-2, atol=2e-2, what="bf16 out")
 
 
+@pytest.mark.parametrize("m,k,n,want", [
+    (8192, 512, 512, "wgmma"), (1, 8, 64, "wgmma"), (200, 520, 200, "wgmma"),
+    (8, 1024, 1024, "wgmma"), (8192, 100, 1024, "mma_sync"), (8192, 1024, 1, "mma_sync"),
+    (33, 77, 129, "mma_sync"), (4, 12, 16, "mma_sync"), (4, 16, 12, "mma_sync"),
+    (4, 0, 8, "mma_sync")])
+def test_fused_mlp_route(m, k, n, want):
+    """A layer goes to the wgmma kernel where a TMA tensor map can describe
+    x and w (K and N multiples of 8, K > 0), else to the mma.sync kernel."""
+    from repro_torch.kernels import fused_mlp
+    assert fused_mlp.route(m, k, n) == want
+
+
+def test_fused_mlp_routes_of_dlrm_small():
+    """dlrm-small's 8 layers: all but the top MLP's first (K = 100) and last
+    (N = 1) take the wgmma route, at the config's batch and every bucket."""
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.kernels import fused_mlp
+    cfg = dlrm_small()
+    layers = [(k, n) for sizes in (cfg.bottom_sizes, cfg.top_sizes)
+              for k, n in zip(sizes, sizes[1:])]
+    assert layers[3] == (100, 1024) and layers[-1] == (1024, 1)
+    for m in (cfg.batch, 8, 32, 128):
+        assert [fused_mlp.route(m, k, n) for k, n in layers] == \
+            ["wgmma"] * 3 + ["mma_sync"] + ["wgmma"] * 3 + ["mma_sync"]
+
+
 def test_fused_mlp_fp32_bias_and_checks():
     x = torch.from_numpy(RNG.standard_normal((5, 7)).astype(np.float32)).to(torch.bfloat16)
     w = torch.from_numpy(RNG.standard_normal((7, 3)).astype(np.float32)).to(torch.bfloat16)
@@ -173,6 +199,7 @@ def test_cpu_tensors_launch_nothing():
     ops.flash_attention(torch.zeros(1, 2, 5, 8, dtype=torch.bfloat16),
                         *(torch.zeros(1, 1, 5, 8, dtype=torch.bfloat16),) * 2)
     assert ops.launches() == {name: 0 for name in ops.KERNELS}
+    assert ops.fused_mlp_layer.route_launches == {"wgmma": 0, "mma_sync": 0}
     assert set(ops.KERNELS) == {"embedding_bag", "dot_interaction", "fused_mlp",
                                 "embedding_update", "embedding_update_fp32", "split_sgd",
                                 "embedding_update_momentum", "embedding_update_adagrad",
