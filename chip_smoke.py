@@ -34,7 +34,9 @@ from the root of a checkout.  Phases, each of which fails the run:
    flat Split-SGD step, bit for bit against their plain versions at
    dlrm-small's shapes (the training stream's first zipf batch and a uniform
    one; the dense update's 3,811,396 values), timed, with the byte bound and
-   the serial-chain floor of the longest run;
+   the serial-chain floor of the longest run, row 6 also against
+   ``index_add_``; every row kernel's launch lists its runs of ``long_run()``
+   lookups or more on the card, and that count must match the host's;
 6. training: dlrm-small at full size (the 2.05 GB split store), batch 8192,
    lr 0.1, ``make_train_step`` over 20 staged zipf batches: every loss
    finite, one launch a step of the bag, interaction, row-update and
@@ -51,9 +53,10 @@ from the root of a checkout.  Phases, each of which fails the run:
    dlrm-small's shapes on the zipf and the uniform stream, timed, with the
    byte bound and the longest run's serial chain; the two bf16 kinds again
    at a second seed, which must change the state and not the weights;
-9. weighted row kernels: all eight row updates bit for bit against their
-   plain versions on the zipf stream with weights U[0.5, 1.5), zero on one
-   table;
+9. weighted and fp32-dY row kernels: all eight row updates bit for bit
+   against their plain versions on the zipf stream with weights
+   U[0.5, 1.5), zero on one table, and on the unweighted zipf stream with an
+   fp32 cotangent, timed beside the bound and the longest run's chain;
 10. row-wise Adagrad training: phase 6 again with
     ``sparse_optimizer="adagrad_rowwise"`` (the fp32 table and one
     accumulator a row) at lr 0.01;
@@ -574,6 +577,25 @@ def bitwise_or_fail(name, got, want, failures) -> float:
     return err
 
 
+# each row kernel's wrapper in kernels.ops
+ROW_WRAPPER = {"embedding_update": "fused_update_split",
+               "embedding_update_fp32": "fused_update_fp32"}
+
+
+def check_long_runs(name, wrapper, counts, failures) -> None:
+    """The number of runs the wrapper's last launch listed for the long-run
+    schedule against the runs of ``eu.long_run()`` lookups or more counted on the
+    host (``counts``: each run's length); read after the timed region."""
+    from repro_torch.kernels import embedding_update as eu
+    T = eu.long_run()
+    listed, want = int(wrapper.long_runs), int((counts >= T).sum())
+    log(f"  {name}: {listed} runs of {T} lookups or more listed by the first kernel, "
+        f"{want} counted on the host")
+    if listed != want:
+        failures.append(f"{name}: the first kernel listed {listed} long runs, the host counts "
+                        f"{want}")
+
+
 def master(store):
     """The fp32 master rows of an embedding store."""
     from repro_torch.optim.split_sgd import combine_split
@@ -663,10 +685,12 @@ def row_kernel_phase(cfg, state, offsets, batch, dev, rng, failures) -> list[dic
                 del g
             else:
                 t["library_ms"] = None  # no PyTorch call splits fp32 into halves
-            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            lib = "none" if t["library_ms"] is None else (
+                f"{t['library_ms']:.4f} ms (the kernel at {t['ms'] / t['library_ms']:.3f}x it)")
             log(f"  {name} {tag}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, "
                 f"library {lib}, bound {bms:.4f} ms ({by}, {(base + U * E * 8) / 1e6:.1f} MB), "
                 f"{t['ms'] / chain_ms:.2f}x the longest run's serial chain")
+            check_long_runs(f"{name} {tag}", getattr(ops, ROW_WRAPPER[name]), counts, failures)
             if tag == "zipf":
                 e.update(t)
             else:
@@ -801,6 +825,7 @@ def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[
             log(f"  {kname} {tag}: kernel {t['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound "
                 f"{bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), "
                 f"{t['ms'] / chain_ms:.2f}x the longest run's serial chain")
+            check_long_runs(f"{kname} {tag}", kernel, counts, failures)
             if tag == "zipf":
                 e.update(t)
             else:
@@ -808,13 +833,17 @@ def stateful_kernel_phase(cfg, W32, offsets, batch, dev, rng, failures) -> list[
     return [entries[ROW_KERNEL[name]] for name, _, _ in STATEFUL]
 
 
-def weighted_row_phase(cfg, state, offsets, batch, dev, rng, failures) -> dict:
-    """Rows 5-12 on the main path's first zipf batch with weights
-    U[0.5, 1.5) from ``rng``, zero on the last table's lookups, bit for bit
-    against their plain versions on the weights and the state, and timed
+def row_variants_phase(cfg, state, offsets, batch, dev, rng, failures) -> dict:
+    """Rows 5-12 on the main path's first zipf batch in two variants, bit for
+    bit against their plain versions on the weights and the state, timed
+    beside the bound and the longest run's chain: weights U[0.5, 1.5) from
+    ``rng``, zero on the last table's lookups, with a bf16 cotangent
     (weights that differ inside a bag split the groups of equal bag and
-    weight that the walk sums with one load and one product).  Returns the
-    largest difference seen per kernel (0.0 when bitwise)."""
+    weight that the walk sums with one load and one product); and no
+    weights with an fp32 cotangent (the reference's own type, values bf16
+    cannot hold).  Returns ``{kernel: {"max_abs_err", "weighted":
+    {"ms", "bound_ms", "bound_by", "chain_ms"}}}`` (the error 0.0 when
+    bitwise)."""
     import torch
     from repro_torch.kernels import embedding_update as eu
     from repro_torch.kernels import ops, ref
@@ -823,46 +852,67 @@ def weighted_row_phase(cfg, state, offsets, batch, dev, rng, failures) -> dict:
     B, S, P, E = cfg.batch, len(cfg.table_rows), cfg.pooling, cfg.emb_dim
     W32 = master(state["emb"])
     rows = W32.shape[0]
+    ghz = sm_clock_ghz()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    dY = (torch.randn((B * S, E), device=dev, generator=gen) * 1e-3).to(torch.bfloat16)
+    dY = (torch.randn((B * S, E), device=dev, generator=gen) * 1e-3)
     w = rng.uniform(0.5, 1.5, batch["idx"].shape).astype(np.float32)
     w[:, -1, :] = 0.0
     wgt = torch.from_numpy(w).to(dev)
-    stream = eu.sort_lookups((batch["idx"] + offsets[None, :, None]).reshape(-1), None, rows, P,
-                             wgt.reshape(-1))
+    flat = (batch["idx"] + offsets[None, :, None]).reshape(-1)
+    plain_stream = eu.sort_lookups(flat, None, rows, P)
+
     def groups(st):  # runs of equal (row, bag, weight) in the sorted stream
         r, b, _, w = st
         return 1 + int(((r[1:] != r[:-1]) | (b[1:] != b[:-1]) | (w[1:] != w[:-1])).sum())
 
-    plain_stream = eu.sort_lookups((batch["idx"] + offsets[None, :, None]).reshape(-1), None, rows, P)
-    log(f"weighted row updates, zipf indices: {int(torch.unique(stream[3]).numel())} distinct "
-        f"weights; {stream[0].numel()} lookups in {groups(stream)} groups of equal (row, bag, "
-        f"weight), {groups(plain_stream)} unweighted")
-    errs = {}
-    for name in ROW_KERNEL:
-        opt = row_optim.get(name)
-        if opt.split:
-            store = (state["emb"]["hi"], state["emb"]["lo"])
-            fn_name, extra = "fused_update_split", ()
-        elif not opt.state:
-            store, fn_name, extra = (W32,), "fused_update_fp32", ()
-        else:
-            _, width, _ = opt.state[0]
-            store = (W32, random_state(name, (rows, width or E), dev, gen, stream))
-            _, fn_name, hp_key = next(k for k in STATEFUL if k[0] == name)
-            extra = (getattr(opt, hp_key), *seed_args(name, SR_SEEDS[0], dev))
-        want = [t.clone() for t in store]
-        getattr(ref, fn_name)(*want, *stream, dY, cfg.lr, *extra)
-        got = [t.clone() for t in store]
-        getattr(ops, fn_name)(*got, *stream, dY, cfg.lr, *extra)
-        torch.cuda.synchronize()
-        errs[ROW_KERNEL[name]] = max(
-            bitwise_or_fail(f"{ROW_KERNEL[name]} weighted zipf, slab {i}", g, w_, failures)
-            for i, (g, w_) in enumerate(zip(got, want)))
-        ms = time_ms(lambda: getattr(ops, fn_name)(*got, *stream, dY, cfg.lr, *extra))
-        log(f"  {ROW_KERNEL[name]} weighted zipf: kernel {ms:.4f} ms")
-        del want, got, store
-    return errs
+    out = {}
+    for tag, stream, cot in (
+            ("weighted zipf", eu.sort_lookups(flat, None, rows, P, wgt.reshape(-1)),
+             dY.to(torch.bfloat16)),
+            ("fp32-dY zipf", plain_stream, dY)):
+        L = stream[0].numel()
+        _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+        U, longest = counts.numel(), int(counts.max())
+        chain_ms = longest * 4 / (ghz * 1e9) * 1e3
+        log(f"row updates, {tag}: {int(torch.unique(stream[3]).numel())} distinct weights; "
+            f"{L} lookups in {groups(stream)} groups of equal (row, bag, weight) "
+            f"({groups(plain_stream)} unweighted), {U} runs, longest {longest}, serial chain "
+            f"{chain_ms:.4f} ms; dY {cot.dtype}")
+        for name in ROW_KERNEL:
+            opt = row_optim.get(name)
+            if opt.split:
+                store = (state["emb"]["hi"], state["emb"]["lo"])
+                fn_name, extra, state_bytes = "fused_update_split", (), 0
+            elif not opt.state:
+                store, fn_name, extra, state_bytes = (W32,), "fused_update_fp32", (), 0
+            else:
+                _, width, dtype = opt.state[0]
+                store = (W32, random_state(name, (rows, width or E), dev, gen, stream))
+                _, fn_name, hp_key = next(k for k in STATEFUL if k[0] == name)
+                extra = (getattr(opt, hp_key), *seed_args(name, SR_SEEDS[0], dev))
+                state_bytes = ({0: U * E * 2 * store[1].element_size(), 1: U * 8}[width]
+                               if dtype != torch.int32 else U * 4)
+            kname = ROW_KERNEL[name]
+            want = [t.clone() for t in store]
+            getattr(ref, fn_name)(*want, *stream, cot, cfg.lr, *extra)
+            got = [t.clone() for t in store]
+            getattr(ops, fn_name)(*got, *stream, cot, cfg.lr, *extra)
+            torch.cuda.synchronize()
+            e = out.setdefault(kname, {"max_abs_err": 0.0})
+            e["max_abs_err"] = max(e["max_abs_err"], *(
+                bitwise_or_fail(f"{kname} {tag}, slab {i}", g, w_, failures)
+                for i, (g, w_) in enumerate(zip(got, want))))
+            ms = time_ms(lambda: getattr(ops, fn_name)(*got, *stream, cot, cfg.lr, *extra))
+            # as in the other row phases: the touched rows read and written once,
+            # the cotangent and the sorted stream read once
+            nbytes = cot.numel() * cot.element_size() + L * 16 + U * E * 8 + state_bytes
+            bms, by = bound_ms(nbytes, L * E * 2 + U * E * (6 if opt.state else 2), FP32_FLOPS)
+            log(f"  {kname} {tag}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{ms / chain_ms:.2f}x the longest run's serial chain")
+            if tag.startswith("weighted"):
+                e["weighted"] = dict(ms=ms, bound_ms=bms, bound_by=by, chain_ms=chain_ms)
+            del want, got, store
+    return out
 
 
 def stage_batches(cfg, n: int, dev) -> list[dict]:
@@ -1410,11 +1460,13 @@ def main() -> int:
                                      failures)
     if failures:
         raise SystemExit("stateful row kernel phase failed:\n" + "\n".join(failures))
-    weighted_errs = weighted_row_phase(t_cfg, state, offsets, batches[0], dev, rng, failures)
+    variants = row_variants_phase(t_cfg, state, offsets, batches[0], dev, rng, failures)
     if failures:
-        raise SystemExit("weighted row kernel phase failed:\n" + "\n".join(failures))
-    for k in kernels:  # rows 5-12 on a weighted stream: their largest error too
-        k["max_abs_err"] = max(k["max_abs_err"], weighted_errs.get(k["name"], 0.0))
+        raise SystemExit("weighted and fp32-dY row kernel phase failed:\n" + "\n".join(failures))
+    for k in kernels:  # rows 5-12 on the weighted and fp32-dY streams: their largest error too
+        if k["name"] in variants:
+            k["max_abs_err"] = max(k["max_abs_err"], variants[k["name"]]["max_abs_err"])
+            k["weighted"] = variants[k["name"]]["weighted"]
     torch.cuda.empty_cache()
     train_counts = training_phase(t_cfg, state, batches, dev, failures)
     if failures:
@@ -1504,10 +1556,15 @@ def main() -> int:
             f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "
             "of bound")
     for k in kernels[3:5] + kernels[6:]:
-        u = k["uniform"]
+        u, w = k["uniform"], k["weighted"]
         log(f"{k['name']}, uniform indices: kernel {u['ms']:.4f} ms, plain {u['plain_ms']:.1f} ms, "
             f"bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['bound_ms'] / u['ms'] * 100:.1f}% "
-            f"of bound; zipf: longest run {k['longest']}, serial chain {k['chain_ms']:.4f} ms")
+            f"of bound; zipf: {k['ms']:.4f} ms, longest run {k['longest']}, serial chain "
+            f"{k['chain_ms']:.4f} ms, {k['ms'] / k['chain_ms']:.2f}x it; weighted zipf: "
+            f"{w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms, "
+            f"{w['ms'] / w['chain_ms']:.2f}x the chain"
+            + ("" if k["library_ms"] is None else
+               f"; zipf {k['ms'] / k['library_ms']:.3f}x index_add_ ({k['library_ms']:.4f} ms)"))
     kernels.append(attn_entry)
     for k in kernels:
         src, replaces = routes[k["name"]]

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
 // this directory, as raw PTX: the host-side encoding of TMA tensor maps,
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors for the 128-byte
+// mbarriers, cp.async with its mbarrier arrival, TMA tile loads, wgmma
+// shared-memory descriptors for the 128-byte
 // swizzle and the wgmma instructions themselves, setmaxnreg and named
 // barriers.  Header only; each .cu that includes it stays a plain C library
 // (no CUTLASS, no PyTorch headers).
@@ -117,6 +118,35 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// cp.async of N = 4, 8 or 16 bytes from global `src` to shared `dst` (both
+// N-byte aligned), cached in L1 and L2
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(N)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier's expected count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// whether the barrier's phase of parity `parity` has completed, without
+// waiting: issued early, its result can be read after other work
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // TMA: one box of a 2-D or 3-D tensor map into shared memory at `dst`

@@ -133,14 +133,15 @@ def ptxas_report(stem: str) -> list[dict]:
     return out
 
 
-def function(stem: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C launcher ``name`` of ``csrc/<stem>.cu`` with its argument types
-    declared; every launcher returns the CUDA error of its launch as int."""
+def function(stem: str, name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<stem>.cu`` with its argument and
+    result types declared; every launcher returns the CUDA error of its
+    launch as int."""
     key = f"{stem}.{name}"
     fn = _functions.get(key)
     if fn is None:
         fn = getattr(load()[stem], name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[key] = fn
     return fn

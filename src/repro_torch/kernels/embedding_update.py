@@ -1,26 +1,26 @@
 """Fused sparse embedding backward + row update on Hopper
 (``csrc/embedding_update.cu``).
 
-Replaces the TPU kernels of ``repro/kernels/embedding_update.py``, in one
-source: the first two templated on the store, the other six on the
-optimizer's step:
+Replaces the eight TPU kernels of ``repro/kernels/embedding_update.py``
+(``_kernel_split`` :82 to ``_kernel_adagrad_bf16`` :268), in one source:
+one run walk, and each kernel's optimizer step an epilogue on it:
 
-- ``_kernel_split`` (via ``fused_update_split_pallas``; the paper's Alg. 3 +
-  C5) and ``_kernel_fp32`` (via ``fused_update_fp32_pallas``): ``w =
+- ``_kernel_split`` :82 (via ``fused_update_split_pallas``; the paper's Alg. 3
+  + C5) and ``_kernel_fp32`` :114 (via ``fused_update_fp32_pallas``): ``w =
   fmaf(-lr, acc, w)`` on the Split-SGD store (``w = (hi << 16) | lo``,
   re-split) or an fp32 ``W``;
-- ``_kernel_momentum`` (via ``fused_update_momentum_pallas``): ``m`` = the
+- ``_kernel_momentum`` :151 (via ``fused_update_momentum_pallas``): ``m`` = the
   run's lookups added in order onto ``beta * m``, ``w = fmaf(-lr, m, w)``
   (what the jitted reference computes; the TPU kernel adds ``beta * m`` to
   the run's sum, the same terms in another order);
-- ``_kernel_adagrad`` (via ``fused_update_adagrad_pallas``, ``rowwise=False``):
+- ``_kernel_adagrad`` :169 (via ``fused_update_adagrad_pallas``, ``rowwise=False``):
   ``s = fmaf(acc, acc, s)``, ``w = w - (lr * acc) / (sqrt(s) + eps)``;
-- ``_make_kernel_adagrad_rowwise`` (the same wrapper, ``rowwise=True``): one
+- ``_make_kernel_adagrad_rowwise`` :190 (the same wrapper, ``rowwise=True``): one
   accumulator a row, ``s += sum_e acc^2 / E``, then the Adagrad step;
-- ``_kernel_freq`` (via ``fused_update_freq_pallas``): ``w = w - (lr * acc) /
+- ``_kernel_freq`` :219 (via ``fused_update_freq_pallas``): ``w = w - (lr * acc) /
   (sqrt(max(cnt, 1)) + eps)``, reading the row's touch count, which the
   caller has bumped;
-- ``_kernel_momentum_bf16`` and ``_kernel_adagrad_bf16`` (via
+- ``_kernel_momentum_bf16`` :243 and ``_kernel_adagrad_bf16`` :268 (via
   ``fused_update_momentum_bf16_pallas`` and ``..._adagrad_bf16_pallas``):
   momentum and Adagrad with the state slab stored as bf16.  The state is
   decoded exactly, the step runs in fp32 as above (Adagrad's weight step
@@ -37,45 +37,79 @@ flat order, then one step on that row, in place.  Rows nobody looked up are
 never read or written: the TPU kernels' ``input_output_aliases``.  A run
 made only of masked lookups (the sorted tail) writes neither the row nor its
 state, since ``beta * m`` is no no-op: the TPU kernels' liveness flag.
+``dY`` is bf16 (the row-mode wire's own type) or fp32 (the type the
+reference's kernels read), exact in fp32 either way; the kernel is
+templated on it.  Row addresses are int64.
 
-What bounds it: device-memory bytes, and on a skewed stream the in-order sum.
-The touched rows are read and written once (8 bytes a value of ``w``, and as
-much again for an ``[M, E]`` state slab), the cotangent rows and the sorted
-stream read once.  The sum of a run is a serial chain of dependent fp32 adds,
-one a lookup: zipf(1.05) sends about half of a table's lookups to one row,
-so at B = 8192, pooling 50, one run holds some 200 K lookups and its adds
-alone take about 0.4 ms.
+What bounds it on an H100: on a skewed stream, the longest run's add chain;
+otherwise the bytes of the touched rows (read and written once, 8 bytes a
+value of ``w`` and as much again for an ``[M, E]`` state slab), the
+cotangent rows and the sorted stream.  Bitwise parity with the reference
+fixes the order of the sum inside a run, so a run is one serial chain of
+dependent fp32 adds, one a lookup, and no warp can split it: zipf(1.05)
+sends about half of a table's lookups to one row, so at B = 8192, pooling
+50, one run holds some 212 K lookups and its adds alone take about 0.43 ms.
 
-Design: one launch, no host sync.  Each warp looks at a window of 32 sorted
-positions, finds the runs that start in it (``rows[i] != rows[i-1]``) with
-one ballot, and walks each to its end, 32 positions (a segment) and 64
-columns (two a lane) at a time.  Bitwise parity with the reference fixes the
-order of the sum inside a run, so the warp cannot split a run.  Within a
-segment, consecutive lookups of one bag with one weight form a group (zipf's
-hot rows: some 26 lookups of row 0 a bag); a segment of at most 4 groups
-loads one cotangent row and rounds one product a group, then adds it once a
-lookup, in order; other segments go a position at a time.  Both give the
-same adds with the same operands.  The old row and its state are loaded at
-the run's start, beside the sums.  The stateful kinds OR a ballot of the
-valid positions over the run's segments into its liveness.  The product
-``wgt * dY`` and each add round on their own; the step rounds exactly where
-the plain versions in ``kernels/ref.py`` do: an FMA where jitted JAX
-contracts one, each other operation on its own.  Row-wise Adagrad needs the
-whole row's sum of squares before it writes a column: a butterfly of
-``__shfl_xor_sync`` over the warp, after a first walk over every block of 64
-columns; a second walk recomputes the sums of the blocks before the last
-(the same walk, the same bits) and steps them.  The Split-SGD and fp32
-kinds keep their own copy of the walk, as it was before the stateful kinds
-came: compiled through the shared one they ran slower on zipf.  ``dY`` is read as bf16, the
-row-mode wire's own type, exact in fp32.  Row addresses are int64.
+Design: one walk, two schedules, and one epilogue (the step) per kind.
 
-Where its time goes (H100, ``PERF.md``, ``tools/ablate_row_update.py``): a
-long run's walk costs some 1,300–2,000 cycles a segment whatever the segment
-holds, far above its adds.  The likely reason, not yet proven: the walk
-hands the next segment's registers to the current one by copying them, and
-a copy waits for the loads that fill them, so each segment waits out a
-memory round trip.  A ring whose roles rotate instead (unrolled, or in
-shared memory through ``cp.async``) is the next step.
+- A first kernel lists the runs of T = 512 positions or more (a constant
+  of the source, :func:`long_run`): ``(start, row)`` into a device list
+  with an atomic counter, capacity ``L // T + 1``, which the wrapper
+  allocates at the size the library returns (:func:`list_words`).  The
+  long runs' kernel gives a block to each of the list's slots (a block past
+  the count exits at once); the short runs' kernel, a warp to each window
+  of 32 positions, runs beside it on a second stream, forked from the
+  caller's and joined back before the launcher returns (three blocks an SM
+  for it, a tighter register budget than the long runs' consumer can
+  take).  The second stream and its two events are one a device, shared by
+  every caller, so a launch holds a lock from the fork to the join: launches
+  from several threads are safe, and their short runs' kernels take turns
+  on that stream.  No host sync:
+  nothing about the runs comes back to the host (the count stays on the
+  card, in ``wrapper.long_runs``).
+- A long run's block is warp-specialised around a ring of stages in shared
+  memory, each guarded by a full and an empty mbarrier.  A stage is one
+  segment (32 positions): the positions' cotangent rows (64 columns), their
+  weights and masks.  Seven producer warps fill the stages with ``cp.async``
+  alone (16-byte chunks where the rows allow), segment j by warp j % 7;
+  each lane's arrival fires when its copies land, so no producer waits for
+  a load, and none executes a release, which would wait for the bags it
+  keeps in flight for its next rounds.  One consumer warp does the run's
+  adds, in order, two chains a lane (columns c and c + 1): each product
+  rounded once, as the plain version rounds it (skipped where every weight
+  of the segment is 1: ``x * 1`` is ``x``, bit for bit), then added.  It
+  reads the next stage into a second register buffer while it adds the
+  current one, and asks whether the stage after that is full before its
+  adds and reads the answer after them.  The ring has 8 stages (32 KB of
+  bf16 rows, 64 KB of fp32 ones).
+- A window's warp finds the runs that start in it (``rows[i] !=
+  rows[i-1]``) with one ballot, skips the long ones by the list's own test
+  (``rows[s + T - 1] == rows[s]``), and walks each other run to its end, 32
+  positions and 64 columns (two a lane) at a time, the next segment's
+  stream and cotangent rows loaded before the current one is summed.  Within a
+  segment, consecutive lookups of one bag with one weight form a group; a
+  segment of at most 4 groups loads one cotangent row and rounds one
+  product a group, then adds it once a lookup, in order; other segments go
+  a position at a time.  Both give the same adds with the same operands.
+
+The old row and its state are loaded at the run's start, beside the sums,
+and written once at its end.  The stateful kinds OR the valid positions
+over the run's segments into its liveness.  The product and each add round
+on their own; the step rounds exactly where the plain versions in
+``kernels/ref.py`` do: an FMA where jitted JAX contracts one, each other
+operation on its own.  Row-wise Adagrad needs the whole row's sum of
+squares before it writes a column: a butterfly of ``__shfl_xor_sync`` over
+the warp, after a first walk over every block of 64 columns; a second walk
+recomputes the sums of the blocks before the last (the same walk, the same
+bits) and steps them.  A long run's producers follow the same sequence of
+walks.
+
+Where its time goes: ``PERF.md`` §6 and ``tools/ablate_row_update.py``,
+which times copies of the kernel without the consumer's stage reads,
+without the producers' cotangent copies, without the consumer's adds, and
+at other ring depths.  On dlrm-small's zipf stream the consumer bounds
+the long runs, at over 500 cycles a segment against its two add chains'
+128: without its adds the kernel takes half the time.
 """
 
 from __future__ import annotations
@@ -87,13 +121,27 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_ARGS_SPLIT = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                       ctypes.c_void_p]
-_ARGS_FP32 = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_void_p]
-_ARGS_STATE = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                       ctypes.c_float, ctypes.c_void_p]
-_ARGS_STATE_SR = [ctypes.c_void_p] * 8 + _ARGS_STATE[7:]
+# the launchers: the stream (4), dY and its type flag, the store's slabs
+# (and the seed), the long runs' list, L, E, lr (and hp), the stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS_SPLIT = [_P] * 5 + [_I] + [_P] * 3 + [ctypes.c_int64, _I, ctypes.c_float, _P]
+_ARGS_FP32 = [_P] * 5 + [_I] + [_P] * 2 + [ctypes.c_int64, _I, ctypes.c_float, _P]
+_ARGS_STATE = [_P] * 5 + [_I] + [_P] * 3 + [ctypes.c_int64, _I, ctypes.c_float, ctypes.c_float,
+                                            _P]
+_ARGS_STATE_SR = [_P] * 5 + [_I] + [_P] * 4 + _ARGS_STATE[9:]
+
+
+def long_run() -> int:
+    """The long-run schedule's threshold, as the built kernel has it: runs
+    of this many positions or more (builds the library; the card only)."""
+    return build.function("embedding_update", "embedding_update_long_run", [])()
+
+
+def list_words(L: int) -> int:
+    """The int64 words of the long runs' list that a launch on ``L`` sorted
+    lookups needs, as the built kernel sizes it."""
+    return build.function("embedding_update", "embedding_update_list_words", [ctypes.c_int64],
+                          ctypes.c_int64)(L)
 
 
 def sort_lookups(tgt: torch.Tensor, valid: torch.Tensor | None, num_rows: int, pooling: int,
@@ -138,8 +186,8 @@ def _check_cuda(tensors, dY: torch.Tensor) -> int:
     """Checks for a launch; returns E."""
     if dY.device.type != "cuda":
         raise ValueError(f"unsupported device {dY.device}")
-    if dY.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel reads dY as bf16 (the row-mode wire), got {dY.dtype}")
+    if dY.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernel reads dY as bf16 (the row-mode wire) or fp32, got {dY.dtype}")
     if not all(t.is_contiguous() for t in (*tensors, dY)):
         raise ValueError("the table, the stream and dY must be contiguous")
     E = dY.shape[1]
@@ -149,13 +197,34 @@ def _check_cuda(tensors, dY: torch.Tensor) -> int:
     return E
 
 
+def _launch(wrapper, cname: str, argtypes: list, stream: tuple, dY: torch.Tensor, store: tuple,
+            E: int, scalars: tuple) -> None:
+    """Launch ``cname`` on CUDA tensors and count it on ``wrapper``: the
+    sorted ``stream``, ``dY``, the ``store``'s slabs (and the seed), a fresh
+    list for the long runs, then ``scalars`` (lr, and hp).  Leaves the
+    number of long runs the launch listed on ``wrapper.long_runs``, a 0-d
+    int64 tensor on the card (reading it is a host sync)."""
+    L = stream[0].shape[0]
+    device = stream[0].device
+    runs = torch.empty(list_words(L), dtype=torch.int64, device=device)
+    fn = build.function("embedding_update", cname, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), int(dY.dtype == torch.float32),
+                 *(t.data_ptr() for t in store), runs.data_ptr(), L, E,
+                 *(float(np.float32(x)) for x in scalars), torch.cuda.current_stream().cuda_stream)
+        wrapper.launches += 1
+    wrapper.long_runs = runs[0]
+    if err:
+        raise RuntimeError(f"{cname} kernel launch failed with CUDA error {err}")
+
+
 def fused_update_split(hi: torch.Tensor, lo: torch.Tensor, srows: torch.Tensor,
                        sbags: torch.Tensor, smsk: torch.Tensor, swgt: torch.Tensor,
                        dY: torch.Tensor, lr: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused sparse backward + Split-SGD row update, in place on ``hi`` [M, E]
     bf16 / ``lo`` [M, E] int16 (the low-half bits), from the sorted stream of
     :func:`sort_lookups` and the bag cotangents ``dY`` [bags, E].  CUDA
-    tensors launch the kernel (``dY`` bf16); CPU tensors run the plain
+    tensors launch the kernel (``dY`` bf16 or fp32); CPU tensors run the plain
     version (``ref.fused_update_split``).  Returns ``(hi, lo)``."""
     _check(hi, srows, sbags, smsk, swgt, dY)
     if hi.dtype != torch.bfloat16 or lo.dtype != torch.int16 or lo.shape != hi.shape:
@@ -166,14 +235,8 @@ def fused_update_split(hi: torch.Tensor, lo: torch.Tensor, srows: torch.Tensor,
     if hi.device.type == "cpu":
         return ref.fused_update_split(hi, lo, srows, sbags, smsk, swgt, dY, lr)
     E = _check_cuda((hi, lo, srows, sbags, smsk, swgt), dY)
-    fn = build.function("embedding_update", "embedding_update_split", _ARGS_SPLIT)
-    with torch.cuda.device(hi.device):
-        err = fn(srows.data_ptr(), sbags.data_ptr(), smsk.data_ptr(), swgt.data_ptr(),
-                 dY.data_ptr(), hi.data_ptr(), lo.data_ptr(), srows.shape[0], E,
-                 float(np.float32(lr)), torch.cuda.current_stream().cuda_stream)
-        fused_update_split.launches += 1
-    if err:
-        raise RuntimeError(f"embedding_update kernel launch failed with CUDA error {err}")
+    _launch(fused_update_split, "embedding_update_split", _ARGS_SPLIT, (srows, sbags, smsk, swgt),
+            dY, (hi, lo), E, (lr,))
     return hi, lo
 
 
@@ -188,14 +251,8 @@ def fused_update_fp32(W: torch.Tensor, srows: torch.Tensor, sbags: torch.Tensor,
     if W.device.type == "cpu":
         return ref.fused_update_fp32(W, srows, sbags, smsk, swgt, dY, lr)
     E = _check_cuda((W, srows, sbags, smsk, swgt), dY)
-    fn = build.function("embedding_update", "embedding_update_fp32", _ARGS_FP32)
-    with torch.cuda.device(W.device):
-        err = fn(srows.data_ptr(), sbags.data_ptr(), smsk.data_ptr(), swgt.data_ptr(),
-                 dY.data_ptr(), W.data_ptr(), srows.shape[0], E, float(np.float32(lr)),
-                 torch.cuda.current_stream().cuda_stream)
-        fused_update_fp32.launches += 1
-    if err:
-        raise RuntimeError(f"embedding_update_fp32 kernel launch failed with CUDA error {err}")
+    _launch(fused_update_fp32, "embedding_update_fp32", _ARGS_FP32, (srows, sbags, smsk, swgt),
+            dY, (W,), E, (lr,))
     return W
 
 
@@ -222,14 +279,8 @@ def _stateful(wrapper, cname: str, plain, W: torch.Tensor, S: torch.Tensor, per_
     if W.device.type == "cpu":
         return plain(W, S, *stream, dY, lr, hp, *sr)
     E = _check_cuda((W, S, *stream), dY)
-    fn = build.function("embedding_update", cname, _ARGS_STATE_SR if sr else _ARGS_STATE)
-    with torch.cuda.device(W.device):
-        err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), W.data_ptr(), S.data_ptr(),
-                 *(t.data_ptr() for t in sr), stream[0].shape[0], E, float(np.float32(lr)),
-                 float(np.float32(hp)), torch.cuda.current_stream().cuda_stream)
-        wrapper.launches += 1
-    if err:
-        raise RuntimeError(f"{cname} kernel launch failed with CUDA error {err}")
+    _launch(wrapper, cname, _ARGS_STATE_SR if sr else _ARGS_STATE, stream, dY, (W, S, *sr), E,
+            (lr, hp))
     return W, S
 
 
@@ -310,3 +361,4 @@ for _fn in (fused_update_split, fused_update_fp32, fused_update_momentum, fused_
             fused_update_adagrad_rowwise, fused_update_freq, fused_update_momentum_bf16,
             fused_update_adagrad_bf16):
     _fn.launches = 0
+    _fn.long_runs = None

@@ -408,6 +408,202 @@ def test_row_kernels_bitwise_to_plain_on_weighted_stream(dev, name, E):
     assert not torch.equal(want[0], store[0])
 
 
+
+def _row_store(name, M, E, gen):
+    """(wrapper, store slabs, extra args before the seed) of a row kind."""
+    if name == "split_sgd":
+        return "fused_update_split", _split_table(M, E, gen), ()
+    if name == "sgd":
+        return "fused_update_fp32", (torch.rand((M, E), generator=gen) - 0.5,), ()
+    wrapper, _, _, hp = STATEFUL[name]
+    return wrapper, (torch.rand((M, E), generator=gen) - 0.5, _state(name, M, E, gen)), (hp,)
+
+
+def _row_kernel_bitwise(dev, name, E, tgt, valid, wgt, P, dtype, gen, M, offset=0):
+    """Run one row kind's kernel and its plain version on one stream (the
+    counts of ``adagrad_freq`` bumped first), assert them bit for bit on
+    every slab, and return (wrapper, store, plain result, sorted stream).
+    The card's ``dY`` starts ``offset`` values into its allocation."""
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.optim.row import bump_counters
+    dY = (torch.randn((max(tgt.numel() // P, 1), E), generator=gen) * 0.5).to(dtype)
+    stream = eu.sort_lookups(tgt, valid, M, P, wgt)
+    wrapper, store, extra = _row_store(name, M, E, gen)
+    if name == "adagrad_freq":
+        bump_counters(store[1], stream[0], stream[2])
+    seed = _seed_args(name, 2 ** 31 - 3, "cpu") if name in STATEFUL else ()
+    want = getattr(ref, wrapper)(*(t.clone() for t in store), *stream, dY, 0.1, *extra, *seed)
+    want = want if isinstance(want, tuple) else (want,)
+    before = getattr(ops, wrapper).launches
+    d_dY = torch.empty(offset + dY.numel(), dtype=dtype, device=dev)[offset:].view(dY.shape)
+    d_dY.copy_(dY)
+    got = getattr(ops, wrapper)(*(t.clone().to(dev) for t in store), *(t.to(dev) for t in stream),
+                                d_dY, 0.1, *extra,
+                                *(_seed_args(name, 2 ** 31 - 3, dev) if seed else ()))
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert getattr(ops, wrapper).launches == before + 1
+    for g, w in zip(got, want):
+        bits = torch.int16 if w.element_size() == 2 else torch.int32
+        assert torch.equal(g.cpu().view(bits), w.view(bits))
+    return getattr(ops, wrapper), store, want, stream
+
+
+def _edge_stream(case, M, P, gen):
+    """(tgt, valid, wgt or None, long rows): ragged short runs of random rows
+    (none of the long runs' rows 7 and 9) beside the case's long runs, each
+    half a block of whole bags in flat order (groups of P equal lookups:
+    segments summed group by group) and half scattered (a group a lookup)."""
+    from repro_torch.kernels import embedding_update as eu
+    T = eu.long_run()
+    lengths = {"none": [], "T-1": [T - 1], "T": [T], "T+1": [T + 1],
+               "ring": [4 * 8 * 32],  # four turns of the 8-stage ring, its last segment full
+               "wrap": [50_000], "two": [T + 37, 3 * T], "weighted": [4 * T + 5],
+               "masked_tail": [], "all_masked": []}[case]
+    n_rest = 40 * P + sum(lengths)  # room for the scattered halves
+    rest = torch.randint(-3, M + 3, (n_rest,), generator=gen, dtype=torch.int32)
+    rest[(rest == 7) | (rest == 9)] = 11
+    parts, scattered = [], []
+    for r, n in zip((7, 9), lengths):
+        block = (n // 2) // P * P
+        parts.append(torch.full((block,), r, dtype=torch.int32))
+        scattered += [r] * (n - block)
+    tgt = torch.cat(parts + [rest]) if parts else rest
+    valid = torch.rand(tgt.shape, generator=gen) > 0.1
+    head = sum(p.numel() for p in parts)
+    valid[:head] = True
+    if scattered:
+        where = head + torch.randperm(n_rest, generator=gen)[: len(scattered)]
+        tgt[where] = torch.tensor(scattered, dtype=torch.int32)
+        valid[where] = True
+    if case == "masked_tail":  # the last row's 300 valid lookups, then T masked ones
+        tgt = torch.cat([tgt, torch.full((300,), M - 1, dtype=torch.int32),
+                         torch.randint(0, M, (T,), generator=gen, dtype=torch.int32)])
+        valid = torch.cat([valid, torch.ones(300, dtype=torch.bool),
+                           torch.zeros(T, dtype=torch.bool)])
+    elif case == "all_masked":
+        tgt = torch.randint(0, M, (2 * T,), generator=gen, dtype=torch.int32)
+        valid = torch.zeros(tgt.shape, dtype=torch.bool)
+    pad = -tgt.numel() % P  # whole bags
+    tgt = torch.cat([tgt, torch.full((pad,), 11, dtype=torch.int32)])
+    valid = torch.cat([valid, torch.full((pad,), case != "all_masked", dtype=torch.bool)])
+    wgt = None
+    if case == "weighted":  # every weight differs
+        wgt = torch.randperm(tgt.numel(), generator=gen).float() / tgt.numel() + 0.5
+    return tgt, valid, wgt
+
+
+EDGE_CASES = ["none", "T-1", "T", "T+1", "ring", "wrap", "two", "weighted", "masked_tail",
+              "all_masked"]
+ROW_KINDS = ["split_sgd", "sgd", *STATEFUL]
+
+
+@pytest.mark.parametrize("E", [64, 128])
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_row_walk_edges_bitwise_to_plain(dev, name, case, E):
+    """The two schedules of the run walk, every kind, bit for bit against
+    the plain versions on every slab: a run of T - 1 (the short walk), T and
+    T + 1 positions (the long one), a run of whole turns of the ring, one
+    that wraps it some 200 times, two long runs in one launch, a weighted
+    long run whose every weight differs, a long run that ends in the masked
+    tail, an all-masked stream of 2T lookups (one dead long run: nothing
+    written, state included), none; at E = 64 and 128 (row-wise Adagrad's
+    second walk).  The launch's list holds exactly the runs of T or more."""
+    from repro_torch.kernels import embedding_update as eu
+    gen = torch.Generator().manual_seed(E + 7 * EDGE_CASES.index(case))
+    M, P = 300, 20
+    tgt, valid, wgt = _edge_stream(case, M, P, gen)
+    wrapper, store, want, stream = _row_kernel_bitwise(dev, name, E, tgt, valid, wgt, P,
+                                                       torch.bfloat16, gen, M)
+    _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+    assert int(wrapper.long_runs) == int((counts >= eu.long_run()).sum())
+    if case == "all_masked":
+        assert int(wrapper.long_runs) == 1
+        for w, s in zip(want, store):
+            assert torch.equal(w, s)
+
+
+@pytest.mark.parametrize("case", ["wrap", "weighted", "none"])
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_row_kernels_fp32_cotangent_bitwise_to_plain(dev, name, case):
+    """Every kind with an fp32 cotangent (the reference's own type, values
+    bf16 cannot hold), bit for bit against its plain version, on both
+    schedules: a long run amid short ones, a weighted one, short runs only."""
+    gen = torch.Generator().manual_seed(31 + len(name))
+    M, P = 300, 20
+    tgt, valid, wgt = _edge_stream(case, M, P, gen)
+    _, store, want, _ = _row_kernel_bitwise(dev, name, 96, tgt, valid, wgt, P, torch.float32,
+                                            gen, M)
+    assert not torch.equal(want[0], store[0])
+
+NARROW = {"bf16 E36": (torch.bfloat16, 36, 0), "bf16 E100": (torch.bfloat16, 100, 0),
+          "fp32 E34": (torch.float32, 34, 0), "bf16 dY 8 bytes in": (torch.bfloat16, 64, 4),
+          "fp32 dY 8 bytes in": (torch.float32, 64, 2)}
+
+
+@pytest.mark.parametrize("layout", list(NARROW))
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_row_walk_narrow_copies_bitwise_to_plain(dev, name, layout):
+    """The long schedule's producers copy a lane's two columns of a row
+    (4 or 8 bytes) where 16-byte chunks do not fit: a row width that is no
+    whole number of chunks (bf16 at E = 36 and 100, fp32 at 34) or a ``dY``
+    that starts 8 bytes past a 16-byte boundary.  Every kind, bit for bit
+    against its plain version, on two long runs amid short ones."""
+    from repro_torch.kernels import embedding_update as eu
+    dtype, E, offset = NARROW[layout]
+    gen = torch.Generator().manual_seed(53 + len(name) + E)
+    M, P = 300, 20
+    tgt, valid, wgt = _edge_stream("two", M, P, gen)
+    wrapper, store, want, stream = _row_kernel_bitwise(dev, name, E, tgt, valid, wgt, P, dtype,
+                                                       gen, M, offset)
+    _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+    assert int(wrapper.long_runs) == 2 == int((counts >= eu.long_run()).sum())
+    assert not torch.equal(want[0], store[0])
+
+
+def test_row_kernel_launches_from_two_threads_bitwise_to_plain(dev):
+    """Two threads launch the row update at once, each on a stream of its
+    own and on its own table, five times each: the side stream and its
+    events, which a device's callers share, keep each launch's short runs
+    after its own inputs and before its caller's next launch.  Each table
+    bit for bit its plain version's after the five updates."""
+    import threading
+    from repro_torch.kernels import embedding_update as eu
+    gen = torch.Generator().manual_seed(77)
+    M, P, E = 300, 20, 64
+    jobs = []
+    for _ in range(2):
+        tgt, valid, wgt = _edge_stream("two", M, P, gen)
+        stream = eu.sort_lookups(tgt, valid, M, P, wgt)
+        dY = (torch.randn((tgt.numel() // P, E), generator=gen) * 0.5).to(torch.bfloat16)
+        W = torch.rand((M, E), generator=gen) - 0.5
+        want = W.clone()
+        for _ in range(5):
+            want = ref.fused_update_fp32(want, *stream, dY, 0.1)
+        jobs.append((W.to(dev), tuple(t.to(dev) for t in stream), dY.to(dev), want))
+    torch.cuda.synchronize()
+    errors = []
+
+    def run(W, stream, dY):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for _ in range(5):
+                    ops.fused_update_fp32(W, *stream, dY, 0.1)
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=job[:3]) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for W, _, _, want in jobs:
+        assert torch.equal(W.cpu(), want)
+
+
 def test_stateful_row_kernels_refuse_bad_state(dev):
     """A state slab of the wrong width or type raises before any launch."""
     from repro_torch.kernels import embedding_update as eu
@@ -443,8 +639,8 @@ def test_split_sgd_kernel_bitwise_to_plain(dev, n):
 
 
 def test_new_kernels_refuse_bad_inputs(dev):
-    """A non-contiguous input, a wrong dtype or an fp32 cotangent raises
-    before any launch."""
+    """A non-contiguous input, a wrong dtype or a cotangent that is neither
+    bf16 nor fp32 raises before any launch."""
     from repro_torch.kernels import embedding_update as eu
     hi = torch.zeros(8, 16, dtype=torch.bfloat16, device=dev)
     lo = torch.zeros(8, 16, dtype=torch.int16, device=dev)
@@ -452,7 +648,7 @@ def test_new_kernels_refuse_bad_inputs(dev):
     dY = torch.zeros(2, 16, dtype=torch.bfloat16, device=dev)
     before = ops.launches()
     with pytest.raises(TypeError):
-        ops.fused_update_split(hi, lo, *stream, dY.float(), 0.1)
+        ops.fused_update_split(hi, lo, *stream, dY.double(), 0.1)
     with pytest.raises(ValueError):
         ops.fused_update_split(hi.t().contiguous().t(), lo, *stream, dY, 0.1)
     with pytest.raises(ValueError):

@@ -180,6 +180,92 @@ def test_plain_update_matches_interpret_kernel(name):
         np.testing.assert_allclose(got[k], want[k], rtol=2 ** -20, atol=atol, err_msg=k)
 
 
+# --------------------------------------- the reference's own fp32 cotangent --
+
+SEED = 2 ** 31 - 9  # the stochastic rounding's seed (ignored by the fp32-state kinds)
+
+
+def _fp32_cotangent_case(name: str, E: int, seed: int):
+    """A store with nonzero state (bf16 for the compressed-state kinds), a
+    stream, and an fp32 cotangent that bf16 cannot hold: the reference's
+    kernels read ``gather_dY``'s fp32 output in every mode."""
+    rng = np.random.default_rng(seed)
+    M, NB, P = 48, 60, 4
+    if name.endswith("_bf16"):
+        key = "mom" if name.startswith("momentum") else "acc"
+        s = rng.standard_normal((M, E)) * 0.1 if key == "mom" else rng.random((M, E)) * 0.05
+        store = {"w": rng.uniform(-0.5, 0.5, (M, E)).astype(np.float32),
+                 key: np.asarray(jnp.asarray(s, jnp.bfloat16))}
+    else:
+        store = _store(name, M, E, rng)
+    idx, valid = _lookups(rng, M, NB, P)
+    dY = (rng.standard_normal((NB, E)) * 0.5).astype(np.float32)
+    assert (np.asarray(jnp.asarray(dY, jnp.bfloat16), np.float32) != dY).mean() > 0.9
+    return store, idx, valid, dY
+
+
+def _fp32_cotangent_updates(name: str, store: dict, idx, valid, dY, fused: bool):
+    """(port, reference) stores after one update with the fp32 ``dY``: the
+    port's plain version, and the reference's ``apply_sparse``, jitted on
+    its row math or its interpret-mode Pallas kernel."""
+    t_store = {k: to_torch(v.copy()) for k, v in store.items()}
+    stream = t_eu.sort_lookups(torch.from_numpy(idx.reshape(-1)),
+                               torch.from_numpy(valid.reshape(-1)), store["w"].shape[0],
+                               idx.shape[-1])
+    t_row.apply_sparse(name, t_store, stream, torch.from_numpy(dY), LR,
+                       seed=torch.tensor(SEED, dtype=torch.int32))
+    opt = j_row.get(name)
+
+    def upd(st, i, d, v, sd):
+        return opt.apply_sparse(st, j_row.SparseStream(idx=i, dY=d, valid=v), LR, seed=sd,
+                                fused=fused, interpret=True if fused else None)
+
+    fn = upd if fused else jax.jit(upd)
+    out = fn({k: jnp.asarray(v) for k, v in store.items()}, jnp.asarray(idx), jnp.asarray(dY),
+             jnp.asarray(valid), jnp.int32(SEED))
+    return t_store, {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("name", [*STATEFUL, "momentum_bf16", "adagrad_bf16"])
+def test_plain_update_fp32_cotangent_matches_jitted_reference(name):
+    """Each stateful plain row update with an fp32 cotangent against the
+    jitted reference fed the same numpy ``dY``: bit for bit on the weights
+    and the state, but for ``adagrad_rowwise``, held as in
+    :func:`test_plain_update_matches_jitted_reference` (its row sum of
+    ``acc^2`` is jitted XLA's own order)."""
+    store, idx, valid, dY = _fp32_cotangent_case(name, 64, seed=21 + len(name))
+    got, want = _fp32_cotangent_updates(name, store, idx, valid, dY, fused=False)
+    assert sorted(got) == sorted(want) == sorted(store)
+    assert (_bits(got["w"]) != _bits(store["w"])).any()
+    if name == "adagrad_rowwise":
+        np.testing.assert_allclose(got["acc"].numpy(), want["acc"], rtol=2 ** -21, atol=0)
+        np.testing.assert_allclose(got["w"].numpy(), want["w"], rtol=2 ** -21, atol=1e-7)
+        return
+    for k in store:
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("name", [*STATEFUL, "adagrad_bf16"])
+def test_plain_update_fp32_cotangent_matches_interpret_kernel(name):
+    """The same against the reference's interpret-mode Pallas kernel
+    (``fused=True``) fed the same numpy ``dY``: bit for bit for
+    ``adagrad_freq`` and ``adagrad_bf16``; ``momentum``, ``adagrad`` and
+    ``adagrad_rowwise`` within the tolerances of
+    :func:`test_plain_update_matches_interpret_kernel`, whose reasons (the
+    kernel's own roundings and momentum's order) do not depend on dY's type.
+    ``momentum_bf16``'s kernel sums the run from 0 and adds ``beta * m``
+    last, then rounds the result to bf16: the reference's own three-path
+    test fails for it on this tree, so it is held to the jitted path above."""
+    store, idx, valid, dY = _fp32_cotangent_case(name, 64, seed=3)
+    got, want = _fp32_cotangent_updates(name, store, idx, valid, dY, fused=True)
+    for k in store:
+        if name in ("adagrad_freq", "adagrad_bf16"):
+            np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]), err_msg=k)
+        else:
+            atol = 4e-6 if name == "momentum" else (1e-7 if k == "w" else 0)
+            np.testing.assert_allclose(got[k].numpy(), want[k], rtol=2 ** -20, atol=atol,
+                                       err_msg=k)
+
 @pytest.mark.parametrize("name", STATEFUL)
 def test_all_masked_stream_is_an_exact_no_op(name):
     """A stream whose every lookup is masked forms one dead run on the last

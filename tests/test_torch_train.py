@@ -120,6 +120,43 @@ def test_fp32_row_update_bitwise_to_interpret_kernel():
     assert (_bits(t_W) != _bits(W)).any()
 
 
+@pytest.mark.parametrize("E", [16, 64])
+@pytest.mark.parametrize("kind", ["split_sgd", "sgd"])
+def test_row_update_fp32_cotangent_bitwise_to_interpret_kernel(kind, E):
+    """The plain split and fp32 row updates with an fp32 cotangent that bf16
+    cannot hold (the type the reference's kernels read in every mode) equal,
+    bit for bit, the interpret-mode Pallas kernel fed the same numpy dY
+    through ``fused_row_update``, and for the split store also the jitted
+    ``apply_rows_split_sgd`` on the expanded per-lookup gradients."""
+    rng = np.random.default_rng(100 + E)
+    M, P, L = 48, 4, 240
+    W = rng.uniform(-0.5, 0.5, (M, E)).astype(np.float32)
+    tgt, valid = _lookups(rng, M, L)
+    dY = (rng.standard_normal((L // P, E)) * 0.5).astype(np.float32)
+    assert (np.asarray(jnp.asarray(dY, jnp.bfloat16), np.float32) != dY).mean() > 0.9
+    stream = t_eu.sort_lookups(torch.from_numpy(tgt), torch.from_numpy(valid), M, P)
+    kw = dict(valid=jnp.asarray(valid), pooling=P, interpret=True)
+    if kind == "split_sgd":
+        hi, lo = (np.asarray(x) for x in j_row.split_fp32(jnp.asarray(W)))
+        want = [j_ops.fused_row_update(kind, {"hi": jnp.asarray(hi), "lo": jnp.asarray(lo)},
+                                       jnp.asarray(tgt), jnp.asarray(dY), LR, **kw)]
+        ok = valid & (tgt >= 0) & (tgt < M)
+        grad = np.where(ok[:, None], dY[np.arange(L) // P], 0.0).astype(np.float32)
+        want.append(dict(zip(("hi", "lo"), jax.jit(j_row.apply_rows_split_sgd)(
+            hi, lo, jnp.asarray(np.where(ok, tgt, 0)), jnp.asarray(grad), LR))))
+        got = dict(zip(("hi", "lo"), t_eu.fused_update_split(to_torch(hi), to_torch(lo), *stream,
+                                                             torch.from_numpy(dY), LR)))
+    else:
+        want = [j_ops.fused_row_update(kind, {"w": jnp.asarray(W)}, jnp.asarray(tgt),
+                                       jnp.asarray(dY), LR, **kw)]
+        got = {"w": t_eu.fused_update_fp32(torch.from_numpy(W.copy()), *stream,
+                                           torch.from_numpy(dY), LR)}
+    for w in want:
+        for k, v in got.items():
+            np.testing.assert_array_equal(_bits(v), _bits(w[k]), err_msg=k)
+    assert (_bits(got["w"] if kind == "sgd" else got["hi"]) != _bits(
+        W if kind == "sgd" else hi)).any()
+
 def test_sort_lookups_equals_reference():
     """Same keys, stable ties, tail convention: the four arrays are equal."""
     rng = np.random.default_rng(5)

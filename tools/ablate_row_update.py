@@ -1,28 +1,55 @@
 #!/usr/bin/env python3
 """Where the row-update kernel's time goes: time ablated copies of
-``src/repro_torch/csrc/embedding_update.cu`` on one CUDA card.
+``src/repro_torch/csrc/embedding_update.cu`` on one CUDA card, and the
+kernel against an earlier version of it in the same run.
 
-    python3 tools/ablate_row_update.py
+    python3 tools/ablate_row_update.py [--parent DIR] [--only ablation|parent]
 
-from the root of a checkout.  Each copy changes one thing in the run walk,
-by text substitution in the source (the script fails if the source no
-longer has the text it replaces), and is built with its own ``nvcc`` into
-``build/ablate_row_update/``:
+from the root of a checkout.  ``DIR`` is an unpacked earlier checkout (for
+example ``git archive <commit> | tar -x -C build/parent``) whose row-update
+source has the launchers of before the long-run schedule (no cotangent type
+flag, no long runs' list).
+
+The ablation changes one thing of the run walk a copy, by text substitution
+in the source (the script fails if the source no longer has the text it
+replaces), each copy built with its own ``nvcc`` into
+``build/ablate_row_update/``, all at once:
 
 - ``as is``: the kernel unchanged (checked bit for bit against the port's
   kernel);
-- ``per-row path only``: every segment summed a position at a time, none
-  group by group (bitwise too: the same adds with the same operands);
-- ``no dY loads``: the cotangent row loads replaced by a constant;
-- ``no adds``: the fp32 add chain replaced by an xor of the bits.
+- ``consumer: no stage reads``: the consumer takes zero rows in place of the
+  cotangent rows it would read from a stage (it still waits for the stage
+  and reads its weights and masks);
+- ``producers: no cotangent gather``: the producers copy no cotangent row
+  (only the weights and masks);
+- ``ring depth 2``, ``4`` and ``16``: the ring's stages (8 as is; a ring of
+  S stages has min(7, S - 1) producer warps);
+- ``consumer: no adds``: the consumer skips each full stage's products and
+  adds (it still reads the next stage's look);
+- ``consumer: all-ones path``: a full stage whose every weight is 1 skips
+  the products (``x * 1`` is ``x``, bit for bit), the stage's look voting
+  on its weights too: the path the kernel had before it was measured here
+  and removed;
+- ``long runs from 256`` and ``from 4096``: the long schedule's threshold
+  (512 as is).
 
-All on dlrm-small's split store (8,000,000 x 64), its first zipf(1.05) batch
-and a uniform one, with a bf16 cotangent [B * S, 64]; CUDA events over 10
-launches after 2.  Prints the card's name and power limit first.
+Timed on dlrm-small (8 tables x 1,000,000 x 64), its first zipf(1.05)
+batch and a uniform one, with a bf16 cotangent [B * S, 64]: row 6 (the
+``sgd`` row update on an fp32 table) on both streams, and row 10
+(``momentum_bf16``, a bf16 momentum) on the zipf batch with weights
+U[0.5, 1.5); CUDA events over 10 launches after 2, each beside the longest
+run's add chain.
+
+With ``--parent``, all eight row kinds (table rows 5-12) on the zipf and the
+uniform batch, the earlier kernel and this one on the same inputs: their
+results bit for bit equal, then each timed in the order earlier, this, this,
+earlier (20 launches after 3 a time), and the ratio of this one's mean to
+the earlier one's printed.  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -33,111 +60,323 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-LOADS = ("dY + static_cast<int64_t>(bag) * E + c))", "dY + static_cast<int64_t>(bg[u]) * E + c))")
-ADDS = ("""        a0 = __fadd_rn(a0, g0);
-        a1 = __fadd_rn(a1, g1);""",
-        """    a0 = __fadd_rn(a0, __fmul_rn(__uint_as_float(v[u] << 16), w[u]));
-    a1 = __fadd_rn(a1, __fmul_rn(__uint_as_float(v[u] & 0xffff0000u), w[u]));""")
+_FULL_STAGE = (
+    "    if (lc.valid == kFull) {\n"
+    "      add_stage<TY, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);")
 VARIANTS = {
     "as is": [],
-    "per-row path only": [("constexpr int kFew = 4;", "constexpr int kFew = -1;")],
-    "no dY loads": [(f"__ldg(reinterpret_cast<const unsigned int*>({x}",
-                     f"(0x3c003c00u + static_cast<uint32_t>({b}))")
-                    for x, b in zip(LOADS, ("bag", "bg[u]"))],
-    "no adds": [(ADDS[0], """        a0 = __uint_as_float(__float_as_uint(a0) ^ __float_as_uint(g0));
-        a1 = __uint_as_float(__float_as_uint(a1) ^ __float_as_uint(g1));"""),
-                (ADDS[1], """    a0 = __uint_as_float(__float_as_uint(a0) ^ v[u] ^ __float_as_uint(w[u]));
-    a1 = __uint_as_float(__float_as_uint(a1) ^ (v[u] << 3));""")],
+    "consumer: no stage reads": [
+        ("  for (int u = 0; u < kSeg; ++u) nxt[u] = *stage_slot<TY>(R, st_next, u);",
+         "  for (int u = 0; u < kSeg; ++u) nxt[u] = Cot<TY>::zero();")],
+    "producers: no cotangent gather": [
+        ("        if (wide) {  // lane l takes chunks",
+         "        if (false) {  // lane l takes chunks"),
+        ("            if (c < E && bu >= 0)\n              hopper::cp_async<kPair>(",
+         "            if (false)\n              hopper::cp_async<kPair>(")],
+    "ring depth 2": [("constexpr int kStages = 8;", "constexpr int kStages = 2;")],
+    "ring depth 4": [("constexpr int kStages = 8;", "constexpr int kStages = 4;")],
+    "ring depth 16": [("constexpr int kStages = 8;", "constexpr int kStages = 16;")],
+    "consumer: no adds": [
+        (_FULL_STAGE, "    if (lc.valid == kFull) {\n      ln = look(R, st_next, n_of(k + 1));")],
+    "consumer: all-ones path": [
+        ("struct Look {\n  unsigned valid;\n};", "struct Look {\n  unsigned valid;\n  bool ones;\n};"),
+        ("  return Look{__ballot_sync(kFull, lane < n && msk != 0)};",
+         "  const float w = R.wgt[st * kSeg + lane];\n"
+         "  const bool m = lane < n && msk != 0;\n"
+         "  return Look{__ballot_sync(kFull, m), __all_sync(kFull, !m || w == 1.f) != 0};"),
+        ("    const float x0 = Cot<TY>::first(cur[u]), x1 = Cot<TY>::second(cur[u]);\n",
+         "    const float x0 = Cot<TY>::first(cur[u]), x1 = Cot<TY>::second(cur[u]);\n"
+         "    if (kPath == 0) {\n"
+         "      a0 = __fadd_rn(a0, x0);\n"
+         "      a1 = __fadd_rn(a1, x1);\n"
+         "      continue;\n"
+         "    }\n"),
+        (_FULL_STAGE,
+         "    if (lc.valid == kFull && lc.ones) {\n"
+         "      add_stage<TY, 0>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);\n"
+         "    } else if (lc.valid == kFull) {\n"
+         "      add_stage<TY, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);")],
+    "long runs from 256": [("constexpr int kLongRun = 512;", "constexpr int kLongRun = 256;")],
+    "long runs from 4096": [("constexpr int kLongRun = 512;", "constexpr int kLongRun = 4096;")],
 }
 
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
+# launcher, the store's pointers (the seed included), the scalars (lr, and hp)
+KINDS = {
+    "split_sgd": ("embedding_update_split", 2, 1),
+    "sgd": ("embedding_update_fp32", 1, 1),
+    "momentum": ("embedding_update_momentum", 2, 2),
+    "adagrad": ("embedding_update_adagrad", 2, 2),
+    "adagrad_rowwise": ("embedding_update_adagrad_rowwise", 2, 2),
+    "adagrad_freq": ("embedding_update_freq", 2, 2),
+    "momentum_bf16": ("embedding_update_momentum_bf16", 3, 2),
+    "adagrad_bf16": ("embedding_update_adagrad_bf16", 3, 2),
+}
+HP = {"momentum": 0.9, "adagrad": 1e-8, "adagrad_rowwise": 1e-8, "adagrad_freq": 1e-8,
+      "momentum_bf16": 0.9, "adagrad_bf16": 1e-8}
+LR = {"adagrad": 0.01, "adagrad_rowwise": 0.01, "adagrad_bf16": 0.01}
 
-def build(out_dir: Path) -> dict:
+
+def compile_all(jobs: dict, out_dir: Path, headers: Path) -> dict:
+    """Build each ``{name: source text}`` into its own library at once;
+    returns ``{name: CDLL}``."""
     from repro_torch.kernels import build as kbuild
-    src = (ROOT / "src" / "repro_torch" / "csrc" / "embedding_update.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
+    for header in headers.glob("*.cuh"):
+        (out_dir / header.name).write_text(header.read_text())
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"{name}: the source no longer has {old.strip()[:60]!r}")
-            text = text.replace(old, new)
+    for i, (name, text) in enumerate(jobs.items()):
         cu = out_dir / f"v{i}.cu"
         cu.write_text(text)
         so = out_dir / f"libv{i}.so"
         procs[name] = (so, subprocess.Popen([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", str(so),
                                              str(cu)], stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
-    fns = {}
+    libs = {}
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(so)).embedding_update_split
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
 
 
-def main() -> int:
+def variant_sources() -> dict:
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "embedding_update.cu").read_text()
+    out = {}
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"{name}: the source no longer has {old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+class Launcher:
+    """One row kind's launcher of one built library, called on the sorted
+    stream, a bf16 ``dY`` and a store; ``parent`` for the launchers of the
+    earlier source."""
+
+    def __init__(self, lib, kind: str, parent: bool):
+        cname, pointers, n_scalars = KINDS[kind]
+        self.fn = getattr(lib, cname)
+        self.fn.restype = _I
+        store, scalars = [_P] * pointers, [_F] * n_scalars
+        if parent:
+            self.fn.argtypes = [_P] * 5 + store + [_L, _I] + scalars + [_P]
+            self.words = None
+        else:
+            self.fn.argtypes = [_P] * 5 + [_I] + store + [_P, _L, _I] + scalars + [_P]
+            words = lib.embedding_update_list_words
+            words.argtypes, words.restype = [_L], _L
+            self.words = words
+        self.parent = parent
+        self.runs = None
+
+    def __call__(self, stream, dY, ptrs, L, E, scalars):
+        import torch
+        if self.parent:
+            args = (*ptrs, L, E)
+        else:
+            if self.runs is None or self.runs.numel() < self.words(L):
+                self.runs = torch.empty(self.words(L), dtype=torch.int64, device=dY.device)
+            args = (0, *ptrs, self.runs.data_ptr(), L, E)
+        err = self.fn(*(t.data_ptr() for t in stream), dY.data_ptr(), *args, *scalars,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"CUDA error {err}")
+
+
+def time_ms(call, warm: int, reps: int) -> float:
     import torch
-    if not torch.cuda.is_available():
-        print("ablate_row_update: no CUDA device", file=sys.stderr)
-        return 1
+    for _ in range(warm):
+        call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def same_bits(got, want) -> bool:
+    import torch
+    bits = {2: torch.int16, 4: torch.int32}
+    return all(torch.equal(a.view(bits[a.element_size()]), b.view(bits[b.element_size()]))
+               for a, b in zip(got, want))
+
+
+def setup():
+    """dlrm-small's table, its zipf and uniform batches, the bf16 cotangent."""
+    import torch
     from repro_torch.configs.dlrm_paper import dlrm_small
     from repro_torch.core import dlrm
     from repro_torch.core import sharded_embedding as se
     from repro_torch.data.synthetic import dlrm_stream
     from repro_torch.kernels import embedding_update as eu
-    from repro_torch.kernels import ops
-
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    fns = build(ROOT / "build" / "ablate_row_update")
+    from repro_torch.optim.split_sgd import combine_split
     cfg = dlrm_small()
     dev = torch.device("cuda", 0)
     state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    split = (state["emb"]["hi"], state["emb"]["lo"])
+    W = combine_split(*split)
+    del state
     offsets = torch.as_tensor(se.make_layout(cfg.spec, 1).row_offsets, dtype=torch.int32,
                               device=dev)
     rng = np.random.default_rng(1)
     uniform = np.stack([rng.integers(0, m, (cfg.batch, cfg.pooling)) for m in cfg.table_rows],
                        axis=1).astype(np.int32)
+    zipf = next(dlrm_stream(0, cfg, 1.05))["idx"]
+    weights = torch.from_numpy(rng.uniform(0.5, 1.5, zipf.shape).astype(np.float32)).to(dev)
     dY = (torch.randn((cfg.batch * len(cfg.table_rows), cfg.emb_dim), device=dev) * 1e-3
           ).to(torch.bfloat16)
-    rows = state["emb"]["hi"].shape[0]
-    for tag, idx in (("zipf", next(dlrm_stream(0, cfg, 1.05))["idx"]), ("uniform", uniform)):
+
+    def sort(idx, wgt=None):
         g = (torch.from_numpy(idx).to(dev) + offsets[None, :, None]).reshape(-1)
-        stream = eu.sort_lookups(g, None, rows, cfg.pooling)
-        want = [t.clone() for t in (state["emb"]["hi"], state["emb"]["lo"])]
-        ops.fused_update_split(*want, *stream, dY, 0.1)
-        for name, fn in fns.items():
-            hi, lo = state["emb"]["hi"].clone(), state["emb"]["lo"].clone()
+        return eu.sort_lookups(g, None, W.shape[0], cfg.pooling,
+                               None if wgt is None else wgt.reshape(-1))
+    streams = {"zipf": sort(zipf), "uniform": sort(uniform), "weighted zipf": sort(zipf, weights)}
+    return cfg, dev, split, W, streams, dY
+
+
+def chain_ms(stream, ghz: float) -> tuple[float, str]:
+    import torch
+    _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+    ms = int(counts.max()) * 4 / (ghz * 1e9) * 1e3
+    return ms, (f"{stream[0].numel()} lookups, {counts.numel()} runs, longest "
+                f"{int(counts.max())}, add chain {ms:.4f} ms at {ghz:.3f} GHz")
+
+
+def ablation(libs, W, streams, dY, ghz) -> None:
+    import torch
+    from repro_torch.kernels import ops
+    dev = W.device
+    mom = (torch.randn(W.shape, device=dev) * 1e-3).to(torch.bfloat16)
+    seed = torch.tensor(12345, dtype=torch.int32, device=dev)
+    E = W.shape[1]
+    for kernel, tag in (("row 6", "zipf"), ("row 6", "uniform"), ("row 10", "weighted zipf")):
+        stream = streams[tag]
+        L = stream[0].numel()
+        chain, text = chain_ms(stream, ghz)
+        print(f"{kernel}, {tag}: {text}", flush=True)
+        kind = "sgd" if kernel == "row 6" else "momentum_bf16"
+        store = (W,) if kernel == "row 6" else (W, mom)
+        want = [t.clone() for t in store]
+        if kernel == "row 6":
+            ops.fused_update_fp32(*want, *stream, dY, 0.1)
+        else:
+            ops.fused_update_momentum_bf16(*want, *stream, dY, 0.1, 0.9, seed)
+        scalars = (0.1,) if kernel == "row 6" else (0.1, 0.9)
+        for name, lib in libs.items():
+            fn = Launcher(lib, kind, parent=False)
+            got = [t.clone() for t in store]
+            ptrs = [t.data_ptr() for t in got] + ([seed.data_ptr()] if kernel == "row 10" else [])
 
             def call():
-                err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), hi.data_ptr(),
-                         lo.data_ptr(), stream[0].numel(), cfg.emb_dim, 0.1,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise SystemExit(f"{name}: CUDA error {err}")
+                fn(stream, dY, ptrs, L, E, scalars)
 
             call()
             torch.cuda.synchronize()
-            same = torch.equal(hi.view(torch.int16), want[0].view(torch.int16)) \
-                and torch.equal(lo, want[1])
+            same = same_bits(got, want)
             if name == "as is" and not same:
                 raise SystemExit("the unchanged copy disagrees with the port's kernel")
-            for _ in range(2):
-                call()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(10):
-                call()
-            end.record()
-            end.synchronize()
-            print(f"{tag}, {name}: {start.elapsed_time(end) / 10:.4f} ms, bitwise equal to the "
-                  f"port's kernel: {same}", flush=True)
+            ms = time_ms(call, 2, 10)
+            print(f"{kernel}, {tag}, {name}: {ms:.4f} ms, {ms / chain:.2f}x the add chain, "
+                  f"{int(fn.runs[0])} long runs, bitwise equal to the port's kernel: {same}",
+                  flush=True)
+            del got
+
+
+def kind_store(kind: str, split, W, gen):
+    """A fresh store of ``kind`` on W's rows: the slabs, and the extra
+    launch pointers (the seed)."""
+    import torch
+    dev = W.device
+    if kind == "split_sgd":
+        return [t.clone() for t in split], []
+    if kind == "sgd":
+        return [W.clone()], []
+    shape = (W.shape[0], 1) if kind in ("adagrad_rowwise", "adagrad_freq") else W.shape
+    if kind == "adagrad_freq":
+        S = torch.randint(1, 100, shape, dtype=torch.int32, device=dev, generator=gen)
+    elif kind.startswith("momentum"):
+        S = torch.randn(shape, device=dev, generator=gen) * 1e-3
+    else:
+        S = torch.rand(shape, device=dev, generator=gen) * 1e-3
+    if kind.endswith("bf16"):
+        S = S.to(torch.bfloat16)
+        return [W.clone(), S], [torch.tensor(777, dtype=torch.int32, device=dev)]
+    return [W.clone(), S], []
+
+
+def against_parent(lib, parent_lib, split, W, streams, dY) -> None:
+    import torch
+    gen = torch.Generator(device=W.device).manual_seed(5)
+    E = W.shape[1]
+    for kind in KINDS:
+        scalars = (LR.get(kind, 0.1),) + ((HP[kind],) if kind in HP else ())
+        fns = {"earlier": Launcher(parent_lib, kind, parent=True),
+               "this": Launcher(lib, kind, parent=False)}
+        for tag in ("zipf", "uniform"):
+            stream = streams[tag]
+            L = stream[0].numel()
+            store, extra = kind_store(kind, split, W, gen)
+            results = {}
+            for version, fn in fns.items():
+                got = [t.clone() for t in store]
+                fn(stream, dY, [t.data_ptr() for t in got + extra], L, E, scalars)
+                torch.cuda.synchronize()
+                results[version] = got
+            if not same_bits(results["this"], results["earlier"]):
+                raise SystemExit(f"{kind}, {tag}: this kernel and the earlier one disagree")
+            del results
+            ms = {"earlier": [], "this": []}
+            for version in ("earlier", "this", "this", "earlier"):
+                ptrs = [t.data_ptr() for t in store + extra]
+                ms[version].append(time_ms(lambda: fns[version](stream, dY, ptrs, L, E, scalars),
+                                           3, 20))
+            mean = {v: sum(t) / len(t) for v, t in ms.items()}
+            print(f"{kind}, {tag}: earlier {ms['earlier'][0]:.4f} {ms['earlier'][1]:.4f} ms, "
+                  f"this {ms['this'][0]:.4f} {ms['this'][1]:.4f} ms, this / earlier "
+                  f"{mean['this'] / mean['earlier']:.4f}, bitwise equal", flush=True)
+            del store, extra
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="an unpacked earlier checkout")
+    ap.add_argument("--only", choices=("ablation", "parent"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("ablate_row_update: no CUDA device", file=sys.stderr)
+        return 1
+    if args.only == "parent" and args.parent is None:
+        ap.error("--only parent needs --parent")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    ghz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.split()[0]) / 1e3
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    sources = variant_sources()
+    if args.only == "parent":
+        sources = {"as is": sources["as is"]}
+    libs = compile_all(sources, ROOT / "build" / "ablate_row_update", csrc)
+    parent_lib = None
+    if args.parent is not None:
+        pcsrc = args.parent.resolve() / "src" / "repro_torch" / "csrc"
+        parent_lib = compile_all({"earlier": (pcsrc / "embedding_update.cu").read_text()},
+                                 ROOT / "build" / "ablate_row_update" / "parent",
+                                 pcsrc)["earlier"]
+    _, _, split, W, streams, dY = setup()
+    if args.only != "parent":
+        ablation(libs, W, streams, dY, ghz)
+    if parent_lib is not None:
+        against_parent(libs["as is"], parent_lib, split, W, streams, dY)
     return 0
 
 
