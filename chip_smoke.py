@@ -16,10 +16,17 @@ from the root of a checkout.  Phases, each of which fails the run:
    on the card (each fused_mlp layer names its route, wgmma or mma.sync),
    and, at 8192, time kernel, plain version and a PyTorch
    library call that computes the same function (a yardstick the port never
-   calls); the bag also on uniform indices, whose rows are nearly all
+   calls); the bag and the interaction are timed at every batch, as the
+   device time of a CUDA graph of 20 launches (their wrappers take longer on
+   the host than their kernels on the card), and so are their library
+   calls; the bag also on uniform indices, whose rows are nearly all
    distinct, and weighted (weights U[0.5, 1.5), its library call
    ``F.embedding_bag(per_sample_weights=...)``), all-ones weights bit for
-   bit the unweighted bag;
+   bit the unweighted bag; the fused bag stage (offset add, bag and bf16
+   round in one launch) on zipf, uniform and weighted ids bit for bit the
+   kernel's own bag rounded to bf16, and each sum within one bf16 ulp of
+   the plain composition (or, where a sum cancels to near zero, within the
+   bag's atol), the share of sums that differ printed;
 3. serving: dlrm-small at full size (8 tables x 1,000,000 rows x 64, bf16-hi,
    pooling 50; random weights from a seeded ``torch.Generator``) published to
    a ``SnapshotRegistry`` and served by a ``ContinuousBatchingServer`` on
@@ -43,7 +50,9 @@ from the root of a checkout.  Phases, each of which fails the run:
    Split-SGD kernels and none of fused_mlp, one step held to the same step
    on the CPU (every kernel's plain version), one step under
    ``torch.cuda.set_sync_debug_mode("error")``, samples per second, each
-   stage's time and the device's busy share (torch.profiler);
+   stage's time and the device's busy share (torch.profiler); the bag
+   stage alone under the profiler must be one launch of the bag kernel and
+   nothing else;
 7. sgd: 3 steps with the fp32 store (``sparse_optimizer="sgd"``), which runs
    the fp32 row-update kernel;
 8. stateful row kernels: the six fused row updates of the stateful
@@ -85,8 +94,11 @@ from the root of a checkout.  Phases, each of which fails the run:
     prefill of 32,768 tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
-events after warm-up; ``bound_ms`` from this run's bytes and operations over
-the card's published peaks; ``launches`` from each kernel's own path); then
+events after warm-up, rows 1 and 2 and their library calls as CUDA graphs,
+with ``ms_by_batch``; ``bound_ms`` from this run's bytes and operations over
+the card's published peaks; ``launches`` from each kernel's own path: the
+bag and the interaction count the served batches and the Split-SGD train
+steps); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.
@@ -219,6 +231,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms a call of ``fn``: ``iters`` calls captured in one CUDA graph,
+    replayed once to warm up and once between CUDA events.  For the kernels
+    whose launches take less time on the card than their wrapper on the
+    host, where an eager loop would time the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -234,6 +268,31 @@ def close_or_fail(name, got, want, rtol, atol, failures) -> float:
     if bad or not finite:
         failures.append(f"{name}: {bad} values outside tolerance, finite={finite}")
     return err
+
+
+def stage_or_fail(name, W, idx, offsets, rows, wgt, failures) -> None:
+    """The fused bag stage (offset add, bag, bf16 round in one launch)
+    against the kernel's own fp32 bag of the global ids rounded to bf16, bit
+    for bit, and against the plain composition: each sum within one bf16 ulp
+    of the plain one, or, where the sum cancels to near zero (one bf16 ulp
+    of it is then below the fp32 sums' own rounding), within the bag's fp32
+    atol; the share of sums that differ printed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    got = ops.embedding_bag_stage(W, idx, offsets, rows, wgt)
+    own = ops.embedding_bag(W, idx + offsets[None, :, None], rows, wgt).to(torch.bfloat16).float()
+    want = ref.embedding_bag_stage(W, idx, offsets, rows, wgt)
+    same = bool((got.view(torch.int32) == own.view(torch.int32)).all())
+    d = (got - want).abs()
+    past = bf16_ulps(got, want) > 1
+    atol = KERNEL_TOL["embedding_bag"][1]
+    bad = int((past & (d > atol)).sum())
+    log(f"  {name}: bitwise the kernel's rounded bag {same}; {float((d > 0).float().mean()) * 100:.4f}% "
+        f"of {d.numel()} sums differ from the plain composition, {int(past.sum())} by more than "
+        f"one bf16 ulp ({bad} of them beyond atol {atol:g}), max_abs_err {float(d.max()):.3e}")
+    if not same or bad:
+        failures.append(f"{name}: bitwise the kernel's rounded bag {same}, {bad} sums past one bf16 "
+                        f"ulp and atol")
 
 
 def make_requests(cfg, n: int, rng) -> list[dict]:
@@ -288,22 +347,26 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
         timed = B == cfg.batch
         log(f"kernels at B={B}:")
 
-        # embedding_bag
+        # embedding_bag, and the bag stage that fuses the offset add and the round
         got = ops.embedding_bag(W, gidx, rows)
         want = ref.embedding_bag(W, gidx, rows)
         err = close_or_fail(f"embedding_bag [{B},{S},{P}] x [{rows},{E}] {W.dtype}", got, want,
                             *KERNEL_TOL["embedding_bag"], failures)
-        e = entries.setdefault("embedding_bag", {"name": "embedding_bag", "max_abs_err": 0.0})
+        e = entries.setdefault("embedding_bag", {"name": "embedding_bag", "max_abs_err": 0.0,
+                                                 "by_batch": {}})
         e["max_abs_err"] = max(e["max_abs_err"], err)
+        stage_or_fail(f"bag stage [{B},{S},{P}]", W, idx, offsets, rows, None, failures)
+        e["by_batch"][B] = graph_ms(lambda: ops.embedding_bag(W, gidx, rows))
+        log(f"  embedding_bag at B={B}: {e['by_batch'][B]:.4f} ms (device, CUDA graph)")
         if timed:
             unique = int(torch.unique(gidx).numel())
             nbytes = unique * E * W.element_size() + gidx.numel() * 4 + B * S * E * 4
             flops = gidx.numel() * E
             bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
             flat = gidx.view(B * S, P)
-            e.update(ms=time_ms(lambda: ops.embedding_bag(W, gidx, rows)),
+            e.update(ms=e["by_batch"][B],
                      plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows)),
-                     library_ms=time_ms(lambda: F.embedding_bag(flat, W, mode="sum")),
+                     library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum")),
                      bound_ms=bms, bound_by=by)
             log(f"  embedding_bag: {unique} distinct rows of {gidx.numel()} lookups; "
                 f"{nbytes / 1e6:.1f} MB needed ({gidx.numel() * (E * W.element_size() + 4) / 1e6 + B * S * E * 4 / 1e6:.1f} MB "
@@ -316,17 +379,19 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                                 ops.embedding_bag(W, uidx, rows), ref.embedding_bag(W, uidx, rows),
                                 *KERNEL_TOL["embedding_bag"], failures)
             e["max_abs_err"] = max(e["max_abs_err"], err)
+            stage_or_fail(f"bag stage, uniform indices [{B},{S},{P}]", W,
+                          uidx - offsets[None, :, None], offsets, rows, None, failures)
             u_unique = int(torch.unique(uidx).numel())
             u_bytes = u_unique * E * W.element_size() + uidx.numel() * 4 + B * S * E * 4
             u_bms, u_by = bound_ms(u_bytes, flops, FP32_FLOPS)
             uflat = uidx.view(B * S, P)
             e["uniform"] = dict(distinct=u_unique, mb=u_bytes / 1e6, bound_ms=u_bms, bound_by=u_by,
-                                ms=time_ms(lambda: ops.embedding_bag(W, uidx, rows)),
-                                library_ms=time_ms(lambda: F.embedding_bag(uflat, W, mode="sum")))
+                                ms=graph_ms(lambda: ops.embedding_bag(W, uidx, rows)),
+                                library_ms=graph_ms(lambda: F.embedding_bag(uflat, W, mode="sum")))
             log(f"  embedding_bag, uniform indices: {u_unique} distinct rows, {u_bytes / 1e6:.1f} MB "
                 f"needed; kernel {e['uniform']['ms']:.4f} ms, F.embedding_bag "
                 f"{e['uniform']['library_ms']:.4f} ms, bound {u_bms:.4f} ms ({u_by})")
-            e["weighted"] = weighted_bag(W, gidx, rows, rng, unique, failures)
+            e["weighted"] = weighted_bag(W, idx, offsets, rows, rng, unique, failures)
             e["max_abs_err"] = max(e["max_abs_err"], e["weighted"]["max_abs_err"])
         emb = got.to(torch.bfloat16).float()
 
@@ -379,8 +444,11 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
         want = ref.dot_interaction(bot, emb)
         err = close_or_fail(f"dot_interaction [{B},{E}] + [{B},{S},{E}]", got, want,
                             *KERNEL_TOL["dot_interaction"], failures)
-        e = entries.setdefault("dot_interaction", {"name": "dot_interaction", "max_abs_err": 0.0})
+        e = entries.setdefault("dot_interaction", {"name": "dot_interaction", "max_abs_err": 0.0,
+                                                   "by_batch": {}})
         e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["by_batch"][B] = graph_ms(lambda: ops.dot_interaction(bot, emb))
+        log(f"  dot_interaction at B={B}: {e['by_batch'][B]:.4f} ms (device, CUDA graph)")
         if timed:
             F_ = S + 1
             pairs = F_ * (F_ - 1) // 2
@@ -389,9 +457,9 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             Z = torch.cat([bot[:, None, :], emb], dim=1)
             li, lj = tril_indices(F_)
             flat = torch.as_tensor(li * F_ + lj, device=dev)
-            e.update(ms=time_ms(lambda: ops.dot_interaction(bot, emb)),
+            e.update(ms=e["by_batch"][B],
                      plain_ms=time_ms(lambda: ref.dot_interaction(bot, emb)),
-                     library_ms=time_ms(
+                     library_ms=graph_ms(
                          lambda: torch.bmm(Z, Z.transpose(1, 2)).view(B, -1)[:, flat]),
                      bound_ms=bms, bound_by=by)
 
@@ -409,16 +477,18 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
     return [entries[k] for k in ("embedding_bag", "dot_interaction", "fused_mlp")]
 
 
-def weighted_bag(W, gidx, rows, rng, unique, failures) -> dict:
-    """The weighted bag at the zipf indices ``gidx`` [B, S, P], weights
-    U[0.5, 1.5) from ``rng``: against its plain version, all-ones weights
-    bit for bit the unweighted kernel's output, timed against the plain
-    version and ``F.embedding_bag(per_sample_weights=...)`` (which wants
-    the weights in the table's dtype)."""
+def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
+    """The weighted bag at the zipf indices ``idx`` [B, S, P] (table-local;
+    ``offsets`` per slot), weights U[0.5, 1.5) from ``rng``: against its
+    plain version, all-ones weights bit for bit the unweighted kernel's
+    output, the weighted bag stage against its plain composition, timed
+    against the plain version and ``F.embedding_bag(per_sample_weights=...)``
+    (which wants the weights in the table's dtype)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
+    gidx = idx + offsets[None, :, None]
     B, S, P = gidx.shape
     E = W.shape[1]
     wgt = torch.from_numpy(rng.uniform(0.5, 1.5, gidx.shape).astype(np.float32)).to(gidx.device)
@@ -427,14 +497,15 @@ def weighted_bag(W, gidx, rows, rng, unique, failures) -> dict:
     bitwise_or_fail("embedding_bag, all-ones weights vs unweighted",
                     ops.embedding_bag(W, gidx, rows, torch.ones_like(wgt)),
                     ops.embedding_bag(W, gidx, rows), failures)
+    stage_or_fail(f"bag stage, weighted [{B},{S},{P}]", W, idx, offsets, rows, wgt, failures)
     # the distinct rows, the indices and the weights read once, the sums written once
     nbytes = unique * E * W.element_size() + gidx.numel() * 8 + B * S * E * 4
     bms, by = bound_ms(nbytes, gidx.numel() * E * 2, FP32_FLOPS)
     flat, wflat = gidx.view(B * S, P), wgt.view(B * S, P).to(W.dtype)
-    t = dict(max_abs_err=err, ms=time_ms(lambda: ops.embedding_bag(W, gidx, rows, wgt)),
+    t = dict(max_abs_err=err, ms=graph_ms(lambda: ops.embedding_bag(W, gidx, rows, wgt)),
              plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows, wgt)),
-             library_ms=time_ms(lambda: F.embedding_bag(flat, W, mode="sum",
-                                                        per_sample_weights=wflat)),
+             library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum",
+                                                         per_sample_weights=wflat)),
              bound_ms=bms, bound_by=by)
     log(f"  embedding_bag, weighted: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"F.embedding_bag(per_sample_weights) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}, "
@@ -511,24 +582,37 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     return counts
 
 
-def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
+def device_busy_ms(fn, reps: int, warm: bool = False) -> tuple[float, float, list]:
     """``fn`` run ``reps`` times under torch.profiler: wall ms a run (ending
     in a synchronise), the device's busy ms a run (its kernels' time summed)
-    and its kernels as (name, ms a run, launches a run), the longest first."""
+    and its kernels as (name, ms a run, launches a run), the longest first.
+    ``warm``: first ``reps`` runs in a warm-up step that the profiler traces
+    and drops (a window of a few short kernels alone came back empty)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None,
+                 on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+        if warm:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        if warm:
+            prof.step()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")),  # the schedule's step marks
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    return wall_ms, busy_ms, [(e.key[:48], e.self_device_time_total / reps / 1e3, e.count // reps)
+    return wall_ms, busy_ms, [(e.key[:48], e.self_device_time_total / reps / 1e3, round(e.count / reps))
                               for e in kernels]
 
 
@@ -1090,6 +1174,26 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
             totals[k] += ev[i].elapsed_time(ev[i + 1]) / reps
     log("a step by stage (ms, CUDA events, mean of 5): "
         + "; ".join(f"{k} {v:.3f}" for k, v in totals.items()))
+    # the bag stage is one launch: no elementwise kernel for the offset add or the round.
+    # The launch counters say how often the bag kernel ran; the profiler's trace says that
+    # nothing else ran.  Its kernel list can come back short (a launch or two of the window
+    # missing) or, rarely, empty: then the trace is taken again, at most three times.
+    W_fwd, b0 = row_optim.fwd_weights(opt, state["emb"]), batches[0]
+    calls = 20
+    for _ in range(3):
+        ops.reset_launches()
+        _, bag_ms, bag_kernels = device_busy_ms(
+            lambda: st.embedding_fwd(W_fwd, b0["idx"], b0.get("weights")), calls, warm=True)
+        stage_counts = ops.launches()
+        if bag_kernels:
+            break
+    log(f"bag stage under torch.profiler: {bag_ms:.4f} ms device a call; kernels: "
+        + top_kernels(bag_kernels) + f"; launch counts in {2 * calls} calls: {stage_counts}")
+    if len(bag_kernels) != 1 or "embedding_bag" not in bag_kernels[0][0] or bag_kernels[0][2] != 1:
+        failures.append(f"the bag stage ran {bag_kernels}, want the bag kernel alone, once")
+    if stage_counts != {**{k: 0 for k in stage_counts}, "embedding_bag": 2 * calls}:
+        failures.append(f"the bag stage launched {stage_counts} in {2 * calls} calls, "
+                        "want the bag kernel once a call")
     it = iter(batches[:reps])
     wall_ms, busy_ms, top = device_busy_ms(lambda: step(state, next(it)), reps)
     log(f"train step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
@@ -1475,6 +1579,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update(embedding_update=train_counts["embedding_update"],
                   split_sgd=train_counts["split_sgd"])
+    for name in ("embedding_bag", "dot_interaction"):  # one a served batch and one a train step
+        counts[name] += train_counts[name]
     for name in ("sgd", "momentum", "adagrad", "adagrad_freq", "adagrad_bf16"):
         c = short_phase(dataclasses.replace(t_cfg, sparse_optimizer=name,
                                             lr=ADAGRAD_LR if name in ("adagrad", "adagrad_bf16")
@@ -1550,6 +1656,9 @@ def main() -> int:
               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:27")}
     line = []
+    for k in kernels[:2]:
+        log(f"{k['name']} by batch (device ms, CUDA graph): "
+            + ", ".join(f"B={b} {ms:.4f}" for b, ms in k["by_batch"].items()))
     for tag in ("uniform", "weighted"):
         u = kernels[0][tag]
         log(f"embedding_bag, {tag}: kernel {u['ms']:.4f} ms, library {u['library_ms']:.4f} ms, "
@@ -1574,6 +1683,8 @@ def main() -> int:
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
         if k["name"] == "fused_mlp":  # the serving run's launches by kernel (wgmma or mma.sync)
             line[-1]["route_launches"] = counts["fused_mlp_routes"]
+        if "by_batch" in k:  # rows 1 and 2 at every batch the main path runs
+            line[-1]["ms_by_batch"] = k["by_batch"]
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

@@ -59,17 +59,16 @@ def row_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
     ``idx`` [B, S, P] int32 table-local ids; ``row_offsets`` the layout's
     offsets as an int32 tensor on ``idx``'s device (built from the layout
     when not given); ``weights`` [B, S, P] fp32 per-lookup bag weights or
-    None.  Returns ``[B, S, E]`` fp32 bag sums through the
-    embedding_bag kernel (whose plain version is the reference's
-    ``_partial_bag_masked``), rounded through bf16 as the reference's
-    reduce-scatter wire is."""
+    None.  Returns ``[B, S, E]`` fp32 bag sums, rounded through bf16 as
+    the reference's reduce-scatter wire is: one launch of the embedding_bag
+    kernel, which adds the offsets itself (the shard starts at row 0) and
+    rounds its sums (plain version: the offset add, the reference's
+    ``_partial_bag_masked``, the round)."""
     if layout.num_shards != 1:
         raise NotImplementedError("more than one shard needs the distributed slice")
     if row_offsets is None:
         row_offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=idx.device)
-    gidx = idx + row_offsets[None, :, None]  # the shard starts at row 0
-    part = ops.embedding_bag(W_local, gidx, layout.rows_per_shard, weights)
-    return part.to(torch.bfloat16).float()
+    return ops.embedding_bag_stage(W_local, idx, row_offsets, layout.rows_per_shard, weights)
 
 
 def gather_dY(layout: ShardedEmbeddingLayout, dY_mp: torch.Tensor) -> torch.Tensor:

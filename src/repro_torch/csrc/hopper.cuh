@@ -1,10 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
-// this directory, as raw PTX: the host-side encoding of TMA tensor maps,
-// mbarriers, cp.async with its mbarrier arrival, TMA tile loads, wgmma
-// shared-memory descriptors for the 128-byte
-// swizzle and the wgmma instructions themselves, setmaxnreg and named
-// barriers.  Header only; each .cu that includes it stays a plain C library
-// (no CUTLASS, no PyTorch headers).
+// Hopper (sm_90a) building blocks shared by the kernels of this directory,
+// as raw PTX: the host-side encoding of TMA tensor maps and a cached SM
+// count, mbarriers, cp.async with its mbarrier arrival, TMA 1-D bulk copies
+// and tile loads, wgmma shared-memory descriptors for the 128-byte swizzle
+// and the wgmma instructions themselves, setmaxnreg and named barriers.
+// Header only; each .cu that includes it stays a plain C library (no
+// CUTLASS, no PyTorch headers).
 //
 // Layout conventions used by the kernels:
 //  - every tile in shared memory is a stack of TMA boxes whose inner extent is
@@ -24,11 +24,28 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
 
 // ---------------------------------------------------------------- host side --
+
+constexpr int kMaxDevices = 64;  // devices whose properties a library caches
+
+// The current device (`*dev`) and its SM count (`*sms`), the count asked of
+// the runtime once a device and kept.  Returns 0 or a CUDA error code.
+inline cudaError_t device_sms(int* dev, int* sms) {
+  static std::atomic<int> cache[kMaxDevices];  // 0: not asked yet
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  *sms = cache[*dev].load(std::memory_order_relaxed);
+  if (*sms > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  if (err == cudaSuccess) cache[*dev].store(*sms, std::memory_order_relaxed);
+  return err;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -147,6 +164,16 @@ __device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
       : "r"(bar), "r"(parity)
       : "memory");
   return done != 0;
+}
+
+// TMA's 1-D bulk copy: `bytes` (a multiple of 16) from global `src` to
+// shared `dst` (both 16-byte aligned), completing on `bar`; no tensor map
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // TMA: one box of a 2-D or 3-D tensor map into shared memory at `dst`

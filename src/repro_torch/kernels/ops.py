@@ -2,13 +2,14 @@
 
 Each wrapper validates its inputs, launches its hand-written kernel for CUDA
 tensors, runs its plain PyTorch version for CPU tensors, and counts its
-launches in a plain int attribute (``embedding_bag.launches``).  Nothing
-here branches on an optimizer: ``optim.row`` picks the row kernel.
+launches in a plain int attribute (``embedding_bag.launches``; the fused bag
+stage ``embedding_bag_stage`` launches the same kernel and counts there).
+Nothing here branches on an optimizer: ``optim.row`` picks the row kernel.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_stage  # noqa: F401
 from repro_torch.kernels.embedding_update import (fused_update_adagrad, fused_update_adagrad_bf16,
                                                   fused_update_adagrad_rowwise, fused_update_fp32,
                                                   fused_update_freq, fused_update_momentum,

@@ -24,6 +24,16 @@ def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int,
     return torch.where(valid[..., None], rows, 0.0).sum(dim=2)
 
 
+def embedding_bag_stage(W: torch.Tensor, idx: torch.Tensor, row_offsets: torch.Tensor,
+                        rows_per_shard: int, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """The row-mode bag stage as the reference composes it: the slot's row
+    offset added to the table-local ids ``idx`` [B, S, P], the masked bag
+    :func:`embedding_bag`, each sum rounded to bf16 (the reduce-scatter
+    wire) and widened back to fp32."""
+    gidx = idx + row_offsets[None, :, None]
+    return embedding_bag(W, gidx, rows_per_shard, weights).to(torch.bfloat16).float()
+
+
 def dot_interaction(dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """dense [B, E], emb [B, S, E] -> [B, E + F(F-1)/2] fp32: the dense vector,
     then the strict lower triangle of Z Z^T (Z = [dense; emb], F = S + 1) in

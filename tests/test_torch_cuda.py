@@ -86,6 +86,138 @@ def test_interaction_kernel_matches_plain(dev, b, f, e):
     assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+def _bag_ids(kind: str, B: int, S: int, P: int, rows: int, gen) -> torch.Tensor:
+    """[B, S, P] int32 ids: ``random`` in [-20, rows + 20) (some masked),
+    ``repeated`` one row a bag, ``distinct`` P different rows a bag."""
+    if kind == "random":
+        return torch.randint(-20, rows + 20, (B, S, P), generator=gen, dtype=torch.int32)
+    if kind == "repeated":
+        return torch.randint(0, rows, (B, S, 1), generator=gen, dtype=torch.int32).expand(
+            B, S, P).contiguous()
+    return torch.argsort(torch.rand(B, S, rows, generator=gen), dim=2)[..., :P].to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,P,E", [(1, 50, 64), (7, 1, 512), (7, 200, 16), (9, 200, 64),
+                                   (5, 50, 512), (8193, 33, 16), (8193, 1, 64)])
+@pytest.mark.parametrize("kind", ["random", "repeated", "distinct"])
+def test_embedding_bag_kernel_shapes_and_repeats(dev, dtype, B, P, E, kind):
+    """Batches of 1 to 8193 samples, pooling 1 to 200 (more than one list of
+    64 a bag), rows of 16 to 512 values, bags of one repeated row (one list
+    entry of count P) and of P distinct rows: the kernel sums each distinct
+    row once times its count, so its sums round apart from the plain in-order
+    sum; rtol = atol = 1e-5."""
+    gen = torch.Generator().manual_seed(B * 1000 + P * 10 + E)
+    rows, rows_per_shard = 300, 290
+    W = _randn(rows, E, gen=gen).to(dtype)
+    g = _bag_ids(kind, B, 3, P, rows, gen)
+    want = ref.embedding_bag(W, g, rows_per_shard)
+    got = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard)
+    torch.cuda.synchronize()
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("P,E", [(1, 16), (50, 64), (200, 512)])
+def test_weighted_bag_masked_inf_and_all_ones(dev, dtype, P, E):
+    """Half of the lookups repeat one row, so a row's weights are summed
+    across the list's two 32-id words; every masked lookup (negative or past
+    the shard) carries an inf or nan weight and adds nothing; the valid
+    weights are signed, U[-2, 2).  The kernel sums each distinct row's
+    weights before it multiplies, and the plain version sums the products
+    in order: where signed sums of 200 terms cancel to near zero, the two
+    differ by the rounding of the terms' magnitudes, so each sum is held
+    within 4 fp32 eps of the sum of |w * row| over its valid lookups (a sum
+    of n terms in any order errs by at most (n - 1) / 2 eps of it, and on
+    random data by a small multiple of eps / 2).  All-ones weights give the
+    unweighted kernel's bits, repeats included."""
+    gen = torch.Generator().manual_seed(P * 100 + E)
+    rows, rows_per_shard = 300, 290
+    W = _randn(rows, E, gen=gen).to(dtype)
+    g = torch.randint(-40, rows + 40, (9, 4, P), generator=gen, dtype=torch.int32)
+    g = torch.where(torch.rand(g.shape, generator=gen) < 0.5, g, torch.full_like(g, 3))
+    w = torch.rand(g.shape, generator=gen) * 4 - 2
+    masked = (g < 0) | (g >= rows_per_shard)
+    w[masked] = torch.where(torch.rand(w.shape, generator=gen) < 0.5, float("inf"),
+                            float("nan"))[masked]
+    want = ref.embedding_bag(W, g, rows_per_shard, w)
+    magnitude = ref.embedding_bag(W.abs(), g, rows_per_shard, torch.where(masked, 0.0, w.abs()))
+    got = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, w.to(dev))
+    ones = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, torch.ones(g.shape, device=dev))
+    plain = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    err = (got.cpu() - want).abs()
+    bound = 4 * torch.finfo(torch.float32).eps * magnitude
+    assert bool((err <= bound).all()), float((err / bound.clamp_min(1e-30)).max())
+    assert torch.equal(ones.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,E", [(torch.bfloat16, 16), (torch.bfloat16, 32),
+                                     (torch.float32, 16)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_kernel_narrow_rows_at_large_batches(dev, dtype, E, weighted):
+    """Rows narrower than 128 bytes (one to four 16-byte chunks) at 16,384
+    samples x 3 slots, a batch large enough for the four-bags-a-warp layout
+    on any card of up to 384 SMs: every bag is summed and written (the
+    output is not zeroed before the launch), within rtol = atol = 1e-5 of
+    the plain version; all-ones weights give the unweighted kernel's bits."""
+    gen = torch.Generator().manual_seed(E * 10 + weighted)
+    rows, rows_per_shard = 300, 290
+    W = _randn(rows, E, gen=gen).to(dtype)
+    g = torch.randint(-20, rows + 20, (16384, 3, 5), generator=gen, dtype=torch.int32)
+    w = torch.rand(g.shape, generator=gen) + 0.5 if weighted else None
+    want = ref.embedding_bag(W, g, rows_per_shard, w)
+    got = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, None if w is None else w.to(dev))
+    ones = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard, torch.ones(g.shape, device=dev))
+    plain = ops.embedding_bag(W.to(dev), g.to(dev), rows_per_shard)
+    torch.cuda.synchronize()
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ones.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_stage_kernel_within_one_bf16_ulp(dev, dtype, weighted):
+    """The fused stage (offset add, bag, bf16 round in one launch) against
+    its plain composition: every sum bf16-representable and within one bf16
+    ulp of the plain one (the fp32 sums differ in order, so a round may fall
+    the other way); one launch of the bag kernel."""
+    from repro_torch.testing import bf16_ulps
+    gen = torch.Generator().manual_seed(11 + weighted)
+    offsets = torch.tensor([0, 100, 150, 290], dtype=torch.int32)
+    rows_per_shard = 300
+    W = _randn(rows_per_shard + 8, 64, gen=gen).to(dtype)
+    idx = torch.randint(-5, 120, (513, 4, 50), generator=gen, dtype=torch.int32)
+    idx = torch.where(torch.rand(idx.shape, generator=gen) < 0.5, idx, torch.zeros_like(idx))
+    w = torch.rand(idx.shape, generator=gen) + 0.5 if weighted else None
+    want = ref.embedding_bag_stage(W, idx, offsets, rows_per_shard, w)
+    before = ops.embedding_bag.launches
+    got = ops.embedding_bag_stage(W.to(dev), idx.to(dev), offsets.to(dev), rows_per_shard,
+                                  None if w is None else w.to(dev))
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.launches == before + 1
+    assert not bool((got.cpu().view(torch.int32) & 0xFFFF).any())
+    assert int(bf16_ulps(got.cpu().numpy(), want.numpy()).max()) <= 1
+
+
+@pytest.mark.parametrize("b", [1, 17, 1000])
+@pytest.mark.parametrize("f,e", [(2, 16), (9, 64), (9, 512), (27, 128), (65, 32), (65, 512),
+                                 (9, 100), (5, 18)])
+def test_interaction_kernel_tiles_and_widths(dev, b, f, e):
+    """Batches that leave a ragged last tile (1, 17 and 1000 samples), F 2 to
+    65, E 16 to 512 (100 and 18: rows not 16-byte multiples, read with 4-byte
+    copies where E is not a multiple of 4): rtol 1e-5, atol 1e-4."""
+    gen = torch.Generator().manual_seed(b * f + e)
+    dense, emb = _randn(b, e, gen=gen), _randn(b, f - 1, e, gen=gen)
+    want = ref.dot_interaction(dense, emb)
+    before = ops.dot_interaction.launches
+    got = ops.dot_interaction(dense.to(dev), emb.to(dev))
+    torch.cuda.synchronize()
+    assert ops.dot_interaction.launches == before + 1
+    assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 128, 128), (100, 300, 120), (256, 512, 256), (33, 77, 129),
                                    (5, 100, 1), (130, 1024, 64), (129, 32, 1024)])
 @pytest.mark.parametrize("act", ["relu", "none", "sigmoid"])

@@ -28,6 +28,14 @@ def _imported_modules(path: Path) -> set[str]:
     return names
 
 
+def test_scan_covers_every_tool():
+    """Every script of ``tools/`` (the ablations of the port's kernels among
+    them) is in the scan below."""
+    tools = {p.name for p in PORT_FILES if p.parent == ROOT / "tools"}
+    assert {"ablate_bag.py", "ablate_hopper.py", "ablate_row_update.py",
+            "build_report.py", "time_torch_build.py"} <= tools
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_repro(path):
     bad = {m for m in _imported_modules(path)
