@@ -43,7 +43,10 @@ from the root of a checkout.  Phases, each of which fails the run:
    one; the dense update's 3,811,396 values), timed, with the byte bound and
    the serial-chain floor of the longest run, row 6 also against
    ``index_add_``; every row kernel's launch lists its runs of ``long_run()``
-   lookups or more on the card, and that count must match the host's;
+   lookups or more on the card, and that count must match the host's; the
+   Split-SGD step timed as a CUDA graph, warm and with the L2 flushed
+   before each launch (a 64 MiB write: its 30.5 MB of buffers fit the
+   50 MB L2);
 6. training: dlrm-small at full size (the 2.05 GB split store), batch 8192,
    lr 0.1, ``make_train_step`` over 20 staged zipf batches: every loss
    finite, one launch a step of the bag, interaction, row-update and
@@ -76,13 +79,25 @@ from the root of a checkout.  Phases, each of which fails the run:
     ``sparse_optimizer="momentum_bf16"`` and ``weighted=True`` (the fp32
     table, the bf16 momentum, weights U[0.5, 1.5) in every batch), the
     stochastic rounding's seed ``sr`` advancing by one a step on the card;
-13. attention kernel: the flash-attention kernel against its plain version
+13. run loop: dlrm-small (Split-SGD) through ``TrainLoop``: 80 steps from a
+    seeded state without a checkpoint, and the quickstart's contract from the
+    same state (60 steps, a verified checkpoint every 20, keep 2, prefetch 2,
+    a heartbeat; a second loop, built on a state from another seed, restores
+    at step 60 and trains on to 80), both over one pool of 20 numpy batches:
+    the restore bit for bit the first loop's state with its dense ``hi`` in
+    one buffer, the later losses and the final state bit for bit the
+    uninterrupted run's; the newest checkpoint corrupted, a fresh manager
+    falls back to step 60; the eval step's scores of the restored state in
+    (0, 1), their logits within 3e-3 of the plain forward on the CPU; the
+    loop's samples per second and step-time percentiles beside the bare
+    step's, each save's host copy and write, the restore's time;
+14. attention kernel: the flash-attention kernel against its plain version
     on the card at internlm2-1.8b's prefill shape (4 x 4096 tokens, 16
     heads on 8 KV heads, causal), gemma2's local (window 4096, softcap 50)
     and global layers at 8192 tokens (the global one also without the
     softcap), ragged, right-aligned, non-causal and blind queries, timed beside its bound, its plain version and (at
     the first shape) ``F.scaled_dot_product_attention``;
-14. LM serving: internlm2-1.8b at full size (1.89 B parameters, bf16 from a
+15. LM serving: internlm2-1.8b at full size (1.89 B parameters, bf16 from a
     seeded ``torch.Generator``), ``attn_impl="pallas"``: 4 prompts of 4096
     tokens through ``make_prefill_step`` (one kernel launch a layer), 32
     greedy steps through ``make_decode_step`` (none), every logit finite,
@@ -94,11 +109,13 @@ from the root of a checkout.  Phases, each of which fails the run:
     prefill of 32,768 tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
-events after warm-up, rows 1 and 2 and their library calls as CUDA graphs,
-with ``ms_by_batch``; ``bound_ms`` from this run's bytes and operations over
-the card's published peaks; ``launches`` from each kernel's own path: the
-bag and the interaction count the served batches and the Split-SGD train
-steps); then
+events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
+with ``ms_by_batch``; row 4 with the L2 flushed before each launch, its
+warm reading as ``ms_l2_warm``; ``bound_ms`` from
+this run's bytes and operations over the card's published peaks;
+``launches`` from each kernel's own path: the bag and the interaction count
+the served batches, the Split-SGD train steps, the run loop's 80 steps and
+its eval step, rows 4 and 5 the train steps and the loop's); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.
@@ -140,7 +157,9 @@ FUSED_MLP_BF16_TOL = (2 ** -7, 1e-4)     # a bf16 output may round to the neighb
 # logits, measured); the logits of this random model span about +-0.08
 LOGIT_TOL = 3e-3
 SERVING_KERNELS = ("embedding_bag", "dot_interaction", "fused_mlp")
-N_TRAIN = 20  # staged zipf batches of the training phase
+N_TRAIN = 20  # staged zipf batches of the training phase (and the run loop's pool)
+# the run loop: the quickstart's 60 steps, a checkpoint every 20, a restart, on to 80
+RUN_STEPS, RUN_RESTART, RUN_CKPT_EVERY = 80, 60, 20
 # a kernel train step against the same step on the CPU (every kernel's plain
 # version): the loss within 1e-4 relative; the store and the dense weights
 # within 1e-2 of the step's largest update: the two sum the dense network
@@ -231,6 +250,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flushed_ms(fn, iters: int = 20) -> float:
+    """Device ms a call of ``fn`` that finds the L2 cold: a CUDA graph of
+    ``iters`` pairs (a 64 MiB write, which evicts the H100's 50 MB L2, then
+    ``fn``) less a graph of the ``iters`` writes alone.  In graphs, so that
+    the host's launch (through the wrapper) is not timed."""
+    import torch
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.fill_(1)
+
+    def both():
+        flush()
+        fn()
+    return graph_ms(both, iters) - graph_ms(flush, iters)
+
+
 def graph_ms(fn, iters: int = 20) -> float:
     """Device ms a call of ``fn``: ``iters`` calls captured in one CUDA graph,
     replayed once to warm up and once between CUDA events.  For the kernels
@@ -251,6 +287,43 @@ def graph_ms(fn, iters: int = 20) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+                    "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc",
+                    "mem_free", "batch_mem_op", "conditional")  # CUgraphNodeType, in order
+
+
+def graph_nodes(fn) -> dict:
+    """What one call of ``fn`` enqueues on the card: its nodes in a CUDA graph
+    of the call, counted by type (``{"kernel": 1}`` for one launch and nothing
+    else).  Exact, where a profiler's trace can drop events.  ``fn`` runs twice:
+    once to warm up, once captured."""
+    import ctypes
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"CUDA driver call failed with CUresult {rc}")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)))
+    counts: dict = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        name = GRAPH_NODE_TYPES[kind.value] if 0 <= kind.value < len(GRAPH_NODE_TYPES) \
+            else f"type {kind.value}"
+        counts[name] = counts.get(name, 0) + 1
+    del graph
+    return counts
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -582,34 +655,24 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     return counts
 
 
-def device_busy_ms(fn, reps: int, warm: bool = False) -> tuple[float, float, list]:
+def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
     """``fn`` run ``reps`` times under torch.profiler: wall ms a run (ending
     in a synchronise), the device's busy ms a run (its kernels' time summed)
     and its kernels as (name, ms a run, launches a run), the longest first.
-    ``warm``: first ``reps`` runs in a warm-up step that the profiler traces
-    and drops (a window of a few short kernels alone came back empty)."""
+    The trace can drop events of a short window: its counts are read, not
+    gated on (``graph_nodes`` counts exactly)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    events = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None,
-                 on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
-        if warm:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
-        if warm:
-            prof.step()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")),  # the schedule's step marks
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
     return wall_ms, busy_ms, [(e.key[:48], e.self_device_time_total / reps / 1e3, round(e.count / reps))
@@ -794,11 +857,22 @@ def row_kernel_phase(cfg, state, offsets, batch, dev, rng, failures) -> list[dic
         bitwise_or_fail(f"split_sgd [{n}] hi", hi, want_h, failures),
         bitwise_or_fail(f"split_sgd [{n}] lo", lo, want_l, failures))}
     bms, by = bound_ms(n * 12, n * 2, FP32_FLOPS)
-    e.update(ms=time_ms(lambda: ops.split_sgd(hi, lo, g, lr)),
+    # timed as CUDA graphs: an eager loop of its launches times the host's wrapper (about 19
+    # us a call).  Its 30.5 MB of buffers stay in the 50 MB L2 between launches, so ``ms`` is
+    # taken with the L2 flushed before each launch, as in a train step, where the update
+    # follows gigabytes of table traffic and reads HBM, the bytes its bound counts; the warm
+    # reading is ``ms_l2_warm``
+    def kern():
+        ops.split_sgd(hi, lo, g, lr)
+    e.update(ms=flushed_ms(kern), ms_l2_warm=graph_ms(kern),
              plain_ms=time_ms(lambda: ref.split_sgd(hi, lo, g, lr)), bound_ms=bms, bound_by=by,
              library_ms=None)  # no PyTorch call splits fp32 into halves
-    log(f"  split_sgd [{n}]: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}, {n * 12 / 1e6:.1f} MB)")
+    eager = time_ms(kern)
+    log(f"  split_sgd [{n}]: kernel {e['ms']:.4f} ms with the L2 flushed before each launch "
+        f"({bms / e['ms'] * 100:.1f}% of bound), {e['ms_l2_warm']:.4f} ms back to back in a "
+        f"graph, L2 warm ({bms / e['ms_l2_warm'] * 100:.1f}%), {eager:.4f} ms an "
+        f"eager launch (the host's wrapper), plain {e['plain_ms']:.4f} ms, bound {bms:.4f} ms "
+        f"({by}, {n * 12 / 1e6:.1f} MB)")
     return [entries["embedding_update"], entries["embedding_update_fp32"], e]
 
 
@@ -1025,7 +1099,8 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     card's own cotangent, samples per second, and where a step's time goes.
     The timed steps run under ``set_sync_debug_mode("error")``; a state
     with ``sr`` must come out of them with ``sr`` advanced by one a step.
-    Returns the launch counts of the timed steps."""
+    Returns the launch counts of the timed steps and their samples per
+    second."""
     import torch
     from repro_torch import weights
     from repro_torch.core import dlrm
@@ -1121,7 +1196,7 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
             losses.append(loss)
     except RuntimeError as e:
         failures.append(f"a timed train step synchronised with the host: {e}")
-        return ops.launches()
+        return ops.launches(), 0.0
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1175,30 +1250,26 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
     log("a step by stage (ms, CUDA events, mean of 5): "
         + "; ".join(f"{k} {v:.3f}" for k, v in totals.items()))
     # the bag stage is one launch: no elementwise kernel for the offset add or the round.
-    # The launch counters say how often the bag kernel ran; the profiler's trace says that
-    # nothing else ran.  Its kernel list can come back short (a launch or two of the window
-    # missing) or, rarely, empty: then the trace is taken again, at most three times.
+    # The launch counters say how often the bag kernel ran; a CUDA graph of one call says
+    # that nothing else was enqueued (torch.profiler's trace was tried first and dropped
+    # launches of a window this short, at times more than half of them).
     W_fwd, b0 = row_optim.fwd_weights(opt, state["emb"]), batches[0]
-    calls = 20
-    for _ in range(3):
-        ops.reset_launches()
-        _, bag_ms, bag_kernels = device_busy_ms(
-            lambda: st.embedding_fwd(W_fwd, b0["idx"], b0.get("weights")), calls, warm=True)
-        stage_counts = ops.launches()
-        if bag_kernels:
-            break
-    log(f"bag stage under torch.profiler: {bag_ms:.4f} ms device a call; kernels: "
-        + top_kernels(bag_kernels) + f"; launch counts in {2 * calls} calls: {stage_counts}")
-    if len(bag_kernels) != 1 or "embedding_bag" not in bag_kernels[0][0] or bag_kernels[0][2] != 1:
-        failures.append(f"the bag stage ran {bag_kernels}, want the bag kernel alone, once")
-    if stage_counts != {**{k: 0 for k in stage_counts}, "embedding_bag": 2 * calls}:
-        failures.append(f"the bag stage launched {stage_counts} in {2 * calls} calls, "
+    bag_call = lambda: st.embedding_fwd(W_fwd, b0["idx"], b0.get("weights"))  # noqa: E731
+    ops.reset_launches()
+    bag_nodes = graph_nodes(bag_call)
+    stage_counts = ops.launches()
+    log(f"bag stage: {graph_ms(bag_call):.4f} ms device a call (CUDA graph); one call's graph "
+        f"holds {bag_nodes}; launch counts in 2 calls: {stage_counts}")
+    if bag_nodes != {"kernel": 1}:
+        failures.append(f"one call of the bag stage enqueued {bag_nodes}, want one kernel alone")
+    if stage_counts != {**{k: 0 for k in stage_counts}, "embedding_bag": 2}:
+        failures.append(f"the bag stage launched {stage_counts} in 2 calls, "
                         "want the bag kernel once a call")
     it = iter(batches[:reps])
     wall_ms, busy_ms, top = device_busy_ms(lambda: step(state, next(it)), reps)
     log(f"train step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
         f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: " + top_kernels(top[:8]))
-    return counts
+    return counts, n * cfg.batch / wall
 
 
 def short_phase(cfg, dev, batches, failures) -> dict:
@@ -1231,6 +1302,228 @@ def short_phase(cfg, dev, batches, failures) -> dict:
     del state, step
     torch.cuda.empty_cache()
     return counts
+
+
+def state_bytes(state) -> int:
+    from repro_torch.optim import data_parallel as dp
+    return sum(t.numel() * t.element_size() for t in dp.tree_leaves(state))
+
+
+def bitwise_equal(a, b) -> bool:
+    """Two train states (or leaves) bit for bit."""
+    import torch
+    from repro_torch.optim import data_parallel as dp
+    la, lb = dp.tree_leaves(a), dp.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def run_loop_phase(cfg, dev, bare_rate, failures) -> dict:
+    """The run loop at full width: ``TrainLoop`` with verified checkpoints,
+    a restore, a corrupt-checkpoint fallback and the eval step.
+
+    Run A trains a state S0 (seed 0) for ``RUN_STEPS`` loop steps without a
+    checkpoint.  Run B is the quickstart's contract: ``RUN_RESTART`` steps
+    from a copy of S0 with a checkpoint every ``RUN_CKPT_EVERY`` (keep 2,
+    prefetch 2, a heartbeat), then a second loop built on a state from
+    another seed restores the newest checkpoint and trains on to
+    ``RUN_STEPS``.  Both read one pool of ``N_TRAIN`` numpy batches in turn,
+    through prefetch's pinned copies.  Gates: the restore lands at
+    ``RUN_RESTART``, equals the first loop's state bit for bit and keeps the
+    dense ``hi`` leaves in one buffer; run B's later losses and final state
+    equal run A's bit for bit (if two runs A differ, the card is not
+    deterministic, and the losses are held within 1e-6 relative instead);
+    every loss finite.  Then the newest checkpoint is corrupted, a fresh
+    manager must fall back to ``RUN_RESTART``, and the eval step scores a
+    batch of the restored state: finite, in (0, 1), its logits within
+    ``LOGIT_TOL`` of the plain forward on the CPU.  Returns the launch counts
+    of run B and the eval step."""
+    import itertools
+    import shutil
+    import torch
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.faults import corrupt_checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    ckdir = ROOT / "build" / "run_loop"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    try:
+        S0 = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        need, free = 3 * state_bytes(S0), shutil.disk_usage(ckdir).free
+        log(f"run loop: checkpoints in {ckdir}: {free / 1e9:.2f} GB free, 3 checkpoints of "
+            f"{state_bytes(S0) / 1e9:.3f} GB need {need / 1e9:.2f} GB")
+        if free < need:
+            failures.append(f"run loop: {free / 1e9:.2f} GB free in {ckdir}, 3 checkpoints need "
+                            f"{need / 1e9:.2f} GB")
+            return {}
+        pool = [b for b, _ in zip(dlrm_stream(SEED, cfg, ALPHA), range(N_TRAIN))]
+
+        def batches(start):
+            return (pool[i % N_TRAIN] for i in itertools.count(start))
+
+        step = dlrm.make_train_step(cfg, device=dev)
+
+        def loop_cfg(steps, **kw):
+            return TrainLoopConfig(**{"steps": steps, "log_every": RUN_CKPT_EVERY, "prefetch": 2,
+                                      "straggler_window": RUN_STEPS, **kw})
+
+        def run_a(tag):
+            loop = TrainLoop(loop_cfg(RUN_STEPS), step, weights.state_to(S0, dev), batches(0),
+                             device=dev)
+            t0 = time.perf_counter()
+            loop.run()
+            wall = time.perf_counter() - t0
+            log(f"run {tag}: {RUN_STEPS} loop steps, no checkpoint, {wall:.2f} s: "
+                f"{RUN_STEPS * cfg.batch / wall:.0f} samples/s wall; losses "
+                f"{loop.losses[0]:.6f} -> {loop.losses[-1]:.6f}")
+            return loop
+
+        run = run_a("A")
+        hb = ckdir / "heartbeat.jsonl"
+        ckpt_kw = dict(ckpt_dir=str(ckdir / "ckpt"), ckpt_every=RUN_CKPT_EVERY, keep=2,
+                       heartbeat_path=str(hb))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        first = TrainLoop(loop_cfg(RUN_RESTART, **ckpt_kw), step, weights.state_to(S0, dev),
+                          batches(0), device=dev)
+        t0 = time.perf_counter()
+        first.run()
+        first_wall = time.perf_counter() - t0
+        other = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 7),
+                                device=dev)
+        t0 = time.perf_counter()
+        second = TrainLoop(loop_cfg(RUN_STEPS, **ckpt_kw), step, other, batches(RUN_RESTART),
+                           device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del other
+        restored = second.state
+        same = bitwise_equal(restored, first.state)
+        flat = dp.flat_hi(restored["dense"]["hi"], restored["dense"]["lo"].numel())
+        log(f"restart: start_step {second.start_step}, verify + restore {restore_s:.2f} s; the "
+            f"restored state bit for bit the first loop's: {same}; dense hi one flat buffer: "
+            f"{flat is not None}")
+        if second.start_step != RUN_RESTART or not same or flat is None:
+            failures.append(f"restart: start_step {second.start_step} (want {RUN_RESTART}), "
+                            f"bitwise {same}, flat hi {flat is not None}")
+            return {}
+        t0 = time.perf_counter()
+        second.run()
+        second_wall = time.perf_counter() - t0
+        losses = first.losses + second.losses
+        if not np.isfinite(losses).all():
+            failures.append(f"run B: a loss is not finite: {losses}")
+        later_same = losses[RUN_RESTART:] == run.losses[RUN_RESTART:]
+        state_same = bitwise_equal(second.state, run.state)
+        log(f"run B against run A: losses {RUN_RESTART}-{RUN_STEPS - 1} bitwise {later_same}, "
+            f"final state bitwise {state_same}; all {RUN_STEPS} losses bitwise "
+            f"{losses == run.losses}")
+
+        # the corruption drill: the newest checkpoint fails its checksums
+        mgr_dir = ckdir / "ckpt"
+        steps_on_disk = CheckpointManager(mgr_dir).steps()
+        corrupt_checkpoint(mgr_dir, RUN_STEPS, "flip")
+        mgr = CheckpointManager(mgr_dir)
+        t0 = time.perf_counter()
+        fallback = mgr.latest_valid_step()
+        at, back = mgr.restore(second.state, device=dev)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        back_same = bitwise_equal(back, first.state)
+        log(f"corruption drill: steps on disk {steps_on_disk}, step {RUN_STEPS} flipped; "
+            f"latest_valid_step {fallback}, restored step {at} in {drill_s:.2f} s (two verifies "
+            f"and a load), bit for bit the first loop's state: {back_same}")
+        if fallback != RUN_RESTART or at != RUN_RESTART or not back_same:
+            failures.append(f"corruption drill: fell back to {fallback}, restored {at}, "
+                            f"bitwise {back_same}")
+
+        # the eval step on the restored state, held to the plain forward on the CPU
+        b0 = {k: torch.from_numpy(v).to(dev) for k, v in pool[0].items()}
+        b0["dense_x"] = b0["dense_x"].to(torch.bfloat16)
+        scores = dlrm.make_eval_step(cfg, device=dev)(back, b0)
+        torch.cuda.synchronize()
+        counts = ops.launches()
+        snap = {"emb_w": back["emb"]["hi"].cpu(),
+                "dense_hi": dp.tree_unflatten(back["dense"]["hi"],
+                                              [t.cpu() for t in dp.tree_leaves(back["dense"]["hi"])])}
+        offsets = torch.as_tensor(se.make_layout(cfg.spec, 1).row_offsets, dtype=torch.int32)
+        want = plain_logits(cfg, snap, {k: v.cpu() for k, v in b0.items()}, offsets)
+        inside = bool(((scores > 0) & (scores < 1)).all())
+        log(f"eval step: scores {tuple(scores.shape)}, mean {float(scores.mean()):.6f}, "
+            f"in (0, 1): {inside}")
+        close_or_fail("eval logits vs the plain forward on the CPU",
+                      torch.logit(scores.double()).cpu(), want.double(), 0.0, LOGIT_TOL, failures)
+        if not inside:
+            failures.append("eval: a score is outside (0, 1)")
+
+        n = RUN_STEPS + 1
+        want_counts = {**{k: 0 for k in counts}, "embedding_bag": n, "dot_interaction": n,
+                       "embedding_update": RUN_STEPS, "split_sgd": RUN_STEPS}
+        log(f"launches in run B ({RUN_STEPS} loop steps) and one eval step: {counts}")
+        if counts != want_counts:
+            failures.append(f"run loop launches {counts}, want {want_counts}")
+
+        if not (later_same and state_same):
+            again = run_a("A again")
+            det = again.losses == run.losses and bitwise_equal(again.state, run.state)
+            diff = [i for i, (x, y) in enumerate(zip(again.losses, run.losses)) if x != y]
+            log(f"two runs A bit for bit: {det}; first loss apart at step "
+                f"{diff[0] if diff else None}")
+            if det:
+                failures.append("run B's later losses or final state differ from run A's, and "
+                                "two runs A agree bit for bit")
+            else:
+                rel = max(abs(x / y - 1) for x, y in zip(losses[RUN_RESTART:],
+                                                         run.losses[RUN_RESTART:]))
+                log(f"the card is not deterministic across runs: run B's later losses within "
+                    f"{rel:.3e} relative of run A's (held to 1e-6)")
+                if rel > 1e-6:
+                    failures.append(f"run B's later losses {rel:.3e} relative of run A's")
+            del again
+
+        # where the time goes
+        dts = np.asarray(list(first.monitor.times) + list(second.monitor.times)) * 1e3
+        saves = first.ckpt.copy_durations + second.ckpt.copy_durations
+        writes = first.ckpt.save_durations + second.ckpt.save_durations
+        npz = (mgr_dir / f"step_{RUN_RESTART}" / "arrays.npz").stat().st_size
+        rate = RUN_STEPS * cfg.batch / (dts.sum() / 1e3)
+        wall = first_wall + second_wall
+        log(f"run B: {rate:.0f} samples/s by the loop's own step times, step ms p50 "
+            f"{np.percentile(dts, 50):.3f} p99 {np.percentile(dts, 99):.3f}; "
+            f"{RUN_STEPS * cfg.batch / wall:.0f} samples/s over both runs' wall "
+            f"({first_wall:.2f} + {second_wall:.2f} s, of which {wall - dts.sum() / 1e3:.2f} s "
+            f"outside the steps: saves, joins of the writer, batches); the bare step "
+            f"{bare_rate:.0f} samples/s (training phase)")
+        log(f"saves: {len(saves)}, ms from each host copy's start to its landing (pinned, "
+            f"behind the step's kernels) " + ", ".join(f"{x * 1e3:.1f}" for x in saves)
+            + "; write + CRC s " + ", ".join(f"{x:.2f}" for x in writes)
+            + f"; {len(writes) * npz / 1e9:.2f} GB written ({npz / 1e9:.3f} GB a checkpoint)")
+        for tag, loop in (("first", first), ("second", second)):
+            st = loop.batches.stats
+            log(f"prefetch ({tag} loop): prep_s {st['prep_s']:.3f}, wait_s {st['wait_s']:.3f}, "
+                f"batches {st['batches']}")
+        log("heartbeat: " + hb.read_text().splitlines()[-1])
+        del first, second, back, restored
+        torch.cuda.empty_cache()
+        # the loop's steps under the profiler, on run A's state
+        wall_ms, busy_ms, _ = device_busy_ms(
+            lambda: TrainLoop(loop_cfg(10, log_every=100), step, run.state, batches(0),
+                              device=dev).run(), 1)
+        log(f"10 loop steps under torch.profiler: {wall_ms / 10:.3f} ms wall a step, device busy "
+            f"{busy_ms / 10:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); "
+            + nvidia_smi())
+        return counts
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
 
 
 def bf16_ulps(got, want):
@@ -1572,7 +1865,7 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"], variants[k["name"]]["max_abs_err"])
             k["weighted"] = variants[k["name"]]["weighted"]
     torch.cuda.empty_cache()
-    train_counts = training_phase(t_cfg, state, batches, dev, failures)
+    train_counts, bare_rate = training_phase(t_cfg, state, batches, dev, failures)
     if failures:
         raise SystemExit("training phase failed:\n" + "\n".join(failures))
     del state
@@ -1596,7 +1889,7 @@ def main() -> int:
     log("adagrad_rowwise train state: " + ", ".join(
         f"{k} {tuple(v.shape)} {v.dtype} {v.numel() * v.element_size() / 1e9:.3f} GB"
         for k, v in state["emb"].items()))
-    r_counts = training_phase(r_cfg, state, batches, dev, failures)
+    r_counts, _ = training_phase(r_cfg, state, batches, dev, failures)
     if failures:
         raise SystemExit("adagrad_rowwise training phase failed:\n" + "\n".join(failures))
     del state
@@ -1611,12 +1904,21 @@ def main() -> int:
         f"{k} {tuple(v.shape)} {v.dtype} {v.numel() * v.element_size() / 1e9:.3f} GB"
         for k, v in state["emb"].items()) + f", sr {int(state['sr'])}")
     del batches
-    m_counts = training_phase(m_cfg, state, stage_batches(m_cfg, N_TRAIN, dev), dev, failures)
+    m_counts, _ = training_phase(m_cfg, state, stage_batches(m_cfg, N_TRAIN, dev), dev,
+                                 failures)
     if failures:
         raise SystemExit("weighted momentum_bf16 training phase failed:\n" + "\n".join(failures))
     del state
     torch.cuda.empty_cache()
     counts[ROW_KERNEL["momentum_bf16"]] = m_counts[ROW_KERNEL["momentum_bf16"]]
+
+    # the run loop: dlrm-small trains, checkpoints, restarts and scores through TrainLoop
+    loop_counts = run_loop_phase(t_cfg, dev, bare_rate, failures)
+    if failures:
+        raise SystemExit("run loop phase failed:\n" + "\n".join(failures))
+    torch.cuda.empty_cache()
+    for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
+        counts[name] += loop_counts[name]
 
     # LM serving: the flash-attention kernel, then internlm2-1.8b's prefill and decode
     attn_entry = attention_kernel_phase(dev, failures)
@@ -1685,6 +1987,8 @@ def main() -> int:
             line[-1]["route_launches"] = counts["fused_mlp_routes"]
         if "by_batch" in k:  # rows 1 and 2 at every batch the main path runs
             line[-1]["ms_by_batch"] = k["by_batch"]
+        if "ms_l2_warm" in k:  # row 4 back to back, its buffers still in the L2
+            line[-1]["ms_l2_warm"] = k["ms_l2_warm"]
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

@@ -1,0 +1,6 @@
+"""Verified checkpoints in the reference's format v2 (twin of ``repro/checkpoint``)."""
+
+from repro_torch.checkpoint.manager import (FORMAT_VERSION, CheckpointCorruptError, CheckpointError,
+                                            CheckpointManager)
+
+__all__ = ["FORMAT_VERSION", "CheckpointCorruptError", "CheckpointError", "CheckpointManager"]

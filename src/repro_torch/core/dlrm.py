@@ -4,8 +4,9 @@ The dense part of the model: bottom MLP -> dot interaction -> top MLP, on
 the bf16 dense parameters ``{"bot"|"top": {"w": [...], "b": [...]}}``, with
 the reference's dtype at every seam: ``dense_x`` bf16, the bottom MLP's last
 layer fp32, the interaction fp32, its output cast to bf16 for the top MLP,
-the top MLP's last layer fp32 and then a sigmoid (serving) or the
-binary cross-entropy on the logits (training, :func:`make_train_step`).
+the top MLP's last layer fp32 and then a sigmoid (serving and
+:func:`make_eval_step`) or the binary cross-entropy on the logits (training,
+:func:`make_train_step`).
 """
 
 from __future__ import annotations
@@ -128,3 +129,28 @@ def make_train_step(cfg: DLRMConfig, device="cuda"):
     (see :func:`repro_torch.core.pipeline.make_pipelined_train_step`)."""
     from repro_torch.core import pipeline
     return pipeline.make_pipelined_train_step(cfg, device, cfg.microbatches)
+
+
+def make_eval_step(cfg: DLRMConfig, device="cuda"):
+    """The single-rank scoring step of a train state, ``ev(state, batch) ->
+    [B]`` sigmoid scores on ``device``: the train step's ``index_exchange``
+    (its forward stream) and ``embedding_fwd`` stages on the optimizer's forward
+    slabs (weighted with ``cfg.weighted``), then :func:`forward_local`
+    (``fused_mlp`` with ``cfg.mlp_impl == "pallas"``).  ``batch`` as the train
+    step takes it; ``labels`` are not read."""
+    from repro_torch.core import pipeline
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.optim import row as row_optim
+
+    layout = se.make_layout(cfg.spec, 1, cfg.emb_mode)
+    stages = pipeline.build_stages(cfg, layout, device)
+    opt = row_optim.resolve(cfg)
+
+    def ev(state: dict, batch: dict) -> torch.Tensor:
+        idx_fwd = stages.index_exchange(batch["idx"])[0]
+        wgt_fwd = stages.index_exchange(batch["weights"])[0] if cfg.weighted else None
+        emb_out = stages.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd, wgt_fwd)
+        logits = forward_local(state["dense"]["hi"], emb_out, batch["dense_x"], cfg.mlp_impl)
+        return torch.sigmoid(logits)
+
+    return ev

@@ -1,1 +1,1 @@
-"""Synthetic inputs."""
+"""Synthetic inputs and the threaded host iterator."""

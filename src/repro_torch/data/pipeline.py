@@ -1,0 +1,196 @@
+"""The threaded host-side iterator of the ingestion pipeline (twin of
+``ThreadedIterator`` in ``repro/data/pipeline.py``).
+
+A worker thread pulls batches from the source, runs the host prep, and parks
+the result in a bounded queue, so the prep of batch ``n + 1`` runs while the
+card executes step ``n``.  :func:`repro_torch.train.loop.prefetch_to_device`
+is a thin wrapper over it for the host-to-device leg.  Worker failures are
+delivered to the consumer as a poisoned queue entry and re-raised promptly:
+the loop never hangs on a dead loader.  ``HostPipeline`` and the per-batch
+pre-sort of the reference come with the port's ``host_presort``.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, Iterable, Iterator, Optional
+
+from repro_torch import telemetry
+
+_DONE = object()
+
+
+class _Poison:
+    """Queue sentinel carrying a worker exception to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class _Stopped(Exception):
+    """Internal: close() was requested while the worker held an item."""
+
+
+class ThreadedIterator:
+    """Worker thread + bounded queue + poison sentinel, once.
+
+    Pulls from ``source`` on a daemon thread, applies ``transform`` (the
+    host prep: shard decode, pre-sort, the copy to the card, ...) and parks results
+    in a ``depth``-bounded queue — backpressure keeps the worker at most
+    ``depth`` items (+1 in hand) ahead of the consumer.  Order is
+    preserved exactly.  A worker exception poisons the queue and
+    re-raises at the consumer's next pull: a dead producer FAILS the
+    consumer, it never hangs it.
+
+    ``close()`` stops the worker promptly even when it is blocked on a
+    full queue (the put loop watches the stop flag), drains the queue
+    and joins — abandoning a partially-consumed stream does not leak a
+    blocked thread or its queued items.  ``stats`` counts ``prep_s``
+    (worker: source pull + transform), ``wait_s`` (consumer blocked on
+    the queue), ``batches`` and ``retries``.
+
+    Resilience knobs: ``retries`` bounds a retry-with-backoff on
+    TRANSIENT worker exceptions (a flaky shard read whose ``__next__``
+    can be called again; generators that die stay dead and simply end
+    the stream) — beyond the budget the queue is poisoned as before.
+    ``faults`` is an optional :class:`repro_torch.faults.FaultPlan`; the
+    worker fires the ``loader.next`` site once per pull (step-indexed by
+    pull count), which is where drills inject loader deaths and stalls.
+    After a poison is delivered the stream goes STICKY-DEAD: the
+    exception is raised once and later pulls see ``StopIteration`` —
+    a consumer that absorbs the error (skip-batch budget) must never
+    hang on the dead worker's empty queue.
+    """
+
+    def __init__(self, source: Iterable, *,
+                 transform: Optional[Callable] = None, depth: int = 2,
+                 name: str = "ThreadedIterator", retries: int = 0,
+                 retry_backoff_s: float = 0.05, faults=None):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self._source = source
+        self._transform = transform
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._retries = retries
+        self._retry_backoff_s = retry_backoff_s
+        self._faults = faults
+        self.stats = {"prep_s": 0.0, "wait_s": 0.0, "batches": 0,
+                      "retries": 0}
+        self._thread = threading.Thread(target=self._work, daemon=True,
+                                        name=name)
+        self._started = False
+
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                continue
+        raise _Stopped
+
+    def _work(self) -> None:
+        try:
+            it = iter(self._source)
+            failures = 0
+            pulls = 0
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    if self._faults is not None:
+                        self._faults.fire("loader.next", step=pulls)
+                    # span lands on this worker's own trace track (the
+                    # thread name, e.g. prefetch_to_device)
+                    with telemetry.span("ingest/prep", cat="ingest",
+                                        pull=pulls):
+                        item = next(it)
+                        if self._transform is not None:
+                            item = self._transform(item)
+                except StopIteration:
+                    self._put(_DONE)
+                    return
+                except _Stopped:
+                    raise
+                except Exception as e:  # noqa: BLE001 — bounded retry
+                    # transient worker failure: retry the pull (sources
+                    # whose __next__ is re-callable survive; a dead
+                    # generator raises StopIteration on the retry and the
+                    # stream ends); past the budget, poison as usual.
+                    # InjectedCrash is a BaseException: never retried.
+                    if failures < self._retries:
+                        failures += 1
+                        self.stats["retries"] += 1
+                        time.sleep(self._retry_backoff_s
+                                   * (2 ** (failures - 1)))
+                        continue
+                    raise
+                pulls += 1
+                self.stats["prep_s"] += time.perf_counter() - t0
+                self._put(item)
+        except _Stopped:
+            pass
+        except BaseException as e:  # noqa: BLE001 — poison, don't hang
+            try:
+                self._put(_Poison(e))
+            except _Stopped:
+                pass
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        if not self._started:
+            self._thread.start()
+            self._started = True
+        t0 = time.perf_counter()
+        item = self._q.get()
+        self.stats["wait_s"] += time.perf_counter() - t0
+        if item is _DONE:
+            # sticky: repeated next() calls and CHAINED consumers (e.g.
+            # a prefetch_to_device worker reading a closed ThreadedIterator)
+            # must also observe end-of-stream instead of blocking forever
+            try:
+                self._q.put_nowait(_DONE)
+            except queue.Full:
+                pass
+            raise StopIteration
+        if isinstance(item, _Poison):
+            # sticky-dead: the worker exited after poisoning, so a consumer
+            # that catches this exception (TrainLoop's skip-batch budget)
+            # and pulls again must observe end-of-stream, not block forever
+            # on an empty queue nothing refills
+            try:
+                self._q.put_nowait(_DONE)
+            except queue.Full:
+                pass
+            raise item.exc
+        self.stats["batches"] += 1
+        return item
+
+    def close(self) -> None:
+        """Stop the worker (promptly, even when blocked on a full queue),
+        drain its items, join, and leave a sticky end-of-stream sentinel
+        so any consumer currently blocked in ``__next__`` — or pulling
+        later — gets StopIteration instead of hanging.  Idempotent."""
+        self._stop.set()
+        if self._started:
+            deadline = time.monotonic() + 5.0
+            while (self._thread.is_alive()
+                   and time.monotonic() < deadline):
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    time.sleep(0.005)
+            self._thread.join(timeout=1.0)
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        try:
+            self._q.put_nowait(_DONE)
+        except queue.Full:
+            pass

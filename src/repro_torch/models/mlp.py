@@ -24,7 +24,12 @@ def mlp_forward(params: dict, x: torch.Tensor, final_activation: bool = False,
         act = final_activation or i < n - 1
         last = i == n - 1
         if impl == "pallas":
-            h = ops.fused_mlp_layer(h.to(torch.bfloat16), w.to(torch.bfloat16), b,
+            w = w.to(torch.bfloat16)
+            if w.data_ptr() % 16:
+                # a train state's dense leaves are views of one flat buffer, at offsets
+                # the kernel's 16-byte loads do not take: a copy of this layer's weights
+                w = w.clone()
+            h = ops.fused_mlp_layer(h.to(torch.bfloat16), w, b,
                                     activation="relu" if act else "none",
                                     out_dtype=torch.float32 if last else torch.bfloat16)
         else:

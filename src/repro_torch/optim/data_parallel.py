@@ -34,6 +34,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to each leaf of a tree of dicts, lists and tuples, the
+    structure kept (``None`` is an empty subtree and stays ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def tree_unflatten(tree, leaves) -> object:
     """A tree shaped like ``tree`` holding ``leaves`` (pytree order)."""
     it = iter(leaves)

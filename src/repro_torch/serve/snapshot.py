@@ -28,20 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
 from repro_torch.core.dlrm import DLRMConfig, dlrm_dense_score
 from repro_torch.optim import row as row_optim
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _tree_leaves(tree) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
+from repro_torch.optim.data_parallel import tree_leaves, tree_map
 
 
 def snapshot_state(cfg: DLRMConfig, state: dict, *, copy: bool = False) -> dict:
@@ -51,11 +38,11 @@ def snapshot_state(cfg: DLRMConfig, state: dict, *, copy: bool = False) -> dict:
     place."""
     snap = {"emb_w": row_optim.fwd_weights(row_optim.resolve(cfg), state["emb"]),
             "dense_hi": state["dense"]["hi"]}
-    return _tree_map(torch.clone, snap) if copy else snap
+    return tree_map(torch.clone, snap) if copy else snap
 
 
 def _tree_bytes(tree) -> int:
-    return int(sum(t.numel() * t.element_size() for t in _tree_leaves(tree)))
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
 
 
 @dataclasses.dataclass(frozen=True)

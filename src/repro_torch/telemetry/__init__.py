@@ -1,7 +1,9 @@
-"""Telemetry the serving loop needs: the latency histogram and the span
-tracer (stdlib only, copies of the reference's)."""
+"""Telemetry the serving and train loops need: the latency histogram and the
+span tracer (stdlib only, copies of the reference's)."""
 
 from repro_torch.telemetry.hist import LatencyHistogram
-from repro_torch.telemetry.tracer import Tracer, configure, get_tracer, span
+from repro_torch.telemetry.tracer import (Tracer, configure, get_tracer, instant, set_track,
+                                          span)
 
-__all__ = ["LatencyHistogram", "Tracer", "configure", "get_tracer", "span"]
+__all__ = ["LatencyHistogram", "Tracer", "configure", "get_tracer", "instant", "set_track",
+           "span"]

@@ -1,10 +1,15 @@
-"""Host-side tracer: nestable spans -> Chrome trace JSON (the span part of
-``repro/telemetry/tracer.py``, copied so the port needs nothing of ``repro``).
+"""Host-side tracer: nestable spans and instants -> Chrome trace JSON (the
+span, instant and track parts of ``repro/telemetry/tracer.py``, copied so the
+port needs nothing of ``repro``).
 
 ``span()`` on a disabled tracer (the default) returns a shared no-op context
 manager after one attribute check: nothing is allocated and no clock is
 read, so the serving loop keeps its span compiled in.  Enabled, each span is
-a complete ('X') event on its thread's track; :meth:`Tracer.export` writes
+a complete ('X') event on its thread's track, or on a named virtual track
+(``track=``: the checkpoint writer's spans land on ``ckpt_writer`` from
+whichever thread writes); :meth:`Tracer.set_track` renames the calling
+thread's track, and :meth:`Tracer.instant` records a zero-length marker
+(failure-log events, heartbeats); :meth:`Tracer.export` writes
 ``{"traceEvents": [...]}``, loadable in Perfetto or ``chrome://tracing``.
 Timestamps are microseconds on the ``perf_counter`` clock, zeroed when the
 tracer was made.
@@ -83,24 +88,59 @@ class Tracer:
         self._pid = os.getpid()
         self._lock = threading.Lock()
         self._events: list[dict] = []
+        # thread ident -> track name override; virtual track name -> tid
+        self._thread_tracks: dict[int, str] = {}
+        self._virtual_tids: dict[str, int] = {}
         self._named_tids: set[int] = set()
 
-    def _tid(self) -> int:
+    def set_track(self, name: str) -> None:
+        """Name the calling thread's track (overrides the thread name)."""
+        if not self.enabled:
+            return
+        tid = threading.get_ident()
+        self._thread_tracks[tid] = name
+        with self._lock:
+            self._named_tids.discard(tid)  # re-emit the metadata with the new name
+
+    def _tid(self, track: Optional[str] = None) -> int:
+        if track is not None:
+            with self._lock:
+                tid = self._virtual_tids.get(track)
+                if tid is None:
+                    # virtual tracks get ids well away from real thread idents
+                    tid = 1_000_000 + len(self._virtual_tids)
+                    self._virtual_tids[track] = tid
+                    self._events.append(_thread_name(self._pid, tid, track))
+                    self._named_tids.add(tid)
+            return tid
         tid = threading.get_ident()
         with self._lock:
             if tid not in self._named_tids:
-                self._events.append({"name": "thread_name", "ph": "M", "pid": self._pid,
-                                     "tid": tid,
-                                     "args": {"name": threading.current_thread().name}})
+                name = self._thread_tracks.get(tid) or threading.current_thread().name
+                self._events.append(_thread_name(self._pid, tid, name))
                 self._named_tids.add(tid)
         return tid
 
-    def span(self, name: str, cat: str = "", **args):
+    def span(self, name: str, cat: str = "", track: Optional[str] = None, **args):
         """Context manager timing the enclosed block; ``args`` are attached
-        to the event."""
+        to the event; ``track`` places it on a named virtual track instead
+        of the calling thread's."""
         if not self.enabled:
             return _NOOP_SPAN
-        return _Span(self, name, cat, self._tid(), args)
+        return _Span(self, name, cat, self._tid(track), args)
+
+    def instant(self, name: str, cat: str = "", track: Optional[str] = None, **args) -> None:
+        """Zero-duration marker (failure-log events, heartbeats, ...)."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "i", "s": "t", "ts": (time.perf_counter() - self._epoch) * 1e6,
+              "pid": self._pid, "tid": self._tid(track)}
+        if cat:
+            ev["cat"] = cat
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
 
     def events(self) -> list[dict]:
         with self._lock:
@@ -129,5 +169,17 @@ def configure(enabled: bool = True) -> Tracer:
     return _GLOBAL
 
 
-def span(name: str, cat: str = "", **args):
-    return _GLOBAL.span(name, cat, **args)
+def span(name: str, cat: str = "", track: Optional[str] = None, **args):
+    return _GLOBAL.span(name, cat, track, **args)
+
+
+def instant(name: str, cat: str = "", track: Optional[str] = None, **args) -> None:
+    _GLOBAL.instant(name, cat, track, **args)
+
+
+def set_track(name: str) -> None:
+    _GLOBAL.set_track(name)
+
+
+def _thread_name(pid: int, tid: int, name: str) -> dict:
+    return {"name": "thread_name", "ph": "M", "pid": pid, "tid": tid, "args": {"name": name}}

@@ -33,7 +33,6 @@ from repro_torch.core.pipeline import NUM_BUCKETS
 from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.split_sgd import split_fp32
-from repro_torch.serve.snapshot import _tree_map
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -71,7 +70,7 @@ def snapshot_from_numpy(snap_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
     ``device``."""
     dev = resolve_device(device)
     snap = {"emb_w": to_torch(snap_np["emb_w"], dev),
-            "dense_hi": _tree_map(lambda a: to_torch(a, dev), snap_np["dense_hi"])}
+            "dense_hi": dp.tree_map(lambda a: to_torch(a, dev), snap_np["dense_hi"])}
     return _check(snap, cfg)
 
 
@@ -95,7 +94,7 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
     emb_w = split_fp32(W)[0] if row_optim.resolve(cfg).split else W
     del W
     dense = init_dense_params(cfg, generator, dev)
-    return {"emb_w": emb_w, "dense_hi": _tree_map(lambda t: split_fp32(t)[0], dense)}
+    return {"emb_w": emb_w, "dense_hi": dp.tree_map(lambda t: split_fp32(t)[0], dense)}
 
 
 def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
@@ -123,7 +122,7 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
                              f"needs {dtype} {shape}")
     _check({"emb_w": emb[opt.weight_keys[0]], "dense_hi": state_np["dense"]["hi"]}, cfg)
     lo = to_torch(state_np["dense"]["lo"], dev)
-    hi_tree = _tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
+    hi_tree = dp.tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
     if lo.numel() != dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS):
         raise ValueError(f"dense lo holds {lo.numel()} values, the config needs "
                          f"{dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS)}")
@@ -154,7 +153,7 @@ def state_to_numpy(state: dict) -> dict:
         return t.numpy()
 
     out = {"emb": {k: to_np(v) for k, v in state["emb"].items()},
-           "dense": {"hi": _tree_map(to_np, state["dense"]["hi"]),
+           "dense": {"hi": dp.tree_map(to_np, state["dense"]["hi"]),
                      "lo": to_np(state["dense"]["lo"]), "err": None}}
     if "sr" in state:
         out["sr"] = to_np(state["sr"])
@@ -210,4 +209,4 @@ def init_lm_params(cfg: tf.TransformerConfig, generator: torch.Generator, device
 def lm_params_to(params: dict, device) -> dict:
     """A copy of an LM parameter tree on ``device``."""
     dev = resolve_device(device)
-    return _tree_map(lambda t: t.to(dev, copy=True), params)
+    return dp.tree_map(lambda t: t.to(dev, copy=True), params)

@@ -868,6 +868,99 @@ def test_train_step_on_card_matches_cpu_and_does_not_sync(dev, opt):
     assert_close(master(state["emb"]).cpu(), want, rtol=0, atol=1e-2 * largest)
 
 
+@pytest.mark.parametrize("tensor_source", [False, True])
+def test_prefetch_to_card_keeps_order_and_values(dev, tensor_source):
+    """Batches of numpy arrays (or CPU tensors) copied to the card ahead of
+    the consumer on a side stream come out in order with their values, also
+    when the consumer keeps every batch while later ones are copied (the
+    allocator must not hand a batch's memory to the next copy); other leaves
+    pass through."""
+    from repro_torch.train import prefetch_to_device
+    rng = np.random.default_rng(3)
+    src = [{"idx": rng.integers(0, 100, (256, 8, 50)).astype(np.int32),
+            "dense_x": rng.standard_normal((256, 512)).astype(np.float32), "n": i}
+           for i in range(12)]
+    feed = ([{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in b.items()}
+             for b in src] if tensor_source else src)
+    it = prefetch_to_device(iter(feed), size=3, device=dev)
+    got = []
+    for b in it:
+        assert b["idx"].device.type == "cuda" and b["n"] == len(got)
+        got.append({k: v * 1 if isinstance(v, torch.Tensor) else v for k, v in b.items()})
+        got[-1]["raw"] = b
+    torch.cuda.synchronize()
+    assert len(got) == 12 and it.stats["batches"] == 12
+    for want, b in zip(src, got):
+        for k in ("idx", "dense_x"):
+            np.testing.assert_array_equal(b[k].cpu().numpy(), want[k])
+            np.testing.assert_array_equal(b["raw"][k].cpu().numpy(), want[k])
+
+
+def test_checkpoint_on_card_restores_bitwise_and_trains_on(dev, tmp_path):
+    """An async save of a train state on the card while the step goes on
+    updating it in place; a restore into a state drawn from another seed
+    gives the saved state bit for bit, on the card, its dense ``hi`` leaves
+    views of one flat buffer (so the dense update runs in place), and a step
+    from it equals the same step from the saved state, loss and weights."""
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm
+    from repro_torch.optim import data_parallel as dp
+    cfg = _small_train_cfg(sparse_optimizer="momentum_bf16", weighted=True)
+    state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = dlrm.make_train_step(cfg, device=dev)
+    batches = _small_batches(cfg, 4, dev)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    saved = weights.state_to(state, dev)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, state)
+    state, _ = step(state, batches[2])          # in place, while the writer runs
+    mgr.wait()
+    other = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    at, back = mgr.restore(other, device=dev)
+    assert at == 2
+    for a, b in zip(dp.tree_leaves(back), dp.tree_leaves(saved)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+    lo = back["dense"]["lo"]
+    flat = dp.flat_hi(back["dense"]["hi"], lo.numel())
+    assert flat is not None and flat.device.type == "cuda"
+    back, loss = step(back, batches[2])
+    assert dp.flat_hi(back["dense"]["hi"], lo.numel()) is flat   # updated in place
+    saved, want = step(saved, batches[2])
+    torch.cuda.synchronize()
+    assert float(loss) == float(want)
+    for a, b in zip(dp.tree_leaves(back), dp.tree_leaves(saved)):
+        assert torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_eval_step_on_card_matches_cpu(dev, impl):
+    """``make_eval_step`` on the card (bag, interaction and, with ``pallas``,
+    fused_mlp kernels) against the CPU (plain versions) on one state, the
+    logits within the serving gate's 3e-3 (the scores sit near 0.5, where a
+    tolerance on them would pass an eval step that ignores its inputs); its
+    kernels launched once each (fused_mlp a layer)."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    cfg = _small_train_cfg(mlp_impl=impl)
+    cpu_state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = _small_batches(cfg, 1, dev)[0]
+    want = dlrm.make_eval_step(cfg, device="cpu")(cpu_state, {k: v.cpu() for k, v in b.items()})
+    ev = dlrm.make_eval_step(cfg, device=dev)
+    state = weights.state_to(cpu_state, dev)
+    ev(state, b)
+    ops.reset_launches()
+    got = ev(state, b)
+    torch.cuda.synchronize()
+    layers = len(cfg.bottom_sizes) - 1 + len(cfg.top_sizes) - 1
+    assert ops.launches() == {**{k: 0 for k in ops.KERNELS}, "embedding_bag": 1,
+                              "dot_interaction": 1, "fused_mlp": layers if impl == "pallas" else 0}
+    assert bool(((got > 0) & (got < 1)).all())
+    assert_close(torch.logit(got.double()).cpu(), torch.logit(want.double()), rtol=0, atol=3e-3)
+
+
 # the kernel phase's attention cases at a small size: (B, H, Hkv, Lq, Lk, D, causal, window,
 # softcap); the last two rows have queries that see no key (Lq > Lk, causal)
 FLASH_CASES = {
