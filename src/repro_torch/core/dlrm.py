@@ -19,13 +19,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.embedding import EmbeddingSpec
 from repro_torch.core.interaction import dot_interaction, interaction_output_dim
+from repro_torch.dist.exchange import ExchangeConfig
 from repro_torch.models.mlp import mlp_forward
 
 
 @dataclasses.dataclass(frozen=True)
 class DLRMConfig:
-    """The fields of the reference's ``DLRMConfig`` that serving and the
-    single-rank train step read."""
+    """The fields of the reference's ``DLRMConfig`` that serving, the train
+    step and the eval step read."""
 
     name: str
     num_dense: int                  # dense-feature width (bottom MLP input)
@@ -35,7 +36,8 @@ class DLRMConfig:
     emb_dim: int                    # E
     pooling: int                    # P look-ups per table
     batch: int = 2048
-    emb_mode: str = "row"           # the port has 'row' only
+    emb_mode: str = "row"           # 'row' | 'table'
+    idx_input: str = "replicated"   # 'replicated' | 'sharded' (the on-device index exchange)
     # 'split_sgd' (default) | 'sgd' | 'momentum' | 'adagrad' | 'adagrad_rowwise'
     # | 'adagrad_freq' | 'momentum_bf16' | 'adagrad_bf16'; opt_beta / opt_eps
     # override the optimizer's defaults
@@ -45,6 +47,15 @@ class DLRMConfig:
     mlp_impl: str = "xla"           # 'xla' | 'pallas' (the fused_mlp kernel)
     lr: float = 0.1                 # SGD step of the dense and the embedding update
     microbatches: int = 1           # the port trains with 1
+    # the collectives' configuration (dist/exchange.py): a typed
+    # ExchangeConfig, or exchange_dtype setting both wire formats; the port
+    # runs the 'fp32' wire and refuses the others
+    exchange: Optional[ExchangeConfig] = None
+    exchange_dtype: Optional[str] = None
+    # refused by the train step: the host-sorted update stream and the
+    # hot-row cache are not ported
+    host_presort: bool = False
+    hot_rows: int = 0
     # weighted bags: the batch carries 'weights' [B, S, P] fp32 in idx's layout
     weighted: bool = False
     # the first per-step seed of the stochastic rounding (the train state's
@@ -117,38 +128,49 @@ def dlrm_dense_loss(cfg: DLRMConfig):
     return loss
 
 
-def init_state(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> dict:
-    """A train state drawn from ``generator`` (see
+def init_state(cfg: DLRMConfig, generator: torch.Generator, device="cuda", mesh=None) -> dict:
+    """This rank's train state drawn from ``generator`` (see
     :func:`repro_torch.core.hybrid.init_state`)."""
     from repro_torch.core import hybrid
-    return hybrid.init_state(cfg, generator, device)
+    return hybrid.init_state(cfg, generator, device, mesh)
 
 
-def make_train_step(cfg: DLRMConfig, device="cuda"):
-    """The single-rank train step, ``step(state, batch) -> (state, loss)``
-    (see :func:`repro_torch.core.pipeline.make_pipelined_train_step`)."""
+def make_layout(cfg: DLRMConfig, mesh):
+    """The embedding layout of ``cfg`` over the shards of ``mesh``."""
+    from repro_torch.core import hybrid
+    return hybrid.make_layout(cfg, mesh)
+
+
+def make_train_step(cfg: DLRMConfig, mesh=None, *, device="cuda"):
+    """The hybrid-parallel train step on this rank of ``mesh`` (a
+    ``launch.mesh.Mesh``; None: the one-rank step on ``device``),
+    ``step(state, batch) -> (state, loss)`` (see
+    :func:`repro_torch.core.pipeline.make_pipelined_train_step`)."""
     from repro_torch.core import pipeline
-    return pipeline.make_pipelined_train_step(cfg, device, cfg.microbatches)
+    from repro_torch.launch.mesh import resolve_mesh
+    return pipeline.make_pipelined_train_step(cfg, resolve_mesh(mesh, device), cfg.microbatches)
 
 
-def make_eval_step(cfg: DLRMConfig, device="cuda"):
-    """The single-rank scoring step of a train state, ``ev(state, batch) ->
-    [B]`` sigmoid scores on ``device``: the train step's ``index_exchange``
-    (its forward stream) and ``embedding_fwd`` stages on the optimizer's forward
-    slabs (weighted with ``cfg.weighted``), then :func:`forward_local`
-    (``fused_mlp`` with ``cfg.mlp_impl == "pallas"``).  ``batch`` as the train
-    step takes it; ``labels`` are not read."""
-    from repro_torch.core import pipeline
-    from repro_torch.core import sharded_embedding as se
+def make_eval_step(cfg: DLRMConfig, mesh=None, *, device="cuda"):
+    """The scoring step of a train state on this rank of ``mesh`` (None: one
+    rank on ``device``), ``ev(state, batch) -> [B / ranks]`` sigmoid scores
+    of the rank's samples: the train step's ``index_exchange`` (its forward
+    stream) and ``embedding_fwd`` stages on the optimizer's forward slabs
+    (weighted with ``cfg.weighted``), then :func:`forward_local`
+    (``fused_mlp`` with ``cfg.mlp_impl == "pallas"``).  ``batch`` as the
+    train step takes it; ``labels`` are not read."""
+    from repro_torch.core import hybrid, pipeline
+    from repro_torch.launch.mesh import resolve_mesh
     from repro_torch.optim import row as row_optim
 
-    layout = se.make_layout(cfg.spec, 1, cfg.emb_mode)
-    stages = pipeline.build_stages(cfg, layout, device)
+    mesh = resolve_mesh(mesh, device)
+    stages = pipeline.build_stages(cfg, hybrid.make_layout(cfg, mesh), mesh)
     opt = row_optim.resolve(cfg)
 
     def ev(state: dict, batch: dict) -> torch.Tensor:
-        idx_fwd = stages.index_exchange(batch["idx"])[0]
-        wgt_fwd = stages.index_exchange(batch["weights"])[0] if cfg.weighted else None
+        idx_fwd = stages.index_exchange(batch["idx"], fwd_only=True)[0]
+        wgt_fwd = (stages.index_exchange(batch["weights"], fwd_only=True)[0] if cfg.weighted
+                   else None)
         emb_out = stages.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd, wgt_fwd)
         logits = forward_local(state["dense"]["hi"], emb_out, batch["dense_x"], cfg.mlp_impl)
         return torch.sigmoid(logits)

@@ -41,3 +41,18 @@ class EmbeddingSpec:
     @property
     def total_rows(self) -> int:
         return int(self.padded_rows.sum())
+
+    def binpack_tables(self, num_bins: int) -> list[list[int]]:
+        """Tables greedily packed into ``num_bins`` bins by padded row count,
+        the largest first into the lightest bin (the lower bin on a tie):
+        ``bins[b]`` lists bin ``b``'s tables.  Table mode's placement
+        (``repro/core/embedding.py::binpack_tables``); equal tables are taken
+        in the order of numpy's default (unstable) sort, as there."""
+        order = np.argsort(-self.padded_rows)
+        bins: list[list[int]] = [[] for _ in range(num_bins)]
+        loads = np.zeros(num_bins, dtype=np.int64)
+        for t in order:
+            b = int(np.argmin(loads))
+            bins[b].append(int(t))
+            loads[b] += int(self.padded_rows[t])
+        return bins

@@ -1,23 +1,26 @@
-"""Train-state layout and initialisation (twin of the state builders of
-``repro/core/hybrid.py``), at one rank.
+"""Train-state layout and initialisation on a mesh (twin of the state
+functions of ``repro/core/hybrid.py``).
 
-The state is the reference's pytree:
+A rank's state is its shard of the reference's global pytree:
 
-    {"emb": {"hi": [rows, E] bf16, "lo": [rows, E] int16}    (split_sgd)
-            | {"w": [rows, E] fp32, + state slabs}            (the others)
+    {"emb": {"hi": [R, E] bf16, "lo": [R, E] int16}    (split_sgd)
+            | {"w": [R, E] fp32, + state slabs}         (the others)
      "dense": {"hi": {"bot"|"top": {"w": [...], "b": [...]}} bf16,
-               "lo": [padded] int16, "err": None}}
+               "lo": [padded / ranks] int16, "err": None}}
 
-``lo`` holds the bits of the reference's uint16 slabs as int16, since
-PyTorch has no arithmetic on uint16.  The state slabs are the optimizer's
-(``optim.row.RowOptimizer.state``): ``mom`` or ``acc`` [rows, E] fp32,
-``acc`` [rows, 1] fp32 (row-wise Adagrad), ``cnt`` [rows, 1] int32, or
-``mom`` / ``acc`` [rows, E] bf16 (the compressed-state kinds), zero at the
-start.  An optimizer that rounds its state stochastically adds ``"sr"``, the
-per-step seed: a 0-d int32 tensor, ``cfg.sr_seed`` at the start, one more
-after each step.  The dense ``hi`` leaves are views
-into one flat bf16 buffer (``optim.data_parallel.pack_hi``), which the
-dense update steps in place.
+``R`` is the layout's ``rows_per_shard``: in row mode the rank's window of
+the row space, in table mode its bin of tables (replicated over the data
+axes).  ``lo`` is the rank's chunk of the bucketed dense ``lo``
+(``optim.data_parallel``).  ``lo`` slabs hold the bits of the reference's
+uint16 slabs as int16, since PyTorch has no arithmetic on uint16.  The
+state slabs are the optimizer's (``optim.row.RowOptimizer.state``):
+``mom`` or ``acc`` [R, E] fp32, ``acc`` [R, 1] fp32 (row-wise Adagrad),
+``cnt`` [R, 1] int32, or ``mom`` / ``acc`` [R, E] bf16 (the compressed-state
+kinds), zero at the start.  An optimizer that rounds its state
+stochastically adds ``"sr"``, the per-step seed, replicated: a 0-d int32
+tensor, ``cfg.sr_seed`` at the start, one more after each step.  The dense
+``hi`` leaves are views into one flat bf16 buffer
+(``optim.data_parallel.pack_hi``), which the dense update steps in place.
 """
 
 from __future__ import annotations
@@ -25,50 +28,110 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch.core import pipeline
 from repro_torch.core import sharded_embedding as se
-from repro_torch.core.pipeline import NUM_BUCKETS
+from repro_torch.dist.exchange import resolve_exchange
+from repro_torch.launch.mesh import Mesh, resolve_mesh
 from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 
 
-def state_struct(cfg) -> dict:
-    """``(shape, dtype)`` of every leaf of the train state of ``cfg``
-    (``None`` for the absent error-feedback slab)."""
-    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
+def make_layout(cfg, mesh: Mesh) -> se.ShardedEmbeddingLayout:
+    """The embedding layout of ``cfg`` over the shards of ``mesh``."""
+    return se.make_layout(cfg.spec, pipeline.num_shards(cfg, mesh), cfg.emb_mode)
+
+
+def emb_shard(cfg, mesh: Mesh) -> int:
+    """The embedding shard this rank holds."""
+    return mesh.group(pipeline.emb_axes(cfg, mesh)[0]).index
+
+
+def dense_sizes(cfg) -> int:
+    return sum(i * o + o for sizes in (cfg.bottom_sizes, cfg.top_sizes)
+               for i, o in zip(sizes[:-1], sizes[1:]))
+
+
+def padded_dense(cfg, mesh: Mesh) -> int:
+    """The length of the reference's global dense ``lo``."""
+    return dp.padded_size(dense_sizes(cfg), mesh.size, resolve_exchange(cfg).num_buckets)
+
+
+def state_struct(cfg, mesh=None) -> dict:
+    """``(shape, dtype)`` of every leaf of this rank's train state of ``cfg``
+    on ``mesh`` (None: one rank), ``None`` for the absent error-feedback
+    slab."""
+    mesh = resolve_mesh(mesh, "cpu")
+    rows = make_layout(cfg, mesh).rows_per_shard
     E = cfg.emb_dim
     emb = row_optim.resolve(cfg).store_struct(rows, E)
-    hi, n = {}, 0
+    hi = {}
     for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
         pairs = list(zip(sizes[:-1], sizes[1:]))
         hi[part] = {"w": [((i, o), torch.bfloat16) for i, o in pairs],
                     "b": [((o,), torch.bfloat16) for _, o in pairs]}
-        n += sum(i * o + o for i, o in pairs)
-    out = {"emb": emb, "dense": {"hi": hi, "lo": ((dp.padded_size(n, 1, NUM_BUCKETS),), torch.int16),
-                                 "err": None}}
+    lo = ((padded_dense(cfg, mesh) // mesh.size,), torch.int16)
+    out = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
     if row_optim.resolve(cfg).stochastic_round:
         out["sr"] = ((), torch.int32)
     return out
 
 
-def init_state(cfg, generator: torch.Generator, device="cuda") -> dict:
-    """A train state drawn from ``generator`` (which must live on
-    ``device``) with the reference's distributions: table rows
-    ~ U(-a, a), a = 1 / sqrt(mean table rows); dense weights as
-    ``core.dlrm.init_dense_params``.  The numbers differ from the
-    reference's ``jax.random`` draw; ``weights.state_from_numpy`` carries a
-    JAX state across instead."""
+def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dict:
+    """This rank's train state, drawn from ``generator`` (which must live on
+    the rank's device and be seeded alike on every rank) with the
+    reference's distributions: table rows ~ U(-a, a), a = 1 / sqrt(mean
+    table rows), over the layout's whole row space; dense weights as
+    ``core.dlrm.init_dense_params``.  Each rank draws the global arrays and
+    keeps its shard.  ``mesh`` (None: one rank on ``device``).  The numbers
+    differ from the reference's ``jax.random`` draw;
+    ``weights.state_from_numpy`` carries a JAX state across instead."""
     from repro_torch.core.dlrm import init_dense_params
 
-    dev = resolve_device(device)
-    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device
+    layout = make_layout(cfg, mesh)
     a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
-    W = torch.empty((rows, cfg.emb_dim), device=dev).uniform_(-a, a, generator=generator)
+    W = torch.empty((layout.total_rows, cfg.emb_dim), device=dev).uniform_(-a, a,
+                                                                          generator=generator)
+    R, s = layout.rows_per_shard, emb_shard(cfg, mesh)
+    if layout.num_shards > 1:
+        W = W[s * R:(s + 1) * R].clone()
     opt = row_optim.resolve(cfg)
     emb = row_optim.init_store(opt, W)
     del W
-    dense = dp.dp_global_arrays(init_dense_params(cfg, generator, dev), 1, NUM_BUCKETS)
+    params = init_dense_params(cfg, generator, dev)
+    dense = dp.init_dp_state(params, mesh.size, mesh.rank, resolve_exchange(cfg).num_buckets)
     state = {"emb": emb, "dense": dense}
     if opt.stochastic_round:
         state["sr"] = torch.tensor(cfg.sr_seed, dtype=torch.int32, device=dev)
     return state
+
+
+def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
+    """This rank's block of the reference's global batch (``batch_struct``'s
+    partition specs): ``idx`` and ``weights`` whole in row mode with the
+    replicated stream; in table mode with the replicated stream the
+    padded-slot [B, num_padded_slots, P] arrays cut to this rank's data
+    replica's rows and its model shard's slots; every other field, and the
+    batch-sharded streams, cut to this rank's rows (device-major over the
+    mesh)."""
+    all_axes, model, batch_axes = pipeline.mesh_axes(mesh)
+    n, i = mesh.size, mesh.rank
+
+    def rows(v, parts, j):
+        c = v.shape[0] // parts
+        return v[j * c:(j + 1) * c]
+
+    out = {}
+    for k, v in batch.items():
+        if k in ("idx", "weights") and cfg.idx_input == "replicated":
+            if cfg.emb_mode == "table":
+                nb = int(np.prod([mesh.shape[a] for a in batch_axes])) if batch_axes else 1
+                d = mesh.group(batch_axes).index if batch_axes else 0
+                K = v.shape[1] // mesh.shape[model]
+                m = mesh.coords[model]
+                v = rows(v, nb, d)[:, m * K:(m + 1) * K]
+        else:
+            v = rows(v, n, i)
+        out[k] = v.contiguous()
+    return out

@@ -129,13 +129,16 @@ def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int,
 
 
 def embedding_bag_stage(W: torch.Tensor, idx: torch.Tensor, row_offsets: torch.Tensor,
-                        rows_per_shard: int, weights: torch.Tensor | None = None) -> torch.Tensor:
-    """The row-mode bag stage in one launch: the bag sums of rows
+                        rows_per_shard: int, weights: torch.Tensor | None = None,
+                        round_bf16: bool = True) -> torch.Tensor:
+    """The bag stage in one launch: the bag sums of rows
     ``idx[b, s, p] + row_offsets[s]`` (``idx`` [B, S, P] int32 table-local
-    ids, ``row_offsets`` [S] int32), masked and weighted as
-    :func:`embedding_bag`, each rounded to bf16 and returned as fp32
-    [B, S, E].  Counts as a launch of :func:`embedding_bag`.  CUDA tensors
-    launch the kernel; CPU tensors run the plain pieces (offset add,
+    ids, ``row_offsets`` [S] int32: a slot's first row in ``W``, negative
+    where a row shard's window starts past it), masked and weighted as
+    :func:`embedding_bag`, each rounded to bf16 with ``round_bf16`` (the
+    row-mode wire; table mode's is fp32) and returned as fp32 [B, S, E].
+    Counts as a launch of :func:`embedding_bag`.  CUDA tensors launch the
+    kernel; CPU tensors run the plain pieces (offset add,
     ``ref.embedding_bag``, bf16 round)."""
     _check(W, idx, weights)
     S = idx.shape[1]
@@ -144,8 +147,8 @@ def embedding_bag_stage(W: torch.Tensor, idx: torch.Tensor, row_offsets: torch.T
         raise ValueError(f"need int32 row_offsets [{S}] on {idx.device}, got {row_offsets.dtype} "
                          f"{tuple(row_offsets.shape)} on {row_offsets.device}")
     if W.device.type == "cpu":
-        return plain_stage(W, idx, row_offsets, rows_per_shard, weights)
-    return _launch(W, idx, row_offsets.contiguous(), weights, rows_per_shard, True)
+        return plain_stage(W, idx, row_offsets, rows_per_shard, weights, round_bf16)
+    return _launch(W, idx, row_offsets.contiguous(), weights, rows_per_shard, round_bf16)
 
 
 embedding_bag.launches = 0

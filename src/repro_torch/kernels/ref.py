@@ -25,13 +25,14 @@ def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int,
 
 
 def embedding_bag_stage(W: torch.Tensor, idx: torch.Tensor, row_offsets: torch.Tensor,
-                        rows_per_shard: int, weights: torch.Tensor | None = None) -> torch.Tensor:
-    """The row-mode bag stage as the reference composes it: the slot's row
-    offset added to the table-local ids ``idx`` [B, S, P], the masked bag
-    :func:`embedding_bag`, each sum rounded to bf16 (the reduce-scatter
-    wire) and widened back to fp32."""
-    gidx = idx + row_offsets[None, :, None]
-    return embedding_bag(W, gidx, rows_per_shard, weights).to(torch.bfloat16).float()
+                        rows_per_shard: int, weights: torch.Tensor | None = None,
+                        round_bf16: bool = True) -> torch.Tensor:
+    """The bag stage as the reference composes it: the slot's row offset
+    added to the table-local ids ``idx`` [B, S, P], the masked bag
+    :func:`embedding_bag`, and with ``round_bf16`` each sum rounded to bf16
+    (the row-mode reduce-scatter wire) and widened back to fp32."""
+    out = embedding_bag(W, idx + row_offsets[None, :, None], rows_per_shard, weights)
+    return out.to(torch.bfloat16).float() if round_bf16 else out
 
 
 def dot_interaction(dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,27 @@
-"""Dense data-parallel Split-SGD (twin of ``repro/optim/data_parallel.py``),
-at one rank.
+"""Dense data-parallel Split-SGD (twin of ``repro/optim/data_parallel.py``).
 
-The dense state is ``{"hi": tree, "lo": [padded] int16, "err": None}``: the
-bf16 upper halves as the parameter tree the forward reads, and the lower
-halves as one flat vector in the reference's raveled order, padded to a
-multiple of ``ranks * num_buckets`` (the bucketed layout of
-``to_bucketed_layout``, which at one rank is padding only).  The port keeps
-the ``hi`` leaves as views into one flat bf16 buffer of the padded length,
-so the flat Split-SGD kernel updates them in place with one launch.
+The dense state of a rank is ``{"hi": tree, "lo": [padded / ranks] int16,
+"err": None}``: the bf16 upper halves as the parameter tree the forward
+reads, replicated, and this rank's shard of the lower halves.  The global
+``lo`` is one flat vector in the reference's raveled order, padded to a
+multiple of ``ranks * num_buckets`` and laid out bucket-major within each
+rank's shard (``to_bucketed_layout``): rank ``s``'s shard is
+``[s * padded / ranks, (s + 1) * padded / ranks)``, and holds its chunk of
+each bucket in turn.  The port keeps the ``hi`` leaves as views into one
+flat bf16 buffer of the padded length, in which bucket ``b``'s chunk of
+rank ``s`` sits at natural position ``(b, s)``; the step updates it in
+place.
 
 The raveled order is JAX's pytree order: dict keys sorted, list items in
 order, so for a DLRM ``bot.b[...]``, ``bot.w[...]``, ``top.b[...]``,
-``top.w[...]``.  More than one rank needs the distributed slice.
+``top.w[...]``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.kernels import ops
 from repro_torch.optim.split_sgd import split_fp32
 
@@ -114,10 +118,10 @@ def flat_hi(hi_tree, padded: int) -> torch.Tensor | None:
 
 
 def dp_global_arrays(params_fp32, ns: int = 1, num_buckets: int = 4) -> dict:
-    """The dense state from fp32 parameters: ``{"hi": tree of bf16 views,
-    "lo": [padded] int16, "err": None}`` (the fp32 wire keeps no error)."""
-    if ns != 1:
-        raise NotImplementedError("more than one rank needs the distributed slice")
+    """The reference's global dense arrays from fp32 parameters: ``{"hi":
+    tree of bf16 views, "lo": [padded] int16 in the bucketed layout of ``ns``
+    ranks, "err": None}`` (the fp32 wire keeps no error).  At ``ns = 1`` this
+    is the one rank's state."""
     flat = torch.cat([t.float().reshape(-1) for t in tree_leaves(params_fp32)])
     hi_flat, lo_flat = split_fp32(flat)
     hi_buf = torch.zeros(padded_size(flat.numel(), ns, num_buckets), dtype=torch.bfloat16,
@@ -127,22 +131,43 @@ def dp_global_arrays(params_fp32, ns: int = 1, num_buckets: int = 4) -> dict:
     return {"hi": hi, "lo": to_bucketed_layout(lo_flat, ns, num_buckets), "err": None}
 
 
-def rs_ag_split_sgd(state: dict, grads, lr: float, ranks: int = 1, num_buckets: int = 4) -> dict:
-    """One dense Split-SGD step.  At one rank the reduce-scatter and the
-    all-gather are the identity (the reference's ``mean=False`` sum over one
-    rank is its gradient) and the buckets are consecutive slices of
-    the padded vector, so the step is one flat Split-SGD pass
-    (``kernels.split_sgd``) over it: ``g`` is the raveled gradient in fp32,
-    zero on the padding.  ``state["hi"]`` is updated in place when it is
-    :func:`pack_hi`'s views (else it is packed first); returns the new
-    state."""
-    if ranks != 1:
-        raise NotImplementedError("more than one rank needs the distributed slice")
+def init_dp_state(params_fp32, ns: int, shard: int, num_buckets: int = 4) -> dict:
+    """Rank ``shard``'s dense state of ``ns`` ranks: the ``hi`` tree and its
+    chunk of :func:`dp_global_arrays`' ``lo``."""
+    arrays = dp_global_arrays(params_fp32, ns, num_buckets)
+    chunk = arrays["lo"].numel() // ns
+    return {"hi": arrays["hi"], "lo": arrays["lo"][shard * chunk:(shard + 1) * chunk].clone(),
+            "err": None}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where the kernel's 16-byte alignment fails."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def rs_ag_split_sgd(state: dict, grads, lr: float, num_buckets: int = 4,
+                    group: comm.Group | None = None) -> dict:
+    """One dense Split-SGD step over the ranks of ``group`` (None: this rank
+    alone), in place.  ``g`` is the raveled gradient in fp32, zero on the
+    padding; the reference's ``mean=False``: each rank's gradient is its
+    share of the batch's mean loss, so the reduce-scatter sums them.
+
+    Bucket by bucket (one bucket at one rank): the fp32 reduce-scatter of the
+    bucket's gradient (``comm.psum_scatter``, the reference's summation
+    order), the Split-SGD kernel on this rank's chunk of ``hi`` and ``lo``,
+    and the bf16 all-gather of the new chunks straight into the bucket's
+    slice of the flat ``hi`` buffer.  At one rank without a process group
+    that is one flat Split-SGD pass over the padded vector, in place.
+    ``state["hi"]`` is updated in place when it is :func:`pack_hi`'s views
+    (else it is packed first); returns the new state."""
+    group = comm.local_group() if group is None else group
+    ns = group.size
     lo = state["lo"]
-    padded = lo.numel()
-    if padded != padded_size(ravel_size(state["hi"]), ranks, num_buckets):
-        raise ValueError(f"lo holds {padded} values, the parameters need "
-                         f"{padded_size(ravel_size(state['hi']), ranks, num_buckets)}")
+    padded = lo.numel() * ns
+    want = padded_size(ravel_size(state["hi"]), ns, num_buckets)
+    if padded != want:
+        raise ValueError(f"lo holds {lo.numel()} values of {ns} ranks, the parameters need "
+                         f"{want // ns}")
     flat = flat_hi(state["hi"], padded)
     hi = state["hi"]
     if flat is None:
@@ -150,5 +175,19 @@ def rs_ag_split_sgd(state: dict, grads, lr: float, ranks: int = 1, num_buckets: 
     n = ravel_size(hi)
     g = torch.cat([t.reshape(-1).float() for t in tree_leaves(grads)]
                   + [torch.zeros(padded - n, dtype=torch.float32, device=lo.device)])
-    ops.split_sgd(flat, lo, g, lr)
+    nb = num_buckets if ns > 1 else 1
+    blen = padded // nb
+    bchunk = blen // ns
+    s = group.index
+    for b in range(nb):
+        gsh = comm.psum_scatter(g[b * blen:(b + 1) * blen], group)
+        hib = flat[b * blen + s * bchunk:b * blen + (s + 1) * bchunk]
+        if group.pg is not None:
+            hib = hib.clone()  # the all-gather's source must not lie in its destination
+        lob = lo[b * bchunk:(b + 1) * bchunk]
+        lob_k = _aligned(lob)
+        ops.split_sgd(hib, lob_k, gsh, lr)
+        if lob_k is not lob:
+            lob.copy_(lob_k)
+        comm.all_gather(hib, group, out=flat[b * blen:(b + 1) * blen])
     return {"hi": hi, "lo": lo, "err": None}

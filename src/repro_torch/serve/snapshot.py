@@ -145,7 +145,8 @@ def make_snapshot_score_step(cfg: DLRMConfig, batch: Optional[int] = None, *, de
     num_dense] bf16}`` on ``device``, and ``"weights"`` [B, S, P] fp32 with
     ``cfg.weighted``; ``scores`` is [B] fp32 on ``device``."""
     if cfg.emb_mode != "row":
-        raise NotImplementedError(f"embedding mode {cfg.emb_mode!r}: the port has row mode only")
+        raise NotImplementedError(f"embedding mode {cfg.emb_mode!r}: the port serves row mode only; "
+                                  "table-mode serving is ROADMAP queue 1 item 7")
     dev = resolve_device(device)
     layout = se.make_layout(cfg.spec, 1, "row")
     offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)

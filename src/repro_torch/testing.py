@@ -41,3 +41,16 @@ def bf16_ulps(actual, expected) -> np.ndarray:
         bits = np.asarray(x, np.float32).view(np.int32).astype(np.int64) >> 16
         return np.where(bits < 0, -(bits & 0x7FFF), bits)
     return np.abs(ordered(actual) - ordered(expected))
+
+
+def dense_master(dense: dict, ranks: int = 1, rank: int = 0, buckets: int = 4) -> torch.Tensor:
+    """The fp32 master values of a rank's shard of the dense state, padding
+    included: its ``lo`` and its chunk of each of the ``buckets`` buckets of
+    the flat ``hi`` (at one rank: the whole vector)."""
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.optim.split_sgd import combine_split
+    flat = dp.flat_hi(dense["hi"], dense["lo"].numel() * ranks)
+    bl = flat.numel() // buckets
+    bc = bl // ranks
+    hi = torch.cat([flat[b * bl + rank * bc:b * bl + (rank + 1) * bc] for b in range(buckets)])
+    return combine_split(hi, dense["lo"])

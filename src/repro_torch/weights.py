@@ -29,7 +29,6 @@ from repro_torch.core.dlrm import DLRMConfig, init_dense_params
 from repro_torch.models import lm_steps
 from repro_torch.models import transformer as tf
 from repro_torch.models.mlp import mlp_sizes
-from repro_torch.core.pipeline import NUM_BUCKETS
 from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.split_sgd import split_fp32
@@ -50,17 +49,21 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _check_dense(dense_hi: dict, cfg: DLRMConfig) -> None:
+    for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
+        params = dense_hi[part]
+        if mlp_sizes(params) != sizes or [w.shape[0] for w in params["w"]] != sizes[:-1] \
+                or [b.shape[0] for b in params["b"]] != sizes[1:]:
+            raise ValueError(f"dense_hi[{part!r}] has widths {mlp_sizes(params)}, the config "
+                             f"needs {sizes}")
+
+
 def _check(snap: dict, cfg: DLRMConfig) -> dict:
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
     if tuple(snap["emb_w"].shape) != (rows, cfg.emb_dim):
         raise ValueError(f"emb_w is {tuple(snap['emb_w'].shape)}, the config needs "
                          f"{(rows, cfg.emb_dim)}")
-    for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
-        params = snap["dense_hi"][part]
-        if mlp_sizes(params) != sizes or [w.shape[0] for w in params["w"]] != sizes[:-1] \
-                or [b.shape[0] for b in params["b"]] != sizes[1:]:
-            raise ValueError(f"dense_hi[{part!r}] has widths {mlp_sizes(params)}, the config "
-                             f"needs {sizes}")
+    _check_dense(snap["dense_hi"], cfg)
     return snap
 
 
@@ -97,36 +100,49 @@ def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") ->
     return {"emb_w": emb_w, "dense_hi": dp.tree_map(lambda t: split_fp32(t)[0], dense)}
 
 
-def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
+def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") -> dict:
     """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
     state)``: ``emb`` {hi bf16, lo uint16} or {w fp32} and the optimizer's
     state slabs (``mom``, ``acc``, ``cnt``; bf16 ones as ``ml_dtypes``
     arrays), ``dense`` {hi tree bf16, lo [padded] uint16, err None} and,
-    for a stochastically rounding optimizer, ``sr`` 0-d int32) -> the port's
-    train state on ``device``, bit for bit, laid out as
-    ``core.hybrid.init_state`` lays it out (16-bit slabs as their int16
-    bits, the dense ``hi`` leaves as views of one flat buffer)."""
-    dev = resolve_device(device)
+    for a stochastically rounding optimizer, ``sr`` 0-d int32), the
+    reference's GLOBAL arrays of a ``mesh`` of the same shape -> this rank's
+    train state on its device (``mesh`` None: one rank on ``device``), bit
+    for bit, laid out as ``core.hybrid.init_state`` lays it out: the rank's
+    rows of the embedding store (its row window, or its bin of tables), its
+    chunk of the bucketed ``lo``, 16-bit slabs as their int16 bits, the
+    dense ``hi`` leaves as views of one flat buffer."""
+    from repro_torch.core import hybrid
+    from repro_torch.launch.mesh import resolve_mesh
+
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device
     if state_np["dense"].get("err") is not None:
         raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
     opt = row_optim.resolve(cfg)
-    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
-    struct = opt.store_struct(rows, cfg.emb_dim)
+    layout = hybrid.make_layout(cfg, mesh)
+    R, s = layout.rows_per_shard, hybrid.emb_shard(cfg, mesh)
+    struct = opt.store_struct(layout.total_rows, cfg.emb_dim)
     if set(state_np["emb"]) != set(struct):
         raise ValueError(f"the {opt.name} store holds {sorted(struct)}, got "
                          f"{sorted(state_np['emb'])}")
-    emb = {k: to_torch(state_np["emb"][k], dev) for k in struct}
+    emb = {}
     for k, (shape, dtype) in struct.items():
-        if tuple(emb[k].shape) != shape or emb[k].dtype != dtype:
-            raise ValueError(f"emb[{k!r}] is {emb[k].dtype} {tuple(emb[k].shape)}, the config "
-                             f"needs {dtype} {shape}")
-    _check({"emb_w": emb[opt.weight_keys[0]], "dense_hi": state_np["dense"]["hi"]}, cfg)
-    lo = to_torch(state_np["dense"]["lo"], dev)
+        a = state_np["emb"][k]
+        t = to_torch(a[s * R:(s + 1) * R], dev)
+        if tuple(a.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"emb[{k!r}] is {t.dtype} {tuple(a.shape)}, the config needs "
+                             f"{dtype} {shape}")
+        emb[k] = t
+    _check_dense(state_np["dense"]["hi"], cfg)
+    padded = hybrid.padded_dense(cfg, mesh)
+    lo_np = state_np["dense"]["lo"]
+    if lo_np.size != padded:
+        raise ValueError(f"dense lo holds {lo_np.size} values, the config needs {padded}")
+    chunk = padded // mesh.size
+    lo = to_torch(lo_np[mesh.rank * chunk:(mesh.rank + 1) * chunk], dev)
     hi_tree = dp.tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
-    if lo.numel() != dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS):
-        raise ValueError(f"dense lo holds {lo.numel()} values, the config needs "
-                         f"{dp.padded_size(dp.ravel_size(hi_tree), 1, NUM_BUCKETS)}")
-    _, hi = dp.pack_hi(hi_tree, lo.numel())
+    _, hi = dp.pack_hi(hi_tree, padded)
     state = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
     if ("sr" in state_np) != opt.stochastic_round:
         raise ValueError(f"the {opt.name} state {'needs' if opt.stochastic_round else 'has no'} "
@@ -137,24 +153,36 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
     return state
 
 
-def state_to_numpy(state: dict) -> dict:
+def state_to_numpy(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
     """The port's train state -> numpy arrays in the JAX package's types:
     bf16 slabs as ``ml_dtypes.bfloat16`` (the type JAX hands out), int16
-    ``lo`` slabs as uint16, fp32 as fp32.  ``state_from_numpy`` of the
+    ``lo`` slabs as uint16, fp32 as fp32.  On a ``mesh`` of more than one
+    rank (every rank calls it, with ``cfg``) the shards are all-gathered
+    back to the reference's global arrays: the embedding slabs over the
+    embedding axes, ``lo`` over the mesh.  ``state_from_numpy`` of the
     result gives the state back, bit for bit."""
     import ml_dtypes
 
-    def to_np(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu().contiguous()
+    def to_np(t: torch.Tensor) -> np.ndarray:  # a copy: the step updates the state in place
+        t = t.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         if t.dtype == torch.int16:
             return t.numpy().view(np.uint16)
         return t.numpy()
 
-    out = {"emb": {k: to_np(v) for k, v in state["emb"].items()},
-           "dense": {"hi": dp.tree_map(to_np, state["dense"]["hi"]),
-                     "lo": to_np(state["dense"]["lo"]), "err": None}}
+    emb, lo = state["emb"], state["dense"]["lo"]
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.core import pipeline
+        from repro_torch.dist import comm
+        if cfg is None:
+            raise ValueError("gathering a sharded state needs its config")
+        g_emb = mesh.group(pipeline.emb_axes(cfg, mesh)[0])
+        emb = {k: comm.all_gather(v, g_emb) for k, v in emb.items()}
+        lo = comm.all_gather(lo, mesh.group(mesh.axis_names))
+    out = {"emb": {k: to_np(v) for k, v in emb.items()},
+           "dense": {"hi": dp.tree_map(to_np, state["dense"]["hi"]), "lo": to_np(lo),
+                     "err": None}}
     if "sr" in state:
         out["sr"] = to_np(state["sr"])
     return out
@@ -165,10 +193,13 @@ def state_to(state: dict, device) -> dict:
     ``core.hybrid.init_state`` lays it out."""
     dev = resolve_device(device)
     lo = state["dense"]["lo"].to(dev, copy=True)
-    hi = dp.tree_unflatten(state["dense"]["hi"],
-                           [t.to(dev) for t in dp.tree_leaves(state["dense"]["hi"])])
+    leaves = dp.tree_leaves(state["dense"]["hi"])
+    hi = dp.tree_unflatten(state["dense"]["hi"], [t.to(dev) for t in leaves])
+    # the flat buffer's length: a rank's lo is 1 / ranks of it
+    base = leaves[0]._base
+    padded = base.numel() if base is not None and base.dtype == torch.bfloat16 else lo.numel()
     out = {"emb": {k: v.to(dev, copy=True) for k, v in state["emb"].items()},
-           "dense": {"hi": dp.pack_hi(hi, lo.numel())[1], "lo": lo, "err": None}}
+           "dense": {"hi": dp.pack_hi(hi, padded)[1], "lo": lo, "err": None}}
     if "sr" in state:
         out["sr"] = state["sr"].to(dev, copy=True)
     return out

@@ -1,0 +1,187 @@
+"""Rank workers of the multi-rank tests: ``launch.local.run_ranks`` runs
+one of these in each spawned rank's process, which imports it from this
+module by name (the tests' directory is on the children's ``sys.path``,
+as it is on the parent's).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.testing import dense_master, to_numpy, to_torch
+
+
+def hybrid_cases_rank(rank: int, world_size: int, cases: list) -> list:
+    """One rank's part of running ``cases`` of the hybrid train step
+    (``launch.local.run_ranks`` calls it in each rank's process).  A case is
+    a dict: ``cfg`` (``DLRMConfig`` keyword arguments), ``mesh`` (its
+    shape over ``("data", "model")``), ``start`` (the reference's global
+    train state as numpy arrays), ``batches`` (global batches as numpy
+    arrays, one a step; None: ``dlrm.init_state`` from seed 0) and
+    optionally ``eval`` (a global batch to score from the start state).
+    Returns per case ``{"losses": [...], "scores": this rank's eval scores
+    or None,
+    "bytes_out": per collective kind over the steps, "state": the gathered
+    global state after the steps, "back": ``start`` carried in and gathered
+    back (rank 0 only, else None)}``, on the CPU."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.launch.mesh import make_mesh
+
+    out = []
+    for case in cases:
+        cfg = dlrm.DLRMConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device="cpu")
+        if case["start"] is None:
+            state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), mesh=mesh)
+            back = None
+        else:
+            state = weights.state_from_numpy(case["start"], cfg, mesh, device="cpu")
+            back = weights.state_to_numpy(state, mesh, cfg)
+        scores = None
+        if case.get("eval") is not None:
+            ev = dlrm.make_eval_step(cfg, mesh)
+            scores = to_numpy(ev(state, hybrid.local_batch(
+                cfg, mesh, {k: to_torch(v) for k, v in case["eval"].items()})))
+        step = dlrm.make_train_step(cfg, mesh)
+        mesh.stats.reset()
+        losses = []
+        for b in case["batches"]:
+            batch = hybrid.local_batch(cfg, mesh, {k: to_torch(v) for k, v in b.items()})
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        bytes_out = dict(mesh.stats.bytes_out)
+        gathered = weights.state_to_numpy(state, mesh, cfg)
+        out.append({"losses": losses, "scores": scores, "bytes_out": bytes_out,
+                    "state": gathered if rank == 0 else None,
+                    "back": back if rank == 0 else None})
+    return out
+
+
+def _np_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy, bf16 as its int16 bits."""
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def comm_cases_rank(rank: int, world_size: int, inputs: dict) -> dict:
+    """One rank's part of the collective checks of
+    ``tests/test_torch_comm.py`` on a ``(2, 2)`` mesh over ``("data",
+    "model")`` (``launch.local.run_ranks`` calls it in each rank's
+    process).  ``inputs[name]`` stacks every rank's operand on dim 0 (bf16
+    ones as their int16 bits, named ``*_bf16``); returns each result as
+    numpy (bf16 as int16 bits), the per-kind ``bytes_in`` / ``bytes_out``
+    and calls, and the dense Split-SGD step's new ``hi`` and ``lo``."""
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import data_parallel as dp
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+
+    def mine(name):
+        t = torch.from_numpy(np.ascontiguousarray(inputs[name][rank]))
+        return t.view(torch.bfloat16) if name.endswith("_bf16") else t
+
+    g_all, g_model, g_data = (mesh.group(a) for a in (("data", "model"), "model", "data"))
+    out = {
+        "all_gather_model": comm.all_gather(mine("ag_i32"), g_model),
+        "all_gather_all_bf16": comm.all_gather(mine("ag_bf16"), g_all),
+        "all_gather_data": comm.all_gather(mine("ag_i32"), g_data),
+        "all_to_all_0_1": comm.all_to_all(mine("a2a_f32"), g_all, 0, 1),
+        "all_to_all_1_0_bf16": comm.all_to_all(mine("a2a_bf16"), g_model, 1, 0),
+        "psum_scatter_all_bf16": comm.psum_scatter(mine("rs_bf16"), g_all),
+        "psum_scatter_all_f32": comm.psum_scatter(mine("rs_f32"), g_all),
+        "psum_scatter_model_f32": comm.psum_scatter(mine("rs_f32"), g_model),
+        "psum_all": comm.psum(mine("psum_f32"), g_all),
+    }
+    stats = {k: (dict(v) if isinstance(v, dict) else v) for k, v in mesh.stats.as_dict().items()}
+    # the dense step: replicated hi, this rank's lo shard, this rank's gradient
+    d = inputs["dense"]
+    hi_tree = {"w": torch.from_numpy(d["hi"]).view(torch.bfloat16)}
+    chunk = d["lo"].size // world_size
+    state = {"hi": dp.pack_hi(hi_tree, d["lo"].size)[1],
+             "lo": torch.from_numpy(d["lo"][rank * chunk:(rank + 1) * chunk].view(np.int16).copy()),
+             "err": None}
+    new = dp.rs_ag_split_sgd(state, {"w": torch.from_numpy(d["g"][rank])}, d["lr"],
+                             num_buckets=d["num_buckets"], group=g_all)
+    # table mode's sparse update gathering the replicas' ids and weights itself,
+    # against the same update on ids and weights gathered beforehand
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.core.embedding import EmbeddingSpec
+    layout = se.make_layout(EmbeddingSpec((10, 7, 12, 5), 4), 2, "table")
+    u = inputs["update"]
+    idx, wgt = torch.from_numpy(u["idx"][rank]), torch.from_numpy(u["wgt"][rank])
+    members = [r for r in range(world_size) if r % 2 == rank % 2]  # this rank's data group
+    W0 = torch.from_numpy(u["W"][rank % 2].copy())
+    dY = torch.from_numpy(u["dY"][rank % 2])
+    a = se.apply_update(layout, {"w": W0.clone()}, "sgd", idx, dY, 0.5, weights=wgt,
+                        group=g_model, replica_group=g_data)["w"]
+    b = se.apply_update(layout, {"w": W0.clone()}, "sgd",
+                        torch.cat([torch.from_numpy(u["idx"][r]) for r in members]), dY, 0.5,
+                        weights=torch.cat([torch.from_numpy(u["wgt"][r]) for r in members]),
+                        group=g_model)["w"]
+    res = {k: _np_bits(v) for k, v in out.items()}
+    res["replica_update"], res["replica_update_want"] = a.numpy(), b.numpy()
+    res["dense_hi"] = _np_bits(new["hi"]["w"])
+    res["dense_lo"] = new["lo"].numpy().copy()
+    res["stats"] = stats
+    return res
+
+
+def card_cpu_cases_rank(rank: int, world_size: int, cases: list, device: str) -> list:
+    """One rank's part of running each of ``cases`` (``DLRMConfig`` keyword
+    arguments) for ``steps`` seeded batches on a ``(1, world_size)`` mesh
+    twice, on ``device`` (gloo: the payloads staged through host memory)
+    and on the CPU, from one state drawn on the CPU.  Returns per case the
+    losses, the rank's fp32 embedding and dense master shards before and
+    after (as numpy), and the card mesh's collective stats; no
+    ``ml_dtypes`` needed."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.split_sgd import combine_split
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    axes = ("data", "model")
+    card, cpu = make_mesh((1, world_size), axes, dev), make_mesh((1, world_size), axes, "cpu")
+
+    def masters(state):
+        emb = state["emb"]
+        w = emb["w"] if "w" in emb else combine_split(emb["hi"], emb["lo"])
+        return (w.cpu().numpy().copy(),
+                dense_master(state["dense"], world_size, rank).cpu().numpy().copy())
+
+    out = []
+    for kw, steps in cases:
+        cfg = dlrm.DLRMConfig(**kw)
+        s_cpu = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu", mesh=cpu)
+        s_card = weights.state_to(s_cpu, dev)
+        start = masters(s_cpu)
+        step_cpu, step_card = dlrm.make_train_step(cfg, cpu), dlrm.make_train_step(cfg, card)
+        layout = hybrid.make_layout(cfg, cpu)
+        rng = np.random.default_rng(1)
+        card.stats.reset()
+        losses = {"cpu": [], "card": []}
+        for _ in range(steps):
+            idx = torch.from_numpy(np.stack(
+                [rng.zipf(1.3, (cfg.batch, cfg.pooling)) % m for m in cfg.table_rows], 1)
+                .astype(np.int32))
+            b = {"idx": idx,
+                 "dense_x": torch.from_numpy(rng.standard_normal((cfg.batch, cfg.num_dense))
+                                             .astype(np.float32)),
+                 "labels": torch.from_numpy(rng.integers(0, 2, cfg.batch).astype(np.float32))}
+            if cfg.emb_mode == "table" and cfg.idx_input == "replicated":
+                from repro_torch.core import sharded_embedding as se
+                b["idx"] = se.permute_indices(layout, b["idx"])
+            s_cpu, l_cpu = step_cpu(s_cpu, hybrid.local_batch(cfg, cpu, b))
+            s_card, l_card = step_card(s_card, hybrid.local_batch(
+                cfg, card, {k: v.to(dev) for k, v in b.items()}))
+            losses["cpu"].append(float(l_cpu))
+            losses["card"].append(float(l_card))
+        out.append({"losses": losses, "start": start, "cpu": masters(s_cpu),
+                    "card": masters(s_card), "stats": card.stats.as_dict()})
+    return out

@@ -1087,3 +1087,46 @@ def test_lm_serving_on_card_matches_cpu(dev, name):
     assert ops.launches()["flash_attention"] == 0
     want_next, _ = lm_steps.make_prefill_step(cfg, B, L + 1, device="cpu")[0](params, toks)
     assert_close(logits, want_next, rtol=0, atol=5e-2, what="decode logits")
+
+
+# ---------------------------------------------------------------------------
+# The hybrid step at two ranks sharing the card (gloo, payloads staged through
+# host memory) against the same two ranks on the CPU
+# ---------------------------------------------------------------------------
+
+HYBRID_SMALL = dict(name="dlrm-tiny", num_dense=16, bottom=(32, 16), top=(32, 16),
+                    table_rows=(1000, 370, 2500, 130, 600, 210), emb_dim=16, pooling=3,
+                    batch=64, lr=0.1)
+HYBRID_CASES = {"row-replicated": {}, "row-sharded": {"idx_input": "sharded"},
+                "table-replicated": {"emb_mode": "table"},
+                "table-sharded": {"emb_mode": "table", "idx_input": "sharded"},
+                "row-adagrad_rowwise": {"sparse_optimizer": "adagrad_rowwise", "lr": 0.01}}
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_card(tmp_path_factory):
+    if not has_cuda():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.local import run_ranks
+    from _torch_ranks import card_cpu_cases_rank
+    cases = [({**HYBRID_SMALL, **over}, 3) for over in HYBRID_CASES.values()]
+    ranks = run_ranks(card_cpu_cases_rank, 2, (cases, "cuda:0"), timeout_s=300,
+                      store_dir=str(tmp_path_factory.mktemp("ranks")))
+    return dict(zip(HYBRID_CASES, zip(*ranks)))
+
+
+@pytest.mark.parametrize("case", list(HYBRID_CASES))
+def test_two_ranks_on_card_match_cpu_ranks(two_ranks_on_card, case):
+    """Two processes on one card over gloo train as the same two ranks on
+    the CPU: losses within 1e-4 relative, each rank's embedding shard
+    (Split-SGD) and dense shard within 1e-2 of the largest update, and the
+    card's collectives staged through host memory."""
+    for rank, res in enumerate(two_ranks_on_card[case]):
+        np.testing.assert_allclose(res["losses"]["card"], res["losses"]["cpu"], rtol=1e-4)
+        parts = [(1, "dense")] + ([(0, "embedding")] if "adagrad" not in case else [])
+        for i, what in parts:
+            upd = np.abs(res["cpu"][i] - res["start"][i]).max()
+            assert upd > 0
+            np.testing.assert_allclose(res["card"][i], res["cpu"][i], rtol=0, atol=1e-2 * upd,
+                                       err_msg=f"rank {rank} {what}")
+        assert res["stats"]["staging_s"] > 0 and res["stats"]["calls"]["all-gather"] > 0

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ops, repro_torch.configs.dlrm_paper, repro_torch.data.synthetic, "
             "repro_torch.core.pipeline, repro_torch.core.hybrid, repro_torch.models.lm_steps, "
             "repro_torch.configs.internlm2_1_8b, repro_torch.configs.gemma2_27b, "
-            "repro_torch.checkpoint, repro_torch.train, repro_torch.faults, repro_torch.launch.mesh; "
+            "repro_torch.checkpoint, repro_torch.train, repro_torch.faults, repro_torch.launch.mesh, "
+            "repro_torch.launch.local, repro_torch.dist.comm, repro_torch.dist.exchange; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
