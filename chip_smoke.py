@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DLRM serving and training paths (one rank, and
-the hybrid step on meshes of ranks) and its LM serving path on one CUDA card.
+the hybrid step and the run loop on meshes of ranks) and its LM serving path
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -127,7 +128,35 @@ from the root of a checkout.  Phases, each of which fails the run:
     finite losses, their launches (the Split-SGD kernel once a bucket), each
     collective's bytes a step, and the step's host-clock time with the
     staging copies and the gloo calls apart (not a training rate: one card
-    does both ranks' work).  A child's failure fails the run.
+    does both ranks' work).  A child's failure fails the run;
+17. the run loop on a mesh, ranks sharing the card over gloo (the kernels
+    built once, in this process, before any rank starts).  17a: dlrm-small
+    at full width (Split-SGD, row mode) on a (1, 2) mesh through
+    ``TrainLoop`` (prefetch 2; the loop cuts each global batch to the rank's
+    block): 10 steps without a checkpoint; 5 with a checkpoint at 5 (the
+    2.06 GB of global arrays that every rank gathers and rank 0 writes); a
+    second loop, on a state from another seed, that restores step 5 and
+    runs to 10.  Gates: the restarted losses and state bit for bit the
+    uninterrupted run's; the step-10 checkpoint's CRC32s those of the
+    uninterrupted run's gathered state; restored onto a (1, 1) mesh in this
+    process (``weights.reshard_global``), placed on the card and gathered
+    back bit for bit; one step of it finite; one launch a step of the bag,
+    interaction and row-update kernels and four of Split-SGD's.  Prints the
+    gathers' ms, the writes' s, each rank's restore s and step ms p50/p99.
+    17b: the quickstart's contract on (2, 4), eight processes: 80 steps
+    without a checkpoint, 60 with a checkpoint every 20 and a restart that
+    runs on to 80.  Gates: restored at 60; the losses and the state at 80
+    bit for bit the uninterrupted run's; the loss falls (the mean loss over
+    the 80 batches trained on, of the final state against the start state:
+    the quickstart's labels are coin flips, so the loss of a fresh batch
+    has nothing to fall to); the eval step's scores finite and in (0, 1);
+    the launches.  Prints each rank's step ms p50/p99 (a code path on one
+    card, not a training rate) and the card's memory in use.  17c: the
+    elastic restart: the elastic configuration 10 steps on (2, 4), saved;
+    four processes on (1, 4) restore it, lay it out for four shards and
+    train 10 more.  Gates: finite losses, the restored shards gathered back
+    bit for bit the resharded arrays, the launches.  Any rank's failure
+    fails the run.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
@@ -137,7 +166,8 @@ this run's bytes and operations over the card's published peaks;
 ``launches`` from each kernel's own path: the bag and the interaction count
 the served batches, the Split-SGD train steps, the run loop's 80 steps and
 its eval step, rows 4 and 5 the train steps and the loop's, and rows 1, 2,
-4, 5 and 9 also phase 16's timed steps, both ranks' in 16b); then
+4, 5 and 9 also phase 16's timed steps, both ranks' in 16b, and rows 1,
+2, 4 and 5 every rank's loop and elastic steps of phase 17); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.
@@ -187,6 +217,23 @@ HYBRID_TWO_CASES = (("row", "split_sgd"), ("table", "split_sgd"), ("row", "adagr
 HYBRID_TWO_STEPS = 5
 # the run loop: the quickstart's 60 steps, a checkpoint every 20, a restart, on to 80
 RUN_STEPS, RUN_RESTART, RUN_CKPT_EVERY = 80, 60, 20
+# the run loop on a mesh (phase 17): 17a's loops of dlrm-small at full width on (1, 2)
+# (10 steps, a checkpoint at 5); 17b's quickstart contract on (2, 4) (60 steps, a
+# checkpoint every 20, a restart, on to 80); 17c's elastic run (10 steps on (2, 4),
+# 10 on (1, 4))
+MESH_LOOP_STEPS, MESH_LOOP_SAVE = 10, 5
+QUICKSTART = dict(name="quickstart", num_dense=64, bottom=(128, 32), top=(128, 64),
+                  table_rows=(40_000, 10_000, 5_000, 2_000, 1_000, 500, 200, 100), emb_dim=32,
+                  pooling=8, batch=512, lr=0.05)
+ELASTIC = dict(name="elastic", num_dense=32, bottom=(64, 16), top=(64,),
+               table_rows=(5000, 3000, 1000, 500), emb_dim=16, pooling=4, batch=64, lr=0.05)
+ELASTIC_STEPS = 10
+# the kernels a loop step of the hybrid Split-SGD step launches at N ranks, per step:
+# the dense step once a bucket (4 buckets)
+MESH_STEP_LAUNCHES = {"embedding_bag": 1, "dot_interaction": 1, "embedding_update": 1,
+                      "split_sgd": 4}
+
+
 # a kernel train step against the same step on the CPU (every kernel's plain
 # version): the loss within 1e-4 relative; the store and the dense weights
 # within 1e-2 of the step's largest update: the two sum the dense network
@@ -2016,6 +2063,16 @@ def hybrid_one_rank_phase(dev, batches, failures) -> dict:
     return counts
 
 
+def mesh_rank_setup(device: str):
+    """A rank process's card, made current, with fp32 products in full fp32."""
+    import torch
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
 def hybrid_rank(rank: int, world: int, cases: tuple, device: str = "cuda:0") -> list[dict]:
     """Phase 16b in one of two processes sharing the card (gloo, so every
     collective stages its payload through pinned host memory): for each
@@ -2035,10 +2092,7 @@ def hybrid_rank(rank: int, world: int, cases: tuple, device: str = "cuda:0") -> 
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import row as row_optim
 
-    dev = torch.device(device)
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_rank_setup(device)
     mesh = make_mesh((1, 2), ("data", "model"), dev)
     cpu_mesh = make_mesh((1, 2), ("data", "model"), "cpu")
     out = []
@@ -2136,6 +2190,371 @@ def hybrid_two_rank_phase(failures) -> dict:
                 failures.append(f"16b {mode} {opt} rank {r}: launches {c}, want {want} (the "
                                 "dense step once a bucket)")
     return counts
+
+
+def loop_crcs(glob) -> dict:
+    """CRC32 of every leaf of a global state of CPU tensors, by tree path."""
+    import zlib
+    import torch
+    from repro_torch.checkpoint.manager import tree_paths
+    return {k: zlib.crc32(v.contiguous().view(-1).view(torch.uint8).numpy())
+            for k, v in tree_paths(glob)}
+
+
+def step_launches(counts: dict, steps: int) -> dict:
+    want = {k: 0 for k in counts}
+    want.update({k: n * steps for k, n in MESH_STEP_LAUNCHES.items()})
+    return want
+
+
+def mesh_loop_rank(rank: int, world: int, ckdir: str, device: str = "cuda:0") -> dict:
+    """Phase 17a in one of two processes sharing the card (gloo): dlrm-small
+    at full width on a (1, 2) mesh through ``TrainLoop`` over one pool of
+    ``MESH_LOOP_STEPS`` numpy global batches (the loop cuts each rank's block
+    before its prefetch copy): 10 steps without a checkpoint; 5 steps with a
+    checkpoint at 5 (the gathered 2.06 GB that rank 0 writes); a second loop,
+    on a state from another seed, that restores step 5 and runs to 10,
+    saving at 10.  Returns the losses, whether the restarted shard equals the
+    uninterrupted one bit for bit, the launches of the loops, the gather,
+    write and restore times, step times, and on rank 0 the CRC32s of the
+    uninterrupted run's gathered state."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    dev = mesh_rank_setup(device)
+    cfg = dlrm_small()
+    mesh = make_mesh((1, world), ("data", "model"), dev)
+    S0 = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+    pool = [b for b, _ in zip(dlrm_stream(SEED, cfg, ALPHA), range(MESH_LOOP_STEPS))]
+    step = dlrm.make_train_step(cfg, mesh)
+
+    def loop(steps, state, start, **kw):
+        return TrainLoop(TrainLoopConfig(steps=steps, log_every=100, prefetch=2,
+                                         straggler_window=MESH_LOOP_STEPS, **kw),
+                         step, state, iter(pool[start:]), mesh=mesh, model_cfg=cfg)
+
+    ckpt = dict(ckpt_dir=ckdir, ckpt_every=MESH_LOOP_SAVE)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    whole = loop(MESH_LOOP_STEPS, weights.state_to(S0, dev), 0)
+    whole.run()
+    first = loop(MESH_LOOP_SAVE, weights.state_to(S0, dev), 0, **ckpt)
+    first.run()
+    del S0
+    other = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = loop(MESH_LOOP_STEPS, other, MESH_LOOP_SAVE, **ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del other
+    second.run()
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    same = bitwise_equal(second.state, whole.state)
+    glob = weights.state_to_global(whole.state, mesh, cfg)  # a collective: every rank
+    crcs = loop_crcs(glob) if rank == 0 else None
+    del glob
+    dts = np.asarray(list(first.monitor.times) + list(second.monitor.times)) * 1e3
+    out = {"losses": first.losses + second.losses, "whole_losses": whole.losses,
+           "start_step": second.start_step, "same": same, "counts": counts,
+           "want": step_launches(counts, 2 * MESH_LOOP_STEPS),
+           "gather_s": first.gather_durations + second.gather_durations,
+           "write_s": (first.ckpt.save_durations + second.ckpt.save_durations) if rank == 0
+           else [], "restore_s": restore_s, "step_ms": (float(np.percentile(dts, 50)),
+                                                         float(np.percentile(dts, 99))),
+           "rows": int(whole.state["emb"]["hi"].shape[0]), "crcs": crcs,
+           "mem_gb": (torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0]) / 1e9}
+    del whole, first, second
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_loop_phase(dev, failures) -> dict:
+    """Phase 17a: two ranks on the card (``mesh_loop_rank``), then in this
+    process the step-10 checkpoint restored (its CRC32s those of the
+    uninterrupted run's gathered state), laid out for a (1, 1) mesh
+    (``weights.reshard_global``) and placed on the card, gathered back bit for
+    bit, and one step of it with a finite loss.  Returns the launches of both
+    ranks' loops."""
+    import shutil
+    import torch
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.launch.local import run_ranks
+    from repro_torch.launch.mesh import Mesh, make_mesh
+
+    ckdir = ROOT / "build" / "loop_mesh"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_loop_rank, 2, (str(ckdir),), backend="gloo", timeout_s=900)
+        log(f"17a: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
+        counts: dict = {}
+        for r, res in enumerate(ranks):
+            for k, v in res["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            log(f"17a rank {r} ({res['rows']} rows): losses " + ", ".join(
+                f"{x:.6f}" for x in res["losses"]) + f"; restored at {res['start_step']} in "
+                f"{res['restore_s']:.2f} s (verify + load + cut); gathers ms " + ", ".join(
+                f"{x * 1e3:.1f}" for x in res["gather_s"]) + (
+                "; write + CRC32 s " + ", ".join(f"{x:.2f}" for x in res["write_s"])
+                if res["write_s"] else "") + f"; loop step ms p50 {res['step_ms'][0]:.3f} p99 "
+                f"{res['step_ms'][1]:.3f}; the card's memory in use {res['mem_gb']:.2f} GB; "
+                f"launches {res['counts']}")
+            if res["start_step"] != MESH_LOOP_SAVE or not res["same"] \
+                    or res["losses"] != res["whole_losses"] or res["counts"] != res["want"]:
+                failures.append(f"17a rank {r}: restored at {res['start_step']} (want "
+                                f"{MESH_LOOP_SAVE}), the restarted shard bit for bit the "
+                                f"uninterrupted one: {res['same']}, losses equal: "
+                                f"{res['losses'] == res['whole_losses']}, launches "
+                                f"{res['counts']} (want {res['want']})")
+            if not np.isfinite(res["losses"]).all():
+                failures.append(f"17a rank {r}: a loss is not finite")
+        if failures:
+            return counts
+        # the gathered checkpoint onto one rank, in this process
+        cfg = dlrm_small()
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(ckdir)
+        old = Mesh(shape={"data": 1, "model": 2}, device=torch.device("cpu"))  # its shape alone
+        at, glob = mgr.restore(weights.global_like(cfg, old), device="cpu")
+        crcs = loop_crcs(glob)
+        one = make_mesh((1, 1), ("data", "model"), dev)
+        flat = weights.reshard_global(glob, cfg, old, one)
+        state = weights.state_from_global(flat, cfg, one)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = weights.state_to_global(state, one, cfg)
+        placed = bitwise_equal(back, flat)
+        npz = (ckdir / f"step_{at}" / "arrays.npz").stat().st_size
+        log(f"17a: step {at} ({npz / 1e9:.3f} GB) restored onto a (1, 1) mesh in {restore_s:.2f} "
+            f"s; CRC32s those of the uninterrupted run's gathered state: "
+            f"{crcs == ranks[0]['crcs']}; placed and gathered back bit for bit: {placed}")
+        if at != MESH_LOOP_STEPS or crcs != ranks[0]["crcs"] or not placed:
+            failures.append(f"17a: restored step {at} (want {MESH_LOOP_STEPS}), CRC32s "
+                            f"{'equal' if crcs == ranks[0]['crcs'] else 'differ'}, placement "
+                            f"bitwise {placed}")
+        del glob, flat, back
+        b = next(dlrm_stream(SEED + 1, cfg, ALPHA))
+        _, loss = dlrm.make_train_step(cfg, one)(state, {k: torch.from_numpy(v).to(dev)
+                                                         for k, v in b.items()})
+        log(f"17a: one step on the (1, 1) state: loss {float(loss):.6f}")
+        if not np.isfinite(float(loss)):
+            failures.append(f"17a: the (1, 1) step's loss is {float(loss)}")
+        del state
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def quickstart_rank(rank: int, world: int, qs_dir: str, el_dir: str,
+                    device: str = "cuda:0") -> dict:
+    """Phase 17b and 17c's first half in one of eight processes sharing the
+    card (gloo) on a (2, 4) mesh.  17b, the quickstart's contract: 80 steps
+    without a checkpoint; 60 with a checkpoint every 20 and a second loop,
+    on a state from another seed, that restores and runs on to 80, over one
+    stream of global batches; the mean loss of the start and of the final
+    state over the 80 batches trained on (the eval step's scores; this
+    rank's samples); the eval step on the next batch.  17c: the elastic
+    configuration 10 steps from a seed, gathered, rank 0 saving step 10."""
+    import itertools
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    dev = mesh_rank_setup(device)
+    mesh = make_mesh((2, 4), ("data", "model"), dev)
+    cfg = dlrm.DLRMConfig(**QUICKSTART)
+    pool = [b for b, _ in zip(dlrm_stream(0, cfg, alpha=0.6), range(RUN_STEPS + 1))]
+    S0 = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+    step = dlrm.make_train_step(cfg, mesh)
+
+    def loop(steps, state, stream, **kw):
+        return TrainLoop(TrainLoopConfig(steps=steps, log_every=100, **kw), step, state, stream,
+                         mesh=mesh, model_cfg=cfg)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    whole = loop(RUN_STEPS, weights.state_to(S0, dev), iter(pool))
+    whole.run()
+    stream = iter(pool)
+    ckpt = dict(ckpt_dir=qs_dir, ckpt_every=RUN_CKPT_EVERY)
+    first = loop(RUN_RESTART, weights.state_to(S0, dev), stream, **ckpt)
+    first.run()
+    other = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), mesh=mesh)
+    second = loop(RUN_STEPS, other, stream, **ckpt)
+    second.run()
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    ev = dlrm.make_eval_step(cfg, mesh)
+
+    def local(b):
+        return {k: v.to(dev) for k, v in hybrid.local_batch(
+            cfg, mesh, {k: torch.from_numpy(v) for k, v in b.items()}).items()}
+
+    def bce_sum(state) -> float:  # over this rank's samples of the batches trained on
+        tot = 0.0
+        for b in pool[:RUN_STEPS]:
+            lb = local(b)
+            p = ev(state, lb).double().clamp(1e-12, 1 - 1e-12)
+            y = lb["labels"].double()
+            tot += float(-(y * p.log() + (1 - y) * (1 - p).log()).sum())
+        return tot
+
+    fit = (bce_sum(S0), bce_sum(second.state))
+    scores = ev(second.state, local(pool[RUN_STEPS])).cpu().numpy()
+    dts = np.asarray(list(first.monitor.times) + list(second.monitor.times)) * 1e3
+    free, total = torch.cuda.mem_get_info()
+    out = {"losses": first.losses + second.losses, "whole_losses": whole.losses,
+           "start_step": second.start_step, "same": bitwise_equal(second.state, whole.state),
+           "counts": counts, "want": step_launches(counts, 2 * RUN_STEPS), "fit": fit,
+           "scores": scores, "step_ms": (float(np.percentile(dts, 50)),
+                                         float(np.percentile(dts, 99))),
+           "mem_gb": (total - free) / 1e9, "own_gb": torch.cuda.memory_allocated() / 1e9}
+    del whole, first, second, other, S0
+
+    # 17c: the elastic configuration on (2, 4), saved for the (1, 4) ranks
+    ecfg = dlrm.DLRMConfig(**ELASTIC)
+    state = dlrm.init_state(ecfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+    estep = dlrm.make_train_step(ecfg, mesh)
+    ops.reset_launches()
+    losses = []
+    for b in itertools.islice(dlrm_stream(0, ecfg), ELASTIC_STEPS):
+        state, loss = estep(state, {k: v.to(dev) for k, v in hybrid.local_batch(
+            ecfg, mesh, {k: torch.from_numpy(v) for k, v in b.items()}).items()})
+        losses.append(float(loss))
+    out["el_counts"] = ops.launches()
+    out["el_want"] = step_launches(out["el_counts"], ELASTIC_STEPS)
+    out["el_losses"] = losses
+    glob = weights.state_to_global(state, mesh, ecfg)
+    if rank == 0:
+        CheckpointManager(el_dir).save(ELASTIC_STEPS, glob, blocking=True)
+    dist.barrier()
+    return out
+
+
+def elastic_rank(rank: int, world: int, el_dir: str, device: str = "cuda:0") -> dict:
+    """Phase 17c's second half in one of four processes sharing the card: the
+    (2, 4) checkpoint restored, laid out for (1, 4) (``weights.reshard_global``)
+    and cut; this rank's shard gathered back against the resharded arrays bit
+    for bit; then 10 steps on the stream past the batches (2, 4) trained on."""
+    import itertools
+    import torch
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh, make_mesh
+
+    dev = mesh_rank_setup(device)
+    mesh = make_mesh((1, 4), ("data", "model"), dev)
+    old = Mesh(shape={"data": 2, "model": 4}, device=torch.device("cpu"))  # its shape alone
+    cfg = dlrm.DLRMConfig(**ELASTIC)
+    at, glob = CheckpointManager(el_dir).restore(weights.global_like(cfg, old), device="cpu")
+    resharded = weights.reshard_global(glob, cfg, old, mesh)
+    state = weights.state_from_global(resharded, cfg, mesh)
+    same = bitwise_equal(weights.state_to_global(state, mesh, cfg), resharded)
+    step = dlrm.make_train_step(cfg, mesh)
+    ops.reset_launches()
+    losses = []
+    for b in itertools.islice(dlrm_stream(0, cfg), ELASTIC_STEPS, 2 * ELASTIC_STEPS):
+        state, loss = step(state, {k: v.to(dev) for k, v in hybrid.local_batch(
+            cfg, mesh, {k: torch.from_numpy(v) for k, v in b.items()}).items()})
+        losses.append(float(loss))
+    counts = ops.launches()
+    return {"step": at, "same": same, "losses": losses, "counts": counts,
+            "want": step_launches(counts, ELASTIC_STEPS)}
+
+
+def quickstart_mesh_phase(failures) -> dict:
+    """Phases 17b and 17c: eight processes on the card (``quickstart_rank``),
+    then four (``elastic_rank``).  Returns the launches of all their steps."""
+    import shutil
+    from repro_torch.launch.local import run_ranks
+
+    base = ROOT / "build" / "quickstart_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    qs_dir, el_dir = base / "quickstart", base / "elastic"
+    qs_dir.mkdir(parents=True)
+    el_dir.mkdir(parents=True)
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(quickstart_rank, 8, (str(qs_dir), str(el_dir)), backend="gloo",
+                          timeout_s=900)
+        log(f"17b: 8 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
+        fit0 = sum(r["fit"][0] for r in ranks) / (RUN_STEPS * QUICKSTART["batch"])
+        fit1 = sum(r["fit"][1] for r in ranks) / (RUN_STEPS * QUICKSTART["batch"])
+        scores = np.concatenate([r["scores"] for r in ranks])
+        inside = bool(np.isfinite(scores).all() and ((scores > 0) & (scores < 1)).all())
+        l = ranks[0]["losses"]
+        log(f"17b: losses {l[0]:.4f} -> {l[RUN_RESTART - 1]:.4f} (60 steps) -> {l[-1]:.4f}; the "
+            f"mean loss over the {RUN_STEPS} batches trained on, start state {fit0:.6f}, final "
+            f"state {fit1:.6f}; eval scores {scores.shape}, mean {scores.mean():.4f}, in (0, 1): "
+            f"{inside}")
+        if not fit1 < fit0:
+            failures.append(f"17b: the loss over the batches trained on did not fall: {fit0:.6f} "
+                            f"-> {fit1:.6f}")
+        if not inside or scores.shape != (QUICKSTART["batch"],):
+            failures.append(f"17b: eval scores {scores.shape}, finite and in (0, 1): {inside}")
+        for r, res in enumerate(ranks):
+            add(res["counts"])
+            add(res["el_counts"])
+            log(f"17b rank {r}: restored at {res['start_step']}; step ms p50 "
+                f"{res['step_ms'][0]:.3f} p99 {res['step_ms'][1]:.3f} (host clock; eight ranks' "
+                f"work on one card: not a training rate); the card's memory in use "
+                f"{res['mem_gb']:.2f} GB, this rank's tensors {res['own_gb']:.3f} GB; "
+                f"launches {res['counts']}")
+            if res["start_step"] != RUN_RESTART or not res["same"] \
+                    or res["losses"] != res["whole_losses"] or res["counts"] != res["want"] \
+                    or res["losses"] != l or not np.isfinite(res["losses"]).all():
+                failures.append(f"17b rank {r}: restored at {res['start_step']} (want "
+                                f"{RUN_RESTART}), the state at {RUN_STEPS} bit for bit the "
+                                f"uninterrupted run's: {res['same']}, losses equal to it: "
+                                f"{res['losses'] == res['whole_losses']}, launches "
+                                f"{res['counts']} (want {res['want']})")
+            if res["el_counts"] != res["el_want"] or not np.isfinite(res["el_losses"]).all():
+                failures.append(f"17c rank {r} on (2, 4): losses {res['el_losses']}, launches "
+                                f"{res['el_counts']} (want {res['el_want']})")
+        log("17c: (2, 4) losses " + ", ".join(f"{x:.6f}" for x in ranks[0]["el_losses"]))
+        t0 = time.perf_counter()
+        small = run_ranks(elastic_rank, 4, (str(el_dir),), backend="gloo", timeout_s=600)
+        log(f"17c: 4 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s; (1, 4) "
+            "losses " + ", ".join(f"{x:.6f}" for x in small[0]["losses"]))
+        for r, res in enumerate(small):
+            add(res["counts"])
+            if res["step"] != ELASTIC_STEPS or not res["same"] or res["counts"] != res["want"] \
+                    or not np.isfinite(res["losses"]).all() or res["losses"] != small[0]["losses"]:
+                failures.append(f"17c rank {r} on (1, 4): restored step {res['step']}, the shard "
+                                f"gathered back bit for bit the resharded arrays: {res['same']}, "
+                                f"losses {res['losses']}, launches {res['counts']} (want "
+                                f"{res['want']})")
+        return counts
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
 
 
 def main() -> int:
@@ -2311,6 +2730,19 @@ def main() -> int:
     for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd",
                  "embedding_update_adagrad_rowwise"):
         counts[name] += h_one[name] + h_two.get(name, 0)
+
+    # the run loop on a mesh: dlrm-small on (1, 2), then the quickstart's contract on
+    # (2, 4) and the elastic restart from (2, 4) to (1, 4), ranks sharing the card
+    m_counts = mesh_loop_phase(dev, failures)
+    if failures:
+        raise SystemExit("run loop on a mesh (17a) failed:\n" + "\n".join(failures))
+    torch.cuda.empty_cache()
+    q_counts = quickstart_mesh_phase(failures)
+    if failures:
+        raise SystemExit("quickstart and elastic restart on a mesh (17b, 17c) failed:\n"
+                         + "\n".join(failures))
+    for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
+        counts[name] += m_counts.get(name, 0) + q_counts.get(name, 0)
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),

@@ -31,9 +31,12 @@ tagged ``"uint16"``, as the reference writes its own.  Nothing here needs
 ``ml_dtypes``.
 
 Fault-injection hook points (``repro_torch/faults/plan.py``):
-``ckpt.write.arrays``, ``ckpt.write.meta``, ``ckpt.commit``.  Resharding
-onto another shard count (``reshard_embedding``, ``reshard_store``) comes
-with the distributed train step.
+``ckpt.write.arrays``, ``ckpt.write.meta``, ``ckpt.commit``.
+
+An elastic restart restores the global arrays of one mesh onto another:
+:func:`reshard_store` re-lays-out the embedding store for the new shard
+count, :func:`reshard_dense` the dense ``lo``'s bucketed layout for the new
+rank count.  Both move values and change no bit.
 """
 
 from __future__ import annotations
@@ -469,3 +472,70 @@ class CheckpointManager:
                               if isinstance(leaf, torch.Tensor) else arr)
         likes = [leaf for _, leaf in paths]
         return step, tree_unflatten(like, _place(likes, values, dev))
+
+
+def _zeros(like, shape: tuple):
+    """Zeros of ``like``'s dtype: a numpy array or a CPU tensor, as ``like``."""
+    if isinstance(like, torch.Tensor):
+        return like.new_zeros(shape)
+    return np.zeros(shape, like.dtype)
+
+
+def reshard_embedding(old_layout, new_layout, W_old):
+    """Re-lay-out a unified embedding array when the shard count (and hence
+    row padding / bin packing) changes across an elastic restart (twin of
+    the reference's function): every table's rows move from their place in
+    ``old_layout`` to their place in ``new_layout``
+    (``core.sharded_embedding.ShardedEmbeddingLayout``, row or table mode);
+    the rows no table owns (padding, table mode's spare rows) are zero.
+    ``W_old`` [old total rows, width]: a numpy array of any dtype
+    (``ml_dtypes``' bf16 too) or a CPU tensor; the result is of its kind and
+    dtype."""
+    spec = old_layout.spec
+
+    def table_base(layout, t):
+        if layout.mode == "row":
+            return int(spec.row_offsets[t])
+        # table mode: the slot whose table is t (the first such)
+        for pos, s in enumerate(layout.padded_slots):
+            if s >= 0 and layout.slot_to_table[s] == t:
+                shard = pos // layout.slots_per_shard
+                return shard * layout.rows_per_shard + int(layout.slot_local_offsets[pos])
+        raise KeyError(t)
+
+    W_new = _zeros(W_old, (new_layout.total_rows,) + tuple(W_old.shape[1:]))
+    for t, rows in enumerate(spec.table_rows):
+        src, dst = table_base(old_layout, t), table_base(new_layout, t)
+        W_new[dst:dst + rows] = W_old[src:src + rows]
+    return W_new
+
+
+def reshard_store(old_layout, new_layout, store: dict) -> dict:
+    """Re-lay-out a whole embedding store (``optim.row``) across an elastic
+    restart: the weight slabs and the optimizer's state slabs are
+    row-aligned on one layout, so each reshards as the weights do, keeping
+    its dtype (bf16 ``hi``, uint16 or int16 ``lo``, fp32 state, bf16
+    compressed state, int32 ``cnt``)."""
+    return {k: reshard_embedding(old_layout, new_layout, v) for k, v in store.items()}
+
+
+def reshard_dense(dense: dict, old_ranks: int, new_ranks: int, num_buckets: int = 4) -> dict:
+    """The global dense state ``{"hi": tree, "lo": [padded], "err": None}``
+    of ``old_ranks`` ranks -> the same values laid out for ``new_ranks``:
+    ``lo`` back to the natural order (``optim.data_parallel``'s bucketed
+    layout inverted), its padding dropped and re-padded with zeros, and
+    bucketed for the new rank count; ``hi`` as it is.  What the reference's
+    elastic restart does (``examples/elastic_restart.py``: fp32 masters from
+    ``hi`` and the old ``lo``, then ``dp_global_arrays`` on the new mesh),
+    without the round trip through fp32, which changes no bit.  ``lo``: a
+    numpy array or a CPU tensor."""
+    if dense.get("err") is not None:
+        raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
+    lo = dense["lo"]
+    n = sum(int(np.prod(a.shape)) for _, a in tree_paths(dense["hi"]))
+    nat = lo.reshape(old_ranks, num_buckets, -1).swapaxes(0, 1).reshape(-1)
+    m = new_ranks * num_buckets
+    padded = _zeros(lo, (-(-n // m) * m,))
+    padded[:n] = nat[:n]
+    new = padded.reshape(num_buckets, new_ranks, -1).swapaxes(0, 1).reshape(-1)
+    return {"hi": dense["hi"], "lo": new, "err": None}

@@ -3,8 +3,9 @@
 :func:`run_ranks` starts ``world_size`` processes (``spawn``), joins them in
 one ``torch.distributed`` process group through a file store, runs
 ``fn(rank, world_size, *args)`` in each and returns their results in rank
-order.  Every wait is bounded: the group's ``timeout`` bounds a collective
-that waits on a rank that died or hangs, and the parent stops every child
+order; each rank's intra-op threads get an equal share of the host's cores.
+Every wait is bounded: the group's ``timeout`` bounds a collective that
+waits on a rank that died or hangs, and the parent stops every child
 when the run exceeds ``timeout_s`` or any child fails, and then raises.  It
 is how the tests run the hybrid step at N gloo ranks on the CPU, and how
 ``chip_smoke.py`` runs two ranks on one card (gloo, the payloads staged
@@ -24,7 +25,12 @@ import traceback
 
 def _child(fn, rank: int, world_size: int, args: tuple, backend: str, store: str,
            timeout_s: float, results) -> None:
+    import torch
     import torch.distributed as dist
+    # the host's cores shared out among the ranks: each rank's default of one
+    # thread a core made N ranks on the CPU ten times slower
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    torch.set_num_threads(max(1, (cores or 1) // world_size))
     try:
         dist.init_process_group(backend, init_method=f"file://{store}", world_size=world_size,
                                 rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -84,3 +90,25 @@ def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
                     p.kill()
                     p.join(timeout=5)
     return [got[r] for r in range(world_size)]
+
+
+def rank_device(device: str, rank: int):
+    """Rank ``rank``'s device for ``device`` ("cpu" or "cuda"): the CPU, or
+    the rank's own card where there is one a rank, else the card the ranks
+    share round robin."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    from repro_torch import resolve_device
+    resolve_device(device)  # raises where there is no card
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def backend_for(device: str, world_size: int) -> str:
+    """NCCL for ranks with a card each; gloo on the CPU and for ranks that
+    share a card (NCCL refuses two ranks on one device), whose collectives
+    then stage their payloads through pinned host memory."""
+    import torch
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"

@@ -24,10 +24,31 @@
 The loop reads each step's loss with ``float(loss)``, one host sync a step,
 so the step time ``dt`` is the step's real time.  SIGTERM handling degrades
 off the main thread to the ``_stop`` flag.  Fault-injection hook point:
-``train.step``, inside the timed window.  The train state lives on one
-device; restoring onto another shard count (``reshard_store``) and the
-in-graph metrics drain come with the distributed step and the port of
-``telemetry/metrics``.
+``train.step``, inside the timed window.
+
+On a mesh of N ranks (``mesh=``, the twin of the reference's
+``state_shardings=`` / ``batch_shardings=``) every rank runs a loop on its
+shard of the state.  Every rank reads the same global stream; the loop cuts
+each batch to the rank's block (``core.hybrid.local_batch``) before the
+prefetch copy, so only that block crosses to the card.  The loss is the
+step's global loss, the same on every rank.  A checkpoint holds the
+reference's global arrays: every rank gathers them
+(``weights.state_to_global``, a collective, on the loop's thread at the
+same step on every rank) and rank 0 alone hands them to its
+:class:`CheckpointManager`, so the files are the ones the reference's loop
+writes on that mesh.  After the final save a barrier waits for rank 0's
+commit.  On restore rank 0 resolves :meth:`CheckpointManager.latest_valid_step`
+(verifying, falling back past a corrupt step) and broadcasts it, and every
+rank loads the global arrays and cuts its shard (``weights.state_from_global``).
+A rank whose loop unwinds from an exception writes no final checkpoint:
+the gather is a collective, and the other ranks, blocked in the failed
+step's collectives, cannot join it; they fail when the process group's
+timeout ends that wait, and skip it too.  So stopping (preemption, a stream
+that ends) must come at one step on every rank, as it does when every rank
+reads the same stream and a scheduler signals every process.  Restoring
+onto another shard count is ``checkpoint.reshard_store`` and
+``reshard_dense`` (``examples/elastic_restart_torch.py``).  The in-graph
+metrics drain is not ported: a state that carries ``metrics`` is refused.
 """
 
 from __future__ import annotations
@@ -222,22 +243,70 @@ class DataRebalancer:
         return raw
 
 
+class LocalBatches:
+    """The iterator a loop on a mesh reads: each global batch of ``batches``
+    (a dict of numpy arrays or tensors) cut to this rank's block
+    (``core.hybrid.local_batch``) and, where ``device`` is given, copied
+    there.  An exception of the source passes through and the iterator
+    stays usable, so the loop's skip-batch budget works as on one rank."""
+
+    def __init__(self, batches: Iterator[dict], cfg, mesh, device=None):
+        self._src = batches
+        self._cfg = cfg
+        self._mesh = mesh
+        self._device = device
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self) -> dict:
+        from repro_torch.core import hybrid
+        from repro_torch.weights import to_torch
+        batch = {k: to_torch(v) if isinstance(v, np.ndarray) else v
+                 for k, v in next(self._src).items()}
+        batch = hybrid.local_batch(self._cfg, self._mesh, batch)
+        if self._device is not None:
+            batch = {k: v.to(self._device) for k, v in batch.items()}
+        return batch
+
+    @property
+    def stats(self) -> Optional[dict]:
+        return getattr(self._src, "stats", None)
+
+
 class TrainLoop:
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable, state: Any,
                  batches: Iterator[Any], device="cuda", faults=None, event_log=None,
                  step_hook: Optional[Callable[[int, Any], Any]] = None,
-                 serve_stats: Optional[Callable[[], dict]] = None):
+                 serve_stats: Optional[Callable[[], dict]] = None,
+                 mesh=None, model_cfg=None):
         # step_hook(completed_step, state) runs after every completed step;
         # serve_stats() is folded into each heartbeat record as rec["serve"].
-        # device: where prefetched batches and a restored state go
+        # device: where prefetched batches and a restored state go (the mesh's
+        # device when ``mesh`` is given).  mesh: this rank's ``launch.mesh.Mesh``,
+        # ``batches`` then yielding global batches; with it the model's
+        # ``model_cfg`` (a ``core.dlrm.DLRMConfig``), by which the loop cuts the
+        # batches and gathers and cuts the state
+        if isinstance(state, dict) and state.get("metrics") is not None:
+            raise NotImplementedError("the in-graph metrics drain (the reference's "
+                                      "TrainLoop._drain_metrics) is not ported (ROADMAP queue 1 "
+                                      "item 5)")
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.model_cfg = model_cfg
         self.step_hook = step_hook
         self.serve_stats = serve_stats
         self.faults = faults if faults is not None else NO_FAULTS
         self.events = event_log
+        if mesh is not None:
+            if model_cfg is None:
+                raise ValueError("a loop on a mesh needs the model's config (model_cfg) to cut "
+                                 "the batches and gather the state")
+            batches = LocalBatches(batches, model_cfg, mesh,
+                                   None if cfg.prefetch > 0 else self.device)
         if cfg.prefetch > 0:
             batches = prefetch_to_device(batches, size=cfg.prefetch, device=self.device,
                                          faults=faults)
@@ -249,11 +318,47 @@ class TrainLoop:
         self.start_step = 0
         self.losses: list[float] = []
         self.skipped_batches = 0
+        #: wall seconds of each save's gather of a sharded state (a mesh's loop)
+        self.gather_durations: list[float] = []
         self._stop = False
         self._owns_batches = cfg.prefetch > 0
-        if self.ckpt and self.ckpt.latest_valid_step() is not None:
-            self.start_step, self.state = self.ckpt.restore(self.state, device=self.device)
-            print(f"[train] restored checkpoint at step {self.start_step}")
+        if self.ckpt and self.mesh is None:
+            if self.ckpt.latest_valid_step() is not None:
+                self.start_step, self.state = self.ckpt.restore(self.state, device=self.device)
+                print(f"[train] restored checkpoint at step {self.start_step}")
+        elif self.ckpt:
+            step = self._from_rank0(self.ckpt.latest_valid_step() if self.mesh.rank == 0
+                                    else None)
+            if step is not None:
+                from repro_torch import weights
+                _, glob = self.ckpt.restore(weights.global_like(model_cfg, self.mesh), step=step,
+                                            device="cpu")
+                self.state = weights.state_from_global(glob, model_cfg, self.mesh)
+                self.start_step = step
+                print(f"[train] rank {self.mesh.rank}: restored checkpoint at step {step}")
+
+    def _pg(self):
+        return self.mesh.group(self.mesh.axis_names).pg
+
+    def _from_rank0(self, obj):
+        """``obj`` of the mesh's rank 0, on every rank."""
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, group=self._pg(), group_src=0)
+        return box[0]
+
+    def _save(self, step: int, blocking: bool = False) -> None:
+        """Checkpoint ``step``: the state itself at one rank; on a mesh the
+        global arrays, which every rank gathers and rank 0 writes."""
+        if self.mesh is None:
+            self.ckpt.save(step, self.state, blocking=blocking)
+            return
+        from repro_torch import weights
+        t0 = time.perf_counter()
+        glob = weights.state_to_global(self.state, self.mesh, self.model_cfg)
+        self.gather_durations.append(time.perf_counter() - t0)
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, glob, blocking=blocking)
 
     def _record(self, kind: str, **fields) -> None:
         if self.events is not None:
@@ -322,9 +427,9 @@ class TrainLoop:
         completed steps.  The FINAL checkpoint is written in a ``finally``:
         SIGTERM preemption, KeyboardInterrupt, a dead loader or a failing
         step all leave the last completed state on disk (only a simulated
-        hard crash skips it).  Off the main thread, SIGTERM installation is
-        skipped with a warning and preemption degrades to the ``_stop``
-        flag."""
+        hard crash skips it; on a mesh, an exception too: see the module's
+        docstring).  Off the main thread, SIGTERM installation is skipped
+        with a warning and preemption degrades to the ``_stop`` flag."""
         on_main = threading.current_thread() is threading.main_thread()
         old = None
         if on_main:
@@ -373,7 +478,7 @@ class TrainLoop:
                 if step % self.cfg.log_every == 0:
                     print(f"[train] step {step} loss {loss:.4f} {dt * 1e3:.1f} ms")
                 if self.ckpt and completed % self.cfg.ckpt_every == 0:
-                    self.ckpt.save(completed, self.state)
+                    self._save(completed)
                 if hb_on and completed % self.cfg.heartbeat_every == 0:
                     self._heartbeat(completed, window)
                     window.clear()
@@ -383,8 +488,15 @@ class TrainLoop:
         finally:
             unwinding = sys.exc_info()[1] is not None
             try:
-                if self.ckpt and not crashed:
-                    self.ckpt.save(completed, self.state, blocking=True)
+                if self.ckpt and not crashed and self.mesh is not None and unwinding:
+                    # the gather is a collective that the other ranks cannot join
+                    self._record("final_checkpoint_skipped", step=completed,
+                                 error=repr(sys.exc_info()[1]))
+                elif self.ckpt and not crashed:
+                    self._save(completed, blocking=True)
+                    if self.mesh is not None:
+                        import torch.distributed as dist
+                        dist.barrier(group=self._pg())  # rank 0 has committed
             except Exception as e:  # noqa: BLE001 — don't mask the in-flight error
                 self._record("final_checkpoint_failed", step=completed, error=repr(e))
                 if not unwinding:

@@ -11,7 +11,11 @@
   state across, both ways, bit for bit: the embedding store with its
   optimizer's state slabs (bf16 ones too), the dense ``hi`` tree, the dense
   ``lo`` vector and the stochastic rounding's seed ``sr`` where the
-  optimizer has one.  :func:`state_to` copies a train state to another
+  optimizer has one.  :func:`state_to_global` and :func:`state_from_global`
+  do the same with CPU tensors and need no ``ml_dtypes``: the run loop's
+  checkpoint of a sharded state (:func:`global_like` is its restore
+  target), and :func:`reshard_global` lays it out for another mesh (an
+  elastic restart).  :func:`state_to` copies a train state to another
   device.
 * :func:`lm_params_from_numpy`, :func:`init_lm_params` and
   :func:`lm_params_to` do the same for an LM's serving parameters (bf16,
@@ -108,84 +112,158 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda
     for a stochastically rounding optimizer, ``sr`` 0-d int32), the
     reference's GLOBAL arrays of a ``mesh`` of the same shape -> this rank's
     train state on its device (``mesh`` None: one rank on ``device``), bit
+    for bit: :func:`state_from_global` of the arrays as tensors."""
+    from repro_torch.launch.mesh import resolve_mesh
+    mesh = resolve_mesh(mesh, device)
+    tensors = {"emb": {k: to_torch(v) for k, v in state_np["emb"].items()},
+               "dense": {"hi": dp.tree_map(to_torch, state_np["dense"]["hi"]),
+                         "lo": to_torch(state_np["dense"]["lo"]),
+                         "err": state_np["dense"].get("err")}}  # refused below unless None
+    if "sr" in state_np:
+        tensors["sr"] = to_torch(np.asarray(state_np["sr"], np.int32))
+    return state_from_global(tensors, cfg, mesh)
+
+
+def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") -> dict:
+    """The reference's global train state of a ``mesh`` of the same shape, as
+    CPU tensors (what :func:`state_to_global` gives and a checkpoint restores:
+    16-bit ``lo`` slabs as their int16 bits, bf16 as bf16) -> this rank's
+    train state on its device (``mesh`` None: one rank on ``device``), bit
     for bit, laid out as ``core.hybrid.init_state`` lays it out: the rank's
     rows of the embedding store (its row window, or its bin of tables), its
-    chunk of the bucketed ``lo``, 16-bit slabs as their int16 bits, the
-    dense ``hi`` leaves as views of one flat buffer."""
+    chunk of the bucketed ``lo``, the dense ``hi`` leaves as views of one
+    flat buffer."""
     from repro_torch.core import hybrid
     from repro_torch.launch.mesh import resolve_mesh
 
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
-    if state_np["dense"].get("err") is not None:
+    if glob["dense"].get("err") is not None:
         raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     R, s = layout.rows_per_shard, hybrid.emb_shard(cfg, mesh)
     struct = opt.store_struct(layout.total_rows, cfg.emb_dim)
-    if set(state_np["emb"]) != set(struct):
+    if set(glob["emb"]) != set(struct):
         raise ValueError(f"the {opt.name} store holds {sorted(struct)}, got "
-                         f"{sorted(state_np['emb'])}")
+                         f"{sorted(glob['emb'])}")
     emb = {}
     for k, (shape, dtype) in struct.items():
-        a = state_np["emb"][k]
-        t = to_torch(a[s * R:(s + 1) * R], dev)
-        if tuple(a.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"emb[{k!r}] is {t.dtype} {tuple(a.shape)}, the config needs "
+        a = glob["emb"][k]
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(f"emb[{k!r}] is {a.dtype} {tuple(a.shape)}, the config needs "
                              f"{dtype} {shape}")
-        emb[k] = t
-    _check_dense(state_np["dense"]["hi"], cfg)
+        emb[k] = a[s * R:(s + 1) * R].to(dev)
+    _check_dense(glob["dense"]["hi"], cfg)
     padded = hybrid.padded_dense(cfg, mesh)
-    lo_np = state_np["dense"]["lo"]
-    if lo_np.size != padded:
-        raise ValueError(f"dense lo holds {lo_np.size} values, the config needs {padded}")
+    lo = glob["dense"]["lo"]
+    if lo.numel() != padded:
+        raise ValueError(f"dense lo holds {lo.numel()} values, the config needs {padded}")
     chunk = padded // mesh.size
-    lo = to_torch(lo_np[mesh.rank * chunk:(mesh.rank + 1) * chunk], dev)
-    hi_tree = dp.tree_map(lambda a: to_torch(a, dev), state_np["dense"]["hi"])
+    lo = lo[mesh.rank * chunk:(mesh.rank + 1) * chunk].to(dev)
+    hi_tree = dp.tree_map(lambda t: t.to(dev), glob["dense"]["hi"])
     _, hi = dp.pack_hi(hi_tree, padded)
     state = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
-    if ("sr" in state_np) != opt.stochastic_round:
+    if ("sr" in glob) != opt.stochastic_round:
         raise ValueError(f"the {opt.name} state {'needs' if opt.stochastic_round else 'has no'} "
                          "the stochastic rounding's seed 'sr'")
     if opt.stochastic_round:
-        state["sr"] = torch.tensor(int(np.asarray(state_np["sr"], np.int32)), dtype=torch.int32,
-                                   device=dev)
+        state["sr"] = glob["sr"].to(device=dev, dtype=torch.int32).reshape(())
     return state
 
 
+def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
+    """The port's train state -> the reference's global arrays as CPU tensors
+    (copies: the step updates the state in place).  On a ``mesh`` of more
+    than one rank (every rank calls it, with ``cfg``: it is a collective)
+    the shards are all-gathered: the embedding slabs over the embedding
+    axes, ``lo`` over the mesh; a gloo group gathers the shards' host
+    copies, which its payloads cross anyway.  :func:`state_from_global` of
+    the result gives the state back, bit for bit."""
+    def host(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", copy=True).contiguous()
+
+    if mesh is None or mesh.size == 1:
+        emb = {k: host(v) for k, v in state["emb"].items()}
+        lo = host(state["dense"]["lo"])
+    else:
+        from repro_torch.core import pipeline
+        from repro_torch.dist import comm
+        if cfg is None:
+            raise ValueError("gathering a sharded state needs its config")
+
+        def gather(t: torch.Tensor, g) -> torch.Tensor:
+            # a group of one rank hands its operand back: gather a copy then
+            t = t.detach().contiguous()
+            return comm.all_gather(host(t) if g.stages(t) or g.pg is None else t, g).cpu()
+
+        g_emb = mesh.group(pipeline.emb_axes(cfg, mesh)[0])
+        emb = {k: gather(v, g_emb) for k, v in state["emb"].items()}
+        lo = gather(state["dense"]["lo"], mesh.group(mesh.axis_names))
+    out = {"emb": emb, "dense": {"hi": dp.tree_map(host, state["dense"]["hi"]), "lo": lo,
+                                 "err": None}}
+    if "sr" in state:
+        out["sr"] = host(state["sr"])
+    return out
+
+
+def global_like(cfg: DLRMConfig, mesh=None) -> dict:
+    """``meta`` tensors of the shapes and dtypes of the reference's global
+    train state of ``cfg`` on ``mesh`` (None: one rank), the tree
+    :func:`state_to_global` gives: a checkpoint's restore target."""
+    from repro_torch.core import hybrid
+    from repro_torch.launch.mesh import resolve_mesh
+
+    mesh = resolve_mesh(mesh, "cpu")
+    struct = hybrid.state_struct(cfg, mesh)
+    struct["emb"] = row_optim.resolve(cfg).store_struct(hybrid.make_layout(cfg, mesh).total_rows,
+                                                        cfg.emb_dim)
+    struct["dense"]["lo"] = ((hybrid.padded_dense(cfg, mesh),), torch.int16)
+
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [meta(v) for v in t]
+        return None if t is None else torch.empty(t[0], dtype=t[1], device="meta")
+    return meta(struct)
+
+
+def reshard_global(glob: dict, cfg: DLRMConfig, old_mesh, new_mesh) -> dict:
+    """The global train state of ``old_mesh`` (CPU tensors or numpy arrays,
+    as a checkpoint restores them) laid out for ``new_mesh``: the embedding
+    store by ``checkpoint.reshard_store`` between the two meshes' layouts,
+    the dense ``lo`` by ``checkpoint.reshard_dense``; ``sr`` as it is.  An
+    elastic restart (``examples/elastic_restart_torch.py``): every value
+    keeps its bits.  A mesh here stands for its shape alone; a
+    ``launch.mesh.Mesh`` of the old shape with no process group does."""
+    from repro_torch.checkpoint.manager import reshard_dense, reshard_store
+    from repro_torch.core import hybrid
+    from repro_torch.dist.exchange import resolve_exchange
+
+    out = dict(glob)
+    out["emb"] = reshard_store(hybrid.make_layout(cfg, old_mesh), hybrid.make_layout(cfg, new_mesh),
+                               glob["emb"])
+    out["dense"] = reshard_dense(glob["dense"], old_mesh.size, new_mesh.size,
+                                 resolve_exchange(cfg).num_buckets)
+    return out
+
+
 def state_to_numpy(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
-    """The port's train state -> numpy arrays in the JAX package's types:
+    """:func:`state_to_global` as numpy arrays in the JAX package's types:
     bf16 slabs as ``ml_dtypes.bfloat16`` (the type JAX hands out), int16
-    ``lo`` slabs as uint16, fp32 as fp32.  On a ``mesh`` of more than one
-    rank (every rank calls it, with ``cfg``) the shards are all-gathered
-    back to the reference's global arrays: the embedding slabs over the
-    embedding axes, ``lo`` over the mesh.  ``state_from_numpy`` of the
+    ``lo`` slabs as uint16, fp32 as fp32.  ``state_from_numpy`` of the
     result gives the state back, bit for bit."""
     import ml_dtypes
 
-    def to_np(t: torch.Tensor) -> np.ndarray:  # a copy: the step updates the state in place
-        t = t.detach().to("cpu", copy=True).contiguous()
+    def to_np(t: torch.Tensor) -> np.ndarray:
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         if t.dtype == torch.int16:
             return t.numpy().view(np.uint16)
         return t.numpy()
 
-    emb, lo = state["emb"], state["dense"]["lo"]
-    if mesh is not None and mesh.size > 1:
-        from repro_torch.core import pipeline
-        from repro_torch.dist import comm
-        if cfg is None:
-            raise ValueError("gathering a sharded state needs its config")
-        g_emb = mesh.group(pipeline.emb_axes(cfg, mesh)[0])
-        emb = {k: comm.all_gather(v, g_emb) for k, v in emb.items()}
-        lo = comm.all_gather(lo, mesh.group(mesh.axis_names))
-    out = {"emb": {k: to_np(v) for k, v in emb.items()},
-           "dense": {"hi": dp.tree_map(to_np, state["dense"]["hi"]), "lo": to_np(lo),
-                     "err": None}}
-    if "sr" in state:
-        out["sr"] = to_np(state["sr"])
-    return out
+    return dp.tree_map(to_np, state_to_global(state, mesh, cfg))
 
 
 def state_to(state: dict, device) -> dict:

@@ -185,3 +185,118 @@ def card_cpu_cases_rank(rank: int, world_size: int, cases: list, device: str) ->
         out.append({"losses": losses, "start": start, "cpu": masters(s_cpu),
                     "card": masters(s_card), "stats": card.stats.as_dict()})
     return out
+
+
+def _wait_for(tmp: str, name: str, timeout_s: float = 300.0) -> None:
+    """Wait until the file ``name`` appears in ``tmp`` (the reference's
+    process writes it); raise if ``ref_failed`` appears or time runs out."""
+    import os
+    import time
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(os.path.join(tmp, name)):
+        if os.path.exists(os.path.join(tmp, "ref_failed")):
+            raise RuntimeError("the reference's process failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {name} in {tmp} after {timeout_s} s")
+        time.sleep(0.1)
+
+
+def loop_mesh_rank(rank: int, world_size: int, c: dict, tmp: str) -> dict:
+    """One rank's part of ``tests/test_torch_loop_mesh.py`` on a (2, 4) mesh
+    on the CPU: the quickstart's configuration through ``TrainLoop`` (8
+    steps with a checkpoint every 4 into ``tmp/port_qs``, a second loop on a
+    state from another seed that restores step 8 and runs to 12, and 12
+    steps without a checkpoint), the next step of the restarted state; then
+    ``port_ready`` is written, and once the reference's process has written
+    ``ref_ready``, a loop that restores the reference's checkpoint of
+    ``tmp/ref_qs`` and its next step; last the elastic configuration's
+    steps on (2, 4), its gathered state saved into ``tmp/port_el``.
+    Returns losses, and on rank 0 the gathered states."""
+    import os
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    out: dict = {}
+
+    def fresh(start, cfg):  # a copy: the step updates its state in place
+        return weights.state_to(weights.state_from_numpy(start, cfg, mesh, device="cpu"), "cpu")
+
+    def local(cfg, b):
+        return hybrid.local_batch(cfg, mesh, {k: to_torch(v) for k, v in b.items()})
+
+    cfg = dlrm.DLRMConfig(**c["qs_cfg"])
+    step = dlrm.make_train_step(cfg, mesh)
+    batches = c["qs_batches"]
+
+    def loop(steps, state, stream, ckdir=None):
+        return TrainLoop(TrainLoopConfig(steps=steps, ckpt_dir=ckdir, ckpt_every=c["every"],
+                                         log_every=100),
+                         step, state, stream, mesh=mesh, model_cfg=cfg)
+
+    ck = os.path.join(tmp, "port_qs")
+    stream = iter(batches)
+    first = loop(c["restart"], fresh(c["qs_start"], cfg), stream, ck)
+    first.run()
+    other = dlrm.init_state(cfg, torch.Generator().manual_seed(3), mesh=mesh)
+    second = loop(c["steps"], other, stream, ck)
+    second.run()
+    whole = loop(c["steps"], fresh(c["qs_start"], cfg), iter(batches))
+    whole.run()
+    out["losses"], out["start_step"] = first.losses + second.losses, second.start_step
+    out["whole_losses"] = whole.losses
+    restarted = weights.state_to_numpy(second.state, mesh, cfg)
+    uninterrupted = weights.state_to_numpy(whole.state, mesh, cfg)
+    out["next"] = float(step(second.state, local(cfg, batches[c["steps"]]))[1])
+    if rank == 0:
+        out["restarted"], out["uninterrupted"] = restarted, uninterrupted
+        open(os.path.join(tmp, "port_ready"), "w").close()
+        _wait_for(tmp, "ref_ready")
+    dist.barrier()
+    theirs = loop(c["steps"], fresh(c["qs_start"], cfg), iter(()), os.path.join(tmp, "ref_qs"))
+    out["ref_start_step"] = theirs.start_step
+    out["on_ref"] = float(step(theirs.state, local(cfg, batches[c["steps"]]))[1])
+
+    ecfg = dlrm.DLRMConfig(**c["el_cfg"])
+    estep = dlrm.make_train_step(ecfg, mesh)
+    state = fresh(c["el_start"], ecfg)
+    out["el_big"] = [float(estep(state, local(ecfg, b))[1]) for b in c["el_batches"][:c["k1"]]]
+    glob = weights.state_to_global(state, mesh, ecfg)
+    if rank == 0:
+        CheckpointManager(os.path.join(tmp, "port_el")).save(c["k1"], glob, blocking=True)
+    dist.barrier()
+    return out
+
+
+def elastic_rank(rank: int, world_size: int, c: dict, tmp: str) -> dict:
+    """One rank's part of the elastic restart of ``tests/test_torch_loop_mesh.py``
+    on a (1, 4) mesh on the CPU: the (2, 4) checkpoints of the reference
+    (``tmp/ref_el``) and of the port (``tmp/port_el``) restored, laid out
+    for four shards (``weights.reshard_global``) and cut, then the next
+    batches.  Returns per checkpoint the losses and, on rank 0, the restored
+    state gathered back."""
+    import os
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.launch.mesh import Mesh, make_mesh
+
+    small = make_mesh((1, 4), ("data", "model"), device="cpu")
+    big = Mesh(shape={"data": 2, "model": 4}, device=torch.device("cpu"))  # its shape alone
+    cfg = dlrm.DLRMConfig(**c["el_cfg"])
+    step = dlrm.make_train_step(cfg, small)
+    out = {}
+    for src in ("ref_el", "port_el"):
+        at, glob = CheckpointManager(os.path.join(tmp, src)).restore(
+            weights.global_like(cfg, big), device="cpu")
+        state = weights.state_from_global(weights.reshard_global(glob, cfg, big, small), cfg, small)
+        restored = weights.state_to_numpy(state, small, cfg)
+        losses = [float(step(state, hybrid.local_batch(
+            cfg, small, {k: to_torch(v) for k, v in b.items()}))[1])
+            for b in c["el_batches"][c["k1"]:]]
+        out[src] = {"step": at, "losses": losses, "restored": restored if rank == 0 else None}
+    return out

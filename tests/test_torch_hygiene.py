@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch/``, ``chip_smoke.py``,
-``tools/`` or ``examples/quickstart_torch.py`` imports ``jax`` or anything of
+``tools/``, ``examples/quickstart_torch.py`` or
+``examples/elastic_restart_torch.py`` imports ``jax`` or anything of
 ``repro``, the checkpoint and the train loop need no ``ml_dtypes`` (the chip
 machine's installation does not list it), importing the port
 leaves JAX unloaded, the entry points that default to CUDA raise where there
@@ -17,7 +18,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "examples" / "quickstart_torch.py"])
+              + sorted((ROOT / "tools").glob("*.py"))
+              + [ROOT / "examples" / name
+                 for name in ("quickstart_torch.py", "elastic_restart_torch.py")])
 
 
 def _imported_modules(path: Path) -> set[str]:
