@@ -156,7 +156,31 @@ from the root of a checkout.  Phases, each of which fails the run:
     four processes on (1, 4) restore it, lay it out for four shards and
     train 10 more.  Gates: finite losses, the restored shards gathered back
     bit for bit the resharded arrays, the launches.  Any rank's failure
-    fails the run.
+    fails the run;
+18. the rest of the train step's exchange surface, dlrm-small at full
+    width.  18a: groupless row mode (Split-SGD): for each of the 20 staged
+    batches ``data.pipeline.presort_batch``'s fields on the host bit for
+    bit the card's sort (``_row_sorted_streams``); 20 ``host_presort``
+    steps (no host sync) bit for bit, losses and state, the device-sorted
+    steps from the same start, one launch a step of rows 1, 2, 4 and 5 and
+    no sort kernel under torch.profiler (the device-sorted step shows one);
+    ``TrainLoop`` over ``HostPipeline(presort=True)``, prefetch 2, 20 steps,
+    printing the pre-sort's ms a batch on the host, the loop's step p50 /
+    p99 and the prefetch wait; then table mode on a one-rank NCCL mesh, 5
+    presorted steps bit for bit the device-sorted ones.  18b: table mode
+    there on the ``bf16`` wire with the error feedback and on ``bf16_sr``:
+    the first step held to the CPU step (phase 6's tolerances; the
+    cotangent's exchange, the dither included, bit for bit the CPU's of the
+    card's cotangent), 10 finite steps, each collective's bytes a step
+    against the ``fp32`` wire's (the all-to-alls 3/4, the dense
+    reduce-scatter 1/2), the busy time.  18c: groupless row mode at M = 2
+    and 4: the first step held to the CPU M-step, 10 steps with rows 1 and
+    2 launched M times a step and rows 4 and 5 once, the busy time against
+    M = 1's.  18d: two processes on the card over gloo, (1, 2), row mode,
+    the batch-sharded stream: 4 steps (one a warm-up) with the ``ring``
+    index exchange bit for bit the ``fused`` one's, then ``bf16`` with the error feedback at M
+    = 2, each rank's first step held to the two-rank CPU step.  A failure
+    raises ``SystemExit`` and prints no result.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
@@ -167,7 +191,9 @@ this run's bytes and operations over the card's published peaks;
 the served batches, the Split-SGD train steps, the run loop's 80 steps and
 its eval step, rows 4 and 5 the train steps and the loop's, and rows 1, 2,
 4, 5 and 9 also phase 16's timed steps, both ranks' in 16b, and rows 1,
-2, 4 and 5 every rank's loop and elastic steps of phase 17); then
+2, 4 and 5 every rank's loop and elastic steps of phase 17 and phase 18's
+timed steps: 18a's presorted and loop steps, 18b's, 18c's M > 1 steps (rows
+1 and 2 M times a step) and both ranks' ring steps in 18d); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.
@@ -232,6 +258,10 @@ ELASTIC_STEPS = 10
 # the dense step once a bucket (4 buckets)
 MESH_STEP_LAUNCHES = {"embedding_bag": 1, "dot_interaction": 1, "embedding_update": 1,
                       "split_sgd": 4}
+# phase 18: 18a's presorted steps (and the loop's) and table mode's; 18b's steps a
+# wire; 18c's M-steps; 18d's ring steps
+PRESORT_STEPS, PRESORT_TABLE_STEPS = 20, 5
+WIRE_STEPS, MB_STEPS, RING_STEPS = 10, 10, 3
 
 
 # a kernel train step against the same step on the CPU (every kernel's plain
@@ -758,12 +788,12 @@ def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    return wall_ms, busy_ms, [(e.key[:48], e.self_device_time_total / reps / 1e3, round(e.count / reps))
+    return wall_ms, busy_ms, [(e.key, e.self_device_time_total / reps / 1e3, round(e.count / reps))
                               for e in kernels]
 
 
 def top_kernels(top: list) -> str:
-    return "; ".join(f"{name} {ms:.4f} ms x{n}" for name, ms, n in top)
+    return "; ".join(f"{name[:48]} {ms:.4f} ms x{n}" for name, ms, n in top)
 
 
 def breakdown_phase(cfg, reg, reqs, dev) -> None:
@@ -1876,17 +1906,21 @@ def held_first_step(cfg, mesh, cpu_mesh, state, batch, failures, tag: str) -> di
     tensors): the loss within ``TRAIN_TOL["loss"]``, the rank's dense shard
     and (Split-SGD) its embedding shard within ``TRAIN_TOL["update"]`` of
     the state's largest update over all ranks (table mode's store within
-    ``TABLE_STORE_TOL``), and its sparse update bit for bit the plain update
-    of the card's own cotangent; the stateful kinds' stores are compared.  Table mode's cotangent must reach the row
-    kernel as fp32 and its bags unrounded; row mode's as bf16.  Updates
-    ``state`` in place; returns the cotangent's type and the share of bag
-    sums bf16 does not hold."""
+    ``TABLE_STORE_TOL``), its sparse update bit for bit the plain update
+    of the card's own cotangent, and the cotangent's exchange (the config's
+    wire, the ``bf16_sr`` dither keyed on ``sr``) bit for bit the same
+    exchange on the CPU of the card's cotangent; the stateful kinds' stores
+    are compared.  Table mode's cotangent must reach the row kernel as fp32
+    on the ``fp32`` wire (bf16 on the others) and its bags unrounded; row
+    mode's as bf16.  Updates ``state`` in place; returns the cotangent's
+    type and the share of bag sums bf16 does not hold."""
     import torch
     from repro_torch import weights
     from repro_torch.core import dlrm, hybrid
     from repro_torch.core import sharded_embedding as se
     from repro_torch.core.pipeline import emb_axes
     from repro_torch.dist import comm
+    from repro_torch.dist.exchange import resolve_exchange
     from repro_torch.optim import row as row_optim
 
     step = dlrm.make_train_step(cfg, mesh)
@@ -1902,15 +1936,22 @@ def held_first_step(cfg, mesh, cpu_mesh, state, batch, failures, tag: str) -> di
     wgt_fwd, wgt_upd = st.index_exchange(batch["weights"]) if cfg.weighted else (None, None)
     emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd, wgt_fwd)
     loss, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, batch)
-    dY = st.dY_exchange(d_emb)
+    dY = st.dY_exchange(d_emb, sr, 0)
     state["emb"] = st.sparse_update(state["emb"], idx_upd, dY, wgt_upd, sr)
-    state["dense"] = st.dense_update(state["dense"], g_dense)
+    state["dense"] = st.dense_update(state["dense"], g_dense, sr)
     loss = comm.psum(loss, mesh.group(mesh.axis_names))
     if sr is not None:
         sr.add_(1)
     torch.cuda.synchronize()
+    cpu_dY = cpu_step.stages.dY_exchange(d_emb.cpu(), before.get("sr"), 0)
+    same_dY = dY.dtype == cpu_dY.dtype and bitwise_equal(dY.cpu(), cpu_dY)
+    wire = resolve_exchange(cfg).dY_dtype
+    log(f"  {tag}: the cotangent's exchange ({wire} wire) bit for bit the CPU's of the card's "
+        f"cotangent: {same_dY}")
+    if not same_dY:
+        failures.append(f"{tag}: the {wire} cotangent exchange differs from the CPU's")
     unrounded = float((emb_out != emb_out.to(torch.bfloat16).float()).float().mean())
-    want_dY = torch.float32 if cfg.emb_mode == "table" else torch.bfloat16
+    want_dY = torch.float32 if cfg.emb_mode == "table" and wire == "fp32" else torch.bfloat16
     log(f"  {tag}: one step vs the plain step on the CPU: loss {float(loss):.7f} vs "
         f"{float(ref_loss):.7f}; cotangent {dY.dtype} {tuple(dY.shape)}; {unrounded:.1%} of the "
         "bag sums are not bf16 values")
@@ -1918,7 +1959,7 @@ def held_first_step(cfg, mesh, cpu_mesh, state, batch, failures, tag: str) -> di
         failures.append(f"{tag}: the row kernel read a {dY.dtype} cotangent, want {want_dY}")
     if (unrounded > 0.5) != (cfg.emb_mode == "table"):
         failures.append(f"{tag}: {unrounded:.1%} of the bag sums are not bf16 values (table mode's "
-                        "wire is fp32, row mode's bf16)")
+                        "forward all-to-all is fp32, row mode's reduce-scatter bf16)")
     close_or_fail(f"{tag}: loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"], 0.0,
                   failures)
     offsets = torch.as_tensor(se.local_offsets(layout, shard), dtype=torch.int32)
@@ -1966,7 +2007,8 @@ def hybrid_one_rank_phase(dev, batches, failures) -> dict:
     the busy time under torch.profiler; then row mode on the same mesh bit
     for bit the groupless step of phase 6 (losses and state) over
     ``HYBRID_ROW_STEPS`` steps.  Returns the launch counts of the timed
-    steps."""
+    steps, and the table-mode step's collective bytes in a step (by kind)
+    and busy ms: phase 18b's yardstick of the ``fp32`` wire."""
     import os
     import tempfile
     import torch
@@ -2029,6 +2071,8 @@ def hybrid_one_rank_phase(dev, batches, failures) -> dict:
             failures.append(f"16a: launches {counts}, want {want}")
         it = iter(bs[:5])
         wall_ms, busy_ms, top = device_busy_ms(lambda: step(state, next(it)), 5)
+        fp32_wire = {"bytes_in": {k: v // n for k, v in stats["bytes_in"].items()},
+                     "busy_ms": busy_ms}
         log(f"16a table-mode step under torch.profiler: {wall_ms:.3f} ms wall, device busy "
             f"{busy_ms:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
             + top_kernels(top[:8]))
@@ -2060,7 +2104,7 @@ def hybrid_one_rank_phase(dev, batches, failures) -> dict:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    return counts
+    return counts, fp32_wire
 
 
 def mesh_rank_setup(device: str):
@@ -2557,6 +2601,423 @@ def quickstart_mesh_phase(failures) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def profile_kernels(fn, reps: int) -> tuple[float, list[str]]:
+    """:func:`device_busy_ms`'s busy ms a run and the kernels' full names."""
+    _, busy_ms, top = device_busy_ms(fn, reps)
+    return busy_ms, [name for name, _, _ in top]
+
+
+def sort_kernels(names: list) -> list:
+    return [n[:80] for n in names if "sort" in n.lower()]
+
+
+def run_steps(step, state, batches, sync_free: bool = False) -> tuple:
+    """``step`` over ``batches`` from ``state`` (updated in place): the
+    state, the losses as a CPU tensor, the launch counts and the wall s (the
+    steps under ``set_sync_debug_mode("error")`` where ``sync_free``)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(loss)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return state, torch.stack(losses).cpu(), ops.launches(), time.perf_counter() - t0
+
+
+def same_losses(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def presort_phase(dev, batches, failures) -> dict:
+    """Phase 18a, groupless row mode (Split-SGD): for each staged batch
+    ``presort_batch``'s fields on the host bit for bit the card's
+    ``_row_sorted_streams``; ``PRESORT_STEPS`` ``host_presort`` steps (no
+    host sync) bit for bit, losses and state, phase 6's device-sorted steps
+    from the same start, with one launch a step of rows 1, 2, 4 and 5 and
+    no sort kernel under torch.profiler (the device-sorted step shows one);
+    then ``TrainLoop`` over ``HostPipeline(presort=True)``, prefetch 2,
+    ``PRESORT_STEPS`` steps: the pre-sort's ms a batch on the host, the
+    loop's step p50 / p99 and the prefetch's wait.  Returns the launches of
+    the presorted steps and the loop's, and the device-sorted (M = 1) step's
+    busy ms, phase 18c's yardstick."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.data.pipeline import PSORT_KEYS, HostPipeline, presort_batch
+    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    cfg = dlrm_small()
+    p_cfg = dataclasses.replace(cfg, host_presort=True)
+    layout = se.make_layout(cfg.spec, 1)
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+    host_ms, same, pre = [], True, []
+    for b in batches:
+        idx = b["idx"].cpu().numpy()
+        t0 = time.perf_counter()
+        fields = presort_batch(layout, idx)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        card = se._row_sorted_streams(layout, (b["idx"] + offsets[None, :, None]).reshape(-1),
+                                      cfg.pooling)
+        same &= all(bitwise_equal(t.cpu(), torch.from_numpy(fields[k][0]))
+                    for k, t in zip(PSORT_KEYS, card))
+        pre.append({**b, **{k: torch.from_numpy(v).to(dev) for k, v in fields.items()}})
+    L = pre[0]["psort_rows"].shape[1]
+    log(f"18a: presort_batch of {len(batches)} batches ({L} lookups each, torch.sort(stable=True) "
+        f"on the host, one thread): {np.mean(host_ms):.1f} ms a batch (min {min(host_ms):.1f}, "
+        f"max {max(host_ms):.1f}); every field bit for bit the card's _row_sorted_streams: {same}")
+    if not same:
+        failures.append("18a: presort_batch's fields differ from the card's sorted streams")
+
+    s_dev = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    s_pre = weights.state_to(s_dev, dev)
+    step_dev = dlrm.make_train_step(cfg, device=dev)
+    step_pre = dlrm.make_train_step(p_cfg, device=dev)
+    s_dev, l_dev, _, w_dev = run_steps(step_dev, s_dev, batches, sync_free=True)
+    s_pre, l_pre, counts, w_pre = run_steps(step_pre, s_pre, pre, sync_free=True)
+    n = len(pre)
+    ok_l, ok_s = same_losses(l_dev, l_pre), bitwise_equal(s_dev, s_pre)
+    log(f"18a: {n} host_presort steps (under set_sync_debug_mode('error')) against {n} "
+        f"device-sorted steps from one state: losses bitwise {ok_l}, state bitwise {ok_s}; "
+        f"losses {float(l_pre[0]):.6f} -> {float(l_pre[-1]):.6f}; wall {w_pre / n * 1e3:.2f} vs "
+        f"{w_dev / n * 1e3:.2f} ms a step; launches {counts}")
+    if not (ok_l and ok_s):
+        failures.append("18a: the presorted steps are not bit for bit the device-sorted steps")
+    want = {**{k: 0 for k in counts}, "embedding_bag": n, "dot_interaction": n,
+            "embedding_update": n, "split_sgd": n}
+    if counts != want:
+        failures.append(f"18a: launches {counts}, want {want}")
+    it_d, it_p = iter(batches), iter(pre)
+    busy_d, names_d = profile_kernels(lambda: step_dev(s_dev, next(it_d)), 3)
+    busy_p, names_p = profile_kernels(lambda: step_pre(s_pre, next(it_p)), 3)
+    log(f"18a under torch.profiler, 3 steps each: device-sorted busy {busy_d:.3f} ms a step, sort "
+        f"kernels {sort_kernels(names_d)}; presorted busy {busy_p:.3f} ms, sort kernels "
+        f"{sort_kernels(names_p)}; {busy_d - busy_p:.3f} ms less")
+    if sort_kernels(names_p) or not sort_kernels(names_d):
+        failures.append(f"18a: sort kernels, presorted step {sort_kernels(names_p)}, device-sorted "
+                        f"{sort_kernels(names_d)} (want none, and some)")
+    del s_dev, pre
+    torch.cuda.empty_cache()
+
+    pool = [b for b, _ in zip(dlrm_stream(SEED, cfg, ALPHA), range(N_TRAIN))]
+    pipe = HostPipeline(iter(pool), layout=layout, presort=True)
+    loop = TrainLoop(TrainLoopConfig(steps=PRESORT_STEPS, log_every=PRESORT_STEPS, prefetch=2,
+                                     straggler_window=PRESORT_STEPS), step_pre, s_pre, pipe,
+                     device=dev)
+    torch.cuda.synchronize()
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop.run()
+    wall = time.perf_counter() - t0
+    pipe.close()
+    loop_counts = ops.launches()
+    dts = np.asarray(loop.monitor.times) * 1e3
+    ps, ws = pipe.stats, loop.batches.stats
+    log(f"18a loop: TrainLoop over HostPipeline(presort=True), prefetch 2, {PRESORT_STEPS} steps in "
+        f"{wall:.2f} s ({PRESORT_STEPS * cfg.batch / wall:.0f} samples/s wall); step ms p50 "
+        f"{np.percentile(dts, 50):.3f} p99 {np.percentile(dts, 99):.3f}; the pre-sort worker "
+        f"{ps['prep_s'] / max(ps['batches'], 1) * 1e3:.1f} ms a batch over {ps['batches']} "
+        f"batches; the loop waited {ws['wait_s']:.3f} s on the prefetch ({ws['wait_s'] / wall:.1%} "
+        f"of the wall); losses {loop.losses[0]:.6f} -> {loop.losses[-1]:.6f}")
+    if not np.isfinite(loop.losses).all() or len(loop.losses) != PRESORT_STEPS:
+        failures.append(f"18a loop: losses {loop.losses}")
+    for k, v in loop_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    del loop, s_pre
+    torch.cuda.empty_cache()
+    return counts, busy_d
+
+
+def exchange_nccl_phase(dev, batches, failures, fp32_wire: dict) -> dict:
+    """Phases 18a (table mode) and 18b on a (1, 1) mesh over a one-rank NCCL
+    group, as 16a's.  18a: ``PRESORT_TABLE_STEPS`` table-mode
+    ``host_presort`` steps bit for bit the device-sorted ones.  18b: table
+    mode on the ``bf16`` wire with the error feedback and on ``bf16_sr``:
+    each wire's first step held to the same step on the CPU
+    (:func:`held_first_step`: phase 6's tolerances, the cotangent's
+    exchange, dither included, bit for bit the CPU's), then ``WIRE_STEPS``
+    finite steps; each collective's bytes a step against ``fp32_wire``, 16a's
+    step of the same configuration on the ``fp32`` wire (the all-to-alls
+    3/4: the forward's fp32 payload and the cotangent's halved; the dense
+    reduce-scatter 1/2), and the busy time against its.  Returns the
+    launches of the timed steps."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm, hybrid
+    from repro_torch.data.pipeline import presort_batch
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(dev)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl18_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            world_size=1, rank=0)
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev, group=dist.group.WORLD)
+        cpu_mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        cfg = dataclasses.replace(dlrm_small(), emb_mode="table")
+        layout = hybrid.make_layout(cfg, mesh)
+        bs = hybrid_batches(cfg, mesh, batches)
+        pre = [{**b, **{k: torch.from_numpy(v).to(dev)
+                        for k, v in presort_batch(layout, ob["idx"].cpu().numpy()).items()}}
+               for b, ob in zip(bs[:PRESORT_TABLE_STEPS], batches)]
+        s_dev = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+        s_pre = weights.state_to(s_dev, dev)
+        s_dev, l_dev, _, _ = run_steps(dlrm.make_train_step(cfg, mesh), s_dev,
+                                       bs[:PRESORT_TABLE_STEPS])
+        s_pre, l_pre, c, _ = run_steps(
+            dlrm.make_train_step(dataclasses.replace(cfg, host_presort=True), mesh), s_pre, pre)
+        add(c)
+        ok = same_losses(l_dev, l_pre) and bitwise_equal(s_dev, s_pre)
+        log(f"18a table mode on the NCCL mesh: {PRESORT_TABLE_STEPS} host_presort steps bit for "
+            f"bit the device-sorted steps (losses and state): {ok}; launches {c}")
+        if not ok:
+            failures.append("18a: table mode's presorted steps differ from the device-sorted ones")
+        del s_dev, s_pre, pre
+        torch.cuda.empty_cache()
+
+        per_step, busy = {}, {}
+        for wire in ("bf16", "bf16_sr"):
+            w_cfg = dataclasses.replace(cfg, exchange_dtype=wire)
+            state = dlrm.init_state(w_cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                    mesh=mesh)
+            tag = f"18b table {wire}"
+            held_first_step(w_cfg, mesh, cpu_mesh, state, bs[0], failures, tag)
+            step = dlrm.make_train_step(w_cfg, mesh)
+            n = WIRE_STEPS
+            mesh.stats.reset()
+            state, losses, c, wall = run_steps(step, state, bs[1:1 + n], sync_free=True)
+            st = mesh.stats.as_dict()
+            per_step[wire] = {k: {kind: v // n for kind, v in st[k].items()}
+                              for k in ("calls", "bytes_in", "bytes_out")}
+            it = iter(bs[1:6])
+            busy[wire], _ = profile_kernels(lambda: step(state, next(it)), 5)
+            extra = ""
+            if state["dense"]["err"] is not None:
+                err = state["dense"]["err"]
+                extra = (f"; err slab {tuple(err.shape)} fp32, finite {bool(torch.isfinite(err).all())}"
+                         f", max |err| {float(err.abs().max()):.3e} (M = 1: the dense gradients "
+                         "are bf16 values, which the wire keeps)")
+                if not bool(torch.isfinite(err).all()):
+                    failures.append(f"{tag}: the err slab is not finite")
+            if "sr" in state:
+                extra += f"; sr {int(state['sr'])}"
+            log(f"{tag}: {n} steps (no host sync), {wall / n * 1e3:.2f} ms a step wall, busy "
+                f"{busy[wire]:.3f} ms a step; losses {float(losses[0]):.6f} -> "
+                f"{float(losses[-1]):.6f}; launches {c}" + extra)
+            log(f"{tag}: collectives a step, bytes in / out: " + "; ".join(
+                f"{k} x{per_step[wire]['calls'][k]} {per_step[wire]['bytes_in'][k]} / "
+                f"{per_step[wire]['bytes_out'][k]}" for k in per_step[wire]["calls"]))
+            if not bool(torch.isfinite(losses).all()):
+                failures.append(f"{tag}: a loss is not finite: {losses}")
+            add(c)
+            f32 = fp32_wire["bytes_in"]
+            got = per_step[wire]["bytes_in"]
+            a2a, rs = got["all-to-all"] / f32["all-to-all"], \
+                got["reduce-scatter"] / f32["reduce-scatter"]
+            log(f"{tag}: against 16a's fp32 wire, all-to-all bytes x{a2a:.4f} (want 0.75: the "
+                f"forward's fp32, the cotangent's halved), dense reduce-scatter x{rs:.4f} (want "
+                f"0.5); busy {busy[wire] - fp32_wire['busy_ms']:+.3f} ms a step "
+                f"({fp32_wire['busy_ms']:.3f} there)")
+            if a2a != 0.75 or rs != 0.5:
+                failures.append(f"{tag}: bytes against the fp32 wire: all-to-all x{a2a}, "
+                                f"reduce-scatter x{rs}")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def microbatch_phase(dev, batches, failures, busy_m1: float) -> dict:
+    """Phase 18c: groupless row mode with M = 2 and M = 4: each M-step's
+    first step held to the same M-step on the CPU (the loss within
+    ``TRAIN_TOL["loss"]``, the store and the dense weights within
+    ``TRAIN_TOL["update"]`` of the largest update), then ``MB_STEPS`` steps
+    with no host sync, rows 1 and 2 launched M times a step and rows 5 and
+    4 once, the busy time under torch.profiler against ``busy_m1``, 18a's
+    device-sorted step's (M = 1).  Returns the launches of the timed
+    steps."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+
+    counts: dict = {}
+    busy = {1: busy_m1}
+    for M in (2, 4):
+        cfg = dataclasses.replace(dlrm_small(), microbatches=M)
+        tag = f"18c M={M}"
+        state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        step = dlrm.make_train_step(cfg, device=dev)
+        before = weights.state_to(state, "cpu")
+        t0 = time.perf_counter()
+        ref_state, ref_loss = dlrm.make_train_step(cfg, device="cpu")(
+            weights.state_to(state, "cpu"), {k: v.cpu() for k, v in batches[0].items()})
+        cpu_s = time.perf_counter() - t0
+        state, loss = step(state, batches[0])
+        torch.cuda.synchronize()
+        log(f"{tag}: one step vs the same M-step on the CPU ({cpu_s:.1f} s there): loss "
+            f"{float(loss):.7f} vs {float(ref_loss):.7f}")
+        close_or_fail(f"{tag}: loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"],
+                      0.0, failures)
+        for part, got, want, old in (
+                ("embedding store", master(state["emb"]).cpu(), master(ref_state["emb"]),
+                 master(before["emb"])),
+                ("dense weights", dense_master(state["dense"]).cpu(),
+                 dense_master(ref_state["dense"]), dense_master(before["dense"]))):
+            upd = float((want - old).abs().max())
+            close_or_fail(f"{tag}: {part} vs plain step (atol {TRAIN_TOL['update']:g} x the "
+                          f"largest update, {upd:.3e})", got, want, 0.0,
+                          TRAIN_TOL["update"] * upd, failures)
+        del ref_state, before
+        state, losses, c, wall = run_steps(step, state, batches[1:1 + MB_STEPS], sync_free=True)
+        n = MB_STEPS
+        it = iter(batches[1:6])
+        busy[M], _ = profile_kernels(lambda: step(state, next(it)), 5)
+        log(f"{tag}: {n} steps (no host sync) {wall / n * 1e3:.2f} ms a step wall, busy "
+            f"{busy[M]:.3f} ms a step ({busy[M] - busy[1]:+.3f} against M = 1); losses "
+            f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}; launches {c}")
+        if not bool(torch.isfinite(losses).all()):
+            failures.append(f"{tag}: a loss is not finite: {losses}")
+        want = {**{k: 0 for k in c}, "embedding_bag": M * n, "dot_interaction": M * n,
+                "embedding_update": n, "split_sgd": n}
+        if c != want:
+            failures.append(f"{tag}: launches {c}, want {want} (rows 1 and 2 M times a step)")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        del state, step
+        torch.cuda.empty_cache()
+    return counts
+
+
+def ring_rank(rank: int, world: int, device: str = "cuda:0") -> dict:
+    """Phase 18d in one of two processes sharing the card (gloo): dlrm-small
+    in row mode with the batch-sharded index stream on (1, 2), a warm-up
+    step and ``RING_STEPS`` timed steps with the ``ring`` index exchange bit
+    for bit the ``fused`` one's (losses and this rank's state); then ``bf16``
+    with the error feedback at M = 2, the first step held to the same two-rank step
+    on the CPU (the loss, this rank's embedding and dense shards within
+    phase 6's tolerances of the whole state's largest update).  Returns the
+    losses, launches, collective bytes, the err slab's reading and the
+    failures."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+    from repro_torch.dist import comm
+    from repro_torch.dist.exchange import ExchangeConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = mesh_rank_setup(device)
+    failures: list[str] = []
+    mesh = make_mesh((1, 2), ("data", "model"), dev)
+    cpu_mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    base = dataclasses.replace(dlrm_small(), idx_input="sharded")
+    bs = hybrid_batches(base, mesh, stage_batches(base, RING_STEPS + 1, dev))
+    out = {"counts": {}, "stats": {}, "wall_s": {}}
+    runs = {}
+    for impl in ("fused", "ring"):
+        cfg = dataclasses.replace(base, exchange=ExchangeConfig(impl=impl))
+        state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+        step = dlrm.make_train_step(cfg, mesh)
+        state, first, _, _ = run_steps(step, state, bs[:1])  # a warm-up, held as the rest
+        mesh.stats.reset()
+        state, losses, c, wall = run_steps(step, state, bs[1:])
+        runs[impl] = (state, torch.cat([first, losses]))
+        out["counts"][impl], out["wall_s"][impl] = c, wall
+        out["stats"][impl] = {k: {kind: v // RING_STEPS for kind, v in d.items()}
+                              for k, d in mesh.stats.as_dict().items() if isinstance(d, dict)}
+    out["ring_same"] = (same_losses(runs["fused"][1], runs["ring"][1])
+                        and bitwise_equal(runs["fused"][0], runs["ring"][0]))
+    out["losses"] = runs["ring"][1].tolist()
+    if not out["ring_same"]:
+        failures.append(f"18d rank {rank}: the ring exchange's steps differ from the fused one's")
+    del runs
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(base, exchange_dtype="bf16", microbatches=2)
+    state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+    before = weights.state_to(state, "cpu")
+    ref_state, ref_loss = dlrm.make_train_step(cfg, cpu_mesh)(
+        weights.state_to(state, "cpu"), {k: v.cpu() for k, v in bs[0].items()})
+    state, loss = dlrm.make_train_step(cfg, mesh)(state, bs[0])
+    torch.cuda.synchronize()
+    tag = f"18d rank {rank} bf16 M=2"
+    close_or_fail(f"{tag}: loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"], 0.0,
+                  failures)
+    g_cpu = cpu_mesh.group(cpu_mesh.axis_names)
+    for part, got, want, old in (
+            ("embedding shard", master(state["emb"]).cpu(), master(ref_state["emb"]),
+             master(before["emb"])),
+            ("dense shard", dense_master(state["dense"], 2, rank).cpu(),
+             dense_master(ref_state["dense"], 2, rank), dense_master(before["dense"], 2, rank))):
+        upd = float(comm.all_gather((want - old).abs().max()[None], g_cpu).max())
+        close_or_fail(f"{tag}: {part} vs plain step (atol {TRAIN_TOL['update']:g} x the largest "
+                      f"update, {upd:.3e})", got, want, 0.0, TRAIN_TOL["update"] * upd, failures)
+    err, ref_err = state["dense"]["err"].cpu(), ref_state["dense"]["err"]
+    out["err"] = {"max": float(err.abs().max()), "cpu_max": float(ref_err.abs().max()),
+                  "max_abs_diff": float((err - ref_err).abs().max()),
+                  "finite": bool(torch.isfinite(err).all())}
+    if not out["err"]["finite"] or out["err"]["max"] == 0:
+        failures.append(f"{tag}: the err slab {out['err']} (want finite, nonzero at M = 2)")
+    out["loss"], out["ref_loss"] = float(loss), float(ref_loss)
+    out["failures"] = failures
+    return out
+
+
+def ring_two_rank_phase(failures) -> dict:
+    """Phase 18d: :func:`ring_rank` in two processes on the card
+    (``launch.local.run_ranks``, gloo); any rank's failure fails the run.
+    Returns both ranks' launches of the ring steps."""
+    from repro_torch.launch.local import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(ring_rank, 2, (), backend="gloo", timeout_s=600)
+    log(f"18d: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
+    counts: dict = {}
+    for r, res in enumerate(ranks):
+        failures.extend(res["failures"])
+        for impl in ("fused", "ring"):
+            st = res["stats"][impl]
+            log(f"18d rank {r} {impl}: {res['wall_s'][impl] / RING_STEPS * 1e3:.1f} ms a step "
+                f"(host clock, two ranks on one card over gloo); launches {res['counts'][impl]}; "
+                "collectives a step, calls and bytes out: " + "; ".join(
+                    f"{k} x{st['calls'][k]} {st['bytes_out'][k]}" for k in st["calls"]))
+        log(f"18d rank {r}: ring bit for bit fused over {RING_STEPS + 1} steps: {res['ring_same']}; "
+            f"losses {', '.join(f'{x:.6f}' for x in res['losses'])}; bf16 + error feedback M=2, "
+            f"first step loss {res['loss']:.7f} vs the CPU's {res['ref_loss']:.7f}, err slab "
+            f"{res['err']}")
+        for k, v in res["counts"]["ring"].items():
+            counts[k] = counts.get(k, 0) + v
+        c = res["counts"]["ring"]
+        want = {**{k: 0 for k in c}, "embedding_bag": RING_STEPS, "dot_interaction": RING_STEPS,
+                "embedding_update": RING_STEPS, "split_sgd": 4 * RING_STEPS}
+        if c != want:
+            failures.append(f"18d rank {r}: ring launches {c}, want {want}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2574,6 +3035,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -2719,7 +3181,7 @@ def main() -> int:
 
     # the hybrid step: table mode on one rank over NCCL, then two ranks on the one card
     h_batches = stage_batches(t_cfg, N_TRAIN, dev)
-    h_one = hybrid_one_rank_phase(dev, h_batches, failures)
+    h_one, fp32_wire = hybrid_one_rank_phase(dev, h_batches, failures)
     if failures:
         raise SystemExit("hybrid phase (16a, one rank) failed:\n" + "\n".join(failures))
     del h_batches
@@ -2743,6 +3205,29 @@ def main() -> int:
                          + "\n".join(failures))
     for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
         counts[name] += m_counts.get(name, 0) + q_counts.get(name, 0)
+    torch.cuda.empty_cache()
+
+    # the rest of the step's exchange surface: the host pre-sort, the bf16 and bf16_sr
+    # wires, microbatches and the ring index exchange
+    t18 = time.perf_counter()
+    x_batches = stage_batches(t_cfg, N_TRAIN, dev)
+
+    def gate(tag: str, got: dict) -> None:
+        if failures:
+            raise SystemExit(f"phase {tag} failed:\n" + "\n".join(failures))
+        for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
+            counts[name] += got.get(name, 0)
+        torch.cuda.empty_cache()
+
+    got, busy_m1 = presort_phase(dev, x_batches, failures)
+    gate("18a, the host pre-sort", got)
+    gate("18a/18b, table mode on the NCCL mesh",
+         exchange_nccl_phase(dev, x_batches, failures, fp32_wire))
+    gate("18c, microbatches", microbatch_phase(dev, x_batches, failures, busy_m1))
+    del x_batches
+    gate("18d, the ring on two ranks", ring_two_rank_phase(failures))
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s; the whole run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),

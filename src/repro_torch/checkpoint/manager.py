@@ -530,7 +530,8 @@ def reshard_dense(dense: dict, old_ranks: int, new_ranks: int, num_buckets: int 
     without the round trip through fp32, which changes no bit.  ``lo``: a
     numpy array or a CPU tensor."""
     if dense.get("err") is not None:
-        raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
+        raise NotImplementedError("the dense error feedback's 'err' slab is not resharded: the "
+                                  "reference has no reshard of the dense state")
     lo = dense["lo"]
     n = sum(int(np.prod(a.shape)) for _, a in tree_paths(dense["hi"]))
     nat = lo.reshape(old_ranks, num_buckets, -1).swapaxes(0, 1).reshape(-1)

@@ -46,20 +46,21 @@ class DLRMConfig:
     opt_eps: Optional[float] = None
     mlp_impl: str = "xla"           # 'xla' | 'pallas' (the fused_mlp kernel)
     lr: float = 0.1                 # SGD step of the dense and the embedding update
-    microbatches: int = 1           # the port trains with 1
+    microbatches: int = 1           # M: the step's microbatches
     # the collectives' configuration (dist/exchange.py): a typed
-    # ExchangeConfig, or exchange_dtype setting both wire formats; the port
-    # runs the 'fp32' wire and refuses the others
+    # ExchangeConfig, or exchange_dtype setting both wire formats
     exchange: Optional[ExchangeConfig] = None
     exchange_dtype: Optional[str] = None
-    # refused by the train step: the host-sorted update stream and the
-    # hot-row cache are not ported
+    # the update's stream sorted on the host: the batch carries the psort_*
+    # fields of data.pipeline.presort_batch
     host_presort: bool = False
+    # refused by the train step: the hot-row cache is not ported
     hot_rows: int = 0
     # weighted bags: the batch carries 'weights' [B, S, P] fp32 in idx's layout
     weighted: bool = False
     # the first per-step seed of the stochastic rounding (the train state's
-    # 'sr', present when the optimizer rounds its state stochastically)
+    # 'sr', present when the optimizer rounds its state stochastically or a
+    # wire is 'bf16_sr')
     sr_seed: int = 0
 
     @property

@@ -6,21 +6,25 @@ A rank's state is its shard of the reference's global pytree:
     {"emb": {"hi": [R, E] bf16, "lo": [R, E] int16}    (split_sgd)
             | {"w": [R, E] fp32, + state slabs}         (the others)
      "dense": {"hi": {"bot"|"top": {"w": [...], "b": [...]}} bf16,
-               "lo": [padded / ranks] int16, "err": None}}
+               "lo": [padded / ranks] int16,
+               "err": [padded / ranks] fp32 | None}}
 
 ``R`` is the layout's ``rows_per_shard``: in row mode the rank's window of
 the row space, in table mode its bin of tables (replicated over the data
 axes).  ``lo`` is the rank's chunk of the bucketed dense ``lo``
-(``optim.data_parallel``).  ``lo`` slabs hold the bits of the reference's
-uint16 slabs as int16, since PyTorch has no arithmetic on uint16.  The
-state slabs are the optimizer's (``optim.row.RowOptimizer.state``):
-``mom`` or ``acc`` [R, E] fp32, ``acc`` [R, 1] fp32 (row-wise Adagrad),
-``cnt`` [R, 1] int32, or ``mom`` / ``acc`` [R, E] bf16 (the compressed-state
-kinds), zero at the start.  An optimizer that rounds its state
-stochastically adds ``"sr"``, the per-step seed, replicated: a 0-d int32
-tensor, ``cfg.sr_seed`` at the start, one more after each step.  The dense
-``hi`` leaves are views into one flat bf16 buffer
-(``optim.data_parallel.pack_hi``), which the dense update steps in place.
+(``optim.data_parallel``), and ``err`` its chunk of the dense error
+feedback's residual, present with the ``"bf16"`` dense wire and
+``error_feedback`` (``ExchangeConfig.needs_err``).  ``lo`` slabs hold the
+bits of the reference's uint16 slabs as int16, since PyTorch has no
+arithmetic on uint16.  The state slabs are the optimizer's
+(``optim.row.RowOptimizer.state``): ``mom`` or ``acc`` [R, E] fp32, ``acc``
+[R, 1] fp32 (row-wise Adagrad), ``cnt`` [R, 1] int32, or ``mom`` / ``acc``
+[R, E] bf16 (the compressed-state kinds), zero at the start.  An optimizer
+that rounds its state stochastically, or a ``"bf16_sr"`` wire, adds
+``"sr"``, the per-step seed, replicated: a 0-d int32 tensor,
+``cfg.sr_seed`` at the start, one more after each step.  The dense ``hi``
+leaves are views into one flat bf16 buffer (``optim.data_parallel.pack_hi``),
+which the dense update steps in place.
 """
 
 from __future__ import annotations
@@ -56,9 +60,15 @@ def padded_dense(cfg, mesh: Mesh) -> int:
     return dp.padded_size(dense_sizes(cfg), mesh.size, resolve_exchange(cfg).num_buckets)
 
 
+def needs_sr(cfg) -> bool:
+    """Whether the train state carries the per-step seed ``sr``: the
+    optimizer rounds its state stochastically, or a wire is ``"bf16_sr"``."""
+    return row_optim.resolve(cfg).stochastic_round or resolve_exchange(cfg).needs_sr
+
+
 def state_struct(cfg, mesh=None) -> dict:
     """``(shape, dtype)`` of every leaf of this rank's train state of ``cfg``
-    on ``mesh`` (None: one rank), ``None`` for the absent error-feedback
+    on ``mesh`` (None: one rank), ``None`` for an absent error-feedback
     slab."""
     mesh = resolve_mesh(mesh, "cpu")
     rows = make_layout(cfg, mesh).rows_per_shard
@@ -69,9 +79,10 @@ def state_struct(cfg, mesh=None) -> dict:
         pairs = list(zip(sizes[:-1], sizes[1:]))
         hi[part] = {"w": [((i, o), torch.bfloat16) for i, o in pairs],
                     "b": [((o,), torch.bfloat16) for _, o in pairs]}
-    lo = ((padded_dense(cfg, mesh) // mesh.size,), torch.int16)
-    out = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
-    if row_optim.resolve(cfg).stochastic_round:
+    chunk = (padded_dense(cfg, mesh) // mesh.size,)
+    err = (chunk, torch.float32) if resolve_exchange(cfg).needs_err else None
+    out = {"emb": emb, "dense": {"hi": hi, "lo": (chunk, torch.int16), "err": err}}
+    if needs_sr(cfg):
         out["sr"] = ((), torch.int32)
     return out
 
@@ -100,9 +111,10 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     emb = row_optim.init_store(opt, W)
     del W
     params = init_dense_params(cfg, generator, dev)
-    dense = dp.init_dp_state(params, mesh.size, mesh.rank, resolve_exchange(cfg).num_buckets)
+    ex = resolve_exchange(cfg)
+    dense = dp.init_dp_state(params, mesh.size, mesh.rank, ex.num_buckets, ex.needs_err)
     state = {"emb": emb, "dense": dense}
-    if opt.stochastic_round:
+    if needs_sr(cfg):
         state["sr"] = torch.tensor(cfg.sr_seed, dtype=torch.int32, device=dev)
     return state
 
@@ -112,11 +124,17 @@ def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
     partition specs): ``idx`` and ``weights`` whole in row mode with the
     replicated stream; in table mode with the replicated stream the
     padded-slot [B, num_padded_slots, P] arrays cut to this rank's data
-    replica's rows and its model shard's slots; every other field, and the
+    replica's rows and its model shard's slots; the host pre-sort's
+    ``psort_*`` fields ([num_shards, L], ``data.pipeline.presort_batch``)
+    cut to the row of this rank's embedding shard, [1, L] (every replica of
+    a table-mode shard takes the same row); every other field, and the
     batch-sharded streams, cut to this rank's rows (device-major over the
     mesh)."""
+    from repro_torch.data.pipeline import PSORT_KEYS
+
     all_axes, model, batch_axes = pipeline.mesh_axes(mesh)
     n, i = mesh.size, mesh.rank
+    shard = emb_shard(cfg, mesh)
 
     def rows(v, parts, j):
         c = v.shape[0] // parts
@@ -124,7 +142,9 @@ def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
 
     out = {}
     for k, v in batch.items():
-        if k in ("idx", "weights") and cfg.idx_input == "replicated":
+        if k in PSORT_KEYS:
+            v = v[shard:shard + 1]
+        elif k in ("idx", "weights") and cfg.idx_input == "replicated":
             if cfg.emb_mode == "table":
                 nb = int(np.prod([mesh.shape[a] for a in batch_axes])) if batch_axes else 1
                 d = mesh.group(batch_axes).index if batch_axes else 0

@@ -1,5 +1,5 @@
 """The hybrid-parallel train step as named stages (twin of
-``repro/core/pipeline.py``), on a mesh of ranks, with one microbatch.
+``repro/core/pipeline.py``), on a mesh of ranks, over M microbatches.
 
 The reference composes six stages, and the port keeps their names so a
 stage's time and its reference line up.  Each rank runs them on its shard
@@ -24,17 +24,30 @@ of the state and its block of the batch (``core.hybrid.local_batch``):
                      (autograd; the interaction's forward is the
                      dot_interaction kernel)
     dY_exchange      the cotangent back to the update's layout: row mode's
-                     bf16 all-gather, table mode's inverse fp32 all-to-all
-                     and replica all-gather
-    sparse_update    one stable sort of the shard's lookups, then the fused
+                     bf16 all-gather, table mode's inverse all-to-all and
+                     replica all-gather, on the config's ``dY_dtype`` wire
+                     (``dist.exchange``; the ``bf16_sr`` dither keyed on
+                     ``sr`` and the microbatch)
+    sparse_update    one stable sort of the shard's lookups (or, with
+                     ``host_presort``, the batch's ``psort_*`` fields
+                     sorted on the host: no sort), then the fused
                      sparse backward + row update of the config's optimizer
                      (one of the embedding_update kernels, picked by
                      optim.row), each lookup's cotangent scaled by its bag
                      weight, the stochastic rounding keyed on the state's
                      ``sr``
-    dense_update     the bucketed reduce-scatter, the flat Split-SGD step on
-                     this rank's shard (split_sgd kernel) and the all-gather
-                     of the new ``hi``
+    dense_update     the bucketed reduce-scatter (on the ``dense_dtype``
+                     wire, with the ``bf16`` wire's error feedback), the
+                     flat Split-SGD step on this rank's shard (split_sgd
+                     kernel) and the all-gather of the new ``hi``
+
+With ``microbatches`` M > 1, microbatch i is every rank's i-th slice of its
+block of the batch (the replicated index streams: the matching strided
+selection), microbatch i + 1's index exchange is issued before microbatch
+i's compute, every microbatch's forward and backward read the step's
+initial weights, the losses and the dense gradients accumulate microbatch
+by microbatch, and the update streams, concatenated, are put back in the
+batch's order: one sparse update and one dense update a step, as at M = 1.
 
 The collectives are ``dist.comm``'s over the mesh's groups; on a one-rank
 mesh without a process group each is the identity, and the step is the
@@ -101,31 +114,53 @@ def num_shards(cfg, mesh) -> int:
 def validate_pipeline(cfg, mesh, microbatches: int) -> None:
     """Refuse what the port does not train, or what cannot be laid out.
     Every optimizer of ``optim.row.OPTIMIZERS`` trains, with or without
-    weighted bags, in either mode and with either index input."""
+    weighted bags, in either mode and with either index input, on every wire
+    and index exchange, with the host pre-sort or without, at any M."""
     if cfg.emb_mode not in ("row", "table"):
         raise ValueError(f"unknown emb_mode {cfg.emb_mode!r}; expected 'row' or 'table'")
     if cfg.idx_input not in ("replicated", "sharded"):
         raise ValueError(f"unknown idx_input {cfg.idx_input!r}; expected 'replicated' or "
                          "'sharded'")
-    exchange_cfg.resolve_exchange(cfg).check_ported()
+    exchange_cfg.resolve_exchange(cfg)
     if cfg.mlp_impl != "xla":
         raise NotImplementedError(
             f"mlp_impl {cfg.mlp_impl!r}: the train step runs the MLP as torch.matmul ('xla'), as "
             "the reference does; its fused_mlp kernel has no backward")
-    if microbatches != 1:
-        raise NotImplementedError(f"microbatches={microbatches}: the port trains with 1 "
-                                  "(ROADMAP queue 1 item 4)")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if getattr(cfg, "hot_rows", 0):
         raise NotImplementedError(f"hot_rows={cfg.hot_rows}: the hot-row cache is not ported "
                                   "(ROADMAP queue 1 item 5)")
-    if getattr(cfg, "host_presort", False):
-        raise NotImplementedError("host_presort: the host-sorted update stream is not ported "
-                                  "(ROADMAP queue 1 item 3)")
     ns = mesh.size
     if cfg.batch % (microbatches * ns):
         raise ValueError(f"global batch {cfg.batch} must be divisible by microbatches * mesh "
                          f"size = {microbatches} * {ns}")
     row_optim.resolve(cfg)
+
+
+def _ring_all_gather_1d(x: torch.Tensor, g: comm.Group) -> torch.Tensor:
+    """The tiled all-gather over one axis's group as size - 1 shifts of one
+    along its ring (``comm.ppermute``): after shift k a rank holds the
+    block of the rank k before it.  Pure data movement."""
+    if g.size == 1:
+        return x
+    c = x.shape[0]
+    out = torch.empty((g.size * c,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[g.index * c:(g.index + 1) * c] = x
+    cur = x
+    for k in range(1, g.size):
+        cur = comm.ppermute(cur, g)
+        src = (g.index - k) % g.size
+        out[src * c:(src + 1) * c] = cur
+    return out
+
+
+def ring_all_gather(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The tiled all-gather over the mesh axes ``axes`` as one ring an axis,
+    minor axis first: the fused all-gather's block order, bit for bit."""
+    for a in reversed(tuple(axes)):
+        x = _ring_all_gather_1d(x, mesh.group(a))
+    return x
 
 
 def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages:
@@ -149,15 +184,20 @@ def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages
     table = cfg.emb_mode == "table"
     maps = se.slot_maps(layout, dev) if table else None
 
+    def gather(x, axes):
+        if ex.impl == "ring":
+            return ring_all_gather(x, mesh, axes)
+        return comm.all_gather(x, mesh.group(axes))
+
     def index_exchange(idx, fwd_only: bool = False):
         """(idx_fwd, idx_upd): what the forward reads and what the update
         reads (``fwd_only``: the update side is None)."""
         if not table:
             if cfg.idx_input == "sharded":
-                idx = comm.all_gather(idx, g_emb)
+                idx = gather(idx, emb_ax)
             return idx, idx
         if cfg.idx_input == "sharded":
-            full = comm.all_gather(idx, g_all)
+            full = gather(idx, all_axes)
             K = layout.slots_per_shard
             idx_upd = se.permute_indices(layout, full, maps)[:, shard * K:(shard + 1) * K]
             c = idx_upd.shape[0] // nb
@@ -165,7 +205,7 @@ def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages
             return idx_fwd, None if fwd_only else idx_upd.contiguous()
         if fwd_only:
             return idx, None
-        return idx, (idx if g_rep is None else comm.all_gather(idx, g_rep))
+        return idx, (idx if replica_ax is None else gather(idx, replica_ax))
 
     def embedding_fwd(W_fwd, idx_fwd, wgt_fwd=None):
         if table:
@@ -181,64 +221,144 @@ def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages
             *g_dense, d_emb = torch.autograd.grad(loss, [*params, emb])
         return loss.detach(), dp.tree_unflatten(dense_hi, g_dense), d_emb
 
-    def dY_exchange(d_emb):
-        return se.gather_dY(layout, d_emb, g_emb, g_rep, maps)
+    def dY_exchange(d_emb, seed=None, tag: int = 0):
+        # seed: the state's sr (None: 0); tag: the microbatch
+        return se.gather_dY(layout, d_emb, g_emb, g_rep, maps, wire_dtype=ex.dY_dtype,
+                            seed=seed, tag=tag)
 
-    def sparse_update(emb_store, idx_upd, dY, weights=None, seed=None):
+    def sparse_update(emb_store, idx_upd, dY, weights=None, seed=None, presort=None):
         return se.apply_update(layout, emb_store, opt, idx_upd, dY, cfg.lr, offsets,
-                               weights=weights, seed=seed, group=g_emb)
+                               weights=weights, seed=seed, group=g_emb, presort=presort)
 
-    def dense_update(dense_state, g_dense):
+    def dense_update(dense_state, g_dense, seed=None):
         return dp.rs_ag_split_sgd(dense_state, g_dense, cfg.lr, num_buckets=ex.num_buckets,
-                                  group=g_all)
+                                  group=g_all, wire_dtype=ex.dense_dtype,
+                                  error_feedback=ex.error_feedback, seed=seed)
 
     return PipelineStages(*(Stage(f.__name__, f) for f in (
         index_exchange, embedding_fwd, dense_fwd_bwd, dY_exchange, sparse_update, dense_update)))
 
 
+def _slice_local(v: torch.Tensor, i: int, M: int) -> torch.Tensor:
+    c = v.shape[0] // M
+    return v[i * c:(i + 1) * c]
+
+
+def _slice_idx(v: torch.Tensor, i: int, M: int, idx_input: str, width: int) -> torch.Tensor:
+    """Microbatch i of an index stream (or of its bag weights): a contiguous
+    slice of a batch-sharded stream; of a replicated one the strided
+    selection ``[width, M, c][:, i]`` (``width`` the ranks the stream is
+    replicated over), so the microbatch's bags land on the rows whose dense
+    features each rank holds."""
+    if M == 1:
+        return v
+    if idx_input == "sharded":
+        return _slice_local(v, i, M)
+    c = v.shape[0] // (width * M)
+    return v.reshape((width, M, c) + tuple(v.shape[1:]))[:, i].reshape(
+        (width * c,) + tuple(v.shape[1:]))
+
+
+def _interleave_perm(B: int, M: int, ns: int) -> np.ndarray:
+    """The permutation that puts the concatenated microbatch streams (order
+    ``(i, rank, j)``) back in the batch's order ``(rank, i, j)``."""
+    c = B // (M * ns)
+    return np.arange(B).reshape(M, ns, c).transpose(1, 0, 2).reshape(-1)
+
+
 def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
-    """The train step of ``cfg`` on this rank of ``mesh``,
-    ``step(state, batch) -> (state, loss)``.
+    """The train step of ``cfg`` on this rank of ``mesh`` over
+    ``microbatches`` microbatches, ``step(state, batch) -> (state, loss)``.
 
     ``state``: this rank's shard, as :func:`repro_torch.core.hybrid.init_state`
     or ``weights.state_from_numpy`` makes it; ``batch``: this rank's block of
     the reference's global batch (``core.hybrid.local_batch``): ``idx``
     int32 table-local ids, ``dense_x`` [B / ranks, num_dense] (bf16 or fp32:
-    the first layer casts to bf16), ``labels`` [B / ranks] fp32 and, with
-    ``cfg.weighted``, ``weights`` fp32 in idx's layout, on the rank's
-    device.  ``loss`` is the batch's mean binary cross-entropy, the same on
-    every rank, as a 0-d device tensor.
+    the first layer casts to bf16), ``labels`` [B / ranks] fp32, with
+    ``cfg.weighted`` ``weights`` fp32 in idx's layout and with
+    ``cfg.host_presort`` the ``psort_*`` fields [1, L] of this rank's
+    embedding shard (``data.pipeline.presort_batch``), on the rank's device.
+    ``loss`` is the batch's mean binary cross-entropy, the same on every
+    rank, as a 0-d device tensor.
 
     The step updates the embedding store and the dense state IN PLACE,
     where the reference donates them, and returns the same dict: clone a
-    state before a step to keep it.  A state with ``sr`` (the stochastic
-    rounding's seed) hands it to the sparse update, then adds one to it, in
-    place on the device, as the reference's step returns ``sr + 1``.
-    ``step.stages`` holds the stages and ``step.mesh`` the mesh, whose
-    ``stats`` count the collectives."""
+    state before a step to keep it.  A state with ``sr`` (the seed of the
+    stochastic rounding and of the ``bf16_sr`` wire) hands it to the wires
+    and the sparse update, then adds one to it, in place on the device, as
+    the reference's step returns ``sr + 1``.  The ``psort_*`` fields
+    describe the whole batch: they are not cut into microbatches, and
+    replace the update side of the index exchange, which the step then
+    skips.  ``step.stages`` holds the stages and ``step.mesh`` the mesh,
+    whose ``stats`` count the collectives."""
     from repro_torch.core import hybrid
+    from repro_torch.data.pipeline import PSORT_KEYS
 
-    validate_pipeline(cfg, mesh, microbatches)
+    M = int(microbatches)
+    validate_pipeline(cfg, mesh, M)
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     stages = build_stages(cfg, layout, mesh)
-    g_all = mesh.group(mesh_axes(mesh)[0])
+    all_axes, model, _ = mesh_axes(mesh)
+    g_all = mesh.group(all_axes)
+    presorted = bool(getattr(cfg, "host_presort", False))
+    # the ranks a replicated index stream is laid out over: the mesh in row
+    # mode, the model axis in table mode (its batch is already cut by replica)
+    width = mesh.size if cfg.emb_mode == "row" else mesh.shape[model]
+    perm = (torch.as_tensor(_interleave_perm(cfg.batch, M, mesh.size), device=mesh.device)
+            if M > 1 else None)
+
+    def microbatch(batch: dict, i: int) -> dict:
+        return {k: (_slice_idx(v, i, M, cfg.idx_input, width) if k in ("idx", "weights")
+                    else _slice_local(v, i, M)) if M > 1 else v
+                for k, v in batch.items() if k not in PSORT_KEYS}
+
+    def exchange(mb: dict) -> tuple:
+        # the presorted stream replaces the update side of the exchange
+        return (stages.index_exchange(mb["idx"], fwd_only=presorted),
+                stages.index_exchange(mb["weights"], fwd_only=presorted) if cfg.weighted
+                else (None, None))
+
+    def restore(parts: list) -> torch.Tensor:
+        return parts[0] if M == 1 else torch.cat(parts).index_select(0, perm)
 
     def step(state: dict, batch: dict):
         emb_store = state["emb"]
         sr = state.get("sr")
-        idx_fwd, idx_upd = stages.index_exchange(batch["idx"])
-        wgt_fwd, wgt_upd = (stages.index_exchange(batch["weights"]) if cfg.weighted
-                            else (None, None))
-        emb_out = stages.embedding_fwd(row_optim.fwd_weights(opt, emb_store), idx_fwd, wgt_fwd)
-        loss, g_dense, d_emb = stages.dense_fwd_bwd(state["dense"]["hi"], emb_out, batch)
-        dY = stages.dY_exchange(d_emb)
-        new_emb = stages.sparse_update(emb_store, idx_upd, dY, wgt_upd, sr)
-        new_dense = stages.dense_update(state["dense"], g_dense)
+        W_fwd = row_optim.fwd_weights(opt, emb_store)
+        dense_hi = state["dense"]["hi"]
+        presort = tuple(batch[k][0] for k in PSORT_KEYS) if presorted else None
+        mbs = [microbatch(batch, i) for i in range(M)]
+        ex = [exchange(mbs[0])] + [None] * (M - 1)
+        loss_acc = g_acc = None
+        idx_parts, dY_parts, wgt_parts = [], [], []
+        for i in range(M):
+            if i + 1 < M:  # microbatch i + 1's exchange before microbatch i's compute
+                ex[i + 1] = exchange(mbs[i + 1])
+            (idx_fwd, idx_upd), (wgt_fwd, wgt_upd) = ex[i]
+            ex[i] = None
+            emb_out = stages.embedding_fwd(W_fwd, idx_fwd, wgt_fwd)
+            loss, g_dense, d_emb = stages.dense_fwd_bwd(dense_hi, emb_out, mbs[i])
+            dY_parts.append(stages.dY_exchange(d_emb, sr, i))
+            loss_acc = loss if loss_acc is None else loss_acc + loss
+            # the bf16 gradients summed as the reference's jitted sum comes
+            # out: each partial sum rounded to bf16, its type, but the last
+            # one kept in fp32, as XLA folds that add into the dense update's
+            # fp32 cast (bit for bit at M = 2 and 4)
+            g_acc = g_dense if g_acc is None else dp.tree_unflatten(g_acc, [
+                a.float() + b.float() if i == M - 1 else a + b
+                for a, b in zip(dp.tree_leaves(g_acc), dp.tree_leaves(g_dense))])
+            idx_parts.append(idx_upd)
+            wgt_parts.append(wgt_upd)
+        dY = restore(dY_parts)
+        idx_upd = None if presorted else restore(idx_parts)
+        wgt_upd = restore(wgt_parts) if cfg.weighted and not presorted else None
+        new_emb = stages.sparse_update(emb_store, idx_upd, dY, wgt_upd, sr, presort=presort)
+        new_dense = stages.dense_update(state["dense"], g_acc, sr)
         new_state = {"emb": new_emb, "dense": new_dense}
         if sr is not None:
             new_state["sr"] = sr.add_(1)
-        return new_state, comm.psum(loss, g_all)
+        return new_state, comm.psum(loss_acc, g_all)
 
     step.stages = stages
     step.mesh = mesh

@@ -211,18 +211,38 @@ def table_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
 def gather_dY(layout: ShardedEmbeddingLayout, dY_mp: torch.Tensor,
               group: Optional[comm.Group] = None,
               replica_group: Optional[comm.Group] = None,
-              maps: Optional[SlotMaps] = None) -> torch.Tensor:
+              maps: Optional[SlotMaps] = None, wire_dtype: str = "fp32", seed=None,
+              tag: int = 0) -> torch.Tensor:
     """The cotangent ``dY_mp`` [B / num_shards, S, E] brought to the layout
     each shard's update reads.  Row mode: rounded to bf16 (the wire) and
     all-gathered over ``group``; returns [B, S, E] bf16, whose fp32 value is
     the reference's result exactly.  Table mode: to padded-slot order
-    (dummy slots zero), the inverse fp32 all-to-all over the model group
+    (dummy slots zero), the inverse all-to-all over the model group
     ``group``, then an all-gather over the replicas ``replica_group``;
-    returns [B, slots_per_shard, E] fp32."""
+    returns [B, slots_per_shard, E], fp32 on the ``"fp32"`` wire, bf16 on
+    the others.
+
+    ``wire_dtype`` (``dist.exchange``): row mode's ``"fp32"`` and ``"bf16"``
+    both keep the payload rounded to nearest, ``"bf16_sr"`` rounds it under
+    the dither; table mode's ``"bf16"`` and ``"bf16_sr"`` narrow the
+    all-to-all and the replica all-gather to 2 bytes an element.  The
+    dither reads ``seed`` (the state's ``sr``; None: 0) and the tag
+    ``wire_tag(TAG_DY, tag, sender)``, ``tag`` the payload's site in the
+    step (the microbatch) and the sender its index over the replica axes,
+    then the embedding axes."""
+    from repro_torch.dist import exchange
+
     group = _group(group)
+    sender = group.index + (0 if replica_group is None else replica_group.index * group.size)
+
+    def encode(x):
+        return exchange.wire_encode(x, wire_dtype, seed,
+                                    exchange.wire_tag(exchange.TAG_DY, tag, sender))
+
     if layout.mode == "row":
-        return comm.all_gather(dY_mp.to(torch.bfloat16), group)
-    dY_local = comm.all_to_all(permute_indices(layout, dY_mp, maps), group, 1, 0)
+        return comm.all_gather(encode(dY_mp) if wire_dtype == "bf16_sr"
+                               else dY_mp.to(torch.bfloat16), group)
+    dY_local = comm.all_to_all(encode(permute_indices(layout, dY_mp, maps)), group, 1, 0)
     return dY_local if replica_group is None else comm.all_gather(dY_local, replica_group)
 
 
@@ -267,7 +287,8 @@ def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer,
                  row_offsets: Optional[torch.Tensor] = None,
                  weights: Optional[torch.Tensor] = None, seed=None,
                  group: Optional[comm.Group] = None,
-                 replica_group: Optional[comm.Group] = None) -> dict:
+                 replica_group: Optional[comm.Group] = None,
+                 presort: Optional[tuple] = None) -> dict:
     """The sparse update of the train step, in place on this shard's
     ``store``: ``idx_local`` [B, S or slots_per_shard, P] ids, ``dY`` the
     matching [B, S or K, E] cotangents from :func:`gather_dY`, ``weights``
@@ -281,7 +302,13 @@ def apply_update(layout: ShardedEmbeddingLayout, store: dict, optimizer,
     the stochastic rounding's per-step seed.  The stream is sorted once on
     the device and handed to the optimizer's fused row kernel
     (``optim.row.apply_sparse``); nothing builds the [B, S, P, E]
-    gradient."""
+    gradient.  ``presort``: this shard's ``(rows, bags, msk, wgt)`` [L]
+    from the host (``data.pipeline.presort_batch``, the bag weights in
+    ``wgt``), which go to the row kernel as they are: no sort, and
+    ``idx_local`` and ``weights`` are not read."""
+    if presort is not None:
+        return row_optim.apply_sparse(optimizer, store, tuple(presort),
+                                      dY.reshape(-1, dY.shape[-1]), lr, seed=seed)
     if layout.mode == "table" and replica_group is not None:
         idx_local = comm.all_gather(idx_local, replica_group)
         if weights is not None:

@@ -1,13 +1,22 @@
-"""The threaded host-side iterator of the ingestion pipeline (twin of
-``ThreadedIterator`` in ``repro/data/pipeline.py``).
+"""The host side of the ingestion pipeline (twin of
+``repro/data/pipeline.py``): the threaded iterator and the per-batch
+pre-sort of the sparse update's stream.
 
-A worker thread pulls batches from the source, runs the host prep, and parks
-the result in a bounded queue, so the prep of batch ``n + 1`` runs while the
-card executes step ``n``.  :func:`repro_torch.train.loop.prefetch_to_device`
-is a thin wrapper over it for the host-to-device leg.  Worker failures are
-delivered to the consumer as a poisoned queue entry and re-raised promptly:
-the loop never hangs on a dead loader.  ``HostPipeline`` and the per-batch
-pre-sort of the reference come with the port's ``host_presort``.
+1. **Overlap**: a worker thread pulls batches from the source, runs the host
+   prep, and parks the result in a bounded queue, so the prep of batch
+   ``n + 1`` runs while the card executes step ``n``
+   (:class:`ThreadedIterator`; :func:`repro_torch.train.loop.prefetch_to_device`
+   is a thin wrapper over it for the host-to-device leg, :class:`HostPipeline`
+   for the host prep).  Worker failures are delivered to the consumer as a
+   poisoned queue entry and re-raised promptly: the loop never hangs on a
+   dead loader.
+2. **Pre-sort**: the row kernels read the update's lookups sorted by row.
+   Without host prep the step sorts them on the card
+   (``core.sharded_embedding._row_sorted_streams``).  :func:`presort_batch`
+   builds, for each embedding shard, the same four arrays on the host, with
+   the same function on CPU tensors, so the two are equal bit for bit at any
+   shard count, and ships them as batch fields (``psort_*``); a config with
+   ``host_presort=True`` feeds them to the row kernel and sorts nothing.
 """
 
 from __future__ import annotations
@@ -17,7 +26,62 @@ import threading
 import time
 from typing import Callable, Iterable, Iterator, Optional
 
+import numpy as np
+
 from repro_torch import telemetry
+
+PSORT_KEYS = ("psort_rows", "psort_bags", "psort_msk", "psort_wgt")
+
+
+def presort_batch(layout, idx, weights=None) -> dict:
+    """Each embedding shard's sorted update stream of one global batch, in
+    row and table mode.
+
+    ``layout``: a ``core.sharded_embedding.ShardedEmbeddingLayout``; ``idx``
+    [B, S, P] int original-slot ids (numpy or a CPU tensor), the stream the
+    step's update reads in the batch's order; ``weights`` [B, S, P] the bag
+    weights or None.  Row mode sorts each shard's stream of ``B * S * P``
+    lookups; table mode first puts the slots in padded-slot order (dummy
+    slots read id 0 with weight 0, as the step's exchange does) and sorts
+    each shard's ``B * slots_per_shard * P`` lookups.
+
+    Returns ``{psort_rows, psort_bags, psort_msk, psort_wgt}``, numpy
+    ``[num_shards, L]`` int32 / int32 / int32 / fp32, row ``k`` the stream of
+    embedding shard ``k``: the arrays ``_row_sorted_streams`` gives on the
+    card for that shard, computed by it on the CPU (``torch.sort(stable=
+    True)``, whose permutation, being stable, is the only one).  At one
+    shard they are the reference's ``presort_batch``'s bit for bit; at more,
+    a lookup of another shard's rows has ``msk = 0`` in both, and the port
+    keys it by its flat index modulo the shard's rows where the reference
+    keys it past the last row (``_row_sorted_streams`` says why)."""
+    import torch
+    from repro_torch.core import sharded_embedding as se
+
+    ids = torch.as_tensor(np.asarray(idx, np.int32))
+    wgt = None if weights is None else torch.as_tensor(np.asarray(weights, np.float32))
+    P = ids.shape[-1]
+    ns = layout.num_shards
+    if layout.mode == "table":
+        maps = se.slot_maps(layout, "cpu")
+        ids = se.permute_indices(layout, ids, maps)
+        wgt = None if wgt is None else se.permute_indices(layout, wgt, maps)
+    K = layout.slots_per_shard
+    out = None
+    for s in range(ns):
+        mine, w = ids, wgt
+        if layout.mode == "table":
+            mine = ids[:, s * K:(s + 1) * K]
+            w = None if wgt is None else wgt[:, s * K:(s + 1) * K]
+        off = torch.as_tensor(se.local_offsets(layout, s), dtype=torch.int32)
+        local = (mine + off[None, :, None]).reshape(-1)
+        streams = se._row_sorted_streams(layout, local, P,
+                                         None if w is None else w.reshape(-1), s)
+        if out is None:
+            out = {k: np.empty((ns, local.numel()), t.numpy().dtype)
+                   for k, t in zip(PSORT_KEYS, streams)}
+        for k, t in zip(PSORT_KEYS, streams):
+            out[k][s] = t.numpy()
+    return out
 
 _DONE = object()
 
@@ -194,3 +258,28 @@ class ThreadedIterator:
             self._q.put_nowait(_DONE)
         except queue.Full:
             pass
+
+
+class HostPipeline(ThreadedIterator):
+    """Background-thread batch prep with bounded lookahead (one worker, as
+    the reference's).  ``batches``: any iterable of batch dicts of numpy
+    arrays.  ``presort=True`` adds the ``psort_*`` fields of
+    :func:`presort_batch` (needs ``layout``), which a config with
+    ``host_presort=True`` reads.  Worker exceptions re-raise at the
+    consumer's next pull; ``close()`` releases the worker of an abandoned
+    stream; ``stats`` counts the prep's and the consumer's wait's seconds."""
+
+    def __init__(self, batches: Iterable[dict], *, layout=None, presort: bool = False,
+                 depth: int = 2, retries: int = 0, faults=None):
+        if presort and layout is None:
+            raise ValueError("presort=True requires the embedding layout")
+        self._layout = layout
+        self._presort = presort
+        super().__init__(batches, transform=self._prep, depth=depth, name="HostPipeline",
+                         retries=retries, faults=faults)
+
+    def _prep(self, b: dict) -> dict:
+        out = dict(b)
+        if self._presort:
+            out.update(presort_batch(self._layout, out["idx"], out.get("weights")))
+        return out

@@ -12,6 +12,7 @@ collectives put them:
     all_to_all(x, g, s, c)    jax.lax.all_to_all(x, axes, s, c, tiled=True)
     psum_scatter(x, g)        jax.lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)
     psum(x, g)                jax.lax.psum(x, axes)
+    ppermute(x, g)            jax.lax.ppermute(x, axis, [(i, (i + 1) % n) for i in range(n)])
 
 No reduction is left to the backend: ``psum_scatter`` is an all-to-all of
 the blocks followed by a local sum, and ``psum`` an all-gather followed by
@@ -43,7 +44,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-KINDS = ("all-gather", "all-to-all", "reduce-scatter", "all-reduce")
+KINDS = ("all-gather", "all-to-all", "reduce-scatter", "all-reduce", "collective-permute")
 
 
 @dataclasses.dataclass
@@ -224,4 +225,28 @@ def psum(x: torch.Tensor, g: Group) -> torch.Tensor:
         _run(_gather_fn(), stacked, x[None], g)
         out = _ordered_sum(stacked, x.dtype)
     g.stats.add("all-reduce", x, out)
+    return out
+
+
+def _shift(g: Group):
+    """``fn(out, x, group)``: ``x`` sent to the next rank of ``g`` (index + 1,
+    cyclically) and the previous rank's received into ``out``, one batched
+    isend / irecv."""
+    nxt = dist.get_global_rank(g.pg, (g.index + 1) % g.size)
+    prv = dist.get_global_rank(g.pg, (g.index - 1) % g.size)
+
+    def fn(out, x, group):
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt, group),
+                                           dist.P2POp(dist.irecv, out, prv, group)]):
+            req.wait()
+    return fn
+
+
+def ppermute(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """A shift of one along the group's ring: ``x`` goes to the rank at
+    index + 1 (the last to the first), and the rank at index - 1's comes
+    back."""
+    x = x.contiguous()
+    out = x if g.pg is None else _run(_shift(g), torch.empty_like(x), x, g)
+    g.stats.add("collective-permute", x, out)
     return out

@@ -4,17 +4,38 @@
 :class:`ExchangeConfig` holds the index exchange's lowering, the wire
 format of the cotangent exchange and of the dense reduce-scatter, the dense
 error feedback and the Split-SGD bucketing; :func:`resolve_exchange` reads
-it from a config, as the reference does.  The port runs the ``"fp32"``
-wire, the reference's default (in row mode the forward reduce-scatter and
-the cotangent all-gather carry bf16 all the same, as the reference's do),
-and the ``"fused"`` index exchange.  The ``"bf16"`` and ``"bf16_sr"`` wires,
-the ``"ring"`` exchange and the dense error feedback are refused with
-:class:`NotImplementedError` (ROADMAP queue 1 item 4).
+it from a config, as the reference does.
+
+Wire formats (``dY_dtype`` for the cotangent exchange, ``dense_dtype`` for
+the dense reduce-scatter):
+
+``"fp32"``
+    The default.  In row mode the forward reduce-scatter and the cotangent
+    all-gather carry bf16 all the same, as the reference's do.
+``"bf16"``
+    Rounded to nearest: halves table mode's cotangent all-to-all (and its
+    replica all-gather) and the dense reduce-scatter.  On the dense path
+    each rank's fp32 residual of its own slice is carried to the next step
+    in the ``err`` slab (``error_feedback``).
+``"bf16_sr"``
+    Rounded stochastically under a counter-based dither of ``(sr, tag,
+    element)`` (``optim.stochastic.wire_noise``), the tag from
+    :func:`wire_tag`: every rank computes the same bits for a payload, and
+    a run resumed from a checkpoint replays them.
+
+A value bf16 holds exactly (zero too) passes every wire unchanged.  The
+index exchange is one all-gather (``"fused"``) or a ring of point-to-point
+shifts a mesh axis (``"ring"``, ``core.pipeline.ring_all_gather``), with
+the same result bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+from repro_torch.optim import stochastic
 
 WIRE_DTYPES = ("fp32", "bf16", "bf16_sr")
 EXCHANGE_IMPLS = ("fused", "ring")
@@ -25,8 +46,6 @@ WIRE_ITEMSIZE = {"fp32": 4, "bf16": 2, "bf16_sr": 2}
 # exchange tags its payloads by microbatch, the dense reduce-scatter by bucket)
 TAG_DY = 0xDE100000
 TAG_DENSE = 0xD5E00000
-
-_LATER = "ROADMAP queue 1 item 4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +82,6 @@ class ExchangeConfig:
         """Whether the dense state carries the error-feedback ``err`` slab."""
         return self.dense_dtype == "bf16" and self.error_feedback
 
-    def check_ported(self) -> "ExchangeConfig":
-        """``self``, or :class:`NotImplementedError` for what the port does
-        not run yet."""
-        if self.impl != "fused":
-            raise NotImplementedError(f"exchange_impl {self.impl!r}: the port runs the 'fused' "
-                                      f"index exchange ({_LATER})")
-        for field, v in (("dY_dtype", self.dY_dtype), ("dense_dtype", self.dense_dtype)):
-            if v != "fp32":
-                raise NotImplementedError(f"{field} {v!r}: the port runs the 'fp32' wire "
-                                          f"({_LATER})")
-        return self
-
 
 def resolve_exchange(cfg) -> ExchangeConfig:
     """The one reader of a config's collective settings: a typed
@@ -101,3 +108,21 @@ def wire_tag(base: int, site: int, rank: int) -> int:
     them (``repro/dist/exchange.py::wire_tag``)."""
     return (base ^ ((site * 0x9E3779B1) & 0xFFFFFFFF) ^ ((rank * 0x85EBCA6B) & 0xFFFFFFFF)) \
         & 0xFFFFFFFF
+
+
+def wire_encode(x: torch.Tensor, dtype: str, seed=None, tag: int = 0) -> torch.Tensor:
+    """fp32 -> the payload of wire ``dtype``: ``"fp32"`` as it is, ``"bf16"``
+    rounded to nearest, ``"bf16_sr"`` rounded under the dither of ``seed``
+    (the state's ``sr``; None: 0) and ``tag`` (:func:`wire_tag`)."""
+    if dtype == "fp32":
+        return x
+    if dtype == "bf16":
+        return x.to(torch.bfloat16)
+    if dtype != "bf16_sr":
+        raise ValueError(f"unknown wire dtype {dtype!r}; expected one of {WIRE_DTYPES}")
+    return stochastic.sr_round_bf16_wire(x, 0 if seed is None else seed, tag)
+
+
+def wire_decode(x: torch.Tensor) -> torch.Tensor:
+    """A wire payload -> fp32 (bf16 widens exactly)."""
+    return x.float()

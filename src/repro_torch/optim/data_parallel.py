@@ -1,8 +1,10 @@
 """Dense data-parallel Split-SGD (twin of ``repro/optim/data_parallel.py``).
 
 The dense state of a rank is ``{"hi": tree, "lo": [padded / ranks] int16,
-"err": None}``: the bf16 upper halves as the parameter tree the forward
-reads, replicated, and this rank's shard of the lower halves.  The global
+"err": [padded / ranks] fp32 or None}``: the bf16 upper halves as the
+parameter tree the forward reads, replicated, this rank's shard of the lower
+halves, and with the ``"bf16"`` dense wire's error feedback this rank's
+residual of the last step's rounding (``err``, laid out as ``lo``).  The global
 ``lo`` is one flat vector in the reference's raveled order, padded to a
 multiple of ``ranks * num_buckets`` and laid out bucket-major within each
 rank's shard (``to_bucketed_layout``): rank ``s``'s shard is
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist import comm
+from repro_torch.dist import exchange
 from repro_torch.kernels import ops
 from repro_torch.optim.split_sgd import split_fp32
 
@@ -117,27 +120,34 @@ def flat_hi(hi_tree, padded: int) -> torch.Tensor | None:
     return base
 
 
-def dp_global_arrays(params_fp32, ns: int = 1, num_buckets: int = 4) -> dict:
+def dp_global_arrays(params_fp32, ns: int = 1, num_buckets: int = 4,
+                     error_feedback: bool = False) -> dict:
     """The reference's global dense arrays from fp32 parameters: ``{"hi":
     tree of bf16 views, "lo": [padded] int16 in the bucketed layout of ``ns``
-    ranks, "err": None}`` (the fp32 wire keeps no error).  At ``ns = 1`` this
-    is the one rank's state."""
+    ranks, "err": [padded] fp32 zeros with ``error_feedback``, else None}``.
+    At ``ns = 1`` this is the one rank's state."""
     flat = torch.cat([t.float().reshape(-1) for t in tree_leaves(params_fp32)])
     hi_flat, lo_flat = split_fp32(flat)
     hi_buf = torch.zeros(padded_size(flat.numel(), ns, num_buckets), dtype=torch.bfloat16,
                          device=flat.device)
     hi_buf[:flat.numel()] = hi_flat
     hi = _views(hi_buf, params_fp32)
-    return {"hi": hi, "lo": to_bucketed_layout(lo_flat, ns, num_buckets), "err": None}
+    lo = to_bucketed_layout(lo_flat, ns, num_buckets)
+    return {"hi": hi, "lo": lo,
+            "err": torch.zeros(lo.shape, dtype=torch.float32, device=lo.device)
+            if error_feedback else None}
 
 
-def init_dp_state(params_fp32, ns: int, shard: int, num_buckets: int = 4) -> dict:
+def init_dp_state(params_fp32, ns: int, shard: int, num_buckets: int = 4,
+                  error_feedback: bool = False) -> dict:
     """Rank ``shard``'s dense state of ``ns`` ranks: the ``hi`` tree and its
-    chunk of :func:`dp_global_arrays`' ``lo``."""
-    arrays = dp_global_arrays(params_fp32, ns, num_buckets)
+    chunks of :func:`dp_global_arrays`' ``lo`` and ``err``."""
+    arrays = dp_global_arrays(params_fp32, ns, num_buckets, error_feedback)
     chunk = arrays["lo"].numel() // ns
-    return {"hi": arrays["hi"], "lo": arrays["lo"][shard * chunk:(shard + 1) * chunk].clone(),
-            "err": None}
+
+    def mine(t):
+        return None if t is None else t[shard * chunk:(shard + 1) * chunk].clone()
+    return {"hi": arrays["hi"], "lo": mine(arrays["lo"]), "err": mine(arrays["err"])}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -146,28 +156,40 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def rs_ag_split_sgd(state: dict, grads, lr: float, num_buckets: int = 4,
-                    group: comm.Group | None = None) -> dict:
+                    group: comm.Group | None = None, wire_dtype: str = "fp32",
+                    error_feedback: bool = True, seed=None) -> dict:
     """One dense Split-SGD step over the ranks of ``group`` (None: this rank
     alone), in place.  ``g`` is the raveled gradient in fp32, zero on the
     padding; the reference's ``mean=False``: each rank's gradient is its
     share of the batch's mean loss, so the reduce-scatter sums them.
 
-    Bucket by bucket (one bucket at one rank): the fp32 reduce-scatter of the
+    ``wire_dtype`` is the reduce-scatter's payload (``dist.exchange``):
+    ``"fp32"``; ``"bf16"``, each rank's gradient rounded to nearest, and with
+    ``error_feedback`` and an ``err`` slab the fp32 residual of the rank's
+    own slice (``own - bf16(own)``) kept in ``err`` and the last step's
+    added after the reduce-scatter; ``"bf16_sr"``, rounded under the dither
+    of ``seed`` (the state's ``sr``) tagged ``wire_tag(TAG_DENSE, bucket,
+    rank)``.  A bf16 payload is summed in fp32 and rounded once
+    (``comm.psum_scatter``).
+
+    Bucket by bucket (one bucket at one rank): the reduce-scatter of the
     bucket's gradient (``comm.psum_scatter``, the reference's summation
     order), the Split-SGD kernel on this rank's chunk of ``hi`` and ``lo``,
     and the bf16 all-gather of the new chunks straight into the bucket's
     slice of the flat ``hi`` buffer.  At one rank without a process group
-    that is one flat Split-SGD pass over the padded vector, in place.
+    that is one flat Split-SGD pass over the padded vector, in place (the
+    ``bf16_sr`` dither is drawn bucket by bucket all the same).
     ``state["hi"]`` is updated in place when it is :func:`pack_hi`'s views
-    (else it is packed first); returns the new state."""
+    (else it is packed first), and ``err`` in place; returns the new state."""
     group = comm.local_group() if group is None else group
     ns = group.size
-    lo = state["lo"]
+    lo, err = state["lo"], state.get("err")
     padded = lo.numel() * ns
     want = padded_size(ravel_size(state["hi"]), ns, num_buckets)
     if padded != want:
         raise ValueError(f"lo holds {lo.numel()} values of {ns} ranks, the parameters need "
                          f"{want // ns}")
+    ef = wire_dtype == "bf16" and error_feedback and err is not None
     flat = flat_hi(state["hi"], padded)
     hi = state["hi"]
     if flat is None:
@@ -175,12 +197,24 @@ def rs_ag_split_sgd(state: dict, grads, lr: float, num_buckets: int = 4,
     n = ravel_size(hi)
     g = torch.cat([t.reshape(-1).float() for t in tree_leaves(grads)]
                   + [torch.zeros(padded - n, dtype=torch.float32, device=lo.device)])
+    s = group.index
+    if wire_dtype == "bf16_sr":  # each of the reference's buckets its own dither stream
+        rlen = padded // num_buckets
+        wire = torch.cat([exchange.wire_encode(g[b * rlen:(b + 1) * rlen], wire_dtype, seed,
+                                               exchange.wire_tag(exchange.TAG_DENSE, b, s))
+                          for b in range(num_buckets)])
+    else:
+        wire = exchange.wire_encode(g, wire_dtype)
     nb = num_buckets if ns > 1 else 1
     blen = padded // nb
     bchunk = blen // ns
-    s = group.index
     for b in range(nb):
-        gsh = comm.psum_scatter(g[b * blen:(b + 1) * blen], group)
+        gsh = exchange.wire_decode(comm.psum_scatter(wire[b * blen:(b + 1) * blen], group))
+        if ef:
+            own = g[b * blen + s * bchunk:b * blen + (s + 1) * bchunk]
+            eb = err[b * bchunk:(b + 1) * bchunk]
+            gsh = gsh + eb
+            eb.copy_(own - own.to(torch.bfloat16).float())
         hib = flat[b * blen + s * bchunk:b * blen + (s + 1) * bchunk]
         if group.pg is not None:
             hib = hib.clone()  # the all-gather's source must not lie in its destination
@@ -190,4 +224,4 @@ def rs_ag_split_sgd(state: dict, grads, lr: float, num_buckets: int = 4,
         if lob_k is not lob:
             lob.copy_(lob_k)
         comm.all_gather(hib, group, out=flat[b * blen:(b + 1) * blen])
-    return {"hi": hi, "lo": lo, "err": None}
+    return {"hi": hi, "lo": lo, "err": err}

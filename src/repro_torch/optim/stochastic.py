@@ -1,4 +1,4 @@
-"""Seeded stochastic rounding to bf16 (the port's copy of the state part of
+"""Seeded stochastic rounding to bf16 (the port's copy of
 ``repro/optim/stochastic.py``).
 
 The compressed-state optimizers (``momentum_bf16``, ``adagrad_bf16``) keep
@@ -7,7 +7,11 @@ their state slab as bf16 and round each new value stochastically: a uniform
 half, so that the stored value is unbiased.  The dither is a pure function
 of ``(seed, row, column)``, the ``lowbias32`` hash, with no sampler state:
 the row kernel (``csrc/embedding_update.cu``) and the plain versions
-(``kernels/ref.py``) add the same dither to the same value.
+(``kernels/ref.py``) add the same dither to the same value.  The ``bf16_sr``
+wire of the hybrid step's collectives (``dist/exchange.py``) rounds its
+payloads the same way, with a dither that is a pure function of ``(seed,
+tag, flat element index)`` (:func:`wire_noise`), so a run resumed from a
+checkpoint of ``sr`` replays it.
 
 PyTorch on the CPU has no ``>>`` and no ``+`` for ``uint32`` tensors, and
 ``int32``'s ``>>`` is arithmetic.  So the hash runs on ``int64`` tensors
@@ -25,6 +29,9 @@ MIX2 = 0x846CA68B
 # Weyl / stream constants decorrelating the (seed, row, column) counters
 GOLD = 0x9E3779B1
 ROWC = 0x85EBCA6B
+# the wire payloads' stream constant: keeps their dither off the row streams
+# even where a tag equals a row id
+WIREC = 0xB5297A4D
 
 MASK32 = 0xFFFFFFFF
 
@@ -74,3 +81,27 @@ def sr_round_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     bits = _u32(x.float().contiguous().view(torch.int32))
     top = (((bits + (noise & 0xFFFF)) & MASK32) >> 16)
     return torch.where(top >= 0x8000, top - 0x10000, top).to(torch.int16).view(torch.bfloat16)
+
+
+def wire_noise(seed, tag, shape: tuple, device=None) -> torch.Tensor:
+    """The dither of one wire payload: 32-bit noise of ``shape`` as int64, a
+    pure function of ``(seed, tag, flat element index)``.  ``seed`` is an
+    int or a 0-d integer tensor (the state's ``sr``), ``tag`` the payload's
+    uint32 stream tag (``dist.exchange.wire_tag``).  On ``device`` (else
+    ``seed``'s)."""
+    # the stream's base where the seed lives: a 0-d tensor on the host (an int
+    # seed) enters the payload's elementwise ops as a scalar, with no copy
+    seed = _u32(seed)
+    base = mix32(_mul32(seed, GOLD) ^ ((_mul32(_u32(tag), WIREC) + 1) & MASK32))
+    n = 1
+    for d in shape:
+        n *= int(d)
+    ctr = torch.arange(n, dtype=torch.int64, device=base.device if device is None else device)
+    return mix32(base ^ ((_mul32(ctr.reshape(tuple(shape)), ROWC) + GOLD) & MASK32))
+
+
+def sr_round_bf16_wire(x: torch.Tensor, seed, tag) -> torch.Tensor:
+    """fp32 -> bf16 of a wire payload, rounded stochastically under
+    :func:`wire_noise`.  A value bf16 holds exactly (zero too) passes
+    unchanged: its discarded half is zero and the dither stays below it."""
+    return sr_round_bf16(x, wire_noise(seed, tag, tuple(x.shape), x.device))

@@ -10,8 +10,8 @@
 * :func:`state_from_numpy` and :func:`state_to_numpy` carry a whole train
   state across, both ways, bit for bit: the embedding store with its
   optimizer's state slabs (bf16 ones too), the dense ``hi`` tree, the dense
-  ``lo`` vector and the stochastic rounding's seed ``sr`` where the
-  optimizer has one.  :func:`state_to_global` and :func:`state_from_global`
+  ``lo`` vector, the dense error feedback's ``err`` and the seed ``sr``
+  where the config has them.  :func:`state_to_global` and :func:`state_from_global`
   do the same with CPU tensors and need no ``ml_dtypes``: the run loop's
   checkpoint of a sharded state (:func:`global_like` is its restore
   target), and :func:`reshard_global` lays it out for another mesh (an
@@ -30,6 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
 from repro_torch.core.dlrm import DLRMConfig, init_dense_params
+from repro_torch.dist.exchange import resolve_exchange
 from repro_torch.models import lm_steps
 from repro_torch.models import transformer as tf
 from repro_torch.models.mlp import mlp_sizes
@@ -108,17 +109,18 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda
     """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
     state)``: ``emb`` {hi bf16, lo uint16} or {w fp32} and the optimizer's
     state slabs (``mom``, ``acc``, ``cnt``; bf16 ones as ``ml_dtypes``
-    arrays), ``dense`` {hi tree bf16, lo [padded] uint16, err None} and,
-    for a stochastically rounding optimizer, ``sr`` 0-d int32), the
+    arrays), ``dense`` {hi tree bf16, lo [padded] uint16, err [padded] fp32
+    or None} and, where the config has it, ``sr`` 0-d int32), the
     reference's GLOBAL arrays of a ``mesh`` of the same shape -> this rank's
     train state on its device (``mesh`` None: one rank on ``device``), bit
     for bit: :func:`state_from_global` of the arrays as tensors."""
     from repro_torch.launch.mesh import resolve_mesh
     mesh = resolve_mesh(mesh, device)
+    err = state_np["dense"].get("err")
     tensors = {"emb": {k: to_torch(v) for k, v in state_np["emb"].items()},
                "dense": {"hi": dp.tree_map(to_torch, state_np["dense"]["hi"]),
                          "lo": to_torch(state_np["dense"]["lo"]),
-                         "err": state_np["dense"].get("err")}}  # refused below unless None
+                         "err": None if err is None else to_torch(err)}}
     if "sr" in state_np:
         tensors["sr"] = to_torch(np.asarray(state_np["sr"], np.int32))
     return state_from_global(tensors, cfg, mesh)
@@ -131,15 +133,13 @@ def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") 
     train state on its device (``mesh`` None: one rank on ``device``), bit
     for bit, laid out as ``core.hybrid.init_state`` lays it out: the rank's
     rows of the embedding store (its row window, or its bin of tables), its
-    chunk of the bucketed ``lo``, the dense ``hi`` leaves as views of one
-    flat buffer."""
+    chunks of the bucketed ``lo`` and ``err``, the dense ``hi`` leaves as
+    views of one flat buffer."""
     from repro_torch.core import hybrid
     from repro_torch.launch.mesh import resolve_mesh
 
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
-    if glob["dense"].get("err") is not None:
-        raise NotImplementedError("the error-feedback slab of the bf16 dense wire is not ported")
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     R, s = layout.rows_per_shard, hybrid.emb_shard(cfg, mesh)
@@ -161,13 +161,23 @@ def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") 
         raise ValueError(f"dense lo holds {lo.numel()} values, the config needs {padded}")
     chunk = padded // mesh.size
     lo = lo[mesh.rank * chunk:(mesh.rank + 1) * chunk].to(dev)
+    err = glob["dense"].get("err")
+    if (err is not None) != resolve_exchange(cfg).needs_err:
+        raise ValueError(f"the config's dense state {'has no' if err is not None else 'needs'} "
+                         "the error feedback's slab 'err'")
+    if err is not None:
+        if tuple(err.shape) != (padded,) or err.dtype != torch.float32:
+            raise ValueError(f"dense err is {err.dtype} {tuple(err.shape)}, the config needs "
+                             f"torch.float32 {(padded,)}")
+        err = err[mesh.rank * chunk:(mesh.rank + 1) * chunk].to(dev)
     hi_tree = dp.tree_map(lambda t: t.to(dev), glob["dense"]["hi"])
     _, hi = dp.pack_hi(hi_tree, padded)
-    state = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": None}}
-    if ("sr" in glob) != opt.stochastic_round:
-        raise ValueError(f"the {opt.name} state {'needs' if opt.stochastic_round else 'has no'} "
-                         "the stochastic rounding's seed 'sr'")
-    if opt.stochastic_round:
+    state = {"emb": emb, "dense": {"hi": hi, "lo": lo, "err": err}}
+    sr = hybrid.needs_sr(cfg)
+    if ("sr" in glob) != sr:
+        raise ValueError(f"the {opt.name} state {'needs' if sr else 'has no'} the stochastic "
+                         "rounding's seed 'sr'")
+    if sr:
         state["sr"] = glob["sr"].to(device=dev, dtype=torch.int32).reshape(())
     return state
 
@@ -177,15 +187,17 @@ def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> di
     (copies: the step updates the state in place).  On a ``mesh`` of more
     than one rank (every rank calls it, with ``cfg``: it is a collective)
     the shards are all-gathered: the embedding slabs over the embedding
-    axes, ``lo`` over the mesh; a gloo group gathers the shards' host
+    axes, ``lo`` and ``err`` over the mesh; a gloo group gathers the shards' host
     copies, which its payloads cross anyway.  :func:`state_from_global` of
     the result gives the state back, bit for bit."""
     def host(t: torch.Tensor) -> torch.Tensor:
         return t.detach().to("cpu", copy=True).contiguous()
 
+    err = state["dense"].get("err")
     if mesh is None or mesh.size == 1:
         emb = {k: host(v) for k, v in state["emb"].items()}
         lo = host(state["dense"]["lo"])
+        err = None if err is None else host(err)
     else:
         from repro_torch.core import pipeline
         from repro_torch.dist import comm
@@ -200,8 +212,9 @@ def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> di
         g_emb = mesh.group(pipeline.emb_axes(cfg, mesh)[0])
         emb = {k: gather(v, g_emb) for k, v in state["emb"].items()}
         lo = gather(state["dense"]["lo"], mesh.group(mesh.axis_names))
+        err = None if err is None else gather(err, mesh.group(mesh.axis_names))
     out = {"emb": emb, "dense": {"hi": dp.tree_map(host, state["dense"]["hi"]), "lo": lo,
-                                 "err": None}}
+                                 "err": err}}
     if "sr" in state:
         out["sr"] = host(state["sr"])
     return out
@@ -219,6 +232,8 @@ def global_like(cfg: DLRMConfig, mesh=None) -> dict:
     struct["emb"] = row_optim.resolve(cfg).store_struct(hybrid.make_layout(cfg, mesh).total_rows,
                                                         cfg.emb_dim)
     struct["dense"]["lo"] = ((hybrid.padded_dense(cfg, mesh),), torch.int16)
+    if struct["dense"]["err"] is not None:
+        struct["dense"]["err"] = ((hybrid.padded_dense(cfg, mesh),), torch.float32)
 
     def meta(t):
         if isinstance(t, dict):
@@ -276,8 +291,10 @@ def state_to(state: dict, device) -> dict:
     # the flat buffer's length: a rank's lo is 1 / ranks of it
     base = leaves[0]._base
     padded = base.numel() if base is not None and base.dtype == torch.bfloat16 else lo.numel()
+    err = state["dense"].get("err")
     out = {"emb": {k: v.to(dev, copy=True) for k, v in state["emb"].items()},
-           "dense": {"hi": dp.pack_hi(hi, padded)[1], "lo": lo, "err": None}}
+           "dense": {"hi": dp.pack_hi(hi, padded)[1], "lo": lo,
+                     "err": None if err is None else err.to(dev, copy=True)}}
     if "sr" in state:
         out["sr"] = state["sr"].to(dev, copy=True)
     return out

@@ -131,7 +131,8 @@ def comm_cases_rank(rank: int, world_size: int, inputs: dict) -> dict:
 
 def card_cpu_cases_rank(rank: int, world_size: int, cases: list, device: str) -> list:
     """One rank's part of running each of ``cases`` (``DLRMConfig`` keyword
-    arguments) for ``steps`` seeded batches on a ``(1, world_size)`` mesh
+    arguments, ``exchange`` as a dict of ``ExchangeConfig`` fields) for
+    ``steps`` seeded batches on a ``(1, world_size)`` mesh
     twice, on ``device`` (gloo: the payloads staged through host memory)
     and on the CPU, from one state drawn on the CPU.  Returns per case the
     losses, the rank's fp32 embedding and dense master shards before and
@@ -157,6 +158,9 @@ def card_cpu_cases_rank(rank: int, world_size: int, cases: list, device: str) ->
 
     out = []
     for kw, steps in cases:
+        if isinstance(kw.get("exchange"), dict):
+            from repro_torch.dist.exchange import ExchangeConfig
+            kw = {**kw, "exchange": ExchangeConfig(**kw["exchange"])}
         cfg = dlrm.DLRMConfig(**kw)
         s_cpu = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu", mesh=cpu)
         s_card = weights.state_to(s_cpu, dev)
@@ -300,3 +304,135 @@ def elastic_rank(rank: int, world_size: int, c: dict, tmp: str) -> dict:
             for b in c["el_batches"][c["k1"]:]]
         out[src] = {"step": at, "losses": losses, "restored": restored if rank == 0 else None}
     return out
+
+
+def option_meshes(rank: int, world_size: int) -> dict:
+    """The meshes the option tests run on, by shape, made in one order on
+    every rank of a world of 4: (2, 2) and (1, 4) over the world, (1, 2)
+    over this rank's pair (ranks 0-1 or 2-3), (1, 1) with no process group
+    (rank 0's alone)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    axes = ("data", "model")
+    meshes = {(2, 2): make_mesh((2, 2), axes, "cpu"), (1, 4): make_mesh((1, 4), axes, "cpu")}
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    meshes[(1, 2)] = make_mesh((1, 2), axes, "cpu", group=pairs[rank // 2])
+    meshes[(1, 1)] = make_mesh((1, 1), axes, "cpu")
+    return meshes
+
+
+def _tree_copy(tree):
+    from repro_torch.optim import data_parallel as dp
+    return dp.tree_map(lambda a: np.array(a, copy=True), tree)
+
+
+def run_option_case(rank: int, mesh, c: dict) -> dict | None:
+    """One case of the option tests on this rank's ``mesh``: the start
+    state's shard, the steps over the case's global batches cut to the rank
+    (``core.hybrid.local_batch``).  Returns on the case's first rank (None
+    elsewhere) the losses, the gathered global state after each step and
+    each step's collective bytes by kind."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm, hybrid
+    from _torch_cases import cfg_of
+
+    cfg = cfg_of(c["cfg"])
+    state = weights.state_from_numpy(_tree_copy(c["start"]), cfg, mesh, device="cpu")
+    step = dlrm.make_train_step(cfg, mesh)
+    losses, states, stats = [], [], []
+    for b in c["batches"]:
+        mesh.stats.reset()
+        batch = hybrid.local_batch(cfg, mesh, {k: to_torch(v) for k, v in b.items()})
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        stats.append({k: dict(v) for k, v in mesh.stats.as_dict().items() if isinstance(v, dict)})
+        states.append(weights.state_to_numpy(state, mesh, cfg))
+    if mesh.rank != 0:
+        return None
+    return {"losses": losses, "states": states, "stats": stats}
+
+
+def option_cases_rank(rank: int, world_size: int, cases: list, units: str = "") -> dict:
+    """One rank's part of the option tests (``tests/test_torch_presort.py``,
+    ``test_torch_wire.py``, ``test_torch_microbatch.py``) in a world of 4:
+    each case on its mesh (a (1, 1) case on rank 0 alone, a (1, 2) case on
+    both pairs), then the file's unit checks, ``units`` naming a function of
+    this module called as ``fn(rank, meshes, inputs)`` with ``cases`` the
+    pair ``(cases, inputs)``.  Returns ``{"cases": [...], "units": ...}``,
+    the cases' results on rank 0 (the first pair's for (1, 2))."""
+    meshes = option_meshes(rank, world_size)
+    cases, inputs = cases
+    out = []
+    for c in cases:
+        mesh = meshes[tuple(c["mesh"])]
+        if mesh.size == 1 and rank != 0:
+            out.append(None)
+            continue
+        res = run_option_case(rank, mesh, c)
+        out.append(res if rank == 0 else None)
+    return {"cases": out, "units": globals()[units](rank, meshes, inputs) if units else None}
+
+
+def ring_units_rank(rank: int, meshes: dict, units: list) -> list:
+    """``core.pipeline.ring_all_gather`` and ``comm.all_gather`` of one
+    payload a rank (its values from the rank) for each ``(mesh, axes, shape,
+    dtype)`` of ``units``; returns the two results' bits a unit."""
+    from repro_torch.core.pipeline import ring_all_gather
+    from repro_torch.dist import comm
+
+    out = []
+    for shape, axes, pshape, dtype in units:
+        mesh = meshes[tuple(shape)]
+        x = (torch.arange(int(np.prod(pshape)), dtype=torch.float32).reshape(pshape) * 0.37
+             + 100 * rank).to(getattr(torch, dtype))
+        out.append((_np_bits(ring_all_gather(x, mesh, axes)),
+                    _np_bits(comm.all_gather(x, mesh.group(axes)))))
+    return out
+
+
+def wire_units_rank(rank: int, meshes: dict, inputs: dict) -> dict:
+    """The wire checks of ``tests/test_torch_wire.py`` on this rank of the
+    (2, 2) mesh: the dense Split-SGD step (``rs_ag_split_sgd``) on the
+    ``bf16`` wire with the error feedback's slab and on the ``bf16_sr``
+    wire, and ``gather_dY`` of three cotangents (random, zero, small
+    integers) on every wire in row and table mode.  Returns the results as
+    numpy (bf16 as int16 bits in ``dense``, as fp32 values in ``dY``)."""
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.core.embedding import EmbeddingSpec
+    from repro_torch.optim import data_parallel as dp
+
+    mesh = meshes[(2, 2)]
+    g_all = mesh.group(("data", "model"))
+    d = inputs["dense"]
+    chunk = d["lo"].size // 4
+    seed = torch.tensor(d["seed"], dtype=torch.int32)
+    dense = {}
+    for wire, with_err in (("bf16", True), ("bf16_sr", False)):
+        hi = torch.from_numpy(d["hi"].copy()).view(torch.bfloat16)
+        err = torch.from_numpy(d["err"][rank * chunk:(rank + 1) * chunk].copy())
+        state = {"hi": dp.pack_hi({"w": hi}, d["lo"].size)[1],
+                 "lo": torch.from_numpy(d["lo"].view(np.int16)[rank * chunk:(rank + 1) * chunk]
+                                        .copy()),
+                 "err": err if with_err else None}
+        new = dp.rs_ag_split_sgd(state, {"w": torch.from_numpy(d["g"][rank].copy())}, d["lr"],
+                                 d["nb"], g_all, wire_dtype=wire, seed=seed)
+        dense[wire] = {"hi": _np_bits(new["hi"]["w"]), "lo": new["lo"].numpy().copy(),
+                       "err": (new["err"] if with_err else err).numpy().copy()}
+    g = inputs["dY"]
+    dy, dtype = {}, {}
+    B = g["B"]
+    for mode in ("row", "table"):
+        layout = se.make_layout(EmbeddingSpec(tuple(g["rows"]), g["E"]), 4 if mode == "row" else 2,
+                                mode)
+        g_emb, g_rep = ((g_all, None) if mode == "row"
+                        else (mesh.group("model"), mesh.group("data")))
+        maps = se.slot_maps(layout, "cpu") if mode == "table" else None
+        for wire in ("fp32", "bf16", "bf16_sr"):
+            for what in ("values", "zeros", "exact"):
+                x = torch.from_numpy(g[what][rank * B // 4:(rank + 1) * B // 4].copy())
+                out = se.gather_dY(layout, x, g_emb, g_rep, maps, wire_dtype=wire,
+                                   seed=torch.tensor(g["seed"], dtype=torch.int32), tag=g["tag"])
+                dtype[mode, wire] = str(out.dtype).removeprefix("torch.")
+                dy[mode, wire, what] = out.float().numpy().copy()
+    return {"dense": dense, "dY": dy, "dtype": dtype}

@@ -260,8 +260,8 @@ def test_table_update_gathers_replica_ids_and_weights(runs):
 
 def test_exchange_config_and_wire_tag_match_reference():
     """``resolve_exchange`` reads a config's ``exchange`` and
-    ``exchange_dtype`` as the reference's does, the port refuses the wires
-    it does not run, and ``wire_tag`` mixes the same bits."""
+    ``exchange_dtype`` as the reference's does, and ``wire_tag`` mixes the
+    same bits."""
     import dataclasses
     import warnings
 
@@ -274,9 +274,8 @@ def test_exchange_config_and_wire_tag_match_reference():
         exchange_dtype: object = None
 
     typed = {"num_buckets": 2, "dense_dtype": "bf16", "error_feedback": False}
-    for kw, ported in (({}, True), ({"exchange_dtype": "fp32"}, True),
-                       ({"exchange_dtype": "bf16"}, False), ({"exchange_dtype": "bf16_sr"}, False),
-                       ({"exchange": typed}, False), ({"exchange": {"impl": "ring"}}, False)):
+    for kw in ({}, {"exchange_dtype": "fp32"}, {"exchange_dtype": "bf16"},
+               {"exchange_dtype": "bf16_sr"}, {"exchange": typed}, {"exchange": {"impl": "ring"}}):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             t = t_ex.resolve_exchange(Cfg(**{k: t_ex.ExchangeConfig(**v) if k == "exchange"
@@ -285,11 +284,6 @@ def test_exchange_config_and_wire_tag_match_reference():
                                              else v for k, v in kw.items()}))
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert (t.needs_sr, t.needs_err) == (j.needs_sr, j.needs_err)
-        if ported:
-            assert t.check_ported() is t
-        else:
-            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-                t.check_ported()
     with pytest.raises(ValueError, match="not both"):
         t_ex.resolve_exchange(Cfg(exchange=t_ex.ExchangeConfig(), exchange_dtype="fp32"))
     with pytest.raises(TypeError, match="ExchangeConfig"):
@@ -309,7 +303,7 @@ def test_byte_counters(runs):
     nbytes = {k: v[0].nbytes for k, v in inp.items() if k not in ("dense", "update")}
     stats = port[0]["stats"]
     assert stats["calls"] == {"all-gather": 3, "all-to-all": 2, "reduce-scatter": 3,
-                              "all-reduce": 1}
+                              "all-reduce": 1, "collective-permute": 0}
     assert stats["bytes_in"]["all-gather"] == 2 * nbytes["ag_i32"] + nbytes["ag_bf16"]
     assert stats["bytes_out"]["all-gather"] == 2 * 2 * nbytes["ag_i32"] + 4 * nbytes["ag_bf16"]
     assert stats["bytes_in"]["all-to-all"] == stats["bytes_out"]["all-to-all"] \
@@ -339,7 +333,8 @@ def test_one_rank_group_is_the_identity_and_counts():
     g = comm.Group(("model",), 1, 0, None, stats)
     x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     for fn in (lambda: comm.all_gather(x, g), lambda: comm.all_to_all(x, g, 0, 1),
-               lambda: comm.psum_scatter(x, g), lambda: comm.psum(x, g)):
+               lambda: comm.psum_scatter(x, g), lambda: comm.psum(x, g),
+               lambda: comm.ppermute(x, g)):
         assert fn() is x
     assert stats.calls == dict.fromkeys(comm.KINDS, 1)
     assert stats.bytes_out["reduce-scatter"] == 48

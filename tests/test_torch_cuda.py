@@ -1090,6 +1090,168 @@ def test_lm_serving_on_card_matches_cpu(dev, name):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the step's exchange surface: the host pre-sort, the wires and
+# microbatches, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,seed,tag", [((7,), 0, 0), ((33, 8, 64), -3, 0xDE100001),
+                                            ((1000, 129), 2 ** 31 - 1, 12345)])
+def test_wire_dither_on_card_is_the_cpu_s(dev, shape, seed, tag):
+    """``wire_noise`` and ``sr_round_bf16_wire`` on the card bit for bit
+    the CPU's, the seed a 0-d tensor on the card or an int, with no host
+    sync."""
+    from repro_torch.optim import stochastic
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)) * 3
+    sd = torch.tensor(seed, dtype=torch.int32)
+    want = stochastic.sr_round_bf16_wire(x, sd, tag)
+    x_dev, sd_dev = x.to(dev), sd.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [stochastic.sr_round_bf16_wire(x_dev, s, tag) for s in (sd_dev, seed)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g in got:
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(stochastic.wire_noise(sd.to(dev), tag, shape).cpu(),
+                       stochastic.wire_noise(sd, tag, shape))
+
+
+@pytest.mark.parametrize("mode", ["row", "table"])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_presort_is_the_card_s_sort(dev, mode, shards):
+    """``presort_batch`` on the host bit for bit each shard's
+    ``_row_sorted_streams`` on the card, weights in."""
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.core.embedding import EmbeddingSpec
+    from repro_torch.data.pipeline import PSORT_KEYS, presort_batch
+    layout = se.make_layout(EmbeddingSpec((1000, 37, 250, 13), 16), shards, mode)
+    rng = np.random.default_rng(shards)
+    idx = np.stack([rng.zipf(1.3, (64, 3)) % m for m in (1000, 37, 250, 13)], 1).astype(np.int32)
+    w = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32)
+    fields = presort_batch(layout, idx, w)
+    ids, wt = torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+    K = layout.slots_per_shard
+    if mode == "table":
+        ids, wt = (se.permute_indices(layout, t) for t in (ids, wt))
+    for s in range(shards):
+        mine, ws = (ids, wt) if mode == "row" else (ids[:, s * K:(s + 1) * K],
+                                                    wt[:, s * K:(s + 1) * K])
+        off = torch.as_tensor(se.local_offsets(layout, s), dtype=torch.int32, device=dev)
+        got = se._row_sorted_streams(layout, (mine + off[None, :, None]).reshape(-1), 3,
+                                     ws.reshape(-1), s)
+        for k, t in zip(PSORT_KEYS, got):
+            assert t.device.type == "cuda"
+            np.testing.assert_array_equal(t.cpu().numpy(), fields[k][s])
+
+
+@pytest.mark.parametrize("over", [{}, {"emb_mode": "table", "weighted": True}])
+def test_presorted_step_on_card_is_the_device_sorted_step(dev, over):
+    """Two ``host_presort`` steps on the card bit for bit two device-sorted
+    ones (losses and state), one launch a step of each training kernel."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.data.pipeline import presort_batch
+    from repro_torch.optim import data_parallel as dp
+    cfg = _small_train_cfg(**over)
+    layout = se.make_layout(cfg.spec, 1, cfg.emb_mode)
+    state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a, b = weights.state_to(state, dev), weights.state_to(state, dev)
+    batches = _small_batches(cfg, 2, dev)
+    step = dlrm.make_train_step(cfg, device=dev)
+    p_step = dlrm.make_train_step(dataclasses.replace(cfg, host_presort=True), device=dev)
+    la, lb = [], []
+    for bt in batches:
+        fields = presort_batch(layout, bt["idx"].cpu().numpy(),
+                               bt["weights"].cpu().numpy() if cfg.weighted else None)
+        # table mode's replicated stream: the step reads padded-slot order
+        fed = ({**bt, **{k: se.permute_indices(layout, bt[k])
+                         for k in ("idx", "weights") if k in bt}}
+               if cfg.emb_mode == "table" else bt)
+        a, l1 = step(a, fed)
+        ops.reset_launches()
+        b, l2 = p_step(b, {**fed, **{k: torch.from_numpy(v).to(dev) for k, v in fields.items()}})
+        torch.cuda.synchronize()
+        counts = ops.launches()
+        assert counts == {**{k: 0 for k in counts}, "embedding_bag": 1, "dot_interaction": 1,
+                          "embedding_update": 1, "split_sgd": 1}
+        la.append(l1)
+        lb.append(l2)
+    assert torch.equal(torch.stack(la).view(torch.int32), torch.stack(lb).view(torch.int32))
+    for x, y in zip(dp.tree_leaves(weights.state_to_global(a)),
+                    dp.tree_leaves(weights.state_to_global(b))):
+        assert torch.equal(_bit_view(x), _bit_view(y))
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_microbatched_step_on_card_matches_cpu(dev, M):
+    """Two M-steps on the card against the same steps on the CPU: losses
+    within 1e-4 relative, the store's fp32 master within 1e-2 of the
+    largest update; the bag and the interaction launched M times a step,
+    the row and dense updates once, no host sync."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    from repro_torch.optim.split_sgd import combine_split
+    cfg = _small_train_cfg(microbatches=M)
+    cpu_state = dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = weights.state_to(cpu_state, dev)
+    old = combine_split(cpu_state["emb"]["hi"], cpu_state["emb"]["lo"]).clone()
+    batches = _small_batches(cfg, 2, dev)
+    step, cpu_step = dlrm.make_train_step(cfg, device=dev), dlrm.make_train_step(cfg, device="cpu")
+    state, _ = step(state, batches[0])  # builds the kernels before the sync check
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    assert counts == {**{k: 0 for k in counts}, "embedding_bag": M, "dot_interaction": M,
+                      "embedding_update": 1, "split_sgd": 1}
+    for b in batches:
+        cpu_state, cpu_loss = cpu_step(cpu_state, {k: v.cpu() for k, v in b.items()})
+    assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=0)
+    want = combine_split(cpu_state["emb"]["hi"], cpu_state["emb"]["lo"])
+    largest = float((want - old).abs().max())
+    assert largest > 0
+    assert_close(combine_split(state["emb"]["hi"], state["emb"]["lo"]).cpu(), want, rtol=0,
+                 atol=1e-2 * largest)
+
+
+@pytest.mark.parametrize("wire", ["bf16", "bf16_sr"])
+def test_dense_wire_on_card_is_the_cpu_s(dev, wire):
+    """One rank's dense Split-SGD step on the ``bf16`` wire (the error
+    feedback's slab nonzero at the start) and on ``bf16_sr``, fp32
+    gradients bf16 does not hold: ``hi``, ``lo`` and ``err`` on the card bit
+    for bit the CPU's."""
+    from repro_torch.optim import data_parallel as dp
+    gen = torch.Generator().manual_seed(2)
+    params = {"w": torch.randn(3001, generator=gen), "b": torch.randn(77, generator=gen)}
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    out = []
+    for d in ("cpu", dev):
+        st = dp.init_dp_state({k: v.to(d) for k, v in params.items()}, 1, 0, 4, wire == "bf16")
+        if st["err"] is not None:
+            st["err"].copy_(torch.randn(st["err"].shape, generator=gen.manual_seed(3)).to(d) * 1e-2)
+        new = dp.rs_ag_split_sgd(st, {k: v.to(d) for k, v in grads.items()}, 0.5, 4,
+                                 wire_dtype=wire, seed=torch.tensor(9, dtype=torch.int32,
+                                                                    device=d))
+        out.append([t.cpu() for t in dp.tree_leaves(new["hi"])] + [new["lo"].cpu()]
+                   + ([new["err"].cpu()] if new["err"] is not None else []))
+    for a, b in zip(*out):
+        assert torch.equal(_bit_view(a), _bit_view(b))
+
+
+def _bit_view(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as integers (16- and 32-bit types)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+# ---------------------------------------------------------------------------
 # The hybrid step at two ranks sharing the card (gloo, payloads staged through
 # host memory) against the same two ranks on the CPU
 # ---------------------------------------------------------------------------
@@ -1100,7 +1262,10 @@ HYBRID_SMALL = dict(name="dlrm-tiny", num_dense=16, bottom=(32, 16), top=(32, 16
 HYBRID_CASES = {"row-replicated": {}, "row-sharded": {"idx_input": "sharded"},
                 "table-replicated": {"emb_mode": "table"},
                 "table-sharded": {"emb_mode": "table", "idx_input": "sharded"},
-                "row-adagrad_rowwise": {"sparse_optimizer": "adagrad_rowwise", "lr": 0.01}}
+                "row-adagrad_rowwise": {"sparse_optimizer": "adagrad_rowwise", "lr": 0.01},
+                "row-sharded-ring": {"idx_input": "sharded", "exchange": {"impl": "ring"}},
+                "table-bf16": {"emb_mode": "table", "exchange_dtype": "bf16"},
+                "row-bf16_sr-M2": {"exchange_dtype": "bf16_sr", "microbatches": 2}}
 
 
 @pytest.fixture(scope="module")

@@ -170,8 +170,9 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("hybrid")
     c4 = [_case(n, m, o, i) for i, (n, m, o) in enumerate(CASES4)]
     c8 = [_case(n, m, o, 100 + i) for i, (n, m, o) in enumerate(CASES8)]
-    bench = {"name": "bench", "cfg": BENCH, "mesh": (1, 8), "start": None,
-             "batches": _batches(t_dlrm.DLRMConfig(**BENCH), (1, 8), 1, 7), "eval": None}
+    bench = [{"name": "bench", "cfg": cfg, "mesh": (1, 8), "start": None,
+              "batches": _batches(t_dlrm.DLRMConfig(**cfg), (1, 8), 1, 7), "eval": None}
+             for cfg in (BENCH, {**BENCH, "exchange_dtype": "bf16"})]
     with open(tmp / "cases.pkl", "wb") as f:
         pickle.dump(c4 + c8, f)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
@@ -180,7 +181,7 @@ def runs(tmp_path_factory):
                            stderr=subprocess.PIPE, text=True)
     try:
         port4 = run_ranks(hybrid_cases_rank, 4, (c4,), timeout_s=240, store_dir=str(tmp))
-        port8 = run_ranks(hybrid_cases_rank, 8, (c8 + [bench],), timeout_s=240,
+        port8 = run_ranks(hybrid_cases_rank, 8, (c8 + bench,), timeout_s=240,
                           store_dir=str(tmp))
         _, err = ref.communicate(timeout=300)
     finally:
@@ -193,7 +194,7 @@ def runs(tmp_path_factory):
     for cases, port in ((c4, port4), (c8, port8)):
         for i, c in enumerate(cases):
             got[c["name"]] = (c, [port[r][i] for r in range(len(port))])
-    return got, dict(zip([c["name"] for c in c4 + c8], want)), port8[0][len(c8)]
+    return got, dict(zip([c["name"] for c in c4 + c8], want)), port8[0][len(c8):]
 
 
 def _touched(case) -> np.ndarray:
@@ -383,8 +384,28 @@ def test_collective_bytes_match_bench_pipeline(runs):
     import json
     _, _, bench = runs
     want = json.loads((ROOT / "BENCH_pipeline.json").read_text())["points"][0]["collective_bytes"]
-    got = bench["bytes_out"]
+    got = bench[0]["bytes_out"]
     assert got["all-to-all"] == want["all-to-all"] == 8192
     assert got["reduce-scatter"] == want["reduce-scatter"] == 3312
     assert got["all-reduce"] == want["all-reduce"] == 4
     assert got["all-gather"] == want["all-gather"] - 4 * 1656 * 2 == 18624
+
+
+def test_bf16_wire_collective_bytes_match_bench_pipeline(runs):
+    """The same step on the ``bf16`` wires against ``BENCH_pipeline.json``
+    ``wire.bf16.collective_bytes``: the all-to-alls exactly (the forward's
+    fp32 payload and the cotangent's halved); the all-gathers less the
+    bucketed ``hi`` all-gather's widening (as on the fp32 wire); the dense
+    reduce-scatter half of the reference's count, because XLA's CPU
+    pipeline carries the bf16 payload as fp32 (``repro/dist/exchange.py``)
+    where the port moves bf16."""
+    import json
+    _, _, bench = runs
+    want = json.loads((ROOT / "BENCH_pipeline.json").read_text())["wire"]["bf16"]
+    got = bench[1]["bytes_out"]
+    assert got["all-to-all"] == want["collective_bytes"]["all-to-all"] == 6144
+    assert got["all-gather"] == want["collective_bytes"]["all-gather"] - 4 * 1656 * 2 == 16576
+    assert got["reduce-scatter"] == want["collective_bytes"]["reduce-scatter"] // 2 == 1656
+    assert got["all-reduce"] == want["collective_bytes"]["all-reduce"] == 4
+    fp32 = bench[0]["bytes_out"]
+    assert fp32["all-to-all"] - got["all-to-all"] == 2048 and want["wire_reduction_x"] == 2.0
