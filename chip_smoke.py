@@ -179,8 +179,26 @@ from the root of a checkout.  Phases, each of which fails the run:
     M = 1's.  18d: two processes on the card over gloo, (1, 2), row mode,
     the batch-sharded stream: 4 steps (one a warm-up) with the ``ring``
     index exchange bit for bit the ``fused`` one's, then ``bf16`` with the error feedback at M
-    = 2, each rank's first step held to the two-rank CPU step.  A failure
-    raises ``SystemExit`` and prints no result.
+    = 2, each rank's first step held to the two-rank CPU step;
+19. the hot-row cache and the step metrics, dlrm-small at full width.  19a:
+    table mode with the sharded stream on a one-rank NCCL group, 64 hot rows
+    a table promoted every 2 steps under ``allreduce``, the metrics on: the
+    first step held to the CPU step (phase 6's tolerances; the counts and
+    the metrics bit for bit), 20 steps (one under
+    ``set_sync_debug_mode("error")``) bit for bit the same 20 with the cache
+    off (losses, store, dense state), the bag kernel twice a step (the
+    owner's bags and the hot bags), the counts the bincount of the batches,
+    the hot set a numpy ``lexsort`` of them in the reference's order, the
+    mirror the store's rows, the metrics' counts exact; printed: the hit
+    rate on a held-out batch, the effective all-to-all payload, the busy ms
+    a step with and without the cache, the epilogue's parts under the
+    profiler.  19b: ``deferred:8``, finite losses, the store's distance from
+    19a's.  19c: ``TrainLoop`` draining the metrics every 10 steps: two
+    heartbeat windows with ``cache_hit_rate``, the step p50 with and without
+    the metrics.  19d: ``profile_stages`` of dlrm-small (row mode): six
+    stages with ms and modelled bytes, flops and µs, the trace read back by
+    ``telemetry.summarize``.  A failure raises ``SystemExit`` and prints no
+    result.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
@@ -193,7 +211,8 @@ its eval step, rows 4 and 5 the train steps and the loop's, and rows 1, 2,
 4, 5 and 9 also phase 16's timed steps, both ranks' in 16b, and rows 1,
 2, 4 and 5 every rank's loop and elastic steps of phase 17 and phase 18's
 timed steps: 18a's presorted and loop steps, 18b's, 18c's M > 1 steps (rows
-1 and 2 M times a step) and both ranks' ring steps in 18d); then
+1 and 2 M times a step) and both ranks' ring steps in 18d, and every step of
+phase 19, row 1 twice a cached table-mode step); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.
@@ -262,6 +281,9 @@ MESH_STEP_LAUNCHES = {"embedding_bag": 1, "dot_interaction": 1, "embedding_updat
 # wire; 18c's M-steps; 18d's ring steps
 PRESORT_STEPS, PRESORT_TABLE_STEPS = 20, 5
 WIRE_STEPS, MB_STEPS, RING_STEPS = 10, 10, 3
+# phase 19: the hot-row cache's rows a table and cadence, its steps (19a cached and
+# cold, 19b deferred, 19c each loop) and the metrics' drain
+HOT_ROWS, PROMOTE_EVERY, CACHE_STEPS, METRICS_EVERY = 64, 2, 20, 10
 
 
 # a kernel train step against the same step on the CPU (every kernel's plain
@@ -3018,6 +3040,356 @@ def ring_two_rank_phase(failures) -> dict:
     return counts
 
 
+def plain_select_hot(layout, cnt: np.ndarray, hot_rows: int, seed: int) -> np.ndarray:
+    """The hot set of ``cnt`` (the counts in layout order) in the reference's
+    total order, on the host with numpy alone: per table a ``lexsort`` by
+    count descending, then lowbias32(gid ^ seed) ascending (uint32)."""
+    from repro_torch.core import sharded_embedding as se
+    spec = layout.spec
+    _, g2l = se.layout_gid_maps(layout)
+    out = []
+    for t, rows_t in enumerate(spec.table_rows):
+        gids = int(spec.row_offsets[t]) + np.arange(rows_t, dtype=np.int64)
+        c = cnt[g2l[gids]].astype(np.int64)
+        x = (gids.astype(np.uint32) ^ np.uint32(seed & 0xFFFFFFFF)).astype(np.uint64)
+        for shift, mul in ((16, 0x7FEB352D), (15, 0x846CA68B)):
+            x = ((x ^ (x >> np.uint64(shift))) * np.uint64(mul)) & np.uint64(0xFFFFFFFF)
+        h = x ^ (x >> np.uint64(16))
+        top = np.lexsort((h, -c))[:hot_rows]
+        ids = np.where(c[top] > 0, gids[top], -1)
+        out.append(np.concatenate([ids, np.full(hot_rows - ids.size, -1)]))
+    return np.concatenate(out).astype(np.int32)
+
+
+def plain_hit_counts(layout, hot_ids: list, batches: list) -> tuple[float, float]:
+    """(hit lookups, all-hot bags) of ``batches``, batch i against the hot
+    set ``hot_ids[i]`` (gids, -1 empty), on the host with numpy alone: a
+    lookup hits when it is in its table's range and its gid is hot; a bag
+    when all its lookups do.  Each batch's counts are exact and are added
+    up in fp32, one batch at a time, as the step's metrics vector adds them
+    (a total past 2^24 rounds)."""
+    spec = layout.spec
+    s2t = np.asarray(layout.slot_to_table)
+    off = np.asarray(spec.row_offsets, np.int64)[s2t][None, :, None]
+    cap = np.asarray(spec.table_rows, np.int64)[s2t][None, :, None]
+    lookups = bags = np.float32(0)
+    for ids, b in zip(hot_ids, batches):
+        idx = b["idx"].cpu().numpy().astype(np.int64)
+        hot = np.zeros(spec.total_rows + 1, bool)
+        hot[ids[ids >= 0]] = True
+        ok = (idx >= 0) & (idx < cap)
+        hit = ok & hot[np.where(ok, idx + off, -1)]
+        lookups = np.float32(lookups + np.float32(hit.sum()))
+        bags = np.float32(bags + np.float32(hit.all(axis=2).sum()))
+    return float(lookups), float(bags)
+
+
+def cache_phase(dev, batches, held, failures) -> dict:
+    """Phase 19a-d: the hot-row cache, the step metrics, their drain and the
+    stage profile, dlrm-small at full size.  19a: table mode with the
+    sharded stream on a one-rank NCCL group, ``HOT_ROWS`` a table, promoted
+    every ``PROMOTE_EVERY`` steps, ``allreduce``, the metrics on: the first
+    step held to the CPU step; ``CACHE_STEPS`` steps (one under
+    ``set_sync_debug_mode("error")``) bit for bit the same steps with the
+    cache off (losses, store, dense state); the counts the bincount of the
+    batches; the hot set the host's reference-order selection of them; the
+    mirror the store's rows; the metrics' counts exact (the hit counts
+    :func:`plain_hit_counts`'); the hit rate on a
+    held-out batch, the busy ms a step with and without the cache and the
+    epilogue's parts under the profiler.  19b: ``deferred:8``, the losses
+    finite, the store's distance from 19a's.  19c: ``TrainLoop`` with the
+    metrics drained every ``METRICS_EVERY`` steps: two heartbeat windows
+    with a hit rate; the step p50 beside the loop without the metrics.
+    19d: ``profile_stages`` of dlrm-small in row mode: six stages timed with
+    their modelled bytes, flops and µs, the trace read back by the port's
+    summary.  Returns the launch counts of the train steps and the loops
+    (not of the epilogue's parts or the stage profile, each run alone)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import cache, dlrm, hybrid
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.optim import row as row_optim
+    from repro_torch.telemetry import Tracer
+    from repro_torch.telemetry import metrics as step_mx
+    from repro_torch.telemetry import stages as t_stages
+    from repro_torch.telemetry import summarize as t_sum
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    counts: dict = {}
+
+    def tally(got: dict) -> dict:
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return got
+
+    torch.cuda.set_device(dev)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev, group=dist.group.WORLD)
+        cpu_mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        cold_cfg = dataclasses.replace(dlrm_small(), emb_mode="table", idx_input="sharded")
+        cfg = dataclasses.replace(cold_cfg, hot_rows=HOT_ROWS, promote_every=PROMOTE_EVERY,
+                                  hot_sync="allreduce", step_metrics=True)
+        layout = hybrid.make_layout(cfg, mesh)
+        E, B, S, P = cfg.emb_dim, cfg.batch, layout.num_orig_slots, cfg.pooling
+        hot = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+        start = weights.state_to(hot, dev)
+        cold = weights.state_to({"emb": {k: v for k, v in hot["emb"].items() if k != "cnt"},
+                                 "dense": hot["dense"]}, dev)
+        log(f"19a mesh {mesh.shape} over {dist.get_backend()}; cache state: cnt "
+            f"{tuple(hot['emb']['cnt'].shape)}, " + ", ".join(
+                f"{k} {tuple(v.shape)} {v.dtype}" for k, v in hot["cache"].items())
+            + f", metrics {tuple(hot['metrics'].shape)}")
+        t0 = time.perf_counter()
+        step, cold_step = dlrm.make_train_step(cfg, mesh), dlrm.make_train_step(cold_cfg, mesh)
+        log(f"19a steps built in {time.perf_counter() - t0:.2f} s (the promotion's plan)")
+
+        # the first step against the same step on the CPU
+        t0 = time.perf_counter()
+        cpu_state, cpu_loss = dlrm.make_train_step(cfg, cpu_mesh)(
+            weights.state_to(hot, "cpu"), {k: v.cpu() for k, v in batches[0].items()})
+        log(f"19a CPU step: {time.perf_counter() - t0:.1f} s")
+
+        # 19a: the cached steps; the hot set each step enters with, kept on
+        # the host for the hit counts
+        gid_off = torch.as_tensor(layout.spec.row_offsets[layout.slot_to_table],
+                                  dtype=torch.int32, device=dev)
+        losses, step_hot_ids = [], []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for i, b in enumerate(batches[:CACHE_STEPS]):
+            step_hot_ids.append(hot["cache"]["hot_ids"].cpu().numpy())
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                hot, loss = step(hot, b)
+            except RuntimeError as e:
+                failures.append(f"19a: a cached step synchronised with the host: {e}")
+                raise SystemExit("19a failed:\n" + "\n".join(failures))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            losses.append(loss)
+            if i == 0:
+                torch.cuda.synchronize()
+                close_or_fail("19a first step: loss vs the CPU step", loss.cpu(), cpu_loss,
+                              TRAIN_TOL["loss"], 0.0, failures)
+                for part, got, want, old, tol in (
+                        ("embedding store", master(hot["emb"]).cpu(), master(cpu_state["emb"]),
+                         master(start["emb"]).cpu(), TABLE_STORE_TOL["update"]),
+                        ("dense", dense_master(hot["dense"]).cpu(),
+                         dense_master(cpu_state["dense"]), dense_master(start["dense"]).cpu(),
+                         TRAIN_TOL["update"])):
+                    upd = float((want - old).abs().max())
+                    close_or_fail(f"19a first step: {part} vs the CPU step (atol {tol:g} x the "
+                                  f"largest update, {upd:.3e})", got, want, 0.0, tol * upd,
+                                  failures)
+                bitwise_or_fail("19a first step: cnt vs the CPU step", hot["emb"]["cnt"].cpu(),
+                                cpu_state["emb"]["cnt"], failures)
+                bitwise_or_fail("19a first step: metrics vs the CPU step", hot["metrics"].cpu(),
+                                cpu_state["metrics"], failures)
+                del cpu_state
+        torch.cuda.synchronize()
+        launches = tally(ops.launches())
+        ops.reset_launches()
+        losses = torch.stack(losses).cpu()
+        log(f"19a cached: {CACHE_STEPS} steps, launches {launches}; losses {float(losses[0]):.6f} "
+            f"-> {float(losses[-1]):.6f}; one step under set_sync_debug_mode('error')")
+        want_l = {**{k: 0 for k in launches}, "embedding_bag": 2 * CACHE_STEPS,
+                  "dot_interaction": CACHE_STEPS, "embedding_update": CACHE_STEPS,
+                  "split_sgd": CACHE_STEPS}
+        if launches != want_l:
+            failures.append(f"19a: launches {launches}, want {want_l} (the bag kernel twice a "
+                            "step: the owner's bags and the hot bags)")
+        cold, cold_losses, cold_launches, _ = run_steps(cold_step, cold, batches[:CACHE_STEPS])
+        tally(cold_launches)
+        same = {"losses": same_losses(losses, cold_losses),
+                "store": all(bitwise_equal(hot["emb"][k], cold["emb"][k]) for k in cold["emb"]),
+                "dense": bitwise_equal(hot["dense"], cold["dense"])}
+        log(f"19a cached vs cold, {CACHE_STEPS} steps, bit for bit: {same}")
+        for k, v in same.items():
+            if not v:
+                failures.append(f"19a: the cached steps' {k} differ from the cold steps'")
+
+        # the counts, the hot set, the mirror and the metrics
+        slot_off = torch.as_tensor(layout.slot_local_offsets[layout.slot_position],
+                                   dtype=torch.int64, device=dev)
+        want_cnt = torch.zeros(layout.total_rows, dtype=torch.int64, device=dev)
+        for b in batches[:CACHE_STEPS]:
+            want_cnt += torch.bincount((b["idx"].long() + slot_off[None, :, None]).reshape(-1),
+                                       minlength=layout.total_rows)
+        cnt = hot["emb"]["cnt"][:, 0]
+        bitwise_or_fail("19a: cnt vs the bincount of the batches", cnt, want_cnt.to(torch.int32),
+                        failures)
+        t0 = time.perf_counter()
+        want_ids = plain_select_hot(layout, cnt.cpu().numpy(), HOT_ROWS, cfg.sr_seed)
+        log(f"19a: the host's reference-order selection in {time.perf_counter() - t0:.1f} s")
+        ids = hot["cache"]["hot_ids"]
+        bitwise_or_fail("19a: hot_ids vs the host's selection of cnt", ids.cpu(),
+                        torch.from_numpy(want_ids), failures)
+        _, g2l = se.layout_gid_maps(layout)
+        g2l_t = torch.as_tensor(g2l, device=dev)
+        members = ids >= 0
+        bitwise_or_fail("19a: hot_w vs the store's rows",
+                        hot["cache"]["hot_w"][members],
+                        hot["emb"]["hi"][g2l_t[ids[members].long()].long()], failures)
+        m = step_mx.drain(hot)
+        hit_lookups, skipped = plain_hit_counts(layout, step_hot_ids, batches[:CACHE_STEPS])
+        want_m = {"steps": float(CACHE_STEPS), "bags": float(CACHE_STEPS * B * S),
+                  "rows_touched": float(CACHE_STEPS * B * S * P),
+                  "hit_lookups": float(hit_lookups), "skipped_bags": float(skipped)}
+        want_m["exchange_payload_bytes"] = (want_m["bags"] - want_m["skipped_bags"]) * E * 4
+        log(f"19a metrics: {m}; counted on the host: {want_m}")
+        for k, v in want_m.items():
+            if m[k] != v:
+                failures.append(f"19a: metrics {k} {m[k]}, want {v}")
+        hit, _ = cache.hot_bag_local(layout, hot["cache"]["hot_w"], hot["cache"]["hot_pos"],
+                                     held["idx"], None, gid_off)
+        hit_rate = float(hit.float().mean())
+        full = B * S * E * 4
+        log(f"19a hit rate on a held-out batch: {hit_rate:.6f} of the bags all-hot (predicted "
+            f"0.53); over the 20 steps {m['skipped_bags'] / m['bags']:.6f}; the forward "
+            f"all-to-all's effective payload {m['exchange_payload_bytes'] / CACHE_STEPS / 1e6:.3f}"
+            f" MB a step of {full / 1e6:.3f} MB (predicted 7.9)")
+        if not 0 < hit_rate < 1:
+            failures.append(f"19a: hit rate {hit_rate} on the held-out batch")
+
+        # 19b: deferred:8 from the same start
+        d_cfg = dataclasses.replace(cfg, hot_sync="deferred:8")
+        d_state, d_losses, d_launch, _ = run_steps(dlrm.make_train_step(d_cfg, mesh),
+                                                   weights.state_to(start, dev),
+                                                   batches[:CACHE_STEPS])
+        tally(d_launch)
+        drift = float((master(d_state["emb"]) - master(hot["emb"])).abs().max())
+        log(f"19b deferred:8, {CACHE_STEPS} steps: losses finite "
+            f"{bool(d_losses.isfinite().all())}, {float(d_losses[0]):.6f} -> "
+            f"{float(d_losses[-1]):.6f}; the store's largest distance from 19a's {drift:.3e}; "
+            f"hot bags served {step_mx.drain(d_state)['skipped_bags']:.0f}")
+        if not bool(d_losses.isfinite().all()):
+            failures.append(f"19b: a deferred:8 loss is not finite: {d_losses}")
+        del d_state
+        torch.cuda.empty_cache()
+
+        # the busy ms a step with and without the cache, and the epilogue's parts,
+        # each alone under the profiler, at the step's inputs (the parts' launches
+        # are side runs, not the steps', and are not counted)
+        ops.reset_launches()
+        it_h, it_c = iter(batches[:5]), iter(batches[:5])
+        wall_h, busy_h, top_h = device_busy_ms(lambda: step(hot, next(it_h)), 5)
+        wall_c, busy_c, top_c = device_busy_ms(lambda: cold_step(cold, next(it_c)), 5)
+        tally(ops.launches())
+        log(f"19a step under torch.profiler: cached {wall_h:.3f} ms wall, busy {busy_h:.3f} ms; "
+            f"cold {wall_c:.3f} ms wall, busy {busy_c:.3f} ms; the cache adds "
+            f"{busy_h - busy_c:.3f} ms busy a step (predicted 1-15)")
+        log("19a cached step's top kernels: " + top_kernels(top_h[:10]))
+
+        opt = row_optim.resolve(cfg)
+        b0 = batches[0]
+        idx_upd = step.stages.index_exchange(b0["idx"])[1]
+        offs = torch.as_tensor(se.local_offsets(layout, 0), dtype=torch.int32, device=dev)
+        srows, _, smsk, _ = se._row_sorted_streams(
+            layout, (idx_upd + offs[None, :, None]).reshape(-1), P)
+        scratch = hot["emb"]["cnt"].clone()
+        epi = cache.CacheEpilogue(cfg, layout, opt, mesh.group(("model",)), dev)
+        cnt_full = hot["emb"]["cnt"][:, 0].contiguous()
+        emb_out = torch.zeros((B, S, E), device=dev)
+
+        def bypass(idx):
+            hit, bag = cache.hot_bag_local(layout, hot["cache"]["hot_w"], hot["cache"]["hot_pos"],
+                                           idx, None, gid_off, layout_bags=B * S)
+            return torch.where(hit[..., None], bag, emb_out)
+        parts = {
+            "cnt bump (one write a run)": lambda: row_optim.bump_counters(scratch, srows, smsk),
+            "cnt bump as index_add_ (a yardstick, not on the path)":
+                lambda: scratch.index_add_(0, srows, smsk[:, None]),
+            "select_hot (topk)": lambda: cache.select_hot(layout, cnt_full, HOT_ROWS, cfg.sr_seed,
+                                                          epi.plan),
+            "refresh (int32 psum)": lambda: cache.refresh_hot_slab(
+                layout, hot["emb"]["hi"], ids, epi.g2l, epi.group),
+            "hot_positions": lambda: cache.hot_positions(layout.spec.total_rows, ids),
+            "bypass (hot bags + where)": lambda: bypass(b0["idx"]),
+            "the whole cache epilogue": lambda: epi(hot["cache"], hot["emb"]),
+        }
+        for name, fn in parts.items():
+            _, busy, top = device_busy_ms(fn, 5)
+            log(f"19a epilogue part {name}: busy {busy:.4f} ms; " + top_kernels(top[:4]))
+        del scratch, emb_out, cold
+        ops.reset_launches()
+        torch.cuda.empty_cache()
+
+        # 19c: the run loop draining the metrics
+        base = ROOT / "build" / "cache_loop"
+        base.mkdir(parents=True, exist_ok=True)
+        p50 = {}
+        for name, c in (("metrics", cfg), ("no metrics", dataclasses.replace(cfg,
+                                                                          step_metrics=False))):
+            hb = base / f"heartbeat_{name.replace(' ', '_')}.jsonl"
+            hb.unlink(missing_ok=True)
+            s0 = weights.state_to(start, dev)
+            if not c.step_metrics:
+                s0.pop("metrics")
+            ops.reset_launches()
+            loop = TrainLoop(TrainLoopConfig(steps=CACHE_STEPS, metrics_every=METRICS_EVERY,
+                                             heartbeat_every=METRICS_EVERY,
+                                             heartbeat_path=str(hb), log_every=1000),
+                             dlrm.make_train_step(c, mesh), s0, iter(batches[:CACHE_STEPS]),
+                             device=dev)
+            loop.run()
+            tally(ops.launches())
+            recs = [json.loads(x) for x in hb.read_text().splitlines()]
+            p50[name] = recs[0]["step_ms_p50"], recs[1]["step_ms_p50"]
+            if c.step_metrics:
+                rates = [(r["step"], r.get("cache_hit_rate")) for r in recs]
+                log(f"19c heartbeats (step, cache_hit_rate): {rates}; windows "
+                    f"{[r.get('metrics_window') for r in recs[:2]]}")
+                if len(recs) < 2 or not all(r.get("cache_hit_rate", 0) > 0 for r in recs[:2]) \
+                        or [r["step"] for r in recs[:2]] != [METRICS_EVERY, 2 * METRICS_EVERY]:
+                    failures.append(f"19c: want two heartbeat windows with a hit rate, got {rates}")
+            del loop, s0
+        log(f"19c TrainLoop step p50 ms (first window, second): with the metrics "
+            f"{p50['metrics']}, without {p50['no metrics']}")
+        shutil_rmtree(base)
+        del hot, start
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # 19d: the stage profile of dlrm-small in row mode, one rank, and its summary
+    # (each stage run alone: side runs, whose launches are not counted)
+    tr = Tracer(enabled=True)
+    prof = t_stages.profile_stages(dlrm_small(), steps=3, tracer=tr, device=dev)
+    ops.reset_launches()
+    for name, r in prof["stages"].items():
+        log(f"19d stage {name}: {r['ms']:.4f} ms; modelled at {prof['ranks_model']} ranks on "
+            f"{prof['chip']}: {r['bytes'] / 1e6:.3f} MB, {r['flops'] / 1e9:.3f} GFLOP, "
+            f"{r['modeled_us']:.2f} us ({r['comm']})")
+    path = tr.export(str(ROOT / "build" / "stages_trace.json"))
+    track = t_sum.summarize(path)["tracks"].get("pipeline_stages", {})
+    log("19d summary of the exported trace, track pipeline_stages:\n"
+        + t_sum.format_summary({"tracks": {"pipeline_stages": track}, "metrics": {},
+                                "instants": {}, "serve": {}}))
+    if sorted(track) != sorted(f"stage/{n}" for n in prof["stages"]) or len(track) != 6 \
+            or any(r["count"] != 3 for r in track.values()):
+        failures.append(f"19d: the summary's pipeline_stages track is {sorted(track)}")
+    path.unlink()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def shutil_rmtree(path) -> None:
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3227,6 +3599,15 @@ def main() -> int:
     del x_batches
     gate("18d, the ring on two ranks", ring_two_rank_phase(failures))
     log(f"phase 18: {time.perf_counter() - t18:.1f} s; the whole run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # the hot-row cache, the step metrics and their drain, the stage profile
+    t19 = time.perf_counter()
+    c_batches = stage_batches(t_cfg, N_TRAIN + 1, dev)
+    c_counts = cache_phase(dev, c_batches[:N_TRAIN], c_batches[N_TRAIN], failures)
+    del c_batches
+    gate("19, the hot-row cache and the step metrics", c_counts)
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s; the whole run so far "
         f"{time.perf_counter() - t_run:.1f} s")
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",

@@ -54,8 +54,18 @@ class DLRMConfig:
     # the update's stream sorted on the host: the batch carries the psort_*
     # fields of data.pipeline.presort_batch
     host_presort: bool = False
-    # refused by the train step: the hot-row cache is not ported
+    # the hot-row cache (core/cache.py): a mirror of the hot_rows most-touched
+    # rows of each table on every rank; table mode with idx_input='sharded'
+    # serves the bags whose lookups all hit it from it.  0 = off
     hot_rows: int = 0
+    # rank the hot set again from the touch counts every this many steps
+    promote_every: int = 1
+    # 'allreduce' (the mirror refreshed every step: bit for bit hot_rows=0) or
+    # 'deferred:N' (every N steps and at each promotion)
+    hot_sync: str = "allreduce"
+    # the in-graph step metrics (telemetry/metrics.py) in the state as
+    # 'metrics', drained by the train loop
+    step_metrics: bool = False
     # weighted bags: the batch carries 'weights' [B, S, P] fp32 in idx's layout
     weighted: bool = False
     # the first per-step seed of the stochastic rounding (the train state's

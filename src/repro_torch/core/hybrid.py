@@ -22,7 +22,12 @@ arithmetic on uint16.  The state slabs are the optimizer's
 [R, E] bf16 (the compressed-state kinds), zero at the start.  An optimizer
 that rounds its state stochastically, or a ``"bf16_sr"`` wire, adds
 ``"sr"``, the per-step seed, replicated: a 0-d int32 tensor,
-``cfg.sr_seed`` at the start, one more after each step.  The dense ``hi``
+``cfg.sr_seed`` at the start, one more after each step.  With
+``cfg.hot_rows`` the store carries the touch counts ``cnt`` [R, 1] int32
+(unless the optimizer declares them) and the state the replicated
+``"cache"`` (``core.cache``: ``hot_w``, ``hot_ids``, ``hot_pos``, ``tick``);
+with ``cfg.step_metrics`` the replicated fp32 vector ``"metrics"``
+(``telemetry.metrics``).  The dense ``hi``
 leaves are views into one flat bf16 buffer (``optim.data_parallel.pack_hi``),
 which the dense update steps in place.
 """
@@ -66,14 +71,20 @@ def needs_sr(cfg) -> bool:
     return row_optim.resolve(cfg).stochastic_round or resolve_exchange(cfg).needs_sr
 
 
+def hot_rows(cfg) -> int:
+    """The hot-row cache's rows a table (0: no cache)."""
+    return int(getattr(cfg, "hot_rows", 0))
+
+
 def state_struct(cfg, mesh=None) -> dict:
     """``(shape, dtype)`` of every leaf of this rank's train state of ``cfg``
     on ``mesh`` (None: one rank), ``None`` for an absent error-feedback
     slab."""
     mesh = resolve_mesh(mesh, "cpu")
-    rows = make_layout(cfg, mesh).rows_per_shard
+    layout = make_layout(cfg, mesh)
     E = cfg.emb_dim
-    emb = row_optim.resolve(cfg).store_struct(rows, E)
+    opt = row_optim.resolve(cfg)
+    emb = opt.store_struct(layout.rows_per_shard, E, counters=hot_rows(cfg) > 0)
     hi = {}
     for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
         pairs = list(zip(sizes[:-1], sizes[1:]))
@@ -84,6 +95,12 @@ def state_struct(cfg, mesh=None) -> dict:
     out = {"emb": emb, "dense": {"hi": hi, "lo": (chunk, torch.int16), "err": err}}
     if needs_sr(cfg):
         out["sr"] = ((), torch.int32)
+    if hot_rows(cfg) > 0:
+        from repro_torch.core.cache import cache_struct
+        out["cache"] = cache_struct(cfg, layout, opt)
+    if getattr(cfg, "step_metrics", False):
+        from repro_torch.telemetry.metrics import metrics_struct
+        out["metrics"] = metrics_struct()
     return out
 
 
@@ -108,7 +125,7 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     if layout.num_shards > 1:
         W = W[s * R:(s + 1) * R].clone()
     opt = row_optim.resolve(cfg)
-    emb = row_optim.init_store(opt, W)
+    emb = row_optim.init_store(opt, W, counters=hot_rows(cfg) > 0)
     del W
     params = init_dense_params(cfg, generator, dev)
     ex = resolve_exchange(cfg)
@@ -116,6 +133,12 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     state = {"emb": emb, "dense": dense}
     if needs_sr(cfg):
         state["sr"] = torch.tensor(cfg.sr_seed, dtype=torch.int32, device=dev)
+    if hot_rows(cfg) > 0:
+        from repro_torch.core.cache import init_cache
+        state["cache"] = init_cache(cfg, layout, opt, dev)
+    if getattr(cfg, "step_metrics", False):
+        from repro_torch.telemetry.metrics import init_metrics
+        state["metrics"] = init_metrics(dev)
     return state
 
 

@@ -49,6 +49,13 @@ initial weights, the losses and the dense gradients accumulate microbatch
 by microbatch, and the update streams, concatenated, are put back in the
 batch's order: one sparse update and one dense update a step, as at M = 1.
 
+With ``hot_rows`` (``core.cache``) table mode with the sharded stream puts
+the bags whose lookups all hit the replicated mirror in place of the
+forward's (summed from the rank's own block by the same bag kernel), and
+after the sparse update the cache's epilogue promotes and refreshes; with
+``step_metrics`` an epilogue adds the step's counts to the state's
+``metrics`` (``telemetry.metrics``).  Neither reads anything on the host.
+
 The collectives are ``dist.comm``'s over the mesh's groups; on a one-rank
 mesh without a process group each is the identity, and the step is the
 one-rank step of the earlier slices, bit for bit.  The step has no host
@@ -115,7 +122,8 @@ def validate_pipeline(cfg, mesh, microbatches: int) -> None:
     """Refuse what the port does not train, or what cannot be laid out.
     Every optimizer of ``optim.row.OPTIMIZERS`` trains, with or without
     weighted bags, in either mode and with either index input, on every wire
-    and index exchange, with the host pre-sort or without, at any M."""
+    and index exchange, with the host pre-sort or without, at any M, with
+    the hot-row cache and the step metrics or without."""
     if cfg.emb_mode not in ("row", "table"):
         raise ValueError(f"unknown emb_mode {cfg.emb_mode!r}; expected 'row' or 'table'")
     if cfg.idx_input not in ("replicated", "sharded"):
@@ -128,9 +136,18 @@ def validate_pipeline(cfg, mesh, microbatches: int) -> None:
             "the reference does; its fused_mlp kernel has no backward")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    if getattr(cfg, "hot_rows", 0):
-        raise NotImplementedError(f"hot_rows={cfg.hot_rows}: the hot-row cache is not ported "
-                                  "(ROADMAP queue 1 item 5)")
+    hot_rows = int(getattr(cfg, "hot_rows", 0))
+    if hot_rows < 0:
+        raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
+    # checked with the cache off too: a malformed 'deferred:' fails when the step is built
+    from repro_torch.core.cache import parse_hot_sync
+    parse_hot_sync(getattr(cfg, "hot_sync", "allreduce"))
+    if hot_rows > 0:
+        if int(getattr(cfg, "promote_every", 1)) < 1:
+            raise ValueError(f"promote_every must be >= 1, got {cfg.promote_every}")
+        if hot_rows > cfg.spec.total_rows:
+            raise ValueError(f"hot_rows {hot_rows} exceeds the unified row space "
+                             f"({cfg.spec.total_rows} rows)")
     ns = mesh.size
     if cfg.batch % (microbatches * ns):
         raise ValueError(f"global batch {cfg.batch} must be divisible by microbatches * mesh "
@@ -286,7 +303,8 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
     state before a step to keep it.  A state with ``sr`` (the seed of the
     stochastic rounding and of the ``bf16_sr`` wire) hands it to the wires
     and the sparse update, then adds one to it, in place on the device, as
-    the reference's step returns ``sr + 1``.  The ``psort_*`` fields
+    the reference's step returns ``sr + 1``.  A state's ``cache`` and
+    ``metrics`` come back as new tensors in the returned dict.  The ``psort_*`` fields
     describe the whole batch: they are not cut into microbatches, and
     replace the update side of the index exchange, which the step then
     skips.  ``step.stages`` holds the stages and ``step.mesh`` the mesh,
@@ -322,6 +340,49 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
     def restore(parts: list) -> torch.Tensor:
         return parts[0] if M == 1 else torch.cat(parts).index_select(0, perm)
 
+    cache_on = int(getattr(cfg, "hot_rows", 0)) > 0
+    # the bypass needs each bag summed whole by one shard and the rank's own
+    # block of the original-slot stream: table mode with the sharded stream.
+    # Row mode's reduce-scatter sums partial bags in its wire, so there the
+    # cache keeps its counts and hot set but puts no bag in place
+    bypass = cache_on and cfg.emb_mode == "table" and cfg.idx_input == "sharded"
+    metrics_on = bool(getattr(cfg, "step_metrics", False))
+    dev = mesh.device
+    emb_group = mesh.group(emb_axes(cfg, mesh)[0])
+    if cache_on:
+        from repro_torch.core import cache as hot_cache
+        epilogue = hot_cache.CacheEpilogue(cfg, layout, opt, emb_group, dev)
+    gid_offsets = torch.as_tensor(layout.spec.row_offsets[layout.slot_to_table],
+                                  dtype=torch.int32, device=dev)
+    if metrics_on:
+        from repro_torch.telemetry import metrics as step_mx
+        caps = torch.as_tensor(step_mx.slot_caps(layout), device=dev)
+        pcaps = (torch.as_tensor(step_mx.padded_caps(layout), device=dev)
+                 if cfg.emb_mode == "table" else None)
+        n_bags = float(cfg.batch * layout.num_orig_slots)
+
+    def metrics_epilogue(metrics: torch.Tensor, idx: torch.Tensor, hot_pos) -> torch.Tensor:
+        """This step's counts added to the vector: the rows touched over the
+        whole batch (each rank counts its own block and the psum adds them;
+        the replicated row-mode stream is whole on every rank), the hits by
+        the hot set the forward read (``hot_pos``, None without the bypass)."""
+        if cfg.idx_input == "sharded":
+            rows = comm.psum(step_mx.valid_lookups(layout, idx, caps), g_all)
+        elif cfg.emb_mode == "row":
+            rows = step_mx.valid_lookups(layout, idx, caps)
+        else:
+            rows = comm.psum(step_mx.valid_lookups_padded(layout, idx, mesh.coords[model], pcaps),
+                             g_all)
+        if hot_pos is not None:
+            hl, hb = step_mx.cache_hit_counts(layout, hot_pos, idx, gid_offsets)
+            hits, skipped = comm.psum(hl, g_all), comm.psum(hb, g_all)
+        else:
+            hits = skipped = torch.zeros((), dtype=torch.float32, device=dev)
+        payload = (n_bags - skipped) * float(cfg.spec.dim * 4)
+        return metrics + step_mx.pack(dev, steps=1.0, hit_lookups=hits, skipped_bags=skipped,
+                                      bags=n_bags, rows_touched=rows,
+                                      exchange_payload_bytes=payload)
+
     def step(state: dict, batch: dict):
         emb_store = state["emb"]
         sr = state.get("sr")
@@ -338,6 +399,16 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
             (idx_fwd, idx_upd), (wgt_fwd, wgt_upd) = ex[i]
             ex[i] = None
             emb_out = stages.embedding_fwd(W_fwd, idx_fwd, wgt_fwd)
+            if bypass:
+                # the bags whose lookups all hit the mirror, summed here from the
+                # rank's own block as the owner sums them, in place of the
+                # all-to-all's: bit for bit under 'allreduce'
+                cache = state["cache"]
+                hit, hot_bag = hot_cache.hot_bag_local(
+                    layout, cache["hot_w"], cache["hot_pos"], mbs[i]["idx"],
+                    mbs[i]["weights"] if cfg.weighted else None, gid_offsets,
+                    layout_bags=idx_fwd.shape[0] * idx_fwd.shape[1])
+                emb_out = torch.where(hit[..., None], hot_bag, emb_out)
             loss, g_dense, d_emb = stages.dense_fwd_bwd(dense_hi, emb_out, mbs[i])
             dY_parts.append(stages.dY_exchange(d_emb, sr, i))
             loss_acc = loss if loss_acc is None else loss_acc + loss
@@ -358,6 +429,13 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
         new_state = {"emb": new_emb, "dense": new_dense}
         if sr is not None:
             new_state["sr"] = sr.add_(1)
+        if cache_on:
+            # promotion and the mirror's refresh read the updated store, so an
+            # 'allreduce' mirror is the store the next step reads
+            new_state["cache"] = epilogue(state["cache"], new_emb)
+        if metrics_on:
+            new_state["metrics"] = metrics_epilogue(
+                state["metrics"], batch["idx"], state["cache"]["hot_pos"] if bypass else None)
         return new_state, comm.psum(loss_acc, g_all)
 
     step.stages = stages

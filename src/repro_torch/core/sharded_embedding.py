@@ -113,6 +113,34 @@ def make_layout(spec: EmbeddingSpec, num_shards: int, mode: str = "row",
                                   slot_position=slot_position)
 
 
+def layout_gid_maps(layout: ShardedEmbeddingLayout) -> tuple[np.ndarray, np.ndarray]:
+    """The maps between the layout's row positions and the spec's global row
+    ids (gid = ``spec.row_offsets[t]`` + the table-local row), on which the
+    hot-row cache keys its members so that they outlive a reshard:
+    ``(l2g [layout.total_rows], g2l [spec.total_rows])`` int32, -1 where a
+    position maps nowhere (row mode's tail, table mode's bin slack and spare
+    rows; the gaps of ``row_pad`` between the tables' gids)."""
+    spec = layout.spec
+    l2g = np.full(layout.total_rows, -1, np.int32)
+    if layout.mode == "row":
+        for t, rows_t in enumerate(spec.table_rows):
+            base = int(spec.row_offsets[t])
+            l2g[base:base + rows_t] = base + np.arange(rows_t, dtype=np.int32)
+    else:
+        for pos, s in enumerate(layout.padded_slots):
+            if s < 0:
+                continue
+            t = int(layout.slot_to_table[s])
+            base = ((pos // layout.slots_per_shard) * layout.rows_per_shard
+                    + int(layout.slot_local_offsets[pos]))
+            l2g[base:base + int(spec.table_rows[t])] = (
+                int(spec.row_offsets[t]) + np.arange(int(spec.table_rows[t]), dtype=np.int32))
+    g2l = np.full(spec.total_rows, -1, np.int32)
+    owned = np.nonzero(l2g >= 0)[0]
+    g2l[l2g[owned]] = owned.astype(np.int32)
+    return l2g, g2l
+
+
 def local_offsets(layout: ShardedEmbeddingLayout, shard: int) -> np.ndarray:
     """Per slot of the ids shard ``shard`` reads, the offset of the slot's
     row 0 in the shard's rows (the reference's ``_local_rows``): row mode

@@ -220,17 +220,19 @@ int launch(const void* W, const void* idx, const void* offsets, const void* wgt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the layout (bags a warp: one a group of lanes where that still
-// leaves 32 warps an SM; else one, spread over the groups) and launches.
+// Picks the layout (bags a warp: one a group of lanes where a launch of
+// layout_bags bags still leaves 32 warps an SM; else one, spread over the
+// groups) and launches.
 template <typename T, bool kWeighted>
 int launch_layout(const void* W, const void* idx, const void* offsets, const void* wgt, void* out,
-                  int64_t B, int S, int P, int E, int64_t rows, int round_bf16, void* stream) {
+                  int64_t B, int S, int P, int E, int64_t rows, int round_bf16,
+                  int64_t layout_bags, void* stream) {
   int dev = 0, sms = 0;
   const cudaError_t err = hopper::device_sms(&dev, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = 32 / row_lanes(E / static_cast<int>(16 / sizeof(T)));
   const auto st = static_cast<cudaStream_t>(stream);
-  if (groups > 1 && B * S < static_cast<int64_t>(groups) * 32 * sms)
+  if (groups > 1 && layout_bags < static_cast<int64_t>(groups) * 32 * sms)
     return launch<T, kWeighted, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16,
                                       sms, 1, st);
   return launch<T, kWeighted, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, sms,
@@ -242,16 +244,20 @@ int launch_layout(const void* W, const void* idx, const void* offsets, const voi
 // W [rows_total, E] (bf16 when table_bf16, else fp32); idx [B, S, P] int32
 // row ids, global, or table-local when offsets [S] int32 is given (the row
 // is idx + offsets[s]); wgt [B, S, P] fp32 or null; out [B, S, E] fp32, each
-// sum rounded to bf16 when round_bf16.  Returns the CUDA error of the launch
-// (0 = none).
+// sum rounded to bf16 when round_bf16.  layout_bags: sum in the layout a
+// launch of that many bags takes (a bag's rows are added in another order in
+// each), so that these bags are that launch's bit for bit; 0 = B * S.
+// Returns the CUDA error of the launch (0 = none).
 extern "C" int embedding_bag_fwd(const void* W, const void* idx, const void* offsets,
                                  const void* wgt, void* out, int64_t B, int S, int P, int E,
-                                 int64_t rows, int table_bf16, int round_bf16, void* stream) {
+                                 int64_t rows, int table_bf16, int round_bf16, int64_t layout_bags,
+                                 void* stream) {
   if (B == 0 || S == 0) return 0;
   if (B * S >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);  // bags index as uint32
+  if (layout_bags <= 0) layout_bags = B * S;
   if (table_bf16)
-    return wgt ? launch_layout<uint16_t, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream)
-               : launch_layout<uint16_t, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream);
-  return wgt ? launch_layout<float, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream)
-             : launch_layout<float, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream);
+    return wgt ? launch_layout<uint16_t, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream)
+               : launch_layout<uint16_t, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream);
+  return wgt ? launch_layout<float, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream)
+             : launch_layout<float, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream);
 }

@@ -19,7 +19,8 @@ the blocks followed by a local sum, and ``psum`` an all-gather followed by
 one, each in the order XLA's CPU collectives take on the reference's side
 (rank 0's block first, each next rank's added in fp32, the sum rounded to
 the payload's type once at the end; bf16 and fp32 payloads alike, held bit
-for bit in ``tests/test_torch_comm.py``).
+for bit in ``tests/test_torch_comm.py``).  Integer payloads are summed in
+their own type, exactly.
 
 Payloads of 16 bits cross as a ``uint8`` view of their bytes (gloo refuses
 ``int16``), so their bits are kept.  A group whose backend is gloo moves no
@@ -191,11 +192,14 @@ def all_to_all(x: torch.Tensor, g: Group, split_axis: int, concat_axis: int) -> 
 
 
 def _ordered_sum(blocks: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``blocks[0] + blocks[1] + ...`` in fp32, in that order, rounded to
-    ``dtype`` once."""
-    acc = blocks[0].float()
+    """``blocks[0] + blocks[1] + ...`` in that order: floats in fp32, rounded
+    to ``dtype`` once; integers in their own type, exactly (wrapping as
+    ``jax.lax.psum`` of int32 does), since fp32 holds no integer above 2^24
+    (the hot-row cache sums the bit patterns of float rows)."""
+    exact = not (dtype.is_floating_point or dtype.is_complex)
+    acc = blocks[0].clone() if exact else blocks[0].float()
     for j in range(1, blocks.shape[0]):
-        acc = acc + blocks[j].float()
+        acc = acc + (blocks[j] if exact else blocks[j].float())
     return acc.to(dtype)
 
 

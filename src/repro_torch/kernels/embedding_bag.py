@@ -63,7 +63,8 @@ plain = ref.embedding_bag
 plain_stage = ref.embedding_bag_stage
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                                 ctypes.c_void_p]
 
 
 def _check(W: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor | None) -> None:
@@ -80,7 +81,8 @@ def _check(W: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor | None) -> 
         raise ValueError(f"W on {W.device}, ids on {idx.device}")
 
 
-def _launch(W, idx, offsets, weights, rows_per_shard: int, round_bf16: bool) -> torch.Tensor:
+def _launch(W, idx, offsets, weights, rows_per_shard: int, round_bf16: bool,
+            layout_bags: int | None = None) -> torch.Tensor:
     if W.device.type != "cuda":
         raise ValueError(f"unsupported device {W.device}")
     B, S, P = idx.shape
@@ -105,7 +107,7 @@ def _launch(W, idx, offsets, weights, rows_per_shard: int, round_bf16: bool) -> 
         err = fn(W.data_ptr(), idx.data_ptr(), None if offsets is None else offsets.data_ptr(),
                  None if weights is None else weights.data_ptr(), out.data_ptr(), B, S, P, E,
                  rows_per_shard, int(W.dtype == torch.bfloat16), int(round_bf16),
-                 torch.cuda.current_stream().cuda_stream)
+                 layout_bags or 0, torch.cuda.current_stream().cuda_stream)
         embedding_bag.launches += 1
     if err:
         raise RuntimeError(f"embedding_bag kernel launch failed with CUDA error {err}")
@@ -113,19 +115,23 @@ def _launch(W, idx, offsets, weights, rows_per_shard: int, round_bf16: bool) -> 
 
 
 def embedding_bag(W: torch.Tensor, gidx: torch.Tensor, rows_per_shard: int,
-                  weights: torch.Tensor | None = None) -> torch.Tensor:
+                  weights: torch.Tensor | None = None,
+                  layout_bags: int | None = None) -> torch.Tensor:
     """Bag sums ``out[b, s] = sum_p W[gidx[b, s, p]]`` in fp32, or with
     ``weights`` [B, S, P] fp32 ``sum_p weights[b, s, p] * W[gidx[b, s, p]]``.
 
     ``W`` [rows, E] bf16 (the Split-SGD ``hi`` slab) or fp32; ``gidx``
     [B, S, P] int32 rows of ``W``; a row outside ``[0, rows_per_shard)`` adds
-    zero, whatever its weight.  CUDA tensors launch the kernel; CPU tensors
-    run the plain version.
+    zero, whatever its weight.  ``layout_bags``: sum in the kernel layout a
+    launch of that many bags takes (a bag's rows are added in another order
+    in each of the two layouts), so that these bags are another launch's bit
+    for bit (the hot-row cache's, ``core.cache.hot_bag_local``).  CUDA
+    tensors launch the kernel; CPU tensors run the plain version.
     """
     _check(W, gidx, weights)
     if W.device.type == "cpu":
         return plain(W, gidx, rows_per_shard, weights)
-    return _launch(W, gidx, None, weights, rows_per_shard, False)
+    return _launch(W, gidx, None, weights, rows_per_shard, False, layout_bags)
 
 
 def embedding_bag_stage(W: torch.Tensor, idx: torch.Tensor, row_offsets: torch.Tensor,

@@ -7,7 +7,8 @@ row-aligned: ``{hi, lo}`` (the bf16 upper and the int16 lower halves of the
 fp32 master rows) for ``split_sgd``, else ``{w}`` (fp32), plus ``mom``
 [rows, E] (``momentum``), ``acc`` [rows, E] (``adagrad``) or [rows, 1]
 (``adagrad_rowwise``: one accumulator a row, not padded to any lane width),
-or ``cnt`` [rows, 1] int32 (``adagrad_freq``: the touch counts); the
+or ``cnt`` [rows, 1] int32 (``adagrad_freq``: the touch counts, which
+the hot-row cache adds to any store, ``counters=True``); the
 compressed-state kinds (``momentum_bf16``, ``adagrad_bf16``) keep ``mom`` or
 ``acc`` [rows, E] as bf16, rounded stochastically under the train state's
 per-step seed (``optim.stochastic``).  The
@@ -55,12 +56,16 @@ class RowOptimizer:
     def state_keys(self) -> tuple:
         return tuple(key for key, _, _ in self.state)
 
-    def store_struct(self, rows: int, E: int) -> dict:
-        """``(shape, dtype)`` of each slab of the store of a [rows, E] table."""
+    def store_struct(self, rows: int, E: int, counters: bool = False) -> dict:
+        """``(shape, dtype)`` of each slab of the store of a [rows, E] table;
+        ``counters`` adds the touch counts ``cnt`` [rows, 1] int32 (the
+        hot-row cache's) unless the optimizer declares them already."""
         out = ({"hi": ((rows, E), torch.bfloat16), "lo": ((rows, E), torch.int16)} if self.split
                else {"w": ((rows, E), torch.float32)})
         for key, width, dtype in self.state:
             out[key] = ((rows, width or E), dtype)
+        if counters and "cnt" not in out:
+            out["cnt"] = ((rows, 1), torch.int32)
         return out
 
 
@@ -135,8 +140,9 @@ def fwd_weights(opt, store: dict):
     return store["hi"] if get(opt).split else store["w"]
 
 
-def init_store(opt, W: torch.Tensor) -> dict:
-    """The store from fp32 master rows ``W`` [rows, E], state slabs zero."""
+def init_store(opt, W: torch.Tensor, counters: bool = False) -> dict:
+    """The store from fp32 master rows ``W`` [rows, E], state slabs (and
+    with ``counters`` the touch counts ``cnt``) zero."""
     opt = get(opt)
     if opt.split:
         hi, lo = split_fp32(W)
@@ -145,15 +151,30 @@ def init_store(opt, W: torch.Tensor) -> dict:
         out = {"w": W.float()}
     for key, width, dtype in opt.state:
         out[key] = torch.zeros((W.shape[0], width or W.shape[1]), dtype=dtype, device=W.device)
+    if counters and "cnt" not in out:
+        out["cnt"] = torch.zeros((W.shape[0], 1), dtype=torch.int32, device=W.device)
     return out
 
 
 def bump_counters(cnt: torch.Tensor, srows: torch.Tensor, smsk: torch.Tensor) -> torch.Tensor:
     """+1 per valid lookup on the touch counts ``cnt`` [rows, 1] int32, in
-    place, from the sorted stream: ``msk`` added at ``rows``, so masked
-    lookups add 0 and nothing waits for the host.  Integer adds, so any
-    order gives the reference's counts (``repro/optim/row.py:128``)."""
-    return cnt.index_add_(0, srows, smsk[:, None])
+    place, from the sorted stream: each run of equal ``rows`` adds the sum
+    of its ``msk`` once, so masked lookups add 0 and nothing waits for the
+    host.  Integer sums, so the counts are the reference's
+    (``repro/optim/row.py:128``) and ``index_add_``'s bit for bit; but
+    where ``index_add_`` lands every lookup of a run on one address (half a
+    zipf table's lookups hit its row 0), each position here writes its
+    run's one new count, which is the same for every position of the run."""
+    if srows.numel() == 0:
+        return cnt
+    rows = srows.contiguous()
+    first = torch.searchsorted(rows, rows)
+    last = torch.searchsorted(rows, rows, right=True) - 1
+    cs = torch.cumsum(smsk, 0, dtype=torch.int32)
+    flat = cnt.view(-1)
+    at = rows.long()
+    flat[at] = flat[at] + (cs[last] - cs[first] + smsk[first])
+    return cnt
 
 
 def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float,
@@ -165,14 +186,15 @@ def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float,
     stochastic rounding's per-step seed (the train state's ``sr``, an int or
     a 0-d int32 tensor; None means 0, as in the reference), handed to the
     kernel as a 0-d int32 tensor on the store's device, which the kernel
-    reads through its pointer: no host sync.  A ``cnt`` state
-    slab is bumped first (:func:`bump_counters`), so the kernel reads the
-    count after this step's lookups.  Each run of equal rows sums
+    reads through its pointer: no host sync.  A ``cnt`` slab is bumped
+    first (:func:`bump_counters`), once: a declared one (``adagrad_freq``),
+    whose kernel then reads the count after this step's lookups, or the
+    hot-row cache's auxiliary one, which no kernel reads.  Each run of equal rows sums
     ``wgt * dY[bag]`` in sorted order and steps its row once; rows outside
     the stream, and runs of masked lookups only, are not touched.  Returns
     ``store``."""
     opt = get(opt)
-    if "cnt" in opt.state_keys:
+    if "cnt" in store:
         bump_counters(store["cnt"], stream[0], stream[2])
     if opt.stochastic_round:
         dev = store[opt.weight_keys[0]].device

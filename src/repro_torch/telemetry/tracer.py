@@ -1,5 +1,5 @@
 """Host-side tracer: nestable spans and instants -> Chrome trace JSON (the
-span, instant and track parts of ``repro/telemetry/tracer.py``, copied so the
+span, instant, counter and track parts of ``repro/telemetry/tracer.py``, copied so the
 port needs nothing of ``repro``).
 
 ``span()`` on a disabled tracer (the default) returns a shared no-op context
@@ -8,8 +8,9 @@ read, so the serving loop keeps its span compiled in.  Enabled, each span is
 a complete ('X') event on its thread's track, or on a named virtual track
 (``track=``: the checkpoint writer's spans land on ``ckpt_writer`` from
 whichever thread writes); :meth:`Tracer.set_track` renames the calling
-thread's track, and :meth:`Tracer.instant` records a zero-length marker
-(failure-log events, heartbeats); :meth:`Tracer.export` writes
+thread's track, :meth:`Tracer.instant` records a zero-length marker
+(failure-log events, heartbeats) and :meth:`Tracer.counter` a counter
+sample (the drained step metrics); :meth:`Tracer.export` writes
 ``{"traceEvents": [...]}``, loadable in Perfetto or ``chrome://tracing``.
 Timestamps are microseconds on the ``perf_counter`` clock, zeroed when the
 tracer was made.
@@ -142,6 +143,18 @@ class Tracer:
         with self._lock:
             self._events.append(ev)
 
+    def counter(self, name: str, values: dict, track: Optional[str] = None) -> None:
+        """A counter sample ('C'): ``values`` maps series to numbers (the
+        drained in-graph metrics, ``telemetry.metrics``: one event a drain,
+        cumulative values)."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "C", "ts": (time.perf_counter() - self._epoch) * 1e6,
+              "pid": self._pid, "tid": self._tid(track),
+              "args": {k: float(v) for k, v in values.items()}}
+        with self._lock:
+            self._events.append(ev)
+
     def events(self) -> list[dict]:
         with self._lock:
             return list(self._events)
@@ -175,6 +188,10 @@ def span(name: str, cat: str = "", track: Optional[str] = None, **args):
 
 def instant(name: str, cat: str = "", track: Optional[str] = None, **args) -> None:
     _GLOBAL.instant(name, cat, track, **args)
+
+
+def counter(name: str, values: dict, track: Optional[str] = None) -> None:
+    _GLOBAL.counter(name, values, track)
 
 
 def set_track(name: str) -> None:

@@ -47,8 +47,13 @@ timeout ends that wait, and skip it too.  So stopping (preemption, a stream
 that ends) must come at one step on every rank, as it does when every rank
 reads the same stream and a scheduler signals every process.  Restoring
 onto another shard count is ``checkpoint.reshard_store`` and
-``reshard_dense`` (``examples/elastic_restart_torch.py``).  The in-graph
-metrics drain is not ported: a state that carries ``metrics`` is refused.
+``reshard_dense`` (``examples/elastic_restart_torch.py``).
+
+A state that carries the in-graph step metrics (``metrics``, the model's
+``step_metrics``) is drained every ``metrics_every`` steps and at the end:
+one device -> host copy, a ``repro.metrics`` counter on the trace, and the
+window since the last drain in the next heartbeat with its
+``cache_hit_rate``.  On a mesh each rank drains its replicated copy.
 """
 
 from __future__ import annotations
@@ -177,10 +182,13 @@ class TrainLoopConfig:
     prefetch: int = 0  # >0: copy-ahead window of prefetch_to_device
     skip_batch_budget: int = 0  # transient loader errors absorbed per run
     # heartbeat: one JSONL record per ``heartbeat_every``-step window
-    # (step-time percentiles, straggler snapshot, ingest stats, checkpoint
-    # save durations); None = off
+    # (step-time percentiles, straggler snapshot, ingest stats, the drained
+    # metrics and cache hit rate, checkpoint save durations); None = off
     heartbeat_path: Optional[str] = None
     heartbeat_every: int = 10
+    # how often the state's in-graph step metrics (the model's step_metrics)
+    # are copied to the host, emitted as a trace counter and windowed
+    metrics_every: int = 10
 
 
 class StragglerMonitor:
@@ -287,10 +295,6 @@ class TrainLoop:
         # ``batches`` then yielding global batches; with it the model's
         # ``model_cfg`` (a ``core.dlrm.DLRMConfig``), by which the loop cuts the
         # batches and gathers and cuts the state
-        if isinstance(state, dict) and state.get("metrics") is not None:
-            raise NotImplementedError("the in-graph metrics drain (the reference's "
-                                      "TrainLoop._drain_metrics) is not ported (ROADMAP queue 1 "
-                                      "item 5)")
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
@@ -322,6 +326,8 @@ class TrainLoop:
         self.gather_durations: list[float] = []
         self._stop = False
         self._owns_batches = cfg.prefetch > 0
+        self._metrics_prev: Optional[dict] = None
+        self._metrics_window: Optional[dict] = None
         if self.ckpt and self.mesh is None:
             if self.ckpt.latest_valid_step() is not None:
                 self.start_step, self.state = self.ckpt.restore(self.state, device=self.device)
@@ -390,11 +396,30 @@ class TrainLoop:
                     continue
                 raise
 
+    def _drain_metrics(self) -> Optional[dict]:
+        """Copy the state's cumulative step metrics to the host (one small
+        device -> host copy; on a mesh the rank's replicated vector, no
+        collective), emit them as a trace counter and keep the window since
+        the last drain for the next heartbeat.  None when the state carries
+        no metrics."""
+        from repro_torch.telemetry import metrics as step_mx
+
+        cur = step_mx.drain(self.state)
+        if cur is None:
+            return None
+        self._metrics_window = step_mx.window(cur, self._metrics_prev)
+        self._metrics_prev = cur
+        step_mx.emit(telemetry.get_tracer(), cur)
+        return self._metrics_window
+
     def _heartbeat(self, step: int, window: list[float]) -> dict:
         """One JSONL record summarizing the window since the last
         heartbeat: step-time percentiles, straggler snapshot, ingest stats,
-        checkpoint save durations.  Appended + flushed per record so a
-        dying process leaves the tail on disk."""
+        the drained metrics' window and its cache hit rate, checkpoint save
+        durations.  Appended + flushed per record so a dying process leaves
+        the tail on disk."""
+        from repro_torch.telemetry import metrics as step_mx
+
         rec: dict = {"step": step, "t": time.time(),
                      "skipped_batches": self.skipped_batches}
         if window:
@@ -407,6 +432,9 @@ class TrainLoop:
         ingest = getattr(self.batches, "stats", None)
         if ingest is not None:
             rec["ingest"] = dict(ingest)
+        if self._metrics_window is not None:
+            rec["metrics_window"] = self._metrics_window
+            rec["cache_hit_rate"] = step_mx.hit_rate(self._metrics_window)
         if self.ckpt is not None and self.ckpt.save_durations:
             rec["ckpt_save_s"] = [round(d, 6) for d in self.ckpt.save_durations[-8:]]
         if self.serve_stats is not None:
@@ -479,6 +507,8 @@ class TrainLoop:
                     print(f"[train] step {step} loss {loss:.4f} {dt * 1e3:.1f} ms")
                 if self.ckpt and completed % self.cfg.ckpt_every == 0:
                     self._save(completed)
+                if completed % self.cfg.metrics_every == 0:
+                    self._drain_metrics()
                 if hb_on and completed % self.cfg.heartbeat_every == 0:
                     self._heartbeat(completed, window)
                     window.clear()
@@ -503,8 +533,10 @@ class TrainLoop:
                     raise
             finally:
                 try:
-                    if not crashed and hb_on:
-                        self._heartbeat(completed, window)
+                    if not crashed:
+                        self._drain_metrics()
+                        if hb_on:
+                            self._heartbeat(completed, window)
                 except Exception:  # noqa: BLE001 — telemetry must not mask the run
                     pass
                 if self._owns_batches:

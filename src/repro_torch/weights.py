@@ -10,8 +10,9 @@
 * :func:`state_from_numpy` and :func:`state_to_numpy` carry a whole train
   state across, both ways, bit for bit: the embedding store with its
   optimizer's state slabs (bf16 ones too), the dense ``hi`` tree, the dense
-  ``lo`` vector, the dense error feedback's ``err`` and the seed ``sr``
-  where the config has them.  :func:`state_to_global` and :func:`state_from_global`
+  ``lo`` vector, the dense error feedback's ``err``, the seed ``sr``, the
+  hot-row cache's ``cnt`` slab and replicated ``cache``, and the step
+  ``metrics`` where the config has them.  :func:`state_to_global` and :func:`state_from_global`
   do the same with CPU tensors and need no ``ml_dtypes``: the run loop's
   checkpoint of a sharded state (:func:`global_like` is its restore
   target), and :func:`reshard_global` lays it out for another mesh (an
@@ -123,6 +124,9 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda
                          "err": None if err is None else to_torch(err)}}
     if "sr" in state_np:
         tensors["sr"] = to_torch(np.asarray(state_np["sr"], np.int32))
+    for key in REPLICATED:
+        if key in state_np:
+            tensors[key] = dp.tree_map(lambda a: to_torch(a).reshape(np.shape(a)), state_np[key])
     return state_from_global(tensors, cfg, mesh)
 
 
@@ -143,7 +147,7 @@ def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") 
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     R, s = layout.rows_per_shard, hybrid.emb_shard(cfg, mesh)
-    struct = opt.store_struct(layout.total_rows, cfg.emb_dim)
+    struct = opt.store_struct(layout.total_rows, cfg.emb_dim, counters=hybrid.hot_rows(cfg) > 0)
     if set(glob["emb"]) != set(struct):
         raise ValueError(f"the {opt.name} store holds {sorted(struct)}, got "
                          f"{sorted(glob['emb'])}")
@@ -179,7 +183,33 @@ def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") 
                          "rounding's seed 'sr'")
     if sr:
         state["sr"] = glob["sr"].to(device=dev, dtype=torch.int32).reshape(())
+    want = hybrid.state_struct(cfg, mesh)
+    for key in REPLICATED:
+        if (key in glob) != (key in want):
+            raise ValueError(f"the config's state {'needs' if key in want else 'has no'} "
+                             f"{key!r}")
+        if key in want:
+            state[key] = _replicated(glob[key], want[key], key, dev)
     return state
+
+
+#: the replicated subtrees of a train state beside ``sr``: the hot-row
+#: cache and the step metrics, whole on every rank
+REPLICATED = ("cache", "metrics")
+
+
+def _replicated(tree, struct, key: str, dev):
+    """A replicated subtree of CPU tensors, checked against its ``(shape,
+    dtype)`` struct, on ``dev``."""
+    if isinstance(struct, dict):
+        if set(tree) != set(struct):
+            raise ValueError(f"{key} holds {sorted(tree)}, the config needs {sorted(struct)}")
+        return {k: _replicated(tree[k], struct[k], f"{key}[{k!r}]", dev) for k in struct}
+    shape, dtype = struct
+    if tuple(tree.shape) != tuple(shape) or tree.dtype != dtype:
+        raise ValueError(f"{key} is {tree.dtype} {tuple(tree.shape)}, the config needs {dtype} "
+                         f"{tuple(shape)}")
+    return tree.to(dev, copy=True)
 
 
 def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
@@ -217,6 +247,9 @@ def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> di
                                  "err": err}}
     if "sr" in state:
         out["sr"] = host(state["sr"])
+    for key in REPLICATED:
+        if key in state:
+            out[key] = dp.tree_map(host, state[key])
     return out
 
 
@@ -230,7 +263,8 @@ def global_like(cfg: DLRMConfig, mesh=None) -> dict:
     mesh = resolve_mesh(mesh, "cpu")
     struct = hybrid.state_struct(cfg, mesh)
     struct["emb"] = row_optim.resolve(cfg).store_struct(hybrid.make_layout(cfg, mesh).total_rows,
-                                                        cfg.emb_dim)
+                                                        cfg.emb_dim,
+                                                        counters=hybrid.hot_rows(cfg) > 0)
     struct["dense"]["lo"] = ((hybrid.padded_dense(cfg, mesh),), torch.int16)
     if struct["dense"]["err"] is not None:
         struct["dense"]["err"] = ((hybrid.padded_dense(cfg, mesh),), torch.float32)
@@ -250,7 +284,8 @@ def reshard_global(glob: dict, cfg: DLRMConfig, old_mesh, new_mesh) -> dict:
     store by ``checkpoint.reshard_store`` between the two meshes' layouts,
     the dense ``lo`` by ``checkpoint.reshard_dense``; ``sr`` as it is.  An
     elastic restart (``examples/elastic_restart_torch.py``): every value
-    keeps its bits.  A mesh here stands for its shape alone; a
+    keeps its bits.  The hot-row cache and the step metrics are keyed on
+    gids, not on positions, and go across as they are.  A mesh here stands for its shape alone; a
     ``launch.mesh.Mesh`` of the old shape with no process group does."""
     from repro_torch.checkpoint.manager import reshard_dense, reshard_store
     from repro_torch.core import hybrid
@@ -297,6 +332,9 @@ def state_to(state: dict, device) -> dict:
                      "err": None if err is None else err.to(dev, copy=True)}}
     if "sr" in state:
         out["sr"] = state["sr"].to(dev, copy=True)
+    for key in REPLICATED:
+        if key in state:
+            out[key] = dp.tree_map(lambda t: t.to(dev, copy=True), state[key])
     return out
 
 

@@ -24,7 +24,8 @@ def hybrid_cases_rank(rank: int, world_size: int, cases: list) -> list:
     or None,
     "bytes_out": per collective kind over the steps, "state": the gathered
     global state after the steps, "back": ``start`` carried in and gathered
-    back (rank 0 only, else None)}``, on the CPU."""
+    back (rank 0 only, else None), "cache": this rank's replicated hot-row
+    cache (bf16 as int16 bits) or None}``, on the CPU."""
     from repro_torch import weights
     from repro_torch.core import dlrm, hybrid
     from repro_torch.launch.mesh import make_mesh
@@ -53,9 +54,11 @@ def hybrid_cases_rank(rank: int, world_size: int, cases: list) -> list:
             losses.append(float(loss))
         bytes_out = dict(mesh.stats.bytes_out)
         gathered = weights.state_to_numpy(state, mesh, cfg)
+        cache = ({k: _np_bits(v) for k, v in state["cache"].items()} if "cache" in state
+                 else None)
         out.append({"losses": losses, "scores": scores, "bytes_out": bytes_out,
                     "state": gathered if rank == 0 else None,
-                    "back": back if rank == 0 else None})
+                    "back": back if rank == 0 else None, "cache": cache})
     return out
 
 
@@ -96,6 +99,7 @@ def comm_cases_rank(rank: int, world_size: int, inputs: dict) -> dict:
         "psum_all": comm.psum(mine("psum_f32"), g_all),
     }
     stats = {k: (dict(v) if isinstance(v, dict) else v) for k, v in mesh.stats.as_dict().items()}
+    out["psum_all_i32"] = comm.psum(mine("psum_i32"), g_all)  # after the counted ones
     # the dense step: replicated hi, this rank's lo shard, this rank's gradient
     d = inputs["dense"]
     hi_tree = {"w": torch.from_numpy(d["hi"]).view(torch.bfloat16)}
@@ -436,3 +440,21 @@ def wire_units_rank(rank: int, meshes: dict, inputs: dict) -> dict:
                 dtype[mode, wire] = str(out.dtype).removeprefix("torch.")
                 dy[mode, wire, what] = out.float().numpy().copy()
     return {"dense": dense, "dY": dy, "dtype": dtype}
+
+
+def int_psum_rank(rank: int, world_size: int, device: str) -> dict:
+    """``comm.psum`` of int32 values past 2^24 (float bit patterns among them)
+    over this rank's mesh of the whole world on ``device`` (an NCCL group of
+    one rank in ``tests/test_torch_cuda.py``); returns operand and result."""
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh((1, world_size), ("data", "model"), dev, group=dist.group.WORLD)
+    g = mesh.group(("data", "model"))
+    x = torch.tensor([0x3F800001, -0x40800001, 2 ** 24 + 1, 2 ** 30 + 3, -7], dtype=torch.int32,
+                     device=dev) * (rank + 1)
+    out = comm.psum(x, g)
+    return {"x": x.cpu().numpy(), "out": out.cpu().numpy(), "backend": g.backend}

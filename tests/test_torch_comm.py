@@ -73,6 +73,7 @@ out = {
         lambda v: jax.lax.psum_scatter(v, "model", scatter_dimension=0, tiled=True),
         inp["rs_f32"]),
     "psum_all": per_rank(lambda v: jax.lax.psum(v, ALL), inp["psum_f32"]),
+    "psum_all_i32": per_rank(lambda v: jax.lax.psum(v, ALL), inp["psum_i32"]),
 }
 out = {k: (v.view(np.int16) if v.dtype.name == "bfloat16" else v) for k, v in out.items()}
 d = inp["dense"]
@@ -118,6 +119,12 @@ def _inputs() -> dict:
         "rs_bf16": _bf16_bits(wide((N, 8, 64))),
         "rs_f32": wide((N, 8, 64)),
         "psum_f32": wide((N, 3)),
+        # int32 past 2^24 (fp32's exact range), negatives and float bit patterns
+        # with a single nonzero term (the hot-row cache's refresh) included
+        "psum_i32": np.concatenate([
+            rng.integers(-2 ** 28, 2 ** 28, (N, 6)),
+            np.array([[0x3F800001, -0x40800001, 2 ** 24 + 1, 0]] + [[0, 0, 1, 0]] * (N - 1))],
+            axis=1).astype(np.int32),
         "dense": {"hi": hi.view(torch.int16).numpy(), "lo": lo_bucketed.view(np.uint16),
                   "g": wide((N, n_real)) * 1e-3, "lr": LR, "num_buckets": NB},
         # table mode, 2 shards of 2 slots x 3 lookups: ids [2 rows] a rank in
@@ -176,6 +183,7 @@ def _numpy_model(inp: dict) -> dict:
         "psum_scatter_all_f32": np.stack(rs(inp["rs_f32"], "all")),
         "psum_scatter_model_f32": np.stack(rs(inp["rs_f32"], "model")),
         "psum_all": np.stack([sum(inp["psum_f32"][1:], inp["psum_f32"][0].copy())] * N),
+        "psum_all_i32": np.stack([inp["psum_i32"].astype(np.int64).sum(0).astype(np.int32)] * N),
     }
 
 
@@ -203,7 +211,7 @@ def runs(tmp_path_factory):
 
 NAMES = ["all_gather_model", "all_gather_all_bf16", "all_gather_data", "all_to_all_0_1",
          "all_to_all_1_0_bf16", "psum_scatter_all_bf16", "psum_scatter_all_f32",
-         "psum_scatter_model_f32", "psum_all"]
+         "psum_scatter_model_f32", "psum_all", "psum_all_i32"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -220,6 +228,19 @@ def test_collective_bitwise_to_jax_lax_and_its_numpy_model(runs, name):
     np.testing.assert_array_equal(model.view(np.int32) if model.dtype == np.float32 else model,
                                   want[name].view(np.int32) if want[name].dtype == np.float32
                                   else want[name])
+
+
+def test_integer_psum_is_exact_where_fp32_is_not(runs):
+    """The int32 sum is exact: the same operands summed in fp32 would lose
+    bits (so the bitwise check above tests the integer path); at one rank
+    with no process group the psum is the operand."""
+    inp, port, _ = runs
+    x = inp["psum_i32"]
+    f32 = x.astype(np.float32).sum(0, dtype=np.float32).astype(np.int64)
+    assert (f32 != x.astype(np.int64).sum(0)).any()
+    assert port[0]["psum_all_i32"][6] == 0x3F800001 and port[0]["psum_all_i32"][8] == 2 ** 24 + 4
+    t = torch.from_numpy(x[0].copy())
+    assert comm.psum(t, comm.local_group()) is t
 
 
 def test_reduce_scatter_order_shows_in_the_bits(runs):

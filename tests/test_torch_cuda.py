@@ -1295,3 +1295,133 @@ def test_two_ranks_on_card_match_cpu_ranks(two_ranks_on_card, case):
             np.testing.assert_allclose(res["card"][i], res["cpu"][i], rtol=0, atol=1e-2 * upd,
                                        err_msg=f"rank {rank} {what}")
         assert res["stats"]["staging_s"] > 0 and res["stats"]["calls"]["all-gather"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The hot-row cache on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_in_another_launchs_layout_is_bitwise(dev, dtype, weighted):
+    """``layout_bags``: a launch sums in the kernel layout of a launch of
+    that many bags (one bag a warp below the launcher's threshold, four a
+    warp above), bit for bit: a small batch in the large layout is the large
+    launch's rows, a large batch in the small layout the small launch's; the
+    two layouts round differently."""
+    gen = torch.Generator().manual_seed(7)
+    W = _randn(5000, 64, gen=gen).to(dtype).to(dev)
+    ids = (torch.rand((4096, 8, 50), generator=gen) ** 4 * 5000).to(torch.int32).to(dev)
+    wgt = (torch.rand(ids.shape, generator=gen) + 0.5).to(dev) if weighted else None
+    big = ops.embedding_bag(W, ids, 5000, wgt)
+    small = ops.embedding_bag(W, ids[:64].contiguous(), 5000,
+                              None if wgt is None else wgt[:64].contiguous())
+    as_big = ops.embedding_bag(W, ids[:64].contiguous(), 5000,
+                               None if wgt is None else wgt[:64].contiguous(), layout_bags=4096 * 8)
+    as_small = ops.embedding_bag(W, ids, 5000, wgt, layout_bags=64 * 8)
+    torch.cuda.synchronize()
+    assert torch.equal(as_big.view(torch.int32), big[:64].view(torch.int32))
+    assert torch.equal(as_small[:64].view(torch.int32), small.view(torch.int32))
+    assert (small != big[:64]).any()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("B", [64, 8192])
+def test_hot_bag_from_the_kernel_is_the_owners_bag(dev, weighted, B):
+    """Table mode at one shard: the hit bags of ``hot_bag_local`` (one launch
+    of the bag kernel over the mirror) bit for bit the owner's bags (the
+    kernel over the store), at a batch in each kernel layout, weighted too."""
+    from repro_torch.core import cache, sharded_embedding as se
+    from repro_torch.core.embedding import EmbeddingSpec
+    spec = EmbeddingSpec((3000, 2000, 1000, 500), 64)
+    layout = se.make_layout(spec, 1, "table")
+    gen = torch.Generator().manual_seed(B)
+    W = _randn(layout.total_rows, 64, gen=gen).to(torch.bfloat16).to(dev)
+    idx = torch.stack([(torch.rand((B, 5), generator=gen) ** 12 * m).to(torch.int32)
+                       for m in spec.table_rows], 1).to(dev)
+    wgt = (torch.rand(idx.shape, generator=gen) + 0.5).to(dev) if weighted else None
+    l2g, g2l = se.layout_gid_maps(layout)
+    g = (idx + torch.as_tensor(spec.row_offsets, device=dev, dtype=torch.int32)[None, :, None])
+    cnt_gid = torch.bincount(g.reshape(-1).long(), minlength=spec.total_rows)
+    cnt = torch.where(torch.as_tensor(l2g >= 0, device=dev),
+                      cnt_gid[torch.as_tensor(l2g, device=dev).clamp_min(0).long()], 0)
+    ids = cache.select_hot(layout, cnt.to(torch.int32), 64, 0)
+    g2l_t = torch.as_tensor(g2l, device=dev)
+    hot_w = cache.refresh_hot_slab(layout, W, ids, g2l_t, cache.comm.local_group())
+    hot_pos = cache.hot_positions(spec.total_rows, ids)
+    maps = se.slot_maps(layout, dev)
+    owner = se.table_sharded_bag_fwd(layout, W, se.permute_indices(layout, idx, maps), None,
+                                     None if wgt is None else se.permute_indices(layout, wgt, maps),
+                                     maps=maps)
+    before = ops.embedding_bag.launches
+    hit, bag = cache.hot_bag_local(layout, hot_w, hot_pos, idx, wgt,
+                                   layout_bags=B * layout.slots_per_shard)
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.launches == before + 1
+    assert 0.05 < float(hit.float().mean()) < 1.0
+    assert torch.equal(bag[hit].view(torch.int32), owner[hit].view(torch.int32))
+
+
+@pytest.mark.parametrize("over", [{}, {"sparse_optimizer": "momentum_bf16", "weighted": True},
+                                  {"microbatches": 2}])
+def test_cached_step_on_card_is_the_cold_step(dev, over):
+    """Table mode, the sharded stream, ``hot_rows`` 16 under ``allreduce``
+    with the metrics: 4 steps on the card bit for bit the cold steps (losses
+    and every other leaf), bags hitting, two launches of the bag kernel a
+    microbatch, and a step with no host sync."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    from repro_torch.optim import data_parallel as dp
+    cfg = _small_train_cfg(emb_mode="table", idx_input="sharded", **over)
+    hot = dataclasses.replace(cfg, hot_rows=16, promote_every=2, step_metrics=True)
+    a = weights.state_to(dlrm.init_state(cfg, torch.Generator().manual_seed(0), device="cpu"), dev)
+    b = weights.state_to(dlrm.init_state(hot, torch.Generator().manual_seed(0), device="cpu"), dev)
+    batches = _small_batches(cfg, 4, dev)
+    step, h_step = dlrm.make_train_step(cfg, device=dev), dlrm.make_train_step(hot, device=dev)
+    la, lb = [], []
+    for i, bt in enumerate(batches):
+        a, l1 = step(a, bt)
+        ops.reset_launches()
+        if i == 3:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            b, l2 = h_step(b, bt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert ops.launches()["embedding_bag"] == 2 * cfg.microbatches
+        la.append(l1)
+        lb.append(l2)
+    assert torch.equal(torch.stack(la).view(torch.int32), torch.stack(lb).view(torch.int32))
+    ga, gb = weights.state_to_global(a), weights.state_to_global(b)
+    gb["emb"].pop("cnt")
+    for x, y in zip(dp.tree_leaves(ga), dp.tree_leaves({k: gb[k] for k in ga})):
+        assert torch.equal(_bit_view(x), _bit_view(y))
+    m = gb["metrics"].tolist()
+    assert m[0] == 4 and m[2] > 0 and m[3] == 4 * cfg.batch * len(cfg.table_rows)
+
+
+def test_counter_bump_on_card_is_index_add(dev):
+    """The touch counts' bump from the sorted stream's runs on the card,
+    bit for bit ``index_add_`` of the masks (a zipf stream: one run holds
+    half the lookups)."""
+    from repro_torch.optim import row as row_optim
+    gen = torch.Generator().manual_seed(3)
+    srows = torch.sort((torch.rand(200_000, generator=gen) ** 8 * 50_000).to(torch.int32))[0]
+    smsk = (torch.rand(200_000, generator=gen) < 0.9).to(torch.int32)
+    start = torch.randint(0, 9, (50_000, 1), generator=gen, dtype=torch.int32)
+    got = row_optim.bump_counters(start.to(dev), srows.to(dev), smsk.to(dev))
+    assert torch.equal(got.cpu(), start.clone().index_add_(0, srows, smsk[:, None]))
+
+
+def test_integer_psum_on_one_nccl_rank_is_exact(dev, tmp_path):
+    """``comm.psum`` of int32 past 2^24 over a one-rank NCCL group: the
+    operand, bit for bit (an fp32 sum would change it)."""
+    from repro_torch.launch.local import run_ranks
+    from _torch_ranks import int_psum_rank
+    (res,) = run_ranks(int_psum_rank, 1, ("cuda:0",), backend="nccl", timeout_s=120,
+                       store_dir=str(tmp_path))
+    assert res["backend"] == "nccl"
+    np.testing.assert_array_equal(res["out"], res["x"])
+    assert (res["x"].astype(np.float32).astype(np.int64) != res["x"]).any()

@@ -82,6 +82,14 @@ CASES4 = [
 ]
 ROW_STATEFUL = [n for n, _, o in CASES4 if "sparse_optimizer" in o and "emb_mode" not in o]
 CASES8 = [("2x4-quickstart-row-replicated", (2, 4), QUICKSTART)]
+# the reference's tests/test_cache.py::test_cache_multirank_bitwise_and_hotset_identity:
+# table mode, the sharded stream, Split-SGD, 4 steps of its zipf(1.5) batches,
+# the hot-row cache on (hot_rows 8, promote_every 2) and off
+CACHE = dict(name="cache", num_dense=8, bottom=(16, 8), top=(16,), table_rows=(100, 60, 40, 30),
+             emb_dim=8, pooling=3, batch=16, emb_mode="table", idx_input="sharded",
+             sparse_optimizer="split_sgd", lr=0.05)
+CACHE_CASES = [("2x4-cache-cold", (2, 4), CACHE),
+               ("2x4-cache-hot8", (2, 4), {**CACHE, "hot_rows": 8, "promote_every": 2})]
 
 REF = """
 import os, pickle, sys
@@ -119,7 +127,7 @@ def _start(cfg, mesh, seed: int) -> dict:
     a = 1.0 / np.sqrt(np.mean(cfg.table_rows))
     W = np.random.default_rng(seed).uniform(-a, a, (layout.total_rows, cfg.emb_dim))
     opt = t_row.resolve(cfg)
-    emb = t_row.init_store(opt, torch.from_numpy(W.astype(np.float32)))
+    emb = t_row.init_store(opt, torch.from_numpy(W.astype(np.float32)), counters=cfg.hot_rows > 0)
     rng = np.random.default_rng(seed + 1)
     for key, _, dtype in opt.state:  # state from earlier steps: a step of a row that
         slab = emb[key]              # should not step shows
@@ -132,6 +140,9 @@ def _start(cfg, mesh, seed: int) -> dict:
                  mesh[0] * mesh[1])}
     if opt.stochastic_round:
         state["sr"] = torch.tensor(cfg.sr_seed, dtype=torch.int32)
+    if cfg.hot_rows > 0:
+        from repro_torch.core.cache import init_cache
+        state["cache"] = init_cache(cfg, layout, opt, "cpu")
     return weights.state_to_numpy(state)
 
 
@@ -157,6 +168,26 @@ def _batches(cfg, mesh, n: int, seed: int) -> list[dict]:
     return out
 
 
+def _cache_batches(n: int) -> list[dict]:
+    """The reference's multi-rank cache test's batches: zipf(1.5) on each
+    table's head, from ``default_rng(300 + i)``."""
+    out = []
+    for i in range(n):
+        r = np.random.default_rng(300 + i)
+        hi = np.array([m - 1 for m in CACHE["table_rows"]])[None, :, None]
+        idx = np.minimum(r.zipf(1.5, size=(16, 4, 3)) - 1, hi).astype(np.int32)
+        out.append({"idx": idx, "dense_x": r.normal(size=(16, 8)).astype(ml_dtypes.bfloat16),
+                    "labels": r.integers(0, 2, 16).astype(np.float32)})
+    return out
+
+
+def _cache_case(name, mesh, over):
+    cfg = t_dlrm.DLRMConfig(**over)
+    bs = _cache_batches(5)
+    return {"name": name, "cfg": over, "mesh": mesh, "start": _start(cfg, mesh, 300),
+            "batches": bs[:4], "eval": bs[4]}
+
+
 def _case(name, mesh, over, seed):
     kw = {**SMALL, **over}
     cfg = t_dlrm.DLRMConfig(**kw)
@@ -169,10 +200,15 @@ def _case(name, mesh, over, seed):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("hybrid")
     c4 = [_case(n, m, o, i) for i, (n, m, o) in enumerate(CASES4)]
-    c8 = [_case(n, m, o, 100 + i) for i, (n, m, o) in enumerate(CASES8)]
+    c8 = ([_case(n, m, o, 100 + i) for i, (n, m, o) in enumerate(CASES8)]
+          + [_cache_case(n, m, o) for n, m, o in CACHE_CASES])
+    # the measured leg, then its cache leg (the sharded stream) without and with
+    # 64 hot rows a table: the bytes BENCH_pipeline.json's "cache" keeps
     bench = [{"name": "bench", "cfg": cfg, "mesh": (1, 8), "start": None,
               "batches": _batches(t_dlrm.DLRMConfig(**cfg), (1, 8), 1, 7), "eval": None}
-             for cfg in (BENCH, {**BENCH, "exchange_dtype": "bf16"})]
+             for cfg in (BENCH, {**BENCH, "exchange_dtype": "bf16"},
+                         {**BENCH, "idx_input": "sharded"},
+                         {**BENCH, "idx_input": "sharded", "hot_rows": 64, "promote_every": 2})]
     with open(tmp / "cases.pkl", "wb") as f:
         pickle.dump(c4 + c8, f)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
@@ -241,7 +277,7 @@ def _bits(a) -> np.ndarray:
     return a.view({1: np.int8, 2: np.int16, 4: np.int32}[a.dtype.itemsize])
 
 
-NAMES = [n for n, _, _ in CASES4 + CASES8]
+NAMES = [n for n, _, _ in CASES4 + CASES8 + CACHE_CASES]
 # row-wise Adagrad's touched weights after three steps: jitted XLA sums a row's
 # squares in an order of its own (tests/test_torch_row_optim.py: within 6e-8 at one rank)
 ROWWISE_W_ATOL = 6e-8
@@ -409,3 +445,43 @@ def test_bf16_wire_collective_bytes_match_bench_pipeline(runs):
     assert got["all-reduce"] == want["collective_bytes"]["all-reduce"] == 4
     fp32 = bench[0]["bytes_out"]
     assert fp32["all-to-all"] - got["all-to-all"] == 2048 and want["wire_reduction_x"] == 2.0
+
+
+def test_cache_multirank_bitwise_and_hotset_identity(runs):
+    """The reference's multi-rank cache case on (2, 4), 8 gloo ranks: with
+    the cache the losses and every slab of the store (the counts aside) bit
+    for bit the cold run's; every rank holds the same ``hot_ids``,
+    ``hot_w`` and ``hot_pos``, which has members; the cache subtree and the
+    counts bit for bit the reference's."""
+    got, want, _ = runs
+    (_, cold), (_, hot) = got["2x4-cache-cold"], got["2x4-cache-hot8"]
+    assert hot[0]["losses"] == cold[0]["losses"]
+    for k, v in cold[0]["state"]["emb"].items():
+        np.testing.assert_array_equal(_bits(hot[0]["state"]["emb"][k]), _bits(v))
+    for k in ("hot_ids", "hot_w", "hot_pos", "tick"):
+        for r in hot[1:]:
+            np.testing.assert_array_equal(r["cache"][k], hot[0]["cache"][k])
+    assert (hot[0]["cache"]["hot_ids"] >= 0).sum() > 0 and int(hot[0]["cache"]["tick"]) == 4
+    ref = want["2x4-cache-hot8"]["state"]
+    for k in ("hot_ids", "hot_pos", "tick"):
+        np.testing.assert_array_equal(hot[0]["state"]["cache"][k], ref["cache"][k])
+    np.testing.assert_array_equal(hot[0]["state"]["emb"]["cnt"], ref["emb"]["cnt"])
+
+
+def test_cache_collective_bytes_match_bench_pipeline(runs):
+    """The cache's extra collective bytes a rank, one step of the cache leg
+    of ``benchmarks/bench_comm_model.py`` (8 ranks on (1, 8), the sharded
+    stream, batch 64): the promotion's all-gather of the counts (16,064
+    rows of int32) and the refresh's int32 all-reduce of the mirror (512 x
+    16), as ``BENCH_pipeline.json`` ``cache.hot64`` less ``hot0`` counts
+    them in the reference's compiled HLO: +64,256 and +32,768 bytes, and
+    nothing else."""
+    import json
+    _, _, bench = runs
+    cache = json.loads((ROOT / "BENCH_pipeline.json").read_text())["cache"]
+    cold, hot = bench[2]["bytes_out"], bench[3]["bytes_out"]
+    want = {k: cache["hot64"]["collective_bytes"].get(k, 0)
+            - cache["hot0"]["collective_bytes"].get(k, 0) for k in cold}
+    got = {k: hot[k] - cold[k] for k in cold}
+    assert got == want == {"all-gather": 64256, "all-to-all": 0, "reduce-scatter": 0,
+                           "all-reduce": 32768, "collective-permute": 0}

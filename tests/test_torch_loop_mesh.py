@@ -287,10 +287,21 @@ def test_elastic_losses_match_reference(runs, src):
     assert np.isfinite(port4[0][src]["losses"]).all()
 
 
-def test_loop_refuses_the_metrics_drain():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TrainLoop(TrainLoopConfig(steps=1), lambda s, b: (s, 0.0),
-                  {"metrics": torch.zeros(4)}, iter(()), device="cpu")
+def test_loop_on_a_mesh_drains_each_ranks_replicated_metrics():
+    """A mesh's loop drains the rank's own replicated vector, with no
+    collective: a (1, 1) mesh's loop over a step that adds to ``metrics``."""
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+
+    def step(s, b):
+        s["metrics"] = s["metrics"] + 1.0
+        return s, 0.0
+    from repro_torch.core.dlrm import DLRMConfig
+    cfg = DLRMConfig(name="t", num_dense=4, bottom=(8, 8), top=(8,), table_rows=(10,), emb_dim=8,
+                     pooling=1, batch=2)
+    loop = TrainLoop(TrainLoopConfig(steps=3, metrics_every=2), step,
+                     {"metrics": torch.zeros(6)}, iter([{}] * 3), mesh=mesh, model_cfg=cfg)
+    loop.run()
+    assert loop._metrics_prev["steps"] == 3.0 and loop._metrics_window["steps"] == 1.0
 
 
 def test_loop_on_a_mesh_needs_the_model_config():

@@ -427,11 +427,12 @@ def test_gather_dY_and_apply_update_mask_out_of_range_rows():
     assert torch.equal((store["w"] != 0).any(dim=1).nonzero().flatten(), torch.tensor([5]))
 
 
-@pytest.mark.parametrize("over,match", [({"mlp_impl": "pallas"}, "no backward"),
-                                        ({"hot_rows": 4}, "queue 1 item 5")])
-def test_train_step_refuses_what_is_not_ported(over, match):
+@pytest.mark.parametrize("over,exc,match", [
+    ({"mlp_impl": "pallas"}, NotImplementedError, "no backward"),
+    ({"hot_rows": 4, "hot_sync": "deferred:0"}, ValueError, "hot_sync")])
+def test_train_step_refuses_what_is_not_ported(over, exc, match):
     _, t_cfg = _configs(**over)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         t_dlrm.make_train_step(t_cfg, device="cpu")
 
 

@@ -97,11 +97,11 @@ VARIANTS = {
         "no index loads": [("ids[g][h] = in ? __ldg(idx + at) : 0;", "ids[g][h] = in ? (p & 15) : 0;")],
         "no dedup": [("const unsigned same = __match_any_sync(kFull, key);",
                       "const unsigned same = 1u << lane;")],
-        "one bag a warp": [("if (groups > 1 && B * S < static_cast<int64_t>(groups) * 32 * sms)",
+        "one bag a warp": [("if (groups > 1 && layout_bags < static_cast<int64_t>(groups) * 32 * sms)",
                             "if (groups > 1)")],
         "four bags a warp at every batch": [
-            ("if (groups > 1 && B * S < static_cast<int64_t>(groups) * 32 * sms)",
-             "if (groups > 1 && B * S < 0)")],
+            ("if (groups > 1 && layout_bags < static_cast<int64_t>(groups) * 32 * sms)",
+             "if (groups > 1 && layout_bags < 0)")],
         "bags sample-major": [
             ("    const uint32_t j = j0 + g, s = j / Bu;\n"
              "    const bool in = g < G && j < n_bags;\n"
@@ -209,7 +209,7 @@ class Bag:
             self.wfn.restype = _I
         else:
             self.fn = lib.embedding_bag_fwd
-            self.fn.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _I, _I, _P]
+            self.fn.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _I, _I, _L, _P]
         self.fn.restype = _I
 
     def __call__(self, W, idx, gidx, offsets, wgt, out, rows, fused=False):
@@ -229,7 +229,7 @@ class Bag:
             src = idx if fused else gidx
             err = self.fn(W.data_ptr(), src.data_ptr(), offsets.data_ptr() if fused else None,
                           None if wgt is None else wgt.data_ptr(), out.data_ptr(), B, S, P, E,
-                          rows, bf16, int(fused), stream)
+                          rows, bf16, int(fused), 0, stream)
         if err:
             raise SystemExit(f"CUDA error {err}")
 
