@@ -197,8 +197,30 @@ from the root of a checkout.  Phases, each of which fails the run:
     heartbeat windows with ``cache_hit_rate``, the step p50 with and without
     the metrics.  19d: ``profile_stages`` of dlrm-small (row mode): six
     stages with ms and modelled bytes, flops and µs, the trace read back by
-    ``telemetry.summarize``.  A failure raises ``SystemExit`` and prints no
-    result.
+    ``telemetry.summarize``;
+20. packed-shard ingestion, train-to-serve publishing and the launcher.
+    20a: dlrm-small at full width from packed shards: 10 batches of
+    zipf(1.05) samples packed into ``build/ingest/``; the shuffled reader's
+    first batch bit for bit numpy's gather of its epoch order, epoch 1's
+    order another; ``TrainLoop`` (prefetch 2) over ``HostPipeline(
+    ShardedReader(shuffle=True))`` for 20 steps (two epochs) with a
+    ``SnapshotPublisher`` every 10 steps: finite losses, the first step bit
+    for bit a bare step on its batch, versions 1-3 published and 2 kept,
+    version 2's CRC32s unchanged under 10 more in-place steps, the heartbeat
+    carrying ``serve.snapshot``, rows 1, 2, 4, 5 once a step; 256 requests
+    served from the newest version within 3e-3 of the plain forward;
+    printed: the pack's MB/s, the gather's ms a batch shuffled and
+    sequential, ``HostPipeline``'s prep and wait, the loop's samples/s each
+    way beside the bare step's.  20b: ``launch.train.main`` in process,
+    ``--arch dlrm-100m --batch 2048 --steps 40 --host-presort --optimizer
+    adagrad_rowwise`` with checkpoints, a trace, publishing and the serving
+    smoke, on a dataset packed by ``python -m repro_torch.data``: preempted
+    at 30, then resumed from its final checkpoint to 40; the trace read by
+    ``python -m repro_torch.telemetry summarize``, every served bucket's
+    line printed, row 9 once a step; ``python -m repro_torch.launch.train
+    --arch dlrm-smoke --steps 5`` as a subprocess.  20c:
+    ``examples/train_dlrm_100m_torch.py`` at its defaults (its loss falls).
+    A failure raises ``SystemExit`` and prints no result.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
 events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
@@ -212,10 +234,13 @@ its eval step, rows 4 and 5 the train steps and the loop's, and rows 1, 2,
 2, 4 and 5 every rank's loop and elastic steps of phase 17 and phase 18's
 timed steps: 18a's presorted and loop steps, 18b's, 18c's M > 1 steps (rows
 1 and 2 M times a step) and both ranks' ring steps in 18d, and every step of
-phase 19, row 1 twice a cached table-mode step); then
+phase 19, row 1 twice a cached table-mode step, and phase 20's loops,
+served batches and launcher runs, its stage profiles included); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-without a CUDA device.
+without a CUDA device.  No process it started outlives it: on its way out
+it stops multiprocessing's resource tracker and any other child still
+running.
 """
 
 from __future__ import annotations
@@ -364,6 +389,35 @@ LM_TOL = 0.2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def stop_children() -> list[str]:
+    """Stop every child of this process that still runs (multiprocessing's
+    resource tracker through its own handle, any other by SIGTERM, then
+    SIGKILL after 5 s) and return the command lines of the others."""
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+    getattr(resource_tracker._resource_tracker, "_stop", lambda: None)()
+    left = {}
+    for f in Path(f"/proc/{os.getpid()}/task").glob("*/children"):
+        for pid in map(int, f.read_text().split()):
+            try:
+                left[pid] = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+                os.kill(pid, signal.SIGTERM)
+            except (OSError, ProcessLookupError):
+                continue
+    deadline = time.monotonic() + 5
+    for pid in left:
+        try:
+            while os.waitpid(pid, os.WNOHANG) == (0, 0) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if os.waitpid(pid, os.WNOHANG) == (0, 0):
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+        except ChildProcessError:  # reaped already
+            pass
+    return list(left.values())
 
 
 def nvidia_smi() -> str:
@@ -3385,6 +3439,346 @@ def cache_phase(dev, batches, held, failures) -> dict:
     return counts
 
 
+INGEST_BATCHES = 10     # dlrm-small batches packed for phase 20a: 20 loop steps are two epochs
+INGEST_STEPS = 20
+INGEST_TIMED = 10       # loop steps timed each way (shuffled, sequential)
+INGEST_BURSTS = (128, 32, 32, 32, 8, 8, 8, 8)   # 256 requests that reach every bucket
+LAUNCH_ARGV = ("--arch", "dlrm-100m", "--batch", "2048", "--steps", "40", "--host-presort",
+               "--optimizer", "adagrad_rowwise", "--lr", "0.03", "--ckpt-every", "20",
+               "--publish-every", "10", "--serve-smoke")
+LAUNCH_PREEMPT = 30
+PROFILE_RUNS = 4        # profile_stages' runs of each stage: warmup 1 + steps 3
+PATH_KERNELS = ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd")
+
+
+def leaf_crcs(tree) -> list:
+    """CRC32 of every leaf of a tree of tensors (copied to the host)."""
+    import zlib
+    import torch
+    from repro_torch.optim import data_parallel as dp
+    return [zlib.crc32(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy())
+            for t in dp.tree_leaves(tree)]
+
+
+def ingest_phase(dev, failures) -> dict:
+    """20a: dlrm-small at full width trained from packed shards.
+
+    ``pack_synthetic`` writes ``INGEST_BATCHES`` batches of zipf(1.05)
+    samples into ``build/ingest/`` (deleted at the end).  Gates: the
+    shuffled reader's first batch bit for bit numpy's gather of
+    ``epoch_order(0)`` from the packed arrays; epoch 1's order not epoch
+    0's; a ``TrainLoop`` of ``INGEST_STEPS`` steps (two epochs) over
+    ``HostPipeline(ShardedReader(shuffle=True, seed=0))`` (prefetch 2) with
+    ``SnapshotPublisher(publish_every=10)`` as its step hook and
+    ``combined_serve_stats`` in its heartbeat: every loss finite, its first
+    step bit for bit a bare step on the same batch from the same start
+    state, versions 1, 2 and 3 published with 2 and 3 kept, version 2's
+    CRC32s unchanged after 10 more in-place steps, every heartbeat carrying
+    ``serve.snapshot``, rows 1, 2, 4 and 5 once a step; then 256 requests
+    served from ``registry.current()``, their logits within ``LOGIT_TOL``
+    of the plain forward.  Prints the pack's s and MB/s, the gather's ms a
+    batch shuffled and sequential, ``HostPipeline``'s prep and wait, and the
+    loop's samples/s for ``INGEST_TIMED`` steps each way beside the bare
+    step's.  Returns the launch counts of the loops and the served
+    batches."""
+    import json
+    import shutil
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.data import HostPipeline, ShardedReader
+    from repro_torch.data.format import pack_synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ContinuousBatchingServer, SnapshotPublisher,
+                                   combined_serve_stats, make_bucket_scorers)
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    cfg = dlrm_small()
+    B = cfg.batch
+    root = ROOT / "build" / "ingest"
+    shutil.rmtree(root, ignore_errors=True)
+    counts = {k: 0 for k in ops.launches()}
+    try:
+        t0 = time.perf_counter()
+        man = pack_synthetic(root / "ds", cfg.table_rows, cfg.pooling, INGEST_BATCHES * B,
+                             num_dense=cfg.num_dense, alpha=ALPHA, seed=SEED,
+                             samples_per_shard=B)
+        pack_s = time.perf_counter() - t0
+        mb = sum(f.stat().st_size for f in (root / "ds").iterdir()) / 1e6
+        log(f"20a: packed {man['num_samples']} dlrm-small samples into {len(man['shards'])} "
+            f"shards, {mb:.1f} MB, in {pack_s:.3f} s: {mb / pack_s:.1f} MB/s")
+
+        rd = ShardedReader(root / "ds", batch=B, seed=0, shuffle=True)
+        o0, o1 = rd.epoch_order(0), rd.epoch_order(1)
+        if np.array_equal(o0, o1):
+            failures.append("20a: epoch 1's order is epoch 0's")
+        S, P = cfg.spec.num_tables, cfg.pooling
+        dense = np.concatenate([sh.dense for sh in rd.shards])
+        labels = np.concatenate([sh.labels for sh in rd.shards])
+        idx = np.stack([np.concatenate([sh._indices[k].reshape(sh.num_samples, P)
+                                        for sh in rd.shards]) for k in range(S)], axis=1)
+        first = next(iter(rd.epoch_batches(0)))
+        sel = o0[:B]
+        same = (np.array_equal(first["idx"], idx[sel]) and np.array_equal(first["dense_x"],
+                                                                          dense[sel])
+                and np.array_equal(first["labels"], labels[sel]))
+        log(f"20a: the reader's first batch bit for bit numpy's gather of epoch_order(0): {same}; "
+            f"epoch 1's order differs: {not np.array_equal(o0, o1)}")
+        if not same:
+            failures.append("20a: the reader's first batch is not numpy's gather of epoch_order(0)")
+        del dense, labels, idx
+
+        def gather_ms(reader) -> float:
+            t = time.perf_counter()
+            n = sum(1 for _ in reader.epoch_batches(0))
+            return (time.perf_counter() - t) / n * 1e3
+        shuffled_ms = gather_ms(rd)
+        seq_ms = gather_ms(ShardedReader(root / "ds", batch=B, shuffle=False))
+        log(f"20a: gather a batch of {B}: shuffled {shuffled_ms:.3f} ms, sequential {seq_ms:.3f} "
+            f"ms (the mmap views), {INGEST_BATCHES} batches each")
+
+        S0 = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        step = dlrm.make_train_step(cfg, device=dev)
+        staged = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in first.items()}
+        bare, bare_loss = step(weights.state_to(S0, dev), staged)
+        bare_loss = float(bare_loss)
+        staged_all = [{k: torch.from_numpy(np.array(v)).to(dev) for k, v in b.items()}
+                      for b in rd.epoch_batches(0)]
+        timing = weights.state_to(S0, dev)
+        step(timing, staged_all[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in staged_all:
+            timing, loss = step(timing, b)
+            float(loss)
+        torch.cuda.synchronize()
+        bare_rate = len(staged_all) * B / (time.perf_counter() - t)
+        del timing, staged_all
+        torch.cuda.empty_cache()
+
+        pub = SnapshotPublisher(cfg, publish_every=10)
+        pub.publish(0, S0)
+        seen = {}
+
+        def hook(completed, state):
+            if completed == 1:
+                seen["first"] = bitwise_equal(state, bare)
+            pub(completed, state)
+            if completed == 10:
+                seen["v2"] = leaf_crcs(pub.registry.get(2).state)
+
+        hb = root / "heartbeat.jsonl"
+        pipe = HostPipeline(ShardedReader(root / "ds", batch=B, seed=0, shuffle=True))
+        loop = TrainLoop(TrainLoopConfig(steps=INGEST_STEPS, prefetch=2, log_every=10,
+                                         heartbeat_path=str(hb), heartbeat_every=10),
+                         step, S0, pipe, device=dev, step_hook=hook,
+                         serve_stats=combined_serve_stats(pub))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        state = loop.run()
+        wall = time.perf_counter() - t
+        pipe.close()
+        got = ops.launches()
+        log(f"20a: {INGEST_STEPS} loop steps over the shuffled reader in {wall:.3f} s "
+            f"({INGEST_STEPS * B / wall:.0f} samples/s with the gated hook's compare and CRCs); "
+            f"losses {loop.losses[0]:.6f} -> {loop.losses[-1]:.6f}; launches {got}")
+        for k, v in got.items():
+            counts[k] += v
+        if not np.isfinite(loop.losses).all() or len(loop.losses) != INGEST_STEPS:
+            failures.append(f"20a: losses {loop.losses}")
+        if got != {k: INGEST_STEPS if k in PATH_KERNELS else 0 for k in got}:
+            failures.append(f"20a: launches {got}, want {INGEST_STEPS} of each of {PATH_KERNELS}")
+        log(f"20a: the loop's first step bit for bit the bare step (loss {bare_loss:.6f}): "
+            f"{seen.get('first')}; its loss {loop.losses[0]:.6f}")
+        if not seen.get("first") or loop.losses[0] != bare_loss:
+            failures.append("20a: the loop's first step is not the bare step on its batch")
+        del bare
+        v2_after = leaf_crcs(pub.registry.get(2).state) if pub.registry.get(2) else None
+        log(f"20a: published {pub.publishes} versions, kept {pub.registry.versions()}; version "
+            f"2's CRC32s after 10 more in-place steps unchanged: {v2_after == seen.get('v2')}")
+        if pub.publishes != 3 or pub.registry.versions() != [2, 3]:
+            failures.append(f"20a: publishes {pub.publishes}, kept {pub.registry.versions()}")
+        if v2_after is None or v2_after != seen.get("v2"):
+            failures.append("20a: version 2 changed under the in-place steps")
+        recs = [json.loads(ln) for ln in hb.read_text().splitlines()]
+        log(f"20a: heartbeats at steps {[r['step'] for r in recs]}, serve "
+            f"{[r.get('serve', {}).get('snapshot') for r in recs]}")
+        if not recs or any("version" not in r.get("serve", {}).get("snapshot", {})
+                           for r in recs):
+            failures.append("20a: a heartbeat lacks serve.snapshot")
+
+        # the loop's samples/s each way, on the trained state
+        for tag, shuffle in (("shuffled", True), ("sequential", False)):
+            pipe = HostPipeline(ShardedReader(root / "ds", batch=B, seed=1, shuffle=shuffle))
+            timed = TrainLoop(TrainLoopConfig(steps=INGEST_TIMED, prefetch=2,
+                                              log_every=INGEST_TIMED), step, state, pipe,
+                              device=dev)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            state = timed.run()
+            wall = time.perf_counter() - t
+            pipe.close()
+            for k, v in ops.launches().items():
+                counts[k] += v
+            a = np.asarray(timed.monitor.times) * 1e3
+            pst, fst = pipe.stats, timed.batches.stats
+            log(f"20a: loop {tag}: {INGEST_TIMED * B / wall:.0f} samples/s over {wall:.3f} s "
+                f"(bare step {bare_rate:.0f}: {INGEST_TIMED * B / wall / bare_rate:.3f}x); step "
+                f"ms p50 {np.percentile(a, 50):.3f}; HostPipeline prep {pst['prep_s']:.3f} s for "
+                f"{pst['batches']} batches ({pst['prep_s'] / max(pst['batches'], 1) * 1e3:.2f} "
+                f"ms each), prefetch's wait on it {pst['wait_s']:.3f} s; the loop's wait on "
+                f"prefetch {fst['wait_s']:.3f} s ({fst['wait_s'] / wall * 100:.1f} % of the wall)")
+            if not np.isfinite(timed.losses).all():
+                failures.append(f"20a: {tag} losses {timed.losses}")
+
+        # 256 requests from the newest version
+        reg = pub.registry
+        offsets = torch.as_tensor(se.make_layout(cfg.spec, 1).row_offsets, dtype=torch.int32,
+                                  device=dev)
+        reqs = make_requests(cfg, sum(INGEST_BURSTS), np.random.default_rng(SEED + 20))
+        fns, pad = make_bucket_scorers(cfg, BUCKETS, lambda: reg.current().state, device=dev)
+        scores = []
+        ops.reset_launches()
+        with ContinuousBatchingServer(fns, pad, max_wait_ms=2.0) as srv:
+            start = 0
+            for n in INGEST_BURSTS:
+                scores += [h.result(timeout=300.0)
+                           for h in [srv.submit(r) for r in reqs[start:start + n]]]
+                start += n
+            stats = srv.stats()
+        for k, v in ops.launches().items():
+            counts[k] += v
+        scores = np.asarray(scores, np.float32)
+        snap = reg.current().state
+        want = torch.cat([plain_logits(cfg, snap, pad(reqs[i:i + BUCKETS[-1]], BUCKETS[-1]),
+                                       offsets).cpu()
+                          for i in range(0, len(reqs), BUCKETS[-1])])[:len(reqs)].double()
+        gotl = torch.logit(torch.from_numpy(scores).double())
+        err = close_or_fail(f"20a: {len(reqs)} served logits (v{reg.current().version}) vs the "
+                            "plain forward", gotl, want, 0.0, LOGIT_TOL, failures)
+        log(f"20a: served {stats['requests']} requests in {stats['batches']}, logits within "
+            f"{err:.3e} of the plain forward")
+        del state, S0, pub, reg, snap
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts
+
+
+def launcher_phase(dev, failures) -> dict:
+    """20b: the launcher on the card, then 20c: the 100M example.
+
+    A dataset of dlrm-100m samples packed by ``python -m repro_torch.data
+    synthetic`` into ``build/launch/`` (deleted at the end); then
+    ``launch.train.main`` in this process (so its launches count) with
+    ``LAUNCH_ARGV`` and a checkpoint, trace and event directory there:
+    once with ``--preempt-at 30`` (a ``preempted`` event, a final
+    checkpoint), once without (it restores the final checkpoint and runs to
+    40).  Gates: every loss finite; the restore at the preempted run's
+    last step; ``trace.json`` parses and ``python -m repro_torch.telemetry
+    summarize`` reads it; a line for every bucket the serving smoke served;
+    row 9 launched once a step (and ``PROFILE_RUNS`` times by each run's
+    stage profile).  Then one subprocess ``python -m repro_torch.launch.train
+    --arch dlrm-smoke --steps 5`` and one ``python
+    examples/train_dlrm_100m_torch.py`` at its defaults (its own assert: the
+    loss falls).  Returns the launch counts of the two in-process runs."""
+    import contextlib
+    import io
+    import json
+    import os
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    root = ROOT / "build" / "launch"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    counts = {k: 0 for k in ops.launches()}
+
+    def sub(args, timeout=600) -> str:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+        log(f"20: `{' '.join(args[:4])} ...` exit {proc.returncode} in "
+            f"{time.perf_counter() - t:.1f} s; its last lines:\n    "
+            + "\n    ".join(proc.stdout.strip().splitlines()[-3:]))
+        if proc.returncode != 0:
+            failures.append(f"20: {' '.join(args)} exited {proc.returncode}:\n"
+                            + proc.stdout[-2000:] + proc.stderr[-4000:])
+        return proc.stdout
+
+    try:
+        ds, tr, ck = root / "ds", root / "trace", root / "ckpt"
+        sub(["-m", "repro_torch.data", "synthetic", "--out", str(ds), "--tables",
+             ",".join(["200000"] * 8), "--pooling", "20", "--num-dense", "64", "--num-samples",
+             "16384", "--samples-per-shard", "4096", "--alpha", str(ALPHA)])
+        if failures:
+            return counts
+        argv = [*LAUNCH_ARGV, "--data-dir", str(ds), "--ckpt-dir", str(ck), "--trace-dir",
+                str(tr)]
+        runs = []
+        for extra in (["--preempt-at", str(LAUNCH_PREEMPT)], []):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = launch.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = ops.launches()
+            for k, v in got.items():
+                counts[k] += v
+            text = buf.getvalue()
+            log(f"20b: launch.train.main({' '.join(argv[:6])} ... {' '.join(extra)}) in "
+                f"{wall:.1f} s: {len(out['losses'])} steps from {out['start_step']}, launches "
+                f"{got}; its output:\n    " + "\n    ".join(text.strip().splitlines()))
+            runs.append((out, got, text))
+            n = len(out["losses"])
+            if not n or not np.isfinite(out["losses"]).all():
+                failures.append(f"20b: losses {out['losses']}")
+            rows9 = got["embedding_update_adagrad_rowwise"]
+            if rows9 != n + PROFILE_RUNS:
+                failures.append(f"20b: row 9 launched {rows9} times for {n} steps "
+                                f"(+{PROFILE_RUNS} by the stage profile)")
+            pct = out.get("serve", {}).get("percentiles", {})
+            missing = [b for b in pct if f"[serve]   bucket {b:>4}:" not in text]
+            if not pct or missing:
+                failures.append(f"20b: bucket lines missing for {missing or 'every bucket'}")
+        (first, _, _), (second, _, text2) = runs
+        events = [json.loads(ln) for ln in (tr / "events.jsonl").read_text().splitlines()]
+        stop = next((e["step"] for e in events if e["kind"] == "preempted"), None)
+        log(f"20b: events {[(e['kind'], e.get('step')) for e in events]}; the second run "
+            f"restored at {second['start_step']}")
+        if stop is None or stop != len(first["losses"]) or second["start_step"] != stop \
+                or stop + len(second["losses"]) != 40:
+            failures.append(f"20b: preempted at {stop}, restored at {second['start_step']}, "
+                            f"{len(second['losses'])} more steps")
+        if CheckpointManager(ck).latest_valid_step() != 40:
+            failures.append("20b: no valid checkpoint at step 40")
+        json.loads((tr / "trace.json").read_text())
+        summary = sub(["-m", "repro_torch.telemetry", "summarize", str(tr / "trace.json")])
+        if "track: pipeline_stages" not in summary or "train/step" not in summary:
+            failures.append("20b: the trace summary lacks the stage profile or the steps")
+        smoke = sub(["-m", "repro_torch.launch.train", "--arch", "dlrm-smoke", "--steps", "5"])
+        if "[train] done: first loss" not in smoke:
+            failures.append("20b: the module entry did not finish its run")
+        example = sub(["examples/train_dlrm_100m_torch.py"])
+        if "mean loss first-10" not in example:
+            failures.append("20c: the 100M example did not report its losses")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -3610,6 +4004,17 @@ def main() -> int:
     log(f"phase 19: {time.perf_counter() - t19:.1f} s; the whole run so far "
         f"{time.perf_counter() - t_run:.1f} s")
 
+    # packed-shard ingestion, train-to-serve publishing and the launcher
+    t20 = time.perf_counter()
+    gate("20a, ingestion and publishing", ingest_phase(dev, failures))
+    got = launcher_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 20b/20c, the launcher failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        counts[name] = counts.get(name, 0) + v
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s; the whole run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
               "dot_interaction": ("src/repro_torch/csrc/interaction.cu",
@@ -3681,4 +4086,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for cmd in stop_children():
+            print(f"chip_smoke: stopped a process left running: {cmd}", file=sys.stderr)
+    sys.exit(rc)

@@ -142,6 +142,44 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     return state
 
 
+def batch_struct(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout,
+                 batch: int | None = None) -> dict:
+    """``(shape, dtype)`` of each field of one global batch of ``cfg`` on
+    ``mesh`` (``batch`` samples, ``cfg.batch`` by default), in the
+    reference's ``batch_struct`` order."""
+    B, S, Pq = batch or cfg.batch, layout.num_orig_slots, cfg.pooling
+    slots = layout.num_padded_slots if (cfg.emb_mode == "table"
+                                        and cfg.idx_input == "replicated") else S
+    out = {"idx": ((B, slots, Pq), torch.int32)}
+    if cfg.weighted:
+        out["weights"] = ((B, slots, Pq), torch.float32)
+    if cfg.host_presort:
+        ns_emb = pipeline.num_shards(cfg, mesh)
+        L = B * (S if cfg.emb_mode == "row" else layout.slots_per_shard) * Pq
+        for name, dt in (("psort_rows", torch.int32), ("psort_bags", torch.int32),
+                         ("psort_msk", torch.int32), ("psort_wgt", torch.float32)):
+            out[name] = ((ns_emb, L), dt)
+    out["dense_x"] = ((B, cfg.num_dense), torch.bfloat16)
+    out["labels"] = ((B,), torch.float32)
+    return out
+
+
+def batch_struct_from_spec(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout, dataset_spec,
+                           batch: int | None = None) -> dict:
+    """:func:`batch_struct` checked against a packed dataset's
+    ``data.format.DatasetSpec``: the loader-facing entry.  A mismatch
+    between the dataset and the model fails here, at wiring time, with the
+    reference's field-by-field message, not as a shape error inside the
+    step."""
+    dataset_spec.check_model(cfg)
+    if dataset_spec.weighted and not cfg.weighted:
+        # legal (weights are simply not read) but worth rejecting loudly:
+        # the reader WILL yield a weights field the struct won't declare.
+        raise ValueError("dataset is weighted but mdef.weighted=False; "
+                         "set weighted=True (or strip the weights field)")
+    return batch_struct(cfg, mesh, layout, batch)
+
+
 def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
     """This rank's block of the reference's global batch (``batch_struct``'s
     partition specs): ``idx`` and ``weights`` whole in row mode with the

@@ -6,7 +6,8 @@ one ``torch.distributed`` process group through a file store, runs
 order; each rank's intra-op threads get an equal share of the host's cores.
 Every wait is bounded: the group's ``timeout`` bounds a collective that
 waits on a rank that died or hangs, and the parent stops every child
-when the run exceeds ``timeout_s`` or any child fails, and then raises.  It
+when the run exceeds ``timeout_s`` or any child fails, and then raises;
+the resource tracker that the first ``spawn`` starts is stopped with them.  It
 is how the tests run the hybrid step at N gloo ranks on the CPU, and how
 ``chip_smoke.py`` runs two ranks on one card (gloo, the payloads staged
 through host memory).
@@ -17,14 +18,14 @@ from __future__ import annotations
 import datetime
 import multiprocessing
 import os
-import queue
 import tempfile
 import time
 import traceback
+from multiprocessing import connection, resource_tracker
 
 
 def _child(fn, rank: int, world_size: int, args: tuple, backend: str, store: str,
-           timeout_s: float, results) -> None:
+           timeout_s: float, conn) -> None:
     import torch
     import torch.distributed as dist
     # the host's cores shared out among the ranks: each rank's default of one
@@ -38,10 +39,12 @@ def _child(fn, rank: int, world_size: int, args: tuple, backend: str, store: str
             out = fn(rank, world_size, *args)
         finally:
             dist.destroy_process_group()
-        results.put((rank, True, out))
+        conn.send((True, out))
     except BaseException:  # reported to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
+        conn.send((False, traceback.format_exc()))
         raise
+    finally:
+        conn.close()
 
 
 def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
@@ -52,43 +55,56 @@ def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
     ``store_dir``: where the file store goes (a fresh temporary directory
     when None).  Raises ``RuntimeError`` with the child's traceback if any
     rank fails, and ``TimeoutError`` past ``timeout_s``; no child outlives
-    the call."""
+    the call, multiprocessing's resource tracker included where the call
+    started it."""
+    tracker = resource_tracker._resource_tracker
+    own_tracker = tracker._pid is None  # the first spawn below starts it
     ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_child, args=(fn, r, world_size, args, backend, store,
-                                                  timeout_s, results), daemon=True)
-                 for r in range(world_size)]
-        for p in procs:
-            p.start()
-        got: dict = {}
-        deadline = time.monotonic() + timeout_s
-        try:
-            while len(got) < world_size:
+    # a pipe a rank, not a Queue: a Queue's semaphores stay registered with
+    # the resource tracker, which a later unregister would start anew
+    pipes = [ctx.Pipe(duplex=False) for _ in range(world_size)]
+    procs = []
+    try:
+        with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
+            store = os.path.join(tmp, "store")
+            procs = [ctx.Process(target=_child, args=(fn, r, world_size, args, backend, store,
+                                                      timeout_s, pipes[r][1]), daemon=True)
+                     for r in range(world_size)]
+            for p in procs:
+                p.start()
+            for _, w in pipes:
+                w.close()  # so that a rank that dies reads as the end of its pipe
+            readers = {pipes[r][0]: r for r in range(world_size)}
+            got: dict = {}
+            deadline = time.monotonic() + timeout_s
+            while readers:
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise TimeoutError(f"{world_size} ranks did not finish within {timeout_s} s "
                                        f"(done: {sorted(got)})")
-                try:
-                    rank, ok, out = results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and not p.is_alive() and p.exitcode != 0]
-                    if dead:
-                        raise RuntimeError(f"rank {dead[0]} exited with code "
-                                           f"{procs[dead[0]].exitcode} and no result")
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{out}")
-                got[rank] = out
-        finally:
-            for p in procs:
+                for conn in connection.wait(list(readers), timeout=min(left, 1.0)):
+                    rank = readers.pop(conn)
+                    try:
+                        ok, out = conn.recv()
+                    except EOFError:
+                        procs[rank].join(timeout=5)
+                        raise RuntimeError(f"rank {rank} exited with code "
+                                           f"{procs[rank].exitcode} and no result") from None
+                    if not ok:
+                        raise RuntimeError(f"rank {rank} failed:\n{out}")
+                    got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
                 p.join(timeout=5)
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=5)
+        for rd, wr in pipes:
+            rd.close()
+            wr.close()
+        if own_tracker:  # it would outlive the call, a child of this process
+            tracker._stop()
     return [got[r] for r in range(world_size)]
 
 

@@ -33,11 +33,17 @@ from repro_torch.optim.data_parallel import tree_leaves, tree_map
 
 def snapshot_state(cfg: DLRMConfig, state: dict, *, copy: bool = False) -> dict:
     """The forward-only view ``{emb_w, dense_hi}`` of a state ``{"emb":
-    store, "dense": {"hi": tree, ...}}``; never an optimizer-state slab.
-    ``copy=True`` clones the slabs, for a state that goes on training in
-    place."""
+    store, "dense": {"hi": tree, ...}}``, plus the hot-row cache's ``hot_w``
+    and ``hot_pos`` when ``cfg.hot_rows > 0`` (as the reference's; scoring
+    reads neither); never an optimizer-state slab.  ``copy=True`` clones
+    the slabs: required for a state that goes on training, since the port's
+    step updates it in place (``serve.publish.SnapshotPublisher`` always
+    copies)."""
     snap = {"emb_w": row_optim.fwd_weights(row_optim.resolve(cfg), state["emb"]),
             "dense_hi": state["dense"]["hi"]}
+    if getattr(cfg, "hot_rows", 0) > 0:
+        snap["hot_w"] = state["cache"]["hot_w"]
+        snap["hot_pos"] = state["cache"]["hot_pos"]
     return tree_map(torch.clone, snap) if copy else snap
 
 

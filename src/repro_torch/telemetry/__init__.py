@@ -10,8 +10,8 @@ torch sit in their submodules, imported where used:
 """
 
 from repro_torch.telemetry.hist import LatencyHistogram
-from repro_torch.telemetry.tracer import (Tracer, configure, counter, get_tracer, instant,
-                                          set_track, span)
+from repro_torch.telemetry.tracer import (Tracer, configure, counter, export, get_tracer,
+                                          instant, set_track, span)
 
-__all__ = ["LatencyHistogram", "Tracer", "configure", "counter", "get_tracer", "instant",
+__all__ = ["LatencyHistogram", "Tracer", "configure", "counter", "export", "get_tracer", "instant",
            "set_track", "span"]

@@ -79,29 +79,8 @@ def modeled_stage_costs(cfg, layout=None, ranks: int = 64, card: CardSpec = H100
     return costs
 
 
-def batch_fields(cfg, mesh, layout) -> dict:
-    """``(shape, dtype)`` of each field of one global batch of ``cfg`` on
-    ``mesh``, in the reference's ``batch_struct`` order."""
-    from repro_torch.core.pipeline import emb_axes
-    B, S, Pq = cfg.batch, layout.num_orig_slots, cfg.pooling
-    slots = layout.num_padded_slots if (cfg.emb_mode == "table"
-                                        and cfg.idx_input == "replicated") else S
-    out = {"idx": ((B, slots, Pq), torch.int32)}
-    if cfg.weighted:
-        out["weights"] = ((B, slots, Pq), torch.float32)
-    if getattr(cfg, "host_presort", False):
-        ns_emb = int(np.prod([mesh.shape[a] for a in emb_axes(cfg, mesh)[0]]))
-        L = B * (S if cfg.emb_mode == "row" else layout.slots_per_shard) * Pq
-        for name, dt in (("psort_rows", torch.int32), ("psort_bags", torch.int32),
-                         ("psort_msk", torch.int32), ("psort_wgt", torch.float32)):
-            out[name] = ((ns_emb, L), dt)
-    out["dense_x"] = ((B, cfg.num_dense), torch.bfloat16)
-    out["labels"] = ((B,), torch.float32)
-    return out
-
-
 def synthetic_batch(cfg, fields: dict, seed: int = 0, device="cpu") -> dict:
-    """A random batch of ``fields`` (:func:`batch_fields`), drawn as the
+    """A random batch of ``fields`` (``core.hybrid.batch_struct``), drawn as the
     reference draws it: integer fields valid row ids below the smallest
     table's rows, float fields uniform in [0, 1)."""
     rng = np.random.default_rng(seed)
@@ -142,7 +121,7 @@ def profile_stages(cfg, mesh=None, *, steps: int = 3, warmup: int = 1, barrier: 
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_state(cfg, gen, mesh=mesh)
     layout = hybrid.make_layout(cfg, mesh)
-    glob = synthetic_batch(cfg, batch_fields(cfg, mesh, layout), seed)
+    glob = synthetic_batch(cfg, hybrid.batch_struct(cfg, mesh, layout), seed)
     batch = {k: v.to(dev) for k, v in hybrid.local_batch(cfg, mesh, glob).items()}
     stages = pipeline.build_stages(cfg, layout, mesh)
     opt = row_optim.resolve(cfg)

@@ -11,7 +11,9 @@ whichever thread writes); :meth:`Tracer.set_track` renames the calling
 thread's track, :meth:`Tracer.instant` records a zero-length marker
 (failure-log events, heartbeats) and :meth:`Tracer.counter` a counter
 sample (the drained step metrics); :meth:`Tracer.export` writes
-``{"traceEvents": [...]}``, loadable in Perfetto or ``chrome://tracing``.
+``{"traceEvents": [...]}``, loadable in Perfetto or ``chrome://tracing``, to
+a path or, without one, to ``<trace_dir>/trace.json`` (``configure(...,
+trace_dir=)``, what the launcher's ``--trace-dir`` sets).
 Timestamps are microseconds on the ``perf_counter`` clock, zeroed when the
 tracer was made.
 """
@@ -83,8 +85,9 @@ class Tracer:
     """Collects spans; exports Chrome trace JSON.  ``enabled=False`` (the
     default) makes :meth:`span` a cheap no-op."""
 
-    def __init__(self, enabled: bool = False):
+    def __init__(self, enabled: bool = False, trace_dir: Optional[str] = None):
         self.enabled = enabled
+        self.trace_dir = Path(trace_dir) if trace_dir else None
         self._epoch = time.perf_counter()
         self._pid = os.getpid()
         self._lock = threading.Lock()
@@ -93,6 +96,14 @@ class Tracer:
         self._thread_tracks: dict[int, str] = {}
         self._virtual_tids: dict[str, int] = {}
         self._named_tids: set[int] = set()
+
+    def reset(self) -> None:
+        """Drop every collected event (a run in a process that traced an
+        earlier one)."""
+        with self._lock:
+            self._events = []
+            self._named_tids = set()
+            self._virtual_tids = {}
 
     def set_track(self, name: str) -> None:
         """Name the calling thread's track (overrides the thread name)."""
@@ -159,8 +170,14 @@ class Tracer:
         with self._lock:
             return list(self._events)
 
-    def export(self, path: str) -> Path:
-        """Write ``{"traceEvents": [...]}`` JSON to ``path``."""
+    def export(self, path: Optional[str] = None) -> Optional[Path]:
+        """Write ``{"traceEvents": [...]}`` JSON to ``path``, or to
+        ``<trace_dir>/trace.json`` without one.  Returns the path written,
+        or None when there is nowhere to write."""
+        if path is None:
+            if self.trace_dir is None:
+                return None
+            path = self.trace_dir / "trace.json"
         p = Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
         p.write_text(json.dumps({"traceEvents": self.events(), "displayTimeUnit": "ms"}))
@@ -176,9 +193,12 @@ def get_tracer() -> Tracer:
     return _GLOBAL
 
 
-def configure(enabled: bool = True) -> Tracer:
-    """Enable (or disable) the process-global tracer."""
+def configure(enabled: bool = True, trace_dir: Optional[str] = None) -> Tracer:
+    """Enable (or disable) the process-global tracer.  With ``trace_dir``
+    set, :func:`export` writes ``<trace_dir>/trace.json``."""
     _GLOBAL.enabled = enabled
+    if trace_dir is not None:
+        _GLOBAL.trace_dir = Path(trace_dir)
     return _GLOBAL
 
 
@@ -196,6 +216,10 @@ def counter(name: str, values: dict, track: Optional[str] = None) -> None:
 
 def set_track(name: str) -> None:
     _GLOBAL.set_track(name)
+
+
+def export(path: Optional[str] = None) -> Optional[Path]:
+    return _GLOBAL.export(path)
 
 
 def _thread_name(pid: int, tid: int, name: str) -> dict:

@@ -68,7 +68,7 @@ import time
 import warnings
 from collections import deque
 from pathlib import Path
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -136,7 +136,9 @@ def prefetch_to_device(batches: Iterator[Any], size: int = 2, device="cuda",
     consumer's stream waits on that event before it uses the batch, and each
     tensor is ``record_stream``-ed onto it, so the allocator does not hand
     its memory out while the step may still read it.  On the CPU the arrays
-    become tensors sharing their memory.  Other leaves pass through.
+    become tensors sharing their memory, but for a read-only array (the
+    packed reader's mmap views), which is copied.  Other leaves pass
+    through.
 
     The worker stays at most ``size`` batches ahead of the consumer
     (bounded-queue backpressure); order is preserved exactly.  A source that
@@ -151,7 +153,14 @@ def prefetch_to_device(batches: Iterator[Any], size: int = 2, device="cuda",
 
     def to_tensor(a):
         if isinstance(a, np.ndarray):
-            a = torch.from_numpy(a)
+            if side is not None:  # one copy, straight into pinned memory
+                t = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                                pin_memory=True)
+                t.numpy()[...] = a
+                return t.to(dev, non_blocking=True)
+            # a read-only array (the packed reader's mmap views) is copied:
+            # a tensor must not alias memory that may not be written
+            a = torch.from_numpy(a if a.flags.writeable else a.copy())
         if not isinstance(a, torch.Tensor) or side is None:
             return a
         return a.pin_memory().to(dev, non_blocking=True)
@@ -258,8 +267,8 @@ class LocalBatches:
     there.  An exception of the source passes through and the iterator
     stays usable, so the loop's skip-batch budget works as on one rank."""
 
-    def __init__(self, batches: Iterator[dict], cfg, mesh, device=None):
-        self._src = batches
+    def __init__(self, batches: Iterable[dict], cfg, mesh, device=None):
+        self._src = iter(batches)
         self._cfg = cfg
         self._mesh = mesh
         self._device = device

@@ -458,3 +458,10 @@ def int_psum_rank(rank: int, world_size: int, device: str) -> dict:
                      device=dev) * (rank + 1)
     out = comm.psum(x, g)
     return {"x": x.cpu().numpy(), "out": out.cpu().numpy(), "backend": g.backend}
+
+
+def rank_echo(rank: int, world: int, fail_rank: int):
+    """``rank``, or a ``ValueError`` on rank ``fail_rank``."""
+    if rank == fail_rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    return rank

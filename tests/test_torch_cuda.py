@@ -1425,3 +1425,82 @@ def test_integer_psum_on_one_nccl_rank_is_exact(dev, tmp_path):
     assert res["backend"] == "nccl"
     np.testing.assert_array_equal(res["out"], res["x"])
     assert (res["x"].astype(np.float32).astype(np.int64) != res["x"]).any()
+
+
+# ---------------------------------------------------------------------------
+# Packed ingestion, the launcher and publishing on the card
+# ---------------------------------------------------------------------------
+
+
+def test_packed_loop_first_step_is_the_in_memory_step(dev, tmp_path):
+    """A ``TrainLoop`` on the card over ``HostPipeline(ShardedReader)``
+    (prefetch 2, the reader's read-only views copied into pinned memory):
+    its first step bit for bit (loss and every slab) a bare step on the same
+    batch, staged by hand, from the same start state."""
+    from repro_torch import weights
+    from repro_torch.core import dlrm
+    from repro_torch.data import HostPipeline, ShardedReader
+    from repro_torch.data.format import pack_synthetic
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    cfg = _small_train_cfg()
+    pack_synthetic(tmp_path / "ds", cfg.table_rows, cfg.pooling, 4 * cfg.batch,
+                   num_dense=cfg.num_dense, alpha=1.05, samples_per_shard=96)
+    start = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = dlrm.make_train_step(cfg, device=dev)
+    first = next(iter(ShardedReader(tmp_path / "ds", batch=cfg.batch, seed=3)))
+    bare, bare_loss = step(weights.state_to(start, dev),
+                           {k: torch.from_numpy(np.array(v)).to(dev) for k, v in first.items()})
+    loop = TrainLoop(TrainLoopConfig(steps=1, prefetch=2, log_every=100), step,
+                     weights.state_to(start, dev),
+                     HostPipeline(ShardedReader(tmp_path / "ds", batch=cfg.batch, seed=3)),
+                     device=dev)
+    state = loop.run()
+    assert loop.losses == [float(bare_loss)]
+    for x, y in zip(dp.tree_leaves(state), dp.tree_leaves(bare)):
+        assert torch.equal(_bit_view(x), _bit_view(y))
+
+
+def test_launcher_on_card_at_dlrm_smoke(dev, tmp_path):
+    """``launch.train.main`` at ``dlrm-smoke`` on the card over a packed
+    dataset with the host pre-sort, publishing and the serving smoke: finite
+    losses, the row kernel and the Split-SGD kernel once a step, the bag
+    kernel once a step plus the served batches, scores in (0, 1)."""
+    from repro_torch.data.format import pack_synthetic
+    from repro_torch.launch import train as launch
+    pack_synthetic(tmp_path / "ds", (5000,) * 8, 10, 512, num_dense=64, alpha=1.05,
+                   samples_per_shard=128)
+    ops.reset_launches()
+    out = launch.main(["--arch", "dlrm-smoke", "--steps", "6", "--batch", "64", "--data-dir",
+                       str(tmp_path / "ds"), "--host-presort", "--publish-every", "3",
+                       "--serve-smoke"])
+    torch.cuda.synchronize()
+    n = ops.launches()
+    assert len(out["losses"]) == 6 and bool(np.isfinite(out["losses"]).all())
+    assert n["embedding_update"] == 6 and n["split_sgd"] == 6
+    served = sum(p["n"] for p in out["serve"]["percentiles"].values())
+    assert served == 64 and n["embedding_bag"] > 6
+    scores = out["serve"]["scores"]
+    assert bool(((scores > 0) & (scores < 1)).all())
+    assert out["serve"]["freshness"]["version"] == 3
+
+
+def test_published_clone_survives_in_place_steps_on_card(dev):
+    """A snapshot published from a state on the card keeps its bytes
+    through three in-place steps that change the state's table."""
+    from repro_torch.core import dlrm
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.serve import SnapshotPublisher
+    cfg = _small_train_cfg()
+    state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = dlrm.make_train_step(cfg, device=dev)
+    pub = SnapshotPublisher(cfg, publish_every=10)
+    snap = pub.publish(0, state)
+    before = [t.clone() for t in dp.tree_leaves(snap.state)]
+    hi0 = state["emb"]["hi"].clone()
+    for b in _small_batches(cfg, 3, dev):
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    assert not torch.equal(state["emb"]["hi"], hi0)
+    for a, b in zip(dp.tree_leaves(snap.state), before):
+        assert torch.equal(_bit_view(a), _bit_view(b))

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/``, ``chip_smoke.py``,
-``tools/``, ``examples/quickstart_torch.py`` or
-``examples/elastic_restart_torch.py`` imports ``jax`` or anything of
+``tools/``, ``examples/quickstart_torch.py``,
+``examples/elastic_restart_torch.py`` or ``examples/train_dlrm_100m_torch.py``
+imports ``jax`` or anything of
 ``repro``, the checkpoint and the train loop need no ``ml_dtypes`` (the chip
 machine's installation does not list it), importing the port
 leaves JAX unloaded, the entry points that default to CUDA raise where there
@@ -20,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "tools").glob("*.py"))
               + [ROOT / "examples" / name
-                 for name in ("quickstart_torch.py", "elastic_restart_torch.py")])
+                 for name in ("quickstart_torch.py", "elastic_restart_torch.py",
+                              "train_dlrm_100m_torch.py")])
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -54,7 +56,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.pipeline, repro_torch.core.hybrid, repro_torch.models.lm_steps, "
             "repro_torch.configs.internlm2_1_8b, repro_torch.configs.gemma2_27b, "
             "repro_torch.checkpoint, repro_torch.train, repro_torch.faults, repro_torch.launch.mesh, "
-            "repro_torch.launch.local, repro_torch.dist.comm, repro_torch.dist.exchange; "
+            "repro_torch.launch.local, repro_torch.dist.comm, repro_torch.dist.exchange, "
+            "repro_torch.data, repro_torch.data.reader, repro_torch.launch.train, "
+            "repro_torch.serve.publish; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
