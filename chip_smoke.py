@@ -3779,6 +3779,470 @@ def launcher_phase(dev, failures) -> dict:
     return counts
 
 
+# phase 21: the four recsys archetypes at their published widths
+# (configs/{fm,bst,sasrec,din}_arch.py, configs/recsys_common.RECSYS_SHAPES)
+RECSYS_ARCHS = ("fm", "bst", "sasrec", "din")
+RECSYS_STEPS = 10        # timed train steps at train_batch, zipf and uniform in turn
+RECSYS_REQUESTS = 256    # serve_p99: one burst through the server, buckets up to 512
+RECSYS_BUCKETS = BUCKETS + (512,)
+RECSYS_TOPK = 128
+# the first step's dense weights against the CPU step: within 1e-2 of the step's
+# largest update (TRAIN_TOL) plus one fp32 ulp of the weight, relative (2^-23):
+# SASRec's largest dense update is 3.5e-7, and 1e-2 of it is below one ulp of a
+# weight of 0.05, so a bound of 1e-2 alone asks for bits no two summation orders
+# give
+RECSYS_DENSE_ULP = 2.0 ** -23
+# the served scores against the CPU forward of the same requests: each within this
+# share of the largest CPU score's magnitude.  The scores of a state drawn at the
+# published widths are small (the tables start at U(+-1/sqrt(mean rows)), the logits
+# at 1e-4 to 5e-3), so a fixed atol would pass any answer.  FM has no bf16 product
+# (1.2e-10 against scores up to 5.1e-3 on the H100); in the others a bf16
+# intermediate may round the other way on the two devices (BST 6.4e-5 against
+# 3.0e-3, 2.1 % of it).  A control (the snapshot's rows rolled by one) must fall
+# outside it.
+RECSYS_SERVE_SHARE = {"fm": 1e-5, "bst": 5e-2, "sasrec": 5e-2, "din": 5e-2}
+# rows 1 and 5-12 at the archetypes' widths: (archetype, E, slots); the bag at
+# train_batch, the row updates on a stream of NARROW_UPDATE_BATCH samples (their
+# plain versions sum on the CPU), tables of NARROW_ROWS rows
+NARROW_WIDTHS = (("fm", 11, 39), ("din", 18, 105), ("sasrec", 50, 150))
+NARROW_ROWS = 1_000_000
+NARROW_BAG_BATCH = 65536
+NARROW_UPDATE_BATCH = 8192
+NARROW_KINDS = (("split_sgd", "fused_update_split"), ("sgd", "fused_update_fp32"),
+                *((name, fn) for name, fn, _ in STATEFUL))
+
+
+def recsys_mdef(name: str, batch: int):
+    """The archetype ``name`` at its published widths (its config's
+    ``make_mdef``) and its retrieval target slot."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.configs.{name}_arch")
+    return mod.make_mdef(batch), mod.TARGET_SLOT
+
+
+def to_card(batch: dict, dev) -> dict:
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def narrow_kernel_phase(dev, rng, failures) -> dict:
+    """Rows 1 and 5-12 at the archetypes' widths E = 11, 18, 50, whose rows
+    are no whole number of 16-byte chunks (the narrow paths), against their
+    plain versions bit for bit.  Row 1: the bag stage at train_batch
+    (65,536 samples, the archetype's slots, one lookup a bag) on zipf ids of
+    a bf16 table of NARROW_ROWS rows, unweighted and weighted, and on a view
+    of the table one value past the allocator's alignment.  Rows 5-12: each
+    kind on the sorted stream of NARROW_UPDATE_BATCH samples of those ids,
+    with a bf16 cotangent.  Timed on the card (the bag as a CUDA graph);
+    returns ``{kernel: {E: timings}}`` for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.synthetic import zipf_indices
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import row as row_optim
+    from repro_torch.optim.split_sgd import split_fp32
+
+    out: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    B, M, lr = NARROW_BAG_BATCH, NARROW_ROWS, 0.01
+    for arch, E, S in NARROW_WIDTHS:
+        W32 = (torch.rand((M, E), device=dev, generator=gen) - 0.5) * 2e-3
+        hi = split_fp32(W32)[0]
+        idx = torch.from_numpy(zipf_indices(rng, M, (B, S, 1), ALPHA).astype(np.int32)).to(dev)
+        zero = torch.zeros(S, dtype=torch.int32, device=dev)
+        wgt = torch.rand((B, S, 1), device=dev, generator=gen) + 0.5
+        view = torch.empty(M * E + 1, dtype=torch.bfloat16, device=dev)[1:].view(M, E)
+        view.copy_(hi)
+        e = out.setdefault("embedding_bag", {})
+        err = 0.0
+        for tag, W, w in (("", hi, None), (" weighted", hi, wgt), (" offset view", view, None)):
+            got = ops.embedding_bag_stage(W, idx, zero, M, w)
+            want = ref.embedding_bag_stage(W, idx, zero, M, w)
+            torch.cuda.synchronize()
+            err = max(err, bitwise_or_fail(f"embedding_bag {arch} E={E} [{B}x{S}]{tag}", got, want,
+                                           failures))
+        U = int(torch.unique(idx).numel())
+        # each distinct row read once (bf16), the ids read, the fp32 sums written
+        bms, by = bound_ms(U * E * 2 + idx.numel() * 4 + B * S * E * 4, B * S * E, FP32_FLOPS)
+        gid = idx.reshape(-1).long()
+        e[str(E)] = dict(ms=graph_ms(lambda: ops.embedding_bag_stage(hi, idx, zero, M)),
+                         plain_ms=time_ms(lambda: ref.embedding_bag_stage(hi, idx, zero, M)),
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         # a bag of one lookup is a gather: F.embedding of the same rows
+                         library_ms=time_ms(lambda: F.embedding(gid, hi)))
+        t = e[str(E)]
+        log(f"embedding_bag {arch} E={E}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / t['ms'] * 100:.1f}% of bound")
+        del view, wgt
+
+        # rows 5-12 on the sorted stream of the first NARROW_UPDATE_BATCH samples
+        stream = eu.sort_lookups(idx[:NARROW_UPDATE_BATCH].reshape(-1), None, M, 1)
+        L = stream[0].numel()
+        U = int(torch.unique_consecutive(stream[0]).numel())
+        dY = (torch.randn((L, E), device=dev, generator=gen) * 1e-3).to(torch.bfloat16)
+        for name, fn_name in NARROW_KINDS:
+            opt = row_optim.get(name)
+            kname = ROW_KERNEL[name]
+            if opt.split:
+                store = (hi.clone(), split_fp32(W32)[1])
+            else:
+                key, width, dtype = opt.state[0] if opt.state else (None, 0, None)
+                store = (W32.clone(),) + (() if key is None else
+                                          (random_state(name, (M, width or E), dev, gen, stream),))
+            extra = (() if name in ("split_sgd", "sgd") else
+                     (getattr(opt, dict((n, h) for n, _, h in STATEFUL)[name]),))
+            sr = seed_args(name, SR_SEEDS[0], dev)
+            want = tuple(t.clone() for t in store)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(ref, fn_name)(*want, *stream, dY, lr, *extra, *sr)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = tuple(t.clone() for t in store)
+            kernel = getattr(ops, fn_name)
+            kernel(*got, *stream, dY, lr, *extra, *sr)
+            torch.cuda.synchronize()
+            err = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                err = max(err, bitwise_or_fail(f"{kname} {arch} E={E} [{L} lookups], slab {i}", g,
+                                               w, failures))
+            # touched rows of every slab read and written, the cotangent and the stream read
+            row_bytes = sum(t.element_size() * (t.shape[1] if t.dim() > 1 else 1) for t in store)
+            bms, by = bound_ms(U * row_bytes * 2 + dY.numel() * 2 + L * 16, L * E * 2, FP32_FLOPS)
+            ms = time_ms(lambda: kernel(*got, *stream, dY, lr, *extra, *sr))
+            out.setdefault(kname, {})[str(E)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                library_ms=None)  # no PyTorch call computes a row optimizer's fused step
+            log(f"{kname} {arch} E={E}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound")
+            del store, want, got
+        del W32, hi, idx, dY, stream
+        torch.cuda.empty_cache()
+    return out
+
+
+def recsys_batches(mdef, dev, n: int) -> list[dict]:
+    """n batches of ``mdef``'s synthetic stream on the card, zipf(1.05) and
+    uniform ids in turn (the masks all ones, as the stream makes them)."""
+    from repro_torch.data.synthetic import hybrid_stream
+    zipf, uniform = hybrid_stream(SEED, mdef, ALPHA), hybrid_stream(SEED + 1, mdef, 0.0)
+    return [to_card(next(zipf if i % 2 == 0 else uniform), dev) for i in range(n)]
+
+
+def recsys_train_phase(name, mdef, state, batches, dev, failures) -> tuple[dict, dict]:
+    """The archetype's train step at train_batch: its first step held to
+    the same step's plain versions on the CPU (the loss within TRAIN_TOL's
+    1e-4 relative, the dense weights within 1e-2 of the step's largest
+    update plus one fp32 ulp of each weight, RECSYS_DENSE_ULP) and its
+    sparse update bit for bit against the plain update of the card's own
+    cotangent.  Both run on a gather of the batch's touched rows (FM's store
+    is 8.26 GB): a lookup's row is its table's whatever the gather, so the
+    bags and the runs' sums are the full table's.  Then one step without a
+    host sync and RECSYS_STEPS timed steps under
+    ``set_sync_debug_mode("error")``, one launch of rows 1, 5 and 4 a step.
+    Returns the timed steps' launch counts and their numbers."""
+    import torch
+    from repro_torch.core import hybrid, pipeline
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import resolve_mesh
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.optim import row as row_optim
+
+    step = hybrid.make_train_step(mdef, device=dev)
+    opt = row_optim.resolve(mdef)
+    layout = hybrid.make_layout(mdef)
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+    b0 = batches[0]
+    gids = (b0["idx"] + offsets[None, :, None]).reshape(-1)
+    touched = torch.unique(gids)
+    local = torch.searchsorted(touched, gids).to(torch.int32).cpu()
+    before = {k: v[touched].cpu() for k, v in state["emb"].items()}
+    lo0, err0 = state["dense"]["lo"], state["dense"]["err"]
+    dense0 = {"hi": dp.pack_hi(dp.tree_map(lambda t: t.cpu(), state["dense"]["hi"]),
+                               lo0.numel())[1],  # a copy, one flat buffer as the step keeps it
+              "lo": lo0.to("cpu", copy=True),
+              "err": None if err0 is None else err0.to("cpu", copy=True)}
+    before_dense = dense_master(dense0)
+    # the plain step on the CPU: the bag of the gathered forward rows, the dense
+    # forward and backward, the dense update
+    t0 = time.perf_counter()
+    S = layout.num_orig_slots
+    cpu_b0 = {k: v.cpu() for k, v in b0.items()}
+    emb_cpu = ref.embedding_bag_stage(row_optim.fwd_weights(opt, before),
+                                      local.reshape(b0["idx"].shape),
+                                      torch.zeros(S, dtype=torch.int32), touched.numel())
+    cpu_stages = pipeline.build_stages(mdef, layout, resolve_mesh(None, "cpu"))
+    ref_loss, ref_g, _ = cpu_stages.dense_fwd_bwd(dense0["hi"], emb_cpu, cpu_b0)
+    ref_dense = cpu_stages.dense_update(dense0, ref_g)
+    cpu_s = time.perf_counter() - t0
+    st = step.stages
+    idx_fwd, idx_upd = st.index_exchange(b0["idx"])
+    emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd)
+    # the loss sits at ln 2 whatever the rows at this init; the bag output and the
+    # dense weights below are what read them
+    bitwise_or_fail(f"{name} train step, bag output vs the plain bag of the gathered rows",
+                    emb_out.float(), emb_cpu.to(dev), failures)
+    loss, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b0)
+    dY = st.dY_exchange(d_emb)
+    state["emb"] = st.sparse_update(state["emb"], idx_upd, dY, None, state.get("sr"))
+    state["dense"] = st.dense_update(state["dense"], g_dense)
+    torch.cuda.synchronize()
+    log(f"{name}: one step against the plain versions on the CPU ({cpu_s:.1f} s there, "
+        f"{touched.numel()} touched rows gathered): loss {float(loss):.7f} vs "
+        f"{float(ref_loss):.7f}")
+    close_or_fail(f"{name} train step loss vs plain step", loss.cpu(), ref_loss,
+                  TRAIN_TOL["loss"], 0.0, failures)
+    got, want = dense_master(state["dense"]).cpu(), dense_master(ref_dense)
+    upd = float((want - before_dense).abs().max())
+    close_or_fail(f"{name} train step, dense weights vs plain step (atol {TRAIN_TOL['update']:g} "
+                  f"x the largest update, {upd:.3e}, rtol one fp32 ulp)", got, want,
+                  RECSYS_DENSE_ULP, TRAIN_TOL["update"] * upd, failures)
+    # the sparse update against its plain version on the card's own cotangent
+    plain = row_optim.apply_sparse(opt, {k: v.clone() for k, v in before.items()},
+                                   eu.sort_lookups(local, None, touched.numel(), mdef.pooling),
+                                   dY.reshape(-1, mdef.spec.dim).cpu(), mdef.emb_lr)
+    for k, v in plain.items():
+        bitwise_or_fail(f"{name} train step, {k} ({touched.numel()} touched rows) vs the plain "
+                        f"update of the card's cotangent", state["emb"][k][touched].cpu(), v,
+                        failures)
+    del before, plain, emb_out, d_emb, dY, g_dense, dense0, ref_dense, emb_cpu
+    torch.cuda.empty_cache()
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batches[1])
+    except RuntimeError as e:
+        failures.append(f"{name}: the train step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for i in range(RECSYS_STEPS):
+            state, loss = step(state, batches[i % len(batches)])
+            losses.append(loss)
+    except RuntimeError as e:
+        failures.append(f"{name}: a timed train step synchronised with the host: {e}")
+        return ops.launches(), {}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    losses = torch.stack(losses).cpu().numpy()
+    n = RECSYS_STEPS
+    want = {**{k: 0 for k in counts}, "embedding_bag": n, ROW_KERNEL[opt.name]: n, "split_sgd": n}
+    if counts != want:
+        failures.append(f"{name}: launches {counts}, want {want}")
+    if not np.isfinite(losses).all():
+        failures.append(f"{name}: a loss is not finite: {losses}")
+    stats = {"samples_per_s": n * mdef.batch / wall, "step_ms": wall / n * 1e3}
+    log(f"{name}: {n} steps of B={mdef.batch} (zipf and uniform in turn) in {wall:.3f} s: "
+        f"{stats['samples_per_s']:.0f} samples/s, {stats['step_ms']:.2f} ms a step; losses "
+        f"{np.array2string(losses, precision=5, max_line_width=200)}")
+    for tag, b in (("zipf", batches[0]), ("uniform", batches[1])):
+        wall_ms, busy_ms, top = device_busy_ms(lambda: step(state, b), 2)
+        stats[f"busy_ms_{tag}"], stats[f"wall_ms_{tag}"] = busy_ms, wall_ms
+        log(f"{name} {tag}: device busy {busy_ms:.3f} ms a step "
+            f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle of {wall_ms:.3f} ms under the profiler); "
+            "top kernels: "
+            + top_kernels(top[:6]))
+    return counts, stats
+
+
+def recsys_serve_phase(name, mdef, state, dev, failures) -> dict:
+    """serve_p99: RECSYS_REQUESTS requests of one sample, in one burst,
+    through ``ContinuousBatchingServer`` and ``make_bucket_scorers`` on a
+    snapshot published from the train state (``SnapshotPublisher``, which
+    clones the forward slabs); every score finite and within
+    RECSYS_SERVE_SHARE of the largest CPU score of the CPU forward
+    (``dense_score`` on the CPU of the same rows).  Then the bucket scorer
+    of the largest bucket, called on the padded requests, bit for bit
+    against the plain forward on the card at the same shape (the plain bag,
+    then the same ``dense_score``).  A control, the snapshot's rows rolled
+    by one (each lookup reads its neighbour's row), scored by the same
+    scorer, must fail both checks.  Returns the launch counts."""
+    import dataclasses
+    import torch
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.data.synthetic import hybrid_stream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim.data_parallel import tree_map
+    from repro_torch.serve import ContinuousBatchingServer, SnapshotPublisher, make_bucket_scorers
+
+    publisher = SnapshotPublisher(mdef, publish_every=1)
+    publisher.publish(RECSYS_STEPS, state)
+    reg = publisher.registry
+    fns, pad = make_bucket_scorers(mdef, RECSYS_BUCKETS, lambda: reg.current().state, device=dev)
+    req = next(hybrid_stream(SEED + 5, dataclasses.replace(mdef, batch=RECSYS_REQUESTS), ALPHA))
+    req.pop("labels", None)
+    payloads = [{k: v[i] for k, v in req.items()} for i in range(RECSYS_REQUESTS)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with ContinuousBatchingServer(fns, pad, max_wait_ms=2.0) as srv:
+        scores = np.array([h.result(timeout=300.0) for h in [srv.submit(p) for p in payloads]],
+                          np.float32)
+        stats = srv.stats()
+        pct = srv.percentiles()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    n_batches = sum(stats["batches"].values())
+    log(f"{name}: served {stats['requests']} requests in {n_batches} batches {stats['batches']} "
+        f"in {wall:.3f} s; " + "; ".join(f"bucket {b}: p50 {p['p50_ms']:.3f} ms, p99 "
+                                         f"{p['p99_ms']:.3f} ms, n {p['n']}"
+                                         for b, p in sorted(pct.items())))
+    if counts != {**{k: 0 for k in counts}, "embedding_bag": n_batches}:
+        failures.append(f"{name}: serving launches {counts}, want the bag once a batch")
+    snap = reg.current().state
+    layout = se.make_layout(mdef.spec, 1, "row", slot_to_table=mdef.slot_to_table)
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+
+    def cpu_forward(emb_w):
+        gids = torch.from_numpy(req["idx"]).to(dev) + offsets[None, :, None]
+        emb = emb_w[gids[..., 0].long()].float().cpu()
+        return mdef.dense_score(tree_map(lambda t: t.cpu(), snap["dense_hi"]), emb,
+                                {k: torch.from_numpy(v) for k, v in req.items()})
+    want = cpu_forward(snap["emb_w"])
+    if scores.shape != (RECSYS_REQUESTS,) or not np.isfinite(scores).all():
+        failures.append(f"{name}: served scores shape {scores.shape}, finite "
+                        f"{np.isfinite(scores).all()}")
+    atol = RECSYS_SERVE_SHARE[name] * float(want.abs().max())
+    label = (f"{name} served scores vs the CPU forward ({RECSYS_REQUESTS}; atol "
+             f"{RECSYS_SERVE_SHARE[name]:g} x the largest |score|)")
+    close_or_fail(label, torch.from_numpy(scores), want, 0.0, atol, failures)
+    log(f"  {name} scores: min {scores.min():.6g}, max {scores.max():.6g}")
+
+    # the largest bucket's scorer against the plain forward on the card, same shape
+    bucket = max(RECSYS_BUCKETS)
+    padded = pad(payloads, bucket)
+    emb = ref.embedding_bag_stage(snap["emb_w"], padded["idx"], offsets, layout.rows_per_shard,
+                                  padded.get("weights"))
+    plain = mdef.dense_score(snap["dense_hi"], emb, padded)[:RECSYS_REQUESTS].cpu()
+    direct = torch.from_numpy(fns[bucket](padded)[:RECSYS_REQUESTS])
+    bitwise_or_fail(f"{name} bucket {bucket} scorer vs the plain forward on the card", direct,
+                    plain, failures)
+    # the control: rows rolled by one, through the same scorer, must fail both checks
+    rolled = torch.roll(snap["emb_w"], 1, 0)
+    reg.publish(dict(snap, emb_w=rolled))
+    control = torch.from_numpy(fns[bucket](padded)[:RECSYS_REQUESTS])
+    seen: list = []
+    err_cpu = close_or_fail(f"control: {label}", control, want, 0.0, atol, seen)
+    err_card = bitwise_or_fail(f"control: {name} bucket {bucket} scorer vs the plain forward",
+                               control, plain, seen)
+    if len(seen) != 2:
+        failures.append(f"{name}: a snapshot with its rows rolled by one passes the serving "
+                        f"checks ({seen})")
+    log(f"  {name} serving control (rows rolled by one): {err_cpu:.3e} from the CPU forward "
+        f"(atol {atol:.3e}), {err_card:.3e} from the plain forward on the card")
+    del publisher, reg, snap, rolled, emb
+    return counts
+
+
+def recsys_retrieval_phase(name, mdef, target, state, query, dev, failures) -> dict:
+    """retrieval_cand: one query against 2^20 candidates (the first 2^20 rows
+    of the target slot's table, as bf16 forward rows), twice, the second
+    timed; its top-128 held to the plain scorer's on the same candidates
+    (the plain bag, then the same chunked ``dense_score`` and ``topk``).
+    Returns the launch counts of the two calls and the numbers."""
+    import torch
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+    from repro_torch.core import hybrid
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import row as row_optim
+
+    n = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    fn = hybrid.make_retrieval_step(mdef, None, n, target, RECSYS_TOPK, device=dev)
+    W = row_optim.fwd_weights(row_optim.resolve(mdef), state["emb"])
+    layout = hybrid.make_layout(mdef)
+    t = int(layout.slot_to_table[target])
+    start = int(mdef.spec.row_offsets[t])
+    cand = W[start:start + n].to(torch.bfloat16)
+    q = {k: v[:1] for k, v in query.items() if k != "labels"}
+    ops.reset_launches()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, i = fn(state, q, cand)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launches()
+    # the plain scorer
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+    emb = ref.embedding_bag_stage(W, q["idx"], offsets, layout.rows_per_shard, round_bf16=False)
+    scores = torch.empty(n, device=dev)
+    chunk = hybrid.RETRIEVAL_CHUNK
+    for c0 in range(0, n, chunk):
+        m = min(chunk, n - c0)
+        e = emb.expand((m,) + tuple(emb.shape[1:])).clone()
+        e[:, target] = cand[c0:c0 + m].float()
+        scores[c0:c0 + m] = mdef.dense_score(
+            state["dense"]["hi"], e, {k: q[k].expand((m,) + tuple(q[k].shape[1:])) for k in q
+                                      if k != "idx"})
+    pv, pi = torch.topk(scores, RECSYS_TOPK)
+    torch.cuda.synchronize()
+    log(f"{name}: retrieval of {n} candidates at slot {target} in chunks of {chunk}: "
+        f"{times[1]:.2f} ms (first call {times[0]:.2f} ms); top score {float(v[0]):.6f}, "
+        f"launches {counts}")
+    close_or_fail(f"{name} retrieval top-{RECSYS_TOPK} vs the plain scorer's", v, pv, 1e-6, 0.0,
+                  failures)
+    if not torch.equal(i.cpu(), pi.cpu()):
+        failures.append(f"{name}: the retrieval's top-{RECSYS_TOPK} candidates are not the plain "
+                        "scorer's")
+    if counts != {**{k: 0 for k in counts}, "embedding_bag": 2}:
+        failures.append(f"{name}: retrieval launches {counts}, want the bag once a call")
+    return counts, {"ms": times[1], "first_ms": times[0], "chunk": chunk, "candidates": n}
+
+
+def recsys_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 21: FM, BST, SASRec and DIN at their published widths, each
+    from a state drawn on the card: train_batch (recsys_train_phase),
+    serve_p99 (recsys_serve_phase), retrieval_cand (recsys_retrieval_phase).
+    Returns the launch counts of the three and each archetype's numbers."""
+    import torch
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+    from repro_torch.core import hybrid
+
+    counts: dict = {}
+    numbers: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    for name in RECSYS_ARCHS:
+        t0 = time.perf_counter()
+        mdef, target = recsys_mdef(name, RECSYS_SHAPES["train_batch"]["batch"])
+        state = hybrid.init_state(mdef, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        batches = recsys_batches(mdef, dev, 4)
+        torch.cuda.synchronize()
+        log(f"{name}: {mdef.spec.total_rows} rows x E={mdef.spec.dim} "
+            f"({sum(v.numel() * v.element_size() for v in state['emb'].values()) / 1e9:.2f} GB "
+            f"store), {hybrid.dense_sizes(mdef)} dense values, "
+            f"{hybrid.make_layout(mdef).num_orig_slots} slots; state and 4 batches in "
+            f"{time.perf_counter() - t0:.1f} s")
+        got, train = recsys_train_phase(name, mdef, state, batches, dev, failures)
+        add(got)
+        if failures:
+            return counts, numbers
+        add(recsys_serve_phase(name, mdef, state, dev, failures))
+        got, retr = recsys_retrieval_phase(name, mdef, target, state, batches[0], dev, failures)
+        add(got)
+        numbers[name] = {"train": train, "retrieval": retr,
+                         "seconds": time.perf_counter() - t0}
+        del state, batches
+        torch.cuda.empty_cache()
+        if failures:
+            return counts, numbers
+        log(f"{name}: {numbers[name]['seconds']:.1f} s in all")
+    return counts, numbers
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -4015,6 +4479,22 @@ def main() -> int:
     log(f"phase 20: {time.perf_counter() - t20:.1f} s; the whole run so far "
         f"{time.perf_counter() - t_run:.1f} s")
 
+    # the recsys archetypes at their published widths: rows 1 and 5-12 at their
+    # widths, then each archetype's train, serve and retrieval steps
+    t21 = time.perf_counter()
+    widths = narrow_kernel_phase(dev, rng, failures)
+    if failures:
+        raise SystemExit("phase 21a, rows 1 and 5-12 at the archetypes' widths failed:\n"
+                         + "\n".join(failures))
+    got, recsys = recsys_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 21b, the recsys archetypes failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        counts[name] = counts.get(name, 0) + v
+    log("phase 21 numbers: " + json.dumps(recsys))
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s; the whole run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
               "dot_interaction": ("src/repro_torch/csrc/interaction.cu",
@@ -4073,6 +4553,8 @@ def main() -> int:
             line[-1]["ms_by_batch"] = k["by_batch"]
         if "ms_l2_warm" in k:  # row 4 back to back, its buffers still in the L2
             line[-1]["ms_l2_warm"] = k["ms_l2_warm"]
+        if k["name"] in widths:  # rows 1 and 5-12 at the recsys archetypes' widths
+            line[-1]["widths"] = widths[k["name"]]
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

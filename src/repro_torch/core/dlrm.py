@@ -20,7 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.core.embedding import EmbeddingSpec
 from repro_torch.core.interaction import dot_interaction, interaction_output_dim
 from repro_torch.dist.exchange import ExchangeConfig
-from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.mlp import init_mlp, mlp_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,22 +87,14 @@ class DLRMConfig:
         return [interaction_output_dim(f, self.emb_dim), *self.top, 1]
 
 
-def init_mlp(sizes, generator: torch.Generator, device) -> dict:
-    """``sizes = [in, h1, ..., out]`` -> fp32 {'w': [...], 'b': [...]}, drawn
-    as the reference draws them: w ~ N(0, 2 / (in + out)), b = 0."""
-    ws, bs = [], []
-    for cin, cout in zip(sizes[:-1], sizes[1:]):
-        std = (2.0 / (cin + cout)) ** 0.5
-        ws.append(torch.randn((cin, cout), generator=generator, device=device) * std)
-        bs.append(torch.zeros((cout,), device=device))
-    return {"w": ws, "b": bs}
-
-
-def init_dense_params(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> dict:
+def init_dense_params(cfg: DLRMConfig, generator: Optional[torch.Generator],
+                      device="cuda") -> dict:
     """fp32 dense parameters ``{"bot", "top"}`` from ``generator`` (which
     must live on ``device``).  The numbers differ from the reference's
     ``jax.random`` draw; the distribution is the same."""
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type != "meta":  # meta: the shapes alone (core.hybrid.dense_tree)
+        dev = resolve_device(dev)
     return {"bot": init_mlp(cfg.bottom_sizes, generator, dev),
             "top": init_mlp(cfg.top_sizes, generator, dev)}
 
@@ -139,6 +131,29 @@ def dlrm_dense_loss(cfg: DLRMConfig):
     return loss
 
 
+def as_hybrid_def(cfg: DLRMConfig):
+    """DLRM as the generic hybrid skeleton (``core.hybrid.HybridDef``): the
+    dense tree of :func:`init_dense_params`, the loss and the scorer above
+    as stage-shaped functions (``mlp_impl`` read there), ``dense_x`` bf16 and
+    ``labels`` fp32 as the batch's extras, ``emb_lr`` = ``lr``.  With
+    ``mlp_impl`` 'pallas' the model has no ``dense_loss``: the fused_mlp
+    kernel has no backward, so such a config scores but does not train, and
+    the train step refuses it (``core.pipeline.validate_pipeline``)."""
+    from repro_torch.core.hybrid import HybridDef
+    return HybridDef(
+        name=cfg.name, spec=cfg.spec, pooling=cfg.pooling, batch=cfg.batch,
+        init_dense=lambda generator, device: init_dense_params(cfg, generator, device),
+        dense_loss=dlrm_dense_loss(cfg) if cfg.mlp_impl == "xla" else None,
+        dense_score=dlrm_dense_score(cfg),
+        extras={"dense_x": ((cfg.num_dense,), torch.bfloat16), "labels": ((), torch.float32)},
+        emb_mode=cfg.emb_mode, sparse_optimizer=cfg.sparse_optimizer, opt_beta=cfg.opt_beta,
+        opt_eps=cfg.opt_eps, exchange=cfg.exchange, exchange_dtype=cfg.exchange_dtype,
+        lr=cfg.lr, emb_lr=cfg.lr, idx_input=cfg.idx_input, microbatches=cfg.microbatches,
+        weighted=cfg.weighted, host_presort=cfg.host_presort, sr_seed=cfg.sr_seed,
+        hot_rows=cfg.hot_rows, promote_every=cfg.promote_every, hot_sync=cfg.hot_sync,
+        step_metrics=cfg.step_metrics)
+
+
 def init_state(cfg: DLRMConfig, generator: torch.Generator, device="cuda", mesh=None) -> dict:
     """This rank's train state drawn from ``generator`` (see
     :func:`repro_torch.core.hybrid.init_state`)."""
@@ -157,33 +172,17 @@ def make_train_step(cfg: DLRMConfig, mesh=None, *, device="cuda"):
     ``launch.mesh.Mesh``; None: the one-rank step on ``device``),
     ``step(state, batch) -> (state, loss)`` (see
     :func:`repro_torch.core.pipeline.make_pipelined_train_step`)."""
-    from repro_torch.core import pipeline
-    from repro_torch.launch.mesh import resolve_mesh
-    return pipeline.make_pipelined_train_step(cfg, resolve_mesh(mesh, device), cfg.microbatches)
+    from repro_torch.core import hybrid
+    return hybrid.make_train_step(cfg, mesh, device=device)
 
 
 def make_eval_step(cfg: DLRMConfig, mesh=None, *, device="cuda"):
     """The scoring step of a train state on this rank of ``mesh`` (None: one
     rank on ``device``), ``ev(state, batch) -> [B / ranks]`` sigmoid scores
-    of the rank's samples: the train step's ``index_exchange`` (its forward
-    stream) and ``embedding_fwd`` stages on the optimizer's forward slabs
-    (weighted with ``cfg.weighted``), then :func:`forward_local`
-    (``fused_mlp`` with ``cfg.mlp_impl == "pallas"``).  ``batch`` as the
-    train step takes it; ``labels`` are not read."""
-    from repro_torch.core import hybrid, pipeline
-    from repro_torch.launch.mesh import resolve_mesh
-    from repro_torch.optim import row as row_optim
-
-    mesh = resolve_mesh(mesh, device)
-    stages = pipeline.build_stages(cfg, hybrid.make_layout(cfg, mesh), mesh)
-    opt = row_optim.resolve(cfg)
-
-    def ev(state: dict, batch: dict) -> torch.Tensor:
-        idx_fwd = stages.index_exchange(batch["idx"], fwd_only=True)[0]
-        wgt_fwd = (stages.index_exchange(batch["weights"], fwd_only=True)[0] if cfg.weighted
-                   else None)
-        emb_out = stages.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd, wgt_fwd)
-        logits = forward_local(state["dense"]["hi"], emb_out, batch["dense_x"], cfg.mlp_impl)
-        return torch.sigmoid(logits)
-
-    return ev
+    of the rank's samples: ``core.hybrid.make_score_step`` (the train
+    step's ``index_exchange`` and ``embedding_fwd`` stages, then
+    :func:`forward_local`, ``fused_mlp`` with ``cfg.mlp_impl ==
+    "pallas"``).  ``batch`` as the train step takes it; ``labels`` are not
+    read."""
+    from repro_torch.core import hybrid
+    return hybrid.make_score_step(cfg, mesh, device=device)

@@ -1,53 +1,157 @@
-"""Train-state layout and initialisation on a mesh (twin of the state
-functions of ``repro/core/hybrid.py``).
+"""The hybrid-parallel model definition and its train-state layout and
+batch on a mesh (twin of ``repro/core/hybrid.py``).
+
+:class:`HybridDef` is what a model of the hybrid skeleton provides: its
+embedding spec, pooling and batch, its dense tree (``init_dense``), its loss
+and scorer on the bag outputs (``dense_loss`` / ``dense_score``), the extra
+batch fields they read (``extras``) and the slot -> table map of models that
+read one table from several slots, with the step's options.  DLRM is one
+(``core.dlrm.as_hybrid_def``), and the four recsys archetypes of
+``models.recsys`` are the others.  Every function here and in
+``core.pipeline``, ``weights``, ``serve.snapshot`` and ``serve.publish``,
+and ``train.TrainLoop(model_cfg=)``, takes a :class:`HybridDef` or a
+``core.dlrm.DLRMConfig``, which :func:`as_hybrid` converts at the entry.
 
 A rank's state is its shard of the reference's global pytree:
 
     {"emb": {"hi": [R, E] bf16, "lo": [R, E] int16}    (split_sgd)
             | {"w": [R, E] fp32, + state slabs}         (the others)
-     "dense": {"hi": {"bot"|"top": {"w": [...], "b": [...]}} bf16,
+     "dense": {"hi": the model's dense tree, bf16,
                "lo": [padded / ranks] int16,
                "err": [padded / ranks] fp32 | None}}
 
 ``R`` is the layout's ``rows_per_shard``: in row mode the rank's window of
 the row space, in table mode its bin of tables (replicated over the data
 axes).  ``lo`` is the rank's chunk of the bucketed dense ``lo``
-(``optim.data_parallel``), and ``err`` its chunk of the dense error
-feedback's residual, present with the ``"bf16"`` dense wire and
-``error_feedback`` (``ExchangeConfig.needs_err``).  ``lo`` slabs hold the
-bits of the reference's uint16 slabs as int16, since PyTorch has no
+(``optim.data_parallel``), raveled in JAX's pytree order (dict keys sorted,
+list items in order) whatever the tree's nesting, and ``err`` its chunk of
+the dense error feedback's residual, present with the ``"bf16"`` dense wire
+and ``error_feedback`` (``ExchangeConfig.needs_err``).  ``lo`` slabs hold
+the bits of the reference's uint16 slabs as int16, since PyTorch has no
 arithmetic on uint16.  The state slabs are the optimizer's
 (``optim.row.RowOptimizer.state``): ``mom`` or ``acc`` [R, E] fp32, ``acc``
 [R, 1] fp32 (row-wise Adagrad), ``cnt`` [R, 1] int32, or ``mom`` / ``acc``
 [R, E] bf16 (the compressed-state kinds), zero at the start.  An optimizer
 that rounds its state stochastically, or a ``"bf16_sr"`` wire, adds
 ``"sr"``, the per-step seed, replicated: a 0-d int32 tensor,
-``cfg.sr_seed`` at the start, one more after each step.  With
-``cfg.hot_rows`` the store carries the touch counts ``cnt`` [R, 1] int32
+``mdef.sr_seed`` at the start, one more after each step.  With
+``hot_rows`` the store carries the touch counts ``cnt`` [R, 1] int32
 (unless the optimizer declares them) and the state the replicated
 ``"cache"`` (``core.cache``: ``hot_w``, ``hot_ids``, ``hot_pos``, ``tick``);
-with ``cfg.step_metrics`` the replicated fp32 vector ``"metrics"``
-(``telemetry.metrics``).  The dense ``hi``
-leaves are views into one flat bf16 buffer (``optim.data_parallel.pack_hi``),
-which the dense update steps in place.
+with ``step_metrics`` the replicated fp32 vector ``"metrics"``
+(``telemetry.metrics``).  The dense ``hi`` leaves are views into one flat
+bf16 buffer (``optim.data_parallel.pack_hi``), which the dense update steps
+in place.
+
+:func:`make_score_step` and :func:`make_retrieval_step` are the forward-only
+steps on a train state: a batch's scores, and one query scored against a
+candidate matrix with a top-k merged over the ranks.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import pipeline
 from repro_torch.core import sharded_embedding as se
-from repro_torch.dist.exchange import resolve_exchange
+from repro_torch.core.embedding import EmbeddingSpec
+from repro_torch.dist import comm
+from repro_torch.dist.exchange import ExchangeConfig, resolve_exchange
 from repro_torch.launch.mesh import Mesh, resolve_mesh
 from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 
 
-def make_layout(cfg, mesh: Mesh) -> se.ShardedEmbeddingLayout:
-    """The embedding layout of ``cfg`` over the shards of ``mesh``."""
-    return se.make_layout(cfg.spec, pipeline.num_shards(cfg, mesh), cfg.emb_mode)
+@dataclasses.dataclass(frozen=True)
+class HybridDef:
+    """What a hybrid-parallel recsys model must provide (the reference's
+    fields; ``init_dense`` takes a ``torch.Generator`` and a device in place
+    of a JAX key, ``extras`` dtypes are torch dtypes).  The reference's
+    deprecated flat sugar (``split_sgd``, ``compress_grads``,
+    ``num_buckets``, ``exchange_impl``) and ``fused_update`` are not carried:
+    the port reads the typed ``exchange`` alone, and a CUDA store always
+    takes the fused kernel."""
+
+    name: str
+    spec: EmbeddingSpec
+    pooling: int                   # P (max lookups per slot)
+    batch: int                     # global batch
+    # init_dense(generator, device) -> the fp32 dense tree (dicts and lists)
+    init_dense: Callable[[Optional[torch.Generator], Any], Any]
+    # dense_loss(dense_hi, emb_out [b, S, E] fp32, batch) -> this rank's SUM loss;
+    # None: the model scores but does not train
+    dense_loss: Optional[Callable[[Any, torch.Tensor, dict], torch.Tensor]]
+    # dense_score(dense_hi, emb_out, batch) -> [b] scores
+    dense_score: Callable[[Any, torch.Tensor, dict], torch.Tensor]
+    # extra batch fields: name -> (shape after B, torch dtype); all batch-sharded
+    extras: dict = dataclasses.field(default_factory=dict)
+    # slot -> table map (sequence models share one item table across slots)
+    slot_to_table: Optional[tuple] = None
+    emb_mode: str = "row"
+    # the sparse row optimizer (optim.row; unset: 'split_sgd'), opt_beta /
+    # opt_eps overriding its defaults
+    sparse_optimizer: Optional[str] = None
+    opt_beta: Optional[float] = None
+    opt_eps: Optional[float] = None
+    # the collectives' configuration (dist/exchange.py): a typed
+    # ExchangeConfig, or exchange_dtype setting both wire formats
+    exchange: Optional[ExchangeConfig] = None
+    exchange_dtype: Optional[str] = None
+    lr: float = 0.01               # the dense update's step
+    emb_lr: float = 0.01           # the sparse update's step
+    idx_input: str = "replicated"  # 'sharded': the on-device index exchange
+    microbatches: int = 1
+    # weighted bags: the batch carries 'weights' [B, S, P] fp32 in idx's layout
+    weighted: bool = False
+    # the update's stream sorted on the host: the batch carries psort_*
+    host_presort: bool = False
+    sr_seed: int = 0
+    # the hot-row cache (core/cache.py) and its cadence
+    hot_rows: int = 0
+    promote_every: int = 1
+    hot_sync: str = "allreduce"
+    # the in-graph step metrics (telemetry/metrics.py)
+    step_metrics: bool = False
+
+
+def as_hybrid(model) -> HybridDef:
+    """``model`` as a :class:`HybridDef`: itself, or a
+    ``core.dlrm.DLRMConfig`` through ``core.dlrm.as_hybrid_def``."""
+    if isinstance(model, HybridDef):
+        return model
+    from repro_torch.core.dlrm import DLRMConfig, as_hybrid_def
+    if isinstance(model, DLRMConfig):
+        return as_hybrid_def(model)
+    raise TypeError(f"need a HybridDef or a DLRMConfig, got {type(model).__name__}")
+
+
+def _struct_of(tree, dtype: Optional[torch.dtype] = None):
+    """``(shape, dtype)`` at each leaf of a tree of tensors (dicts and lists
+    kept), ``dtype`` in place of the leaves' own where given."""
+    if isinstance(tree, dict):
+        return {k: _struct_of(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_struct_of(v, dtype) for v in tree]
+    return (tuple(tree.shape), dtype or tree.dtype)
+
+
+def dense_tree(mdef) -> Any:
+    """The model's fp32 dense tree as ``meta`` tensors: its shapes, with
+    nothing allocated or drawn."""
+    return as_hybrid(mdef).init_dense(torch.Generator(), torch.device("meta"))
+
+
+def make_layout(mdef, mesh: Mesh | None = None) -> se.ShardedEmbeddingLayout:
+    """The embedding layout of ``mdef`` over the shards of ``mesh`` (None:
+    one rank), its slots mapped to tables by ``slot_to_table``."""
+    mdef = as_hybrid(mdef)
+    mesh = resolve_mesh(mesh, "cpu")
+    return se.make_layout(mdef.spec, pipeline.num_shards(mdef, mesh), mdef.emb_mode,
+                          slot_to_table=mdef.slot_to_table)
 
 
 def emb_shard(cfg, mesh: Mesh) -> int:
@@ -55,9 +159,9 @@ def emb_shard(cfg, mesh: Mesh) -> int:
     return mesh.group(pipeline.emb_axes(cfg, mesh)[0]).index
 
 
-def dense_sizes(cfg) -> int:
-    return sum(i * o + o for sizes in (cfg.bottom_sizes, cfg.top_sizes)
-               for i, o in zip(sizes[:-1], sizes[1:]))
+def dense_sizes(mdef) -> int:
+    """The values of the model's dense tree."""
+    return dp.ravel_size(dense_tree(mdef))
 
 
 def padded_dense(cfg, mesh: Mesh) -> int:
@@ -79,17 +183,14 @@ def hot_rows(cfg) -> int:
 def state_struct(cfg, mesh=None) -> dict:
     """``(shape, dtype)`` of every leaf of this rank's train state of ``cfg``
     on ``mesh`` (None: one rank), ``None`` for an absent error-feedback
-    slab."""
+    slab; the dense ``hi`` tree is ``init_dense``'s, in bf16."""
+    cfg = as_hybrid(cfg)
     mesh = resolve_mesh(mesh, "cpu")
     layout = make_layout(cfg, mesh)
-    E = cfg.emb_dim
+    E = cfg.spec.dim
     opt = row_optim.resolve(cfg)
     emb = opt.store_struct(layout.rows_per_shard, E, counters=hot_rows(cfg) > 0)
-    hi = {}
-    for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
-        pairs = list(zip(sizes[:-1], sizes[1:]))
-        hi[part] = {"w": [((i, o), torch.bfloat16) for i, o in pairs],
-                    "b": [((o,), torch.bfloat16) for _, o in pairs]}
+    hi = _struct_of(dense_tree(cfg), torch.bfloat16)
     chunk = (padded_dense(cfg, mesh) // mesh.size,)
     err = (chunk, torch.float32) if resolve_exchange(cfg).needs_err else None
     out = {"emb": emb, "dense": {"hi": hi, "lo": (chunk, torch.int16), "err": err}}
@@ -113,21 +214,20 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     keeps its shard.  ``mesh`` (None: one rank on ``device``).  The numbers
     differ from the reference's ``jax.random`` draw;
     ``weights.state_from_numpy`` carries a JAX state across instead."""
-    from repro_torch.core.dlrm import init_dense_params
-
+    cfg = as_hybrid(cfg)
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
     layout = make_layout(cfg, mesh)
-    a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
-    W = torch.empty((layout.total_rows, cfg.emb_dim), device=dev).uniform_(-a, a,
-                                                                          generator=generator)
+    a = 1.0 / float(np.sqrt(np.mean(cfg.spec.table_rows)))
+    W = torch.empty((layout.total_rows, cfg.spec.dim), device=dev).uniform_(-a, a,
+                                                                           generator=generator)
     R, s = layout.rows_per_shard, emb_shard(cfg, mesh)
     if layout.num_shards > 1:
         W = W[s * R:(s + 1) * R].clone()
     opt = row_optim.resolve(cfg)
     emb = row_optim.init_store(opt, W, counters=hot_rows(cfg) > 0)
     del W
-    params = init_dense_params(cfg, generator, dev)
+    params = cfg.init_dense(generator, dev)
     ex = resolve_exchange(cfg)
     dense = dp.init_dp_state(params, mesh.size, mesh.rank, ex.num_buckets, ex.needs_err)
     state = {"emb": emb, "dense": dense}
@@ -146,7 +246,9 @@ def batch_struct(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout,
                  batch: int | None = None) -> dict:
     """``(shape, dtype)`` of each field of one global batch of ``cfg`` on
     ``mesh`` (``batch`` samples, ``cfg.batch`` by default), in the
-    reference's ``batch_struct`` order."""
+    reference's ``batch_struct`` order: the ids, the bag weights, the host
+    pre-sort's fields, then the model's ``extras``."""
+    cfg = as_hybrid(cfg)
     B, S, Pq = batch or cfg.batch, layout.num_orig_slots, cfg.pooling
     slots = layout.num_padded_slots if (cfg.emb_mode == "table"
                                         and cfg.idx_input == "replicated") else S
@@ -159,8 +261,8 @@ def batch_struct(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout,
         for name, dt in (("psort_rows", torch.int32), ("psort_bags", torch.int32),
                          ("psort_msk", torch.int32), ("psort_wgt", torch.float32)):
             out[name] = ((ns_emb, L), dt)
-    out["dense_x"] = ((B, cfg.num_dense), torch.bfloat16)
-    out["labels"] = ((B,), torch.float32)
+    for name, (shape, dtype) in cfg.extras.items():
+        out[name] = ((B, *shape), dtype)
     return out
 
 
@@ -171,6 +273,7 @@ def batch_struct_from_spec(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout, d
     between the dataset and the model fails here, at wiring time, with the
     reference's field-by-field message, not as a shape error inside the
     step."""
+    cfg = as_hybrid(cfg)
     dataset_spec.check_model(cfg)
     if dataset_spec.weighted and not cfg.weighted:
         # legal (weights are simply not read) but worth rejecting loudly:
@@ -193,6 +296,7 @@ def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
     mesh)."""
     from repro_torch.data.pipeline import PSORT_KEYS
 
+    cfg = as_hybrid(cfg)
     all_axes, model, batch_axes = pipeline.mesh_axes(mesh)
     n, i = mesh.size, mesh.rank
     shard = emb_shard(cfg, mesh)
@@ -216,3 +320,131 @@ def local_batch(cfg, mesh: Mesh, batch: dict) -> dict:
             v = rows(v, n, i)
         out[k] = v.contiguous()
     return out
+
+
+def make_train_step(mdef, mesh=None, microbatches: int | None = None, *, device="cuda"):
+    """The staged train step of ``mdef`` on this rank of ``mesh`` (None: one
+    rank on ``device``) over ``microbatches`` (``mdef.microbatches`` by
+    default): ``core.pipeline.make_pipelined_train_step``."""
+    M = mdef.microbatches if microbatches is None else microbatches
+    return pipeline.make_pipelined_train_step(mdef, resolve_mesh(mesh, device), M)
+
+
+def make_score_step(mdef, mesh=None, *, device="cuda"):
+    """Forward-only scoring of a train state (serve_p99 / serve_bulk shapes)
+    on this rank of ``mesh`` (None: one rank on ``device``): the train
+    step's ``index_exchange`` (its forward stream) and ``embedding_fwd``
+    stages on the optimizer's forward slabs, weighted with ``mdef.weighted``,
+    then ``mdef.dense_score``.  Returns ``score(state, batch) -> [b]``, the
+    scores of this rank's block of a global batch of any size, cut by
+    :func:`local_batch`; no ``psort_*`` field is read."""
+    mdef = as_hybrid(mdef)
+    mesh = resolve_mesh(mesh, device)
+    stages = pipeline.build_stages(mdef, make_layout(mdef, mesh), mesh)
+    opt = row_optim.resolve(mdef)
+
+    def score(state: dict, batch_d: dict) -> torch.Tensor:
+        idx_fwd = stages.index_exchange(batch_d["idx"], fwd_only=True)[0]
+        wgt_fwd = (stages.index_exchange(batch_d["weights"], fwd_only=True)[0]
+                   if mdef.weighted else None)
+        emb_out = stages.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd,
+                                       wgt_fwd)
+        return mdef.dense_score(state["dense"]["hi"], emb_out, batch_d)
+
+    return score
+
+
+#: candidates a retrieval step scores at once: the dense scorer's
+#: intermediates of 2^14 candidates stay within a few GB at the archetypes'
+#: widths (DIN's attention input alone is 100 x 72 fp32 values a candidate)
+RETRIEVAL_CHUNK = 1 << 14
+
+
+def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: int = 128, *,
+                        device="cuda"):
+    """retrieval_cand shape: ONE query against ``n_candidates`` candidates,
+    on this rank of ``mesh`` (None: one rank on ``device``).
+
+    Returns ``fn(state, batch, cand)
+    -> (values [topk], indices [topk])``, the same on every rank. ``batch``:
+    the query, ``idx`` [1, S, P] and the model's extras (rank-1 extras are
+    reshaped to ``(1, *shape)``), whole on every rank; ``cand``: this rank's
+    block of the candidate matrix, rows ``[rank * per, (rank + 1) * per)``
+    of the global [n_candidates, E] bf16 (``per = n_candidates / ranks``).
+    The query's bags are summed over the row shards with a replicated output
+    (``sharded_embedding.row_bag_fwd_replicated``), the target slot is
+    replaced by each local candidate, and ``mdef.dense_score`` runs over the
+    local candidates :data:`RETRIEVAL_CHUNK` at a time (16,384: each
+    candidate's score depends on its own row alone, so the chunks keep the
+    scorer's memory bounded whatever the count). The local top-k
+    (``torch.topk`` over all local scores) is merged over the ranks by an
+    all-gather and a second top-k, as the reference merges it."""
+    mdef = as_hybrid(mdef)
+    if mdef.weighted:
+        raise ValueError("retrieval scores a single replicated query "
+                         "against a prebuilt candidate matrix; weighted "
+                         "bags are not supported on this path — replace "
+                         "the mdef with weighted=False for retrieval")
+    if mdef.emb_mode != "row":
+        raise ValueError("retrieval step requires emb_mode='row' "
+                         f"(got {mdef.emb_mode!r})")
+    if mdef.idx_input != "replicated":
+        raise ValueError("retrieval step scores ONE replicated query; a "
+                         "batch-sharded index stream (idx_input='sharded') "
+                         "cannot shard a single sample — replace the mdef "
+                         "with idx_input='replicated' for retrieval")
+    mesh = resolve_mesh(mesh, device)
+    layout = make_layout(mdef, mesh)
+    all_axes, _, _ = pipeline.mesh_axes(mesh)
+    g_all = mesh.group(all_axes)
+    g_emb = mesh.group(pipeline.emb_axes(mdef, mesh)[0])
+    offsets = torch.as_tensor(se.local_offsets(layout, g_emb.index), dtype=torch.int32,
+                              device=mesh.device)
+    ns = mesh.size
+    if n_candidates % ns:
+        raise ValueError(f"{n_candidates} candidates do not split over {ns} ranks")
+    per = n_candidates // ns
+    opt = row_optim.resolve(mdef)
+
+    def normalize(batch: dict) -> dict:
+        """Every declared extra reshaped to ``(1, *shape)``, so a rank-1
+        (B-squeezed) extra is accepted instead of silently dropped."""
+        out = dict(batch)
+        for k, (shape, _) in mdef.extras.items():
+            if k in out:
+                out[k] = out[k].reshape((1,) + tuple(shape))
+        return out
+
+    def broadcast(batch: dict, n: int) -> dict:
+        """The query as a batch of ``n`` candidates: declared extras
+        broadcast by their schema, other fields with a leading 1 by it."""
+        out = {}
+        for k, v in batch.items():
+            if k in mdef.extras:
+                out[k] = v.expand((n,) + tuple(mdef.extras[k][0]))
+            elif torch.is_tensor(v) and v.shape[:1] == (1,):
+                out[k] = v.expand((n,) + tuple(v.shape[1:]))
+            else:
+                out[k] = v
+        return out
+
+    def fn(state: dict, batch: dict, cand: torch.Tensor):
+        if tuple(cand.shape) != (per, mdef.spec.dim):
+            raise ValueError(f"this rank's candidates must be [{per}, {mdef.spec.dim}], got "
+                             f"{tuple(cand.shape)}")
+        batch = normalize(batch)
+        emb = se.row_bag_fwd_replicated(layout, row_optim.fwd_weights(opt, state["emb"]),
+                                        batch["idx"], offsets, g_emb)  # [1, S, E] fp32
+        scores = torch.empty(per, dtype=torch.float32, device=cand.device)
+        for c0 in range(0, per, RETRIEVAL_CHUNK):
+            n = min(RETRIEVAL_CHUNK, per - c0)
+            emb_c = emb.expand((n,) + tuple(emb.shape[1:])).clone()
+            emb_c[:, target_slot] = cand[c0:c0 + n].float()
+            scores[c0:c0 + n] = mdef.dense_score(state["dense"]["hi"], emb_c, broadcast(batch, n))
+        v, i = torch.topk(scores, min(topk, per))
+        i = i + g_all.index * per
+        vg, ig = comm.all_gather(v, g_all), comm.all_gather(i, g_all)
+        vv, pos = torch.topk(vg, min(topk, vg.numel()))
+        return vv, ig[pos]
+
+    return fn

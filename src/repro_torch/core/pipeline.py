@@ -130,20 +130,19 @@ def validate_pipeline(cfg, mesh, microbatches: int) -> None:
         raise ValueError(f"unknown idx_input {cfg.idx_input!r}; expected 'replicated' or "
                          "'sharded'")
     exchange_cfg.resolve_exchange(cfg)
-    if cfg.mlp_impl != "xla":
-        raise NotImplementedError(
-            f"mlp_impl {cfg.mlp_impl!r}: the train step runs the MLP as torch.matmul ('xla'), as "
-            "the reference does; its fused_mlp kernel has no backward")
+    if cfg.dense_loss is None:
+        raise NotImplementedError(f"model {cfg.name!r} has no dense_loss: its forward scores "
+                                  "but has no backward to train with")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    hot_rows = int(getattr(cfg, "hot_rows", 0))
+    hot_rows = int(cfg.hot_rows)
     if hot_rows < 0:
         raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
     # checked with the cache off too: a malformed 'deferred:' fails when the step is built
     from repro_torch.core.cache import parse_hot_sync
-    parse_hot_sync(getattr(cfg, "hot_sync", "allreduce"))
+    parse_hot_sync(cfg.hot_sync)
     if hot_rows > 0:
-        if int(getattr(cfg, "promote_every", 1)) < 1:
+        if int(cfg.promote_every) < 1:
             raise ValueError(f"promote_every must be >= 1, got {cfg.promote_every}")
         if hot_rows > cfg.spec.total_rows:
             raise ValueError(f"hot_rows {hot_rows} exceeds the unified row space "
@@ -181,10 +180,14 @@ def ring_all_gather(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages:
-    """The six stages of ``cfg`` on this rank of ``mesh`` (a
-    ``launch.mesh.Mesh``; its device is the rank's)."""
-    from repro_torch.core.dlrm import dlrm_dense_loss
+    """The six stages of the model ``cfg`` (a ``core.hybrid.HybridDef`` or a
+    ``core.dlrm.DLRMConfig``) on this rank of ``mesh`` (a
+    ``launch.mesh.Mesh``; its device is the rank's): the loss is the
+    model's ``dense_loss``, the sparse update steps by ``emb_lr`` and the
+    dense update by ``lr``."""
+    from repro_torch.core.hybrid import as_hybrid
 
+    cfg = as_hybrid(cfg)
     dev = mesh.device
     all_axes, model, batch_axes = mesh_axes(mesh)
     emb_ax, replica_ax = emb_axes(cfg, mesh)
@@ -196,7 +199,7 @@ def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages
     ex = exchange_cfg.resolve_exchange(cfg)
     opt = row_optim.resolve(cfg)
     offsets = torch.as_tensor(se.local_offsets(layout, shard), dtype=torch.int32, device=dev)
-    dense_loss = dlrm_dense_loss(cfg)
+    dense_loss = cfg.dense_loss
     B = cfg.batch
     table = cfg.emb_mode == "table"
     maps = se.slot_maps(layout, dev) if table else None
@@ -244,7 +247,7 @@ def build_stages(cfg, layout: se.ShardedEmbeddingLayout, mesh) -> PipelineStages
                             seed=seed, tag=tag)
 
     def sparse_update(emb_store, idx_upd, dY, weights=None, seed=None, presort=None):
-        return se.apply_update(layout, emb_store, opt, idx_upd, dY, cfg.lr, offsets,
+        return se.apply_update(layout, emb_store, opt, idx_upd, dY, cfg.emb_lr, offsets,
                                weights=weights, seed=seed, group=g_emb, presort=presort)
 
     def dense_update(dense_state, g_dense, seed=None):
@@ -290,12 +293,14 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
     ``state``: this rank's shard, as :func:`repro_torch.core.hybrid.init_state`
     or ``weights.state_from_numpy`` makes it; ``batch``: this rank's block of
     the reference's global batch (``core.hybrid.local_batch``): ``idx``
-    int32 table-local ids, ``dense_x`` [B / ranks, num_dense] (bf16 or fp32:
-    the first layer casts to bf16), ``labels`` [B / ranks] fp32, with
+    int32 table-local ids, the model's extras cut to the rank's rows (a
+    DLRM's ``dense_x`` [B / ranks, num_dense] bf16 or fp32, which the first
+    layer casts to bf16, and ``labels`` [B / ranks] fp32), with
     ``cfg.weighted`` ``weights`` fp32 in idx's layout and with
     ``cfg.host_presort`` the ``psort_*`` fields [1, L] of this rank's
     embedding shard (``data.pipeline.presort_batch``), on the rank's device.
-    ``loss`` is the batch's mean binary cross-entropy, the same on every
+    ``loss`` is the model's summed loss over the batch divided by the
+    global batch (a DLRM's mean binary cross-entropy), the same on every
     rank, as a 0-d device tensor.
 
     The step updates the embedding store and the dense state IN PLACE,
@@ -313,13 +318,14 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
     from repro_torch.data.pipeline import PSORT_KEYS
 
     M = int(microbatches)
+    cfg = hybrid.as_hybrid(cfg)
     validate_pipeline(cfg, mesh, M)
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     stages = build_stages(cfg, layout, mesh)
     all_axes, model, _ = mesh_axes(mesh)
     g_all = mesh.group(all_axes)
-    presorted = bool(getattr(cfg, "host_presort", False))
+    presorted = bool(cfg.host_presort)
     # the ranks a replicated index stream is laid out over: the mesh in row
     # mode, the model axis in table mode (its batch is already cut by replica)
     width = mesh.size if cfg.emb_mode == "row" else mesh.shape[model]
@@ -340,13 +346,13 @@ def make_pipelined_train_step(cfg, mesh, microbatches: int = 1):
     def restore(parts: list) -> torch.Tensor:
         return parts[0] if M == 1 else torch.cat(parts).index_select(0, perm)
 
-    cache_on = int(getattr(cfg, "hot_rows", 0)) > 0
+    cache_on = int(cfg.hot_rows) > 0
     # the bypass needs each bag summed whole by one shard and the rank's own
     # block of the original-slot stream: table mode with the sharded stream.
     # Row mode's reduce-scatter sums partial bags in its wire, so there the
     # cache keeps its counts and hot set but puts no bag in place
     bypass = cache_on and cfg.emb_mode == "table" and cfg.idx_input == "sharded"
-    metrics_on = bool(getattr(cfg, "step_metrics", False))
+    metrics_on = bool(cfg.step_metrics)
     dev = mesh.device
     emb_group = mesh.group(emb_axes(cfg, mesh)[0])
     if cache_on:

@@ -218,6 +218,20 @@ def row_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
     return comm.psum_scatter(part.to(torch.bfloat16), group).float()
 
 
+def row_bag_fwd_replicated(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
+                           idx: torch.Tensor, row_offsets: Optional[torch.Tensor] = None,
+                           group: Optional[comm.Group] = None) -> torch.Tensor:
+    """Row-mode bags with a replicated [B, S, E] fp32 output: each shard's
+    unrounded partial bags (one launch of the embedding_bag kernel) summed
+    over ``group`` by a ``psum`` in place of the reduce-scatter.  For a batch
+    smaller than the shards, such as the retrieval step's one query."""
+    group = _group(group)
+    row_offsets = _offsets(layout, row_offsets, idx, group.index)
+    part = ops.embedding_bag_stage(W_local, idx, row_offsets, layout.rows_per_shard,
+                                   round_bf16=False)
+    return comm.psum(part, group)
+
+
 def table_sharded_bag_fwd(layout: ShardedEmbeddingLayout, W_local: torch.Tensor,
                           idx_slots_local: torch.Tensor, group: Optional[comm.Group],
                           weights: Optional[torch.Tensor] = None,

@@ -6,6 +6,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -203,6 +204,66 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
+// The narrow path, for a row that is no whole number of 16-byte chunks (an
+// E that is no multiple of 8 bf16 or 4 fp32 values) or a table off a 16-byte
+// boundary: one thread a value of the output, out[j, c] for bag j (in [B, S]
+// order) and column c, so that consecutive threads read consecutive values
+// of a row and write consecutive outputs.  It adds the bag's lookups in
+// order, the first as it is and each next one with one fp32 add, a lookup
+// outside [0, rows) adding +0 and a weighted lookup its rounded product
+// w * x: the plain version's operations, so that a bag of one lookup (the
+// recsys archetypes' P = 1) gives its bits.
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(256)
+    embedding_bag_narrow_kernel(const T* __restrict__ W, const int32_t* __restrict__ idx,
+                                const int32_t* __restrict__ offsets, const float* __restrict__ wgt,
+                                float* __restrict__ out, int64_t n, int S, int P, int E,
+                                int64_t rows, int round_bf16) {
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n;
+       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t j = t / E;
+    const int c = static_cast<int>(t - j * E);
+    const int32_t off = offsets ? __ldg(offsets + j % S) : 0;
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int64_t at = j * P + p;
+      // the offset add wraps as int32 arithmetic does
+      const int32_t g =
+          static_cast<int32_t>(static_cast<uint32_t>(__ldg(idx + at)) + static_cast<uint32_t>(off));
+      float x = 0.f;
+      if (g >= 0 && g < rows) {
+        const int64_t e = static_cast<int64_t>(g) * E + c;
+        if constexpr (sizeof(T) == 2) {
+          const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(W) + e);
+          x = __uint_as_float(static_cast<uint32_t>(bits) << 16);
+        } else {
+          x = __ldg(reinterpret_cast<const float*>(W) + e);
+        }
+        if constexpr (kWeighted) x = __fmul_rn(__ldg(wgt + at), x);
+      }
+      acc = p == 0 ? x : __fadd_rn(acc, x);
+    }
+    if (round_bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
+    out[t] = acc;
+  }
+}
+
+template <typename T, bool kWeighted>
+int launch_narrow(const void* W, const void* idx, const void* offsets, const void* wgt, void* out,
+                  int64_t B, int S, int P, int E, int64_t rows, int round_bf16, void* stream) {
+  int dev = 0, sms = 0;
+  const cudaError_t err = hopper::device_sms(&dev, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n = B * S * E;
+  const int64_t blocks = std::min<int64_t>((n + 255) / 256, static_cast<int64_t>(sms) * 32);
+  embedding_bag_narrow_kernel<T, kWeighted>
+      <<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(W), static_cast<const int32_t*>(idx),
+          static_cast<const int32_t*>(offsets), static_cast<const float*>(wgt),
+          static_cast<float*>(out), n, S, P, E, rows, round_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool kWeighted, bool kSpread>
 int launch(const void* W, const void* idx, const void* offsets, const void* wgt, void* out,
            int64_t B, int S, int P, int E, int64_t rows, int round_bf16, int sms, int G,
@@ -246,8 +307,10 @@ int launch_layout(const void* W, const void* idx, const void* offsets, const voi
 // is idx + offsets[s]); wgt [B, S, P] fp32 or null; out [B, S, E] fp32, each
 // sum rounded to bf16 when round_bf16.  layout_bags: sum in the layout a
 // launch of that many bags takes (a bag's rows are added in another order in
-// each), so that these bags are that launch's bit for bit; 0 = B * S.
-// Returns the CUDA error of the launch (0 = none).
+// each), so that these bags are that launch's bit for bit; 0 = B * S.  Any
+// E: a row that is no whole number of 16-byte chunks, or a W off a 16-byte
+// boundary, takes the narrow path (one layout).  Returns the CUDA error of
+// the launch (0 = none).
 extern "C" int embedding_bag_fwd(const void* W, const void* idx, const void* offsets,
                                  const void* wgt, void* out, int64_t B, int S, int P, int E,
                                  int64_t rows, int table_bf16, int round_bf16, int64_t layout_bags,
@@ -255,6 +318,14 @@ extern "C" int embedding_bag_fwd(const void* W, const void* idx, const void* off
   if (B == 0 || S == 0) return 0;
   if (B * S >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);  // bags index as uint32
   if (layout_bags <= 0) layout_bags = B * S;
+  const int vec = table_bf16 ? 8 : 4;
+  if (E % vec != 0 || reinterpret_cast<uintptr_t>(W) % 16 != 0) {
+    if (table_bf16)
+      return wgt ? launch_narrow<uint16_t, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream)
+                 : launch_narrow<uint16_t, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream);
+    return wgt ? launch_narrow<float, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream)
+               : launch_narrow<float, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, stream);
+  }
   if (table_bf16)
     return wgt ? launch_layout<uint16_t, true>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream)
                : launch_layout<uint16_t, false>(W, idx, offsets, wgt, out, B, S, P, E, rows, round_bf16, layout_bags, stream);

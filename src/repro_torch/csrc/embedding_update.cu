@@ -117,6 +117,24 @@ __device__ __forceinline__ float2 product(typename Cot<TY>::Pair v, float w) {
   return make_float2(__fmul_rn(Cot<TY>::first(v), w), __fmul_rn(Cot<TY>::second(v), w));
 }
 
+// The lane's pair of columns c, c + 1 of dY at flat offset i: one load, or
+// with kNarrow (an odd E, or a pointer off the pair's alignment) one load a
+// column, the second only where `two` (column c + 1 lies in the row), +0
+// past it
+template <class TY, bool kNarrow>
+__device__ __forceinline__ typename Cot<TY>::Pair load_pair(const TY* __restrict__ dY, int64_t i,
+                                                            bool two) {
+  if constexpr (!kNarrow) {
+    return Cot<TY>::load(dY, i);
+  } else if constexpr (sizeof(TY) == 2) {
+    const uint32_t x0 = __ldg(reinterpret_cast<const unsigned short*>(dY) + i);
+    const uint32_t x1 = two ? __ldg(reinterpret_cast<const unsigned short*>(dY) + i + 1) : 0u;
+    return x0 | (x1 << 16);
+  } else {
+    return make_float2(__ldg(dY + i), two ? __ldg(dY + i + 1) : 0.f);
+  }
+}
+
 // ----------------------------------------------------------------- the stream --
 
 struct Stream {
@@ -186,17 +204,19 @@ __device__ __forceinline__ Plan plan_seg(const Seg& s, int n) {
 // Issue the loads of a segment's cotangent rows (this lane's columns c,
 // c + 1): one a group, into v[0..3], or one a position, into v[0..31].
 // Masked positions (bag -1) load nothing.
-template <class TY>
+template <class TY, bool kNarrow>
 __device__ __forceinline__ void load_rows(typename Cot<TY>::Pair (&v)[kSeg], const Seg& s,
                                           const Plan& p, const TY* __restrict__ dY, int E, int c,
                                           bool active) {
+  const bool two = c + 1 < E;
   if (p.few) {
     unsigned g = p.groups;
 #pragma unroll
     for (int j = 0; j < kFew; ++j) {
       const int32_t bag = __shfl_sync(kFull, s.bag, g ? __ffs(g) - 1 : 0);
-      v[j] = (g && active && bag >= 0) ? Cot<TY>::load(dY, static_cast<int64_t>(bag) * E + c)
-                                       : Cot<TY>::zero();
+      v[j] = (g && active && bag >= 0)
+                 ? load_pair<TY, kNarrow>(dY, static_cast<int64_t>(bag) * E + c, two)
+                 : Cot<TY>::zero();
       g &= g - 1;
     }
     return;
@@ -207,8 +227,9 @@ __device__ __forceinline__ void load_rows(typename Cot<TY>::Pair (&v)[kSeg], con
   for (int u = 0; u < kSeg; ++u) bg[u] = __shfl_sync(kFull, mine, u);
 #pragma unroll
   for (int u = 0; u < kSeg; ++u)
-    v[u] = (active && bg[u] >= 0) ? Cot<TY>::load(dY, static_cast<int64_t>(bg[u]) * E + c)
-                                  : Cot<TY>::zero();
+    v[u] = (active && bg[u] >= 0)
+               ? load_pair<TY, kNarrow>(dY, static_cast<int64_t>(bg[u]) * E + c, two)
+               : Cot<TY>::zero();
 }
 
 // acc += product, cnt times, in order: one group's lookups
@@ -264,7 +285,7 @@ __device__ __forceinline__ void add_rows(float& a0, float& a1,
 // (msk != 0): a ballot over the run's positions in each segment, so a run of
 // the masked tail alone is dead, and the last row's run, which holds its
 // valid lookups and then the masked tail, is live.
-template <class TY>
+template <class TY, bool kNarrow>
 __device__ __forceinline__ bool sum_short(const Stream& sm, const TY* __restrict__ dY, int64_t s,
                                           int32_t row, int E, int c, bool active, float& a0,
                                           float& a1) {
@@ -276,13 +297,13 @@ __device__ __forceinline__ bool sum_short(const Stream& sm, const TY* __restrict
   Seg sa = load_seg<true>(sm, base + lane, L);
   Plan pa = plan_seg(sa, __popc(__ballot_sync(kFull, sa.row == row)));
   Pair va[kSeg];
-  load_rows<TY>(va, sa, pa, dY, E, c, active);
+  load_rows<TY, kNarrow>(va, sa, pa, dY, E, c, active);
   Seg sb = pa.n == kSeg ? load_seg<true>(sm, base + kSeg + lane, L) : Seg{-1, -1, 0.f};
   while (pa.n > 0) {
     const Plan pb = pa.n == kSeg ? plan_seg(sb, __popc(__ballot_sync(kFull, sb.row == row)))
                                  : Plan{0, 0u, true};
     Pair vb[kSeg];
-    load_rows<TY>(vb, sb, pb, dY, E, c, active);
+    load_rows<TY, kNarrow>(vb, sb, pb, dY, E, c, active);
     const Seg sc = pb.n == kSeg ? load_seg<true>(sm, base + 2 * kSeg + lane, L) : Seg{-1, -1, 0.f};
     live = live || __any_sync(kFull, lane < pa.n && sa.bag >= 0);
     add_rows<TY>(a0, a1, va, sa, pa);
@@ -510,75 +531,121 @@ constexpr bool kMomentumOp = kOp == Op::kMomentum || kOp == Op::kMomentumBf16;
 template <Op kOp>
 constexpr bool kBf16State = kOp == Op::kMomentumBf16 || kOp == Op::kAdagradBf16;
 
+// Columns c, c + 1 of a slab at flat offset off: a pair of 16-bit values as
+// one 32-bit word (column c in the low half) or a float2, with one access;
+// with kNarrow one access a column, column c + 1 only where `two` (+0 past
+// the row)
+template <bool kNarrow>
+__device__ __forceinline__ uint32_t ld16x2(const void* base, int64_t off, bool two) {
+  const uint16_t* p = static_cast<const uint16_t*>(base) + off;
+  if constexpr (!kNarrow) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    return static_cast<uint32_t>(p[0]) | (two ? static_cast<uint32_t>(p[1]) << 16 : 0u);
+  }
+}
+
+template <bool kNarrow>
+__device__ __forceinline__ void st16x2(void* base, int64_t off, uint32_t v, bool two) {
+  uint16_t* p = static_cast<uint16_t*>(base) + off;
+  if constexpr (!kNarrow) {
+    *reinterpret_cast<uint32_t*>(p) = v;
+  } else {
+    p[0] = static_cast<uint16_t>(v & 0xffffu);
+    if (two) p[1] = static_cast<uint16_t>(v >> 16);
+  }
+}
+
+template <bool kNarrow>
+__device__ __forceinline__ float2 ld32x2(const void* base, int64_t off, bool two) {
+  const float* p = static_cast<const float*>(base) + off;
+  if constexpr (!kNarrow) {
+    return *reinterpret_cast<const float2*>(p);
+  } else {
+    return make_float2(p[0], two ? p[1] : 0.f);
+  }
+}
+
+template <bool kNarrow>
+__device__ __forceinline__ void st32x2(void* base, int64_t off, float2 v, bool two) {
+  float* p = static_cast<float*>(base) + off;
+  if constexpr (!kNarrow) {
+    *reinterpret_cast<float2*>(p) = v;
+  } else {
+    p[0] = v.x;
+    if (two) p[1] = v.y;
+  }
+}
+
 // The values of columns c, c + 1 that the step reads (w and, for an [M, E]
 // slab, the state), loaded before the sums
 struct Old {
   float2 w, m;
 };
 
-template <Op kOp>
-__device__ __forceinline__ Old load_old(const Store& st, int64_t off) {
+template <Op kOp, bool kNarrow>
+__device__ __forceinline__ Old load_old(const Store& st, int64_t off, bool two) {
   Old o{make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
   if constexpr (kOp == Op::kSplit) {  // w = (hi << 16) | lo, two columns a word each
-    const uint32_t h = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(st.W) + off);
-    const uint32_t l = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(st.S) + off);
+    const uint32_t h = ld16x2<kNarrow>(st.W, off, two);
+    const uint32_t l = ld16x2<kNarrow>(st.S, off, two);
     o.w = make_float2(__uint_as_float((h << 16) | (l & 0xffffu)),
                       __uint_as_float((h & 0xffff0000u) | (l >> 16)));
   } else {
-    o.w = *reinterpret_cast<const float2*>(static_cast<const float*>(st.W) + off);
+    o.w = ld32x2<kNarrow>(st.W, off, two);
     if constexpr (kBf16State<kOp>) {  // two bf16 values, decoded exactly
-      const uint32_t v =
-          *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(st.S) + off);
+      const uint32_t v = ld16x2<kNarrow>(st.S, off, two);
       o.m = make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
     } else if constexpr (kOp == Op::kMomentum || kOp == Op::kAdagrad) {
-      o.m = *reinterpret_cast<const float2*>(static_cast<const float*>(st.S) + off);
+      o.m = ld32x2<kNarrow>(st.S, off, two);
     }
   }
   return o;
 }
 
-template <Op kOp>
+template <Op kOp, bool kNarrow>
 __device__ __forceinline__ void step(const Store& st, int32_t row, int64_t off, int c, const Old& o,
-                                     float a0, float a1) {
+                                     float a0, float a1, bool two) {
   const float lr = st.lr;
   float* W = static_cast<float*>(st.W);
   if constexpr (kOp == Op::kSplit) {
     const uint32_t b0 = __float_as_uint(__fmaf_rn(-lr, a0, o.w.x));
     const uint32_t b1 = __float_as_uint(__fmaf_rn(-lr, a1, o.w.y));
-    *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.W) + off) =
-        (b0 >> 16) | (b1 & 0xffff0000u);
-    *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.S) + off) = (b0 & 0xffffu) | (b1 << 16);
+    st16x2<kNarrow>(st.W, off, (b0 >> 16) | (b1 & 0xffff0000u), two);
+    st16x2<kNarrow>(st.S, off, (b0 & 0xffffu) | (b1 << 16), two);
   } else if constexpr (kOp == Op::kFp32) {
-    *reinterpret_cast<float2*>(W + off) =
-        make_float2(__fmaf_rn(-lr, a0, o.w.x), __fmaf_rn(-lr, a1, o.w.y));
+    st32x2<kNarrow>(W, off, make_float2(__fmaf_rn(-lr, a0, o.w.x), __fmaf_rn(-lr, a1, o.w.y)),
+                    two);
   } else if constexpr (kMomentumOp<kOp>) {  // m = beta*m + the run's lookups; w = w - lr*m
     if constexpr (kBf16State<kOp>) {
       const uint32_t base = row_hash(st.seed, row);
-      *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.S) + off) =
-          sr_bf16(a0, base, c) | (sr_bf16(a1, base, c + 1) << 16);
+      st16x2<kNarrow>(st.S, off, sr_bf16(a0, base, c) | (sr_bf16(a1, base, c + 1) << 16),
+                      two);
     } else {
-      *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = make_float2(a0, a1);
+      st32x2<kNarrow>(st.S, off, make_float2(a0, a1), two);
     }
-    *reinterpret_cast<float2*>(W + off) =
-        make_float2(__fmaf_rn(-lr, a0, o.w.x), __fmaf_rn(-lr, a1, o.w.y));
+    st32x2<kNarrow>(W, off, make_float2(__fmaf_rn(-lr, a0, o.w.x), __fmaf_rn(-lr, a1, o.w.y)),
+                    two);
   } else if constexpr (kOp == Op::kAdagrad || kOp == Op::kAdagradBf16) {
     // s = s + acc*acc; w = w - lr*acc/(sqrt(s)+eps)
     const float2 m = make_float2(__fmaf_rn(a0, a0, o.m.x), __fmaf_rn(a1, a1, o.m.y));
     if constexpr (kBf16State<kOp>) {  // the step below reads the unrounded s
       const uint32_t base = row_hash(st.seed, row);
-      *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(st.S) + off) =
-          sr_bf16(m.x, base, c) | (sr_bf16(m.y, base, c + 1) << 16);
+      st16x2<kNarrow>(st.S, off, sr_bf16(m.x, base, c) | (sr_bf16(m.y, base, c + 1) << 16),
+                      two);
     } else {
-      *reinterpret_cast<float2*>(static_cast<float*>(st.S) + off) = m;
+      st32x2<kNarrow>(st.S, off, m, two);
     }
-    *reinterpret_cast<float2*>(W + off) =
-        make_float2(scaled_step(o.w.x, a0, lr, __fadd_rn(__fsqrt_rn(m.x), st.hp)),
-                    scaled_step(o.w.y, a1, lr, __fadd_rn(__fsqrt_rn(m.y), st.hp)));
+    st32x2<kNarrow>(W, off,
+                    make_float2(scaled_step(o.w.x, a0, lr, __fadd_rn(__fsqrt_rn(m.x), st.hp)),
+                                scaled_step(o.w.y, a1, lr, __fadd_rn(__fsqrt_rn(m.y), st.hp))),
+                    two);
   } else {  // kFreq: w = w - lr*acc/(sqrt(max(cnt, 1))+eps), the count already bumped
     const float d = __fadd_rn(
         __fsqrt_rn(fmaxf(__int2float_rn(static_cast<const int32_t*>(st.S)[row]), 1.f)), st.hp);
-    *reinterpret_cast<float2*>(W + off) =
-        make_float2(scaled_step(o.w.x, a0, lr, d), scaled_step(o.w.y, a1, lr, d));
+    st32x2<kNarrow>(W, off,
+                    make_float2(scaled_step(o.w.x, a0, lr, d), scaled_step(o.w.y, a1, lr, d)),
+                    two);
   }
 }
 
@@ -611,7 +678,10 @@ __device__ __forceinline__ int walk_column(uint32_t w, int E) {
 // columns from the last block back, walking the run again for every block
 // but the last, whose sums are still held: the same walk gives the same
 // bits.  It walks a dead run too, so a long run's producers need not know.
-template <Op kOp, class Sum>
+// kNarrow moves each value on its own (ld16x2 and the others): an odd E
+// leaves the last lane's column c + 1 past the row, where it reads +0 and
+// writes nothing.
+template <Op kOp, bool kNarrow, class Sum>
 __device__ __forceinline__ void update_run(int32_t row, int E, const Store& st, Sum&& sum) {
   const int lane = threadIdx.x & 31;
   if constexpr (kOp == Op::kRowwise) {
@@ -641,9 +711,13 @@ __device__ __forceinline__ void update_run(int32_t row, int E, const Store& st, 
         sum(c, c < E, a0, a1);
       }
       if (live && c < E) {
-        float2* w = reinterpret_cast<float2*>(W + static_cast<int64_t>(row) * E + c);
-        const float2 old = *w;
-        *w = make_float2(scaled_step(old.x, a0, st.lr, d), scaled_step(old.y, a1, st.lr, d));
+        const int64_t off = static_cast<int64_t>(row) * E + c;
+        const bool two = c + 1 < E;
+        const float2 old = ld32x2<kNarrow>(W, off, two);
+        st32x2<kNarrow>(W, off,
+                        make_float2(scaled_step(old.x, a0, st.lr, d),
+                                    scaled_step(old.y, a1, st.lr, d)),
+                        two);
       }
     }
     if (live && lane == 0) acc[row] = s_new;
@@ -653,13 +727,14 @@ __device__ __forceinline__ void update_run(int32_t row, int E, const Store& st, 
       const int c = cb + 2 * lane;
       const bool active = c < E;
       const int64_t off = static_cast<int64_t>(row) * E + c;  // int64: 8M rows x E overflow int32
-      const Old o =
-          active ? load_old<kOp>(st, off) : Old{make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      const bool two = c + 1 < E;
+      const Old o = active ? load_old<kOp, kNarrow>(st, off, two)
+                           : Old{make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
       // the sums start from +0; momentum's from beta*m
       float a0 = kMomentumOp<kOp> ? __fmul_rn(st.hp, o.m.x) : 0.f;
       float a1 = kMomentumOp<kOp> ? __fmul_rn(st.hp, o.m.y) : 0.f;
       const bool live = sum(c, active, a0, a1);
-      if (active && (kAlways || live)) step<kOp>(st, row, off, c, o, a0, a1);
+      if (active && (kAlways || live)) step<kOp, kNarrow>(st, row, off, c, o, a0, a1, two);
     }
   }
 }
@@ -684,8 +759,12 @@ struct Cursor {
 // loads into registers for its next rounds stay in flight (an arrival with
 // release semantics would wait for them): each lane holds the bag of its
 // position in the warp's next four rounds.  Shared addresses are formed
-// once: converting a pointer a copy cost more than the copy.
-template <Op kOp, class TY>
+// once: converting a pointer a copy cost more than the copy.  kNarrow
+// (an odd E, or a dY off its pairs' alignment): a lane loads its columns of
+// each row one value at a time and stores them, and the weights and masks,
+// to the stage itself, then arrives with release semantics (cp.async has no
+// 2-byte copy).
+template <Op kOp, class TY, bool kNarrow>
 __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs, int64_t count,
                         int64_t slots, const Stream& sm, const TY* __restrict__ dY, int E) {
   using S = Shape<TY>;
@@ -696,7 +775,7 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
   constexpr int kPair = sizeof(typename Cot<TY>::Pair);
   const int lane = threadIdx.x & 31;
   // rows of whole 16-byte chunks, 16-byte aligned: copied a chunk at a time
-  const bool wide = E % kPer == 0 && reinterpret_cast<uintptr_t>(dY) % 16 == 0;
+  const bool wide = !kNarrow && E % kPer == 0 && reinterpret_cast<uintptr_t>(dY) % 16 == 0;
   const uint32_t rows_s = hopper::smem_u32(R.rows), wgt_s = hopper::smem_u32(R.wgt),
                  msk_s = hopper::smem_u32(R.msk);
   const uint32_t nw = walks<kOp>(E);
@@ -739,6 +818,15 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
               hopper::cp_async<16>(stage + u * kRowBytes + 16 * part,
                                    dY + static_cast<int64_t>(bu) * E + cb + part * kPer);
           }
+        } else if (kNarrow) {  // this lane's two columns of each row, a value at a time
+          const int c = cb + 2 * lane;
+#pragma unroll
+          for (int u = 0; u < kSeg; ++u) {
+            const int32_t bu = __shfl_sync(kFull, b[r], u);
+            if (c < E && bu >= 0)
+              *stage_slot<TY>(R, st, u) =
+                  load_pair<TY, true>(dY, static_cast<int64_t>(bu) * E + c, c + 1 < E);
+          }
         } else {  // this lane's two columns of each position's row
           const int c = cb + 2 * lane;
 #pragma unroll
@@ -749,11 +837,19 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
                                       dY + static_cast<int64_t>(bu) * E + c);
           }
         }
-        if (q < end) {
-          hopper::cp_async<4>(wgt_s + 4 * (st * kSeg + lane), sm.wgt + q);
-          hopper::cp_async<4>(msk_s + 4 * (st * kSeg + lane), sm.msk + q);
+        if (kNarrow) {
+          if (q < end) {
+            R.wgt[st * kSeg + lane] = __ldg(sm.wgt + q);
+            R.msk[st * kSeg + lane] = __ldg(sm.msk + q);
+          }
+          hopper::mbar_arrive(R.full + 8 * st);
+        } else {
+          if (q < end) {
+            hopper::cp_async<4>(wgt_s + 4 * (st * kSeg + lane), sm.wgt + q);
+            hopper::cp_async<4>(msk_s + 4 * (st * kSeg + lane), sm.msk + q);
+          }
+          hopper::cp_async_arrive(R.full + 8 * st);
         }
-        hopper::cp_async_arrive(R.full + 8 * st);
         b[r] = bag(ahead, j + 4 * P);  // this lane's bag four rounds on
         at.advance(P, nseg);
         ahead.advance(P, nseg);
@@ -765,7 +861,7 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
 
 // The long runs' consumer warp: each of the block's runs, its row stepped
 // as kOp does, its sums read from the ring.
-template <Op kOp, class TY>
+template <Op kOp, class TY, bool kNarrow>
 __device__ void consume(const Ring& R, const int64_t* __restrict__ runs, int64_t count,
                         int64_t slots, const Stream& sm, const Store& st, int E) {
   uint32_t g = 0;
@@ -775,7 +871,7 @@ __device__ void consume(const Ring& R, const int64_t* __restrict__ runs, int64_t
     const int64_t len = run_end(sm.rows, s, row, sm.L) - s;
     const uint32_t nseg = static_cast<uint32_t>((len + kSeg - 1) / kSeg);
     const int last_n = static_cast<int>(len - kSeg * static_cast<int64_t>(nseg - 1));
-    update_run<kOp>(row, E, st, [&](int, bool, float& a0, float& a1) {
+    update_run<kOp, kNarrow>(row, E, st, [&](int, bool, float& a0, float& a1) {
       return sum_ring<TY>(R, g, nseg, last_n, a0, a1);
     });
   }
@@ -799,7 +895,7 @@ __global__ void list_long_runs_kernel(const int32_t* __restrict__ rows, int64_t 
 
 // The long runs: block b takes the runs of the list's slots b, b + slots,
 // ... (a block past the list's count exits at once).
-template <Op kOp, class TY>
+template <Op kOp, class TY, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32, 1)
     long_run_kernel(Stream sm, const TY* __restrict__ dY, Store st,
                     const int64_t* __restrict__ runs, int64_t slots, int E) {
@@ -817,9 +913,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   }
   __syncthreads();
   if (warp == 0) {
-    consume<kOp, TY>(R, runs, count, slots, sm, st, E);
+    consume<kOp, TY, kNarrow>(R, runs, count, slots, sm, st, E);
   } else if (warp <= kProducers) {
-    produce<kOp, TY>(R, warp - 1, runs, count, slots, sm, dY, E);
+    produce<kOp, TY, kNarrow>(R, warp - 1, runs, count, slots, sm, dY, E);
   }
 }
 
@@ -834,7 +930,7 @@ constexpr int kShortBlocks =
 
 // The short runs: each warp takes a window of 32 positions and walks the
 // runs that start in it and are not long, each to its end.
-template <Op kOp, class TY>
+template <Op kOp, class TY, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32, kShortBlocks<kOp>)
     short_run_kernel(Stream sm, const TY* __restrict__ dY, Store st, int E) {
   const int lane = threadIdx.x & 31;
@@ -852,8 +948,8 @@ __global__ void __launch_bounds__(kWarps * 32, kShortBlocks<kOp>)
     starts &= starts - 1;
     const int64_t s = w0 + k;
     const int32_t row = __shfl_sync(kFull, r, k);
-    update_run<kOp>(row, E, st, [&](int c, bool active, float& a0, float& a1) {
-      return sum_short<TY>(sm, dY, s, row, E, c, active, a0, a1);
+    update_run<kOp, kNarrow>(row, E, st, [&](int c, bool active, float& a0, float& a1) {
+      return sum_short<TY, kNarrow>(sm, dY, s, row, E, c, active, a0, a1);
     });
   }
 }
@@ -895,14 +991,14 @@ cudaError_t side_stream(Side*& out) {
 
 // On the caller's stream: zero the list's count, list the long runs, walk
 // them; on the side stream, forked after the zeroing: walk the short runs.
-template <Op kOp, class TY>
+template <Op kOp, class TY, bool kNarrow>
 int launch_typed(const void* rows, const void* bags, const void* msk, const void* wgt,
                  const void* dY, Store st, void* runs, int64_t L, int E, cudaStream_t stream) {
   const std::lock_guard<std::mutex> hold(side_lock);
   Side* side = nullptr;
   cudaError_t err = side_stream(side);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(long_run_kernel<kOp, TY>,
+    err = cudaFuncSetAttribute(long_run_kernel<kOp, TY, kNarrow>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(Shape<TY>::kSmemBytes));
   if (err == cudaSuccess) err = cudaMemsetAsync(runs, 0, sizeof(int64_t), stream);
@@ -913,19 +1009,34 @@ int launch_typed(const void* rows, const void* bags, const void* msk, const void
                   static_cast<const int32_t*>(msk), static_cast<const float*>(wgt), L};
   const auto* y = static_cast<const TY*>(dY);
   const int64_t windows = (L + kSeg - 1) / kSeg;
-  short_run_kernel<kOp, TY><<<static_cast<unsigned>((windows + kWarps - 1) / kWarps),
-                              kWarps * 32, 0, side->stream>>>(sm, y, st, E);
+  short_run_kernel<kOp, TY, kNarrow><<<static_cast<unsigned>((windows + kWarps - 1) / kWarps),
+                                       kWarps * 32, 0, side->stream>>>(sm, y, st, E);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   list_long_runs_kernel<<<static_cast<unsigned>((L + 255) / 256), 256, 0, stream>>>(
       sm.rows, L, static_cast<int64_t*>(runs));
   const int64_t slots = list_slots(L) < kLongBlocks ? list_slots(L) : kLongBlocks;
-  long_run_kernel<kOp, TY><<<static_cast<unsigned>(slots), kWarps * 32, Shape<TY>::kSmemBytes,
-                             stream>>>(sm, y, st, static_cast<const int64_t*>(runs), slots, E);
+  long_run_kernel<kOp, TY, kNarrow><<<static_cast<unsigned>(slots), kWarps * 32,
+                                      Shape<TY>::kSmemBytes, stream>>>(
+      sm, y, st, static_cast<const int64_t*>(runs), slots, E);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
   return static_cast<int>(err);
+}
+
+// Whether a launch takes the narrow path: an odd E, or a slab whose column
+// pairs are off the alignment of one access (4 bytes for a pair of 16-bit
+// values, 8 for a float2): dY, W (the split pair's hi), and an [M, E] state
+// slab S (the split pair's lo)
+template <Op kOp>
+bool narrow(const void* dY, int dy_f32, const Store& st, int E) {
+  auto off = [](const void* p, int align) { return reinterpret_cast<uintptr_t>(p) % align != 0; };
+  constexpr bool kSplit = kOp == Op::kSplit;
+  constexpr int kStateAlign = kSplit || kBf16State<kOp> ? 4
+                              : kOp == Op::kMomentum || kOp == Op::kAdagrad ? 8 : 0;
+  return E % 2 != 0 || off(dY, dy_f32 ? 8 : 4) || off(st.W, kSplit ? 4 : 8) ||
+         (kStateAlign && off(st.S, kStateAlign));
 }
 
 // dY fp32 when dy_f32, else bf16; runs: the long runs' list, int64
@@ -935,8 +1046,11 @@ int launch(const void* rows, const void* bags, const void* msk, const void* wgt,
            int dy_f32, Store st, void* runs, int64_t L, int E, void* stream) {
   if (L == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return dy_f32 ? launch_typed<kOp, float>(rows, bags, msk, wgt, dY, st, runs, L, E, s)
-                : launch_typed<kOp, uint16_t>(rows, bags, msk, wgt, dY, st, runs, L, E, s);
+  if (narrow<kOp>(dY, dy_f32, st, E))
+    return dy_f32 ? launch_typed<kOp, float, true>(rows, bags, msk, wgt, dY, st, runs, L, E, s)
+                  : launch_typed<kOp, uint16_t, true>(rows, bags, msk, wgt, dY, st, runs, L, E, s);
+  return dy_f32 ? launch_typed<kOp, float, false>(rows, bags, msk, wgt, dY, st, runs, L, E, s)
+                : launch_typed<kOp, uint16_t, false>(rows, bags, msk, wgt, dY, st, runs, L, E, s);
 }
 
 }  // namespace
@@ -952,7 +1066,8 @@ extern "C" int64_t embedding_update_list_words(int64_t L) { return list_words(L)
 // fp32 when dy_f32; hi/lo [M, E] 16-bit (split) or W [M, E] fp32, updated in
 // place; runs int64 [embedding_update_list_words(L)] scratch, runs[0] left
 // holding the number of runs of embedding_update_long_run() positions or
-// more.  E even.  Returns the CUDA error of the launch (0 = none).
+// more.  Any E: an odd one, or a slab off its pairs' alignment, takes the
+// narrow path.  Returns the CUDA error of the launch (0 = none).
 extern "C" int embedding_update_split(const void* rows, const void* bags, const void* msk,
                                       const void* wgt, const void* dY, int dy_f32, void* hi,
                                       void* lo, void* runs, int64_t L, int E, float lr,

@@ -1,7 +1,8 @@
 """Synthetic batches (copies of ``zipf_indices``, ``SparseBatchSpec``,
-``sparse_batch`` and ``dlrm_stream`` from ``repro/data/synthetic.py``, so the
-port needs nothing of ``repro``).  Seeded, host-side numpy: the same seed
-gives both packages the same batches.
+``sparse_batch``, ``dlrm_stream`` and ``hybrid_stream`` from
+``repro/data/synthetic.py``, so the port needs nothing of ``repro``).
+Seeded, host-side numpy: the same seed gives both packages the same
+batches.
 
 ``alpha`` sets a Zipf-like skew: real click logs reuse a few rows heavily,
 which is what the tables' caches and the sparse update's runs see.
@@ -35,6 +36,8 @@ class SparseBatchSpec:
     batch: int
     num_dense: int = 0
     alpha: float = 0.0              # index skew
+    seq_mask: bool = False          # emit an all-ones seq_mask [B, 50] (sasrec)
+    hist_mask: bool = False         # emit an all-ones hist_mask [B, 100] (din)
     labels: bool = True
 
     @property
@@ -53,6 +56,10 @@ def sparse_batch(rng: np.random.Generator, spec: SparseBatchSpec) -> dict:
         batch["dense_x"] = rng.standard_normal((B, spec.num_dense)).astype(np.float32)
     if spec.labels:
         batch["labels"] = rng.integers(0, 2, (B,)).astype(np.float32)
+    if spec.seq_mask:
+        batch["seq_mask"] = np.ones((B, 50), np.float32)
+    if spec.hist_mask:
+        batch["hist_mask"] = np.ones((B, 100), np.float32)
     return batch
 
 
@@ -61,5 +68,18 @@ def dlrm_stream(seed: int, cfg, alpha: float = 0.0) -> Iterator[dict]:
     rng = np.random.default_rng(seed)
     spec = SparseBatchSpec(cfg.table_rows, None, cfg.pooling, cfg.batch,
                            num_dense=cfg.num_dense, alpha=alpha)
+    while True:
+        yield sparse_batch(rng, spec)
+
+
+def hybrid_stream(seed: int, mdef, alpha: float = 0.0) -> Iterator[dict]:
+    """Batches for a ``core.hybrid.HybridDef`` model (original slot order):
+    ``idx``, and ``labels`` / ``seq_mask`` / ``hist_mask`` where the model
+    declares them."""
+    rng = np.random.default_rng(seed)
+    spec = SparseBatchSpec(mdef.spec.table_rows, mdef.slot_to_table, mdef.pooling, mdef.batch,
+                           alpha=alpha, labels="labels" in mdef.extras,
+                           seq_mask="seq_mask" in mdef.extras,
+                           hist_mask="hist_mask" in mdef.extras)
     while True:
         yield sparse_batch(rng, spec)

@@ -44,6 +44,14 @@ to bf16 (to nearest even, as ``Tensor.to(torch.bfloat16)``) and written once
 with 16-byte stores.  Row addresses are computed in int64.  The launcher
 asks the runtime for the SM count once a device.
 
+Any width.  A row that is no whole number of 16-byte chunks (the recsys
+archetypes' E = 11, 18, 50 in bf16) or a table that starts off a 16-byte
+boundary (a view) takes a narrow path: one thread a value of the output,
+consecutive threads reading consecutive values of a row, each bag's lookups
+added in order as the plain version adds them (a bag of one lookup, the
+archetypes' P = 1, gives its bits).  The store is never padded: a padded
+copy of FM's 4.1 GB ``hi`` slab a step would cost more than the bags.
+
 Numbers: the sum of a bag is now ``sum_r coef_r * W[r]`` in list order and
 not the lookups' in-order sum, so it rounds differently from the plain
 version (within the tolerances held on the card).  The weighted and the
@@ -87,16 +95,11 @@ def _launch(W, idx, offsets, weights, rows_per_shard: int, round_bf16: bool,
         raise ValueError(f"unsupported device {W.device}")
     B, S, P = idx.shape
     E = W.shape[1]
-    vec = 16 // W.element_size()
-    if E % vec:
-        raise ValueError(f"the kernel reads rows in 16-byte chunks: E={E} is not a multiple of {vec}")
     if rows_per_shard > W.shape[0]:
         raise ValueError(f"rows_per_shard {rows_per_shard} exceeds the table's {W.shape[0]} rows")
     if not (W.is_contiguous() and idx.is_contiguous()
             and (weights is None or weights.is_contiguous())):
         raise ValueError("W, the ids and the weights must be contiguous")
-    if W.data_ptr() % 16:
-        raise ValueError("W must be 16-byte aligned")
     if B * S >= 2 ** 31:
         raise ValueError(f"the kernel numbers bags in 32 bits: {B} x {S} bags are too many")
     out = torch.empty((B, S, E), dtype=torch.float32, device=W.device)

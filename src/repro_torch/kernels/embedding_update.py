@@ -92,6 +92,21 @@ Design: one walk, two schedules, and one epilogue (the step) per kind.
   product a group, then adds it once a lookup, in order; other segments go
   a position at a time.  Both give the same adds with the same operands.
 
+Any width.  Both schedules move a row's columns in pairs (one 32-bit or
+64-bit access a pair) where E is even and ``dY`` and the slabs sit on their
+pairs' alignment; otherwise (the recsys archetypes' FM at E = 11, or an
+offset view) they take a narrow path, a template instance of the same
+walk: every value loaded and stored on its own, an odd E's last column pair
+read with a +0 past the row and written one column only, and a long run's
+producers loading their columns into the stage themselves and arriving
+with release semantics (``cp.async`` has no 2-byte copy), which waits for
+the bags they load ahead.  On FM's zipf step its long runs (34 K lookups)
+walk about 55 ns a position, six times faster than the short walk alone
+(a version that gave every narrow run to the short walk took 11.6 against
+1.9 ms, PERF.md §6).  The sums, their order and the steps are the same, so
+the plain versions hold it bit for bit; row-wise Adagrad still averages
+over the E real columns.  The store is never padded.
+
 The old row and its state are loaded at the run's start, beside the sums,
 and written once at its end.  The stateful kinds OR the valid positions
 over the run's segments into its liveness.  The product and each add round
@@ -190,11 +205,7 @@ def _check_cuda(tensors, dY: torch.Tensor) -> int:
         raise TypeError(f"the kernel reads dY as bf16 (the row-mode wire) or fp32, got {dY.dtype}")
     if not all(t.is_contiguous() for t in (*tensors, dY)):
         raise ValueError("the table, the stream and dY must be contiguous")
-    E = dY.shape[1]
-    if E % 2 or any(t.data_ptr() % 8 for t in (*tensors, dY)):
-        raise ValueError(f"the kernel moves two columns at a time: E={E} must be even and "
-                         "every tensor 8-byte aligned")
-    return E
+    return dY.shape[1]
 
 
 def _launch(wrapper, cname: str, argtypes: list, stream: tuple, dY: torch.Tensor, store: tuple,

@@ -1,10 +1,12 @@
-"""Training launcher (twin of ``repro/launch/train.py``, its DLRM path).
+"""Training launcher (twin of ``repro/launch/train.py``, its recsys paths).
 
-Runs reduced-scale DLRMs on the local cards, or on the CPU with ``--device
-cpu`` (the kernels' plain PyTorch versions).  Examples:
+Runs reduced-scale DLRMs and the four recsys archetypes (fm, bst, sasrec,
+din) on the local cards, or on the CPU with ``--device cpu`` (the kernels'
+plain PyTorch versions).  Examples:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-small --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-100m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --batch 64 --steps 8
 
 ``--arch dlrm-100m`` is the ~103 M-parameter model; any other ``dlrm*`` name
 is the small reduced config (8 tables of 5,000 rows), as in the reference,
@@ -25,13 +27,18 @@ generator:
     python -m repro_torch.launch.train --arch dlrm-small --data-dir /data/ds \\
         --data-format packed --host-presort
 
+The recsys archetypes are the reference's reduced ones (``reduced_hybrid``:
+tables of 10,000 to 50,000 rows at the published widths) on the synthetic
+``hybrid_stream``, or on a packed dataset where the model's extras fit the
+format (SASRec's ``seq_mask`` and DIN's ``hist_mask`` do not, and are
+refused).
+
 ``--host-presort`` moves the sparse update's index sort off the card and
 into the loader's worker thread (``data/pipeline.py``); ``--optimizer``
 selects the sparse row optimizer (``optim/row.py``).  ``--publish-every``
 and ``--serve-smoke`` publish serving snapshots from the loop and serve
-them (one rank).  Refused, each naming its ROADMAP item: the recsys archs
-(fm, bst, sasrec, din; item 9), the LM archs (item 8) and publishing or
-serving at more than one rank (item 7).
+them (one rank).  Refused, each naming its ROADMAP item: the LM archs
+(item 8) and publishing or serving at more than one rank (item 7).
 """
 
 from __future__ import annotations
@@ -63,9 +70,18 @@ def packed_stream(args, cfg, layout, host_presort: bool, verbose: bool = True):
     """The packed-shard loader chain: ``ShardedReader`` (mmap + two-level
     shuffle) -> ``HostPipeline`` (threaded decode + optional per-batch
     pre-sort).  The dataset's spec must match the model: a mismatch fails
-    here, at wiring time, not inside the step."""
+    here, at wiring time, not inside the step; so does a model whose batch
+    extras the format cannot carry."""
+    from repro_torch.data.format import model_extras
     from repro_torch.data.pipeline import HostPipeline
     from repro_torch.data.reader import ShardedReader
+    unsupported = sorted(set(model_extras(cfg)) - {"dense_x", "labels"})
+    if unsupported:
+        raise SystemExit(
+            f"--data-format packed cannot feed this arch: batch extras "
+            f"{unsupported} are not representable in the shard format "
+            "(dense_x/labels/sparse+weights only) — use the synthetic "
+            "stream for it")
     reader = ShardedReader(args.data_dir, batch=cfg.batch, seed=args.seed, shuffle=True)
     reader.spec.check_model(cfg)
     if reader.spec.weighted and not cfg.weighted:
@@ -123,6 +139,22 @@ def reduced_dlrm(name: str, batch: int):
     return DLRMConfig(name=name, num_dense=64, bottom=(64, 32),
                       top=(64, 32), table_rows=(5000,) * 8, emb_dim=32,
                       pooling=10, batch=batch)
+
+
+def reduced_hybrid(name: str, batch: int):
+    """The reference's reduced recsys archetypes: published widths, tables
+    cut to 10,000 (fm) or an item table of 50,000 and context tables of
+    1,000 rows."""
+    from repro_torch.models import recsys as R
+    if name == "fm":
+        return R.make_fm((10_000,) * 39, batch=batch)
+    if name == "bst":
+        return R.make_bst(50_000, (1000,) * 8, batch=batch)
+    if name == "sasrec":
+        return R.make_sasrec(50_000, batch=batch)
+    if name == "din":
+        return R.make_din(50_000, (1000,) * 4, batch=batch)
+    raise KeyError(name)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -267,11 +299,8 @@ def refuse(args) -> None:
     if args.optimizer is not None:
         from repro_torch.optim import row as row_optim
         row_optim.get(args.optimizer)   # unknown name fails here, loudly
-    if args.arch.startswith("dlrm"):
+    if args.arch.startswith("dlrm") or args.arch in RECSYS_ARCHS:
         return
-    if args.arch in RECSYS_ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the port has no recsys archetype "
-                         "(fm, bst, sasrec, din) yet; ROADMAP queue 1 item 9")
     # the reference's LM branch refuses these before it trains
     if args.data_format == "packed":
         raise SystemExit("--data-dir/--data-format packed is the recsys "
@@ -315,9 +344,8 @@ def run(rank: int, world: int, args) -> dict:
     """One rank's run of the launcher: returns its losses, the step it
     started from (a restore) and, on rank 0 with ``--serve-smoke``, the
     serving smoke's scores."""
-    from repro_torch.core import dlrm as D
     from repro_torch.core import hybrid
-    from repro_torch.data.synthetic import dlrm_stream
+    from repro_torch.data.synthetic import dlrm_stream, hybrid_stream
 
     lead = rank == 0
     dev = rank_device(args.device, rank)
@@ -329,26 +357,27 @@ def run(rank: int, world: int, args) -> dict:
     if args.trace_dir and lead:
         tracer = telemetry.configure(enabled=True, trace_dir=args.trace_dir)
         tracer.reset()  # this run's trace holds this run's events
-    cfg = dataclasses.replace(reduced_dlrm(args.arch, args.batch), lr=args.lr,
-                              sparse_optimizer=args.optimizer,
-                              opt_beta=args.beta, opt_eps=args.eps,
-                              microbatches=args.microbatches,
-                              host_presort=args.host_presort,
-                              weighted=args.weighted, sr_seed=args.seed,
-                              hot_rows=args.hot_rows,
-                              promote_every=args.promote_every,
-                              hot_sync=args.hot_sync,
-                              exchange_dtype=args.exchange_dtype,
-                              step_metrics=args.step_metrics)
-    state = D.init_state(cfg, torch.Generator(device=dev).manual_seed(0), mesh=mesh)
-    step = D.make_train_step(cfg, mesh)
+    common = dict(sparse_optimizer=args.optimizer, opt_beta=args.beta, opt_eps=args.eps,
+                  microbatches=args.microbatches, host_presort=args.host_presort,
+                  weighted=args.weighted, sr_seed=args.seed, hot_rows=args.hot_rows,
+                  promote_every=args.promote_every, hot_sync=args.hot_sync,
+                  exchange_dtype=args.exchange_dtype, step_metrics=args.step_metrics)
+    if args.arch in RECSYS_ARCHS:
+        cfg = dataclasses.replace(reduced_hybrid(args.arch, args.batch), lr=args.lr,
+                                  emb_lr=args.lr, **common)
+        make_stream = hybrid_stream
+    else:
+        cfg = dataclasses.replace(reduced_dlrm(args.arch, args.batch), lr=args.lr, **common)
+        make_stream = dlrm_stream
+    state = hybrid.init_state(cfg, torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    step = hybrid.make_train_step(cfg, mesh)
     if args.data_format == "packed":
         stream = packed_stream(args, cfg, hybrid.make_layout(cfg, mesh), args.host_presort,
                                verbose=lead)
     else:
-        stream = dlrm_stream(0, cfg, args.alpha)
+        stream = make_stream(0, cfg, args.alpha)
     if lead:
-        n_params = cfg.spec.total_rows * cfg.emb_dim
+        n_params = cfg.spec.total_rows * cfg.spec.dim
         print(f"[train] {args.arch}: ~{n_params/1e6:.1f}M embedding params")
 
     publisher = None
@@ -389,7 +418,7 @@ def run(rank: int, world: int, args) -> dict:
             stage_profiler.profile_stages(cfg, tracer=telemetry.get_tracer(), device=dev)
         if args.serve_smoke:
             buckets = tuple(int(b) for b in args.serve_buckets.split(","))
-            out["serve"] = serve_smoke(cfg, publisher, next(dlrm_stream(1, cfg, args.alpha)),
+            out["serve"] = serve_smoke(cfg, publisher, next(make_stream(1, cfg, args.alpha)),
                                        buckets, dev)
     finally:
         if hasattr(stream, "close"):

@@ -8,9 +8,22 @@ the product to ``torch.matmul``, as the reference leaves it to XLA.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ops
+
+
+def init_mlp(sizes, generator: Optional[torch.Generator], device) -> dict:
+    """``sizes = [in, h1, ..., out]`` -> fp32 {'w': [...], 'b': [...]}, drawn
+    as the reference draws them: w ~ N(0, 2 / (in + out)), b = 0."""
+    ws, bs = [], []
+    for cin, cout in zip(sizes[:-1], sizes[1:]):
+        std = (2.0 / (cin + cout)) ** 0.5
+        ws.append(torch.randn((cin, cout), generator=generator, device=device) * std)
+        bs.append(torch.zeros((cout,), device=device))
+    return {"w": ws, "b": bs}
 
 
 def mlp_forward(params: dict, x: torch.Tensor, final_activation: bool = False,

@@ -33,7 +33,8 @@ class SnapshotPublisher:
     """Publishes a serving snapshot every ``publish_every`` steps.
 
     Use as a TrainLoop ``step_hook`` (called with ``(completed_step,
-    state)``); ``cfg`` is the model's ``core.dlrm.DLRMConfig``;
+    state)``); ``cfg`` is the model (a ``core.hybrid.HybridDef`` or a
+    ``core.dlrm.DLRMConfig``);
     ``registry`` defaults to a fresh
     :class:`~repro_torch.serve.snapshot.SnapshotRegistry`."""
 

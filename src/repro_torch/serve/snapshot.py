@@ -1,12 +1,14 @@
 """Read-only serving snapshots and the snapshot score step (twin of
 ``repro/serve/snapshot.py``; one device, row mode, replicated indices,
-weighted bags with ``cfg.weighted``).
+weighted bags with ``mdef.weighted``).  Every function takes the model as a
+``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``.
 
 A snapshot holds exactly the slabs the forward pass reads: ``emb_w``, the
 bf16 ``hi`` slab of a Split-SGD store (the fp32 ``w`` slab for ``sgd``), and
 ``dense_hi``, the bf16 dense parameters.  Scoring runs
-``row_sharded_bag_fwd`` (the embedding_bag kernel) and then the dense scorer
-(the fused_mlp and dot_interaction kernels) on the snapshot's device.
+``row_sharded_bag_fwd`` (the embedding_bag kernel) and then the model's
+``dense_score`` (a DLRM's: the fused_mlp and dot_interaction kernels) on the
+snapshot's device.
 
 The reference donates each batch's buffers to XLA; PyTorch has no such
 thing and the port simply lets the batch go.  Each scorer of
@@ -26,12 +28,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
-from repro_torch.core.dlrm import DLRMConfig, dlrm_dense_score
+from repro_torch.core.hybrid import as_hybrid
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.data_parallel import tree_leaves, tree_map
 
 
-def snapshot_state(cfg: DLRMConfig, state: dict, *, copy: bool = False) -> dict:
+def snapshot_state(cfg, state: dict, *, copy: bool = False) -> dict:
     """The forward-only view ``{emb_w, dense_hi}`` of a state ``{"emb":
     store, "dense": {"hi": tree, ...}}``, plus the hot-row cache's ``hot_w``
     and ``hot_pos`` when ``cfg.hot_rows > 0`` (as the reference's; scoring
@@ -78,7 +80,7 @@ class ServingSnapshot:
         return (time.time() if now is None else now) - self.published_t
 
 
-def snapshot_from_state(cfg: DLRMConfig, state: dict, *, version: int = 1, step: int = 0,
+def snapshot_from_state(cfg, state: dict, *, version: int = 1, step: int = 0,
                         now: Optional[float] = None) -> ServingSnapshot:
     """Build an immutable snapshot straight from a state."""
     return ServingSnapshot(version=version, step=step,
@@ -133,40 +135,48 @@ class SnapshotRegistry:
             return sorted(self._snaps)
 
 
-def batch_struct(cfg: DLRMConfig, batch: Optional[int] = None) -> dict:
-    """``{field: (shape, dtype)}`` of one scoring batch."""
-    B = batch or cfg.batch
-    out = {"idx": ((B, len(cfg.table_rows), cfg.pooling), torch.int32),
-           "dense_x": ((B, cfg.num_dense), torch.bfloat16)}
-    if cfg.weighted:
-        out["weights"] = ((B, len(cfg.table_rows), cfg.pooling), torch.float32)
+def batch_struct(mdef, batch: Optional[int] = None) -> dict:
+    """``{field: (shape, dtype)}`` of one scoring batch: ``idx`` [B, S, P]
+    int32 in the model's slots, ``weights`` in its layout when weighted, and
+    every extra the model declares but ``labels`` (a training target no
+    scorer reads)."""
+    mdef = as_hybrid(mdef)
+    B = batch or mdef.batch
+    S = len(mdef.slot_to_table) if mdef.slot_to_table is not None else mdef.spec.num_tables
+    out = {"idx": ((B, S, mdef.pooling), torch.int32)}
+    if mdef.weighted:
+        out["weights"] = ((B, S, mdef.pooling), torch.float32)
+    for name, (shape, dtype) in mdef.extras.items():
+        if name != "labels":
+            out[name] = ((B, *shape), dtype)
     return out
 
 
-def make_snapshot_score_step(cfg: DLRMConfig, batch: Optional[int] = None, *, device="cuda"):
+def make_snapshot_score_step(mdef, batch: Optional[int] = None, *, device="cuda"):
     """Forward-only scoring from a snapshot state on ``device``.
 
     Returns ``(fn, bstructs)``; call as ``scores = fn(snapshot.state,
-    batch)`` with ``batch = {"idx": [B, S, P] int32, "dense_x": [B,
-    num_dense] bf16}`` on ``device``, and ``"weights"`` [B, S, P] fp32 with
-    ``cfg.weighted``; ``scores`` is [B] fp32 on ``device``."""
-    if cfg.emb_mode != "row":
-        raise NotImplementedError(f"embedding mode {cfg.emb_mode!r}: the port serves row mode only; "
-                                  "table-mode serving is ROADMAP queue 1 item 7")
+    batch)`` with the fields of :func:`batch_struct` on ``device`` (a DLRM's
+    ``{"idx": [B, S, P] int32, "dense_x": [B, num_dense] bf16}``, and
+    ``"weights"`` [B, S, P] fp32 with ``weighted``); ``scores`` is the
+    model's ``dense_score``, [B] fp32 on ``device``."""
+    mdef = as_hybrid(mdef)
+    if mdef.emb_mode != "row":
+        raise NotImplementedError(f"embedding mode {mdef.emb_mode!r}: the port serves row mode "
+                                  "only; table-mode serving is ROADMAP queue 1 item 7")
     dev = resolve_device(device)
-    layout = se.make_layout(cfg.spec, 1, "row")
+    layout = se.make_layout(mdef.spec, 1, "row", slot_to_table=mdef.slot_to_table)
     offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
-    score = dlrm_dense_score(cfg)
 
     def fn(snap: dict, batch_d: dict) -> torch.Tensor:
         emb_out = se.row_sharded_bag_fwd(layout, snap["emb_w"], batch_d["idx"], offsets,
-                                         weights=batch_d["weights"] if cfg.weighted else None)
-        return score(snap["dense_hi"], emb_out, batch_d)
+                                         weights=batch_d["weights"] if mdef.weighted else None)
+        return mdef.dense_score(snap["dense_hi"], emb_out, batch_d)
 
-    return fn, batch_struct(cfg, batch)
+    return fn, batch_struct(mdef, batch)
 
 
-def make_bucket_scorers(cfg: DLRMConfig, buckets: tuple[int, ...], source: Callable[[], Any], *,
+def make_bucket_scorers(cfg, buckets: tuple[int, ...], source: Callable[[], Any], *,
                         device="cuda"):
     """Per-bucket score fns over a snapshot source, in the shape
     :class:`repro_torch.serve.server.ContinuousBatchingServer` consumes.
@@ -175,10 +185,11 @@ def make_bucket_scorers(cfg: DLRMConfig, buckets: tuple[int, ...], source: Calla
     registry.current().state``), read per batch so that a publish between
     batches is picked up at once.  Returns ``(score_fns, pad_batch)``:
     ``score_fns[bucket](batch)`` -> numpy [bucket] scores, and
-    ``pad_batch(payloads, bucket)``, which stacks the payloads' ``idx``
-    [S, P], ``dense_x`` [num_dense] and, with ``cfg.weighted``, ``weights``
-    [S, P] (numpy), zero-pads them to the bucket and moves them to
-    ``device`` in the batch's dtypes."""
+    ``pad_batch(payloads, bucket)``, which stacks the payloads' fields of
+    :func:`batch_struct` (``idx`` [S, P], every declared extra but
+    ``labels``, e.g. a DLRM's ``dense_x`` [num_dense], and with
+    ``weighted`` ``weights`` [S, P]; numpy), zero-pads them to the bucket
+    and moves them to ``device`` in the batch's dtypes."""
     dev = resolve_device(device)
     steps, structs_by = {}, {}
     for b in sorted(buckets):

@@ -107,7 +107,6 @@ def profile_stages(cfg, mesh=None, *, steps: int = 3, warmup: int = 1, barrier: 
     (None: one rank on ``device``); the state is ``core.hybrid.init_state``'s
     from ``seed``."""
     from repro_torch.core import hybrid, pipeline
-    from repro_torch.core.dlrm import init_state
     from repro_torch.data.pipeline import PSORT_KEYS
     from repro_torch.launch.mesh import resolve_mesh
     from repro_torch.optim import row as row_optim
@@ -117,9 +116,10 @@ def profile_stages(cfg, mesh=None, *, steps: int = 3, warmup: int = 1, barrier: 
         tracer = get_tracer()
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
+    cfg = hybrid.as_hybrid(cfg)
     pipeline.validate_pipeline(cfg, mesh, 1)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    state = init_state(cfg, gen, mesh=mesh)
+    state = hybrid.init_state(cfg, gen, mesh=mesh)
     layout = hybrid.make_layout(cfg, mesh)
     glob = synthetic_batch(cfg, hybrid.batch_struct(cfg, mesh, layout), seed)
     batch = {k: v.to(dev) for k, v in hybrid.local_batch(cfg, mesh, glob).items()}

@@ -302,7 +302,7 @@ class TrainLoop:
         # device: where prefetched batches and a restored state go (the mesh's
         # device when ``mesh`` is given).  mesh: this rank's ``launch.mesh.Mesh``,
         # ``batches`` then yielding global batches; with it the model's
-        # ``model_cfg`` (a ``core.dlrm.DLRMConfig``), by which the loop cuts the
+        # ``model_cfg`` (a ``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``), by which the loop cuts the
         # batches and gathers and cuts the state
         self.cfg = cfg
         self.step_fn = step_fn

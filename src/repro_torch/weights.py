@@ -30,11 +30,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import sharded_embedding as se
-from repro_torch.core.dlrm import DLRMConfig, init_dense_params
 from repro_torch.dist.exchange import resolve_exchange
 from repro_torch.models import lm_steps
 from repro_torch.models import transformer as tf
-from repro_torch.models.mlp import mlp_sizes
 from repro_torch.optim import data_parallel as dp
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.split_sgd import split_fp32
@@ -55,35 +53,54 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _check_dense(dense_hi: dict, cfg: DLRMConfig) -> None:
-    for part, sizes in (("bot", cfg.bottom_sizes), ("top", cfg.top_sizes)):
-        params = dense_hi[part]
-        if mlp_sizes(params) != sizes or [w.shape[0] for w in params["w"]] != sizes[:-1] \
-                or [b.shape[0] for b in params["b"]] != sizes[1:]:
-            raise ValueError(f"dense_hi[{part!r}] has widths {mlp_sizes(params)}, the config "
-                             f"needs {sizes}")
+def _check_dense(dense_hi, mdef) -> None:
+    """``dense_hi`` has the structure and the shapes of the model's
+    ``init_dense`` tree (``core.hybrid.dense_tree``)."""
+    from repro_torch.core.hybrid import dense_tree
+
+    def walk(got, want, where):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                raise ValueError(f"{where} holds "
+                                 f"{sorted(got) if isinstance(got, dict) else type(got).__name__}"
+                                 f", the model needs {sorted(want)}")
+            for k in want:
+                walk(got[k], want[k], f"{where}[{k!r}]")
+        elif isinstance(want, (list, tuple)):
+            if not isinstance(got, (list, tuple)) or len(got) != len(want):
+                raise ValueError(f"{where} is not a list of {len(want)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                walk(g, w, f"{where}[{i}]")
+        elif tuple(got.shape) != tuple(want.shape):
+            raise ValueError(f"{where} is {tuple(got.shape)}, the model needs "
+                             f"{tuple(want.shape)}")
+    walk(dense_hi, dense_tree(mdef), "dense_hi")
 
 
-def _check(snap: dict, cfg: DLRMConfig) -> dict:
-    rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
-    if tuple(snap["emb_w"].shape) != (rows, cfg.emb_dim):
+def _check(snap: dict, mdef) -> dict:
+    rows = se.make_layout(mdef.spec, 1, mdef.emb_mode).total_rows
+    if tuple(snap["emb_w"].shape) != (rows, mdef.spec.dim):
         raise ValueError(f"emb_w is {tuple(snap['emb_w'].shape)}, the config needs "
-                         f"{(rows, cfg.emb_dim)}")
-    _check_dense(snap["dense_hi"], cfg)
+                         f"{(rows, mdef.spec.dim)}")
+    _check_dense(snap["dense_hi"], mdef)
     return snap
 
 
-def snapshot_from_numpy(snap_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
+def snapshot_from_numpy(snap_np: dict, cfg, device="cuda") -> dict:
     """The reference's ``snapshot_state`` pytree, as numpy arrays (``emb_w``
-    bf16-hi or fp32, ``dense_hi`` bf16), -> the port's snapshot state on
-    ``device``."""
+    bf16-hi or fp32, ``dense_hi`` bf16, any tree the model's
+    ``init_dense`` gives), -> the port's snapshot state on ``device``.
+    ``cfg``: a ``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``, as
+    everywhere in this module."""
+    from repro_torch.core.hybrid import as_hybrid
+    cfg = as_hybrid(cfg)
     dev = resolve_device(device)
     snap = {"emb_w": to_torch(snap_np["emb_w"], dev),
             "dense_hi": dp.tree_map(lambda a: to_torch(a, dev), snap_np["dense_hi"])}
     return _check(snap, cfg)
 
 
-def state_to_snapshot(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
+def state_to_snapshot(state_np: dict, cfg, device="cuda") -> dict:
     """A full JAX train state as numpy arrays (``emb`` store, ``dense.hi``)
     -> the port's snapshot state on ``device``.  Only the forward slabs
     cross."""
@@ -91,22 +108,24 @@ def state_to_snapshot(state_np: dict, cfg: DLRMConfig, device="cuda") -> dict:
     return snapshot_from_numpy({"emb_w": fwd, "dense_hi": state_np["dense"]["hi"]}, cfg, device)
 
 
-def init_snapshot(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> dict:
+def init_snapshot(cfg, generator: torch.Generator, device="cuda") -> dict:
     """A port-native snapshot state: table rows ~ U(-a, a) with
-    a = 1 / sqrt(mean table rows), dense weights as :func:`init_dense_params`,
-    each fp32 master split and its bf16 ``hi`` half kept (the ``w`` slab
-    itself for ``sgd``).  ``generator`` must live on ``device``."""
+    a = 1 / sqrt(mean table rows), dense weights from the model's
+    ``init_dense``, each fp32 master split and its bf16 ``hi`` half kept (the
+    ``w`` slab itself for ``sgd``).  ``generator`` must live on ``device``."""
+    from repro_torch.core.hybrid import as_hybrid
+    cfg = as_hybrid(cfg)
     dev = resolve_device(device)
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
-    a = 1.0 / float(np.sqrt(np.mean(cfg.table_rows)))
-    W = torch.empty((rows, cfg.emb_dim), device=dev).uniform_(-a, a, generator=generator)
+    a = 1.0 / float(np.sqrt(np.mean(cfg.spec.table_rows)))
+    W = torch.empty((rows, cfg.spec.dim), device=dev).uniform_(-a, a, generator=generator)
     emb_w = split_fp32(W)[0] if row_optim.resolve(cfg).split else W
     del W
-    dense = init_dense_params(cfg, generator, dev)
+    dense = cfg.init_dense(generator, dev)
     return {"emb_w": emb_w, "dense_hi": dp.tree_map(lambda t: split_fp32(t)[0], dense)}
 
 
-def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") -> dict:
+def state_from_numpy(state_np: dict, cfg, mesh=None, *, device="cuda") -> dict:
     """A JAX train state as numpy arrays (``jax.tree.map(np.asarray,
     state)``: ``emb`` {hi bf16, lo uint16} or {w fp32} and the optimizer's
     state slabs (``mom``, ``acc``, ``cnt``; bf16 ones as ``ml_dtypes``
@@ -130,7 +149,7 @@ def state_from_numpy(state_np: dict, cfg: DLRMConfig, mesh=None, *, device="cuda
     return state_from_global(tensors, cfg, mesh)
 
 
-def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") -> dict:
+def state_from_global(glob: dict, cfg, mesh=None, *, device="cuda") -> dict:
     """The reference's global train state of a ``mesh`` of the same shape, as
     CPU tensors (what :func:`state_to_global` gives and a checkpoint restores:
     16-bit ``lo`` slabs as their int16 bits, bf16 as bf16) -> this rank's
@@ -142,12 +161,13 @@ def state_from_global(glob: dict, cfg: DLRMConfig, mesh=None, *, device="cuda") 
     from repro_torch.core import hybrid
     from repro_torch.launch.mesh import resolve_mesh
 
+    cfg = hybrid.as_hybrid(cfg)
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
     opt = row_optim.resolve(cfg)
     layout = hybrid.make_layout(cfg, mesh)
     R, s = layout.rows_per_shard, hybrid.emb_shard(cfg, mesh)
-    struct = opt.store_struct(layout.total_rows, cfg.emb_dim, counters=hybrid.hot_rows(cfg) > 0)
+    struct = opt.store_struct(layout.total_rows, cfg.spec.dim, counters=hybrid.hot_rows(cfg) > 0)
     if set(glob["emb"]) != set(struct):
         raise ValueError(f"the {opt.name} store holds {sorted(struct)}, got "
                          f"{sorted(glob['emb'])}")
@@ -212,7 +232,7 @@ def _replicated(tree, struct, key: str, dev):
     return tree.to(dev, copy=True)
 
 
-def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
+def state_to_global(state: dict, mesh=None, cfg=None) -> dict:
     """The port's train state -> the reference's global arrays as CPU tensors
     (copies: the step updates the state in place).  On a ``mesh`` of more
     than one rank (every rank calls it, with ``cfg``: it is a collective)
@@ -253,17 +273,18 @@ def state_to_global(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> di
     return out
 
 
-def global_like(cfg: DLRMConfig, mesh=None) -> dict:
+def global_like(cfg, mesh=None) -> dict:
     """``meta`` tensors of the shapes and dtypes of the reference's global
     train state of ``cfg`` on ``mesh`` (None: one rank), the tree
     :func:`state_to_global` gives: a checkpoint's restore target."""
     from repro_torch.core import hybrid
     from repro_torch.launch.mesh import resolve_mesh
 
+    cfg = hybrid.as_hybrid(cfg)
     mesh = resolve_mesh(mesh, "cpu")
     struct = hybrid.state_struct(cfg, mesh)
     struct["emb"] = row_optim.resolve(cfg).store_struct(hybrid.make_layout(cfg, mesh).total_rows,
-                                                        cfg.emb_dim,
+                                                        cfg.spec.dim,
                                                         counters=hybrid.hot_rows(cfg) > 0)
     struct["dense"]["lo"] = ((hybrid.padded_dense(cfg, mesh),), torch.int16)
     if struct["dense"]["err"] is not None:
@@ -278,7 +299,7 @@ def global_like(cfg: DLRMConfig, mesh=None) -> dict:
     return meta(struct)
 
 
-def reshard_global(glob: dict, cfg: DLRMConfig, old_mesh, new_mesh) -> dict:
+def reshard_global(glob: dict, cfg, old_mesh, new_mesh) -> dict:
     """The global train state of ``old_mesh`` (CPU tensors or numpy arrays,
     as a checkpoint restores them) laid out for ``new_mesh``: the embedding
     store by ``checkpoint.reshard_store`` between the two meshes' layouts,
@@ -299,7 +320,7 @@ def reshard_global(glob: dict, cfg: DLRMConfig, old_mesh, new_mesh) -> dict:
     return out
 
 
-def state_to_numpy(state: dict, mesh=None, cfg: DLRMConfig | None = None) -> dict:
+def state_to_numpy(state: dict, mesh=None, cfg=None) -> dict:
     """:func:`state_to_global` as numpy arrays in the JAX package's types:
     bf16 slabs as ``ml_dtypes.bfloat16`` (the type JAX hands out), int16
     ``lo`` slabs as uint16, fp32 as fp32.  ``state_from_numpy`` of the

@@ -465,3 +465,31 @@ def rank_echo(rank: int, world: int, fail_rank: int):
     if rank == fail_rank:
         raise ValueError(f"rank {rank} fails on purpose")
     return rank
+
+
+def recsys_table_rank(rank: int, world_size: int, c: dict) -> dict:
+    """One rank of BST in table mode on a (1, world_size) mesh: the smoke-size
+    model of ``tests/test_torch_recsys.py`` (``c["item_vocab"]``,
+    ``c["ctx_rows"]``, ``c["batch"]``), the reference's global start state
+    ``c["start"]`` carried in, ``c["batches"]`` trained (padded-slot global
+    batches, cut by ``core.hybrid.local_batch``).  Returns the losses and, on
+    rank 0, the gathered state as the reference's numpy arrays."""
+    import dataclasses
+
+    from repro_torch import weights
+    from repro_torch.core import hybrid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys
+
+    mdef = dataclasses.replace(recsys.make_bst(c["item_vocab"], c["ctx_rows"], batch=c["batch"]),
+                               emb_mode="table")
+    mesh = make_mesh((1, world_size), ("data", "model"), device="cpu")
+    state = weights.state_from_numpy(c["start"], mdef, mesh, device="cpu")
+    step = hybrid.make_train_step(mdef, mesh)
+    losses = []
+    for b in c["batches"]:
+        state, loss = step(state, hybrid.local_batch(mdef, mesh,
+                                                     {k: to_torch(v) for k, v in b.items()}))
+        losses.append(float(loss))
+    gathered = weights.state_to_numpy(state, mesh, mdef)
+    return {"losses": losses, "state": gathered if rank == 0 else None}

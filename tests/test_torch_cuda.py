@@ -1504,3 +1504,91 @@ def test_published_clone_survives_in_place_steps_on_card(dev):
     assert not torch.equal(state["emb"]["hi"], hi0)
     for a, b in zip(dp.tree_leaves(snap.state), before):
         assert torch.equal(_bit_view(a), _bit_view(b))
+
+
+# the recsys archetypes' embedding widths: FM 11, DIN 18, SASRec 50
+RECSYS_E = [11, 18, 50]
+
+
+def _at_offset(t: torch.Tensor, dev, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` on ``dev`` that starts ``offset`` values into
+    its allocation (0: on the allocator's own alignment)."""
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("E", RECSYS_E)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bag_at_recsys_widths_bitwise_to_plain(dev, dtype, E, weighted, view):
+    """Row 1 at the archetypes' widths (rows no whole number of 16-byte
+    chunks: the narrow path), on a table the allocator aligned and on one
+    that starts a value past it: bags of one lookup (the archetypes' P = 1)
+    bit for bit against the plain stage (offset add, mask, bf16 round) and
+    the plain bag, weighted or not; bags of five lookups within the plain
+    version's 1e-5 (the CPU's sum of five may pair them otherwise)."""
+    gen = torch.Generator().manual_seed(E + 7 * weighted)
+    rows, rows_per_shard = 300, 290
+    off = 1 if view == "offset" else 0
+    W = _randn(rows, E, gen=gen).to(dtype)
+    dW = _at_offset(W, dev, off)
+    assert (dW.data_ptr() % 16 != 0) == (view == "offset")
+    for P in (1, 5):
+        idx = torch.randint(-20, 120, (33, 7, P), generator=gen, dtype=torch.int32)
+        offsets = torch.randint(0, 170, (7,), generator=gen, dtype=torch.int32)
+        w = (torch.rand(idx.shape, generator=gen) + 0.5) if weighted else None
+        dw = None if w is None else w.to(dev)
+        want = ref.embedding_bag_stage(W, idx, offsets, rows_per_shard, w)
+        want_bag = ref.embedding_bag(W, idx + offsets[None, :, None], rows_per_shard, w)
+        before = ops.embedding_bag.launches
+        got = ops.embedding_bag_stage(dW, idx.to(dev), offsets.to(dev), rows_per_shard, dw)
+        got_bag = ops.embedding_bag(dW, (idx + offsets[None, :, None]).to(dev), rows_per_shard,
+                                    dw)
+        torch.cuda.synchronize()
+        assert ops.embedding_bag.launches == before + 2
+        if P == 1:
+            assert torch.equal(got.cpu(), want) and torch.equal(got_bag.cpu(), want_bag)
+        else:
+            assert_close(got_bag, want_bag, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("E", RECSYS_E)
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_row_kernels_at_recsys_widths_bitwise_to_plain(dev, name, E, view):
+    """Rows 5-12 at the archetypes' widths, on slabs the allocator aligned
+    and on slabs (and a cotangent) that start a value past it: an odd E, or
+    a pair of columns off one access's alignment, takes the narrow path.
+    Two long runs (on the narrow path the producers' own loads and stores)
+    amid short ones, every kind bit for bit against its plain version on
+    every slab; row-wise Adagrad averages over the E real columns."""
+    from repro_torch.kernels import embedding_update as eu
+    from repro_torch.optim.row import bump_counters
+    gen = torch.Generator().manual_seed(97 + E + len(name))
+    M, P = 300, 2
+    off = 1 if view == "offset" else 0
+    tgt, valid, wgt = _edge_stream("two", M, P, gen)
+    dY = (torch.randn((tgt.numel() // P, E), generator=gen) * 0.5).to(torch.bfloat16)
+    stream = eu.sort_lookups(tgt, valid, M, P, wgt)
+    wrapper, store, extra = _row_store(name, M, E, gen)
+    if name == "adagrad_freq":
+        bump_counters(store[1], stream[0], stream[2])
+    seed = _seed_args(name, 2 ** 31 - 3, "cpu") if name in STATEFUL else ()
+    want = getattr(ref, wrapper)(*(t.clone() for t in store), *stream, dY, 0.1, *extra, *seed)
+    want = want if isinstance(want, tuple) else (want,)
+    before = getattr(ops, wrapper).launches
+    got = getattr(ops, wrapper)(*(_at_offset(t, dev, off) for t in store),
+                                *(t.to(dev) for t in stream), _at_offset(dY, dev, off), 0.1,
+                                *extra, *(_seed_args(name, 2 ** 31 - 3, dev) if seed else ()))
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert getattr(ops, wrapper).launches == before + 1
+    _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+    assert int(getattr(ops, wrapper).long_runs) == int((counts >= eu.long_run()).sum()) == 2
+    for g, w in zip(got, want):
+        bits = torch.int16 if w.element_size() == 2 else torch.int32
+        assert torch.equal(g.cpu().view(bits), w.view(bits))
+    assert not torch.equal(want[0], store[0])
