@@ -3869,8 +3869,9 @@ def narrow_kernel_phase(dev, rng, failures) -> dict:
         e[str(E)] = dict(ms=graph_ms(lambda: ops.embedding_bag_stage(hi, idx, zero, M)),
                          plain_ms=time_ms(lambda: ref.embedding_bag_stage(hi, idx, zero, M)),
                          bound_ms=bms, bound_by=by, max_abs_err=err,
-                         # a bag of one lookup is a gather: F.embedding of the same rows
-                         library_ms=time_ms(lambda: F.embedding(gid, hi)))
+                         # a bag of one lookup is a gather: F.embedding of the same rows,
+                         # timed as the kernel is (a graph)
+                         library_ms=graph_ms(lambda: F.embedding(gid, hi)))
         t = e[str(E)]
         log(f"embedding_bag {arch} E={E}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
@@ -3880,7 +3881,8 @@ def narrow_kernel_phase(dev, rng, failures) -> dict:
         # rows 5-12 on the sorted stream of the first NARROW_UPDATE_BATCH samples
         stream = eu.sort_lookups(idx[:NARROW_UPDATE_BATCH].reshape(-1), None, M, 1)
         L = stream[0].numel()
-        U = int(torch.unique_consecutive(stream[0]).numel())
+        _, run_counts = torch.unique_consecutive(stream[0], return_counts=True)
+        U, longest = int(run_counts.numel()), int(run_counts.max())
         dY = (torch.randn((L, E), device=dev, generator=gen) * 1e-3).to(torch.bfloat16)
         for name, fn_name in NARROW_KINDS:
             opt = row_optim.get(name)
@@ -3912,10 +3914,21 @@ def narrow_kernel_phase(dev, rng, failures) -> dict:
             row_bytes = sum(t.element_size() * (t.shape[1] if t.dim() > 1 else 1) for t in store)
             bms, by = bound_ms(U * row_bytes * 2 + dY.numel() * 2 + L * 16, L * E * 2, FP32_FLOPS)
             ms = time_ms(lambda: kernel(*got, *stream, dY, lr, *extra, *sr))
+            library_ms = None  # no PyTorch call computes a row optimizer's fused step
+            if name == "sgd":
+                # row 6's yardstick, as at E = 64: index_add_ of pre-gathered rows (atomics)
+                g = torch.where(stream[2][:, None] != 0, dY[stream[1].long()].float(), 0.0)
+                r64 = stream[0].long()
+                library_ms = time_ms(lambda: got[0].index_add_(0, r64, g, alpha=-lr))
+                del g
             out.setdefault(kname, {})[str(E)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
-                library_ms=None)  # no PyTorch call computes a row optimizer's fused step
-            log(f"{kname} {arch} E={E}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                library_ms=library_ms, longest=longest,
+                # the walk of the longest run, which one block takes while the rest finish
+                ns_per_position=ms * 1e6 / longest)
+            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            log(f"{kname} {arch} E={E}: kernel {ms:.4f} ms ({ms * 1e6 / longest:.2f} ns a position "
+                f"of the longest run, {longest}), plain {plain_ms:.1f} ms, library {lib}, bound "
                 f"{bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound")
             del store, want, got
         del W32, hi, idx, dY, stream
@@ -4185,11 +4198,16 @@ def recsys_retrieval_phase(name, mdef, target, state, query, dev, failures) -> d
         scores[c0:c0 + m] = mdef.dense_score(
             state["dense"]["hi"], e, {k: q[k].expand((m,) + tuple(q[k].shape[1:])) for k in q
                                       if k != "idx"})
-    pv, pi = torch.topk(scores, RECSYS_TOPK)
+    pv, pi = hybrid.topk_stable(scores, RECSYS_TOPK)
+    # the top-k alone on these scores: the stable sort the step takes (the
+    # reference's order among ties) against torch.topk, which it replaced
+    topk_ms = {"topk_stable": time_ms(lambda: hybrid.topk_stable(scores, RECSYS_TOPK)),
+               "torch.topk": time_ms(lambda: torch.topk(scores, RECSYS_TOPK))}
     torch.cuda.synchronize()
     log(f"{name}: retrieval of {n} candidates at slot {target} in chunks of {chunk}: "
         f"{times[1]:.2f} ms (first call {times[0]:.2f} ms); top score {float(v[0]):.6f}, "
-        f"launches {counts}")
+        f"launches {counts}; the top-{RECSYS_TOPK} of {n} scores alone: topk_stable "
+        f"{topk_ms['topk_stable']:.4f} ms, torch.topk {topk_ms['torch.topk']:.4f} ms")
     close_or_fail(f"{name} retrieval top-{RECSYS_TOPK} vs the plain scorer's", v, pv, 1e-6, 0.0,
                   failures)
     if not torch.equal(i.cpu(), pi.cpu()):
@@ -4197,7 +4215,8 @@ def recsys_retrieval_phase(name, mdef, target, state, query, dev, failures) -> d
                         "scorer's")
     if counts != {**{k: 0 for k in counts}, "embedding_bag": 2}:
         failures.append(f"{name}: retrieval launches {counts}, want the bag once a call")
-    return counts, {"ms": times[1], "first_ms": times[0], "chunk": chunk, "candidates": n}
+    return counts, {"ms": times[1], "first_ms": times[0], "chunk": chunk, "candidates": n,
+                    "topk_ms": topk_ms}
 
 
 def recsys_phase(dev, failures) -> tuple[dict, dict]:

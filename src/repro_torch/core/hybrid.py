@@ -360,6 +360,15 @@ def make_score_step(mdef, mesh=None, *, device="cuda"):
 RETRIEVAL_CHUNK = 1 << 14
 
 
+def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of the 1-D ``x`` and their indices, largest first and
+    the lower index first among equal values: ``jax.lax.top_k``'s order
+    (``torch.topk`` leaves the order of ties open, and may even pick another
+    set of them).  A stable descending sort, cut at ``k``."""
+    v, i = torch.sort(x, descending=True, stable=True)
+    return v[:k], i[:k]
+
+
 def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: int = 128, *,
                         device="cuda"):
     """retrieval_cand shape: ONE query against ``n_candidates`` candidates,
@@ -377,8 +386,10 @@ def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: i
     local candidates :data:`RETRIEVAL_CHUNK` at a time (16,384: each
     candidate's score depends on its own row alone, so the chunks keep the
     scorer's memory bounded whatever the count). The local top-k
-    (``torch.topk`` over all local scores) is merged over the ranks by an
-    all-gather and a second top-k, as the reference merges it."""
+    (:func:`topk_stable` over all local scores) is merged over the ranks by an
+    all-gather and a second top-k, as the reference merges it: among equal
+    scores the lower candidate index comes first, the lower rank's first
+    across ranks."""
     mdef = as_hybrid(mdef)
     if mdef.weighted:
         raise ValueError("retrieval scores a single replicated query "
@@ -441,10 +452,10 @@ def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: i
             emb_c = emb.expand((n,) + tuple(emb.shape[1:])).clone()
             emb_c[:, target_slot] = cand[c0:c0 + n].float()
             scores[c0:c0 + n] = mdef.dense_score(state["dense"]["hi"], emb_c, broadcast(batch, n))
-        v, i = torch.topk(scores, min(topk, per))
+        v, i = topk_stable(scores, min(topk, per))
         i = i + g_all.index * per
         vg, ig = comm.all_gather(v, g_all), comm.all_gather(i, g_all)
-        vv, pos = torch.topk(vg, min(topk, vg.numel()))
+        vv, pos = topk_stable(vg, min(topk, vg.numel()))
         return vv, ig[pos]
 
     return fn

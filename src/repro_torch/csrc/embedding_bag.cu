@@ -206,61 +206,152 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
 // The narrow path, for a row that is no whole number of 16-byte chunks (an
 // E that is no multiple of 8 bf16 or 4 fp32 values) or a table off a 16-byte
-// boundary: one thread a value of the output, out[j, c] for bag j (in [B, S]
-// order) and column c, so that consecutive threads read consecutive values
-// of a row and write consecutive outputs.  It adds the bag's lookups in
-// order, the first as it is and each next one with one fp32 add, a lookup
-// outside [0, rows) adding +0 and a weighted lookup its rounded product
-// w * x: the plain version's operations, so that a bag of one lookup (the
-// recsys archetypes' P = 1) gives its bits.
+// boundary.  A warp takes 32 consecutive bags (in [B, S] order), lane t
+// loading bag t's ids, weights and slot offset (one 32-bit j % S a bag) and
+// handing them to the lanes that read its rows by shuffle.  A lane holds V
+// values of the output (V = 2 bf16, 1 fp32; a unit), so a row of E values is
+// U = ceil(E / V) units, read by a group of rl lanes (U rounded up to a power
+// of two, at most 32; a row of more than 32 units takes passes of 32), and a
+// warp reads G = 32 / rl bags at once, one a group (at E = 11 bf16: four bags
+// of six lanes out of eight), in rl rounds over its 32 bags, kNarrowRounds
+// rounds' loads in flight.  A bf16 row starts on a 2-byte boundary: the lane
+// of units c, c + 1 reads the aligned 4-byte word that holds value c and,
+// where the row's start is odd, the next one, which holds value c + 1 (both
+// hold bytes of the row, so no read leaves the table), and takes the pair
+// out of them with one funnel shift.  It adds the bag's lookups in order,
+// the first as it is and each next one with one fp32 add, a lookup outside
+// [0, rows) adding +0 and a weighted lookup its rounded product w * x: the
+// plain version's operations, so that a bag of one lookup (the recsys
+// archetypes' P = 1) gives its bits.  Each lane writes its own V values, so
+// that the lanes of a round write its G bags' one run of G * E floats, a
+// group's consecutive lanes on consecutive pairs (handing the values round
+// by shuffle so that each store covered 32 consecutive floats took 1.34
+// times as long at E = 11: the shuffles, not the bytes, were the cost).  No
+// division a value; index arithmetic in 32 bits but the row address.
+constexpr int kNarrowWarps = 8;
+constexpr int kNarrowRounds = 4;
+
+struct NarrowMap {
+  int rl_log2;  // the lanes of a group: 1 << rl_log2
+  int passes;   // of 32 units, over a row wider than 32 units
+};
+
+// Five blocks an SM: 1-3 % faster than no register cap, where six blocks'
+// tighter cap took 1.3 to 1.5 times as long (tools/ablate_bag.py --only narrow).
 template <typename T, bool kWeighted>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kNarrowWarps * 32, 5)
     embedding_bag_narrow_kernel(const T* __restrict__ W, const int32_t* __restrict__ idx,
                                 const int32_t* __restrict__ offsets, const float* __restrict__ wgt,
-                                float* __restrict__ out, int64_t n, int S, int P, int E,
-                                int64_t rows, int round_bf16) {
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t j = t / E;
-    const int c = static_cast<int>(t - j * E);
-    const int32_t off = offsets ? __ldg(offsets + j % S) : 0;
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const int64_t at = j * P + p;
-      // the offset add wraps as int32 arithmetic does
-      const int32_t g =
-          static_cast<int32_t>(static_cast<uint32_t>(__ldg(idx + at)) + static_cast<uint32_t>(off));
-      float x = 0.f;
-      if (g >= 0 && g < rows) {
-        const int64_t e = static_cast<int64_t>(g) * E + c;
-        if constexpr (sizeof(T) == 2) {
-          const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(W) + e);
-          x = __uint_as_float(static_cast<uint32_t>(bits) << 16);
-        } else {
-          x = __ldg(reinterpret_cast<const float*>(W) + e);
+                                float* __restrict__ out, uint32_t n_bags, int S, int P, int E,
+                                int64_t rows, int round_bf16, NarrowMap map) {
+  constexpr int V = sizeof(T) == 2 ? 2 : 1;  // values a lane holds
+  const int lane = threadIdx.x & 31;
+  const uint32_t j0 = (blockIdx.x * kNarrowWarps + (threadIdx.x >> 5)) * 32u;
+  if (j0 >= n_bags) return;  // the whole warp leaves together
+  const int rl = 1 << map.rl_log2, G = 32 >> map.rl_log2;
+  const int grp = lane >> map.rl_log2, gl = lane & (rl - 1);
+  // the bag this lane loads for the warp
+  const uint32_t jl = j0 + lane;
+  const bool bag_in = jl < n_bags;
+  const int32_t off = bag_in && offsets ? __ldg(offsets + jl % static_cast<uint32_t>(S)) : 0;
+  // a bf16 table as aligned 4-byte words; its first value's place in the first word
+  const uint32_t* __restrict__ Ww = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<uintptr_t>(W) & ~static_cast<uintptr_t>(3));
+  const int64_t par0 = (reinterpret_cast<uintptr_t>(W) >> 1) & 1;
+  // lookup p of this lane's bag: its row (-1 outside [0, rows)) and weight
+  auto lookup = [&](int p, int32_t& key, float& w) {
+    const int64_t at = static_cast<int64_t>(jl) * P + p;
+    // the offset add wraps as int32 arithmetic does
+    const int32_t g = bag_in ? static_cast<int32_t>(static_cast<uint32_t>(__ldg(idx + at)) +
+                                                    static_cast<uint32_t>(off))
+                             : -1;
+    key = g >= 0 && g < rows ? g : -1;
+    w = kWeighted && bag_in ? __ldg(wgt + at) : 0.f;
+  };
+  // the first lookup's, loaded once a warp (the archetypes' P = 1: the only
+  // one); loading it again each rounds' pass, as the later ones are, took
+  // up to 10 % longer under the five-block register cap
+  int32_t key0 = -1;
+  float w0 = 0.f;
+  if (P > 0) lookup(0, key0, w0);
+  for (int r0 = 0; r0 < rl; r0 += kNarrowRounds) {
+    for (int pass = 0; pass < map.passes; ++pass) {
+      const int cbase = pass * 32 * V;
+      const int c = cbase + V * gl;  // this lane's first column
+      float acc[kNarrowRounds][V] = {};
+      for (int p = 0; p < P; ++p) {
+        int32_t key_l = key0;
+        float w_l = w0;
+        if (p > 0) lookup(p, key_l, w_l);
+        // every round's words in flight before any is used
+        uint32_t lo[kNarrowRounds], hi[kNarrowRounds], sh[kNarrowRounds];
+        int32_t key[kNarrowRounds];
+#pragma unroll
+        for (int u = 0; u < kNarrowRounds; ++u) {
+          key[u] = __shfl_sync(kFull, key_l, ((r0 + u) * G + grp) & 31);
+          lo[u] = hi[u] = sh[u] = 0u;
+          if (key[u] >= 0 && c < E && r0 + u < rl) {
+            if constexpr (V == 2) {
+              const int64_t a = static_cast<int64_t>(key[u]) * E + c + par0;  // value c's place
+              sh[u] = static_cast<uint32_t>(a & 1) * 16u;
+              lo[u] = __ldg(Ww + (a >> 1));
+              if (sh[u] && c + 1 < E) hi[u] = __ldg(Ww + (a >> 1) + 1);
+            } else {
+              lo[u] = __float_as_uint(__ldg(reinterpret_cast<const float*>(W) +
+                                            static_cast<int64_t>(key[u]) * E + c));
+            }
+          }
         }
-        if constexpr (kWeighted) x = __fmul_rn(__ldg(wgt + at), x);
+#pragma unroll
+        for (int u = 0; u < kNarrowRounds; ++u) {
+          float w = 0.f;
+          if constexpr (kWeighted) w = __shfl_sync(kFull, w_l, ((r0 + u) * G + grp) & 31);
+          float x[V];
+          if constexpr (V == 2) {
+            const uint32_t pair = __funnelshift_r(lo[u], hi[u], sh[u]);  // values c, c + 1
+            x[0] = __uint_as_float(pair << 16);
+            x[1] = __uint_as_float(pair & 0xffff0000u);
+          } else {
+            x[0] = __uint_as_float(lo[u]);
+          }
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            float xv = 0.f;
+            if (key[u] >= 0) xv = kWeighted ? __fmul_rn(w, x[v]) : x[v];
+            acc[u][v] = p == 0 ? xv : __fadd_rn(acc[u][v], xv);
+          }
+        }
       }
-      acc = p == 0 ? x : __fadd_rn(acc, x);
+#pragma unroll
+      for (int u = 0; u < kNarrowRounds; ++u) {
+        if (r0 + u >= rl) break;  // warp-uniform
+        if (round_bf16) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[u][v] = __bfloat162float(__float2bfloat16_rn(acc[u][v]));
+        }
+        const uint32_t j = j0 + static_cast<uint32_t>((r0 + u) * G + grp);  // the group's bag
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (c + v < E && j < n_bags) out[static_cast<int64_t>(j) * E + c + v] = acc[u][v];
+      }
     }
-    if (round_bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
-    out[t] = acc;
   }
 }
 
 template <typename T, bool kWeighted>
 int launch_narrow(const void* W, const void* idx, const void* offsets, const void* wgt, void* out,
                   int64_t B, int S, int P, int E, int64_t rows, int round_bf16, void* stream) {
-  int dev = 0, sms = 0;
-  const cudaError_t err = hopper::device_sms(&dev, &sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n = B * S * E;
-  const int64_t blocks = std::min<int64_t>((n + 255) / 256, static_cast<int64_t>(sms) * 32);
+  constexpr int V = sizeof(T) == 2 ? 2 : 1;
+  const int units = (E + V - 1) / V;
+  NarrowMap map{0, (units + 31) / 32};
+  while ((1 << map.rl_log2) < std::min(units, 32)) ++map.rl_log2;
+  const int64_t warps = (B * S + 31) / 32;
+  const int64_t blocks = (warps + kNarrowWarps - 1) / kNarrowWarps;
   embedding_bag_narrow_kernel<T, kWeighted>
-      <<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<static_cast<unsigned>(blocks), kNarrowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(W), static_cast<const int32_t*>(idx),
           static_cast<const int32_t*>(offsets), static_cast<const float*>(wgt),
-          static_cast<float*>(out), n, S, P, E, rows, round_bf16);
+          static_cast<float*>(out), static_cast<uint32_t>(B * S), S, P, E, rows, round_bf16, map);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,7 +34,10 @@
 //    8 KB fp32), their weights and masks.  The ring's 8 stages cover a
 //    global round trip several times over at the consumer's pace.  Seven
 //    producer warps fill the stages, segment j by warp j % 7, with cp.async
-//    only (16-byte chunks where the rows allow): no thread waits for a copy,
+//    only (16-byte chunks where the rows allow; on the narrow instances the
+//    aligned 4-byte words of each position's row span, and the positions'
+//    bags, from which the consumer finds where in a word each row starts):
+//    no thread waits for a copy,
 //    each lane's arrival on the stage's full barrier fires when its copies
 //    land, and a producer executes no release, which would wait for the
 //    bags it keeps in flight for its next four rounds.  The consumer
@@ -323,30 +326,39 @@ __device__ __forceinline__ bool sum_short(const Stream& sm, const TY* __restrict
 // columns of position u at [u][lane] (4 bytes bf16, 8 fp32), and the
 // positions' weights and masks, all copied there by cp.async; slots past the
 // run's end are not written.  kStages stages: 32 KB of bf16 rows, 64 KB of
-// fp32 ones (16 bf16 stages were no faster).
-template <class TY>
+// fp32 ones (16 bf16 stages were no faster).  kNarrow with a bf16 dY: the
+// aligned 4-byte words of each position's row span (64 columns that start
+// off a word's start span 33), word w at [u][lane w][0] and again at
+// [u][lane w - 1][1], so that lane l reads the words l and l + 1 that hold
+// its pair with one 8-byte read (64 KB of stages, as fp32's), and the
+// positions' bags, from which the consumer finds each row's start parity.
+template <class TY, bool kNarrow>
 struct Shape {
-  static constexpr int kStageWords = kSeg * 32 * sizeof(typename Cot<TY>::Pair) / 4;
+  static constexpr bool kWords = kNarrow && sizeof(TY) == 2;
+  static constexpr int kStageWords =
+      kWords ? kSeg * 64 : kSeg * 32 * sizeof(typename Cot<TY>::Pair) / 4;
   static constexpr size_t kSmemBytes =
-      kStages * (kStageWords * 4 + 2 * kSeg * 4 + 2 * sizeof(uint64_t));
+      kStages * (kStageWords * 4 + (kNarrow ? 3 : 2) * kSeg * 4 + 2 * sizeof(uint64_t));
 };
 
 struct Ring {
   uint32_t* rows;  // [stages][Shape::kStageWords]
   float* wgt;      // [stages][kSeg]
   int32_t* msk;    // [stages][kSeg]
+  int32_t* bag;    // [stages][kSeg], kNarrow only
   uint32_t full;   // shared address of full[0]; full[i] at + 8 i
   uint32_t empty;  // likewise
 };
 
-template <class TY>
+template <class TY, bool kNarrow>
 __device__ __forceinline__ Ring ring_of(unsigned char* smem) {
-  using S = Shape<TY>;
+  using S = Shape<TY, kNarrow>;
   Ring R;
   R.rows = reinterpret_cast<uint32_t*>(smem);
   R.wgt = reinterpret_cast<float*>(R.rows + kStages * S::kStageWords);
   R.msk = reinterpret_cast<int32_t*>(R.wgt + kStages * kSeg);
-  R.full = hopper::smem_u32(R.msk + kStages * kSeg);
+  R.bag = R.msk + kStages * kSeg;
+  R.full = hopper::smem_u32(R.bag + (kNarrow ? kStages * kSeg : 0));
   R.empty = R.full + 8 * kStages;
   return R;
 }
@@ -354,8 +366,57 @@ __device__ __forceinline__ Ring ring_of(unsigned char* smem) {
 // Position u of a stage, this lane's two columns
 template <class TY>
 __device__ __forceinline__ typename Cot<TY>::Pair* stage_slot(const Ring& R, uint32_t st, int u) {
-  return reinterpret_cast<typename Cot<TY>::Pair*>(R.rows + st * Shape<TY>::kStageWords) +
+  return reinterpret_cast<typename Cot<TY>::Pair*>(R.rows + st * Shape<TY, false>::kStageWords) +
          u * 32 + (threadIdx.x & 31);
+}
+
+// What a narrow walk's consumer needs to read its columns c, c + 1 of a
+// stage (kNarrow): E, the walk's first column cb, the place of dY's first
+// value in its 4-byte word (par0), and the bits of the pair it keeps
+// (column c + 1 dropped past the row: +0)
+struct NarrowAt {
+  int E, cb, par0;
+  uint32_t keep;
+};
+
+template <class TY>
+__device__ __forceinline__ NarrowAt narrow_at(const TY* dY, int E, int c) {
+  const int cb = c - 2 * static_cast<int>(threadIdx.x & 31);
+  const bool two = c + 1 < E;
+  return NarrowAt{E, cb, static_cast<int>((reinterpret_cast<uintptr_t>(dY) >> 1) & 1),
+                  sizeof(TY) == 2 ? (two ? 0xffffffffu : 0xffffu) : (two ? 1u : 0u)};
+}
+
+// Bit u: whether position u's row of a narrow bf16 stage starts on a word's
+// second half, (bag * E + cb + par0) & 1: one read of the stage's bags a
+// lane and a ballot, once a stage
+template <class TY, bool kNarrow>
+__device__ __forceinline__ unsigned odd_rows(const Ring& R, uint32_t st, const NarrowAt& na) {
+  if constexpr (!kNarrow || sizeof(TY) != 2) {
+    return 0u;
+  } else {
+    const uint32_t bag = static_cast<uint32_t>(R.bag[st * kSeg + (threadIdx.x & 31)]);
+    return __ballot_sync(kFull, (bag * static_cast<uint32_t>(na.E) + na.cb + na.par0) & 1u);
+  }
+}
+
+// This lane's two columns of position u of a stage.  kNarrow, bf16: the
+// words l and l + 1 of the position's span, one 8-byte read, the pair
+// shifted out of them by the row's start parity (bit u of odd); fp32: the
+// slot, its second value +0 past the row (the copy wrote no such value).
+template <class TY, bool kNarrow>
+__device__ __forceinline__ typename Cot<TY>::Pair read_slot(const Ring& R, uint32_t st, int u,
+                                                           const NarrowAt& na, unsigned odd) {
+  if constexpr (!kNarrow) {
+    return *stage_slot<TY>(R, st, u);
+  } else if constexpr (sizeof(TY) == 2) {
+    const uint2 w = reinterpret_cast<const uint2*>(R.rows + st * Shape<TY, true>::kStageWords)
+        [u * 32 + (threadIdx.x & 31)];
+    return __funnelshift_r(w.x, w.y, ((odd >> u) & 1u) << 4) & na.keep;
+  } else {
+    const float2 v = *stage_slot<TY>(R, st, u);
+    return make_float2(v.x, na.keep ? v.y : 0.f);
+  }
 }
 
 // The end (one past the last position) of the run of `row` that holds
@@ -396,15 +457,16 @@ __device__ __forceinline__ Look look(const Ring& R, uint32_t st, int n) {
 // that the compiler can issue those reads between the dependent adds.
 // (Summed group by group instead, a loop a group as in the short walk, the
 // adds took some 740 cycles a segment more on an H100.)
-template <class TY, int kPath>
+template <class TY, bool kNarrow, int kPath>
 __device__ __forceinline__ void add_stage(const Ring& R, uint32_t st,
                                           const typename Cot<TY>::Pair (&cur)[kSeg],
                                           const Look& lc, int n, uint32_t st_next, int n_next,
                                           typename Cot<TY>::Pair (&nxt)[kSeg], Look& ln,
-                                          float& a0, float& a1) {
+                                          float& a0, float& a1, const NarrowAt& na) {
   const float4* w4 = reinterpret_cast<const float4*>(R.wgt + st * kSeg);
+  const unsigned odd = odd_rows<TY, kNarrow>(R, st_next, na);
 #pragma unroll
-  for (int u = 0; u < kSeg; ++u) nxt[u] = *stage_slot<TY>(R, st_next, u);
+  for (int u = 0; u < kSeg; ++u) nxt[u] = read_slot<TY, kNarrow>(R, st_next, u, na, odd);
   ln = look(R, st_next, n_next);
 #pragma unroll
   for (int u = 0; u < kSeg; ++u) {
@@ -431,9 +493,9 @@ __device__ __forceinline__ void add_stage(const Ring& R, uint32_t st,
 // lies under the adds.  Past the walk's last segment the reads touch a stage
 // not waited for, and use none of it.  Two register buffers take turns (the
 // loop body twice), so nothing is copied.  Returns the run's liveness.
-template <class TY>
+template <class TY, bool kNarrow>
 __device__ __forceinline__ bool sum_ring(const Ring& R, uint32_t& g, uint32_t nseg, int last_n,
-                                         float& a0, float& a1) {
+                                         float& a0, float& a1, const NarrowAt& na) {
   using Pair = typename Cot<TY>::Pair;
   auto full = [&](uint32_t j) { return R.full + 8 * (j % kStages); };
   auto parity = [&](uint32_t j) { return (j / kStages) & 1; };
@@ -444,8 +506,9 @@ __device__ __forceinline__ bool sum_ring(const Ring& R, uint32_t& g, uint32_t ns
   Look la, lb;
   hopper::mbar_wait(full(g), parity(g));
   if (nseg > 1) hopper::mbar_wait(full(g + 1), parity(g + 1));
+  const unsigned odd0 = odd_rows<TY, kNarrow>(R, g % kStages, na);
 #pragma unroll
-  for (int u = 0; u < kSeg; ++u) a[u] = *stage_slot<TY>(R, g % kStages, u);
+  for (int u = 0; u < kSeg; ++u) a[u] = read_slot<TY, kNarrow>(R, g % kStages, u, na, odd0);
   la = look(R, g % kStages, n_of(0));
   auto step = [&](const Pair (&cur)[kSeg], const Look& lc, Pair (&nxt)[kSeg], Look& ln) {
     const bool ahead = k + 2 < nseg;
@@ -453,9 +516,11 @@ __device__ __forceinline__ bool sum_ring(const Ring& R, uint32_t& g, uint32_t ns
     const uint32_t st = g % kStages, st_next = (g + 1) % kStages;
     live |= lc.valid;
     if (lc.valid == kFull) {
-      add_stage<TY, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);
+      add_stage<TY, kNarrow, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1,
+                                na);
     } else {  // the last segment of a walk, or masked lookups (the sorted tail)
-      add_stage<TY, 2>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);
+      add_stage<TY, kNarrow, 2>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1,
+                                na);
     }
     __syncwarp();  // every lane has read the stage: one arrival
     if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(R.empty + 8 * st);
@@ -759,15 +824,19 @@ struct Cursor {
 // loads into registers for its next rounds stay in flight (an arrival with
 // release semantics would wait for them): each lane holds the bag of its
 // position in the warp's next four rounds.  Shared addresses are formed
-// once: converting a pointer a copy cost more than the copy.  kNarrow
-// (an odd E, or a dY off its pairs' alignment): a lane loads its columns of
-// each row one value at a time and stores them, and the weights and masks,
-// to the stage itself, then arrives with release semantics (cp.async has no
-// 2-byte copy).
+// once: converting a pointer a copy cost more than the copy.  kNarrow (an
+// odd E, or a slab off its pairs' alignment) copies the same way: a bf16 dY
+// as the aligned 4-byte words that hold each position's columns of the walk
+// (a row starts on a 2-byte boundary; every word holds a byte of the row, so
+// no copy reads past dY), each word twice (the first of its lane's pair of
+// words and the second of the lane before's), lane l taking words l, l + 32,
+// ... of the segment's spans laid end to end, and the positions' bags beside
+// their weights and masks; an fp32 dY as this lane's two columns, a 4-byte
+// copy each.
 template <Op kOp, class TY, bool kNarrow>
 __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs, int64_t count,
                         int64_t slots, const Stream& sm, const TY* __restrict__ dY, int E) {
-  using S = Shape<TY>;
+  using S = Shape<TY, kNarrow>;
   constexpr uint32_t P = kProducers;
   constexpr int kPer = 16 / sizeof(TY);  // values a 16-byte chunk
   constexpr int kChunks = 64 / kPer;     // chunks a row of 64 columns
@@ -777,7 +846,11 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
   // rows of whole 16-byte chunks, 16-byte aligned: copied a chunk at a time
   const bool wide = !kNarrow && E % kPer == 0 && reinterpret_cast<uintptr_t>(dY) % 16 == 0;
   const uint32_t rows_s = hopper::smem_u32(R.rows), wgt_s = hopper::smem_u32(R.wgt),
-                 msk_s = hopper::smem_u32(R.msk);
+                 msk_s = hopper::smem_u32(R.msk), bag_s = hopper::smem_u32(R.bag);
+  // kNarrow, bf16: dY as aligned words, and the place of its first value in the first
+  const uint32_t* dYw = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<uintptr_t>(dY) & ~static_cast<uintptr_t>(3));
+  const int par0 = static_cast<int>((reinterpret_cast<uintptr_t>(dY) >> 1) & 1);
   const uint32_t nw = walks<kOp>(E);
   uint32_t g0 = 0;  // segments of the block's earlier runs
   for (int64_t i = blockIdx.x; i < count; i += slots) {
@@ -818,38 +891,49 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
               hopper::cp_async<16>(stage + u * kRowBytes + 16 * part,
                                    dY + static_cast<int64_t>(bu) * E + cb + part * kPer);
           }
-        } else if (kNarrow) {  // this lane's two columns of each row, a value at a time
-          const int c = cb + 2 * lane;
-#pragma unroll
-          for (int u = 0; u < kSeg; ++u) {
+        } else if (S::kWords) {  // lane l takes words l, l + 32, ... of the segment's spans
+          const int ncols = E - cb < 64 ? E - cb : 64;
+          const int span = (ncols + 2) >> 1;  // the most words a row's columns span
+          const int du = 32 / span, dw = 32 % span;
+          int u = lane / span, w = lane % span;
+          for (int x = 0; x < span; ++x) {  // 32 * span words: span rounds of 32
             const int32_t bu = __shfl_sync(kFull, b[r], u);
-            if (c < E && bu >= 0)
-              *stage_slot<TY>(R, st, u) =
-                  load_pair<TY, true>(dY, static_cast<int64_t>(bu) * E + c, c + 1 < E);
+            const int64_t a0 = static_cast<int64_t>(bu) * E + cb + par0;  // the span's first value
+            if (bu >= 0 && w < ((static_cast<int>(a0 & 1) + ncols + 1) >> 1)) {
+              const uint32_t at = stage + 4 * (u * 64 + 2 * w);  // lane w's first word
+              if (w < 32) hopper::cp_async<4>(at, dYw + (a0 >> 1) + w);
+              if (w > 0) hopper::cp_async<4>(at - 4, dYw + (a0 >> 1) + w);  // lane w - 1's second
+            }
+            u += du;
+            w += dw;
+            if (w >= span) {
+              w -= span;
+              ++u;
+            }
           }
         } else {  // this lane's two columns of each position's row
           const int c = cb + 2 * lane;
 #pragma unroll
           for (int u = 0; u < kSeg; ++u) {
             const int32_t bu = __shfl_sync(kFull, b[r], u);
-            if (c < E && bu >= 0)
-              hopper::cp_async<kPair>(stage + u * kRowBytes + lane * kPair,
-                                      dY + static_cast<int64_t>(bu) * E + c);
+            if (c < E && bu >= 0) {
+              const TY* src = dY + static_cast<int64_t>(bu) * E + c;
+              if (kNarrow) {  // fp32, 4-byte aligned: a copy a column
+                hopper::cp_async<4>(stage + u * kRowBytes + lane * kPair, src);
+                if (c + 1 < E)
+                  hopper::cp_async<4>(stage + u * kRowBytes + lane * kPair + 4, src + 1);
+              } else {
+                hopper::cp_async<kPair>(stage + u * kRowBytes + lane * kPair, src);
+              }
+            }
           }
         }
-        if (kNarrow) {
-          if (q < end) {
-            R.wgt[st * kSeg + lane] = __ldg(sm.wgt + q);
-            R.msk[st * kSeg + lane] = __ldg(sm.msk + q);
-          }
-          hopper::mbar_arrive(R.full + 8 * st);
-        } else {
-          if (q < end) {
-            hopper::cp_async<4>(wgt_s + 4 * (st * kSeg + lane), sm.wgt + q);
-            hopper::cp_async<4>(msk_s + 4 * (st * kSeg + lane), sm.msk + q);
-          }
-          hopper::cp_async_arrive(R.full + 8 * st);
+        if (q < end) {
+          hopper::cp_async<4>(wgt_s + 4 * (st * kSeg + lane), sm.wgt + q);
+          hopper::cp_async<4>(msk_s + 4 * (st * kSeg + lane), sm.msk + q);
+          if (kNarrow) hopper::cp_async<4>(bag_s + 4 * (st * kSeg + lane), sm.bags + q);
         }
+        hopper::cp_async_arrive(R.full + 8 * st);
         b[r] = bag(ahead, j + 4 * P);  // this lane's bag four rounds on
         at.advance(P, nseg);
         ahead.advance(P, nseg);
@@ -863,7 +947,8 @@ __device__ void produce(const Ring& R, int pw, const int64_t* __restrict__ runs,
 // as kOp does, its sums read from the ring.
 template <Op kOp, class TY, bool kNarrow>
 __device__ void consume(const Ring& R, const int64_t* __restrict__ runs, int64_t count,
-                        int64_t slots, const Stream& sm, const Store& st, int E) {
+                        int64_t slots, const Stream& sm, const TY* __restrict__ dY, const Store& st,
+                        int E) {
   uint32_t g = 0;
   for (int64_t i = blockIdx.x; i < count; i += slots) {
     const int64_t s = runs[1 + 2 * i];
@@ -871,8 +956,8 @@ __device__ void consume(const Ring& R, const int64_t* __restrict__ runs, int64_t
     const int64_t len = run_end(sm.rows, s, row, sm.L) - s;
     const uint32_t nseg = static_cast<uint32_t>((len + kSeg - 1) / kSeg);
     const int last_n = static_cast<int>(len - kSeg * static_cast<int64_t>(nseg - 1));
-    update_run<kOp, kNarrow>(row, E, st, [&](int, bool, float& a0, float& a1) {
-      return sum_ring<TY>(R, g, nseg, last_n, a0, a1);
+    update_run<kOp, kNarrow>(row, E, st, [&](int c, bool, float& a0, float& a1) {
+      return sum_ring<TY, kNarrow>(R, g, nseg, last_n, a0, a1, narrow_at(dY, E, c));
     });
   }
 }
@@ -903,7 +988,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   const int64_t count = runs[0];
   if (blockIdx.x >= count) return;  // the whole block leaves together
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring R = ring_of<TY>(smem);
+  const Ring R = ring_of<TY, kNarrow>(smem);
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       hopper::mbar_init(R.full + 8 * i, 32);  // a producer's lanes, once their copies land
@@ -913,7 +998,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   }
   __syncthreads();
   if (warp == 0) {
-    consume<kOp, TY, kNarrow>(R, runs, count, slots, sm, st, E);
+    consume<kOp, TY, kNarrow>(R, runs, count, slots, sm, dY, st, E);
   } else if (warp <= kProducers) {
     produce<kOp, TY, kNarrow>(R, warp - 1, runs, count, slots, sm, dY, E);
   }
@@ -1000,7 +1085,7 @@ int launch_typed(const void* rows, const void* bags, const void* msk, const void
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(long_run_kernel<kOp, TY, kNarrow>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Shape<TY>::kSmemBytes));
+                               static_cast<int>(Shape<TY, kNarrow>::kSmemBytes));
   if (err == cudaSuccess) err = cudaMemsetAsync(runs, 0, sizeof(int64_t), stream);
   if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(side->stream, side->fork, 0);
@@ -1018,7 +1103,7 @@ int launch_typed(const void* rows, const void* bags, const void* msk, const void
       sm.rows, L, static_cast<int64_t*>(runs));
   const int64_t slots = list_slots(L) < kLongBlocks ? list_slots(L) : kLongBlocks;
   long_run_kernel<kOp, TY, kNarrow><<<static_cast<unsigned>(slots), kWarps * 32,
-                                      Shape<TY>::kSmemBytes, stream>>>(
+                                      Shape<TY, kNarrow>::kSmemBytes, stream>>>(
       sm, y, st, static_cast<const int64_t*>(runs), slots, E);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);

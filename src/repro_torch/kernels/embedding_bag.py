@@ -46,11 +46,26 @@ asks the runtime for the SM count once a device.
 
 Any width.  A row that is no whole number of 16-byte chunks (the recsys
 archetypes' E = 11, 18, 50 in bf16) or a table that starts off a 16-byte
-boundary (a view) takes a narrow path: one thread a value of the output,
-consecutive threads reading consecutive values of a row, each bag's lookups
-added in order as the plain version adds them (a bag of one lookup, the
-archetypes' P = 1, gives its bits).  The store is never padded: a padded
-copy of FM's 4.1 GB ``hi`` slab a step would cost more than the bags.
+boundary (a view) takes a narrow path, each bag's lookups added in order as
+the plain version adds them (a bag of one lookup, the archetypes' P = 1,
+gives its bits).  Its first version, one thread a value of the output, was
+bound by integer work and loads a value, not by bytes: a 64-bit ``t / E``
+and ``j % S`` a value and E threads loading each bag's id and slot offset
+(without the id and offset loads it took 0.57 times as long at E = 11,
+without any stores 0.97 times; ``tools/ablate_bag.py --only narrow``).  The
+narrow path now gives a warp 32 consecutive bags: lane t loads bag t's ids,
+weights and slot offset (one 32-bit ``j % S`` a bag) and hands them on by
+shuffle to a group of lanes that reads the bag's rows, two bf16 values (or
+one fp32) a lane, so that at E = 11 four bags share a warp in each of eight
+rounds, four rounds' loads in flight.  A bf16 row starts on a 2-byte
+boundary: a lane reads the aligned 4-byte word that holds its first value
+and, where the row starts odd, the next, and shifts its pair out of them
+(every word read holds a byte of the row: no read leaves the table).  The
+round's outputs, one run of G * E floats, go out through shuffles so that
+consecutive lanes write consecutive addresses.  No division a value; index
+arithmetic in 32 bits but the row address.  The store is never padded: a
+padded copy of FM's 4.1 GB ``hi`` slab a step would cost more than the
+bags.
 
 Numbers: the sum of a bag is now ``sum_r coef_r * W[r]`` in list order and
 not the lookups' in-order sum, so it rounds differently from the plain

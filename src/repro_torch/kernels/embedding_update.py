@@ -96,16 +96,27 @@ Any width.  Both schedules move a row's columns in pairs (one 32-bit or
 64-bit access a pair) where E is even and ``dY`` and the slabs sit on their
 pairs' alignment; otherwise (the recsys archetypes' FM at E = 11, or an
 offset view) they take a narrow path, a template instance of the same
-walk: every value loaded and stored on its own, an odd E's last column pair
-read with a +0 past the row and written one column only, and a long run's
-producers loading their columns into the stage themselves and arriving
-with release semantics (``cp.async`` has no 2-byte copy), which waits for
-the bags they load ahead.  On FM's zipf step its long runs (34 K lookups)
-walk about 55 ns a position, six times faster than the short walk alone
-(a version that gave every narrow run to the short walk took 11.6 against
-1.9 ms, PERF.md §6).  The sums, their order and the steps are the same, so
-the plain versions hold it bit for bit; row-wise Adagrad still averages
-over the E real columns.  The store is never padded.
+walk.  The short walk and the step load and store every value on its own,
+an odd E's last column pair read with a +0 past the row and written one
+column only.  A long run's producers still copy with ``cp.async`` alone and
+arrive as the pair path's do: a bf16 ``dY`` as the aligned 4-byte words
+that hold each position's columns of the walk (a row starts on a 2-byte
+boundary; every word copied holds a byte of the row, so no copy reads past
+``dY``), the segment's spans spread over all 32 lanes, each word copied
+twice (as the first of lane l's pair of words and the second of lane
+l - 1's, so that the consumer reads words l and l + 1 with one 8-byte read:
+a bf16 ring of 64 KB, as the fp32 one); an fp32 ``dY`` as a lane's two
+columns, a 4-byte copy each.  They copy each position's bag beside its
+weight and mask; the consumer turns a stage's bags into one ballot of row
+start parities, ``(bag * E + cb + offset of dY) & 1``, and shifts each
+pair out of its two words with one funnel shift.  The first narrow producers
+loaded their columns into registers, stored them to the stage and
+arrived with release semantics, which waited for those loads and for the
+bags loaded ahead: FM's long runs walked about 55 ns a position against the
+pair path's 10 (``tools/ablate_row_update.py --only narrow``; PERF.md §6).
+The sums, their order and the steps are the same, so the plain versions
+hold it bit for bit; row-wise Adagrad still averages over the E real
+columns.  The store is never padded.
 
 The old row and its state are loaded at the run's start, beside the sums,
 and written once at its end.  The stateful kinds OR the valid positions

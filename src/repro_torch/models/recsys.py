@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.embedding import EmbeddingSpec
-from repro_torch.core.hybrid import HybridDef
+from repro_torch.core.hybrid import HybridDef, topk_stable
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
@@ -308,7 +308,8 @@ def make_retrieval_step(mdef: HybridDef, mesh, n_candidates: int, topk: int = 12
     (values [topk], indices [topk])``, the same on every rank.  ``cand`` is
     this rank's block of the candidate rows (gathered from the item table);
     each score is ``urep . cand`` in fp32, the local top-k is merged over
-    the ranks by an all-gather and a second top-k."""
+    the ranks by an all-gather and a second top-k, ties in the reference's
+    order (``core.hybrid.topk_stable``)."""
     from repro_torch.dist import comm
     from repro_torch.launch.mesh import resolve_mesh
 
@@ -318,10 +319,10 @@ def make_retrieval_step(mdef: HybridDef, mesh, n_candidates: int, topk: int = 12
 
     def fn(urep: torch.Tensor, cand: torch.Tensor):
         s = cand.float() @ urep.float()
-        v, i = torch.topk(s, min(topk, per))
+        v, i = topk_stable(s, min(topk, per))
         i = i + g_all.index * per
         vg, ig = comm.all_gather(v, g_all), comm.all_gather(i, g_all)
-        vv, pos = torch.topk(vg, min(topk, vg.numel()))
+        vv, pos = topk_stable(vg, min(topk, vg.numel()))
         return vv, ig[pos]
 
     return fn

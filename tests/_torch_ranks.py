@@ -493,3 +493,33 @@ def recsys_table_rank(rank: int, world_size: int, c: dict) -> dict:
         losses.append(float(loss))
     gathered = weights.state_to_numpy(state, mesh, mdef)
     return {"losses": losses, "state": gathered if rank == 0 else None}
+
+
+def retrieval_ties_rank(rank: int, world_size: int, c: dict) -> dict:
+    """One rank of both retrieval steps on a (1, world_size) mesh, on
+    candidates with tied scores: ``core.hybrid.make_retrieval_step`` of the
+    smoke-size FM (``c["fm_rows"]``, the reference's global start state
+    ``c["state"]``, the query ``c["query"]``, target slot 0) and
+    ``models.recsys.make_retrieval_step`` (``c["urep"]``).  ``c["cand"]``
+    and ``c["dot_cand"]`` are the global candidate matrices (fp32 arrays of
+    bf16 values); each rank scores its block.  Returns both results."""
+    from repro_torch import weights
+    from repro_torch.core import hybrid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys
+
+    mesh = make_mesh((1, world_size), ("data", "model"), device="cpu")
+    mdef = recsys.make_fm(c["fm_rows"], batch=c["batch"])
+    state = weights.state_from_numpy(c["state"], mdef, mesh, device="cpu")
+
+    def block(a: np.ndarray) -> torch.Tensor:
+        per = a.shape[0] // world_size
+        return torch.from_numpy(a[rank * per:(rank + 1) * per]).to(torch.bfloat16)
+
+    n, k = c["cand"].shape[0], c["topk"]
+    fn = hybrid.make_retrieval_step(mdef, mesh, n, 0, topk=k, device="cpu")
+    v, i = fn(state, {key: to_torch(a) for key, a in c["query"].items()}, block(c["cand"]))
+    dot = recsys.make_retrieval_step(recsys.make_sasrec(c["item_vocab"], batch=c["batch"]), mesh,
+                                     c["dot_cand"].shape[0], topk=k, device="cpu")
+    dv, di = dot(torch.from_numpy(c["urep"]), block(c["dot_cand"]))
+    return {"fm": (to_numpy(v), to_numpy(i)), "dot": (to_numpy(dv), to_numpy(di))}

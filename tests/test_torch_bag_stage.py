@@ -119,18 +119,35 @@ def test_interaction_plain_path_at_kernel_widths(F, E):
                  what="vs Pallas self-dot")
 
 
-def test_ablation_variants_apply_to_the_sources():
-    """Every text substitution of ``tools/ablate_bag.py`` finds its text in
-    this checkout's ``csrc/embedding_bag.cu`` and ``interaction.cu`` (the
-    tool fails on the card otherwise), and each variant changes its
-    source."""
+def _tool(name: str):
+    """``tools/<name>.py`` imported as a module."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("ablate_bag", root / "tools" / "ablate_bag.py")
+    spec = importlib.util.spec_from_file_location(name, root / "tools" / f"{name}.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    csrc = root / "src" / "repro_torch" / "csrc"
-    texts = tool.substituted(csrc, tool.VARIANTS)
-    for (stem, name), text in texts.items():
-        assert (text == (csrc / f"{stem}.cu").read_text()) == (name == "as is"), (stem, name)
+    return tool, root / "src" / "repro_torch" / "csrc"
+
+
+def test_ablation_variants_apply_to_the_sources():
+    """Every text substitution of ``tools/ablate_bag.py``, the narrow path's
+    copies included, finds its text in this checkout's
+    ``csrc/embedding_bag.cu`` and ``interaction.cu`` (the tool fails on the
+    card otherwise), and each variant changes its source."""
+    tool, csrc = _tool("ablate_bag")
+    for table in (tool.VARIANTS, tool.NARROW):
+        texts = tool.substituted(csrc, table)
+        for (stem, name), text in texts.items():
+            assert (text == (csrc / f"{stem}.cu").read_text()) == (name == "as is"), (stem, name)
+
+
+def test_row_update_ablation_variants_apply_to_the_source():
+    """Every text substitution of ``tools/ablate_row_update.py`` (the run
+    walk's copies and the narrow instances') finds its text in this
+    checkout's ``csrc/embedding_update.cu``, and each variant changes it."""
+    tool, csrc = _tool("ablate_row_update")
+    src = (csrc / "embedding_update.cu").read_text()
+    for table in (tool.VARIANTS, tool.NARROW):
+        for name, text in tool.variant_sources(table).items():
+            assert (text == src) == (name == "as is"), name

@@ -1592,3 +1592,94 @@ def test_row_kernels_at_recsys_widths_bitwise_to_plain(dev, name, E, view):
         bits = torch.int16 if w.element_size() == 2 else torch.int32
         assert torch.equal(g.cpu().view(bits), w.view(bits))
     assert not torch.equal(want[0], store[0])
+
+
+# odd widths that reach every layout of the narrow paths: one value a row, a
+# group of lanes narrower than, as wide as and past a warp's 32 units, and rows
+# of more than 64 columns (the bag's second pass, the row update's second walk)
+NARROW_E = [1, 3, 7, 9, 13, 63, 65, 129]
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("E", NARROW_E)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_narrow_bag_at_more_widths_bitwise_to_plain(dev, dtype, E, view):
+    """Row 1's narrow path at widths 1 to 129, on a table the allocator
+    aligned and on one a value past it, the table's last value the last of
+    its allocation: a third of the bags of one lookup, and every bag of three
+    as its last lookup, read the table's last row (where a read of a word
+    past the row would leave the allocation).  Bags of one lookup bit for bit
+    against the plain stage and the plain bag, weighted or not; bags of
+    three within 1e-5 (the CPU may pair a bag's sums otherwise)."""
+    gen = torch.Generator().manual_seed(3 * E + (dtype == torch.float32) + 5 * (view == "offset"))
+    rows = 200
+    W = _randn(rows, E, gen=gen).to(dtype)
+    dW = _at_offset(W, dev, 1 if view == "offset" else 0)
+    for P in (1, 3):
+        offsets = torch.randint(0, 50, (5,), generator=gen, dtype=torch.int32)
+        idx = torch.randint(-5, rows - 45, (37, 5, P), generator=gen, dtype=torch.int32)
+        last = (rows - 1 - offsets)[None, :].expand(37, 5)
+        if P == 1:
+            idx[::3, :, 0] = last[::3]
+        else:
+            idx[:, :, P - 1] = last
+        gidx = idx + offsets[None, :, None]
+        for w in (None, torch.rand(idx.shape, generator=gen) + 0.5):
+            dw = None if w is None else w.to(dev)
+            want = ref.embedding_bag_stage(W, idx, offsets, rows, w)
+            want_bag = ref.embedding_bag(W, gidx, rows, w)
+            got = ops.embedding_bag_stage(dW, idx.to(dev), offsets.to(dev), rows, dw)
+            got_bag = ops.embedding_bag(dW, gidx.to(dev), rows, dw)
+            torch.cuda.synchronize()
+            if P == 1:
+                assert torch.equal(got.cpu(), want) and torch.equal(got_bag.cpu(), want_bag)
+            else:
+                assert_close(got_bag, want_bag, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("E", NARROW_E)
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_row_kernels_at_more_widths_bitwise_to_plain(dev, name, E, view):
+    """Rows 5-12's narrow instances at widths 1 to 129, on a bf16 cotangent
+    the allocator aligned and on one a value past it, whose last row ends
+    its allocation and is read by a long run (the last bag's lookups are
+    rows of the two long runs): every kind bit for bit against its plain
+    version on every slab."""
+    from repro_torch.kernels import embedding_update as eu
+    gen = torch.Generator().manual_seed(11 * E + len(name) + (view == "offset"))
+    M, P = 300, 4
+    tgt, valid, wgt = _edge_stream("two", M, P, gen)
+    tgt[-P:] = torch.tensor([7, 9] * (P // 2), dtype=torch.int32)
+    valid[-P:] = True
+    wrapper, store, want, stream = _row_kernel_bitwise(dev, name, E, tgt, valid, wgt, P,
+                                                       torch.bfloat16, gen, M,
+                                                       1 if view == "offset" else 0)
+    _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+    assert int(wrapper.long_runs) == 2 == int((counts >= eu.long_run()).sum())
+
+
+@pytest.mark.parametrize("dy_offset", [0, 1])
+@pytest.mark.parametrize("E", [11, 13, 18])
+@pytest.mark.parametrize("name", ROW_KINDS)
+def test_narrow_long_runs_alternate_start_parity(dev, name, E, dy_offset):
+    """Two long runs of a narrow walk: row 7 read by every bag in turn
+    (consecutive bags, so at an odd E the rows of the cotangent start on
+    alternate halves of a word, segment after segment) and row 9 by the odd
+    bags only (every row on one half; at E = 18 on the half ``dy_offset``
+    puts them), the even bags' second lookups short runs: every kind bit for
+    bit against its plain version on every slab."""
+    from repro_torch.kernels import embedding_update as eu
+    gen = torch.Generator().manual_seed(E + len(name) + 100 * dy_offset)
+    M, P, n = 300, 2, 3 * eu.long_run() + 17
+    tgt = torch.empty((n, P), dtype=torch.int32)
+    tgt[:, 0] = 7
+    tgt[:, 1] = torch.randint(10, M, (n,), generator=gen, dtype=torch.int32)
+    tgt[1::2, 1] = 9
+    tgt = tgt.reshape(-1)
+    valid = torch.ones(tgt.shape, dtype=torch.bool)
+    wgt = torch.rand(tgt.shape, generator=gen) + 0.5
+    wrapper, store, want, stream = _row_kernel_bitwise(dev, name, E, tgt, valid, wgt, P,
+                                                       torch.bfloat16, gen, M, dy_offset)
+    assert int(wrapper.long_runs) == 2
+    assert not torch.equal(want[0], store[0])

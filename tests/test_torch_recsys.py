@@ -26,6 +26,12 @@ for bit.
 """
 
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +45,11 @@ from repro.models import recsys as j_rec
 from repro.serve import snapshot as j_snap
 from repro_torch import weights
 from repro_torch.core import hybrid as t_h
+from repro_torch.launch.local import run_ranks
 from repro_torch.models import recsys as t_rec
 from repro_torch.serve import snapshot as t_snap
 from _torch_cases import bits, dense_master, master
+from _torch_ranks import retrieval_ties_rank
 
 B = 16
 NAMES = ("fm", "bst", "sasrec", "din")
@@ -241,6 +249,133 @@ def test_batched_dot_retrieval_matches_reference():
     gv, gi = t_fn(torch.from_numpy(urep), weights.to_torch(cand))
     close(gv.numpy(), np.asarray(wv), (1e-6, 1e-6))
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def _ties(n: int, k: int, seed: int) -> np.ndarray:
+    """n fp32 scores of which many tie: every seventh is 1, the rest U[0, 1)
+    rounded to multiples of 1/k (k values a tie each, on average)."""
+    rng = np.random.default_rng(seed)
+    x = (np.floor(rng.random(n) * k) / k).astype(np.float32)
+    x[::7] = 1.0
+    return x
+
+
+TOPK_CASES = {
+    "every seventh equal, 5000": (np.where(np.arange(5000) % 7 == 0, 1.0,
+                                           np.random.default_rng(1).random(5000))
+                                  .astype(np.float32), 128),
+    "all equal": (np.zeros(300, np.float32), 50),
+    "few distinct values": (_ties(1000, 4, 2), 200),
+    "k = n": (_ties(64, 8, 3), 64),
+    "infinities and ties": (np.concatenate([np.full(40, -np.inf), _ties(200, 16, 4),
+                                            np.full(30, np.inf)]).astype(np.float32), 100),
+}
+
+
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_topk_stable_matches_lax_top_k(case):
+    """``core.hybrid.topk_stable`` returns ``jax.lax.top_k``'s values and
+    indices: largest first, the lower index first among equal values."""
+    x, k = TOPK_CASES[case]
+    wv, wi = jax.lax.top_k(jnp.asarray(x), k)
+    gv, gi = t_h.topk_stable(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(bits(gv.numpy()), bits(np.asarray(wv)))
+
+
+# the tie cases: FM's smoke-size tables, 4096 candidates made of 16 distinct
+# rows (each score shared by 256 candidates), the top-128
+TIE_N, TIE_K, TIE_DISTINCT = 4096, 128, 16
+
+
+def _tie_case(seed: int) -> dict:
+    """Candidates whose scores tie: FM's (bf16 rows ~ N(0, 0.1) repeated)
+    and the batched dot's (integers in [-2, 2], so every dot product is
+    exact in any summation order, repeated) with an integer query."""
+    rng = np.random.default_rng(seed)
+    fm_base = np.asarray(jnp.asarray(rng.standard_normal((TIE_DISTINCT, 11)) * 0.1,
+                                     jnp.bfloat16)).astype(np.float32)
+    dot_base = rng.integers(-2, 3, (TIE_DISTINCT, 50)).astype(np.float32)
+    pick = np.arange(TIE_N) % TIE_DISTINCT
+    return {"cand": fm_base[pick], "dot_cand": dot_base[pick],
+            "urep": rng.integers(-2, 3, 50).astype(np.float32)}
+
+
+def test_retrieval_ties_match_reference_on_one_rank(monkeypatch):
+    """Both retrieval steps on one rank, every score tied with 255 others:
+    the top-128 the reference's values and indices (the lower candidate
+    first among equal scores, ``jax.lax.top_k``'s order), FM chunked 1024
+    candidates a chunk so that equal rows are scored in different chunks."""
+    c = _tie_case(11)
+    jm, tm, state_np, ts = start("fm")
+    q = batch_np(jm, 1, 6)
+    fn, _, _, _ = j_h.make_retrieval_step(jm, j_mesh(), TIE_N, 0, topk=TIE_K)
+    wv, wi = fn(jax.tree.map(jnp.asarray, state_np), to_j(q),
+                jnp.asarray(c["cand"], jnp.bfloat16))
+    monkeypatch.setattr(t_h, "RETRIEVAL_CHUNK", 1024)
+    t_fn = t_h.make_retrieval_step(tm, None, TIE_N, 0, topk=TIE_K, device="cpu")
+    gv, gi = t_fn(ts, to_t(q), torch.from_numpy(c["cand"]).to(torch.bfloat16))
+    assert len(set(np.asarray(wv).tolist())) < TIE_K // 64  # the top-128 is ties
+    close(gv.numpy(), np.asarray(wv), SCORE_TOL["fm"])
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+    dot = j_rec.make_retrieval_step(make("sasrec", j_rec), j_mesh(), TIE_N, 50, topk=TIE_K)
+    wv, wi = dot(jnp.asarray(c["urep"]), jnp.asarray(c["dot_cand"], jnp.bfloat16))
+    t_dot = t_rec.make_retrieval_step(make("sasrec", t_rec), None, TIE_N, topk=TIE_K,
+                                      device="cpu")
+    gv, gi = t_dot(torch.from_numpy(c["urep"]), torch.from_numpy(c["dot_cand"]).to(torch.bfloat16))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+TIES_REF = """
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax, jax.numpy as jnp, numpy as np
+from repro.core import hybrid as H
+from repro.launch.mesh import make_mesh
+from repro.models import recsys as R
+c = pickle.load(open(sys.argv[1], "rb"))
+mesh = make_mesh((1, 2), ("data", "model"))
+mdef = R.make_fm(c["fm_rows"], batch=c["batch"])
+state, _ = H.init_state(jax.random.PRNGKey(0), mdef, mesh)
+n, k = c["cand"].shape[0], c["topk"]
+fn, _, shardings, _ = H.make_retrieval_step(mdef, mesh, n, 0, topk=k)
+v, i = fn(jax.device_put(state, shardings[0]), jax.tree.map(jnp.asarray, c["query"]),
+          jax.device_put(jnp.asarray(c["cand"], jnp.bfloat16), shardings[2]))
+dot = R.make_retrieval_step(R.make_sasrec(c["item_vocab"], batch=c["batch"]), mesh, n, 50, topk=k)
+dv, di = dot(jnp.asarray(c["urep"]), jnp.asarray(c["dot_cand"], jnp.bfloat16))
+pickle.dump({"state": jax.tree.map(np.asarray, state), "fm": (np.asarray(v), np.asarray(i)),
+             "dot": (np.asarray(dv), np.asarray(di))}, open(sys.argv[2], "wb"))
+"""
+
+
+def test_retrieval_ties_on_two_ranks_match_reference(tmp_path):
+    """Both retrieval steps on a (1, 2) mesh over two gloo ranks against the
+    reference's two XLA devices, every score tied with 255 others in each
+    rank's half: the merged top-128 the reference's (the lower rank's
+    candidates first among equal scores), the same on both ranks."""
+    c = {**_tie_case(12), "fm_rows": (50,) * 39, "item_vocab": 100, "batch": B, "topk": TIE_K}
+    c["query"] = batch_np(make("fm", j_rec), 1, 6)
+    with open(tmp_path / "case.pkl", "wb") as f:
+        pickle.dump(c, f)
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "JAX_PLATFORMS": "cpu"}
+    ref = subprocess.run([sys.executable, "-c", textwrap.dedent(TIES_REF),
+                          str(tmp_path / "case.pkl"), str(tmp_path / "ref.pkl")],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    with open(tmp_path / "ref.pkl", "rb") as f:
+        want = pickle.load(f)
+    c["state"] = want["state"]
+    port = run_ranks(retrieval_ties_rank, 2, (c,), timeout_s=180, store_dir=str(tmp_path))
+    wv, wi = want["fm"]
+    assert len(set(wv.tolist())) < TIE_K // 64  # the top-128 is ties
+    for got in port:
+        close(got["fm"][0], wv, SCORE_TOL["fm"])
+        np.testing.assert_array_equal(got["fm"][1], wi)
+        np.testing.assert_array_equal(got["dot"][0], want["dot"][0])
+        np.testing.assert_array_equal(got["dot"][1], want["dot"][1])
 
 
 @pytest.mark.parametrize("opt", ["split_sgd", "adagrad_rowwise", "momentum_bf16"])

@@ -4,7 +4,7 @@ text-substituted copies of ``src/repro_torch/csrc/embedding_bag.cu`` and
 ``interaction.cu`` on one CUDA card, and both kernels against an earlier
 version of them in the same run.
 
-    python3 tools/ablate_bag.py [--parent DIR] [--only this|earlier|parent]
+    python3 tools/ablate_bag.py [--parent DIR] [--only this|earlier|parent|narrow]
 
 from the root of a checkout.  ``DIR`` is an unpacked earlier checkout (for
 example ``git archive <commit> | tar -x -C build/parent``) whose two sources
@@ -45,6 +45,26 @@ weights U[0.5, 1.5) at B = 8192, and on the zipf batch's first 8, 32 and 128
 samples; the interaction at the same batch sizes (fp32 dense [B, 64] and
 bags [B, 8, 64]).  Device time of 20 launches captured in a CUDA graph,
 replayed once to warm up and once between CUDA events.
+
+The narrow path (a row of no whole number of 16-byte chunks), first in
+every run but ``--only this|earlier|parent``: this source's copies
+(``NARROW``: ``no row loads``, ``no id loads``, ``no stores``, ``one round
+in flight`` and ``eight``, ``stores through shuffles`` (each store 32
+consecutive floats of a round's output, the values handed round by
+shuffle), ``no second word of an odd row``, ``six blocks an SM`` (a
+tighter register cap than five blocks'), ``first lookup loaded each pass``
+and ``no register cap``) and, with ``--only narrow --parent DIR`` (an
+earlier checkout with this one's launcher), the earlier narrow path's
+(``NARROW_EARLIER``, the first narrow path, a thread a value: ``32-bit
+index arithmetic``, ``no index arithmetic``, ``no id or offset loads``,
+``no row loads``, ``no stores``),
+each the bag stage (offsets, bf16 round) timed as a CUDA graph at
+chip_smoke.py's phase-21a shapes (B 65,536, one lookup a bag, zipf ids
+over a bf16 table of 1,000,000 rows, E 11, 18, 50 with 39, 105, 150
+slots), the unchanged copies held bit for bit to the plain stage, beside
+``F.embedding`` of the same rows as a graph and the byte bound; with
+``--parent`` the two unchanged copies bit for bit to each other and timed
+in turns.  ``--only narrow`` stops there.
 
 With ``--parent``, also the earlier kernels against these on the same
 inputs: the bag on global ids and fp32 sums (the earlier kernel's contract),
@@ -165,6 +185,93 @@ EARLIER = {
             ("    const float* zi = z + i * ld;\n    const float* zj = z + j * ld;",
              "    const float* zi = i ? em + (i - 1) * E : d;\n"
              "    const float* zj = j ? em + (j - 1) * E : d;")],
+    },
+}
+
+# the narrow path (a row of no whole number of 16-byte chunks) at the recsys
+# archetypes' widths, chip_smoke.py's phase 21a shapes: copies of this source
+_NARROW_STORES = (
+    "        const uint32_t j = j0 + static_cast<uint32_t>((r0 + u) * G + grp);  // the group's bag\n"
+    '#pragma unroll\n'
+    '        for (int v = 0; v < V; ++v)\n'
+    '          if (c + v < E && j < n_bags) out[static_cast<int64_t>(j) * E + c + v] = acc[u][v];\n')
+NARROW = {
+    "embedding_bag": {
+        "as is": [],
+        "no row loads": [("          if (key[u] >= 0 && c < E && r0 + u < rl) {",
+                          "          if (key[u] == 0x7ffffff1) {")],
+        "no id loads": [("static_cast<uint32_t>(__ldg(idx + at))",
+                         "static_cast<uint32_t>(at & 1023)")],
+        "no stores": [("if (c + v < E && j < n_bags) out[",
+                       "if (acc[u][v] == 12345.f) out[")],
+        "one round in flight": [("constexpr int kNarrowRounds = 4;",
+                                 "constexpr int kNarrowRounds = 1;")],
+        "eight rounds in flight": [("constexpr int kNarrowRounds = 4;",
+                                    "constexpr int kNarrowRounds = 8;")],
+        "stores through shuffles": [  # each store 32 consecutive floats of the round's run
+            ("  const int32_t off = bag_in && offsets ? __ldg(offsets + jl % static_cast<uint32_t>(S)) : 0;\n",
+             "  const int32_t off = bag_in && offsets ? __ldg(offsets + jl % static_cast<uint32_t>(S)) : 0;\n"
+             + "  // store k of a round: the run's value 32 k + lane, held by lane src[k] as its value hsel[k]\n"
+               '  int src[V], hsel[V], sgrp[V], scol[V];\n'
+               '#pragma unroll\n'
+               '  for (int k = 0; k < V; ++k) {\n'
+               '    const int o = 32 * k + lane;\n'
+               '    sgrp[k] = o / ep;\n'
+               '    scol[k] = o - sgrp[k] * ep;\n'
+               '    src[k] = ((sgrp[k] << map.rl_log2) + scol[k] / V) & 31;\n'
+               '    hsel[k] = scol[k] % V;\n'
+               '  }\n'),
+            ("  const int grp = lane >> map.rl_log2, gl = lane & (rl - 1);\n",
+             "  const int grp = lane >> map.rl_log2, gl = lane & (rl - 1);\n"
+             "  const int ep = min(E, 32 * V);\n"),
+            (_NARROW_STORES,
+             "        const uint32_t jr = j0 + static_cast<uint32_t>((r0 + u) * G);  // the round's first bag\n"
+             '#pragma unroll\n'
+             '        for (int k = 0; k < V; ++k) {\n'
+             '          float y = __shfl_sync(kFull, acc[u][0], src[k]);\n'
+             '          if constexpr (V == 2) {\n'
+             '            const float y1 = __shfl_sync(kFull, acc[u][1], src[k]);\n'
+             '            y = hsel[k] ? y1 : y;\n'
+             '          }\n'
+             '          const uint32_t j = jr + static_cast<uint32_t>(sgrp[k]);\n'
+             '          const int col = cbase + scol[k];\n'
+             '          if (sgrp[k] < G && col < E && j < n_bags) out[static_cast<int64_t>(j) * E + col] = y;\n'
+             '        }\n')],
+        "no second word of an odd row": [
+            ("              if (sh[u] && c + 1 < E) hi[u] = __ldg(Ww + (a >> 1) + 1);",
+             "              if (sh[u] && c + 1 < 0) hi[u] = __ldg(Ww + (a >> 1) + 1);")],
+        "six blocks an SM": [
+            ("__global__ void __launch_bounds__(kNarrowWarps * 32, 5)\n    embedding_bag_narrow_kernel",
+             "__global__ void __launch_bounds__(kNarrowWarps * 32, 6)\n    embedding_bag_narrow_kernel")],
+        "first lookup loaded each pass": [
+            ("        int32_t key_l = key0;\n        float w_l = w0;\n        if (p > 0) lookup(p, key_l, w_l);",
+             "        int32_t key_l;\n        float w_l;\n        lookup(p, key_l, w_l);")],
+        "no register cap": [
+            ("__global__ void __launch_bounds__(kNarrowWarps * 32, 5)\n    embedding_bag_narrow_kernel",
+             "__global__ void __launch_bounds__(kNarrowWarps * 32)\n    embedding_bag_narrow_kernel")],
+    },
+}
+
+# copies of the earlier narrow path (one thread a value of the output,
+# a 64-bit t / E and j % S each, its own id and offset loads, 2-byte row loads)
+NARROW_EARLIER = {
+    "embedding_bag": {
+        "as is": [],
+        "32-bit index arithmetic": [
+            ("    const int64_t j = t / E;",
+             "    const int64_t j = static_cast<uint32_t>(t) / static_cast<uint32_t>(E);"),
+            ("__ldg(offsets + j % S)",
+             "__ldg(offsets + static_cast<uint32_t>(j) % static_cast<uint32_t>(S))")],
+        "no index arithmetic": [
+            ("    const int64_t j = t / E;\n    const int c = static_cast<int>(t - j * E);",
+             "    const int64_t j = t >> 6;\n    const int c = static_cast<int>(t & 7);"),
+            ("__ldg(offsets + j % S)", "__ldg(offsets + (j & 31))")],
+        "no id or offset loads": [
+            ("static_cast<uint32_t>(__ldg(idx + at))", "static_cast<uint32_t>(at & 1023)"),
+            ("const int32_t off = offsets ? __ldg(offsets + j % S) : 0;",
+             "const int32_t off = 0;")],
+        "no row loads": [("      if (g >= 0 && g < rows) {", "      if (g == 0x7ffffff1) {")],
+        "no stores": [("    out[t] = acc;", "    if (acc == 12345.f) out[t] = acc;")],
     },
 }
 
@@ -344,6 +451,74 @@ def ablation(libs, earlier, data) -> None:
                        dense, emb)
 
 
+def narrow_setup():
+    """Phase 21a's bag inputs at each narrow width: (E, S, the bf16 table of
+    NARROW_ROWS rows, zipf ids [NARROW_BAG_BATCH, S, 1], zero offsets)."""
+    import torch
+    from chip_smoke import ALPHA, NARROW_BAG_BATCH, NARROW_ROWS, NARROW_WIDTHS
+    from repro_torch.data.synthetic import zipf_indices
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    out = []
+    for _, E, S in NARROW_WIDTHS:
+        W = ((torch.rand((NARROW_ROWS, E), device=dev, generator=gen) - 0.5) * 2e-3).to(
+            torch.bfloat16)
+        idx = torch.from_numpy(zipf_indices(rng, NARROW_ROWS, (NARROW_BAG_BATCH, S, 1), ALPHA)
+                               .astype(np.int32)).to(dev)
+        out.append((E, S, W, idx, torch.zeros(S, dtype=torch.int32, device=dev)))
+    return out
+
+
+def ablate_narrow(libs, cases) -> None:
+    """Each copy's bag stage (offsets, bf16 round) at each narrow width as a
+    CUDA graph, the unchanged copy held bit for bit to the plain stage;
+    beside them F.embedding of the same rows (a bag of one lookup is a
+    gather) as a graph and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import FP32_FLOPS, bound_ms
+    from repro_torch.kernels import ref
+    for E, S, W, idx, zero in cases:
+        B = idx.shape[0]
+        rows = W.shape[0]
+        want = ref.embedding_bag_stage(W, idx, zero, rows)
+        out = torch.empty((B, S, E), device=W.device)
+        row = []
+        for name, lib in libs.items():
+            fn = Bag(lib, False)
+            fn(W, idx, None, zero, None, out, rows, fused=True)
+            torch.cuda.synchronize()
+            if name.endswith("as is") and not torch.equal(out, want):
+                raise SystemExit(f"{name}: the unchanged copy disagrees with the plain bag stage "
+                                 f"at E {E}")
+            ms = graph_ms(lambda: fn(W, idx, None, zero, None, out, rows, fused=True))
+            row.append(f"{name.split(': ')[1]} {ms:.4f}")
+        gid = idx.reshape(-1).long()
+        lib_ms = graph_ms(lambda: F.embedding(gid, W))
+        U = int(torch.unique(idx).numel())
+        bms, _ = bound_ms(U * E * 2 + idx.numel() * 4 + B * S * E * 4, B * S * E, FP32_FLOPS)
+        print(f"narrow bag, E {E} [{B}x{S}x1] (ms): " + "; ".join(row)
+              + f"; F.embedding {lib_ms:.4f}; bound {bms:.4f}", flush=True)
+
+
+def narrow_against_parent(lib, parent_lib, cases) -> None:
+    """The earlier narrow path and this one at each narrow width, bit for
+    bit, then in turns."""
+    import torch
+    fns = {"earlier": Bag(parent_lib, False), "this": Bag(lib, False)}
+    for E, S, W, idx, zero in cases:
+        outs = {v: torch.empty((idx.shape[0], S, E), device=W.device) for v in fns}
+        for v, fn in fns.items():
+            fn(W, idx, None, zero, None, outs[v], W.shape[0], fused=True)
+        torch.cuda.synchronize()
+        if not torch.equal(outs["this"], outs["earlier"]):
+            raise SystemExit(f"narrow bag, E {E}: this kernel and the earlier one disagree")
+        print(f"narrow bag, E {E}: " + turns({v: (lambda v=v: fns[v](
+            W, idx, None, zero, None, outs[v], W.shape[0], fused=True)) for v in fns})
+            + ", bitwise equal", flush=True)
+
+
 def turns(calls: dict) -> str:
     """Each of ``calls`` ({"earlier": fn, "this": fn}) timed in the order
     earlier, this, this, earlier; their times and this / earlier."""
@@ -456,7 +631,7 @@ def against_parent(lib_bag, lib_int, parent_bag, parent_int, data) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="an unpacked earlier checkout")
-    ap.add_argument("--only", choices=("this", "earlier", "parent"))
+    ap.add_argument("--only", choices=("this", "earlier", "parent", "narrow"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -467,13 +642,29 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     csrc = ROOT / "src" / "repro_torch" / "csrc"
+    pcsrc = None if args.parent is None else args.parent.resolve() / "src" / "repro_torch" / "csrc"
+    if args.only in (None, "narrow"):
+        libs = build(csrc, NARROW, "narrow")
+        parent = (build(pcsrc, NARROW_EARLIER, "narrow_earlier")
+                  if pcsrc is not None and args.only == "narrow" else {})
+        cases = narrow_setup()
+        print("the narrow path, this source's copies", flush=True)
+        ablate_narrow(libs, cases)
+        if parent:
+            print("the narrow path, the earlier source's copies", flush=True)
+            ablate_narrow(parent, cases)
+            narrow_against_parent(libs["embedding_bag: as is"], parent["embedding_bag: as is"],
+                                  cases)
+        del cases
+        torch.cuda.empty_cache()
+        if args.only == "narrow":
+            return 0
     this = VARIANTS if args.only in (None, "this") else {s: {"as is": []} for s in SOURCES}
     if args.only == "earlier":
         this = {}
     libs = build(csrc, this, "this") if this else {}
     parent = {}
-    if args.parent is not None:
-        pcsrc = args.parent.resolve() / "src" / "repro_torch" / "csrc"
+    if pcsrc is not None:
         earlier = EARLIER if args.only in (None, "earlier") else {s: {"as is": []} for s in SOURCES}
         parent = build(pcsrc, earlier, "earlier")
     data = setup()

@@ -3,7 +3,7 @@
 ``src/repro_torch/csrc/embedding_update.cu`` on one CUDA card, and the
 kernel against an earlier version of it in the same run.
 
-    python3 tools/ablate_row_update.py [--parent DIR] [--only ablation|parent]
+    python3 tools/ablate_row_update.py [--parent DIR] [--only ablation|parent|narrow]
 
 from the root of a checkout.  ``DIR`` is an unpacked earlier checkout (for
 example ``git archive <commit> | tar -x -C build/parent``) whose row-update
@@ -40,6 +40,18 @@ batch and a uniform one, with a bf16 cotangent [B * S, 64]: row 6 (the
 U[0.5, 1.5); CUDA events over 10 launches after 2, each beside the longest
 run's add chain.
 
+The narrow instances (an odd E, or a slab off its pairs' alignment), first
+in every run but ``--only ablation|parent``: this source's copies
+(``NARROW``: the narrow producers without cotangent copies, the consumer
+without the parity shift or without stage reads) and, with ``--only
+narrow --parent DIR`` (an earlier checkout with this one's launchers), the
+earlier narrow producer's (``NARROW_EARLIER``, the first one's register
+loads and stores with a release arrival: with a ``cp.async`` arrival,
+without cotangent loads, without loads or stores), rows 6 and 10 at
+chip_smoke.py's phase-21a shapes (zipf ids over a 1,000,000-row table, the
+sorted stream of 8,192 samples of FM's 39 slots at E 11 and DIN's 105 at
+E 18, a bf16 cotangent), each beside the ns a position of its longest run.
+
 With ``--parent``, all eight row kinds (table rows 5-12) on the zipf and the
 uniform batch, the earlier kernel and this one on the same inputs: their
 results bit for bit equal, then each timed in the order earlier, this, this,
@@ -59,20 +71,24 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 _FULL_STAGE = (
     "    if (lc.valid == kFull) {\n"
-    "      add_stage<TY, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);")
+    "      add_stage<TY, kNarrow, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1,\n"
+    "                                na);")
 VARIANTS = {
     "as is": [],
     "consumer: no stage reads": [
-        ("  for (int u = 0; u < kSeg; ++u) nxt[u] = *stage_slot<TY>(R, st_next, u);",
+        ("  for (int u = 0; u < kSeg; ++u) nxt[u] = read_slot<TY, kNarrow>(R, st_next, u, na, odd);",
          "  for (int u = 0; u < kSeg; ++u) nxt[u] = Cot<TY>::zero();")],
     "producers: no cotangent gather": [
         ("        if (wide) {  // lane l takes chunks",
          "        if (false) {  // lane l takes chunks"),
-        ("            if (c < E && bu >= 0)\n              hopper::cp_async<kPair>(",
-         "            if (false)\n              hopper::cp_async<kPair>(")],
+        ("            if (c < E && bu >= 0) {\n              const TY* src =",
+         "            if (false) {\n              const TY* src ="),
+        ("            if (bu >= 0 && w < ((static_cast<int>(a0 & 1) + ncols + 1) >> 1)) {",
+         "            if (false) {")],
     "ring depth 2": [("constexpr int kStages = 8;", "constexpr int kStages = 2;")],
     "ring depth 4": [("constexpr int kStages = 8;", "constexpr int kStages = 4;")],
     "ring depth 16": [("constexpr int kStages = 8;", "constexpr int kStages = 16;")],
@@ -93,11 +109,51 @@ VARIANTS = {
          "    }\n"),
         (_FULL_STAGE,
          "    if (lc.valid == kFull && lc.ones) {\n"
-         "      add_stage<TY, 0>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);\n"
+         "      add_stage<TY, kNarrow, 0>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1,\n"
+         "                                na);\n"
          "    } else if (lc.valid == kFull) {\n"
-         "      add_stage<TY, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1);")],
+         "      add_stage<TY, kNarrow, 1>(R, st, cur, lc, n_of(k), st_next, n_of(k + 1), nxt, ln, a0, a1,\n"
+         "                                na);")],
     "long runs from 256": [("constexpr int kLongRun = 512;", "constexpr int kLongRun = 256;")],
     "long runs from 4096": [("constexpr int kLongRun = 512;", "constexpr int kLongRun = 4096;")],
+}
+
+# the narrow instances (an odd E, or a dY off its pairs' alignment) at the recsys
+# archetypes' widths, chip_smoke.py's phase 21a streams: copies of this source
+NARROW = {
+    "as is": [],
+    "narrow producers: no cotangent copies": [
+        ("            if (bu >= 0 && w < ((static_cast<int>(a0 & 1) + ncols + 1) >> 1)) {",
+         "            if (false) {")],
+    "narrow consumer: no parity (wrong halves)": [
+        ("    return __funnelshift_r(w.x, w.y, ((odd >> u) & 1u) << 4) & na.keep;",
+         "    return w.x & na.keep;")],
+    "narrow consumer: no stage reads": [
+        ("  for (int u = 0; u < kSeg; ++u) nxt[u] = read_slot<TY, kNarrow>(R, st_next, u, na, odd);",
+         "  for (int u = 0; u < kSeg; ++u) nxt[u] = Cot<TY>::zero();")],
+}
+
+# copies of the earlier narrow producer (the first one: 2-byte loads of its two
+# columns a position, stored to the stage from registers, the weights and masks
+# stored too, then an arrival with release semantics)
+_NARROW_STORE = ("              *stage_slot<TY>(R, st, u) =\n"
+                 "                  load_pair<TY, true>(dY, static_cast<int64_t>(bu) * E + c, c + 1 < E);")
+_NARROW_ARRIVE = ("            R.msk[st * kSeg + lane] = __ldg(sm.msk + q);\n"
+                  "          }\n"
+                  "          hopper::mbar_arrive(R.full + 8 * st);")
+NARROW_EARLIER = {
+    "as is": [],
+    "narrow producers: cp.async arrive": [
+        (_NARROW_ARRIVE, _NARROW_ARRIVE.replace("hopper::mbar_arrive", "hopper::cp_async_arrive"))],
+    "narrow producers: no cotangent loads": [
+        (_NARROW_STORE, "              *stage_slot<TY>(R, st, u) = Cot<TY>::zero();")],
+    "narrow producers: no cotangent loads or stores": [
+        ("            if (c < E && bu >= 0)\n              *stage_slot<TY>(R, st, u) =",
+         "            if (false)\n              *stage_slot<TY>(R, st, u) =")],
+    "narrow producers: no cotangent loads or stores, cp.async arrive": [
+        ("            if (c < E && bu >= 0)\n              *stage_slot<TY>(R, st, u) =",
+         "            if (false)\n              *stage_slot<TY>(R, st, u) ="),
+        (_NARROW_ARRIVE, _NARROW_ARRIVE.replace("hopper::mbar_arrive", "hopper::cp_async_arrive"))],
 }
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
@@ -141,10 +197,12 @@ def compile_all(jobs: dict, out_dir: Path, headers: Path) -> dict:
     return libs
 
 
-def variant_sources() -> dict:
-    src = (ROOT / "src" / "repro_torch" / "csrc" / "embedding_update.cu").read_text()
+def variant_sources(table: dict | None = None, csrc: Path | None = None) -> dict:
+    """``{name: source text}``: each copy of ``table`` (VARIANTS) made from
+    ``csrc`` (this checkout's) ``embedding_update.cu``."""
+    src = ((csrc or ROOT / "src" / "repro_torch" / "csrc") / "embedding_update.cu").read_text()
     out = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in (VARIANTS if table is None else table).items():
         text = src
         for old, new in subs:
             if old not in text:
@@ -345,10 +403,78 @@ def against_parent(lib, parent_lib, split, W, streams, dY) -> None:
             del store, extra
 
 
+def narrow_setup():
+    """Phase 21a's row-update inputs at E 11 (FM, the narrow walk) and E 18
+    (DIN, the pair walk): fp32 tables of NARROW_ROWS rows, the sorted stream
+    of the first NARROW_UPDATE_BATCH samples of zipf ids [B, S, 1], a bf16
+    cotangent a lookup."""
+    import torch
+    from chip_smoke import ALPHA, NARROW_BAG_BATCH, NARROW_ROWS, NARROW_UPDATE_BATCH, NARROW_WIDTHS
+    from repro_torch.data.synthetic import zipf_indices
+    from repro_torch.kernels import embedding_update as eu
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    out = []
+    for _, E, S in NARROW_WIDTHS[:2]:
+        W = (torch.rand((NARROW_ROWS, E), device=dev, generator=gen) - 0.5) * 2e-3
+        idx = zipf_indices(rng, NARROW_ROWS, (NARROW_BAG_BATCH, S, 1), ALPHA).astype(np.int32)
+        g = torch.from_numpy(idx[:NARROW_UPDATE_BATCH]).to(dev).reshape(-1)
+        stream = eu.sort_lookups(g, None, NARROW_ROWS, 1)
+        dY = (torch.randn((stream[0].numel(), E), device=dev, generator=gen) * 1e-3).to(
+            torch.bfloat16)
+        out.append((E, W, stream, dY))
+    return out
+
+
+def ablate_narrow(libs, cases, ghz) -> None:
+    """Rows 6 (``sgd``) and 10 (``momentum_bf16``) of each copy on each
+    narrow case, the unchanged copy held bit for bit to the port's kernel,
+    timed as in :func:`ablation`, with the longest run's length and the ns a
+    position of the long runs' walk (the kernel's time over the longest
+    run, which one block walks while the others finish)."""
+    import torch
+    from repro_torch.kernels import ops
+    for E, W, stream, dY in cases:
+        L = stream[0].numel()
+        chain, text = chain_ms(stream, ghz)
+        _, counts = torch.unique_consecutive(stream[0], return_counts=True)
+        longest = int(counts.max())
+        print(f"narrow E {E}: {text}", flush=True)
+        mom = (torch.randn(W.shape, device=W.device) * 1e-3).to(torch.bfloat16)
+        seed = torch.tensor(12345, dtype=torch.int32, device=W.device)
+        for kernel, kind in (("row 6", "sgd"), ("row 10", "momentum_bf16")):
+            store = (W,) if kind == "sgd" else (W, mom)
+            want = [t.clone() for t in store]
+            if kind == "sgd":
+                ops.fused_update_fp32(*want, *stream, dY, 0.1)
+            else:
+                ops.fused_update_momentum_bf16(*want, *stream, dY, 0.1, 0.9, seed)
+            scalars = (0.1,) if kind == "sgd" else (0.1, 0.9)
+            for name, lib in libs.items():
+                fn = Launcher(lib, kind, parent=False)
+                got = [t.clone() for t in store]
+                ptrs = [t.data_ptr() for t in got] + ([seed.data_ptr()] if kind != "sgd" else [])
+
+                def call():
+                    fn(stream, dY, ptrs, L, E, scalars)
+
+                call()
+                torch.cuda.synchronize()
+                same = same_bits(got, want)
+                if name == "as is" and not same:
+                    raise SystemExit(f"E {E}: the unchanged copy disagrees with the port's kernel")
+                ms = time_ms(call, 2, 10)
+                print(f"narrow E {E}, {kernel}, {name}: {ms:.4f} ms, "
+                      f"{ms * 1e6 / longest:.2f} ns a position of the longest run, "
+                      f"bitwise equal to the port's kernel: {same}", flush=True)
+                del got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="an unpacked earlier checkout")
-    ap.add_argument("--only", choices=("ablation", "parent"))
+    ap.add_argument("--only", choices=("ablation", "parent", "narrow"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -362,6 +488,22 @@ def main() -> int:
                                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
                                check=True).stdout.split()[0]) / 1e3
     csrc = ROOT / "src" / "repro_torch" / "csrc"
+    if args.only in (None, "narrow"):
+        libs = compile_all(variant_sources(NARROW), ROOT / "build" / "ablate_row_update" / "narrow",
+                           csrc)
+        cases = narrow_setup()
+        print("the narrow instances, this source's copies", flush=True)
+        ablate_narrow(libs, cases, ghz)
+        if args.parent is not None and args.only == "narrow":
+            pcsrc = args.parent.resolve() / "src" / "repro_torch" / "csrc"
+            parent = compile_all(variant_sources(NARROW_EARLIER, pcsrc),
+                                 ROOT / "build" / "ablate_row_update" / "narrow_earlier", pcsrc)
+            print("the narrow instances, the earlier source's copies", flush=True)
+            ablate_narrow(parent, cases, ghz)
+        del cases
+        torch.cuda.empty_cache()
+        if args.only == "narrow":
+            return 0
     sources = variant_sources()
     if args.only == "parent":
         sources = {"as is": sources["as is"]}
