@@ -80,15 +80,16 @@ from the root of a checkout.  Phases, each of which fails the run:
     ``sparse_optimizer="momentum_bf16"`` and ``weighted=True`` (the fp32
     table, the bf16 momentum, weights U[0.5, 1.5) in every batch), the
     stochastic rounding's seed ``sr`` advancing by one a step on the card;
-13. run loop: dlrm-small (Split-SGD) through ``TrainLoop``: 80 steps from a
-    seeded state without a checkpoint, and the quickstart's contract from the
-    same state (60 steps, a verified checkpoint every 20, keep 2, prefetch 2,
-    a heartbeat; a second loop, built on a state from another seed, restores
-    at step 60 and trains on to 80), both over one pool of 20 numpy batches:
+13. run loop: dlrm-small (Split-SGD) through ``TrainLoop``: 40 steps from a
+    seeded state without a checkpoint, and the quickstart's contract cut to
+    half its depth from the same state (30 steps, a verified checkpoint
+    every 15, keep 2, prefetch 2, a heartbeat; a second loop, built on a
+    state from another seed, restores at step 30 and trains on to 40), both
+    over one pool of 20 numpy batches:
     the restore bit for bit the first loop's state with its dense ``hi`` in
     one buffer, the later losses and the final state bit for bit the
     uninterrupted run's; the newest checkpoint corrupted, a fresh manager
-    falls back to step 60; the eval step's scores of the restored state in
+    falls back to step 30; the eval step's scores of the restored state in
     (0, 1), their logits within 3e-3 of the plain forward on the CPU; the
     loop's samples per second and step-time percentiles beside the bare
     step's, each save's host copy and write, the restore's time;
@@ -124,7 +125,7 @@ from the root of a checkout.  Phases, each of which fails the run:
     table mode with Split-SGD and in row mode with row-wise Adagrad: each
     rank's first step held to the same two-rank step on the CPU (loss within
     1e-4, the dense shard (and row mode's Split-SGD shard) within 1e-2 of the
-    largest update, the sparse update bit for bit), then 5 steps with
+    largest update, the sparse update bit for bit), then 3 steps with
     finite losses, their launches (the Split-SGD kernel once a bucket), each
     collective's bytes a step, and the step's host-clock time with the
     staging copies and the gloo calls apart (not a training rate: one card
@@ -143,11 +144,11 @@ from the root of a checkout.  Phases, each of which fails the run:
     back bit for bit; one step of it finite; one launch a step of the bag,
     interaction and row-update kernels and four of Split-SGD's.  Prints the
     gathers' ms, the writes' s, each rank's restore s and step ms p50/p99.
-    17b: the quickstart's contract on (2, 4), eight processes: 80 steps
-    without a checkpoint, 60 with a checkpoint every 20 and a restart that
-    runs on to 80.  Gates: restored at 60; the losses and the state at 80
-    bit for bit the uninterrupted run's; the loss falls (the mean loss over
-    the 80 batches trained on, of the final state against the start state:
+    17b: the quickstart's contract on (2, 4) at half its depth, eight
+    processes: 40 steps without a checkpoint, 30 with a checkpoint every 15
+    and a restart that runs on to 40.  Gates: restored at 30; the losses and
+    the state at 40 bit for bit the uninterrupted run's; the loss falls (the
+    mean loss over the 40 batches trained on, of the final state against the start state:
     the quickstart's labels are coin flips, so the loss of a fresh batch
     has nothing to fall to); the eval step's scores finite and in (0, 1);
     the launches.  Prints each rank's step ms p50/p99 (a code path on one
@@ -219,11 +220,36 @@ from the root of a checkout.  Phases, each of which fails the run:
     ``python -m repro_torch.telemetry summarize``, every served bucket's
     line printed, row 9 once a step; ``python -m repro_torch.launch.train
     --arch dlrm-smoke --steps 5`` as a subprocess.  20c:
-    ``examples/train_dlrm_100m_torch.py`` at its defaults (its loss falls).
-    A failure raises ``SystemExit`` and prints no result.
+    ``examples/train_dlrm_100m_torch.py`` at its defaults (its loss falls);
+21. the recsys archetypes (FM, BST, SASRec, DIN) at their published widths:
+    rows 1 and 5-12 at E 11, 18, 50, then each archetype's train, serve and
+    retrieval steps;
+22. the paper's Fig. 16 run (``examples/split_sgd_convergence_torch.py``):
+    the first ``split`` step (row 1's bag forward, row 4 on each of its 11
+    leaves) held to the plain versions on the card, rows 1 and 4 timed at
+    the example's shapes, then the four modes for 200 steps each: the
+    final-20 means and both gaps printed, Split-SGD within 5e-3 of fp32;
+23. serving on a mesh.  23a: dlrm-small at full width in row and in table
+    mode on a (1, 2) mesh of two processes sharing the card over gloo
+    (``make_bucket_scorers(mesh=)``; rank 0 serves 256 requests through a
+    ``ContinuousBatchingServer``, rank 1 follows its batches): every served
+    batch bit for bit both ranks' ``make_score_step`` gathered, every logit
+    within 3e-3 of the plain forward of the gathered table, p50 / p99 a
+    bucket.  23b: ``examples/serve_recsys_torch.py``'s path at one rank.
+    23c: ``python -m repro_torch.launch.train --arch dlrm-small --ranks 2
+    --publish-every 5 --serve-smoke`` in process;
+24. dlrm-mlperf served at full size, row mode: the 48.07 GB bf16 table drawn
+    on the card after a check that it fits (``torch.cuda.mem_get_info``),
+    rows 1, 2 and 3 at its shapes (E 128, P 1, 26 tables; F 27; K 13, K 479,
+    N 1) against their plain versions, timed beside bounds and library
+    calls, then 1024 requests over buckets 8, 32, 128 (phase 3's gates, and
+    a control with every lookup on the next row of its table, which must
+    fall outside them).
+A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
+and the whole run's so far are printed as it ends.
 
 The line before the last two is ``{"kernels": [...]}`` (times in ms, CUDA
-events after warm-up, rows 1, 2 and 4 and their library calls as CUDA graphs,
+events after warm-up, rows 1-4 and their library calls as CUDA graphs,
 with ``ms_by_batch``; row 4 with the L2 flushed before each launch, its
 warm reading as ``ms_l2_warm``; ``bound_ms`` from
 this run's bytes and operations over the card's published peaks;
@@ -284,12 +310,13 @@ N_TRAIN = 20  # staged zipf batches of the training phase (and the run loop's po
 # to the groupless step; 16b's cases on two ranks and their timed steps a case
 HYBRID_STEPS, HYBRID_ROW_STEPS = 20, 3
 HYBRID_TWO_CASES = (("row", "split_sgd"), ("table", "split_sgd"), ("row", "adagrad_rowwise"))
-HYBRID_TWO_STEPS = 5
-# the run loop: the quickstart's 60 steps, a checkpoint every 20, a restart, on to 80
-RUN_STEPS, RUN_RESTART, RUN_CKPT_EVERY = 80, 60, 20
+HYBRID_TWO_STEPS = 3
+# the run loop at half the quickstart's depth (its 60 steps, a checkpoint every 20, a
+# restart, on to 80): 30 steps, a checkpoint every 15, a restart, on to 40
+RUN_STEPS, RUN_RESTART, RUN_CKPT_EVERY = 40, 30, 15
 # the run loop on a mesh (phase 17): 17a's loops of dlrm-small at full width on (1, 2)
-# (10 steps, a checkpoint at 5); 17b's quickstart contract on (2, 4) (60 steps, a
-# checkpoint every 20, a restart, on to 80); 17c's elastic run (10 steps on (2, 4),
+# (10 steps, a checkpoint at 5); 17b's quickstart contract on (2, 4) at the run loop's
+# depth (30 steps, a checkpoint every 15, a restart, on to 40); 17c's elastic run (10 steps on (2, 4),
 # 10 on (1, 4))
 MESH_LOOP_STEPS, MESH_LOOP_SAVE = 10, 5
 QUICKSTART = dict(name="quickstart", num_dense=64, bottom=(128, 32), top=(128, 64),
@@ -387,8 +414,12 @@ LM_LONG = 32768  # one prefill at the repo's prefill length, B = 1
 LM_TOL = 0.2
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, prefixed with the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f}]", *a, flush=True)
 
 
 def stop_children() -> list[str]:
@@ -564,14 +595,16 @@ def make_requests(cfg, n: int, rng) -> list[dict]:
     return [{"idx": idx[i].astype(np.int32), "dense_x": dense[i]} for i in range(n)]
 
 
-def plain_logits(cfg, snap, batch, offsets, bag: bool = True):
+def plain_logits(cfg, snap, batch, offsets, bag: bool = True, round_bags: bool = True):
     """The serving forward before its sigmoid, with every kernel replaced by
-    its plain version (``bag=False``: the bag outputs zeroed)."""
+    its plain version (``bag=False``: the bag outputs zeroed; ``round_bags``:
+    each bag rounded to bf16, row mode's wire, where table mode's is fp32)."""
     import torch
     from repro_torch.kernels import ref
     rows = snap["emb_w"].shape[0]
     emb = ref.embedding_bag(snap["emb_w"], batch["idx"] + offsets[None, :, None], rows)
-    emb = emb.to(torch.bfloat16).float()
+    if round_bags:
+        emb = emb.to(torch.bfloat16).float()
     if not bag:
         emb = torch.zeros_like(emb)
 
@@ -629,6 +662,8 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             e.update(ms=e["by_batch"][B],
                      plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows)),
                      library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum")),
+                     # the lookups gathered, then summed in fp32: the yardstick of a bag of one
+                     library_embedding_ms=graph_ms(lambda: F.embedding(gidx, W).float().sum(2)),
                      bound_ms=bms, bound_by=by)
             log(f"  embedding_bag: {unique} distinct rows of {gidx.numel()} lookups; "
                 f"{nbytes / 1e6:.1f} MB needed ({gidx.numel() * (E * W.element_size() + 4) / 1e6 + B * S * E * 4 / 1e6:.1f} MB "
@@ -682,9 +717,11 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                     flops = 2.0 * M * K * N
                     bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
                     lib = torch.relu if act == "relu" else (lambda y: y)
-                    t = dict(ms=time_ms(lambda: ops.fused_mlp_layer(h, w, b, act, out_dtype)),
+                    # the kernel and its library call as CUDA graphs: an eager loop of
+                    # launches this short can time the host's wrapper
+                    t = dict(ms=graph_ms(lambda: ops.fused_mlp_layer(h, w, b, act, out_dtype)),
                              plain_ms=time_ms(lambda: ref.fused_mlp_layer(h, w, b, act, out_dtype)),
-                             library_ms=time_ms(lambda: lib(torch.addmm(b.to(h.dtype), h, w))),
+                             library_ms=graph_ms(lambda: lib(torch.addmm(b.to(h.dtype), h, w))),
                              bound_ms=bms)
                     for key, v in t.items():
                         e[key] += v
@@ -775,10 +812,13 @@ def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
     return t
 
 
-def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
+def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False) -> dict:
     """The main path: the requests through the server, in bursts that each
     wait for the last to be answered (BURSTS), so that every bucket serves.
-    Returns the launch counts of this run."""
+    With ``control``, the plain forward with every lookup moved to the next
+    row of its table must fall beyond ``LOGIT_TOL`` of the served logits
+    somewhere, or the gate could not see a wrong row.  Returns the launch
+    counts of this run."""
     import torch
     from repro_torch.kernels import fused_mlp, ops
     from repro_torch.serve import ContinuousBatchingServer, make_bucket_scorers
@@ -810,13 +850,14 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
         failures.append(f"served scores: shape {scores.shape}, finite and in (0, 1): {ok}")
     if min(counts[k] for k in SERVING_KERNELS) == 0:
         failures.append(f"a kernel was not launched on the main path: {counts}")
-    if counts["fused_mlp"] != 8 * n_batches or counts["embedding_bag"] != n_batches \
-            or counts["dot_interaction"] != n_batches \
-            or any(v for k, v in counts.items() if k not in SERVING_KERNELS):
-        failures.append(f"launches {counts} do not match {n_batches} batches (fused_mlp 8 each)")
-    # dlrm-small's layers by route: every layer whose K and N a tensor map takes on wgmma
+    # the model's layers by route: every layer whose K and N a tensor map takes on wgmma
     layers = [(k, n) for sizes in (cfg.bottom_sizes, cfg.top_sizes)
               for k, n in zip(sizes, sizes[1:])]
+    if counts["fused_mlp"] != len(layers) * n_batches or counts["embedding_bag"] != n_batches \
+            or counts["dot_interaction"] != n_batches \
+            or any(v for k, v in counts.items() if k not in SERVING_KERNELS):
+        failures.append(f"launches {counts} do not match {n_batches} batches (fused_mlp "
+                        f"{len(layers)} each)")
     want_routes = {path: n_batches * sum(fused_mlp.route(BUCKETS[0], k, n) == path
                                          for k, n in layers)
                    for path in ("wgmma", "mma_sync")}
@@ -828,15 +869,26 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures) -> dict:
     # every served score's logit against the plain-version forward's logit
     # of the same rows (fp32 scores near 0.5 invert to within about 3e-7)
     snap = reg.current().state
-    want, no_bag = [], []
+    want, no_bag, moved = [], [], []
+    rows = torch.as_tensor(cfg.table_rows, dtype=torch.int32, device=dev)[None, :, None]
     for i in range(0, N_REQUESTS, BUCKETS[-1]):
         batch = pad(reqs[i:i + BUCKETS[-1]], BUCKETS[-1])
         want.append(plain_logits(cfg, snap, batch, offsets).cpu())
         no_bag.append(plain_logits(cfg, snap, batch, offsets, bag=False).cpu())
+        if control:
+            moved.append(plain_logits(cfg, snap, dict(batch, idx=(batch["idx"] + 1) % rows),
+                                      offsets).cpu())
     want, no_bag = torch.cat(want)[:N_REQUESTS].double(), torch.cat(no_bag)[:N_REQUESTS].double()
     got = torch.logit(torch.from_numpy(scores).double())
     close_or_fail(f"served logits vs plain forward ({N_REQUESTS})", got, want, 0.0, LOGIT_TOL,
                   failures)
+    if control:
+        off = float((torch.cat(moved)[:N_REQUESTS].double() - got).abs().max())
+        log(f"  control, every lookup on the next row of its table: the served logits up to "
+            f"{off:.3e} from its plain forward (must pass {LOGIT_TOL})")
+        if not off > LOGIT_TOL:
+            failures.append(f"served logits: the moved-rows control is within {LOGIT_TOL} "
+                            f"({off:.3e}): the gate cannot see a wrong row")
     log(f"  scores: min {scores.min():.6f}, max {scores.max():.6f}, mean {scores.mean():.6f}; "
         f"logits: min {float(got.min()):.6f}, max {float(got.max()):.6f}; zeroing the bags "
         f"would move the logits by up to {float((no_bag - want).abs().max()):.3e}")
@@ -936,6 +988,14 @@ def master(store):
     """The fp32 master rows of an embedding store."""
     from repro_torch.optim.split_sgd import combine_split
     return store["w"] if "w" in store else combine_split(store["hi"], store["lo"])
+
+
+def card_master(store, dev):
+    """:func:`master` of a store put together on the card ``dev`` (a CPU
+    store's slabs copied there first): the comparisons of dlrm-small's 512 M
+    values with a CPU step's take a fraction of a second there, where the
+    CPU's int64 combine and passes over 2 GB took some 20 s each."""
+    return master({k: v.to(dev) for k, v in store.items()})
 
 
 def dense_master(dense, ranks: int = 1, rank: int = 0):
@@ -1335,10 +1395,11 @@ def training_phase(cfg, state, batches, dev, failures) -> dict:
         dY.reshape(-1, cfg.emb_dim).cpu(), cfg.lr, seed=before.get("sr"))
     for k, v in plain.items():
         bitwise_or_fail(f"train step, {k} vs the plain update of the card's cotangent",
-                        state["emb"][k].cpu(), v, failures)
+                        state["emb"][k], v.to(dev), failures)
     parts = [("dense weights", dense_master(state["dense"]).cpu(), dense_master(ref_state["dense"]),
               dense_master(before["dense"]))]
-    got_w, want_w, old_w = master(state["emb"]).cpu(), master(ref_state["emb"]), master(before["emb"])
+    got_w, want_w = master(state["emb"]), card_master(ref_state["emb"], dev)
+    old_w = card_master(before["emb"], dev)
     if opt.state_keys:
         # The stateful kinds' stores are compared and not held.  Adagrad
         # scales each row's step by 1 / sqrt(acc): a row whose few cotangents
@@ -2045,17 +2106,17 @@ def held_first_step(cfg, mesh, cpu_mesh, state, batch, failures, tag: str) -> di
                             seed=before.get("sr"), group=mesh.group(emb_axes(cfg, mesh)[0]))
     for k, v in plain.items():
         bitwise_or_fail(f"{tag}: {k} vs the plain update of the card's cotangent",
-                        state["emb"][k].cpu(), v, failures)
+                        state["emb"][k], v.to(mesh.device), failures)
     n, r = mesh.size, mesh.rank
     g_cpu = cpu_mesh.group(cpu_mesh.axis_names)
     table = cfg.emb_mode == "table"
     for part, got, want, old, held in (
-            ("embedding shard", master(state["emb"]).cpu(), master(ref_state["emb"]),
-             master(before["emb"]), not opt.state_keys),
+            ("embedding shard", master(state["emb"]), card_master(ref_state["emb"], mesh.device),
+             card_master(before["emb"], mesh.device), not opt.state_keys),
             ("dense shard", dense_master(state["dense"], n, r).cpu(),
              dense_master(ref_state["dense"], n, r), dense_master(before["dense"], n, r), True)):
         # the largest update of the whole state, over every rank's shard
-        upd = float(comm.all_gather((want - old).abs().max()[None], g_cpu).max())
+        upd = float(comm.all_gather((want - old).abs().max()[None].cpu(), g_cpu).max())
         beyond = int(((got - want).abs() > TRAIN_TOL["update"] * upd).sum())
         if not held:
             # Compared, not held: the stateful kinds' stores (training_phase says why)
@@ -2959,8 +3020,8 @@ def microbatch_phase(dev, batches, failures, busy_m1: float) -> dict:
         close_or_fail(f"{tag}: loss vs plain step", loss.cpu(), ref_loss, TRAIN_TOL["loss"],
                       0.0, failures)
         for part, got, want, old in (
-                ("embedding store", master(state["emb"]).cpu(), master(ref_state["emb"]),
-                 master(before["emb"])),
+                ("embedding store", master(state["emb"]), card_master(ref_state["emb"], dev),
+                 card_master(before["emb"], dev)),
                 ("dense weights", dense_master(state["dense"]).cpu(),
                  dense_master(ref_state["dense"]), dense_master(before["dense"]))):
             upd = float((want - old).abs().max())
@@ -3045,11 +3106,11 @@ def ring_rank(rank: int, world: int, device: str = "cuda:0") -> dict:
                   failures)
     g_cpu = cpu_mesh.group(cpu_mesh.axis_names)
     for part, got, want, old in (
-            ("embedding shard", master(state["emb"]).cpu(), master(ref_state["emb"]),
-             master(before["emb"])),
+            ("embedding shard", master(state["emb"]), card_master(ref_state["emb"], dev),
+             card_master(before["emb"], dev)),
             ("dense shard", dense_master(state["dense"], 2, rank).cpu(),
              dense_master(ref_state["dense"], 2, rank), dense_master(before["dense"], 2, rank))):
-        upd = float(comm.all_gather((want - old).abs().max()[None], g_cpu).max())
+        upd = float(comm.all_gather((want - old).abs().max()[None].cpu(), g_cpu).max())
         close_or_fail(f"{tag}: {part} vs plain step (atol {TRAIN_TOL['update']:g} x the largest "
                       f"update, {upd:.3e})", got, want, 0.0, TRAIN_TOL["update"] * upd, failures)
     err, ref_err = state["dense"]["err"].cpu(), ref_state["dense"]["err"]
@@ -3238,8 +3299,8 @@ def cache_phase(dev, batches, held, failures) -> dict:
                 close_or_fail("19a first step: loss vs the CPU step", loss.cpu(), cpu_loss,
                               TRAIN_TOL["loss"], 0.0, failures)
                 for part, got, want, old, tol in (
-                        ("embedding store", master(hot["emb"]).cpu(), master(cpu_state["emb"]),
-                         master(start["emb"]).cpu(), TABLE_STORE_TOL["update"]),
+                        ("embedding store", master(hot["emb"]), card_master(cpu_state["emb"], dev),
+                         master(start["emb"]), TABLE_STORE_TOL["update"]),
                         ("dense", dense_master(hot["dense"]).cpu(),
                          dense_master(cpu_state["dense"]), dense_master(start["dense"]).cpu(),
                          TRAIN_TOL["update"])):
@@ -4262,6 +4323,424 @@ def recsys_phase(dev, failures) -> tuple[dict, dict]:
     return counts, numbers
 
 
+# phase 22: the paper's Fig. 16 run (examples/split_sgd_convergence_torch.py)
+FIG16_STEPS = 200
+FIG16_GAP = 5e-3        # the example's own check: split's final-20 mean within it of fp32's
+# phase 23: mesh serving, ranks sharing the card over gloo; the launcher's smoke at two ranks
+MESH_SERVE_MODES = ("row", "table")
+# 23a's rows are scaled in place to U(-0.01, 0.01), from the trainer's init scale
+# 1 / sqrt(mean rows) = 1e-3, at which the moved-rows control (which must fail the
+# serving gate's 3e-3) moved only 44 of 256 logits past it; at 0.01 it moved 229, the
+# served logits' gap unchanged (5.8e-4)
+MESH_SERVE_SCALE = 1e-2
+MESH_SERVE_ARGV = ("--arch", "dlrm-small", "--ranks", "2", "--steps", "10", "--batch", "512",
+                   "--publish-every", "5", "--serve-smoke")
+# phase 24: dlrm-mlperf served at full size.  Its drawn rows are scaled in place to
+# U(-0.05, 0.05), from the trainer's init scale 1 / sqrt(mean rows) = 3.7e-4, at which
+# the bags move a logit by less than the serving gate's 3e-3 and a wrong row could not
+# fail it
+MLPERF_SCALE = 0.05
+MLPERF_MARGIN = 4e9     # bytes left free beside the table for the batches and plain forwards
+
+
+class PhaseClock:
+    """The seconds of each phase of the run, logged as each ends."""
+
+    def __init__(self, t_run: float):
+        self.t_run = self.t_last = t_run
+        self.seconds: dict = {}
+
+    def mark(self, tag: str) -> None:
+        now = time.perf_counter()
+        self.seconds[tag] = round(now - self.t_last, 1)
+        log(f"phase {tag}: {now - self.t_last:.1f} s; the whole run so far "
+            f"{now - self.t_run:.1f} s")
+        self.t_last = now
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fig16_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 22: the paper's Fig. 16 claim on the card, the four modes of
+    ``examples/split_sgd_convergence_torch.py`` for 200 steps each from one
+    seeded start.  First the first ``split`` step, kernels (row 1's bag
+    forward, row 2's interaction, row 4 on each of the 11 leaves) against
+    the plain versions on
+    the card (the bag's autograd through ``ref.embedding_bag``, each leaf's
+    step ``ref.split_sgd``): the loss within 1e-5 relative, every fp32 master
+    within 1e-2 of the step's largest update; row 1 and row 4 timed at the
+    example's shapes.  Then the run: the four final-20 means and both gaps
+    printed, ``gap_split`` under 5e-3, every loss finite, rows 1 and 2 once
+    a step and row 4 once a leaf of a split step.  Returns the run's launch counts
+    and the two kernels' entries at these shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import split_sgd as S
+    from repro_torch.optim.data_parallel import tree_leaves, tree_map
+
+    ex = load_example("split_sgd_convergence_torch")
+    cfg = ex.config()
+    data = ex.batches(cfg, FIG16_STEPS, dev)
+    params = ex.init_params(cfg, dev)
+    n_leaves = len(tree_leaves(params))
+    k_state = ex.start("split", tree_map(torch.clone, params))
+    p_state = ex.start("split", tree_map(torch.clone, params))
+    ops.reset_launches()
+    _, k_loss = ex.step("split", cfg, k_state, data[0], ex.LR)
+    torch.cuda.synchronize()
+    first = ops.launches()
+    want = {**{k: 0 for k in first}, "embedding_bag": 1, "dot_interaction": 1,
+            "split_sgd": n_leaves}
+    if first != want:
+        failures.append(f"22 first split step: launches {first}, want {want}")
+
+    def plain_bag(W, g):
+        return ref.embedding_bag(W, g, W.shape[0])
+    p_loss, grads = ex.value_and_grad(cfg, p_state.params.hi, data[0], bag=plain_bag)
+    for h, lo, g in zip(tree_leaves(p_state.params.hi), tree_leaves(p_state.params.lo),
+                        tree_leaves(grads)):
+        ref.split_sgd(h.view(-1), lo.view(-1), g.float().reshape(-1).contiguous(), ex.LR)
+    got = tree_leaves(S.materialize_fp32(k_state))
+    want_m = tree_leaves(S.materialize_fp32(p_state))
+    start = tree_leaves(S.materialize_fp32(ex.start("split", params)))
+    largest = max(float((w - s).abs().max()) for w, s in zip(want_m, start))
+    err_loss = close_or_fail("22 first split step: loss, kernels vs plain versions on the card",
+                             k_loss.view(1), p_loss.view(1), 1e-5, 0.0, failures)
+    atol = TRAIN_TOL["update"] * largest
+    err = max(close_or_fail(f"22 first split step: leaf {i} {tuple(a.shape)} master vs plain "
+                            f"(atol 1e-2 x the largest update {largest:.3e})", a, b, 0.0, atol,
+                            failures)
+              for i, (a, b) in enumerate(zip(got, want_m)))
+
+    # row 1 and row 4 at the example's shapes: the batch's bag of the bf16 table, the
+    # largest leaf's step (the table, 8000 x 16)
+    W = k_state.params.hi["emb"]
+    g = data[0]["idx"] + torch.as_tensor(cfg.spec.row_offsets, dtype=torch.int32,
+                                         device=dev)[None, :, None]
+    B, Sl, P = g.shape
+    E, rows = W.shape[1], W.shape[0]
+    bag_err = close_or_fail(f"22 embedding_bag [{B},{Sl},{P}] x [{rows},{E}] bf16",
+                            ops.embedding_bag(W, g, rows), ref.embedding_bag(W, g, rows),
+                            *KERNEL_TOL["embedding_bag"], failures)
+    unique = int(torch.unique(g).numel())
+    bms, by = bound_ms(unique * E * 2 + g.numel() * 4 + B * Sl * E * 4, g.numel() * E, FP32_FLOPS)
+    flat = g.view(B * Sl, P)
+    bag = dict(max_abs_err=bag_err, ms=graph_ms(lambda: ops.embedding_bag(W, g, rows)),
+               plain_ms=time_ms(lambda: ref.embedding_bag(W, g, rows)),
+               library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum")),
+               bound_ms=bms, bound_by=by, shape=[B, Sl, P, E])
+    hi = k_state.params.hi["emb"].reshape(-1).clone()
+    lo = k_state.params.lo["emb"].reshape(-1).clone()
+    n = hi.numel()
+    gr = torch.randn(n, device=dev) * 1e-2
+    want_h, want_l = ref.split_sgd(hi.clone(), lo.clone(), gr, ex.LR)
+    ops.split_sgd(hi, lo, gr, ex.LR)
+    sgd_err = max(bitwise_or_fail(f"22 split_sgd [{n}] hi", hi, want_h, failures),
+                  bitwise_or_fail(f"22 split_sgd [{n}] lo", lo, want_l, failures))
+    bms4, by4 = bound_ms(n * 12, n * 2, FP32_FLOPS)
+
+    def kern():
+        ops.split_sgd(hi, lo, gr, ex.LR)
+    step4 = dict(max_abs_err=sgd_err, first_step_err=err, ms=flushed_ms(kern),
+                 ms_l2_warm=graph_ms(kern),
+                 plain_ms=time_ms(lambda: ref.split_sgd(hi, lo, gr, ex.LR)), bound_ms=bms4,
+                 bound_by=by4, library_ms=None, shape=[n])
+    log(f"22 embedding_bag [{B},{Sl},{P}] E {E}: kernel {bag['ms']:.4f} ms, plain "
+        f"{bag['plain_ms']:.4f} ms, F.embedding_bag {bag['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); split_sgd [{n}]: kernel {step4['ms']:.4f} ms (L2 flushed), "
+        f"{step4['ms_l2_warm']:.4f} ms warm, plain {step4['plain_ms']:.4f} ms, bound "
+        f"{bms4:.4f} ms ({by4})")
+
+    ops.reset_launches()
+    means, seconds = {}, {}
+    for mode in ex.MODES:
+        t0 = time.perf_counter()
+        losses, _ = ex.train(mode, FIG16_STEPS, device=dev, params=params, data=data)
+        seconds[mode] = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            failures.append(f"22 {mode}: a loss is not finite")
+        means[mode] = float(np.mean(losses[-20:]))
+        log(f"22 {mode:7s}: final-20 mean loss {means[mode]:.5f} (first {losses[0]:.5f}); "
+            f"{FIG16_STEPS} steps in {seconds[mode]:.2f} s")
+    counts = ops.launches()
+    gap_split = abs(means["split"] - means["fp32"])
+    gap_bf16 = abs(means["bf16"] - means["fp32"])
+    log(f"22 split-vs-fp32 gap {gap_split:.5f} | bf16-vs-fp32 gap {gap_bf16:.5f} | split8-vs-fp32 "
+        f"gap {abs(means['split8'] - means['fp32']):.5f}")
+    if not gap_split < FIG16_GAP:
+        failures.append(f"22: Split-SGD's final-20 mean {means['split']:.5f} is {gap_split:.5f} "
+                        f"from fp32's {means['fp32']:.5f}, not under {FIG16_GAP} (paper Fig. 16)")
+    steps = len(ex.MODES) * FIG16_STEPS
+    want = {**{k: 0 for k in counts}, "embedding_bag": steps, "dot_interaction": steps,
+            "split_sgd": 2 * FIG16_STEPS * n_leaves}
+    if counts != want:
+        failures.append(f"22 Fig. 16 run: launches {counts}, want {want}")
+    log("22 numbers: " + json.dumps({"means": means, "gap_split": gap_split, "gap_bf16": gap_bf16,
+                                     "seconds": seconds, "first_loss_err": err_loss}))
+    return counts, {"embedding_bag": bag, "split_sgd": step4}
+
+
+def table_global_offsets(layout) -> np.ndarray:
+    """Each original slot's first row in the global row space of a table-mode
+    layout (its shard's window, then its table's offset in the shard)."""
+    pos = np.asarray(layout.slot_position)
+    return (pos // layout.slots_per_shard) * layout.rows_per_shard \
+        + np.asarray(layout.slot_local_offsets)[pos]
+
+
+def mesh_serve_rank(rank: int, world: int, device: str = "cuda:0",
+                    scale: float = MESH_SERVE_SCALE) -> list[dict]:
+    """Phase 23a in one of two processes sharing the card (gloo): dlrm-small
+    at full width (``mlp_impl="pallas"``) on a (1, 2) mesh, in row and in
+    table mode, a seeded state with its rows scaled to U(-scale, scale), its
+    snapshot (this rank's shard) behind ``make_bucket_scorers(mesh=)``.
+    Rank 0 serves 256 requests through a ``ContinuousBatchingServer``
+    (buckets 8, 32, 128; bursts that reach each), rank 1 follows its
+    batches.  Then every served batch again through both ranks'
+    ``make_score_step``, gathered: bit for bit the served scores; and on
+    rank 0 the plain forward of the gathered table: each served logit
+    within ``LOGIT_TOL``, and the plain forward with every lookup moved to
+    the next row of its table beyond it (the control).  Returns per mode
+    the launch counts of the serving, the batches, the percentiles, the
+    gaps and the failures."""
+    import torch
+    from repro_torch.configs.dlrm_paper import dlrm_small
+    from repro_torch.core import dlrm, hybrid, pipeline
+    from repro_torch.dist import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import (ContinuousBatchingServer, follow, make_bucket_scorers, release,
+                                   snapshot_state)
+
+    dev = mesh_rank_setup(device)
+    mesh = make_mesh((1, 2), ("data", "model"), dev)
+    g_all = mesh.group(("data", "model"))
+    out = []
+    for mode in MESH_SERVE_MODES:
+        failures: list[str] = []
+        tag = f"23a rank {rank} {mode}"
+        cfg = dataclasses.replace(dlrm_small(), emb_mode=mode, mlp_impl="pallas")
+        state = dlrm.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh)
+        snap = snapshot_state(cfg, state)     # the state's own slabs: the scaling is both's
+        snap["emb_w"].mul_(scale * float(np.sqrt(np.mean(cfg.table_rows))))
+        fns, pad = make_bucket_scorers(cfg, BUCKETS, lambda: snap, mesh=mesh, device=dev)
+        served = []
+
+        def recorded(b, fn):
+            def run(batch):
+                s = fn(batch)
+                served.append((b, {k: v.cpu() for k, v in batch.items()}, s))
+                return s
+            return run
+        rec = {b: recorded(b, f) for b, f in fns.items()}
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pct = {}
+        if mesh.rank == 0:
+            reqs = make_requests(cfg, sum(INGEST_BURSTS), np.random.default_rng(SEED + 23))
+            try:
+                with ContinuousBatchingServer(rec, pad, max_wait_ms=2.0) as srv:
+                    start = 0
+                    for n in INGEST_BURSTS:
+                        handles = [srv.submit(r) for r in reqs[start:start + n]]
+                        for h in handles:
+                            h.result(timeout=300.0)
+                        start += n
+                    pct = srv.percentiles()
+            finally:
+                release(mesh)
+        else:
+            follow(rec, mesh)
+        wall = time.perf_counter() - t0
+        counts = ops.launches()
+        n_b = len(served)
+        want = {**{k: 0 for k in counts}, "embedding_bag": n_b, "dot_interaction": n_b,
+                "fused_mlp": 8 * n_b}
+        if counts != want:
+            failures.append(f"{tag}: launches {counts}, want {want} for {n_b} batches")
+        score = hybrid.make_score_step(cfg, mesh)
+        same = 0
+        for b, batch, s in served:
+            local = hybrid.local_batch(cfg, mesh, {k: v.to(dev) for k, v in batch.items()})
+            want_s = comm.all_gather(score(state, local), g_all).cpu().numpy()
+            same += int(want_s.tobytes() == np.asarray(s).tobytes())
+        if same != n_b:
+            failures.append(f"{tag}: {n_b - same} of {n_b} served batches differ from the ranks' "
+                            "make_score_step")
+        layout = hybrid.make_layout(cfg, mesh)
+        emb_g = mesh.group(pipeline.emb_axes(cfg, mesh)[0])
+        table = comm.all_gather(snap["emb_w"], emb_g)
+        gap = off = 0.0
+        n_off = n_req = 0
+        if mesh.rank == 0:
+            offs = layout.row_offsets if mode == "row" else table_global_offsets(layout)
+            offs = torch.as_tensor(offs, dtype=torch.int32, device=dev)
+            rows = torch.as_tensor(cfg.table_rows, dtype=torch.int32, device=dev)[None, :, None]
+            glob = {"emb_w": table, "dense_hi": snap["dense_hi"]}
+
+            def plain(bd, moved):
+                idx = bd["idx"]       # table mode's in padded-slot order: back to the slots'
+                if mode == "table":
+                    idx = idx[:, torch.as_tensor(layout.slot_position, device=dev)]
+                if moved:
+                    idx = (idx + 1) % rows
+                return plain_logits(cfg, glob, dict(bd, idx=idx), offs,
+                                    round_bags=mode == "row").double().cpu()
+            for b, batch, s in served:
+                bd = {k: v.to(dev) for k, v in batch.items()}
+                got_l = torch.logit(torch.from_numpy(np.asarray(s)).double())
+                gap = max(gap, float((got_l - plain(bd, False)).abs().max()))
+                d = (got_l - plain(bd, True)).abs()
+                off, n_off, n_req = max(off, float(d.max())), n_off + int((d > LOGIT_TOL).sum()), \
+                    n_req + d.numel()
+            if gap > LOGIT_TOL:
+                failures.append(f"{tag}: a served logit is {gap:.3e} from the plain forward's "
+                                f"(limit {LOGIT_TOL})")
+            if not off > LOGIT_TOL:
+                failures.append(f"{tag}: the moved-rows control is within {LOGIT_TOL} of the "
+                                f"served logits ({off:.3e}): the gate cannot see a wrong row")
+        out.append({"mode": mode, "counts": counts, "batches": n_b, "bitwise": same,
+                    "wall_s": wall, "percentiles": pct, "gap": gap, "control": off,
+                    "control_outside": [n_off, n_req], "failures": failures,
+                    "rows": int(snap["emb_w"].shape[0])})
+        del state, snap, fns, rec, served, table, score
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serving_phase(dev, failures) -> dict:
+    """Phase 23: 23a serving on a (1, 2) mesh of two processes sharing the
+    card (:func:`mesh_serve_rank`, row and table mode); 23b
+    ``examples/serve_recsys_torch.py``'s path at one rank (DIN, 400 requests
+    through a ``BatchingServer``, a top-16 of 4,096 candidates of 16 distinct
+    ids); 23c the launcher's ``--serve-smoke`` (and ``--publish-every 5``) at
+    two ranks: every score finite and in (0, 1), the snapshot 0 steps behind.
+    Returns the launch counts of 23a's ranks and 23b."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.local import run_ranks
+
+    counts: dict = {}
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_serve_rank, 2, (), backend="gloo", timeout_s=900)
+    log(f"23a: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
+    for i, mode in enumerate(MESH_SERVE_MODES):
+        for r, res in enumerate(rk[i] for rk in ranks):
+            failures.extend(res["failures"])
+            for k, v in res["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            log(f"23a {mode}, rank {r} ({res['rows']} rows): {res['batches']} batches in "
+                f"{res['wall_s']:.2f} s, {res['bitwise']} of them bit for bit make_score_step; "
+                f"launches {res['counts']}"
+                + (f"; largest logit gap to the plain forward {res['gap']:.3e}, the moved-rows "
+                   f"control up to {res['control']:.3e} from the served logits, "
+                   f"{res['control_outside'][0]} of {res['control_outside'][1]} beyond "
+                   f"{LOGIT_TOL}" if r == 0 else ""))
+            for b, p in sorted(res["percentiles"].items()):
+                log(f"23a {mode} bucket {b}: n {p['n']}, p50 {p['p50_ms']:.3f} ms, p99 "
+                    f"{p['p99_ms']:.3f} ms (host clock; two ranks on one card, payloads through "
+                    "host memory)")
+    if failures:
+        return counts
+
+    ex = load_example("serve_recsys_torch")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = ex.serve(0, 1, "cuda")
+    torch.cuda.synchronize()
+    got = ops.launches()
+    log(f"23b: serve_recsys_torch at one rank in {time.perf_counter() - t0:.1f} s: "
+        f"{out['scored']} requests in {out['batches']} batches, {out['percentiles']}; top-"
+        f"{ex.TOPK} ids {out['ids'].tolist()}; launches {got}")
+    if out["scored"] != ex.REQUESTS or len(set(out["ids"].tolist())) != ex.TOPK:
+        failures.append(f"23b: {out['scored']} requests scored, {len(set(out['ids'].tolist()))} "
+                        f"distinct of the top {ex.TOPK}")
+    if got["embedding_bag"] != out["batches"] + 1:  # a bag a batch, one for the query
+        failures.append(f"23b: launches {got} for {out['batches']} batches and one query")
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    res = launch.main(list(MESH_SERVE_ARGV))
+    serve = res["serve"]
+    sc = serve["scores"]
+    ok = bool(np.isfinite(sc).all() and ((sc > 0) & (sc < 1)).all())
+    log(f"23c: {' '.join(MESH_SERVE_ARGV)}: {time.perf_counter() - t0:.1f} s; losses "
+        f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}; {sc.shape[0]} scores finite and in "
+        f"(0, 1): {ok}; freshness {serve['freshness']}; snapshot {res['snapshot']}")
+    if not ok or sc.shape != (512,) or serve["freshness"]["steps_behind"] != 0 \
+            or res["snapshot"]["publishes"] != 3:
+        failures.append(f"23c: scores {sc.shape} ok {ok}, freshness {serve['freshness']}, "
+                        f"snapshot {res['snapshot']}")
+    return counts
+
+
+def mlperf_phase(dev, rng, failures) -> tuple[list, dict]:
+    """Phase 24: dlrm-mlperf served at full size on the card, row mode: its
+    snapshot state ``{emb_w: bf16 [187,767,480, 128], dense_hi}`` (48.07
+    GB) drawn on the card (``weights.init_snapshot``, which holds only a
+    chunk of the table in fp32: a Split-SGD store, 96.1 GB, and an fp32
+    table do not fit the 80 GB card), its rows scaled to ``MLPERF_SCALE``,
+    after ``torch.cuda.empty_cache()`` and a check of
+    ``torch.cuda.mem_get_info()`` that fails the run if it does not fit.
+    Rows 1, 2 and 3 at its shapes (:func:`kernel_phase`: E 128, P 1, 26
+    tables, the interaction's 27 features, fused_mlp's K 13, K 479 and N 1
+    layers) against their plain versions, timed beside their bounds and
+    library calls; then 1024 requests over buckets 8, 32, 128
+    (:func:`serving_phase`): every score finite and in (0, 1), its logit
+    within ``LOGIT_TOL`` of the plain forward's, and a control (each lookup
+    moved to the next row of its table) beyond it.  Returns the kernel
+    entries and the serving's launch counts."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_mlperf
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.serve import SnapshotRegistry
+
+    cfg = dataclasses.replace(dlrm_mlperf(batch=8192), mlp_impl="pallas")
+    layout = se.make_layout(cfg.spec, 1)
+    need = layout.total_rows * cfg.emb_dim * 2
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"24 dlrm-mlperf: {layout.total_rows} rows x {cfg.emb_dim} bf16 = {need / 1e9:.2f} GB "
+        f"table; the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by this process)")
+    if free < need + MLPERF_MARGIN:
+        failures.append(f"24: the {need / 1e9:.2f} GB table and {MLPERF_MARGIN / 1e9:.0f} GB "
+                        f"beside it do not fit the {free / 1e9:.2f} GB free")
+        return [], {}
+    t0 = time.perf_counter()
+    reg = SnapshotRegistry()
+    state = weights.init_snapshot(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    state["emb_w"].mul_(MLPERF_SCALE * float(np.sqrt(np.mean(cfg.table_rows))))
+    snap = reg.publish(state)
+    del state
+    torch.cuda.synchronize()
+    log(f"24 snapshot: emb_w {tuple(snap.state['emb_w'].shape)} {snap.state['emb_w'].dtype}, "
+        f"{snap.emb_bytes / 1e9:.3f} GB (fp32 would be {snap.fp32_emb_bytes / 1e9:.3f} GB), "
+        f"total {snap.total_bytes / 1e9:.3f} GB, drawn in {time.perf_counter() - t0:.1f} s; the "
+        f"card's memory in use {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    offsets = torch.as_tensor(layout.row_offsets, dtype=torch.int32, device=dev)
+    entries = kernel_phase(cfg, snap.state, offsets, dev, rng, failures)
+    if failures:
+        return entries, {}
+    reqs = make_requests(cfg, N_REQUESTS, rng)
+    counts = serving_phase(cfg, reg, offsets, dev, reqs, failures, control=True)
+    del snap, reg
+    torch.cuda.empty_cache()
+    return entries, counts
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -4285,6 +4764,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_run = time.perf_counter()
+    clock = PhaseClock(t_run)
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -4293,11 +4773,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(build.build_log)} sources")
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(build.build_log)} libraries")
     for stem, rec in build.build_log.items():
         info = [ln.strip() for ln in rec["ptxas"].splitlines()
                 if "registers" in ln or "spill" in ln or "error" in ln]
         log(f"  {stem}: nvcc {rec['seconds']:.1f} s; " + " | ".join(info))
+    clock.mark("1, build")
     for stem in ("flash_attention", "fused_mlp"):  # the warp-specialised TMA + wgmma kernels
         report = build.ptxas_report(stem)
         if not report:
@@ -4336,6 +4817,7 @@ def main() -> int:
     if failures:
         raise SystemExit("serving phase failed:\n" + "\n".join(failures))
     breakdown_phase(cfg, reg, reqs, dev)
+    clock.mark("2-4, kernels, serving, breakdown")
 
     # training: dlrm-small at full size, split_sgd, then sgd
     t_cfg = dlrm_small()
@@ -4361,6 +4843,7 @@ def main() -> int:
         if k["name"] in variants:
             k["max_abs_err"] = max(k["max_abs_err"], variants[k["name"]]["max_abs_err"])
             k["weighted"] = variants[k["name"]]["weighted"]
+    clock.mark("5, 8, 9, row kernels")
     torch.cuda.empty_cache()
     train_counts, bare_rate = training_phase(t_cfg, state, batches, dev, failures)
     if failures:
@@ -4379,6 +4862,7 @@ def main() -> int:
         if failures:
             raise SystemExit(f"{name} phase failed:\n" + "\n".join(failures))
         counts[ROW_KERNEL[name]] = c[ROW_KERNEL[name]]
+    clock.mark("6, 7, 11, training, sgd and the short runs")
 
     # the production default of the repo's 100M example: row-wise Adagrad
     r_cfg = dataclasses.replace(t_cfg, sparse_optimizer="adagrad_rowwise", lr=ADAGRAD_LR)
@@ -4408,6 +4892,7 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     counts[ROW_KERNEL["momentum_bf16"]] = m_counts[ROW_KERNEL["momentum_bf16"]]
+    clock.mark("10, 12, adagrad_rowwise and weighted momentum_bf16 training")
 
     # the run loop: dlrm-small trains, checkpoints, restarts and scores through TrainLoop
     loop_counts = run_loop_phase(t_cfg, dev, bare_rate, failures)
@@ -4416,6 +4901,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
         counts[name] += loop_counts[name]
+    clock.mark("13, the run loop")
 
     # LM serving: the flash-attention kernel, then internlm2-1.8b's prefill and decode
     attn_entry = attention_kernel_phase(dev, failures)
@@ -4427,6 +4913,7 @@ def main() -> int:
         raise SystemExit("LM serving phase failed:\n" + "\n".join(failures))
     torch.cuda.empty_cache()
     counts["flash_attention"] = lm_counts["flash_attention"]
+    clock.mark("14, 15, attention and LM serving")
 
     # the hybrid step: table mode on one rank over NCCL, then two ranks on the one card
     h_batches = stage_batches(t_cfg, N_TRAIN, dev)
@@ -4435,12 +4922,14 @@ def main() -> int:
         raise SystemExit("hybrid phase (16a, one rank) failed:\n" + "\n".join(failures))
     del h_batches
     torch.cuda.empty_cache()
+    clock.mark("16a, the hybrid step on one rank")
     h_two = hybrid_two_rank_phase(failures)
     if failures:
         raise SystemExit("hybrid phase (16b, two ranks) failed:\n" + "\n".join(failures))
     for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd",
                  "embedding_update_adagrad_rowwise"):
         counts[name] += h_one[name] + h_two.get(name, 0)
+    clock.mark("16b, the hybrid step on two ranks")
 
     # the run loop on a mesh: dlrm-small on (1, 2), then the quickstart's contract on
     # (2, 4) and the elastic restart from (2, 4) to (1, 4), ranks sharing the card
@@ -4448,6 +4937,7 @@ def main() -> int:
     if failures:
         raise SystemExit("run loop on a mesh (17a) failed:\n" + "\n".join(failures))
     torch.cuda.empty_cache()
+    clock.mark("17a, the run loop on (1, 2)")
     q_counts = quickstart_mesh_phase(failures)
     if failures:
         raise SystemExit("quickstart and elastic restart on a mesh (17b, 17c) failed:\n"
@@ -4455,10 +4945,10 @@ def main() -> int:
     for name in ("embedding_bag", "dot_interaction", "embedding_update", "split_sgd"):
         counts[name] += m_counts.get(name, 0) + q_counts.get(name, 0)
     torch.cuda.empty_cache()
+    clock.mark("17b, 17c, the quickstart and the elastic restart on meshes")
 
     # the rest of the step's exchange surface: the host pre-sort, the bf16 and bf16_sr
     # wires, microbatches and the ring index exchange
-    t18 = time.perf_counter()
     x_batches = stage_batches(t_cfg, N_TRAIN, dev)
 
     def gate(tag: str, got: dict) -> None:
@@ -4475,32 +4965,26 @@ def main() -> int:
     gate("18c, microbatches", microbatch_phase(dev, x_batches, failures, busy_m1))
     del x_batches
     gate("18d, the ring on two ranks", ring_two_rank_phase(failures))
-    log(f"phase 18: {time.perf_counter() - t18:.1f} s; the whole run so far "
-        f"{time.perf_counter() - t_run:.1f} s")
+    clock.mark("18, the exchange surface")
 
     # the hot-row cache, the step metrics and their drain, the stage profile
-    t19 = time.perf_counter()
     c_batches = stage_batches(t_cfg, N_TRAIN + 1, dev)
     c_counts = cache_phase(dev, c_batches[:N_TRAIN], c_batches[N_TRAIN], failures)
     del c_batches
     gate("19, the hot-row cache and the step metrics", c_counts)
-    log(f"phase 19: {time.perf_counter() - t19:.1f} s; the whole run so far "
-        f"{time.perf_counter() - t_run:.1f} s")
+    clock.mark("19, the hot-row cache and the step metrics")
 
     # packed-shard ingestion, train-to-serve publishing and the launcher
-    t20 = time.perf_counter()
     gate("20a, ingestion and publishing", ingest_phase(dev, failures))
     got = launcher_phase(dev, failures)
     if failures:
         raise SystemExit("phase 20b/20c, the launcher failed:\n" + "\n".join(failures))
     for name, v in got.items():
         counts[name] = counts.get(name, 0) + v
-    log(f"phase 20: {time.perf_counter() - t20:.1f} s; the whole run so far "
-        f"{time.perf_counter() - t_run:.1f} s")
+    clock.mark("20, ingestion, publishing and the launcher")
 
     # the recsys archetypes at their published widths: rows 1 and 5-12 at their
     # widths, then each archetype's train, serve and retrieval steps
-    t21 = time.perf_counter()
     widths = narrow_kernel_phase(dev, rng, failures)
     if failures:
         raise SystemExit("phase 21a, rows 1 and 5-12 at the archetypes' widths failed:\n"
@@ -4511,8 +4995,37 @@ def main() -> int:
     for name, v in got.items():
         counts[name] = counts.get(name, 0) + v
     log("phase 21 numbers: " + json.dumps(recsys))
-    log(f"phase 21: {time.perf_counter() - t21:.1f} s; the whole run so far "
-        f"{time.perf_counter() - t_run:.1f} s")
+    clock.mark("21, the recsys archetypes")
+
+    # the paper's Fig. 16 run: rows 1 and 4 on the example's training path
+    got, fig16 = fig16_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 22, the Fig. 16 run failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        counts[name] = counts.get(name, 0) + v
+    torch.cuda.empty_cache()
+    clock.mark("22, the Fig. 16 run")
+
+    # serving on a mesh (two ranks on the card), the serve_recsys twin, the launcher's
+    # smoke at two ranks
+    got = mesh_serving_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 23, serving on a mesh failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        counts[name] = counts.get(name, 0) + v
+    torch.cuda.empty_cache()
+    clock.mark("23, serving on a mesh")
+
+    # dlrm-mlperf served at full size: rows 1, 2 and 3 at its shapes
+    mlperf, got = mlperf_phase(dev, rng, failures)
+    if failures:
+        raise SystemExit("phase 24, dlrm-mlperf served at full size failed:\n"
+                         + "\n".join(failures))
+    for name, v in got.items():
+        if name != "fused_mlp_routes":
+            counts[name] = counts.get(name, 0) + v
+    clock.mark("24, dlrm-mlperf served at full size")
+    log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                 "src/repro/kernels/embedding_bag.py:31"),
@@ -4520,23 +5033,23 @@ def main() -> int:
                                   "src/repro/kernels/interaction.py:22"),
               "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
                             "src/repro/kernels/fused_mlp.py:22"),
-              "embedding_update": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update": ("src/repro_torch/csrc/embedding_update.cuh",
                                    "src/repro/kernels/embedding_update.py:82"),
-              "embedding_update_fp32": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_fp32": ("src/repro_torch/csrc/embedding_update.cuh",
                                         "src/repro/kernels/embedding_update.py:114"),
               "split_sgd": ("src/repro_torch/csrc/split_sgd.cu",
                             "src/repro/kernels/split_sgd.py:18"),
-              "embedding_update_momentum": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_momentum": ("src/repro_torch/csrc/embedding_update.cuh",
                                             "src/repro/kernels/embedding_update.py:151"),
-              "embedding_update_adagrad": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_adagrad": ("src/repro_torch/csrc/embedding_update.cuh",
                                            "src/repro/kernels/embedding_update.py:169"),
-              "embedding_update_adagrad_rowwise": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_adagrad_rowwise": ("src/repro_torch/csrc/embedding_update.cuh",
                                                    "src/repro/kernels/embedding_update.py:190"),
-              "embedding_update_freq": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_freq": ("src/repro_torch/csrc/embedding_update.cuh",
                                         "src/repro/kernels/embedding_update.py:219"),
-              "embedding_update_momentum_bf16": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_momentum_bf16": ("src/repro_torch/csrc/embedding_update.cuh",
                                                  "src/repro/kernels/embedding_update.py:243"),
-              "embedding_update_adagrad_bf16": ("src/repro_torch/csrc/embedding_update.cu",
+              "embedding_update_adagrad_bf16": ("src/repro_torch/csrc/embedding_update.cuh",
                                                 "src/repro/kernels/embedding_update.py:268"),
               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:27")}
@@ -4574,6 +5087,19 @@ def main() -> int:
             line[-1]["ms_l2_warm"] = k["ms_l2_warm"]
         if k["name"] in widths:  # rows 1 and 5-12 at the recsys archetypes' widths
             line[-1]["widths"] = widths[k["name"]]
+        if k["name"] in fig16:  # rows 1 and 4 at the Fig. 16 example's shapes
+            line[-1]["fig16"] = fig16[k["name"]]
+            line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], fig16[k["name"]]["max_abs_err"])
+        for m in mlperf:  # rows 1, 2 and 3 at dlrm-mlperf's shapes
+            if m["name"] == k["name"]:
+                line[-1]["mlperf"] = {key: m.get(key) for key in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "by_batch", "uniform", "layers")
+                    if key in m}
+                if "library_embedding_ms" in m:  # row 1 at P 1: F.embedding then a sum
+                    line[-1]["mlperf"].update(library_ms=m["library_embedding_ms"],
+                                              library_bag_ms=m["library_ms"])
+                line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], m["max_abs_err"])
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

@@ -1,9 +1,9 @@
 """Fused sparse embedding backward + row update on Hopper
-(``csrc/embedding_update.cu``).
+(``csrc/embedding_update.cuh``, its launchers in ``csrc/embedding_update*.cu``).
 
 Replaces the eight TPU kernels of ``repro/kernels/embedding_update.py``
-(``_kernel_split`` :82 to ``_kernel_adagrad_bf16`` :268), in one source:
-one run walk, and each kernel's optimizer step an epilogue on it:
+(``_kernel_split`` :82 to ``_kernel_adagrad_bf16`` :268), in one kernel
+source: one run walk, and each kernel's optimizer step an epilogue on it:
 
 - ``_kernel_split`` :82 (via ``fused_update_split_pallas``; the paper's Alg. 3
   + C5) and ``_kernel_fp32`` :114 (via ``fused_update_fp32_pallas``): ``w =
@@ -155,6 +155,16 @@ _ARGS_FP32 = [_P] * 5 + [_I] + [_P] * 2 + [ctypes.c_int64, _I, ctypes.c_float, _
 _ARGS_STATE = [_P] * 5 + [_I] + [_P] * 3 + [ctypes.c_int64, _I, ctypes.c_float, ctypes.c_float,
                                             _P]
 _ARGS_STATE_SR = [_P] * 5 + [_I] + [_P] * 4 + _ARGS_STATE[9:]
+# the source (``csrc/<stem>.cu``) of each launcher: two row kinds a source, so
+# that the four compile at once
+SOURCE = {"embedding_update_split": "embedding_update",
+          "embedding_update_fp32": "embedding_update",
+          "embedding_update_momentum": "embedding_update_state",
+          "embedding_update_adagrad": "embedding_update_state",
+          "embedding_update_adagrad_rowwise": "embedding_update_rowwise",
+          "embedding_update_freq": "embedding_update_rowwise",
+          "embedding_update_momentum_bf16": "embedding_update_bf16",
+          "embedding_update_adagrad_bf16": "embedding_update_bf16"}
 
 
 def long_run() -> int:
@@ -229,7 +239,7 @@ def _launch(wrapper, cname: str, argtypes: list, stream: tuple, dY: torch.Tensor
     L = stream[0].shape[0]
     device = stream[0].device
     runs = torch.empty(list_words(L), dtype=torch.int64, device=device)
-    fn = build.function("embedding_update", cname, argtypes)
+    fn = build.function(SOURCE[cname], cname, argtypes)
     with torch.cuda.device(device):
         err = fn(*(t.data_ptr() for t in stream), dY.data_ptr(), int(dY.dtype == torch.float32),
                  *(t.data_ptr() for t in store), runs.data_ptr(), L, E,

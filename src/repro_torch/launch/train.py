@@ -37,8 +37,9 @@ refused).
 into the loader's worker thread (``data/pipeline.py``); ``--optimizer``
 selects the sparse row optimizer (``optim/row.py``).  ``--publish-every``
 and ``--serve-smoke`` publish serving snapshots from the loop and serve
-them (one rank).  Refused, each naming its ROADMAP item: the LM archs
-(item 8) and publishing or serving at more than one rank (item 7).
+them: at N ranks each rank publishes its own shard, rank 0 serves and the
+others score their shards of its batches.  Refused, naming its ROADMAP
+item: the LM archs (item 8).
 """
 
 from __future__ import annotations
@@ -96,26 +97,35 @@ def packed_stream(args, cfg, layout, host_presort: bool, verbose: bool = True):
     return HostPipeline(reader, layout=layout, presort=host_presort)
 
 
-def serve_smoke(cfg, publisher, batch: dict, buckets: tuple, device) -> dict:
+def serve_smoke(cfg, publisher, batch: dict, buckets: tuple, device, mesh=None) -> dict:
     """Post-train serving smoke (``--serve-smoke``): continuous batching over
     the published snapshot with a burst of single-sample requests sliced
     from one synthetic batch; per-bucket latency and freshness printed.  A
     weighted model's requests carry weights of one (the synthetic stream
-    has none)."""
+    has none).  On a mesh of N ranks every rank scores its shard of each
+    batch: rank 0 serves, the others follow its batches
+    (``serve.snapshot.follow``) and return ``{"followed": batches}``."""
     from repro_torch.serve import ContinuousBatchingServer, make_bucket_scorers
+    from repro_torch.serve.snapshot import follow, release
     registry = publisher.registry
     score_fns, pad_batch = make_bucket_scorers(cfg, buckets, lambda: registry.current().state,
-                                               device=device)
+                                               mesh=mesh, device=device)
+    if mesh is not None and mesh.rank != 0:
+        return {"followed": follow(score_fns, mesh)}
     batch = dict(batch)
     if cfg.weighted and "weights" not in batch:
         batch["weights"] = np.ones(batch["idx"].shape, np.float32)
     n = int(np.asarray(batch["idx"]).shape[0])
     payloads = [{k: np.asarray(v)[i] for k, v in batch.items()} for i in range(n)]
-    with ContinuousBatchingServer(score_fns, pad_batch, max_wait_ms=2.0) as srv:
-        handles = [srv.submit(p) for p in payloads]
-        scores = [h.result(timeout=120.0) for h in handles]
-        stats = srv.stats()
-        pct = srv.percentiles()
+    try:
+        with ContinuousBatchingServer(score_fns, pad_batch, max_wait_ms=2.0) as srv:
+            handles = [srv.submit(p) for p in payloads]
+            scores = [h.result(timeout=120.0) for h in handles]
+            stats = srv.stats()
+            pct = srv.percentiles()
+    finally:
+        if mesh is not None:
+            release(mesh)
     print(f"[serve] smoke: {len(scores)} requests scored in "
           f"{sum(stats['batches'].values())} batches "
           f"(padded rows: {stats['padded']})")
@@ -258,7 +268,8 @@ def parser() -> argparse.ArgumentParser:
                          "checkpoint) — gives smoke traces a fault track")
     ap.add_argument("--publish-every", type=int, default=0,
                     help="publish a read-only serving snapshot of the "
-                         "forward slabs every N completed steps (one rank); "
+                         "forward slabs every N completed steps (each rank "
+                         "its shard); "
                          "snapshot version and train-to-serve freshness "
                          "ride the heartbeat; 0 = off")
     ap.add_argument("--serve-smoke", action="store_true",
@@ -278,8 +289,7 @@ def parser() -> argparse.ArgumentParser:
 
 def refuse(args) -> None:
     """Every refusal of the reference's launcher, with its message, and the
-    port's own: the archs it has no twin of yet, and publishing at more
-    than one rank.  Raises ``SystemExit``."""
+    port's own: the archs it has no twin of yet.  Raises ``SystemExit``."""
     if args.data_format is None:
         args.data_format = "packed" if args.data_dir else "synthetic"
     if args.data_format == "packed" and not args.data_dir:
@@ -342,8 +352,9 @@ def refuse(args) -> None:
 
 def run(rank: int, world: int, args) -> dict:
     """One rank's run of the launcher: returns its losses, the step it
-    started from (a restore) and, on rank 0 with ``--serve-smoke``, the
-    serving smoke's scores."""
+    started from (a restore), with publishing its publisher's ``stats()``
+    and with ``--serve-smoke`` the serving smoke's result (rank 0: the
+    scores, percentiles and freshness)."""
     from repro_torch.core import hybrid
     from repro_torch.data.synthetic import dlrm_stream, hybrid_stream
 
@@ -387,9 +398,11 @@ def run(rank: int, world: int, args) -> dict:
         publisher = SnapshotPublisher(cfg, publish_every=args.publish_every or max(args.steps, 1))
         publisher.publish(0, state)   # v1: tables before training starts
         serve_stats = combined_serve_stats(publisher)
-        print(f"[serve] snapshot v1 published "
-              f"({publisher.registry.current().emb_bytes / 1e6:.2f} MB "
-              f"serving table), cadence {publisher.publish_every} steps")
+        if lead:
+            print(f"[serve] snapshot v1 published "
+                  f"({publisher.registry.current().emb_bytes / 1e6:.2f} MB "
+                  f"serving table on each of {world} ranks), cadence "
+                  f"{publisher.publish_every} steps")
 
     event_log = None
     if lead and (args.event_log or args.trace_dir):
@@ -419,7 +432,7 @@ def run(rank: int, world: int, args) -> dict:
         if args.serve_smoke:
             buckets = tuple(int(b) for b in args.serve_buckets.split(","))
             out["serve"] = serve_smoke(cfg, publisher, next(make_stream(1, cfg, args.alpha)),
-                                       buckets, dev)
+                                       buckets, dev, mesh)
     finally:
         if hasattr(stream, "close"):
             stream.close()        # release the HostPipeline worker
@@ -428,6 +441,8 @@ def run(rank: int, world: int, args) -> dict:
             telemetry.configure(enabled=False)
             print(f"[train] trace written: {path}")
     out["losses"] = list(loop.losses)
+    if publisher is not None:
+        out["snapshot"] = publisher.stats()
     if lead and loop.losses:
         print(f"[train] done: first loss {loop.losses[0]:.4f} "
               f"-> last {loop.losses[-1]:.4f}")
@@ -445,9 +460,6 @@ def main(argv=None) -> dict:
     refuse(args)
     dev = resolve_device(args.device)  # raises where there is no card
     world = args.ranks or (torch.cuda.device_count() if dev.type == "cuda" else 1)
-    if world > 1 and (args.publish_every or args.serve_smoke):
-        raise SystemExit("--publish-every/--serve-smoke at more than one rank: the port "
-                         "serves one rank, row mode; ROADMAP queue 1 item 7")
     if world == 1:
         return run(0, 1, args)
     if dev.type == "cuda":

@@ -1,15 +1,23 @@
-"""Split-SGD-BF16 storage (twin of the split part of ``repro/optim/split_sgd.py``).
+"""Split-SGD-BF16 (twin of ``repro/optim/split_sgd.py``, paper C5).
 
 An fp32 master weight is stored as two 16-bit halves: ``hi``, its upper 16
 bits, which IS a bf16 number and is all the forward pass reads, and ``lo``,
-its lower 16 bits.  ``combine_split(*split_fp32(w)) == w`` bit for bit.
+its lower 16 bits.  ``combine_split(*split_fp32(w)) == w`` bit for bit.  The
+step puts the fp32 weight together, applies SGD (with optional momentum)
+and splits it again, so it is an fp32 SGD step given the same gradients.
 
 ``lo`` is a uint16 slab in the reference; the port holds the same bits as
-``torch.int16``, since PyTorch has no arithmetic on uint16.
+``torch.int16``, since PyTorch has no arithmetic on uint16.  The trees are
+the port's nested dicts and lists (``optim.data_parallel.tree_map``), and
+the step updates them in place where the reference returns new arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
 import torch
 
 
@@ -27,3 +35,73 @@ def combine_split(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     h = hi.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
     l16 = lo.to(torch.int64) & 0xFFFF
     return ((h << 16) | l16).to(torch.int32).view(torch.float32)
+
+
+@dataclasses.dataclass
+class SplitParams:
+    """A pair of trees mirroring the model's parameter tree."""
+    hi: Any   # bf16 tree: what the forward and backward read
+    lo: Any   # int16 tree (the reference's uint16 bits): optimizer state
+
+
+@dataclasses.dataclass
+class SplitSGDState:
+    params: SplitParams
+    momentum: Optional[Any]  # fp32 tree or None
+
+
+def _zip_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure; a tree of its
+    results."""
+    from repro_torch.optim.data_parallel import tree_leaves, tree_unflatten
+    return tree_unflatten(trees[0], [fn(*xs) for xs in zip(*map(tree_leaves, trees))])
+
+
+def init(params_fp32: Any, momentum: float = 0.0) -> SplitSGDState:
+    """Split every fp32 leaf; a zero fp32 momentum tree with ``momentum``."""
+    from repro_torch.optim.data_parallel import tree_map
+    hi = tree_map(lambda p: split_fp32(p)[0], params_fp32)
+    lo = tree_map(lambda p: split_fp32(p)[1], params_fp32)
+    mom = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params_fp32) \
+        if momentum else None
+    return SplitSGDState(SplitParams(hi, lo), mom)
+
+
+def update_leaf(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor, lr: float,
+                mom: Optional[torch.Tensor] = None, beta: float = 0.0) -> tuple:
+    """One exact-fp32 SGD step on a split leaf, in place on ``hi`` and ``lo``
+    (and ``mom``).  Returns ``(hi, lo)``, or ``(hi, lo, mom)``.
+
+    The step is ``w = fma(-lr, g, w)`` on ``w = combine(hi, lo)`` with ``g``
+    cast to fp32, then split again: the function jitted JAX makes of
+    ``w - lr * g``.  Without momentum it is one launch of the split_sgd
+    kernel on the flattened leaf on the card (its plain version on the
+    CPU); with it, ``mom = fma(beta, mom, g)`` first, then the same step by
+    ``mom``, in plain PyTorch on either device."""
+    from repro_torch.kernels import ops, ref
+    g32 = g.to(torch.float32).reshape(-1)
+    if mom is not None:
+        mom.copy_(ref.fma32(np.float32(beta), mom, g32.view(mom.shape)))
+        ref.split_sgd(hi.view(-1), lo.view(-1), mom.reshape(-1), lr)
+        return hi, lo, mom
+    ops.split_sgd(hi.view(-1), lo.view(-1), g32.contiguous(), lr)
+    return hi, lo
+
+
+def apply_updates(state: SplitSGDState, grads: Any, lr: float, beta: float = 0.0
+                  ) -> SplitSGDState:
+    """The tree-wide Split-SGD step (dense gradients), leaf by leaf with
+    :func:`update_leaf`, in place on the state's leaves.  Returns a state
+    holding the same tensors, as the reference returns its new one."""
+    if state.momentum is None:
+        _zip_map(lambda h, l, g: update_leaf(h, l, g, lr), state.params.hi, state.params.lo,
+                 grads)
+    else:
+        _zip_map(lambda h, l, g, m: update_leaf(h, l, g, lr, m, beta), state.params.hi,
+                 state.params.lo, grads, state.momentum)
+    return SplitSGDState(SplitParams(state.params.hi, state.params.lo), state.momentum)
+
+
+def materialize_fp32(state: SplitSGDState) -> Any:
+    """The exact fp32 master weights (for checkpoints and eval)."""
+    return _zip_map(combine_split, state.params.hi, state.params.lo)

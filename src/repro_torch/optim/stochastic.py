@@ -6,7 +6,7 @@ their state slab as bf16 and round each new value stochastically: a uniform
 16-bit dither added to the fp32 bits before they are cut to their upper
 half, so that the stored value is unbiased.  The dither is a pure function
 of ``(seed, row, column)``, the ``lowbias32`` hash, with no sampler state:
-the row kernel (``csrc/embedding_update.cu``) and the plain versions
+the row kernel (``csrc/embedding_update.cuh``) and the plain versions
 (``kernels/ref.py``) add the same dither to the same value.  The ``bf16_sr``
 wire of the hybrid step's collectives (``dist/exchange.py``) rounds its
 payloads the same way, with a dither that is a pure function of ``(seed,

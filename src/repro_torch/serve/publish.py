@@ -9,7 +9,9 @@ forward slabs only) and publishes it to a
 running :class:`~repro_torch.serve.server.ContinuousBatchingServer` reads per
 batch.  The port's train step updates its state in place, so a snapshot must
 own clones of its slabs: one by reference would change under the server at
-the next step.
+the next step.  On a mesh of N ranks every rank runs its own publisher as
+its loop's hook: each clones its own shard of the forward slabs at the same
+steps, which is what ``make_bucket_scorers(mesh=)`` on that rank scores.
 
 Train-to-serve FRESHNESS is a measured number: ``freshness()`` reports how
 far the serving tables trail the training head, ``steps_behind`` (head step

@@ -10,8 +10,10 @@ scorer exception POISONS the server — every pending and future request
 fails promptly with the original error instead of hanging, and the server
 goes sticky-dead.  Per-request latency lands in bounded-memory
 :class:`repro_torch.telemetry.LatencyHistogram` buckets; every scored batch
-is a ``serve/batch`` tracer span.  The reference's synchronous
-``BatchingServer`` (its back-compat loop) has no copy here.
+is a ``serve/batch`` tracer span.  :class:`BatchingServer` is the
+reference's synchronous pad-and-drain loop over one batch shape, its
+``max_wait_ms`` deadline real: a partial batch waits up to the deadline of
+its oldest request for stragglers before it is padded and flushed.
 
 The per-bucket score fns are typically those of
 :func:`repro_torch.serve.snapshot.make_bucket_scorers`, reading the newest
@@ -23,6 +25,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -245,3 +248,63 @@ class ContinuousBatchingServer:
     def __exit__(self, *exc) -> None:
         self.close()
 
+
+
+class BatchingServer:
+    """Synchronous pad-and-drain serving loop over one batch shape.
+
+    ``drain()`` processes the queue in ``batch_size`` chunks and yields
+    ``(requests, scores)`` for each.  Partial batches honor ``max_wait_ms``:
+    they wait until the oldest queued request has aged that long before
+    padding and flushing, so requests submitted meanwhile (from another
+    thread) can still join the chunk.  ``pad_batch(requests)`` builds one
+    batch of ``batch_size`` rows; ``score_fn(batch)`` returns its scores.
+    """
+
+    def __init__(self, score_fn: Callable[[dict], Any], batch_size: int,
+                 pad_batch: Callable[[list], dict], max_wait_ms: float = 2.0):
+        self.score_fn = score_fn
+        self.batch_size = batch_size
+        self.pad_batch = pad_batch
+        self.max_wait_ms = max_wait_ms
+        self.queue: deque = deque()
+        # 1us..100s in ms units, 2% relative quantile error
+        self.latency = telemetry.LatencyHistogram(lo=1e-3, hi=1e5, growth=1.02)
+
+    def submit(self, request: Any) -> None:
+        self.queue.append((time.perf_counter(), request))
+
+    def _await_deadline(self) -> None:
+        """Block until the queue fills a whole batch or the OLDEST queued
+        request reaches its ``max_wait_ms`` deadline."""
+        deadline = self.queue[0][0] + self.max_wait_ms * 1e-3
+        while len(self.queue) < self.batch_size:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                return
+            time.sleep(min(remaining, 0.0005))
+
+    def drain(self):
+        """Process the queue in ``batch_size`` chunks, yielding
+        ``(requests, scores)`` for each."""
+        while self.queue:
+            if len(self.queue) < self.batch_size:
+                self._await_deadline()
+            n = min(self.batch_size, len(self.queue))
+            items = [self.queue.popleft() for _ in range(n)]
+            t_in = [t for t, _ in items]
+            reqs = [r for _, r in items]
+            with telemetry.span("serve/batch", cat="serve", n=n):
+                batch = self.pad_batch(reqs)
+                scores = np.asarray(self.score_fn(batch))[:n]
+            t_done = time.perf_counter()
+            for t in t_in:
+                self.latency.record((t_done - t) * 1e3)
+            yield reqs, scores
+
+    def percentiles(self) -> dict:
+        """``{p50_ms, p99_ms, mean_ms, n}`` (empty before any request)."""
+        s = self.latency.summary()
+        if not s:
+            return {}
+        return {"p50_ms": s["p50"], "p99_ms": s["p99"], "mean_ms": s["mean"], "n": s["n"]}

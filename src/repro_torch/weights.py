@@ -21,6 +21,9 @@
 * :func:`lm_params_from_numpy`, :func:`init_lm_params` and
   :func:`lm_params_to` do the same for an LM's serving parameters (bf16,
   in the reference's stacked layout).
+* :func:`params_from_numpy`, :func:`split_state_from_numpy` and
+  :func:`split_state_to_numpy` carry a plain parameter tree and the
+  reference's ``SplitSGDState`` across (the Fig. 16 convergence run).
 """
 
 from __future__ import annotations
@@ -53,6 +56,10 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# init_snapshot's table draw, in fp32 elements a call (4 GiB)
+_DRAW_ELEMENTS = 1 << 30
+
+
 def _check_dense(dense_hi, mdef) -> None:
     """``dense_hi`` has the structure and the shapes of the model's
     ``init_dense`` tree (``core.hybrid.dense_tree``)."""
@@ -77,8 +84,9 @@ def _check_dense(dense_hi, mdef) -> None:
     walk(dense_hi, dense_tree(mdef), "dense_hi")
 
 
-def _check(snap: dict, mdef) -> dict:
-    rows = se.make_layout(mdef.spec, 1, mdef.emb_mode).total_rows
+def _check(snap: dict, mdef, mesh=None) -> dict:
+    from repro_torch.core.hybrid import make_layout
+    rows = make_layout(mdef, mesh).total_rows
     if tuple(snap["emb_w"].shape) != (rows, mdef.spec.dim):
         raise ValueError(f"emb_w is {tuple(snap['emb_w'].shape)}, the config needs "
                          f"{(rows, mdef.spec.dim)}")
@@ -86,41 +94,57 @@ def _check(snap: dict, mdef) -> dict:
     return snap
 
 
-def snapshot_from_numpy(snap_np: dict, cfg, device="cuda") -> dict:
+def snapshot_from_numpy(snap_np: dict, cfg, device="cuda", mesh=None) -> dict:
     """The reference's ``snapshot_state`` pytree, as numpy arrays (``emb_w``
-    bf16-hi or fp32, ``dense_hi`` bf16, any tree the model's
-    ``init_dense`` gives), -> the port's snapshot state on ``device``.
+    bf16-hi or fp32, the global slab of its mesh; ``dense_hi`` bf16, any
+    tree the model's ``init_dense`` gives), -> this rank's snapshot state
+    on ``device``: its shard of ``emb_w`` on ``mesh`` (None: one rank;
+    ``serve.snapshot.snapshot_specs``) and the whole ``dense_hi``.
     ``cfg``: a ``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``, as
     everywhere in this module."""
     from repro_torch.core.hybrid import as_hybrid
+    from repro_torch.launch.mesh import resolve_mesh
+    from repro_torch.serve.snapshot import snapshot_specs
     cfg = as_hybrid(cfg)
-    dev = resolve_device(device)
-    snap = {"emb_w": to_torch(snap_np["emb_w"], dev),
-            "dense_hi": dp.tree_map(lambda a: to_torch(a, dev), snap_np["dense_hi"])}
-    return _check(snap, cfg)
+    mesh = resolve_mesh(mesh, device)
+    _check(snap_np, cfg, mesh)
+    emb = snapshot_specs(cfg, mesh)["emb_w"].cut(np.asarray(snap_np["emb_w"]))
+    return {"emb_w": to_torch(emb, mesh.device),
+            "dense_hi": dp.tree_map(lambda a: to_torch(a, mesh.device), snap_np["dense_hi"])}
 
 
-def state_to_snapshot(state_np: dict, cfg, device="cuda") -> dict:
-    """A full JAX train state as numpy arrays (``emb`` store, ``dense.hi``)
-    -> the port's snapshot state on ``device``.  Only the forward slabs
-    cross."""
+def state_to_snapshot(state_np: dict, cfg, device="cuda", mesh=None) -> dict:
+    """A full JAX train state as numpy arrays (``emb`` store, ``dense.hi``;
+    global) -> this rank's snapshot state on ``device`` and ``mesh``.  Only
+    the forward slabs cross."""
     fwd = row_optim.fwd_weights(row_optim.resolve(cfg), state_np["emb"])
-    return snapshot_from_numpy({"emb_w": fwd, "dense_hi": state_np["dense"]["hi"]}, cfg, device)
+    return snapshot_from_numpy({"emb_w": fwd, "dense_hi": state_np["dense"]["hi"]}, cfg, device,
+                               mesh)
 
 
 def init_snapshot(cfg, generator: torch.Generator, device="cuda") -> dict:
     """A port-native snapshot state: table rows ~ U(-a, a) with
     a = 1 / sqrt(mean table rows), dense weights from the model's
     ``init_dense``, each fp32 master split and its bf16 ``hi`` half kept (the
-    ``w`` slab itself for ``sgd``).  ``generator`` must live on ``device``."""
+    ``w`` slab itself for ``sgd``).  ``generator`` must live on ``device``.
+    The table is drawn ``_DRAW_ELEMENTS`` at a time, so that no more than
+    that is held in fp32 beside the slab (dlrm-mlperf's 48.07 GB ``hi``
+    slab fits an 80 GB card, its fp32 table, 96.1 GB, does not); a table of
+    no more than that draws in one call."""
     from repro_torch.core.hybrid import as_hybrid
     cfg = as_hybrid(cfg)
     dev = resolve_device(device)
     rows = se.make_layout(cfg.spec, 1, cfg.emb_mode).total_rows
     a = 1.0 / float(np.sqrt(np.mean(cfg.spec.table_rows)))
-    W = torch.empty((rows, cfg.spec.dim), device=dev).uniform_(-a, a, generator=generator)
-    emb_w = split_fp32(W)[0] if row_optim.resolve(cfg).split else W
-    del W
+    split = row_optim.resolve(cfg).split
+    emb_w = torch.empty((rows, cfg.spec.dim), dtype=torch.bfloat16 if split else torch.float32,
+                        device=dev)
+    chunk = max(1, _DRAW_ELEMENTS // cfg.spec.dim)
+    for r0 in range(0, rows, chunk):
+        W = torch.empty((min(chunk, rows - r0), cfg.spec.dim), device=dev).uniform_(
+            -a, a, generator=generator)
+        emb_w[r0:r0 + W.shape[0]] = split_fp32(W)[0] if split else W
+        del W
     dense = cfg.init_dense(generator, dev)
     return {"emb_w": emb_w, "dense_hi": dp.tree_map(lambda t: split_fp32(t)[0], dense)}
 
@@ -395,3 +419,41 @@ def lm_params_to(params: dict, device) -> dict:
     """A copy of an LM parameter tree on ``device``."""
     dev = resolve_device(device)
     return dp.tree_map(lambda t: t.to(dev, copy=True), params)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A parameter tree of numpy arrays (fp32, bf16 or uint16) -> the same
+    tree of tensors on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    return dp.tree_map(lambda a: to_torch(a, dev), tree)
+
+
+def split_state_from_numpy(state_np, device="cuda"):
+    """The reference's ``optim.split_sgd.SplitSGDState`` as numpy arrays
+    (``jax.tree.map(np.asarray, state)``: ``params.hi`` bf16 and
+    ``params.lo`` uint16 trees, ``momentum`` an fp32 tree or None) -> the
+    port's ``SplitSGDState`` on ``device`` (``lo`` as its int16 bits)."""
+    from repro_torch.optim import split_sgd
+    mom = state_np.momentum
+    return split_sgd.SplitSGDState(
+        split_sgd.SplitParams(params_from_numpy(state_np.params.hi, device),
+                              params_from_numpy(state_np.params.lo, device)),
+        None if mom is None else params_from_numpy(mom, device))
+
+
+def split_state_to_numpy(state) -> dict:
+    """A port ``SplitSGDState`` -> ``{"hi", "lo", "momentum"}`` numpy trees
+    in the reference's types (bf16 as ``ml_dtypes.bfloat16``, ``lo`` as
+    uint16, ``momentum`` fp32 or None)."""
+    import ml_dtypes
+
+    def to_np(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        if t.dtype == torch.int16:
+            return t.numpy().view(np.uint16)
+        return t.numpy()
+
+    return {"hi": dp.tree_map(to_np, state.params.hi), "lo": dp.tree_map(to_np, state.params.lo),
+            "momentum": dp.tree_map(to_np, state.momentum)}

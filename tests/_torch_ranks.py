@@ -523,3 +523,53 @@ def retrieval_ties_rank(rank: int, world_size: int, c: dict) -> dict:
                                      c["dot_cand"].shape[0], topk=k, device="cpu")
     dv, di = dot(torch.from_numpy(c["urep"]), block(c["dot_cand"]))
     return {"fm": (to_numpy(v), to_numpy(i)), "dot": (to_numpy(dv), to_numpy(di))}
+
+
+def serve_mesh_rank(rank: int, world_size: int, cases: list) -> list:
+    """Snapshot serving of each case on its mesh (``option_meshes``: (2, 2)
+    over the four ranks, (1, 2) over each pair): the case's global start
+    state carried in (``weights.state_from_numpy``), this rank's snapshot
+    of it, and its block of the case's ``score_batch``.  Per case: whether
+    the snapshot step's scores are ``core.hybrid.make_score_step``'s bit
+    for bit on this rank, and on the mesh's rank 0 the scores a
+    ``BatchingServer`` of one batch of ``c["bucket"]`` requests (the
+    original-slot payloads ``c["payloads"]``) served through
+    ``make_bucket_scorers`` while the mesh's other ranks follow, with the
+    gathered ``make_score_step`` scores of the same batch."""
+    from repro_torch import weights
+    from repro_torch.core import hybrid
+    from repro_torch.serve import BatchingServer
+    from repro_torch.serve.snapshot import (follow, make_bucket_scorers,
+                                            make_snapshot_score_step, release, snapshot_state)
+    from repro_torch.dist import comm
+    from _torch_cases import cfg_of
+
+    meshes = option_meshes(rank, world_size)
+    out = []
+    for c in cases:
+        mesh = meshes[tuple(c["mesh"])]
+        cfg = cfg_of(c["cfg"])
+        state = weights.state_from_numpy(c["start"], cfg, mesh, device="cpu")
+        snap = snapshot_state(cfg, state)
+        local = hybrid.local_batch(cfg, mesh, {k: to_torch(v) for k, v in c["score_batch"].items()})
+        want = hybrid.make_score_step(cfg, mesh, device="cpu")(state, local)
+        got = make_snapshot_score_step(cfg, mesh, device="cpu")[0](snap, local)
+        rec = {"bitwise": bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))}
+        gathered = comm.all_gather(want, mesh.group(("data", "model")))
+        fns, pad = make_bucket_scorers(cfg, (c["bucket"],), lambda: snap, mesh=mesh,
+                                       device="cpu")
+        if mesh.rank == 0:
+            srv = BatchingServer(fns[c["bucket"]], c["bucket"],
+                                 lambda reqs: pad(reqs, c["bucket"]), max_wait_ms=0.0)
+            for p in c["payloads"]:
+                srv.submit(p)
+            try:
+                chunks = list(srv.drain())
+            finally:
+                release(mesh)
+            rec["served"] = np.concatenate([s for _, s in chunks])
+            rec["gathered"] = to_numpy(gathered)
+        else:
+            rec["followed"] = follow(fns, mesh)
+        out.append(rec)
+    return out

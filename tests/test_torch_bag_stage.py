@@ -145,9 +145,10 @@ def test_ablation_variants_apply_to_the_sources():
 def test_row_update_ablation_variants_apply_to_the_source():
     """Every text substitution of ``tools/ablate_row_update.py`` (the run
     walk's copies and the narrow instances') finds its text in this
-    checkout's ``csrc/embedding_update.cu``, and each variant changes it."""
+    checkout's row update (``csrc/embedding_update.cuh`` and its launcher
+    sources, as the tool compiles them), and each variant changes it."""
     tool, csrc = _tool("ablate_row_update")
-    src = (csrc / "embedding_update.cu").read_text()
+    src = tool.whole_source(csrc)
     for table in (tool.VARIANTS, tool.NARROW):
         for name, text in tool.variant_sources(table).items():
             assert (text == src) == (name == "as is"), name

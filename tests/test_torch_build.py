@@ -70,3 +70,23 @@ def test_ptxas_report_reads_each_kernel(monkeypatch):
         {"kernel": "fused_mlp_wgmma_kernel", "spill_stores": 4, "spill_loads": 8,
          "registers": 90, "smem": 64}]
     assert build.ptxas_report("no such source") == []
+
+
+def test_each_row_update_launcher_is_in_the_source_its_wrapper_calls():
+    """The row update's eight launchers are split over four sources that
+    include ``embedding_update.cuh`` (two row kinds a source, compiled at
+    once): each is defined in exactly the source that
+    ``kernels.embedding_update.SOURCE`` names, and each source builds its own
+    library."""
+    import re
+    from repro_torch.kernels import embedding_update as eu
+    defined = {}
+    for src in sorted(build.CSRC.glob("embedding_update*.cu")):
+        text = src.read_text()
+        assert '#include "embedding_update.cuh"' in text
+        for name in re.findall(r'(?:extern "C" int |LAUNCHER\()(embedding_update_\w+)', text):
+            defined.setdefault(name, []).append(src.stem)
+    assert {k: v for k, v in defined.items() if k in eu.SOURCE} == {
+        k: [v] for k, v in eu.SOURCE.items()}
+    assert len(set(eu.SOURCE.values())) == 4
+    assert set(eu.SOURCE.values()) <= set(_names(build.CSRC))

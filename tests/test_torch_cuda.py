@@ -1683,3 +1683,151 @@ def test_narrow_long_runs_alternate_start_parity(dev, name, E, dy_offset):
                                                        torch.bfloat16, gen, M, dy_offset)
     assert int(wrapper.long_runs) == 2
     assert not torch.equal(want[0], store[0])
+
+
+# ---------------------------------------------------------------------------
+# dlrm-mlperf's shapes (rows 1, 2, 3) and the Fig. 16 run's (rows 1, 4)
+# ---------------------------------------------------------------------------
+
+MLPERF_LAYERS = [(13, 512, "relu"), (512, 256, "relu"), (256, 128, "relu"), (479, 512, "relu"),
+                 (512, 512, "relu"), (512, 256, "relu"), (256, 1, "none")]
+
+
+@pytest.mark.parametrize("B", [8, 128, 8192])
+def test_bag_at_mlperf_shape_past_two_to_the_31_elements(dev, B):
+    """Row 1 at dlrm-mlperf's shape (26 slots, P 1, E 128, bf16) on a table of
+    17,000,000 rows (2.18e9 elements, past 2^31), the ids in its last rows:
+    the row addresses are int64.  The bags of one lookup are the rows
+    themselves: bit for bit the plain version, and the bag stage's too."""
+    rows, E, S = 17_000_000, 128, 26
+    W = torch.zeros((rows, E), dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    ids = torch.randint(rows - 4096, rows, (B, S, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[0, 0, 0] = rows - 1
+    W[ids.view(-1).long()] = torch.randn((B * S, E), generator=gen, device=dev).to(torch.bfloat16)
+    assert ids.max().item() * E >= 2 ** 31
+    before = ops.embedding_bag.launches
+    got = ops.embedding_bag(W, ids, rows)
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.launches == before + 1
+    assert torch.equal(got, ref.embedding_bag(W, ids, rows))
+    offsets = torch.zeros(S, dtype=torch.int32, device=dev)
+    assert torch.equal(ops.embedding_bag_stage(W, ids, offsets, rows),
+                       ref.embedding_bag_stage(W, ids, offsets, rows))
+
+
+@pytest.mark.parametrize("b", [8, 32, 128, 8192])
+def test_interaction_at_mlperf_shape(dev, b):
+    """Row 2 at dlrm-mlperf's F 27 (26 tables and the dense vector), E 128: a
+    479-wide output, rtol 1e-5, atol 1e-4 against the plain version."""
+    gen = torch.Generator().manual_seed(b)
+    dense, emb = _randn(b, 128, gen=gen), _randn(b, 26, 128, gen=gen)
+    want = ref.dot_interaction(dense, emb)
+    got = ops.dot_interaction(dense.to(dev), emb.to(dev))
+    torch.cuda.synchronize()
+    assert got.shape == (b, 479)
+    assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [8, 128, 8192])
+@pytest.mark.parametrize("k,n,act", MLPERF_LAYERS, ids=[f"{k}x{n}" for k, n, _ in MLPERF_LAYERS])
+def test_fused_mlp_at_mlperf_layers(dev, m, k, n, act):
+    """Row 3 at every layer of dlrm-mlperf's bottom (13 -> 512 -> 256 -> 128)
+    and top (479 -> 512 -> 512 -> 256 -> 1) MLPs: K 13 and 479 and N 1 on
+    the mma.sync route (K 13 rows of 26 bytes), the rest on wgmma; the
+    tolerances of ``test_fused_mlp_kernel_matches_plain``."""
+    from repro_torch.kernels import fused_mlp
+    _fused_mlp_case(dev, m, k, n, act, fused_mlp.route(m, k, n))
+    if k in (13, 479) or n == 1:
+        assert fused_mlp.route(m, k, n) == "mma_sync"
+
+
+def test_split_sgd_on_fig16_leaves(dev):
+    """Row 4 on every leaf of the Fig. 16 example's parameters (the 8,000 x 16
+    table, the MLPs' weights and biases; lengths 16 to 128,000), bit for bit
+    the plain version, as ``optim.split_sgd.apply_updates`` launches it."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.optim import split_sgd as S
+    from repro_torch.optim.data_parallel import tree_leaves
+    path = Path(__file__).resolve().parents[1] / "examples" / "split_sgd_convergence_torch.py"
+    spec = importlib.util.spec_from_file_location("fig16", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    state = S.init(ex.init_params(ex.config(), dev))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    grads = [torch.randn(h.shape, generator=gen, device=dev).to(torch.bfloat16)
+             for h in tree_leaves(state.params.hi)]
+    want = [ref.split_sgd(h.reshape(-1).clone(), lo.reshape(-1).clone(), g.float().reshape(-1),
+                          0.05)
+            for h, lo, g in zip(tree_leaves(state.params.hi), tree_leaves(state.params.lo),
+                                grads)]
+    before = ops.split_sgd.launches
+    S.apply_updates(state, _unflatten(state.params.hi, grads), 0.05)
+    torch.cuda.synchronize()
+    assert ops.split_sgd.launches == before + len(grads)
+    for h, lo, (wh, wl) in zip(tree_leaves(state.params.hi), tree_leaves(state.params.lo), want):
+        assert torch.equal(h.reshape(-1).view(torch.int16), wh.view(torch.int16))
+        assert torch.equal(lo.reshape(-1), wl)
+
+
+def _unflatten(tree, leaves):
+    from repro_torch.optim.data_parallel import tree_unflatten
+    return tree_unflatten(tree, leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ids", ["distinct", "repeated"])
+def test_bag_lookup_autograd_on_card(dev, dtype, ids):
+    """``core.embedding.bag_lookup`` on the card (row 1 forward, the
+    ``index_add_`` backward) against its plain version on the CPU: the bags
+    rtol = atol = 1e-5; the table's gradient in the table's dtype, bit for
+    bit where every id is distinct (each row gets one rounded cotangent).
+    With repeated ids (128 rows, each looked up exactly n = 8 times, spread
+    over bags and slots) the card's atomics add a row's cotangents in
+    another order than the CPU's flat order, each add rounded to the dtype,
+    so both are held to the exact (fp64) sum of the rounded cotangents,
+    within the bound of n - 1 rounded adds in any order:
+    gamma = (n - 1) u / (1 - (n - 1) u) times the sum of their magnitudes,
+    u the unit roundoff (2^-8 bf16, 2^-24 fp32).  A card gradient with one
+    lookup dropped, or one added twice, must break that bound."""
+    from repro_torch.core import embedding as E
+    gen = torch.Generator().manual_seed(7)
+    rows, B, S, P, Ed = 4000, 64, 4, 4, 16
+    W = _randn(rows, Ed, gen=gen).to(dtype)
+    if ids == "distinct":
+        g = torch.randperm(rows, generator=gen)[:B * S * P].to(torch.int32).view(B, S, P)
+    else:
+        n_rows = B * S * P // 8
+        hit = torch.randperm(rows, generator=gen)[:n_rows].repeat(8)
+        g = hit[torch.randperm(hit.numel(), generator=gen)].to(torch.int32).view(B, S, P)
+    dY = _randn(B, S, Ed, gen=gen)
+    grads = []
+    for d in ("cpu", dev):
+        Wd = W.to(d).requires_grad_()
+        Y = E.bag_lookup(Wd, g.to(d))
+        (dW,) = torch.autograd.grad((Y * dY.to(d)).sum(), [Wd])
+        grads.append((Y.detach().cpu(), dW.cpu()))
+    (y_cpu, g_cpu), (y_dev, g_dev) = grads
+    assert g_dev.dtype == dtype
+    assert_close(y_dev, y_cpu, rtol=1e-5, atol=1e-5)
+    if ids == "distinct":
+        assert torch.equal(g_dev, g_cpu)
+        return
+    upd = dY[:, :, None, :].expand(B, S, P, Ed).to(dtype).double().reshape(-1, Ed)
+    at = g.reshape(-1).long()
+    exact = torch.zeros(rows, Ed, dtype=torch.float64).index_add_(0, at, upd)
+    mag = torch.zeros(rows, Ed, dtype=torch.float64).index_add_(0, at, upd.abs())
+    n = torch.bincount(at, minlength=rows).double()[:, None]
+    assert set(n.unique().tolist()) == {0.0, 8.0}
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    bound = (n - 1).clamp_min(0) * u / (1 - (n - 1).clamp_min(0) * u) * mag
+
+    def within(got):
+        return bool(((got.double() - exact).abs() <= bound).all())
+    assert within(g_dev) and within(g_cpu)
+    for sign in (-1.0, 1.0):             # the first lookup dropped, or added twice
+        faulty = g_dev.double().clone()
+        faulty[at[0]] += sign * upd[0]
+        assert not within(faulty)

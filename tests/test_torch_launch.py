@@ -85,20 +85,9 @@ def test_unknown_optimizer_fails_in_both(monkeypatch):
             call()
 
 
-# the recsys archetypes train (tests/test_torch_recsys_loop.py); what the port
-# still refuses of them is publishing and serving at more than one rank
+# what the port still refuses: the LM archs
 PORT_REFUSALS = {
-    "fm": (["--arch", "fm", "--ranks", "2", "--device", "cpu", "--publish-every", "5"],
-           "item 7"),
-    "bst": (["--arch", "bst", "--ranks", "2", "--device", "cpu", "--serve-smoke"], "item 7"),
-    "sasrec": (["--arch", "sasrec", "--ranks", "2", "--device", "cpu", "--publish-every", "5"],
-               "item 7"),
-    "din": (["--arch", "din", "--ranks", "2", "--device", "cpu", "--serve-smoke"], "item 7"),
     "lm": (["--arch", "internlm2-1.8b"], "item 8"),
-    "publish-two-ranks": (["--arch", "dlrm-smoke", "--ranks", "2", "--device", "cpu",
-                           "--publish-every", "5"], "item 7"),
-    "serve-two-ranks": (["--arch", "dlrm-smoke", "--ranks", "2", "--device", "cpu",
-                         "--serve-smoke"], "item 7"),
 }
 
 
@@ -107,6 +96,41 @@ def test_port_refusals_name_their_roadmap_item(case):
     argv, item = PORT_REFUSALS[case]
     text = _exit_text(lambda: t_launch.main(argv))
     assert f"ROADMAP queue 1 {item}" in text
+
+
+# publishing and serving at two ranks, which the port refused before it served on a mesh
+TWO_RANK_SERVING = {
+    "fm": ["--arch", "fm", "--publish-every", "5"],
+    "bst": ["--arch", "bst", "--serve-smoke"],
+    "sasrec": ["--arch", "sasrec", "--publish-every", "5"],
+    "din": ["--arch", "din", "--serve-smoke"],
+    "publish-two-ranks": ["--arch", "dlrm-smoke", "--publish-every", "5"],
+    "serve-two-ranks": ["--arch", "dlrm-smoke", "--serve-smoke"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TWO_RANK_SERVING))
+def test_two_rank_publishing_and_serving_run(case, capfd):
+    """Each argument set at ``--ranks 2`` on two gloo processes (batch 16, 6
+    steps): every rank publishes its shard (versions at steps 0 and 5 with
+    ``--publish-every 5``, one a step behind the head at the end; one at
+    the end with ``--serve-smoke`` alone, none behind), and the serving
+    smoke's rank 0 scores the 16 requests of a fresh batch, every score
+    finite, in batches its follower scored with it."""
+    argv = TWO_RANK_SERVING[case] + ["--ranks", "2", "--device", "cpu", "--batch", "16",
+                                     "--steps", "6", "--serve-buckets", "4,8,16"]
+    out = t_launch.main(argv)
+    assert len(out["losses"]) == 6 and _finite(out["losses"])
+    snap = out["snapshot"]
+    if "--publish-every" in argv:
+        assert snap["publishes"] == 2 and snap["versions"] == [1, 2]
+        assert snap["steps_behind"] == 1
+    else:
+        assert snap["publishes"] == 2 and snap["steps_behind"] == 0
+        serve = out["serve"]
+        assert serve["freshness"]["version"] == 2 and serve["freshness"]["steps_behind"] == 0
+        assert serve["scores"].shape == (16,) and bool(np.isfinite(serve["scores"]).all())
+        assert "[serve] smoke: 16 requests scored" in capfd.readouterr().out
 
 
 def test_no_card_without_device_cpu():

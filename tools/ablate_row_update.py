@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the row-update kernel's time goes: time ablated copies of
-``src/repro_torch/csrc/embedding_update.cu`` on one CUDA card, and the
-kernel against an earlier version of it in the same run.
+``src/repro_torch/csrc/embedding_update.cuh`` (the kernel; its launchers are
+``embedding_update*.cu``) on one CUDA card, and the kernel against an
+earlier version of it in the same run.
 
     python3 tools/ablate_row_update.py [--parent DIR] [--only ablation|parent|narrow]
 
@@ -197,10 +198,25 @@ def compile_all(jobs: dict, out_dir: Path, headers: Path) -> dict:
     return libs
 
 
+def whole_source(csrc: Path) -> str:
+    """The row update as one compile unit with all eight launchers: ``csrc``'s
+    ``embedding_update.cuh`` followed by its four launcher sources (their
+    include of it dropped); an earlier checkout's ``embedding_update.cu``
+    where it had no such header."""
+    from repro_torch.kernels.embedding_update import SOURCE
+    header = csrc / "embedding_update.cuh"
+    if not header.exists():
+        return (csrc / "embedding_update.cu").read_text()
+    include = '#include "embedding_update.cuh"\n'
+    return header.read_text().replace("#pragma once\n", "") + "".join(
+        (csrc / f"{stem}.cu").read_text().replace(include, "")
+        for stem in sorted(set(SOURCE.values())))
+
+
 def variant_sources(table: dict | None = None, csrc: Path | None = None) -> dict:
     """``{name: source text}``: each copy of ``table`` (VARIANTS) made from
-    ``csrc`` (this checkout's) ``embedding_update.cu``."""
-    src = ((csrc or ROOT / "src" / "repro_torch" / "csrc") / "embedding_update.cu").read_text()
+    ``csrc``'s (this checkout's) row update, :func:`whole_source`."""
+    src = whole_source(csrc or ROOT / "src" / "repro_torch" / "csrc")
     out = {}
     for name, subs in (VARIANTS if table is None else table).items():
         text = src
@@ -511,7 +527,7 @@ def main() -> int:
     parent_lib = None
     if args.parent is not None:
         pcsrc = args.parent.resolve() / "src" / "repro_torch" / "csrc"
-        parent_lib = compile_all({"earlier": (pcsrc / "embedding_update.cu").read_text()},
+        parent_lib = compile_all({"earlier": whole_source(pcsrc)},
                                  ROOT / "build" / "ablate_row_update" / "parent",
                                  pcsrc)["earlier"]
     _, _, split, W, streams, dY = setup()
