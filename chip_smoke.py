@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DLRM serving and training paths (one rank, and
 the hybrid step and the run loop on meshes of ranks) and its LM serving path
-on one CUDA card.
+(the five LM archs, dense, MoE and MLA) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -108,7 +108,7 @@ from the root of a checkout.  Phases, each of which fails the run:
     diagonal masked) rejected by both gates, and the first decode step's
     logits held to a prefill of 4097 tokens; time to first
     token, tokens/s, ms a decode step, the device's busy time, and one
-    prefill of 32,768 tokens;
+    prefill of 32,768 tokens (:func:`lm_phase`, which phases 25-28 share);
 16. hybrid: dlrm-small at full width on the hybrid step of
     ``torch.distributed`` meshes.  16a: table mode (Split-SGD; the store's
     8,000,008 rows, one spare ``row_pad``) on a (1, 1) mesh over an NCCL
@@ -244,7 +244,36 @@ from the root of a checkout.  Phases, each of which fails the run:
     N 1) against their plain versions, timed beside bounds and library
     calls, then 1024 requests over buckets 8, 32, 128 (phase 3's gates, and
     a control with every lookup on the next row of its table, which must
-    fall outside them).
+    fall outside them);
+25. gemma2-27b at full size (46 layers, 54.45 GB of bf16 weights drawn on
+    the card), ``attn_impl="pallas"``, its prefill in 2 microbatches:
+    phase 15's steps and gates on 4 x 4096 prompts and 32 greedy decode
+    steps past the 4096 window (one flash launch a layer and a microbatch,
+    none a decode step), each layer's decode attention held to the prefill
+    of 4097 tokens on its inputs (a control one position early failing),
+    the kernel alone at its local and global layers;
+26. phi3-medium-14b at full size (40 layers, 29.3 GB), the same;
+27. qwen3-moe-30b-a3b at full size (48 layers, 128 experts, top 8,
+    capacity factor 1.0; 61.06 GB): the same steps, the share of (token,
+    expert) pairs its capacity drops; the kernel held to its plain version
+    on every call of the prefill (phase 14's gates; the two faults fail
+    them), the whole model's logits against the plain and the chunked
+    attention logged with the routing pinned (a bf16 step flips a router's
+    choice, and the reference's expert init amplifies any step layer over
+    layer); its first MoE layer at full width held to a direct computation
+    on the card (each kept pair's SwiGLU through its expert, weighted,
+    summed: the same kept pairs and slots, a control with the gates
+    permuted failing);
+28. deepseek-v2-236b at full width with its depth cut to the dense first
+    layer and 7 MoE layers (8 of 60, 58.4 GB), MLA on the chunked path:
+    prefill and decode finite, each layer's absorbed decode attention held
+    to the 4097-token prefill's on its inputs (the control failing), the
+    whole model's first decode step against that prefill logged as 27's;
+29. dlrm-large served, row mode, its 64 tables cut to the largest multiple
+    of 500,000 rows that leaves 8 GB free (6,000,000 uncut: 196 GB): rows
+    1, 2 and 3 at its shapes (E 256, P 100; F 65; K 2048, 2336, 4096, N 1)
+    at B 16,384 and the buckets against their plain versions, timed beside
+    bounds and library calls, then phase 24's serving and its control.
 A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
 and the whole run's so far are printed as it ends.
 
@@ -261,7 +290,10 @@ its eval step, rows 4 and 5 the train steps and the loop's, and rows 1, 2,
 timed steps: 18a's presorted and loop steps, 18b's, 18c's M > 1 steps (rows
 1 and 2 M times a step) and both ranks' ring steps in 18d, and every step of
 phase 19, row 1 twice a cached table-mode step, and phase 20's loops,
-served batches and launcher runs, its stage profiles included); then
+served batches and launcher runs, its stage profiles included; row 13 one
+a layer and a microbatch of the main path's prefills in phases 15 and
+25-27, by model under ``models``; rows 1-3 at dlrm-large's shapes under
+``large``); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.  No process it started outlives it: on its way out
@@ -271,6 +303,7 @@ running.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -305,6 +338,9 @@ FUSED_MLP_BF16_TOL = (2 ** -7, 1e-4)     # a bf16 output may round to the neighb
 # logits, measured); the logits of this random model span about +-0.08
 LOGIT_TOL = 3e-3
 SERVING_KERNELS = ("embedding_bag", "dot_interaction", "fused_mlp")
+# the plain bag gathers its [B, S, P, E] rows in fp32 a batch chunk of at most this
+# many values at a time (1 GiB): dlrm-large's batch of 16,384 would gather 26.8e9
+PLAIN_BAG_VALUES = 1 << 28
 N_TRAIN = 20  # staged zipf batches of the training phase (and the run loop's pool)
 # the hybrid phase: 16a's timed table-mode steps and row-mode steps held bit for bit
 # to the groupless step; 16b's cases on two ranks and their timed steps a case
@@ -412,6 +448,14 @@ LM_LONG = 32768  # one prefill at the repo's prefill length, B = 1
 # prints that yardstick.  Each run also plants two faults in the plain attention
 # and fails unless both gates reject them (the weakest moved the logits by 1.12)
 LM_TOL = 0.2
+# phases 25-28: the LM family at full width, internlm2's shapes and gates.  Every
+# model's decode attention is also held layer by layer to the prefill's on the same
+# input and cache: each output within 2^-7 of its value and 2^-7 of the layer's
+# largest (a p rounded to its bf16 neighbour moves an output by up to 2^-7 of the v
+# scale, phase 14's gate, before the output projection sums it)
+DECODE_ATTN_TOL = (2 ** -7, 2 ** -7)
+GEMMA2_MICROBATCH = 2   # gemma2's prefill in two chunks: its 36,864-wide FFN transients halve
+DEEPSEEK_LAYERS = 8     # deepseek-v2 cut to its dense first layer and 7 MoE layers, 58.4 GB
 
 
 T_START = time.perf_counter()
@@ -563,6 +607,26 @@ def close_or_fail(name, got, want, rtol, atol, failures) -> float:
     return err
 
 
+def summed_or_fail(name, got, want, size, n: int, rtol: float, failures) -> float:
+    """``got`` against ``want`` where each value is a sum of ``n`` fp32
+    products whose sizes sum to ``size`` (the same sum of |products|): any
+    two summation orders stay within 2 n 2^-24 size of each other (each
+    within n 2^-24 size of the exact sum, to first order), and the output's
+    own rounding adds ``rtol`` of its value.  The gate of dlrm-large's
+    shapes, whose sums of 256 to 4096 products cancel to near zero where a
+    fixed atol cannot follow them."""
+    d = (got.float() - want.float()).abs()
+    tol = rtol * want.float().abs() + 2 * n * 2.0 ** -24 * size.float()
+    err = float(d.max()) if d.numel() else 0.0
+    bad = int((d > tol).sum())
+    finite = bool(got.float().isfinite().all())
+    log(f"  {name}: max_abs_err {err:.3e} (rtol {rtol:g} + 2 * {n} * 2^-24 of the sum of "
+        f"|products|, largest {float(size.max()):.3e}), {bad} outside, finite {finite}")
+    if bad or not finite:
+        failures.append(f"{name}: {bad} values outside the summation bound, finite={finite}")
+    return err
+
+
 def stage_or_fail(name, W, idx, offsets, rows, wgt, failures) -> None:
     """The fused bag stage (offset add, bag, bf16 round in one launch)
     against the kernel's own fp32 bag of the global ids rounded to bf16, bit
@@ -571,10 +635,10 @@ def stage_or_fail(name, W, idx, offsets, rows, wgt, failures) -> None:
     of it is then below the fp32 sums' own rounding), within the bag's fp32
     atol; the share of sums that differ printed."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     got = ops.embedding_bag_stage(W, idx, offsets, rows, wgt)
     own = ops.embedding_bag(W, idx + offsets[None, :, None], rows, wgt).to(torch.bfloat16).float()
-    want = ref.embedding_bag_stage(W, idx, offsets, rows, wgt)
+    want = plain_bag(W, idx + offsets[None, :, None], rows, wgt).to(torch.bfloat16).float()
     same = bool((got.view(torch.int32) == own.view(torch.int32)).all())
     d = (got - want).abs()
     past = bf16_ulps(got, want) > 1
@@ -588,6 +652,20 @@ def stage_or_fail(name, W, idx, offsets, rows, wgt, failures) -> None:
                         f"ulp and atol")
 
 
+def plain_bag(W, gidx, rows, wgt=None):
+    """``ref.embedding_bag`` over batch chunks of at most PLAIN_BAG_VALUES
+    gathered values (each sample's sums are its own; a batch within the
+    limit is one call)."""
+    import torch
+    from repro_torch.kernels import ref
+    B, S, P = gidx.shape
+    n = max(1, PLAIN_BAG_VALUES // (S * P * W.shape[1]))
+    if n >= B:
+        return ref.embedding_bag(W, gidx, rows, wgt)
+    return torch.cat([ref.embedding_bag(W, gidx[i:i + n], rows, None if wgt is None else
+                                        wgt[i:i + n]) for i in range(0, B, n)])
+
+
 def make_requests(cfg, n: int, rng) -> list[dict]:
     from repro_torch.data.synthetic import zipf_indices
     idx = np.stack([zipf_indices(rng, m, (n, cfg.pooling), ALPHA) for m in cfg.table_rows], axis=1)
@@ -595,14 +673,20 @@ def make_requests(cfg, n: int, rng) -> list[dict]:
     return [{"idx": idx[i].astype(np.int32), "dense_x": dense[i]} for i in range(n)]
 
 
-def plain_logits(cfg, snap, batch, offsets, bag: bool = True, round_bags: bool = True):
+def plain_logits(cfg, snap, batch, offsets, bag: bool = True, round_bags: bool = True,
+                 exact: bool = False):
     """The serving forward before its sigmoid, with every kernel replaced by
     its plain version (``bag=False``: the bag outputs zeroed; ``round_bags``:
-    each bag rounded to bf16, row mode's wire, where table mode's is fp32)."""
+    each bag rounded to bf16, row mode's wire, where table mode's is fp32).
+    ``exact``: the bags, the interaction and every layer's products and sums
+    in float64 instead, still rounded to bf16 between layers (a yardstick:
+    how far the fp32 sums of the kernels and of the plain versions drift)."""
     import torch
     from repro_torch.kernels import ref
     rows = snap["emb_w"].shape[0]
-    emb = ref.embedding_bag(snap["emb_w"], batch["idx"] + offsets[None, :, None], rows)
+    gidx = batch["idx"] + offsets[None, :, None]
+    emb = (snap["emb_w"][gidx.long()].double().sum(2) if exact
+           else plain_bag(snap["emb_w"], gidx, rows))
     if round_bags:
         emb = emb.to(torch.bfloat16).float()
     if not bag:
@@ -612,19 +696,34 @@ def plain_logits(cfg, snap, batch, offsets, bag: bool = True, round_bags: bool =
         n = len(params["w"])
         for i, (w, b) in enumerate(zip(params["w"], params["b"])):
             last = i == n - 1
-            h = ref.fused_mlp_layer(h, w, b, "relu" if (final_act or not last) else "none",
-                                    torch.float32 if last else torch.bfloat16)
+            act = "relu" if (final_act or not last) else "none"
+            out_dtype = torch.float32 if last else torch.bfloat16
+            if exact:
+                y = h.double() @ w.double() + b.double()
+                h = (torch.relu(y) if act == "relu" else y).to(out_dtype)
+            else:
+                h = ref.fused_mlp_layer(h, w, b, act, out_dtype)
         return h
 
     bot = mlp(snap["dense_hi"]["bot"], batch["dense_x"], True)
-    z = ref.dot_interaction(bot, emb).to(torch.bfloat16)
-    return mlp(snap["dense_hi"]["top"], z, False)[:, 0]
+    if exact:   # ref.dot_interaction in float64
+        Z = torch.cat([bot[:, None, :], emb], dim=1).double()
+        F_ = Z.shape[1]
+        li, lj = np.tril_indices(F_, -1)
+        pairs = torch.bmm(Z, Z.transpose(1, 2)).reshape(len(Z), -1)[
+            :, torch.as_tensor(li * F_ + lj, device=Z.device)]
+        z = torch.cat([bot.double(), pairs], dim=1)
+    else:
+        z = ref.dot_interaction(bot, emb)
+    return mlp(snap["dense_hi"]["top"], z.to(torch.bfloat16), False)[:, 0]
 
 
-def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
+def kernel_phase(cfg, snap, offsets, dev, rng, failures, summed: bool = False) -> list[dict]:
     """Each kernel against its plain version at B = cfg.batch (timed) and at
     every bucket the main path serves; returns the kernel entries of the JSON
-    line (the bag's entry also holds its uniform-index times)."""
+    line (the bag's entry also holds its uniform-index times).  With
+    ``summed`` the interaction and fused_mlp are held by
+    :func:`summed_or_fail` (dlrm-large's shapes), else by KERNEL_TOL."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.interaction import tril_indices
@@ -634,6 +733,8 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
     rows, E = W.shape
     S, P = len(cfg.table_rows), cfg.pooling
     entries = {}
+    # a plain bag cut into chunks (dlrm-large's) is timed over fewer runs
+    plain_iters = 20 if cfg.batch * S * P * E <= PLAIN_BAG_VALUES else 3
     for B in (cfg.batch, *BUCKETS):
         reqs = make_requests(cfg, B, rng)
         idx = torch.from_numpy(np.stack([r["idx"] for r in reqs])).to(dev)
@@ -644,7 +745,7 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
 
         # embedding_bag, and the bag stage that fuses the offset add and the round
         got = ops.embedding_bag(W, gidx, rows)
-        want = ref.embedding_bag(W, gidx, rows)
+        want = plain_bag(W, gidx, rows)
         err = close_or_fail(f"embedding_bag [{B},{S},{P}] x [{rows},{E}] {W.dtype}", got, want,
                             *KERNEL_TOL["embedding_bag"], failures)
         e = entries.setdefault("embedding_bag", {"name": "embedding_bag", "max_abs_err": 0.0,
@@ -660,11 +761,11 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
             flat = gidx.view(B * S, P)
             e.update(ms=e["by_batch"][B],
-                     plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows)),
+                     plain_ms=time_ms(lambda: plain_bag(W, gidx, rows), iters=plain_iters),
                      library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum")),
-                     # the lookups gathered, then summed in fp32: the yardstick of a bag of one
-                     library_embedding_ms=graph_ms(lambda: F.embedding(gidx, W).float().sum(2)),
                      bound_ms=bms, bound_by=by)
+            if P == 1:  # the lookups gathered, then summed in fp32: the yardstick of a bag of one
+                e["library_embedding_ms"] = graph_ms(lambda: F.embedding(gidx, W).float().sum(2))
             log(f"  embedding_bag: {unique} distinct rows of {gidx.numel()} lookups; "
                 f"{nbytes / 1e6:.1f} MB needed ({gidx.numel() * (E * W.element_size() + 4) / 1e6 + B * S * E * 4 / 1e6:.1f} MB "
                 f"if no row repeated)")
@@ -673,7 +774,7 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             uidx = torch.from_numpy(np.stack([rng.integers(0, m, (B, P)) for m in cfg.table_rows],
                                              axis=1).astype(np.int32)).to(dev) + offsets[None, :, None]
             err = close_or_fail(f"embedding_bag, uniform indices [{B},{S},{P}]",
-                                ops.embedding_bag(W, uidx, rows), ref.embedding_bag(W, uidx, rows),
+                                ops.embedding_bag(W, uidx, rows), plain_bag(W, uidx, rows),
                                 *KERNEL_TOL["embedding_bag"], failures)
             e["max_abs_err"] = max(e["max_abs_err"], err)
             stage_or_fail(f"bag stage, uniform indices [{B},{S},{P}]", W,
@@ -688,7 +789,8 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
             log(f"  embedding_bag, uniform indices: {u_unique} distinct rows, {u_bytes / 1e6:.1f} MB "
                 f"needed; kernel {e['uniform']['ms']:.4f} ms, F.embedding_bag "
                 f"{e['uniform']['library_ms']:.4f} ms, bound {u_bms:.4f} ms ({u_by})")
-            e["weighted"] = weighted_bag(W, idx, offsets, rows, rng, unique, failures)
+            e["weighted"] = weighted_bag(W, idx, offsets, rows, rng, unique, failures,
+                                         plain_iters)
             e["max_abs_err"] = max(e["max_abs_err"], e["weighted"]["max_abs_err"])
         emb = got.to(torch.bfloat16).float()
 
@@ -705,8 +807,13 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
                 M, K = h.shape
                 N = w.shape[1]
                 path = fused_mlp.route(M, K, N)
-                err = close_or_fail(f"fused_mlp {tag}{i} [{M}x{K}]@[{K}x{N}] {act} -> {out_dtype} "
-                                    f"({path})", k_out, p_out, *tol, failures)
+                what = f"fused_mlp {tag}{i} [{M}x{K}]@[{K}x{N}] {act} -> {out_dtype} ({path})"
+                if summed:
+                    size = ref.fused_mlp_layer(h.abs(), w.abs(), b.abs(), "none", torch.float32)
+                    err = summed_or_fail(what, k_out, p_out, size, K, tol[0], failures)
+                    del size
+                else:
+                    err = close_or_fail(what, k_out, p_out, *tol, failures)
                 e = entries.setdefault("fused_mlp", {"name": "fused_mlp", "max_abs_err": 0.0,
                                                      "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                                      "library_ms": 0.0, "flops": 0.0, "bytes": 0.0,
@@ -741,8 +848,12 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
         # dot_interaction
         got = ops.dot_interaction(bot, emb)
         want = ref.dot_interaction(bot, emb)
-        err = close_or_fail(f"dot_interaction [{B},{E}] + [{B},{S},{E}]", got, want,
-                            *KERNEL_TOL["dot_interaction"], failures)
+        what = f"dot_interaction [{B},{E}] + [{B},{S},{E}]"
+        if summed:
+            err = summed_or_fail(what, got, want, ref.dot_interaction(bot.abs(), emb.abs()), E,
+                                 KERNEL_TOL["dot_interaction"][0], failures)
+        else:
+            err = close_or_fail(what, got, want, *KERNEL_TOL["dot_interaction"], failures)
         e = entries.setdefault("dot_interaction", {"name": "dot_interaction", "max_abs_err": 0.0,
                                                    "by_batch": {}})
         e["max_abs_err"] = max(e["max_abs_err"], err)
@@ -776,7 +887,7 @@ def kernel_phase(cfg, snap, offsets, dev, rng, failures) -> list[dict]:
     return [entries[k] for k in ("embedding_bag", "dot_interaction", "fused_mlp")]
 
 
-def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
+def weighted_bag(W, idx, offsets, rows, rng, unique, failures, plain_iters: int = 20) -> dict:
     """The weighted bag at the zipf indices ``idx`` [B, S, P] (table-local;
     ``offsets`` per slot), weights U[0.5, 1.5) from ``rng``: against its
     plain version, all-ones weights bit for bit the unweighted kernel's
@@ -785,14 +896,14 @@ def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
     (which wants the weights in the table's dtype)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
 
     gidx = idx + offsets[None, :, None]
     B, S, P = gidx.shape
     E = W.shape[1]
     wgt = torch.from_numpy(rng.uniform(0.5, 1.5, gidx.shape).astype(np.float32)).to(gidx.device)
     err = close_or_fail(f"embedding_bag, weighted [{B},{S},{P}]", ops.embedding_bag(W, gidx, rows, wgt),
-                        ref.embedding_bag(W, gidx, rows, wgt), *KERNEL_TOL["embedding_bag"], failures)
+                        plain_bag(W, gidx, rows, wgt), *KERNEL_TOL["embedding_bag"], failures)
     bitwise_or_fail("embedding_bag, all-ones weights vs unweighted",
                     ops.embedding_bag(W, gidx, rows, torch.ones_like(wgt)),
                     ops.embedding_bag(W, gidx, rows), failures)
@@ -802,7 +913,7 @@ def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
     bms, by = bound_ms(nbytes, gidx.numel() * E * 2, FP32_FLOPS)
     flat, wflat = gidx.view(B * S, P), wgt.view(B * S, P).to(W.dtype)
     t = dict(max_abs_err=err, ms=graph_ms(lambda: ops.embedding_bag(W, gidx, rows, wgt)),
-             plain_ms=time_ms(lambda: ref.embedding_bag(W, gidx, rows, wgt)),
+             plain_ms=time_ms(lambda: plain_bag(W, gidx, rows, wgt), iters=plain_iters),
              library_ms=graph_ms(lambda: F.embedding_bag(flat, W, mode="sum",
                                                          per_sample_weights=wflat)),
              bound_ms=bms, bound_by=by)
@@ -812,13 +923,17 @@ def weighted_bag(W, idx, offsets, rows, rng, unique, failures) -> dict:
     return t
 
 
-def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False) -> dict:
+def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False,
+                  logit_tol: float = LOGIT_TOL, exact: bool = False) -> dict:
     """The main path: the requests through the server, in bursts that each
-    wait for the last to be answered (BURSTS), so that every bucket serves.
-    With ``control``, the plain forward with every lookup moved to the next
-    row of its table must fall beyond ``LOGIT_TOL`` of the served logits
-    somewhere, or the gate could not see a wrong row.  Returns the launch
-    counts of this run."""
+    wait for the last to be answered (BURSTS), so that every bucket serves;
+    every logit within ``logit_tol`` of the plain forward's.  With
+    ``control``, the plain forward with every lookup moved to the next row
+    of its table must fall beyond ``logit_tol`` of the served logits
+    somewhere, or the gate could not see a wrong row.  With ``exact``, both
+    the served and the plain logits are also measured against the forward
+    in float64 (:func:`plain_logits`), the yardstick of their drift.
+    Returns the launch counts of this run."""
     import torch
     from repro_torch.kernels import fused_mlp, ops
     from repro_torch.serve import ContinuousBatchingServer, make_bucket_scorers
@@ -869,7 +984,7 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False)
     # every served score's logit against the plain-version forward's logit
     # of the same rows (fp32 scores near 0.5 invert to within about 3e-7)
     snap = reg.current().state
-    want, no_bag, moved = [], [], []
+    want, no_bag, moved, f64 = [], [], [], []
     rows = torch.as_tensor(cfg.table_rows, dtype=torch.int32, device=dev)[None, :, None]
     for i in range(0, N_REQUESTS, BUCKETS[-1]):
         batch = pad(reqs[i:i + BUCKETS[-1]], BUCKETS[-1])
@@ -878,16 +993,23 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False)
         if control:
             moved.append(plain_logits(cfg, snap, dict(batch, idx=(batch["idx"] + 1) % rows),
                                       offsets).cpu())
+        if exact:
+            f64.append(plain_logits(cfg, snap, batch, offsets, exact=True).cpu())
     want, no_bag = torch.cat(want)[:N_REQUESTS].double(), torch.cat(no_bag)[:N_REQUESTS].double()
     got = torch.logit(torch.from_numpy(scores).double())
-    close_or_fail(f"served logits vs plain forward ({N_REQUESTS})", got, want, 0.0, LOGIT_TOL,
+    close_or_fail(f"served logits vs plain forward ({N_REQUESTS})", got, want, 0.0, logit_tol,
                   failures)
+    if exact:
+        f64 = torch.cat(f64)[:N_REQUESTS].double()
+        log(f"  the yardstick, the forward in float64 (bf16 between layers): served logits up to "
+            f"{float((got - f64).abs().max()):.3e} from it, the plain forward's up to "
+            f"{float((want - f64).abs().max()):.3e}")
     if control:
         off = float((torch.cat(moved)[:N_REQUESTS].double() - got).abs().max())
         log(f"  control, every lookup on the next row of its table: the served logits up to "
-            f"{off:.3e} from its plain forward (must pass {LOGIT_TOL})")
-        if not off > LOGIT_TOL:
-            failures.append(f"served logits: the moved-rows control is within {LOGIT_TOL} "
+            f"{off:.3e} from its plain forward (must pass {logit_tol})")
+        if not off > logit_tol:
+            failures.append(f"served logits: the moved-rows control is within {logit_tol} "
                             f"({off:.3e}): the gate cannot see a wrong row")
     log(f"  scores: min {scores.min():.6f}, max {scores.max():.6f}, mean {scores.mean():.6f}; "
         f"logits: min {float(got.min()):.6f}, max {float(got.max()):.6f}; zeroing the bags "
@@ -1846,45 +1968,288 @@ def attention_kernel_phase(dev, failures) -> dict:
     return entry
 
 
-def lm_serving_phase(dev, failures) -> dict:
-    """internlm2-1.8b at full size (bf16 weights drawn on the card from a
-    seeded generator), ``attn_impl="pallas"``: LM_BATCH prompts of LM_PROMPT
-    tokens through ``make_prefill_step`` (time to first token, exactly one
-    kernel launch a layer), LM_DECODE greedy steps through
-    ``make_decode_step`` on the cache grown to LM_PROMPT + LM_DECODE (no
-    kernel launch), every logit finite; then the prefill's logits and cache
-    held to the same prefill with the kernel's plain version in its place,
-    and again with two faults planted in it, which must fail; the first decode
-    step to a prefill of LM_PROMPT + 1 tokens, prefill tokens/s, decode ms a
-    step and the device's busy time (torch.profiler), and one prefill of
-    LM_LONG tokens.  Returns the launch counts of the main path's run."""
-    import contextlib
+def param_total(tree: dict) -> int:
+    return sum(param_total(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+
+def microbatches(cfg, B: int) -> int:
+    """The chunks ``make_prefill_step`` runs a batch of B in."""
+    mb = max(1, min(cfg.prefill_microbatch, B))
+    while B % mb:
+        mb -= 1
+    return mb
+
+
+@contextlib.contextmanager
+def attention_as(fn):
+    """The transformer's flash-attention call replaced by ``fn`` inside the
+    context."""
+    from repro_torch.models import attention
+    kernel = attention.ops.flash_attention
+    attention.ops.flash_attention = fn
+    try:
+        yield
+    finally:
+        attention.ops.flash_attention = kernel
+
+
+class MoeTally:
+    """Inside ``with tally:``, every ``transformer.moe_block`` call also
+    tallies its routing (``moe_route`` again, outside the block): pairs,
+    dropped pairs and the largest expert load of a sequence over the mean
+    load (L k / E).  Not on a timed path."""
+
+    def __init__(self):
+        self.pairs = self.dropped = 0
+        self.max_load = 0.0
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.block = block = tf.moe_block
+
+        def tallied(x, p, cfg):
+            import torch
+            _, eidx, _, keep, _, _ = tf.moe_route(x, p["router"], cfg)
+            B, L, k = eidx.shape
+            load = torch.zeros((B, cfg.n_experts), device=x.device).scatter_add_(
+                1, eidx.reshape(B, -1), torch.ones((B, L * k), device=x.device))
+            self.pairs += keep.numel()
+            self.dropped += int((~keep).sum())
+            self.max_load = max(self.max_load, float(load.max()) * cfg.n_experts / (L * k))
+            return block(x, p, cfg)
+        tf.moe_block = tallied
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf.moe_block = self.block
+        return False
+
+    def share(self) -> float:
+        return self.dropped / max(self.pairs, 1)
+
+
+class AttnTap:
+    """Inside ``with tap:``, every flash-attention call of the transformer
+    runs the kernel, then ``plain`` (the kernel's plain version, or a fault
+    planted in it) on the same q, k, v, and holds the two by phase 14's
+    gates (each output within ATTN_TOL, at most ATTN_MAX_UNEQUAL of them not
+    equal and ATTN_MAX_PAST_ULP past one bf16 ulp); the kernel's output goes
+    on.  ``bad`` lists the calls outside the gates."""
+
+    def __init__(self, plain):
+        self.plain, self.calls, self.bad = plain, 0, []
+        self.err = self.unequal = self.past = 0.0
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.kernel = kernel = attention.ops.flash_attention
+
+        def tapped(q, k, v, **kw):
+            got, want = kernel(q, k, v, **kw), self.plain(q, k, v, **kw)
+            d = (got.float() - want.float()).abs()
+            outside = bool((d > ATTN_TOL[1] + ATTN_TOL[0] * want.float().abs()).any())
+            unequal = float((got != want).float().mean())
+            past = float((bf16_ulps(got, want) > 1).float().mean())
+            self.err = max(self.err, float(d.max()))
+            self.unequal, self.past = max(self.unequal, unequal), max(self.past, past)
+            if outside or unequal > ATTN_MAX_UNEQUAL or past > ATTN_MAX_PAST_ULP:
+                self.bad.append(self.calls)
+            self.calls += 1
+            return got
+        attention.ops.flash_attention = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.ops.flash_attention = self.kernel
+        return False
+
+
+class LastTokenAttn:
+    """Inside ``with rec:``, every ``transformer.attn_block`` call keeps its
+    input's and its output's last token ([b, 1, d] each), in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.block = block = tf.attn_block
+        self.calls = []
+
+        def kept(x, ap, cfg, positions, window):
+            o, entry = block(x, ap, cfg, positions, window)
+            self.calls.append((x[:, -1:].clone(), o[:, -1:].clone()))
+            return o, entry
+        tf.attn_block = kept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf.attn_block = self.block
+        return False
+
+    def layer(self, i: int, n_layers: int) -> tuple:
+        """Layer i's input and output, the prefill's microbatches joined."""
+        import torch
+        parts = self.calls[i::n_layers]
+        return torch.cat([z for z, _ in parts]), torch.cat([h for _, h in parts])
+
+
+def decode_attn_check(cfg, params, rec, cache, at: int) -> tuple[float, int]:
+    """Each layer's decode attention (``transformer._decode_attn``) on the
+    last token's recorded input, writing its entry at position ``at`` of
+    that layer's recorded cache (a copy), against the recorded output: the
+    largest gap over the layer's largest output, and the layers outside
+    DECODE_ATTN_TOL."""
+    import torch
+    from repro_torch.models import transformer as tf
+    worst, bad = 0.0, 0
+    for i, (stack, j, _, _, w) in enumerate(tf._layer_plan(cfg)):
+        z, want = rec.layer(i, cfg.n_layers)
+        pos = torch.full((z.shape[0],), at, dtype=torch.long, device=z.device)
+        got = tf._decode_attn(z, tf._layer(params[stack], j)["attn"],
+                              {k: c[i].clone() for k, c in cache.items()}, cfg, pos,
+                              w if w > 0 else 1 << 30)
+        d = (got.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        bad += bool((d > DECODE_ATTN_TOL[0] * want.float().abs()
+                     + DECODE_ATTN_TOL[1] * scale).any())
+        worst = max(worst, float(d.max()) / scale)
+    return worst, bad
+
+
+def largest_divisor(n: int, at_most: int) -> int:
+    return max(c for c in range(1, min(n, at_most) + 1) if n % c == 0)
+
+
+class MoeRoutes:
+    """An MoE model's discrete routing pinned from one run to others.
+    Inside ``record()`` every ``transformer.moe_route`` call's experts,
+    slots, kept pairs and capacity are kept; inside ``replay(part)`` each
+    call takes its counterpart's ("all": the same call; "head": the same
+    call cut to its first L tokens, a causal cut since a pair's slot counts
+    only earlier pairs; "last": the same layer's last token, the recorded
+    microbatches joined), its gates recomputed from its own router's
+    probabilities at those experts.  The top-k choice is not continuous: an
+    input one bf16 step away flips a choice between near-equal experts, and
+    that token's output moves by an expert's whole share, which no tolerance
+    holds; all that is continuous stays the run's own.  ``flips`` counts the
+    tokens whose own top-k set differed from the pinned one."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls = cfg, []
+        self.flips = self.tokens = 0
+
+    def record(self):
+        return self._patched(None)
+
+    def replay(self, part: str):
+        return self._patched(part)
+
+    @contextlib.contextmanager
+    def _patched(self, part):
+        from repro_torch.models import transformer as tf
+        route = tf.moe_route
+        self.part, self.i = part, 0
+
+        def patched(x, router, cfg):
+            got = route(x, router, cfg)
+            if part is None:
+                self.calls.append((got[1], got[2], got[3], got[5]))
+                return got
+            return self._pinned(x, router, got[1])
+        tf.moe_route = patched
+        try:
+            yield self
+        finally:
+            tf.moe_route = route
+
+    def _pinned(self, x, router, own):
+        import torch
+        from repro_torch.models.attention import _softmax
+        k, E = self.cfg.top_k, self.cfg.n_experts
+        L = x.shape[1]
+        if self.part == "last":
+            n_moe = self.cfg.n_layers - self.cfg.first_dense_layers
+            recs = self.calls[self.i::n_moe]
+            eidx, slot, keep = (torch.cat([r[j] for r in recs]) for j in range(3))
+            eidx, slot, keep, C = eidx[:, -1:], slot[:, -k:], keep[:, -k:], recs[0][3]
+        else:
+            eidx, slot, keep, C = self.calls[self.i]
+            eidx, slot, keep = eidx[:, :L], slot[:, :L * k], keep[:, :L * k]
+        self.i += 1
+        self.flips += int((own.sort(-1).values != eidx.sort(-1).values).any(-1).sum())
+        self.tokens += own.shape[0] * own.shape[1]
+        gate = _softmax(x.float() @ router.float()).gather(-1, eidx)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        dest = torch.where(keep, eidx.reshape(keep.shape) * C + slot, E * C)
+        return gate, eidx, slot, keep, dest, C
+
+
+
+def lm_phase(cfg, dev, failures, tag: str, *, yardstick: bool = False,
+             long_prefill: bool = False, moe_check: bool = False) -> dict:
+    """One LM at full width on the card (bf16 weights drawn on the card from
+    a seeded generator), served through ``lm_steps``: LM_BATCH prompts of
+    LM_PROMPT tokens through ``make_prefill_step`` (time to first token;
+    with ``attn_impl="pallas"`` exactly one flash launch a layer and a
+    prefill microbatch), LM_DECODE greedy steps through ``make_decode_step``
+    on the cache grown to LM_PROMPT + LM_DECODE (no kernel launch), every
+    logit finite; the decode step's device busy time (torch.profiler).  On
+    the kernel path, a dense model: the prefill's logits and cache held to
+    the same prefill with the kernel's plain version in its place, and again
+    with two faults planted in it, which must fail; an MoE model (no
+    whole-model gate holds, see below): the kernel held to its plain version
+    on every call of the prefill (:class:`AttnTap`), each fault failing it,
+    and the whole model's distances logged with the routing pinned
+    (:class:`MoeRoutes`).  Every model: each layer's decode attention held
+    to a prefill of LM_PROMPT + 1 tokens on that prefill's input and cache
+    (:func:`decode_attn_check`), a control at the position before failing
+    it; a dense model's first decode step held to that prefill's logits, an
+    MoE model's logged with its routing pinned.  An MoE model's drop share
+    is tallied in the warm-up prefill (:class:`MoeTally`).  With
+    ``yardstick`` the plain prefill against the chunked path's and the
+    prefill's busy time, with ``long_prefill`` one prefill of LM_LONG
+    tokens, with ``moe_check`` :func:`moe_layer_check`; the flash kernel
+    alone at the model's shapes (:func:`flash_at_model`).  Frees its
+    tensors.  Returns the launch counts of the main path's run and the
+    phase's numbers."""
     import torch
     from repro_torch import weights
-    from repro_torch.configs.internlm2_1_8b import config
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import attention, lm_steps
+    from repro_torch.models import lm_steps
 
-    cfg = dataclasses.replace(config(), attn_impl="pallas")
     B, L, N = LM_BATCH, LM_PROMPT, LM_DECODE
+    kernel = cfg.attn_impl == "pallas"
+    mb = microbatches(cfg, B)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers; the card has {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by "
+        "this process)")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = weights.init_lm_params(cfg, gen, device=dev)
     toks = torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev, dtype=torch.int32)
     torch.cuda.synchronize()
-    def count(tree):
-        return sum(count(v) if isinstance(v, dict) else v.numel() for v in tree.values())
-
-    nparams = count(params)
+    nparams = param_total(params)
     log(f"{cfg.name}: {nparams} parameters, {nparams * 2 / 1e9:.3f} GB bf16, drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
-    if nparams != cfg.param_count() + cfg.d_model:   # param_count leaves out the final norm
-        failures.append(f"{nparams} parameters, the config counts {cfg.param_count()} + "
-                        f"{cfg.d_model}")
+        f"{time.perf_counter() - t0:.1f} s; {cfg.active_param_count()} active a token")
+    # param_count leaves out the final norm and MLA's two norms a layer
+    norms = cfg.d_model + cfg.n_layers * (cfg.q_lora + cfg.kv_lora) * cfg.mla
+    if nparams != cfg.param_count() + norms:
+        failures.append(f"{nparams} parameters, the config counts {cfg.param_count()} + {norms}")
     prefill, _ = lm_steps.make_prefill_step(cfg, B, L, device=dev)
     decode, (_, cstructs, _, _) = lm_steps.make_decode_step(cfg, B, L + N, device=dev)
-    prefill(params, toks)  # warm-up: cuBLAS's plans for these shapes
+    tally = MoeTally()
+    with tally:   # warm-up: cuBLAS's plans for these shapes; an MoE model's drops tallied
+        prefill(params, toks)
     torch.cuda.synchronize()
+    out = {"model": cfg.name, "layers": cfg.n_layers, "gb": nparams * 2 / 1e9}
+    if cfg.moe:
+        out.update(dropped_share=tally.share(), max_load=tally.max_load)
+        log(f"  MoE at capacity factor {cfg.capacity_factor:g}: {tally.dropped} of {tally.pairs} "
+            f"(token, expert) pairs dropped ({tally.share() * 100:.3f}%); the largest expert "
+            f"load of a sequence {tally.max_load:.2f} times the mean")
 
     # the main path: prefill, then greedy decode, the counts read after both
     ops.reset_launches()
@@ -1893,18 +2258,23 @@ def lm_serving_phase(dev, failures) -> dict:
     nxt = logits.argmax(-1).to(torch.int32)
     first = nxt.cpu()
     ttft = time.perf_counter() - t0
-    grown = {k: torch.zeros(shape, dtype=dtype, device=dev)
-             for k, (shape, dtype) in cstructs.items()}
-    for k in grown:
-        grown[k][..., :L, :] = cache[k]
+
+    def grown(c, Lmax):
+        g = {k: torch.zeros(t.shape[:-2] + (Lmax, t.shape[-1]), dtype=t.dtype, device=dev)
+             for k, t in c.items()}
+        for k in g:
+            g[k][..., :L, :] = c[k]
+        return g
+
+    big = grown(cache, L + N)
     pos = torch.full((B,), L, dtype=torch.int32, device=dev)
     step_logits = []
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for i in range(N):
-        out, grown = decode(params, grown, nxt, pos)
-        step_logits.append(out if i == 0 else out.isfinite().all())
-        nxt = out.argmax(-1).to(torch.int32)
+        o, big = decode(params, big, nxt, pos)
+        step_logits.append(o if i == 0 else o.isfinite().all())
+        nxt = o.argmax(-1).to(torch.int32)
         pos = pos + 1
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t1) / N * 1e3
@@ -1912,41 +2282,31 @@ def lm_serving_phase(dev, failures) -> dict:
     log(f"prefill {B} x {L} tokens: time to first token {ttft * 1e3:.2f} ms "
         f"({B * L / ttft:.0f} tokens/s); {N} greedy decode steps: {decode_ms:.3f} ms a step "
         f"({B / decode_ms * 1e3:.1f} tokens/s); launches {counts}")
-    want = {**{k: 0 for k in counts}, "flash_attention": cfg.n_layers}
+    out.update(ttft_ms=ttft * 1e3, prefill_tokens_s=B * L / ttft, decode_ms=decode_ms,
+               flash_launches=counts["flash_attention"])
+    want = {**{k: 0 for k in counts}, "flash_attention": cfg.n_layers * mb if kernel else 0}
     if counts != want:
-        failures.append(f"LM serving launches {counts}, want {want} (one a layer in the prefill)")
+        failures.append(f"{cfg.name} serving launches {counts}, want {want} (one a layer and a "
+                        f"microbatch in the prefill, {mb} microbatches)")
     finite = bool(logits.isfinite().all()) and all(bool(f) for f in step_logits[1:]) \
         and bool(step_logits[0].isfinite().all())
     if tuple(logits.shape) != (B, cfg.vocab) or not finite:
-        failures.append(f"LM logits: shape {tuple(logits.shape)}, all finite {finite}")
+        failures.append(f"{cfg.name} logits: shape {tuple(logits.shape)}, all finite {finite}")
     log(f"prefill logits: |max| {float(logits.abs().max()):.4f}, std {float(logits.std()):.4f}; "
         f"first tokens {first.tolist()}, last tokens {nxt.tolist()}")
-
-    # the prefill with the kernel's plain version in its place
-    @contextlib.contextmanager
-    def attention_as(fn):
-        kernel = attention.ops.flash_attention
-        attention.ops.flash_attention = fn
-        try:
-            yield
-        finally:
-            attention.ops.flash_attention = kernel
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    wall_ms, busy_ms, top = device_busy_ms(lambda: decode(params, big, nxt, pos), 2)
+    log(f"decode step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: " + top_kernels(top[:6]))
+    out.update(decode_busy_ms=busy_ms, decode_idle=1 - busy_ms / wall_ms)
+    del big
+    torch.cuda.empty_cache()
 
     def cache_gap(a, b):
-        return max(float((a[kv][i].float() - b[kv][i].float()).abs().max())
-                   for kv in ("k", "v") for i in range(cfg.n_layers))
+        return max(float((a[k][i].float() - b[k][i].float()).abs().max())
+                   for k in a for i in range(cfg.n_layers))
 
-    with attention_as(ref.flash_attention):
-        p_logits, p_cache = prefill(params, toks)
-    close_or_fail(f"prefill logits, kernel against plain attention [{B},{cfg.vocab}]", logits,
-                  p_logits, 0.0, LM_TOL, failures)
-    gap = cache_gap(cache, p_cache)
-    log(f"  prefill k and v cache, kernel against plain attention [{cfg.n_layers},{B},"
-        f"{cfg.n_kv_heads},{L},{cfg.d_head}]: max_abs_err {gap:.3e} (atol {LM_TOL:g})")
-    if not gap <= LM_TOL:
-        failures.append(f"prefill cache: max_abs_err {gap:.3e} past {LM_TOL:g}")
-
-    # the gates' power: two faults planted in the plain attention must fail both
+    # two faults planted in the plain attention, which every gate must reject
     def wrong_kv_head(q, k, v, **kw):   # head h reads KV head h % Hkv, not h // (H / Hkv)
         idx = torch.arange(q.shape[1], device=q.device) % k.shape[1]
         return ref.flash_attention(q, k[:, idx], v[:, idx], **kw)
@@ -1954,71 +2314,371 @@ def lm_serving_phase(dev, failures) -> dict:
     def diagonal_masked(q, k, v, **kw):  # query at p sees keys < p, not <= p
         return ref.flash_attention(q, k[:, :, :-1], v[:, :, :-1], **kw)
 
-    for name, fault in (("KV head h % Hkv", wrong_kv_head), ("diagonal masked", diagonal_masked)):
-        with attention_as(fault):
-            f_logits, f_cache = prefill(params, toks)
-        lgap, cgap = float((f_logits - logits).abs().max()), cache_gap(f_cache, cache)
-        log(f"  planted fault, {name}: logits max_abs_err {lgap:.3e}, cache {cgap:.3e}")
-        if not (lgap > LM_TOL and cgap > LM_TOL):
-            failures.append(f"planted fault {name} passes the LM gate ({lgap:.3e}, {cgap:.3e})")
-        del f_cache
-    chunked, _ = lm_steps.make_prefill_step(dataclasses.replace(cfg, attn_impl="chunked"), B, L,
-                                            device=dev)
-    c_logits, _ = chunked(params, toks)
-    log(f"  top-1 tokens equal in {int((logits.argmax(-1) == p_logits.argmax(-1)).sum())} of {B}; "
-        f"last layer's v cache max_abs_err "
-        f"{float((cache['v'][-1].float() - p_cache['v'][-1].float()).abs().max()):.3e}; the "
-        f"yardstick, plain against chunked attention: max_abs_err "
-        f"{float((p_logits - c_logits).abs().max()):.3e}")
-    del p_cache, cache
-    # the first decode step against the prefill of the prompt and its first token
-    full, _ = lm_steps.make_prefill_step(cfg, B, L + 1, device=dev)
-    f_logits, _ = full(params, torch.cat([toks, first.to(dev)[:, None]], dim=1))
-    close_or_fail(f"first decode step against a prefill of {L + 1} tokens", step_logits[0],
-                  f_logits, 0.0, LM_TOL, failures)
-    log(f"  top-1 tokens equal in {int((step_logits[0].argmax(-1) == f_logits.argmax(-1)).sum())} "
-        f"of {B}")
+    faults = (("KV head h % Hkv", wrong_kv_head), ("diagonal masked", diagonal_masked))
+    if kernel and not cfg.moe:   # the prefill with the kernel's plain version in its place
+        with attention_as(ref.flash_attention):
+            p_logits, p_cache = prefill(params, toks)
+        close_or_fail(f"prefill logits, kernel against plain attention [{B},{cfg.vocab}]",
+                      logits, p_logits, 0.0, LM_TOL, failures)
+        gap = cache_gap(cache, p_cache)
+        log(f"  prefill k and v cache, kernel against plain attention [{cfg.n_layers},{B},"
+            f"{cfg.n_kv_heads},{L},{cfg.d_head}]: max_abs_err {gap:.3e} (atol {LM_TOL:g}); "
+            f"top-1 tokens equal in {int((logits.argmax(-1) == p_logits.argmax(-1)).sum())} of "
+            f"{B}; last layer's v cache max_abs_err "
+            f"{float((cache['v'][-1].float() - p_cache['v'][-1].float()).abs().max()):.3e}")
+        out.update(plain_logit_gap=float((logits - p_logits).abs().max()), plain_cache_gap=gap)
+        if not gap <= LM_TOL:
+            failures.append(f"prefill cache: max_abs_err {gap:.3e} past {LM_TOL:g}")
+        del p_cache
+        if yardstick:
+            chunked, _ = lm_steps.make_prefill_step(dataclasses.replace(cfg, attn_impl="chunked"),
+                                                    B, L, device=dev)
+            c_logits, _ = chunked(params, toks)
+            log(f"  the yardstick, plain against chunked attention: max_abs_err "
+                f"{float((p_logits - c_logits).abs().max()):.3e}")
+        torch.cuda.empty_cache()
+        for name, fault in faults:   # the gates' power
+            with attention_as(fault):
+                f_logits, f_cache = prefill(params, toks)
+            lgap, cgap = float((f_logits - logits).abs().max()), cache_gap(f_cache, cache)
+            log(f"  planted fault, {name}: logits max_abs_err {lgap:.3e}, cache {cgap:.3e}")
+            if not (lgap > LM_TOL and cgap > LM_TOL):
+                failures.append(f"planted fault {name} passes the LM gate ({lgap:.3e}, "
+                                f"{cgap:.3e})")
+            del f_cache
+            torch.cuda.empty_cache()
+    del cache
+    torch.cuda.empty_cache()
+    if kernel and cfg.moe:
+        # no whole-model gate holds here: with the routing pinned, two right prefills (plain
+        # and chunked attention) still part by more than LM_TOL, since the reference's expert
+        # init (N(0, 1/E), 4 times the fan-in scale at d 2048) amplifies a bf16 step layer
+        # over layer.  So the kernel is held on every call of the prefill to its plain version
+        # on the same inputs (phase 14's gates), and the whole models' distances are logged
+        pin = MoeRoutes(cfg)
+        with AttnTap(ref.flash_attention) as tap, pin.record():
+            k_logits, _ = prefill(params, toks)
+        log(f"  flash kernel against its plain version on each of the prefill's {tap.calls} "
+            f"calls: max_abs_err {tap.err:.3e}, at most {tap.unequal * 100:.4f}% of outputs not "
+            f"equal and {tap.past * 100:.4f}% past one bf16 ulp; calls outside phase 14's gates "
+            f"{tap.bad}")
+        out.update(tap_err=tap.err, tap_unequal=tap.unequal, tap_past_ulp=tap.past)
+        if tap.bad or tap.calls != cfg.n_layers * mb:
+            failures.append(f"{cfg.name}: the kernel outside phase 14's gates at calls {tap.bad} "
+                            f"of {tap.calls}")
+        for name, fault in faults:
+            with AttnTap(fault) as ft:
+                prefill(params, toks)
+            log(f"  planted fault, {name}: {len(ft.bad)} of {ft.calls} calls outside the gates, "
+                f"max_abs_err {ft.err:.3e}")
+            if not ft.bad:
+                failures.append(f"planted fault {name} passes the per-call gate")
+        torch.cuda.empty_cache()
+        with attention_as(ref.flash_attention), pin.replay("all"):
+            p_logits, _ = prefill(params, toks)
+        flips = pin.flips
+        with pin.replay("all"):
+            c_logits, _ = lm_steps.make_prefill_step(dataclasses.replace(cfg, attn_impl="chunked"),
+                                                     B, L, device=dev)[0](params, toks)
+        out.update(plain_logit_gap=float((k_logits - p_logits).abs().max()),
+                   chunked_logit_gap=float((c_logits - p_logits).abs().max()))
+        log(f"  the whole model, routing pinned from the kernel's prefill: logits max_abs_err "
+            f"{out['plain_logit_gap']:.3e} kernel against plain attention ({flips} of "
+            f"{pin.tokens // 2} token-layers of the plain run would have chosen other experts), "
+            f"{out['chunked_logit_gap']:.3e} plain against chunked (no kernel on either side)")
+        torch.cuda.empty_cache()
 
-    # steady times under torch.profiler: wall clock (ending in a sync) and device busy time
-    wall_ms, busy_ms, top = device_busy_ms(lambda: prefill(params, toks), 3)
-    log(f"prefill under torch.profiler: {wall_ms:.3f} ms wall ({B * L / wall_ms * 1e3:.0f} "
-        f"tokens/s), device busy {busy_ms:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); "
-        "top kernels: " + top_kernels(top[:6]))
-    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
-    wall_ms, busy_ms, top = device_busy_ms(lambda: decode(params, grown, nxt, pos), 8)
-    log(f"decode step under torch.profiler: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
-        f"({(1 - busy_ms / wall_ms) * 100:.1f}% idle); top kernels: "
-        + top_kernels(top[:6]))
-    del grown
+    # the first decode step against the prefill of the prompt and its first token: every
+    # layer's decode attention on that prefill's inputs and cache, then the whole model
+    full_toks = torch.cat([toks, first.to(dev)[:, None]], dim=1)
+    fcfg = dataclasses.replace(cfg, attn_chunk=largest_divisor(L + 1, cfg.attn_chunk))
+    full, _ = lm_steps.make_prefill_step(fcfg, B, L + 1, device=dev)
+    pin = MoeRoutes(cfg) if cfg.moe else None
+    with pin.record() if pin else contextlib.nullcontext(), LastTokenAttn() as rec:
+        f_logits, f_cache = full(params, full_toks)
+    worst, bad = decode_attn_check(cfg, params, rec, f_cache, L)
+    c_worst, c_bad = decode_attn_check(cfg, params, rec, f_cache, L - 1)
+    del f_cache
+    torch.cuda.empty_cache()
+    log(f"  each layer's decode attention at position {L} on the {L + 1}-token prefill's input "
+        f"and cache, against that prefill's: largest gap {worst:.3e} of the layer's largest "
+        f"output, {bad} of {cfg.n_layers} layers outside {DECODE_ATTN_TOL}; control, at "
+        f"position {L - 1} (written over the prompt's last entry): {c_bad} layers outside, "
+        f"largest gap {c_worst:.3e}")
+    out.update(decode_attn_gap=worst, decode_control_layers=c_bad)
+    if bad or not c_bad:
+        failures.append(f"{cfg.name}: {bad} layers' decode attention outside the gate, the "
+                        f"control outside at {c_bad}")
+    d_first = step_logits[0]
+    if pin:   # the whole model, routing pinned from the (L + 1)-token prefill
+        with pin.replay("head"):
+            _, cache = prefill(params, toks)
+        one, _ = lm_steps.make_decode_step(cfg, B, L + 1, device=dev)
+        with pin.replay("last"):
+            d_first, _ = one(params, grown(cache, L + 1), first.to(dev),
+                             torch.full((B,), L, dtype=torch.int32, device=dev))
+        del cache
+        out["decode_prefill_gap"] = float((d_first - f_logits).abs().max())
+        log(f"  the whole model's first decode step against the {L + 1}-token prefill, routing "
+            f"pinned from it: logits max_abs_err {out['decode_prefill_gap']:.3e} "
+            f"({pin.flips} of {pin.tokens} token-layers would have chosen other experts)")
+    else:
+        out["decode_prefill_gap"] = close_or_fail(
+            f"first decode step against a prefill of {L + 1} tokens", d_first, f_logits, 0.0,
+            LM_TOL, failures)
+    log(f"  top-1 tokens equal in {int((d_first.argmax(-1) == f_logits.argmax(-1)).sum())} of {B}")
     torch.cuda.empty_cache()
 
-    # the repo's prefill length, one prompt: the kernel's causal skip at length
-    long_toks = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen, device=dev,
-                              dtype=torch.int32)
-    long_prefill, _ = lm_steps.make_prefill_step(cfg, 1, LM_LONG, device=dev)
-    long_prefill(params, long_toks)
-    torch.cuda.synchronize()
-    before = ops.flash_attention.launches
-    t0 = time.perf_counter()
-    l_logits, _ = long_prefill(params, long_toks)
-    torch.cuda.synchronize()
-    long_ms = (time.perf_counter() - t0) * 1e3
-    if not bool(l_logits.isfinite().all()) or ops.flash_attention.launches - before != cfg.n_layers:
-        failures.append(f"the {LM_LONG}-token prefill: finite {bool(l_logits.isfinite().all())}, "
-                        f"{ops.flash_attention.launches - before} launches")
+    if yardstick:   # the prefill's steady time under torch.profiler: wall clock and busy
+        wall_ms, busy_ms, top = device_busy_ms(lambda: prefill(params, toks), 2)
+        log(f"prefill under torch.profiler: {wall_ms:.3f} ms wall ({B * L / wall_ms * 1e3:.0f} "
+            f"tokens/s), device busy {busy_ms:.3f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% "
+            "idle); top kernels: " + top_kernels(top[:6]))
+        out.update(prefill_busy_ms=busy_ms, prefill_idle=1 - busy_ms / wall_ms)
+        torch.cuda.empty_cache()
+
+    if long_prefill:   # the repo's prefill length, one prompt: the kernel's causal skip at length
+        long_toks = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        long_prefill_step, _ = lm_steps.make_prefill_step(cfg, 1, LM_LONG, device=dev)
+        long_prefill_step(params, long_toks)
+        torch.cuda.synchronize()
+        before = ops.flash_attention.launches
+        t0 = time.perf_counter()
+        l_logits, _ = long_prefill_step(params, long_toks)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+        if not bool(l_logits.isfinite().all()) \
+                or ops.flash_attention.launches - before != cfg.n_layers:
+            failures.append(f"the {LM_LONG}-token prefill: finite "
+                            f"{bool(l_logits.isfinite().all())}, "
+                            f"{ops.flash_attention.launches - before} launches")
+        log(f"prefill 1 x {LM_LONG} tokens: {long_ms:.2f} ms ({LM_LONG / long_ms * 1e3:.0f} "
+            "tokens/s)")
+        torch.cuda.empty_cache()
+    if moe_check:
+        out["moe_layer"] = moe_layer_check(cfg, params, dev, failures)
+        torch.cuda.empty_cache()
+    if kernel:
+        out["flash"] = flash_at_model(cfg, dev, gen, LM_LONG if long_prefill else L,
+                                      1 if long_prefill else B)
+    del params
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def flash_at_model(cfg, dev, gen, L: int, B: int) -> list[dict]:
+    """The flash kernel alone at the model's attention shape, [B, H, L, D]
+    causal, once a distinct (window, softcap) of its layers: its time beside
+    the bound (:func:`attention_kernel_phase`'s) and, with no softcap and no
+    window, ``F.scaled_dot_product_attention``'s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = torch.randn((1, H, LM_LONG, D), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((1, Hkv, LM_LONG, D), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, H, L, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
-    k_ms = time_ms(lambda: ops.flash_attention(q, k, v), iters=5, warmup=1)
-    pairs = H * visible_pairs(LM_LONG, LM_LONG, True, 0)
-    bms, by = bound_ms(2 * (2 * H * LM_LONG * D + 2 * Hkv * LM_LONG * D), 4.0 * pairs * D,
-                       BF16_TENSOR_FLOPS)
-    log(f"prefill 1 x {LM_LONG} tokens: {long_ms:.2f} ms ({LM_LONG / long_ms * 1e3:.0f} tokens/s); "
-        f"the kernel alone at [1,{H},{LM_LONG},{D}] causal: {k_ms:.4f} ms a layer, bound "
-        f"{bms:.4f} ms ({by}), {bms / k_ms * 100:.1f}% of bound, "
-        f"{4.0 * pairs * D / k_ms / 1e9:.1f} TFLOP/s")
-    return counts
+    rows = []
+    for window in sorted(set(cfg.layer_windows())):
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        pairs = B * H * visible_pairs(L, L, True, window)
+        bms, by = bound_ms(2 * (2 * B * H * L * D + 2 * B * Hkv * L * D), 4.0 * pairs * D,
+                           BF16_TENSOR_FLOPS)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=5, warmup=1)
+        lib = None if window or cfg.attn_softcap else time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            iters=5, warmup=1)
+        rows.append(dict(model=cfg.name, B=B, H=H, Hkv=Hkv, L=L, window=window,
+                         softcap=cfg.attn_softcap, ms=ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib))
+        log(f"  flash_attention at {cfg.name}'s layer [{B},{H},{L},{D}] / {Hkv} KV heads, window "
+            f"{window}, softcap {cfg.attn_softcap:g}: {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / ms * 100:.1f}% of bound"
+            + ("" if lib is None else f", SDPA {lib:.4f} ms"))
+    return rows
+
+
+def bf16_step(v):
+    """One bf16 step at each value of ``v``."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def moe_layer_check(cfg, params, dev, failures) -> dict:
+    """Phase 27's MoE layer at full width: layer 0's ``moe_block`` on
+    LM_BATCH x LM_PROMPT inputs of RMSNorm's scale, against a computation
+    of its own on the card: each token's experts by ``torch.topk`` of the
+    router's softmax, each sequence's slots by a stable sort of its pairs
+    by expert (a pair's slot its rank among its expert's pairs, token-major
+    then rank), each kept pair's SwiGLU through its own expert times its
+    gate in fp32, summed.  The experts, slots and kept set must equal
+    ``moe_route``'s exactly; each output within two bf16 steps of its value
+    plus 2^-7 of the sum of its terms' sizes; a control with each token's
+    gates rolled by one rank must fail that.  Returns the layer's numbers
+    (the share of pairs dropped among them)."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    B, L, d, E, k = LM_BATCH, LM_PROMPT, cfg.d_model, cfg.n_experts, cfg.top_k
+    p = tf._layer(params["layers"], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    x = torch.randn((B, L, d), generator=gen, device=dev).to(torch.bfloat16)
+    y = tf.moe_block(x, p, cfg).float()
+    _, eidx, slot, keep, _, C = tf.moe_route(x, p["router"], cfg)
+    s_ = x.float() @ p["router"].float()
+    e_ = torch.exp(s_ - s_.amax(-1, keepdim=True))
+    g2, e2 = (e_ / e_.sum(-1, keepdim=True)).topk(k, dim=-1)
+    g2 = g2 / g2.sum(-1, keepdim=True).clamp_min(1e-9)
+    ef = e2.reshape(B, L * k)
+    slot2 = torch.empty_like(ef)
+    for b in range(B):
+        order = torch.sort(ef[b], stable=True).indices
+        n = torch.bincount(ef[b], minlength=E)
+        slot2[b, order] = torch.arange(L * k, device=dev) - (n.cumsum(0) - n)[ef[b, order]]
+    keep2 = slot2 < C
+    same = {"experts": torch.equal(e2, eidx), "slots": torch.equal(slot2, slot),
+            "kept": torch.equal(keep2, keep)}
+    want, size, ctrl = (torch.zeros((B, L, d), device=dev) for _ in range(3))
+    rolled = g2.roll(1, dims=-1)
+    tok = torch.arange(L, device=dev).repeat_interleave(k)
+    rank = torch.arange(k, device=dev).repeat(L)
+    for b in range(B):
+        for e in range(E):
+            sel = ((ef[b] == e) & keep2[b]).nonzero()[:, 0]
+            if sel.numel():
+                t, r = tok[sel], rank[sel]
+                h = tf.swiglu(x[b, t], p["wg"][e], p["wu"][e], p["wd"][e]).float()
+                want[b].index_add_(0, t, g2[b, t, r, None] * h)
+                size[b].index_add_(0, t, (g2[b, t, r, None] * h).abs())
+                ctrl[b].index_add_(0, t, rolled[b, t, r, None] * h)
+    if "shared" in p:
+        sh = tf.swiglu(x, p["shared"]["wg"], p["shared"]["wu"], p["shared"]["wd"]).float()
+        want, ctrl, size = want + sh, ctrl + sh, size + sh.abs()
+    tol = 2 * bf16_step(want) + 2 ** -7 * size
+    bad = int(((y - want).abs() > tol).sum())
+    ctrl_bad = int(((y - ctrl).abs() > tol).sum())
+    dropped = float((~keep).float().mean())
+    log(f"  MoE layer 0 at [{B},{L},{d}], {E} experts, top {k}, C {C}: {dropped * 100:.3f}% of "
+        f"pairs dropped; experts, slots and kept set equal to the direct computation's {same}; "
+        f"output max_abs_err {float((y - want).abs().max()):.3e}, {bad} outside two bf16 steps "
+        f"and 2^-7 of the terms; control (gates rolled a rank) {ctrl_bad} outside, max_abs_err "
+        f"{float((y - ctrl).abs().max()):.3e}")
+    if not all(same.values()) or bad or not ctrl_bad or not dropped:
+        failures.append(f"27, the MoE layer: equal {same}, {bad} outputs outside, the control "
+                        f"{ctrl_bad} outside, {dropped:.4%} dropped (a check at C {C} must drop)")
+    return dict(capacity=C, dropped_share=dropped, max_abs_err=float((y - want).abs().max()),
+                control_err=float((y - ctrl).abs().max()))
+
+
+def lm_family_phase(dev, failures) -> tuple[dict, list]:
+    """Phases 25-28: gemma2-27b, phi3-medium-14b and qwen3-moe-30b-a3b at
+    full size on the flash kernel, deepseek-v2-236b at full width with its
+    depth cut to DEEPSEEK_LAYERS (its dense first layer and 7 MoE layers) on
+    the chunked path (the reference's only MLA path): :func:`lm_phase` each,
+    gemma2 in PREFILL_MICROBATCH chunks; qwen3 also :func:`moe_layer_check`.
+    Returns the flash launches of the main path's runs and each model's
+    numbers."""
+    from repro_torch.configs import deepseek_v2_236b, gemma2_27b, phi3_medium_14b, \
+        qwen3_moe_30b_a3b
+
+    runs, flash = [], 0
+    for tag, cfg in (("25", dataclasses.replace(gemma2_27b.config(), attn_impl="pallas",
+                                                prefill_microbatch=GEMMA2_MICROBATCH)),
+                     ("26", dataclasses.replace(phi3_medium_14b.config(), attn_impl="pallas")),
+                     ("27", dataclasses.replace(qwen3_moe_30b_a3b.config(), attn_impl="pallas")),
+                     ("28", dataclasses.replace(deepseek_v2_236b.config(),
+                                                n_layers=DEEPSEEK_LAYERS))):
+        t0 = time.perf_counter()
+        got, out = lm_phase(cfg, dev, failures, tag, moe_check=tag == "27")
+        if failures:
+            raise SystemExit(f"phase {tag}, {cfg.name} failed:\n" + "\n".join(failures))
+        flash += got["flash_attention"]
+        out["seconds"] = time.perf_counter() - t0
+        runs.append(out)
+        log(f"phase {tag} numbers: " + json.dumps(out))
+    return {"flash_attention": flash}, runs
+
+
+# phase 29: dlrm-large served with its tables cut to the largest multiple of
+# LARGE_ROW_STEP rows that leaves LARGE_FREE bytes free; its drawn rows are scaled in
+# place to U(-0.05, 0.05) (phase 24's): at the init scale 1 / sqrt(rows) its 16 top
+# layers shrink the logits below 1e-4 and no wrong row could pass the serving gate;
+# at 0.05 the moved-rows control moved 62 of 64 logits past 3e-3 in a CPU run of its
+# widths (tables of 2000 rows)
+LARGE_BATCH = 16384
+LARGE_ROW_STEP = 500_000
+LARGE_FREE = 8e9
+LARGE_SCALE = 0.05
+# atol for dlrm-large's served logits (-0.055 to 0.099 at this row scale) against the
+# plain forward's: each of its 25 layers rounds to bf16, and a rounding that falls the
+# other way in one layer moves every layer above it; on an H100 the two were 5.154e-3
+# apart (phase 24's LOGIT_TOL, 3e-3, is set at 7 and 8 layers) and the moved-rows
+# control 0.173 from the served logits.  The run prints both paths' distance from the
+# forward in float64
+LARGE_LOGIT_TOL = 1e-2
+
+
+def large_phase(dev, rng, failures) -> tuple[list, dict]:
+    """Phase 29: dlrm-large (paper Tab. I: 64 tables x 6,000,000 rows x E
+    256, P 100, bottom 2048-2048x7-256, top 2336-4096x16-1; 196 GB in bf16)
+    served on the card in row mode with each table cut to the largest
+    multiple of LARGE_ROW_STEP rows that leaves LARGE_FREE bytes free
+    (``torch.cuda.mem_get_info``): rows 1, 2 and 3 at its shapes at B
+    LARGE_BATCH (:func:`kernel_phase`, the plain bag in batch chunks) and
+    the buckets, then 1024 requests over buckets 8, 32, 128 with phase 24's
+    gates and control.  Returns the kernel entries and the serving's launch
+    counts."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.dlrm_paper import dlrm_large
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.serve import SnapshotRegistry
+
+    full = dlrm_large(batch=LARGE_BATCH)
+    S, E = len(full.table_rows), full.emb_dim
+    dense = 2 * sum(k * n + n for sizes in (full.bottom_sizes, full.top_sizes)
+                    for k, n in zip(sizes, sizes[1:]))
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    rows = int((free - LARGE_FREE - dense) // (S * E * 2)) // LARGE_ROW_STEP * LARGE_ROW_STEP
+    rows = min(rows, full.table_rows[0])
+    need = S * rows * E * 2
+    log(f"29 dlrm-large: the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by this process); each table "
+        f"cut from {full.table_rows[0]} to {rows} rows: {S} x {rows} x {E} bf16 = "
+        f"{need / 1e9:.2f} GB (uncut {S * full.table_rows[0] * E * 2 / 1e9:.2f} GB), dense "
+        f"{dense / 1e9:.3f} GB bf16")
+    if rows < LARGE_ROW_STEP:
+        failures.append(f"29: no table of {LARGE_ROW_STEP} rows fits beside "
+                        f"{LARGE_FREE / 1e9:.0f} GB free")
+        return [], {}
+    cfg = dataclasses.replace(full, table_rows=(rows,) * S, mlp_impl="pallas")
+    t0 = time.perf_counter()
+    reg = SnapshotRegistry()
+    state = weights.init_snapshot(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    state["emb_w"].mul_(LARGE_SCALE * float(np.sqrt(rows)))
+    snap = reg.publish(state)
+    del state
+    torch.cuda.synchronize()
+    log(f"29 snapshot: emb_w {tuple(snap.state['emb_w'].shape)} {snap.state['emb_w'].dtype}, "
+        f"{snap.emb_bytes / 1e9:.3f} GB, total {snap.total_bytes / 1e9:.3f} GB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s; the card's memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free")
+    offsets = torch.as_tensor(se.make_layout(cfg.spec, 1).row_offsets, dtype=torch.int32,
+                              device=dev)
+    entries = kernel_phase(cfg, snap.state, offsets, dev, rng, failures, summed=True)
+    if failures:
+        return entries, {}
+    torch.cuda.empty_cache()
+    reqs = make_requests(cfg, N_REQUESTS, rng)
+    counts = serving_phase(cfg, reg, offsets, dev, reqs, failures, control=True,
+                           logit_tol=LARGE_LOGIT_TOL, exact=True)
+    del snap, reg
+    torch.cuda.empty_cache()
+    return entries, counts
 
 
 def hybrid_batches(cfg, mesh, batches: list) -> list[dict]:
@@ -4908,11 +5568,14 @@ def main() -> int:
     if failures:
         raise SystemExit("attention kernel phase failed:\n" + "\n".join(failures))
     torch.cuda.empty_cache()
-    lm_counts = lm_serving_phase(dev, failures)
+    from repro_torch.configs import internlm2_1_8b
+    lm_counts, lm = lm_phase(dataclasses.replace(internlm2_1_8b.config(), attn_impl="pallas"),
+                             dev, failures, "15", yardstick=True, long_prefill=True)
     if failures:
         raise SystemExit("LM serving phase failed:\n" + "\n".join(failures))
     torch.cuda.empty_cache()
     counts["flash_attention"] = lm_counts["flash_attention"]
+    lm_runs = [lm]
     clock.mark("14, 15, attention and LM serving")
 
     # the hybrid step: table mode on one rank over NCCL, then two ranks on the one card
@@ -5025,6 +5688,22 @@ def main() -> int:
         if name != "fused_mlp_routes":
             counts[name] = counts.get(name, 0) + v
     clock.mark("24, dlrm-mlperf served at full size")
+
+    # the rest of the LM family at full width: row 13 on gemma2's, phi3's and qwen3's
+    # prefills, MoE and MLA through the port's serving steps
+    got, lm_family = lm_family_phase(dev, failures)
+    counts["flash_attention"] += got["flash_attention"]
+    lm_runs += lm_family
+    clock.mark("25-28, gemma2, phi3, qwen3-moe and deepseek-v2 served")
+
+    # dlrm-large served with its tables cut: rows 1, 2 and 3 at its shapes
+    large, got = large_phase(dev, rng, failures)
+    if failures:
+        raise SystemExit("phase 29, dlrm-large served failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        if name != "fused_mlp_routes":
+            counts[name] = counts.get(name, 0) + v
+    clock.mark("29, dlrm-large served")
     log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -5090,16 +5769,20 @@ def main() -> int:
         if k["name"] in fig16:  # rows 1 and 4 at the Fig. 16 example's shapes
             line[-1]["fig16"] = fig16[k["name"]]
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], fig16[k["name"]]["max_abs_err"])
-        for m in mlperf:  # rows 1, 2 and 3 at dlrm-mlperf's shapes
-            if m["name"] == k["name"]:
-                line[-1]["mlperf"] = {key: m.get(key) for key in (
+        for key, entries in (("mlperf", mlperf), ("large", large)):
+            for m in entries:  # rows 1, 2 and 3 at dlrm-mlperf's and dlrm-large's shapes
+                if m["name"] != k["name"]:
+                    continue
+                line[-1][key] = {f: m[f] for f in (
                     "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "by_batch", "uniform", "layers")
-                    if key in m}
+                    "by_batch", "uniform", "weighted", "layers") if f in m}
                 if "library_embedding_ms" in m:  # row 1 at P 1: F.embedding then a sum
-                    line[-1]["mlperf"].update(library_ms=m["library_embedding_ms"],
-                                              library_bag_ms=m["library_ms"])
+                    line[-1][key].update(library_ms=m["library_embedding_ms"],
+                                         library_bag_ms=m["library_ms"])
                 line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], m["max_abs_err"])
+        if k["name"] == "flash_attention":  # the LM phases: launches and shapes by model
+            line[-1]["models"] = [{f: r[f] for f in ("model", "flash_launches", "flash")
+                                   if f in r} for r in lm_runs]
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

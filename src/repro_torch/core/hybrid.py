@@ -361,12 +361,13 @@ RETRIEVAL_CHUNK = 1 << 14
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` largest of the 1-D ``x`` and their indices, largest first and
-    the lower index first among equal values: ``jax.lax.top_k``'s order
-    (``torch.topk`` leaves the order of ties open, and may even pick another
-    set of them).  A stable descending sort, cut at ``k``."""
-    v, i = torch.sort(x, descending=True, stable=True)
-    return v[:k], i[:k]
+    """The ``k`` largest of ``x`` along its last dim and their indices,
+    largest first and the lower index first among equal values:
+    ``jax.lax.top_k``'s order (``torch.topk`` leaves the order of ties open,
+    and may even pick another set of them).  A stable descending sort, cut
+    at ``k``."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
 
 
 def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: int = 128, *,

@@ -347,7 +347,7 @@ def refuse(args) -> None:
             "snapshot (dlrm/fm/bst/sasrec/din); LM archs have no "
             "serving path")
     raise SystemExit(f"--arch {args.arch}: the port does not train LMs yet (it serves "
-                     "internlm2 and gemma2); ROADMAP queue 1 item 8")
+                     "the five LM archs); ROADMAP queue 1 item 8")
 
 
 def run(rank: int, world: int, args) -> dict:

@@ -24,11 +24,11 @@ def param_structs(cfg: tf.TransformerConfig) -> dict:
 
 
 def cache_structs(cfg: tf.TransformerConfig, B: int, Lmax: int) -> dict:
-    """The KV cache's ``{'k', 'v'}`` as ``(shape, dtype)``: [n_layers, B,
-    Hkv, Lmax, dh] bf16."""
+    """The cache's ``(shape, dtype)`` by key, bf16: GQA {'k', 'v'} [n_layers,
+    B, Hkv, Lmax, dh]; MLA {'c_kv' [n_layers, B, Lmax, kv_lora], 'k_rope'
+    [n_layers, B, Lmax, qk_rope]}."""
     tf.check_supported(cfg)
-    shape = (cfg.n_layers, B, cfg.n_kv_heads, Lmax, cfg.d_head)
-    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+    return {k: (s, torch.bfloat16) for k, s in tf.cache_shapes(cfg, B, Lmax).items()}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> None:
@@ -40,9 +40,10 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> None:
 def make_prefill_step(cfg: tf.TransformerConfig, B: int, L: int, device="cuda"):
     """``(fn, (param_structs, token_struct))``; ``logits, cache = fn(params,
     tokens)`` with tokens [B, L] int on ``device``: logits [B, V] fp32 of
-    the last token, cache ``{'k', 'v'}`` [n_layers, B, Hkv, L, dh] bf16.
+    the last token, the cache of :func:`cache_structs` at ``Lmax = L``.
     With ``cfg.prefill_microbatch`` > 1 the batch runs in that many
-    sequential chunks (the largest divisor of B not above it)."""
+    sequential chunks (the largest divisor of B not above it), each writing
+    its rows of one cache."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
     mb = max(1, min(cfg.prefill_microbatch, B))
@@ -53,9 +54,13 @@ def make_prefill_step(cfg: tf.TransformerConfig, B: int, L: int, device="cuda"):
         _check("tokens", tokens, (B, L), dev)
         if mb == 1:
             return tf.prefill(params, tokens, cfg)
-        parts = [tf.prefill(params, t, cfg) for t in tokens.chunk(mb)]
-        return (torch.cat([logits for logits, _ in parts]),
-                {k: torch.cat([cache[k] for _, cache in parts], dim=1) for k in ("k", "v")})
+        cache = {k: torch.empty(s, dtype=d, device=dev)
+                 for k, (s, d) in cache_structs(cfg, B, L).items()}
+        n = B // mb
+        logits = [tf.prefill(params, tokens[i:i + n], cfg,
+                             out={k: c[:, i:i + n] for k, c in cache.items()})[0]
+                  for i in range(0, B, n)]
+        return torch.cat(logits), cache
 
     return run, (param_structs(cfg), ((B, L), torch.int32))
 

@@ -1,16 +1,24 @@
-"""Dense GQA transformer LM serving (twin of ``repro/models/transformer.py``).
+"""Transformer LM serving (twin of ``repro/models/transformer.py``).
 
-The reference covers five architectures; the port has the dense GQA ones
-(internlm2, gemma2's local/global layers and soft-caps, phi3) for serving:
-:func:`prefill` and :func:`decode_step` on one card.  MoE and MLA are refused
-(``ROADMAP.md`` queues them), as is training (``lm_loss``).  The
-reference's sharding constraints are identity on one card and have no twin.
+The reference covers five architectures, and the port serves all of them
+on one card: :func:`prefill` and :func:`decode_step` for dense GQA
+(internlm2, gemma2's local/global layers and soft-caps, phi3), MoE
+(qwen3-moe: :func:`moe_block`, the reference's per-sequence grouped top-k
+dispatch with its capacity drops) and MLA (deepseek-v2: the latent cache and
+the absorbed decode, with its first dense layers).  Training (``lm_loss``)
+is not ported.  The reference's sharding constraints are identity on one
+card and have no twin; its expert FFN is its one-device (``not
+cfg.seq_shard``) path.
 
 Parameters keep the reference's stacked layout: ``{"embed" [V, d],
-"layers": {"ln1", "ln2" [n, d], "attn": {"wq", "wk", "wv", "wo"}, "mlp":
-{"wg", "wu", "wd"}} (each [n, ...]), "final_norm" [d], "unembed" [d, V]
-(untied only)}``; serving holds them in bf16.  The layers run in a plain
-Python loop, layer ``i`` reading slice ``i`` of each stacked leaf.
+"layers": {"ln1", "ln2" [n, d], "attn": {"wq", "wk", "wv", "wo"} (MLA:
+{"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}), "mlp":
+{"wg", "wu", "wd"} (MoE layers: "moe": {"router", "wg", "wu", "wd",
+"shared"?})} (each [n, ...]), "dense_layers" (the first
+``first_dense_layers``, the same with "mlp"), "final_norm" [d], "unembed"
+[d, V] (untied only)}``; serving holds them in bf16.  The layers run in a
+plain Python loop, the dense_layers first, layer ``i`` of a stack reading
+slice ``i`` of each stacked leaf.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.attention import attention, decode_attention, rms_norm, rope
+from repro_torch.core.hybrid import topk_stable
+from repro_torch.models.attention import _softmax, attention, decode_attention, rms_norm, rope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,59 +122,108 @@ class TransformerConfig:
             total += c.vocab * d
         return total
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        c = self
+        n_moe = c.n_layers - c.first_dense_layers
+        return (self.param_count() - n_moe * c.n_experts * 3 * c.d_model * c.moe_d_ff
+                + n_moe * c.top_k * 3 * c.d_model * c.moe_d_ff)
+
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raises for what the port does not serve yet."""
-    if cfg.moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md, "
-                                  "queue 1)")
-    if cfg.mla:
+    """Raises for what the port does not serve: MLA with
+    ``attn_impl="pallas"``.  The reference fails there too (its flash kernel
+    takes one head dim for q, k and v; MLA's are qk_nope + qk_rope and
+    v_head): ``ROADMAP.md``, queue 3."""
+    if cfg.mla and cfg.attn_impl == "pallas":
         raise NotImplementedError(
-            f"{cfg.name}: MLA is not ported yet (ROADMAP.md, queue 1); with attn_impl='pallas' the "
+            f"{cfg.name}: MLA runs on attn_impl='chunked' only; with attn_impl='pallas' the "
             "reference cannot run it either (ROADMAP.md, queue 3)")
 
 
+def _attn_shapes(cfg: TransformerConfig, n: int) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.mla:
+        return {"wq_a": (n, d, cfg.q_lora), "q_norm": (n, cfg.q_lora),
+                "wq_b": (n, cfg.q_lora, H * (cfg.qk_nope + cfg.qk_rope)),
+                "wkv_a": (n, d, cfg.kv_lora + cfg.qk_rope), "kv_norm": (n, cfg.kv_lora),
+                "wkv_b": (n, cfg.kv_lora, H * (cfg.qk_nope + cfg.v_head)),
+                "wo": (n, H * cfg.v_head, d)}
+    Hkv, dh = cfg.n_kv_heads, cfg.d_head
+    return {"wq": (n, d, H * dh), "wk": (n, d, Hkv * dh), "wv": (n, d, Hkv * dh),
+            "wo": (n, H * dh, d)}
+
+
+def _stack_shapes(cfg: TransformerConfig, n: int, moe_layer: bool) -> dict:
+    d = cfg.d_model
+    stack = {"ln1": (n, d), "ln2": (n, d), "attn": _attn_shapes(cfg, n)}
+    if moe_layer:
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        stack["moe"] = {"router": (n, d, E), "wg": (n, E, d, f), "wu": (n, E, d, f),
+                        "wd": (n, E, f, d)}
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            stack["moe"]["shared"] = {"wg": (n, d, fs), "wu": (n, d, fs), "wd": (n, fs, d)}
+    else:
+        stack["mlp"] = {"wg": (n, d, cfg.d_ff), "wu": (n, d, cfg.d_ff), "wd": (n, cfg.d_ff, d)}
+    return stack
+
+
 def param_shapes(cfg: TransformerConfig) -> dict:
-    """The parameter tree's leaf shapes, stacked over the layers."""
+    """The parameter tree's leaf shapes, stacked over the layers: the
+    ``first_dense_layers`` in ``dense_layers``, the rest in ``layers``."""
     check_supported(cfg)
-    n, d, H, Hkv, dh = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    shapes = {"embed": (cfg.vocab, d),
-              "layers": {"ln1": (n, d), "ln2": (n, d),
-                         "attn": {"wq": (n, d, H * dh), "wk": (n, d, Hkv * dh),
-                                  "wv": (n, d, Hkv * dh), "wo": (n, H * dh, d)},
-                         "mlp": {"wg": (n, d, cfg.d_ff), "wu": (n, d, cfg.d_ff),
-                                 "wd": (n, cfg.d_ff, d)}},
-              "final_norm": (d,)}
+    n_pre = cfg.first_dense_layers
+    shapes = {"embed": (cfg.vocab, cfg.d_model),
+              "layers": _stack_shapes(cfg, cfg.n_layers - n_pre, cfg.moe),
+              "final_norm": (cfg.d_model,)}
+    if n_pre:
+        shapes["dense_layers"] = _stack_shapes(cfg, n_pre, False)
     if not cfg.tie_embeddings:
-        shapes["unembed"] = (d, cfg.vocab)
+        shapes["unembed"] = (cfg.d_model, cfg.vocab)
     return shapes
 
 
+def cache_shapes(cfg: TransformerConfig, B: int, L: int) -> dict:
+    """The serving cache's shapes, layers in the cache's order (the
+    dense_layers first): GQA {'k', 'v'} [n_layers, B, Hkv, L, dh]; MLA the
+    latent {'c_kv' [n_layers, B, L, kv_lora], 'k_rope' [n_layers, B, L,
+    qk_rope]}."""
+    n = cfg.n_layers
+    if cfg.mla:
+        return {"c_kv": (n, B, L, cfg.kv_lora), "k_rope": (n, B, L, cfg.qk_rope)}
+    shape = (n, B, cfg.n_kv_heads, L, cfg.d_head)
+    return {"k": shape, "v": shape}
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda") -> dict:
-    """The reference's distributions: each projection ~ N(0, 1/fan_in) with
-    fan_in its per-layer input width, the embedding (and unembedding) ~ N(0,
-    0.02²), the norms' weights 0; drawn in fp32 one layer at a time and
-    stored in bf16, as the serving step holds them.  ``generator`` must live
-    on ``device``; the numbers differ from the reference's (``jax.random``
-    is not ported)."""
+    """The reference's distributions: each projection ~ N(0, 1/s) with s
+    its per-layer leaf's first dim (its fan-in; an expert stack's expert
+    count, as the reference draws it), the embedding (and unembedding) ~
+    N(0, 0.02²), the norms' weights 0; drawn in fp32 one matrix at a time
+    and stored in bf16, as the serving step holds them.  ``generator`` must
+    live on ``device``; the numbers differ from the reference's
+    (``jax.random`` is not ported)."""
     dev = resolve_device(device)
 
     def normal(shape, scale):
         out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
-        for part in (out if len(shape) == 3 else [out]):
+        for part in (out.flatten(0, -3) if len(shape) >= 3 else [out]):
             part.copy_(torch.randn(part.shape, generator=generator, device=dev) * scale)
         return out
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    def draw(tree):   # a stack: every leaf of rank 2 is a norm ([n, width])
+        return {k: draw(s) if isinstance(s, dict) else
+                normal(s, s[1] ** -0.5) if len(s) >= 3 else
+                torch.zeros(s, dtype=torch.bfloat16, device=dev) for k, s in tree.items()}
 
     shapes = param_shapes(cfg)
-    lay = shapes["layers"]
-    params = {"embed": normal(shapes["embed"], 0.02),
-              "layers": {"ln1": zeros(lay["ln1"]), "ln2": zeros(lay["ln2"]),
-                         **{blk: {k: normal(s, s[1] ** -0.5) for k, s in lay[blk].items()}
-                            for blk in ("attn", "mlp")}},
-              "final_norm": zeros(shapes["final_norm"])}
+    params = {"embed": normal(shapes["embed"], 0.02), "layers": draw(shapes["layers"])}
+    if "dense_layers" in shapes:
+        params["dense_layers"] = draw(shapes["dense_layers"])
+    params["final_norm"] = torch.zeros(shapes["final_norm"], dtype=torch.bfloat16, device=dev)
     if "unembed" in shapes:
         params["unembed"] = normal(shapes["unembed"], 0.02)
     return params
@@ -184,6 +242,72 @@ def swiglu(x, wg, wu, wd):
     return (h @ wd).to(x.dtype)
 
 
+def moe_route(x, router, cfg: TransformerConfig):
+    """The router of :func:`moe_block`, per sequence: x [B, L, d] ->
+    ``(gate [B, L, k] fp32, eidx [B, L, k], slot [B, L*k], keep [B, L*k],
+    dest [B, L*k], C)``.  fp32 router logits and softmax; the top k with
+    ``jax.lax.top_k``'s order (the lower expert first among ties); gates
+    over their sum, floored at 1e-9; the capacity C = min(max(8, ceil(L k
+    cf / E)), L k); each (token, rank) pair's slot is the count of earlier
+    pairs, token-major then rank, that chose its expert; a pair at or past C
+    is dropped (``keep`` False, ``dest`` E*C), a kept one goes to ``dest`` =
+    expert * C + slot."""
+    B, L, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = min(max(8, int(np.ceil(L * k * cfg.capacity_factor / E))), L * k)
+    probs = _softmax(x.float() @ router.float())
+    gate, eidx = topk_stable(probs, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    ef = eidx.reshape(B, L * k)
+    oh = torch.zeros((B, L * k, E), dtype=torch.int32, device=x.device).scatter_(2, ef[..., None], 1)
+    slot = (oh.cumsum(1, dtype=torch.int32) - oh).gather(2, ef[..., None])[..., 0].long()
+    keep = slot < C
+    dest = torch.where(keep, ef * C + slot, E * C)
+    return gate, eidx, slot, keep, dest, C
+
+
+def _expert_ffn(buf, wg, wu, wd):
+    """The reference's one-device expert FFN: three batched products over
+    the experts, buf [E, N, d] -> [E, N, d] (bf16 outputs, the SiLU in
+    fp32)."""
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    h = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+    return torch.bmm(h, wd).to(buf.dtype)
+
+
+def moe_block(x, p, cfg: TransformerConfig):
+    """The reference's per-sequence grouped top-k dispatch, forward only: x
+    [B, L, d] -> [B, L, d].  :func:`moe_route` places each kept pair in its
+    expert's slots; a scatter of pair ids, then a gather of their tokens'
+    features, fills the [E, B*C, d] buffer (the reference's [B, E*C, d],
+    expert-major so that each expert's products are one batch entry; empty
+    slots are zeros); the expert FFN; each kept pair gathers its slot's row,
+    times its gate in the activation dtype, summed over the k ranks; then
+    the shared experts through :func:`swiglu`."""
+    B, L, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gate, _, _, keep, dest, C = moe_route(x, p["router"], cfg)
+    Lk, dev = L * k, x.device
+    # each slot's pair id (the dropped pairs scatter into a spare slot, cut off)
+    src_pair = torch.full((B, E * C + 1), Lk, dtype=torch.int64, device=dev)
+    src_pair.scatter_(1, dest, torch.arange(Lk, device=dev).expand(B, Lk))
+    src_pair = src_pair[:, :E * C].reshape(B, E, C).transpose(0, 1).reshape(E, B * C)
+    seq = torch.arange(B, device=dev).repeat_interleave(C)[None, :]       # [1, B*C]
+    rows = seq * L + (src_pair // k).clamp_max(L - 1)
+    buf = torch.where((src_pair < Lk)[..., None], x.reshape(B * L, d)[rows], 0)
+    out = _expert_ffn(buf, p["wg"], p["wu"], p["wd"]).reshape(E * B * C, d)
+    # combine: pair (b, i) reads row (e * B + b) * C + c of the expert-major output
+    at = (dest // C * B + torch.arange(B, device=dev)[:, None]) * C + dest % C
+    y_pair = torch.where(keep[..., None], out[at.clamp_max(E * B * C - 1)], 0)
+    y_pair = y_pair * (keep * gate.reshape(B, Lk)).to(y_pair.dtype)[..., None]
+    y = y_pair.view(B, L, k, d).sum(dim=2).to(x.dtype)
+    if "shared" in p:
+        sh = p["shared"]
+        y = y + swiglu(x, sh["wg"], sh["wu"], sh["wd"])
+    return y
+
+
 def _gqa_qkv(x, ap, cfg: TransformerConfig, positions):
     B, L, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -195,15 +319,38 @@ def _gqa_qkv(x, ap, cfg: TransformerConfig, positions):
     return q.contiguous(), kk.contiguous(), vv.contiguous()
 
 
-def attn_block(x, ap, cfg: TransformerConfig, positions, window: int):
-    """Returns the block's output and its (k, v) cache entry [B, Hkv, L,
-    dh]."""
+def _mla_qkv(x, ap, cfg: TransformerConfig, positions):
+    """MLA's decompression path (prefill): q, k [B, H, L, qk_nope + qk_rope],
+    v [B, H, L, v_head] and the latent cache entry (c_kv [B, L, kv_lora],
+    k_rope [B, L, qk_rope], after RoPE)."""
     B, L, _ = x.shape
-    q, k, v = _gqa_qkv(x, ap, cfg, positions)
+    H, nope, rd = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    cq = rms_norm(x @ ap["wq_a"], ap["q_norm"], cfg.norm_eps)
+    q_nope, q_rope = (cq @ ap["wq_b"]).reshape(B, L, H, nope + rd).split([nope, rd], dim=-1)
+    c_kv, k_rope = (x @ ap["wkv_a"]).split([cfg.kv_lora, rd], dim=-1)
+    c_kv = rms_norm(c_kv, ap["kv_norm"], cfg.norm_eps)
+    k_nope, v = (c_kv @ ap["wkv_b"]).reshape(B, L, H, nope + cfg.v_head).split([nope, cfg.v_head],
+                                                                               dim=-1)
+    q_rope = rope(q_rope.transpose(1, 2), positions[None, None, :], cfg.rope_theta)
+    k_rope = rope(k_rope, positions[None, :], cfg.rope_theta)
+    q = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
+    k = torch.cat([k_nope.transpose(1, 2), k_rope[:, None].expand(B, H, L, rd)], dim=-1)
+    return q, k, v.transpose(1, 2).contiguous(), (c_kv, k_rope)
+
+
+def attn_block(x, ap, cfg: TransformerConfig, positions, window: int):
+    """Returns the block's output and its cache entry: (k, v) [B, Hkv, L,
+    dh], or MLA's (c_kv, k_rope)."""
+    B, L, _ = x.shape
+    if cfg.mla:
+        q, k, v, entry = _mla_qkv(x, ap, cfg, positions)
+    else:
+        q, k, v = _gqa_qkv(x, ap, cfg, positions)
+        entry = (k, v)
     o = attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window,
                   scale=cfg.attn_scale, impl=cfg.attn_impl, bq=cfg.attn_chunk)
-    o = o.transpose(1, 2).reshape(B, L, cfg.n_heads * cfg.d_head)
-    return (o @ ap["wo"]).to(x.dtype), (k, v)
+    o = o.transpose(1, 2).reshape(B, L, cfg.n_heads * v.shape[-1])
+    return (o @ ap["wo"]).to(x.dtype), entry
 
 
 def _layer(lp: dict, i: int) -> dict:
@@ -211,13 +358,30 @@ def _layer(lp: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in lp.items()}
 
 
-def layer_fwd(x, lp, cfg: TransformerConfig, positions, window: int):
+def layer_fwd(x, lp, cfg: TransformerConfig, positions, window: int, moe_layer: bool):
     h, cache = attn_block(rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions,
                           window)
     x = x + h
     z = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
-    return x, cache
+    if moe_layer:
+        return x + moe_block(z, lp["moe"], cfg), cache
+    return x + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"]), cache
+
+
+def _layer_plan(cfg: TransformerConfig) -> list:
+    """Every layer in the cache's order, the dense_layers first, as (stack,
+    index in it, MoE layer, prefill window, decode window): the reference's
+    prefill gives the dense stack no window and gemma2's main stack (local,
+    global) pairs; its decode reads ``layer_windows()`` by cache index."""
+    n_pre = cfg.first_dense_layers
+    win = cfg.layer_windows()
+    plan = [("dense_layers", i, False, 0, win[i]) for i in range(n_pre)]
+    return plan + [("layers", j, cfg.moe, win[j], win[n_pre + j])
+                   for j in range(cfg.n_layers - n_pre)]
+
+
+def _cache_keys(cfg: TransformerConfig) -> tuple:
+    return ("c_kv", "k_rope") if cfg.mla else ("k", "v")
 
 
 def _embed(params, tokens, cfg: TransformerConfig):
@@ -241,43 +405,81 @@ def _unembed(params, x, cfg: TransformerConfig):
 # Serving: prefill and decode
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens, cfg: TransformerConfig):
-    """Last-token logits [B, V] fp32 and the KV cache {'k', 'v'} [n_layers,
-    B, Hkv, L, dh] of tokens [B, L]."""
+def prefill(params, tokens, cfg: TransformerConfig, out: dict | None = None):
+    """Last-token logits [B, V] fp32 and the cache (:func:`cache_shapes`)
+    of tokens [B, L]; with ``out``, the cache is written into its tensors
+    (views allowed) and returned."""
     check_supported(cfg)
     B, L = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(L, device=x.device)
-    shape = (cfg.n_layers, B, cfg.n_kv_heads, L, cfg.d_head)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i, window in enumerate(cfg.layer_windows()):
-        x, (k, v) = layer_fwd(x, _layer(params["layers"], i), cfg, positions, window)
-        cache["k"][i] = k
-        cache["v"][i] = v
+    cache = out if out is not None else {
+        k: torch.empty(s, dtype=x.dtype, device=x.device) for k, s in cache_shapes(cfg, B, L).items()}
+    for i, (stack, j, moe_layer, window, _) in enumerate(_layer_plan(cfg)):
+        x, entry = layer_fwd(x, _layer(params[stack], j), cfg, positions, window, moe_layer)
+        for key, t in zip(_cache_keys(cfg), entry):
+            cache[key][i] = t
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x[:, -1:], cfg)[:, 0], cache
 
 
-def _decode_layer(x, lp, cache_k, cache_v, cfg: TransformerConfig, pos, window: int):
-    """One decode layer; writes this token's k and v into the cache slices
-    at each row's ``pos``, in place."""
-    B = x.shape[0]
+def _mla_decode_attn(z, ap, cfg: TransformerConfig, c_kv, k_rope, pos):
+    """The absorbed MLA decode, in fp32 as the reference writes it: the
+    scores in the latent space, no K/V decompressed.  z [B, 1, d] normed;
+    caches [B, Lmax, kv_lora] / [B, Lmax, qk_rope]; pos [B]."""
+    B = z.shape[0]
+    H, nope = cfg.n_heads, cfg.qk_nope
+    cq = rms_norm(z @ ap["wq_a"], ap["q_norm"], cfg.norm_eps)
+    q_nope, q_rope = (cq @ ap["wq_b"]).reshape(B, H, nope + cfg.qk_rope).split(
+        [nope, cfg.qk_rope], dim=-1)
+    q_rope = rope(q_rope[:, :, None, :], pos[:, None, None], cfg.rope_theta)[:, :, 0]
+    wkv_b = ap["wkv_b"].reshape(cfg.kv_lora, H, nope + cfg.v_head).float()
+    wk, wv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]
+    q_eff = torch.einsum("bhn,lhn->bhl", q_nope.float(), wk)          # absorbed
+    ckv = c_kv.float()
+    s = torch.einsum("bhl,btl->bht", q_eff, ckv)
+    s = s + torch.einsum("bhr,btr->bht", q_rope.float(), k_rope.float())
+    s = s * cfg.attn_scale
+    valid = torch.arange(c_kv.shape[1], device=z.device)[None, None, :] < pos[:, None, None] + 1
+    p = _softmax(torch.where(valid, s, -torch.inf))
+    ctx = torch.einsum("bht,btl->bhl", p, ckv)
+    o = torch.einsum("bhl,lhv->bhv", ctx, wv).reshape(B, 1, H * cfg.v_head).to(z.dtype)
+    return (o @ ap["wo"]).to(z.dtype)
+
+
+def _decode_attn(z, ap, cache: dict, cfg: TransformerConfig, pos, window: int):
+    """One decode layer's attention block: z [B, 1, d] normed -> [B, 1,
+    d]; writes this token's cache entry into the layer's cache slices at
+    each row's ``pos``, in place."""
+    B = z.shape[0]
+    rows = torch.arange(B, device=z.device)
+    if cfg.mla:
+        c_new, kr_new = (z @ ap["wkv_a"]).split([cfg.kv_lora, cfg.qk_rope], dim=-1)
+        c_new = rms_norm(c_new, ap["kv_norm"], cfg.norm_eps)
+        kr_new = rope(kr_new, pos[:, None], cfg.rope_theta)
+        cache["c_kv"][rows, pos] = c_new[:, 0]
+        cache["k_rope"][rows, pos] = kr_new[:, 0]
+        return _mla_decode_attn(z, ap, cfg, cache["c_kv"], cache["k_rope"], pos)
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    z = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = (z @ lp["attn"]["wq"]).reshape(B, 1, H, dh).transpose(1, 2)
-    kk = (z @ lp["attn"]["wk"]).reshape(B, 1, Hkv, dh).transpose(1, 2)
-    vv = (z @ lp["attn"]["wv"]).reshape(B, 1, Hkv, dh).transpose(1, 2)
+    q = (z @ ap["wq"]).reshape(B, 1, H, dh).transpose(1, 2)
+    kk = (z @ ap["wk"]).reshape(B, 1, Hkv, dh).transpose(1, 2)
+    vv = (z @ ap["wv"]).reshape(B, 1, Hkv, dh).transpose(1, 2)
     q = rope(q, pos[:, None, None], cfg.rope_theta)
     kk = rope(kk, pos[:, None, None], cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
-    cache_k[rows, :, pos] = kk[:, :, 0]
-    cache_v[rows, :, pos] = vv[:, :, 0]
-    o = decode_attention(q, cache_k, cache_v, softcap=cfg.attn_softcap, window=window,
+    cache["k"][rows, :, pos] = kk[:, :, 0]
+    cache["v"][rows, :, pos] = vv[:, :, 0]
+    o = decode_attention(q, cache["k"], cache["v"], softcap=cfg.attn_softcap, window=window,
                          scale=cfg.attn_scale, kv_len=pos + 1)
-    h = o.transpose(1, 2).reshape(B, 1, H * dh)
-    x = x + (h @ lp["attn"]["wo"]).to(x.dtype)
+    return (o.transpose(1, 2).reshape(B, 1, H * dh) @ ap["wo"]).to(z.dtype)
+
+
+def _decode_layer(x, lp, cache: dict, cfg: TransformerConfig, pos, window: int, moe_layer: bool):
+    """One decode layer (:func:`_decode_attn`, then the FFN or the MoE
+    block)."""
+    x = x + _decode_attn(rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cache, cfg, pos, window)
     z2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if moe_layer:
+        return x + moe_block(z2, lp["moe"], cfg)
     return x + swiglu(z2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
 
 
@@ -289,9 +491,9 @@ def decode_step(params, cache, tokens, pos, cfg: TransformerConfig):
     check_supported(cfg)
     pos = pos.long()
     x = _embed(params, tokens[:, None], cfg)                    # [B, 1, d]
-    for i, w in enumerate(cfg.layer_windows()):
+    for i, (stack, j, moe_layer, _, w) in enumerate(_layer_plan(cfg)):
         # a global layer's window is 2^30: every cached key is in reach
-        x = _decode_layer(x, _layer(params["layers"], i), cache["k"][i], cache["v"][i], cfg, pos,
-                          w if w > 0 else 1 << 30)
+        x = _decode_layer(x, _layer(params[stack], j), {k: c[i] for k, c in cache.items()}, cfg,
+                          pos, w if w > 0 else 1 << 30, moe_layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x, cfg)[:, 0], cache

@@ -34,7 +34,7 @@ def _randn(*shape, gen, scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("E,P", [(16, 3), (64, 50), (128, 1), (256, 33), (512, 7)])
+@pytest.mark.parametrize("E,P", [(16, 3), (64, 50), (128, 1), (256, 33), (256, 100), (512, 7)])
 def test_embedding_bag_kernel_matches_plain(dev, dtype, E, P):
     """The same fp32 sums in another order: rtol = atol = 1e-5."""
     gen = torch.Generator().manual_seed(E * 100 + P)
@@ -1831,3 +1831,107 @@ def test_bag_lookup_autograd_on_card(dev, dtype, ids):
         faulty = g_dev.double().clone()
         faulty[at[0]] += sign * upd[0]
         assert not within(faulty)
+
+
+# ---------------------------------------------------------------------------
+# dlrm-large's shapes (rows 2 and 3) and the LM family's MoE block and MLA decode
+# ---------------------------------------------------------------------------
+
+LARGE_LAYERS = [(2048, 2048, "relu"), (2048, 256, "relu"), (2336, 4096, "relu"),
+                (4096, 4096, "relu"), (4096, 1, "none")]
+
+
+@pytest.mark.parametrize("b", [8, 128, 1024])
+def test_interaction_at_large_shape(dev, b):
+    """Row 2 at dlrm-large's F 65 (64 tables and the dense vector), E 256:
+    one sample's Z takes 152,880 bytes of shared memory in two stages, so a
+    block holds one sample; a 2336-wide output, rtol 1e-5, atol 1e-4."""
+    gen = torch.Generator().manual_seed(b)
+    dense, emb = _randn(b, 256, gen=gen), _randn(b, 64, 256, gen=gen)
+    want = ref.dot_interaction(dense, emb)
+    got = ops.dot_interaction(dense.to(dev), emb.to(dev))
+    torch.cuda.synchronize()
+    assert got.shape == (b, 2336)
+    assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("k,n,act", LARGE_LAYERS, ids=[f"{k}x{n}" for k, n, _ in LARGE_LAYERS])
+def test_fused_mlp_at_large_layers(dev, m, k, n, act):
+    """Row 3 at dlrm-large's layer shapes (bottom 2048 -> 2048 x 7 -> 256,
+    top 2336 -> 4096 x 16 -> 1): wgmma but for N 1 (mma.sync); the
+    tolerances of ``test_fused_mlp_kernel_matches_plain``."""
+    from repro_torch.kernels import fused_mlp
+    _fused_mlp_case(dev, m, k, n, act, fused_mlp.route(m, k, n))
+    assert fused_mlp.route(m, k, n) == ("mma_sync" if n == 1 else "wgmma")
+
+
+def _small_moe_lm(**over):
+    from repro_torch.models.transformer import TransformerConfig
+    base = dict(name="small", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
+                d_ff=128, vocab=256, n_experts=8, top_k=2, moe_d_ff=32, capacity_factor=1.0,
+                tie_embeddings=False)
+    return TransformerConfig(**{**base, **over})
+
+
+def _bf16_close(got, want, what):
+    """Within 2^-7 of each value and of the output's largest (a bf16
+    rounding between cuBLAS's and the CPU's sums may fall the other way)."""
+    scale = float(want.float().abs().max())
+    assert_close(got.float().cpu(), want.float(), rtol=2 ** -7, atol=2 ** -7 * scale, what=what)
+
+
+def test_moe_block_on_the_card_matches_the_cpu(dev):
+    """``moe_block`` at capacity factor 1.0, where pairs drop (B 2, L 64, 8
+    experts, top 2, C 16, a shared expert): the card keeps the CPU's pairs
+    in the CPU's slots (the router's fp32 logits agree), and its output is
+    the CPU's within a bf16 step."""
+    from repro_torch.models import transformer as tf
+    cfg = _small_moe_lm(n_shared_experts=1)
+    p = tf._layer(tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")["layers"],
+                  0)["moe"]
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16)
+    pd = {k: v.to(dev) if torch.is_tensor(v) else {kk: vv.to(dev) for kk, vv in v.items()}
+          for k, v in p.items()}
+    want = tf.moe_route(x, p["router"], cfg)
+    got = tf.moe_route(x.to(dev), pd["router"], cfg)
+    assert not bool(want[3].all())          # some pairs drop
+    for i, name in ((1, "experts"), (2, "slots"), (3, "kept"), (4, "dest")):
+        assert torch.equal(got[i].cpu(), want[i]), name
+    _bf16_close(tf.moe_block(x.to(dev), pd, cfg), tf.moe_block(x, p, cfg), "moe_block")
+
+
+def test_mla_decode_on_the_card_matches_the_cpu(dev):
+    """deepseek-v2's shape at small size (a dense first layer, then MoE
+    layers with a shared expert, MLA's latent cache): one decode step from
+    a random latent cache at ragged positions, on the card and on the CPU.
+    The absorbed attention is fp32 on both; the bf16 projections round
+    apart (cuBLAS sums in another order), so the logits agree within 2e-2
+    (the port's tolerance against the JAX package) and the written cache
+    entries within a bf16 step."""
+    from repro_torch import weights
+    from repro_torch.models import lm_steps
+    cfg = _small_moe_lm(first_dense_layers=1, n_shared_experts=1, mla=True, q_lora=32, kv_lora=32,
+                    qk_nope=16, qk_rope=8, v_head=16)
+    params = weights.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    B, Lmax = 3, 40
+    _, (_, cstructs, _, _) = lm_steps.make_decode_step(cfg, B, Lmax, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    cache = {k: torch.randn(s, generator=gen).to(d) for k, (s, d) in cstructs.items()}
+    toks = torch.randint(0, cfg.vocab, (B,), generator=gen, dtype=torch.int32)
+    pos = torch.tensor([5, 39, 17], dtype=torch.int32)
+    outs = []
+    for d in ("cpu", dev):
+        step, _ = lm_steps.make_decode_step(cfg, B, Lmax, device=d)
+        c = {k: v.to(d) for k, v in cache.items()}
+        logits, c = step(weights.lm_params_to(params, d), c, toks.to(d), pos.to(d))
+        outs.append((logits.cpu(), {k: v.cpu() for k, v in c.items()}))
+    (want, wc), (got, gc) = outs
+    assert_close(got, want, rtol=0, atol=2e-2, what="logits")
+    rows = torch.arange(B)
+    for k in cache:
+        _bf16_close(gc[k][:, rows, pos.long()], wc[k][:, rows, pos.long()], f"{k} written")
+        keep = torch.ones(B, Lmax, dtype=torch.bool)
+        keep[rows, pos.long()] = False
+        assert torch.equal(gc[k][:, keep], cache[k][:, keep])
