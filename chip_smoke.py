@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DLRM serving and training paths (one rank, and
-the hybrid step and the run loop on meshes of ranks) and its LM serving path
-(the five LM archs, dense, MoE and MLA) on one CUDA card.
+the hybrid step and the run loop on meshes of ranks) and its LM serving and
+training paths (the five LM archs, dense, MoE and MLA) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -273,7 +273,31 @@ from the root of a checkout.  Phases, each of which fails the run:
     of 500,000 rows that leaves 8 GB free (6,000,000 uncut: 196 GB): rows
     1, 2 and 3 at its shapes (E 256, P 100; F 65; K 2048, 2336, 4096, N 1)
     at B 16,384 and the buckets against their plain versions, timed beside
-    bounds and library calls, then phase 24's serving and its control.
+    bounds and library calls, then phase 24's serving and its control;
+30. internlm2-1.8b trained at full size (1.89 B parameters, Split-SGD state
+    of 15.1 GB split from fp32 draws of a seeded generator) through
+    ``make_lm_train_step``: B 4 x L 4096 in 2 microbatches, lr 1e-2,
+    momentum 0.9, one batch repeated for 6 steps: every loss finite, the
+    first near ln V, the last below it, row 4 (its momentum variant, a bf16
+    gradient) launched once a leaf a step; step ms wall and busy (p50 of
+    steps 2-6), tokens/s, peak memory, the idle share; row 4 alone at the
+    model's largest leaf (403 M values) bit for bit its plain version, timed
+    beside its bound (:func:`lm_train_phase`);
+30a. the gate: one step of internlm2 at full width, 2 layers, B 2 x L 512,
+    on the card against the same step on the CPU (the loss within 1e-3
+    relative, every leaf's update within 5e-2 of its largest), row 4's
+    update bit for bit its plain version on the card's own gradients; two
+    planted faults (the labels shifted by one, one layer's gradient of one
+    leaf zeroed) must each fail the gate (:func:`lm_gate_phase`);
+31. qwen3-moe-30b-a3b at full width, 2 of 48 layers, B 2 x L 2048, 3 steps
+    on one batch, the loss falling, the dropped share printed; its MoE block
+    forward and backward at full width twice bit for bit, and against the
+    plain gathers' autograd with the routing pinned (:func:`moe_train_phase`);
+32. the launcher's LM branch: ``launch.train.main`` for each LM arch at the
+    reference's ``reduced_lm`` sizes, a restart from ``--ckpt-dir`` after
+    ``--preempt-at`` whose losses are the uninterrupted run's bit for bit,
+    and ``python -m repro_torch.launch.train --arch internlm2-1.8b`` as a
+    subprocess (:func:`lm_launcher_phase`).
 A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
 and the whole run's so far are printed as it ends.
 
@@ -293,7 +317,8 @@ phase 19, row 1 twice a cached table-mode step, and phase 20's loops,
 served batches and launcher runs, its stage profiles included; row 13 one
 a layer and a microbatch of the main path's prefills in phases 15 and
 25-27, by model under ``models``; rows 1-3 at dlrm-large's shapes under
-``large``); then
+``large``; row 4 also the LM steps of phases 30, 31 and 32, with its
+momentum variant at internlm2's largest leaf under ``lm``); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.  No process it started outlives it: on its way out
@@ -1018,16 +1043,20 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False,
     return counts
 
 
-def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
+def device_busy_ms(fn, reps: int, cpu: bool = True) -> tuple[float, float, list]:
     """``fn`` run ``reps`` times under torch.profiler: wall ms a run (ending
     in a synchronise), the device's busy ms a run (its kernels' time summed)
     and its kernels as (name, ms a run, launches a run), the longest first.
     The trace can drop events of a short window: its counts are read, not
-    gated on (``graph_nodes`` counts exactly)."""
+    gated on (``graph_nodes`` counts exactly).  ``cpu=False`` traces the
+    card alone (a run of tens of thousands of kernels: the host's operator
+    events made each of phase 30's steps cost about 70 s of trace
+    processing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -5401,6 +5430,491 @@ def mlperf_phase(dev, rng, failures) -> tuple[list, dict]:
     return entries, counts
 
 
+# phase 30: internlm2-1.8b trained at full size (arXiv:2403.17297, nothing cut): B 4 x L
+# 4096 in 2 microbatches, lr 1e-2, momentum 0.9, one batch repeated for 6 steps (the
+# reference's own test memorises a repeated batch, tests/test_distributed.py)
+LM_TRAIN = dict(batch=4, seq=4096, microbatch=2, steps=6, lr=1e-2, beta=0.9)
+# 30a: one step of internlm2 at full width, its depth cut to 2 layers, B 2 x L 512, on the
+# card and on the CPU (every kernel's plain version).  The loss within LM_GATE_TOL["loss"]
+# relative; every leaf's update within LM_GATE_TOL["update"] of that leaf's largest: the
+# bf16 products sum in other orders on the two (cuBLAS against the CPU's), so bf16
+# cotangents round apart, as the port's CPU tests find against the JAX package (2.6e-2 of
+# the largest update there)
+LM_GATE = dict(layers=2, batch=2, seq=512)
+# set from an H100 reading: the loss 1.85e-6 relative apart, the worst leaf's update
+# 1.36e-2 of its largest (the embedding); the planted faults moved the loss by 2.16e-3 and
+# an update by 0.37 to 1.45
+LM_GATE_TOL = {"loss": 1e-4, "update": 3e-2}
+# phase 31: qwen3-moe-30b-a3b at full width (hf:Qwen/Qwen3-30B-A3B; 128 experts, top 8,
+# capacity factor 1.0), its depth cut to 2 of 48 layers, B 2 x L 2048, 3 steps on one
+# batch.  Its MoE block's gradients against the plain version (autograd of plain gathers)
+# with the routing pinned: dx and the router's within 2^-6 of each one's largest value (the
+# plain backward adds a token's k = 8 cotangents in the index sort's order; dx 8.62e-3
+# apart on an H100, the router's bit for bit)
+MOE_TRAIN = dict(layers=2, batch=2, seq=2048, steps=3)
+MOE_GRAD_TOL = 2 ** -6
+# phase 32: the launcher's LM branch, each arch at the reference's reduced_lm sizes
+LM_ARCHS = ("internlm2-1.8b", "gemma2-27b", "phi3-medium-14b", "qwen3-moe-30b-a3b",
+            "deepseek-v2-236b")
+LM_LAUNCH_ARGV = ("--batch", "8", "--seq", "128")
+LM_LAUNCH_STEPS, LM_LAUNCH_PREEMPT = 4, 1
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}" if prefix
+                                                           else k)]
+    return [prefix]
+
+
+def plain_update(h, lo, g, lr, mom, beta, chunk: int = 1 << 24) -> None:
+    """Row 4's plain version over a flat leaf, ``chunk`` values at a time (its
+    float64 temporaries stay the size of a chunk), in place."""
+    from repro_torch.kernels import ref
+    for s in range(0, h.numel(), chunk):
+        e = min(s + chunk, h.numel())
+        ref.split_sgd(h[s:e], lo[s:e], g[s:e], lr, None if mom is None else mom[s:e], beta)
+
+
+class UpdateTap:
+    """Inside ``with tap:``, every ``update_leaf`` of the LM step (row 4's
+    kernel on the card) keeps copies of its inputs, runs, and is held bit for
+    bit to row 4's plain version on those copies, so on the card's own
+    gradients (``err`` the largest difference, ``leaves`` the count).
+    ``check=False`` holds nothing; ``zero=(leaf, layer)`` plants a fault (and
+    holds nothing): that leaf's gradient at that layer zeroed before the
+    update.  ``seconds``: the updates' host time when nothing is held."""
+
+    def __init__(self, failures, check: bool = True, zero=None):
+        self.failures, self.check, self.zero = failures, check and zero is None, zero
+        self.leaves, self.err, self.seconds = 0, 0.0, 0.0
+
+    def __enter__(self):
+        from repro_torch.optim import split_sgd
+        self.orig = update = split_sgd.update_leaf
+
+        def tapped(h, lo, g, lr, mom=None, beta=0.0):
+            import torch
+            i = self.leaves
+            self.leaves += 1
+            if self.zero is not None and self.zero[0] == i:
+                g = g.clone()
+                g[self.zero[1]] = 0
+            if not self.check:
+                t0 = time.perf_counter()
+                out = update(h, lo, g, lr, mom, beta)
+                self.seconds += time.perf_counter() - t0
+                return out
+            want = [t.clone().view(-1) for t in (h, lo)] + [None if mom is None else
+                                                           mom.clone().view(-1)]
+            out = update(h, lo, g, lr, mom, beta)
+            plain_update(*want[:2], g.reshape(-1), lr, want[2], beta)
+            got = [h.view(-1), lo.view(-1)] + ([] if mom is None else [mom.view(-1)])
+            for a, b in zip(got, want):
+                ib = torch.int16 if a.element_size() == 2 else torch.int32
+                if not bool((a.view(ib) == b.view(ib)).all()):
+                    self.err = max(self.err, float((a.float() - b.float()).abs().max()))
+                    self.failures.append(f"30a: leaf {i}: row 4 not bit for bit its plain "
+                                         "version on the card's gradients")
+            return out
+        split_sgd.update_leaf = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.optim import split_sgd
+        split_sgd.update_leaf = self.orig
+        return False
+
+
+def lm_train_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 30: internlm2-1.8b trained at full size on the card
+    (``models.lm_steps``: the state's 1.89 B parameters split from fp32
+    draws of a seeded generator, ``make_lm_train_step`` with LM_TRAIN), one
+    batch repeated: every loss finite, the first within 0.5 of ln V (a
+    random model), the last below the first, row 4 launched once a leaf a
+    step (counted); step ms wall and the device's busy ms (torch.profiler,
+    steps 2-6, p50; busy: the last step, traced), tokens/s, peak memory,
+    the idle share.  Then row 4 at
+    the model's largest leaf (its momentum variant, the gradient bf16) bit
+    for bit its plain version, timed beside its bound and the plain version.
+    Returns row 4's launches of the run and the phase's numbers."""
+    import torch
+    from repro_torch.configs import internlm2_1_8b
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+    from repro_torch.optim.data_parallel import tree_leaves
+
+    c = LM_TRAIN
+    cfg = dataclasses.replace(internlm2_1_8b.config(), microbatch=c["microbatch"])
+    B, L = c["batch"], c["seq"]
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state["hi"])
+    n_params = sum(t.numel() for t in leaves)
+    s_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    log(f"30: {cfg.name} state: {n_params} parameters (param_count {cfg.param_count()}), "
+        f"{s_bytes / 1e9:.2f} GB (hi bf16 + lo int16 + mom fp32), {len(leaves)} leaves, drawn "
+        f"in {time.perf_counter() - t0:.1f} s; {free0 / 1e9:.2f} GB free before")
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(token_stream(SEED, cfg.vocab, B, L)).items()}
+    step, _ = lm_steps.make_lm_train_step(cfg, B, L, lr=c["lr"], beta=c["beta"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    losses, walls, busy, tops = [], [], float("nan"), []
+    for i in range(c["steps"]):
+        out = {}
+
+        def run():
+            out["loss"] = step(state, batch)[1]
+        if i < c["steps"] - 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        else:  # the last step traced: the card's kernels alone
+            wall, busy, tops = device_busy_ms(run, 1, cpu=False)
+        losses.append(float(out["loss"]))
+        walls.append(wall)
+        log(f"  step {i}: loss {losses[-1]:.4f}, wall {wall:.1f} ms")
+    launches = ops.split_sgd.launches - before
+    peak = torch.cuda.max_memory_allocated()
+    wall50 = float(np.median(walls[1:]))
+    log(f"  the last step: {walls[-1]:.1f} ms wall (traced), {busy:.1f} ms busy; its busiest "
+        f"kernels: {top_kernels(tops[:8])}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"30: a loss is not finite: {losses}")
+    if abs(losses[0] - np.log(cfg.vocab)) > 0.5:
+        failures.append(f"30: first loss {losses[0]:.4f}, not near ln V = "
+                        f"{np.log(cfg.vocab):.4f}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"30: the loss did not fall: {losses}")
+    if launches != c["steps"] * len(leaves):
+        failures.append(f"30: row 4 launched {launches} times in {c['steps']} steps, not once a "
+                        f"leaf ({len(leaves)}) a step")
+    nums = {"model": cfg.name, "params": n_params, "state_gb": s_bytes / 1e9,
+            "batch": [B, L], "microbatch": c["microbatch"], "losses": losses,
+            "ln_vocab": float(np.log(cfg.vocab)), "step_ms_wall": walls,
+            "step_ms_wall_p50": wall50, "last_step_ms_busy": busy,
+            "idle_share": 1 - busy / walls[-1], "tokens_per_s": B * L / wall50 * 1e3,
+            "peak_gb": peak / 1e9, "split_sgd_launches_a_step": launches / c["steps"],
+            "leaves": len(leaves)}
+    log(f"30: losses {losses[0]:.4f} -> {losses[-1]:.4f} (ln V {np.log(cfg.vocab):.4f}); step "
+        f"p50 {wall50:.1f} ms wall; the last {busy:.1f} ms busy (idle "
+        f"{nums['idle_share']:.3f}); "
+        f"{nums['tokens_per_s']:.0f} tokens/s; peak {peak / 1e9:.2f} GB; row 4 "
+        f"{launches / c['steps']:.0f} launches a step")
+
+    # row 4 at the largest leaf: the momentum variant with a bf16 gradient, as the step runs it
+    names = leaf_names(state["hi"])
+    j = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    n = leaves[j].numel()
+    hi = leaves[j].view(-1).clone()
+    lo = tree_leaves(state["lo"])[j].view(-1).clone()
+    mom = tree_leaves(state["mom"])[j].view(-1).clone()
+    del state, step, batch
+    torch.cuda.empty_cache()
+    g = (torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+         * 1e-2).to(torch.bfloat16)
+    want = [hi.clone(), lo.clone(), mom.clone()]
+    plain_update(*want[:2], g, c["lr"], want[2], c["beta"])
+    ops.split_sgd(hi, lo, g, c["lr"], mom, c["beta"])
+    torch.cuda.synchronize()
+    err = max(bitwise_or_fail(f"30: split_sgd momentum [{n}] {names[j]} {part}", a, b, failures)
+              for part, a, b in zip(("hi", "lo", "mom"), (hi, lo, mom), want))
+    del want
+    torch.cuda.empty_cache()
+
+    def kern():
+        ops.split_sgd(hi, lo, g, c["lr"], mom, c["beta"])
+    ms = graph_ms(kern, 10)
+    plain = time_ms(lambda: plain_update(hi, lo, g, c["lr"], mom, c["beta"]), iters=1, warmup=1)
+    bms, by = bound_ms(n * 18, n * 4, FP32_FLOPS)
+    nums["row4"] = {"leaf": names[j], "values": n, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "bytes_a_value": 18}
+    log(f"30: row 4 with momentum at {names[j]} [{n}]: kernel {ms:.4f} ms, plain {plain:.1f} ms, "
+        f"bound {bms:.4f} ms ({by}; 18 bytes a value: hi, lo, a bf16 g, mom in; hi, lo, mom "
+        f"out), {bms / ms * 100:.1f}% of bound")
+    del hi, lo, mom, g
+    torch.cuda.empty_cache()
+    return {"split_sgd": launches}, nums
+
+
+def lm_update_gaps(start: dict, card: dict, cpu: dict) -> list:
+    """Each leaf's largest gap between the card's and the CPU's update
+    (fp32 masters less the start's), over the CPU update's largest: on the
+    card, a leaf at a time."""
+    from repro_torch.optim.data_parallel import tree_leaves
+    from repro_torch.optim.split_sgd import combine_split
+    out = []
+    for h0, l0, h1, l1, h2, l2 in zip(*(tree_leaves(s[k]) for s in (start, card, cpu)
+                                        for k in ("hi", "lo"))):
+        w0 = combine_split(h0, l0)
+        d_card = combine_split(h1, l1) - w0
+        d_cpu = combine_split(h2.to(h1.device), l2.to(h1.device)) - w0
+        top = float(d_cpu.abs().max())
+        out.append(float((d_card - d_cpu).abs().max()) / max(top, 1e-30))
+    return out
+
+
+def lm_gate_phase(dev, failures) -> dict:
+    """Phase 30a: one step of internlm2 at full width with its depth cut to
+    LM_GATE["layers"], on the card against the same step on the CPU (every
+    kernel's plain version), from one state and batch: the loss and every
+    leaf's update within LM_GATE_TOL; row 4's update on the card bit for bit
+    its plain version on the card's own gradients (:class:`UpdateTap`).  Two
+    planted faults must fail the gate: the labels shifted by one position,
+    and one layer's gradient of one leaf zeroed.  Returns its numbers."""
+    import torch
+    from repro_torch.configs import internlm2_1_8b
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import lm_steps
+    from repro_torch.optim.data_parallel import tree_map
+
+    g = LM_GATE
+    cfg = dataclasses.replace(internlm2_1_8b.config(), n_layers=g["layers"])
+    B, L = g["batch"], g["seq"]
+    lr, beta = LM_TRAIN["lr"], LM_TRAIN["beta"]
+    start = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                                   device=dev)
+    # a step of momentum first, so that the gated step's momentum is not zero
+    warm = {k: torch.as_tensor(v, device=dev)
+            for k, v in next(token_stream(SEED + 2, cfg.vocab, B, L)).items()}
+    lm_steps.make_lm_train_step(cfg, B, L, lr=lr, beta=beta, device=dev)[0](start, warm)
+    batch = next(token_stream(SEED + 1, cfg.vocab, B, L))
+    cpu_state = tree_map(lambda t: t.to("cpu", copy=True), start)
+    t0 = time.perf_counter()
+    with UpdateTap(failures, check=False) as timed:
+        _, cpu_loss = lm_steps.make_lm_train_step(cfg, B, L, lr=lr, beta=beta, device="cpu")[0](
+            cpu_state, batch)
+    cpu_s, cpu_update_s = time.perf_counter() - t0, timed.seconds
+    step, _ = lm_steps.make_lm_train_step(cfg, B, L, lr=lr, beta=beta, device=dev)
+    dbatch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def card_step(b, tap):
+        s = tree_map(torch.clone, start)
+        with tap:
+            _, loss = step(s, b)
+        return s, float(loss)
+
+    tap = UpdateTap(failures)
+    card, loss = card_step(dbatch, tap)
+    gaps = lm_update_gaps(start, card, cpu_state)
+    loss_gap = abs(loss - float(cpu_loss)) / abs(float(cpu_loss))
+    names = leaf_names(start["hi"])
+    nums = {"layers": g["layers"], "batch": [B, L], "cpu_s": cpu_s,
+            "cpu_update_s": cpu_update_s, "loss_card": loss,
+            "loss_cpu": float(cpu_loss), "loss_rel_gap": loss_gap,
+            "update_gaps": dict(zip(names, gaps)), "row4_leaves_bitwise": tap.leaves,
+            "row4_max_abs_err": tap.err}
+    log(f"30a: loss card {loss:.6f}, CPU {float(cpu_loss):.6f} (relative gap {loss_gap:.2e}, "
+        f"gate {LM_GATE_TOL['loss']}); worst update gap {max(gaps):.3e} of the leaf's largest "
+        f"({names[int(np.argmax(gaps))]}; gate {LM_GATE_TOL['update']}); the CPU step "
+        f"{cpu_s:.1f} s, its update {cpu_update_s:.1f} s; row 4 bit for bit its plain version "
+        f"on {tap.leaves} leaves")
+    if loss_gap > LM_GATE_TOL["loss"] or max(gaps) > LM_GATE_TOL["update"]:
+        failures.append(f"30a: the card's step is not the CPU's: loss gap {loss_gap:.2e}, "
+                        f"update gap {max(gaps):.3e}")
+    del card
+    # the planted faults, each of which the gate must reject
+    shifted = dict(dbatch, labels=torch.roll(dbatch["labels"], 1, dims=1))
+    wg = names.index("layers/mlp/wg")
+    for fault, b, t in (("labels shifted by one", shifted, UpdateTap(failures, check=False)),
+                        ("layer 1's mlp.wg gradient zeroed", dbatch,
+                         UpdateTap(failures, zero=(wg, 1)))):
+        s, fl = card_step(b, t)
+        fg = lm_update_gaps(start, s, cpu_state)
+        fl_gap = abs(fl - float(cpu_loss)) / abs(float(cpu_loss))
+        caught = fl_gap > LM_GATE_TOL["loss"] or max(fg) > LM_GATE_TOL["update"]
+        nums[f"fault: {fault}"] = {"loss_rel_gap": fl_gap, "worst_update_gap": max(fg),
+                                   "caught": caught}
+        log(f"30a: fault '{fault}': loss gap {fl_gap:.2e}, worst update gap {max(fg):.3e} "
+            f"({names[int(np.argmax(fg))]}): {'rejected' if caught else 'PASSED THE GATE'}")
+        if not caught:
+            failures.append(f"30a: the fault '{fault}' passed the gate")
+        del s
+    del start, cpu_state
+    torch.cuda.empty_cache()
+    return nums
+
+
+def plain_moe_block(x, p, cfg):
+    """``moe_block`` with plain gathers in place of its dispatch and combine
+    Functions: autograd's backward of an index is an accumulating
+    ``index_put_``, which adds a token's k cotangents in the index sort's
+    order."""
+    import torch
+    from repro_torch.models import transformer as tf
+    B, L, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gate, _, _, keep, dest, C = tf.moe_route(x, p["router"], cfg)
+    rows, filled, at, _ = tf.moe_slots(dest, L, k, E, C)
+    buf = torch.where(filled[..., None], x.reshape(B * L, d)[rows], 0)
+    out = tf._expert_ffn(buf, p["wg"], p["wu"], p["wd"])
+    y_pair = torch.where(keep[..., None], out.reshape(-1, d)[at], 0)
+    y_pair = y_pair * (keep * gate.reshape(B, L * k)).to(y_pair.dtype)[..., None]
+    y = y_pair.view(B, L, k, d).sum(dim=2).to(x.dtype)
+    if "shared" in p:
+        sh = p["shared"]
+        y = y + tf.swiglu(x, sh["wg"], sh["wu"], sh["wd"])
+    return y
+
+
+def moe_train_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 31: qwen3-moe-30b-a3b at full width, MOE_TRAIN's depth, trained
+    MOE_TRAIN["steps"] steps on one batch: every loss finite and the last
+    below the first, row 4 once a leaf a step, the dropped share of (token,
+    expert) pairs (:class:`MoeTally`).  Then its first MoE block at full
+    width, forward and backward (dx, the router's and the experts'
+    gradients) on the model's layer-0 input: two runs bit for bit; against
+    :func:`plain_moe_block` with the routing pinned (:class:`MoeRoutes`):
+    the output and the experts' gradients bit for bit, dx and the router's
+    within MOE_GRAD_TOL of each one's largest.  Returns row 4's launches and
+    the phase's numbers."""
+    import torch
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import rms_norm
+    from repro_torch.optim.data_parallel import tree_leaves, tree_map
+
+    m = MOE_TRAIN
+    cfg = dataclasses.replace(qwen3_moe_30b_a3b.config(), n_layers=m["layers"], microbatch=1)
+    B, L = m["batch"], m["seq"]
+    torch.cuda.empty_cache()
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    leaves = tree_leaves(state["hi"])
+    n_params = sum(t.numel() for t in leaves)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(token_stream(SEED + 3, cfg.vocab, B, L)).items()}
+    step, _ = lm_steps.make_lm_train_step(cfg, B, L, lr=LM_TRAIN["lr"], beta=LM_TRAIN["beta"],
+                                          device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    losses, walls = [], []
+    with MoeTally() as tally:
+        for i in range(m["steps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(state, batch)[1]))
+            walls.append((time.perf_counter() - t) * 1e3)
+    launches = ops.split_sgd.launches - before
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"31: losses {losses}: not finite or not falling")
+    if launches != m["steps"] * len(leaves):
+        failures.append(f"31: row 4 launched {launches} times in {m['steps']} steps, not once a "
+                        f"leaf ({len(leaves)}) a step")
+    nums = {"model": cfg.name, "layers": m["layers"], "params": n_params, "batch": [B, L],
+            "losses": losses, "step_ms_wall": walls, "peak_gb": peak / 1e9,
+            "dropped_share": tally.share(), "max_load": tally.max_load,
+            "split_sgd_launches_a_step": launches / m["steps"]}
+    log(f"31: {cfg.name} at {m['layers']} layers ({n_params} parameters): losses "
+        f"{[round(x, 4) for x in losses]}, steps {[round(w, 1) for w in walls]} ms, peak "
+        f"{peak / 1e9:.2f} GB, dropped share {tally.share():.4f} (largest load "
+        f"{tally.max_load:.2f}x the mean), row 4 {launches / m['steps']:.0f} launches a step")
+
+    # the first MoE block on the layer-0 input of the batch (its attention block run once)
+    with torch.no_grad():
+        x0 = tf._embed(state["hi"], batch["tokens"], cfg)
+        lp = tf._layer(state["hi"]["layers"], 0)
+        h, _ = tf.attn_block(rms_norm(x0, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
+                             torch.arange(L, device=dev), 0)
+        z = rms_norm(x0 + h, lp["ln2"], cfg.norm_eps)
+    p = lp["moe"]
+    ct = (torch.randn(z.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+          ).to(torch.bfloat16)
+    names = ["x"] + leaf_names(p)
+
+    def fwd_bwd(block):
+        pp = tree_map(lambda t: t.detach().requires_grad_(), p)
+        xx = z.detach().requires_grad_()
+        y = block(xx, pp, cfg)
+        return [y.detach()] + list(torch.autograd.grad(y, [xx] + tree_leaves(pp), ct))
+    routes = MoeRoutes(cfg)
+    with routes.record():
+        run1 = fwd_bwd(tf.moe_block)
+    with routes.replay("all"):
+        run2 = fwd_bwd(tf.moe_block)
+    with routes.replay("all"):
+        plain = fwd_bwd(plain_moe_block)
+    torch.cuda.synchronize()
+    det = all(torch.equal(a, b) for a, b in zip(run1, run2))
+    if not det:
+        failures.append("31: two backward runs of the MoE block differ")
+    gaps = {}
+    for name, a, b in zip(["y"] + names, run1, plain):
+        gap = float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+        gaps[name] = gap
+        exact = name in ("y", "wd", "wu", "wg")
+        if (exact and not torch.equal(a, b)) or gap > MOE_GRAD_TOL:
+            failures.append(f"31: the MoE block's {name} against the plain version: {gap:.3e} "
+                            f"of its largest" + (" (must be bit for bit)" if exact else ""))
+    nums.update(moe_block_deterministic=det, moe_block_gaps=gaps, routing_flips=routes.flips)
+    log(f"31: MoE block at [{B}, {L}, {cfg.d_model}]: two backward runs bit for bit {det}; "
+        "against the plain version (routing pinned), each gap over its largest: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+    del state, step, batch, run1, run2, plain, z, x0, h, p, lp
+    torch.cuda.empty_cache()
+    return {"split_sgd": launches}, nums
+
+
+def lm_launcher_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 32: ``launch.train.main`` in process for each LM arch at the
+    reference's ``reduced_lm`` sizes (LM_LAUNCH_ARGV, LM_LAUNCH_STEPS steps):
+    every loss finite, row 4 once a leaf a step; qwen3-moe again with
+    ``--ckpt-dir`` and ``--preempt-at``: the relaunch restores the final
+    checkpoint and its losses are the uninterrupted run's bit for bit (the
+    module's ``python -m`` entry is phase 20b's subprocess).  Returns row 4's
+    launches and the phase's numbers."""
+    import shutil
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+
+    before = ops.split_sgd.launches
+    nums = {}
+    for arch in LM_ARCHS:
+        n0 = ops.split_sgd.launches
+        cfg = launch.reduced_lm(arch, 8, 128)[0]
+        n_leaves = len(leaf_names(tf.param_shapes(cfg)))
+        out = launch.main(["--arch", arch, *LM_LAUNCH_ARGV, "--steps", str(LM_LAUNCH_STEPS)])
+        got = ops.split_sgd.launches - n0
+        nums[arch] = {"losses": out["losses"], "split_sgd_launches": got}
+        if len(out["losses"]) != LM_LAUNCH_STEPS or not all(np.isfinite(out["losses"])):
+            failures.append(f"32: {arch}: losses {out['losses']}")
+        if got != LM_LAUNCH_STEPS * n_leaves:
+            failures.append(f"32: {arch}: row 4 launched {got} times, not {n_leaves} a step")
+    ck = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "qwen3-moe-30b-a3b", *LM_LAUNCH_ARGV, "--steps", str(LM_LAUNCH_STEPS)]
+    whole = launch.main(argv)["losses"]
+    ckargv = argv + ["--ckpt-dir", str(ck), "--ckpt-every", "2"]
+    first = launch.main(ckargv + ["--preempt-at", str(LM_LAUNCH_PREEMPT)])
+    second = launch.main(ckargv)
+    shutil.rmtree(ck, ignore_errors=True)
+    restarted = second["start_step"] == len(first["losses"]) and \
+        first["losses"] + second["losses"] == whole
+    nums["restart"] = {"whole": whole, "first": first["losses"], "second": second["losses"],
+                       "restored_at": second["start_step"], "bitwise": restarted}
+    log(f"32: qwen3-moe restart: stopped after {len(first['losses'])} steps, restored at "
+        f"{second['start_step']}, losses bit for bit the uninterrupted run's: {restarted}")
+    if not restarted:
+        failures.append(f"32: the restart's losses {first['losses']} + {second['losses']} are "
+                        f"not the uninterrupted {whole}")
+    torch.cuda.empty_cache()
+    return {"split_sgd": ops.split_sgd.launches - before}, nums
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -5704,6 +6218,34 @@ def main() -> int:
         if name != "fused_mlp_routes":
             counts[name] = counts.get(name, 0) + v
     clock.mark("29, dlrm-large served")
+
+    # LM training: internlm2-1.8b at full size and its gate at 2 layers, qwen3-moe's MoE
+    # backward at full width, the launcher's LM branch
+    got, lm_train = lm_train_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 30, internlm2-1.8b trained at full size failed:\n"
+                         + "\n".join(failures))
+    lm_launches = got["split_sgd"]
+    log("phase 30 numbers: " + json.dumps(lm_train))
+    clock.mark("30, internlm2-1.8b trained at full size")
+    gate = lm_gate_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 30a, the LM step's gate failed:\n" + "\n".join(failures))
+    log("phase 30a numbers: " + json.dumps(gate))
+    clock.mark("30a, the LM step against the CPU's")
+    got, moe_train = moe_train_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 31, qwen3-moe trained failed:\n" + "\n".join(failures))
+    lm_launches += got["split_sgd"]
+    log("phase 31 numbers: " + json.dumps(moe_train))
+    clock.mark("31, qwen3-moe-30b-a3b trained at full width")
+    got, lm_launch = lm_launcher_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 32, the launcher's LM branch failed:\n" + "\n".join(failures))
+    lm_launches += got["split_sgd"]
+    counts["split_sgd"] += lm_launches
+    log("phase 32 numbers: " + json.dumps(lm_launch))
+    clock.mark("32, the launcher's LM branch")
     log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -5766,6 +6308,9 @@ def main() -> int:
             line[-1]["ms_l2_warm"] = k["ms_l2_warm"]
         if k["name"] in widths:  # rows 1 and 5-12 at the recsys archetypes' widths
             line[-1]["widths"] = widths[k["name"]]
+        if k["name"] == "split_sgd":  # row 4 on the LM steps: their launches, the largest leaf
+            line[-1]["lm"] = {**lm_train["row4"], "launches": lm_launches}
+            line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], lm_train["row4"]["max_abs_err"])
         if k["name"] in fig16:  # rows 1 and 4 at the Fig. 16 example's shapes
             line[-1]["fig16"] = fig16[k["name"]]
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], fig16[k["name"]]["max_abs_err"])

@@ -1,5 +1,5 @@
 """Synthetic batches (copies of ``zipf_indices``, ``SparseBatchSpec``,
-``sparse_batch``, ``dlrm_stream`` and ``hybrid_stream`` from
+``sparse_batch``, ``dlrm_stream``, ``hybrid_stream`` and ``token_stream`` from
 ``repro/data/synthetic.py``, so the port needs nothing of ``repro``).
 Seeded, host-side numpy: the same seed gives both packages the same
 batches.
@@ -83,3 +83,14 @@ def hybrid_stream(seed: int, mdef, alpha: float = 0.0) -> Iterator[dict]:
                            hist_mask="hist_mask" in mdef.extras)
     while True:
         yield sparse_batch(rng, spec)
+
+
+def token_stream(seed: int, vocab: int, batch: int, seq: int) -> Iterator[dict]:
+    """LM batches: ``tokens`` [batch, seq] and ``labels`` (the tokens one
+    position on) int32 of uniform ids in ``[0, vocab)``, the reference's
+    draws for ``seed`` byte for byte."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int64)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

@@ -310,11 +310,18 @@ def fused_update_freq(W: torch.Tensor, cnt: torch.Tensor, srows: torch.Tensor,
     return W, cnt
 
 
-def split_sgd(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor,
-              lr: float) -> tuple[torch.Tensor, torch.Tensor]:
+def split_sgd(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor, lr: float,
+              mom: torch.Tensor | None = None, beta: float = 0.0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flat Split-SGD step, in place on ``hi`` [n] bf16 / ``lo`` [n] int16
-    with ``g`` [n] fp32: ``w = fma32(-lr, g, combine(hi, lo))``, re-split."""
-    nh, nl = _split(fma32(-np.float32(lr), g.float(), _combine(hi, lo)))
+    with ``g`` [n] fp32 or bf16: ``w = fma32(-lr, g, combine(hi, lo))``,
+    re-split.  With ``mom`` [n] fp32, first ``mom = fma32(beta, mom, g)``
+    in place, and the step by ``mom``."""
+    g = g.float()
+    if mom is not None:
+        mom.copy_(fma32(np.float32(beta), mom, g))
+        g = mom
+    nh, nl = _split(fma32(-np.float32(lr), g, _combine(hi, lo)))
     hi.copy_(nh)
     lo.copy_(nl)
     return hi, lo

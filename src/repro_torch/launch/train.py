@@ -1,12 +1,13 @@
-"""Training launcher (twin of ``repro/launch/train.py``, its recsys paths).
+"""Training launcher (twin of ``repro/launch/train.py``).
 
-Runs reduced-scale DLRMs and the four recsys archetypes (fm, bst, sasrec,
-din) on the local cards, or on the CPU with ``--device cpu`` (the kernels'
-plain PyTorch versions).  Examples:
+Runs reduced-scale DLRMs, the four recsys archetypes (fm, bst, sasrec, din)
+and the five LM archs on the local cards, or on the CPU with ``--device
+cpu`` (the kernels' plain PyTorch versions).  Examples:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-small --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-100m --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --batch 64 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --batch 8 --seq 128
 
 ``--arch dlrm-100m`` is the ~103 M-parameter model; any other ``dlrm*`` name
 is the small reduced config (8 tables of 5,000 rows), as in the reference,
@@ -38,14 +39,23 @@ into the loader's worker thread (``data/pipeline.py``); ``--optimizer``
 selects the sparse row optimizer (``optim/row.py``).  ``--publish-every``
 and ``--serve-smoke`` publish serving snapshots from the loop and serve
 them: at N ranks each rank publishes its own shard, rank 0 serves and the
-others score their shards of its batches.  Refused, naming its ROADMAP
-item: the LM archs (item 8).
+others score their shards of its batches.
+
+An LM arch (any other ``--arch`` name) is the reference's ``reduced_lm``
+(2 layers, d_model 128, vocab 512, the arch's features: MoE, MLA, gemma2's
+local/global layers and soft-caps) trained on ``token_stream`` by
+``models.lm_steps.make_lm_train_step`` (Split-SGD with momentum, lr
+``--lr``) through ``TrainLoop`` on one rank, with ``--ckpt-dir`` and
+``--preempt-at`` as for the DLRM; a restart reads the token stream on from
+the step it restores, so that its losses are the uninterrupted run's.  Refused, naming its ROADMAP item: an LM
+arch at ``--ranks`` > 1 (the mesh: queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -165,6 +175,27 @@ def reduced_hybrid(name: str, batch: int):
     if name == "din":
         return R.make_din(50_000, (1000,) * 4, batch=batch)
     raise KeyError(name)
+
+
+def is_lm(arch: str) -> bool:
+    return not (arch.startswith("dlrm") or arch in RECSYS_ARCHS)
+
+
+def reduced_lm(name: str, batch: int, seq: int):
+    """The reference's reduced LM of each arch (its ``reduced_lm``): 2
+    layers, d_model 128, vocab 512; ``(cfg, batch, seq)``."""
+    from repro_torch.models.transformer import TransformerConfig
+    base = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_head=32,
+                d_ff=256, vocab=512, seq_shard=False, tp_size=1)
+    if "moe" in name or "deepseek" in name:
+        base.update(n_experts=8, top_k=2, moe_d_ff=64)
+    if "deepseek" in name:
+        base.update(mla=True, q_lora=64, kv_lora=64, qk_nope=16, qk_rope=16,
+                    v_head=32, n_heads=4, d_head=32)
+    if "gemma2" in name:
+        base.update(local_global=True, window=64, attn_softcap=50.0,
+                    final_softcap=30.0, embed_scale=True)
+    return TransformerConfig(name=name, **base), batch, seq
 
 
 def parser() -> argparse.ArgumentParser:
@@ -289,7 +320,7 @@ def parser() -> argparse.ArgumentParser:
 
 def refuse(args) -> None:
     """Every refusal of the reference's launcher, with its message, and the
-    port's own: the archs it has no twin of yet.  Raises ``SystemExit``."""
+    port's own: an LM arch on more than one rank.  Raises ``SystemExit``."""
     if args.data_format is None:
         args.data_format = "packed" if args.data_dir else "synthetic"
     if args.data_format == "packed" and not args.data_dir:
@@ -346,8 +377,9 @@ def refuse(args) -> None:
             "--publish-every/--serve-smoke publish the recsys serving "
             "snapshot (dlrm/fm/bst/sasrec/din); LM archs have no "
             "serving path")
-    raise SystemExit(f"--arch {args.arch}: the port does not train LMs yet (it serves "
-                     "the five LM archs); ROADMAP queue 1 item 8")
+    if args.ranks is not None and args.ranks > 1:
+        raise SystemExit(f"--arch {args.arch} --ranks {args.ranks}: the port trains the LM "
+                         "archs on one rank; LM training on a mesh is ROADMAP queue 1 item 8")
 
 
 def run(rank: int, world: int, args) -> dict:
@@ -368,6 +400,8 @@ def run(rank: int, world: int, args) -> dict:
     if args.trace_dir and lead:
         tracer = telemetry.configure(enabled=True, trace_dir=args.trace_dir)
         tracer.reset()  # this run's trace holds this run's events
+    if is_lm(args.arch):
+        return run_lm(args, dev)
     common = dict(sparse_optimizer=args.optimizer, opt_beta=args.beta, opt_eps=args.eps,
                   microbatches=args.microbatches, host_presort=args.host_presort,
                   weighted=args.weighted, sr_seed=args.seed, hot_rows=args.hot_rows,
@@ -451,6 +485,58 @@ def run(rank: int, world: int, args) -> dict:
     return out
 
 
+def run_lm(args, dev: torch.device) -> dict:
+    """The LM branch on one rank: :func:`reduced_lm` trained from a seeded
+    state on ``token_stream(0, ...)`` through ``TrainLoop``; returns its
+    losses and the step it started from (a restore, which reads the stream
+    on from that step)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import lm_steps
+
+    cfg, B, L = reduced_lm(args.arch, args.batch, args.seq)
+    # a restart reads the stream on from the step it restores (the reference's
+    # starts it over), so that its losses are the uninterrupted run's
+    start = (CheckpointManager(args.ckpt_dir).latest_valid_step() or 0) if args.ckpt_dir else 0
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step, _ = lm_steps.make_lm_train_step(cfg, B, L, lr=args.lr, device=dev)
+    print(f"[train] {args.arch}: reduced to {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"~{cfg.param_count() / 1e6:.2f}M params; batch {B} x {L} tokens")
+    event_log = None
+    if args.event_log or args.trace_dir:
+        from repro_torch.faults import FailureLog
+        event_log = FailureLog(args.event_log or str(Path(args.trace_dir) / "events.jsonl"))
+    faults = None
+    if args.preempt_at is not None:
+        from repro_torch.faults import FaultPlan
+        faults = FaultPlan.single("train.step", "preempt", step=args.preempt_at)
+        faults.log = event_log
+    loop = TrainLoop(
+        TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        prefetch=args.prefetch, skip_batch_budget=args.skip_batch_budget,
+                        heartbeat_path=(str(Path(args.trace_dir) / "heartbeat.jsonl")
+                                        if args.trace_dir else None),
+                        heartbeat_every=args.metrics_every, metrics_every=args.metrics_every),
+        step, state, itertools.islice(token_stream(0, cfg.vocab, B, L), start, None), device=dev,
+        faults=faults, event_log=event_log)
+    if loop.start_step != start:
+        raise RuntimeError(f"restored step {loop.start_step}, the stream was set to {start}")
+    out = {"start_step": loop.start_step}
+    try:
+        loop.run()
+    finally:
+        if args.trace_dir:
+            path = telemetry.export()
+            telemetry.configure(enabled=False)
+            print(f"[train] trace written: {path}")
+    out["losses"] = list(loop.losses)
+    if loop.losses:
+        print(f"[train] done: first loss {loop.losses[0]:.4f} -> last {loop.losses[-1]:.4f}")
+    if loop.monitor.events:
+        print(f"[train] stragglers observed: {len(loop.monitor.events)}")
+    return out
+
+
 def main(argv=None) -> dict:
     """Parse ``argv`` (``sys.argv[1:]`` when None), refuse what the port
     cannot run, and train: one rank in this process, N ranks in N
@@ -459,7 +545,8 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     refuse(args)
     dev = resolve_device(args.device)  # raises where there is no card
-    world = args.ranks or (torch.cuda.device_count() if dev.type == "cuda" else 1)
+    world = args.ranks or (torch.cuda.device_count() if dev.type == "cuda" and not is_lm(args.arch)
+                           else 1)
     if world == 1:
         return run(0, 1, args)
     if dev.type == "cuda":

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -43,11 +44,30 @@ def _softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def _chunk(qc, kk, vv, q0: int, start: int, causal: bool, softcap: float, window: int,
+           scale: float) -> torch.Tensor:
+    """One q chunk's attention over the keys ``kk`` / ``vv`` from absolute
+    position ``start``: fp32 scores, the one-shot softmax, ``p`` rounded to
+    v's dtype before the PV product."""
+    kpos = start + torch.arange(kk.shape[2], device=qc.device)[None, :]
+    s = (qc.float() @ kk.float().transpose(-1, -2)) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = q0 + torch.arange(qc.shape[2], device=qc.device)[:, None]
+    s = torch.where(_mask(qpos, kpos, causal, window), s, -torch.inf)
+    p = _softmax(s)
+    return (p.to(vv.dtype).float() @ vv.float()).to(vv.dtype)
+
+
 def chunked_attention(q, k, v, *, causal=True, softcap=0.0, window=0, scale=None,
-                      bq=256) -> torch.Tensor:
+                      bq=256, remat: bool = True) -> torch.Tensor:
     """q [B, H, Lq, D], k/v [B, Hkv, Lk, D] -> [B, H, Lq, Dv], q chunk by q
     chunk; a local layer scores only the ``window + bq`` keys a chunk can
-    reach."""
+    reach.  Under autograd each chunk is rematerialised
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    each chunk): backward keeps one chunk's scores at a time, not the
+    [B, H, Lq, Lk] the chunking exists to avoid; ``remat=False`` keeps them
+    all (the same values)."""
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     k = repeat_kv(k, H // Hkv)
@@ -58,20 +78,15 @@ def chunked_attention(q, k, v, *, causal=True, softcap=0.0, window=0, scale=None
         bq = math.gcd(bq, Lq)
     wsz = min(Lk, window + bq) if window > 0 else Lk
     sliced = 0 < wsz < Lk
+    ckpt = remat and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
     for i in range(Lq // bq):
-        qc = q[:, :, i * bq:(i + 1) * bq]
         q0 = (Lk - Lq) + i * bq            # absolute position of the chunk's first query
         start = min(max(q0 - window + 1, 0), Lk - wsz) if sliced else 0
-        kk, vv = k[:, :, start:start + wsz], v[:, :, start:start + wsz]
-        kpos = start + torch.arange(wsz, device=q.device)[None, :]
-        s = (qc.float() @ kk.float().transpose(-1, -2)) * scale
-        if softcap > 0:
-            s = softcap * torch.tanh(s / softcap)
-        qpos = q0 + torch.arange(bq, device=q.device)[:, None]
-        s = torch.where(_mask(qpos, kpos, causal, window), s, -torch.inf)
-        p = _softmax(s)
-        outs.append((p.to(vv.dtype).float() @ vv.float()).to(vv.dtype))
+        args = (q[:, :, i * bq:(i + 1) * bq], k[:, :, start:start + wsz],
+                v[:, :, start:start + wsz], q0, start, causal, softcap, window, scale)
+        outs.append(torch.utils.checkpoint.checkpoint(_chunk, *args, use_reentrant=False)
+                    if ckpt else _chunk(*args))
     return torch.cat(outs, dim=2).to(q.dtype)
 
 

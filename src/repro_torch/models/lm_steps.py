@@ -1,10 +1,15 @@
-"""Serving step factories for the LM family on one card (twin of the serving
-half of ``repro/models/lm_steps.py``).
+"""Train, prefill and decode step factories for the LM family on one card
+(twin of ``repro/models/lm_steps.py``).
 
 The reference jits its steps over a mesh; on one card there is no mesh and
-nothing to shard, so a step is a plain function over tensors on ``device``.
-Parameters are held in bf16, as the reference's serving steps hold them.
-Training (``make_lm_train_step`` and its state) is not ported.
+nothing to shard, so a step is a plain function over tensors on ``device``
+(the mesh specs have no twin yet: ROADMAP queue 1, item 8).  Serving holds
+the parameters in bf16, as the reference's serving steps hold them.
+Training holds the Split-SGD state ``{"hi" bf16, "lo" int16 (the
+reference's uint16 bits), "mom" fp32}``, takes the gradients of
+``transformer.lm_loss`` with respect to ``hi`` (bf16, as the reference's
+are) and steps each leaf in place with ``optim.split_sgd.update_leaf``:
+one launch of the split_sgd kernel a leaf on the card.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.optim import split_sgd
+from repro_torch.optim.data_parallel import tree_leaves, tree_map
 
 
 def param_structs(cfg: tf.TransformerConfig) -> dict:
@@ -21,6 +28,98 @@ def param_structs(cfg: tf.TransformerConfig) -> dict:
         return {k: walk(v) if isinstance(v, dict) else (v, torch.bfloat16)
                 for k, v in tree.items()}
     return walk(tf.param_shapes(cfg))
+
+
+def lm_state_structs(cfg: tf.TransformerConfig, momentum: bool = True) -> dict:
+    """The training state's ``{"hi", "lo"[, "mom"]}`` trees of ``(shape,
+    dtype)``: bf16, int16 (the reference's uint16) and fp32."""
+    def walk(tree, dtype):
+        return {k: walk(v, dtype) if isinstance(v, dict) else (v, dtype)
+                for k, v in tree.items()}
+    shapes = tf.param_shapes(cfg)
+    out = {"hi": walk(shapes, torch.bfloat16), "lo": walk(shapes, torch.int16)}
+    if momentum:
+        out["mom"] = walk(shapes, torch.float32)
+    return out
+
+
+def init_lm_state(cfg: tf.TransformerConfig, generator: torch.Generator, device="cuda",
+                  momentum: bool = True) -> dict:
+    """A training state from fp32 weights drawn by ``transformer.init_params``
+    (``generator`` on ``device``), each leaf split as it is drawn: ``hi``
+    its upper 16 bits (truncated, not a bf16 rounding), ``lo`` its lower;
+    ``mom`` zeros."""
+    halves = tf.init_params(cfg, generator, device, dtype=torch.float32,
+                            leaf=split_sgd.split_fp32)
+    state = {"hi": _map_pairs(halves, 0), "lo": _map_pairs(halves, 1)}
+    if momentum:
+        state["mom"] = tree_map(lambda h: torch.zeros(h.shape, dtype=torch.float32,
+                                                      device=h.device), state["hi"])
+    return state
+
+
+def _map_pairs(tree: dict, i: int) -> dict:
+    return {k: _map_pairs(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def make_lm_train_step(cfg: tf.TransformerConfig, B: int, L: int, lr: float = 1e-2,
+                       beta: float = 0.9, momentum: bool = True, device="cuda"):
+    """``(fn, (state_structs, batch_structs))``; ``state, loss = fn(state,
+    batch)`` with ``batch`` ``{"tokens", "labels"}`` [B, L] int (tensors or
+    numpy): the loss (fp32 0-d, the mean over the batch's tokens) and the
+    state stepped IN PLACE, where the reference donates it.
+
+    With ``cfg.microbatch`` = M > 1 the batch runs in M chunks of B / M
+    rows, as the reference's scan: the losses summed in fp32, the bf16
+    gradients accumulated as ``(acc + g)`` rounded to bf16, both divided by
+    M at the end (the gradients in bf16).  Then each leaf's Split-SGD step
+    (``optim.split_sgd.update_leaf``, with momentum ``beta`` unless
+    ``momentum`` is False)."""
+    tf.check_trainable(cfg)
+    dev = resolve_device(device)
+    mb = max(1, cfg.microbatch)
+    if B % mb:
+        raise ValueError(f"batch {B} does not split into {mb} microbatches")
+    structs = lm_state_structs(cfg, momentum)
+    bstructs = {"tokens": ((B, L), torch.int32), "labels": ((B, L), torch.int32)}
+
+    def value_and_grad(hi: dict, tokens, labels):
+        params = tree_map(lambda t: t.detach().requires_grad_(), hi)
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            loss = tf.lm_loss(params, tokens, labels, cfg)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    def grads_of(hi: dict, tokens, labels):
+        if mb == 1:
+            return value_and_grad(hi, tokens, labels)
+        n = B // mb
+        loss, acc = None, None
+        for i in range(0, B, n):
+            li, g = value_and_grad(hi, tokens[i:i + n], labels[i:i + n])
+            if acc is None:
+                loss, acc = li, g
+            else:
+                loss = loss + li
+                for a, gg in zip(acc, g):
+                    a.add_(gg)      # bf16: (a + g) rounded once, as the reference's
+        for a in acc:
+            a.div_(mb)
+        return loss / mb, acc
+
+    def step(state: dict, batch: dict):
+        tokens, labels = (torch.as_tensor(batch[k], device=dev) for k in ("tokens", "labels"))
+        for name, t in (("tokens", tokens), ("labels", labels)):
+            _check(name, t, (B, L), dev)
+        loss, grads = grads_of(state["hi"], tokens, labels)
+        moms = tree_leaves(state["mom"]) if momentum else [None] * len(grads)
+        with torch.no_grad():
+            for h, lo, g, m in zip(tree_leaves(state["hi"]), tree_leaves(state["lo"]), grads,
+                                   moms):
+                split_sgd.update_leaf(h, lo, g, lr, m, beta)
+        return state, loss
+
+    return step, (structs, bstructs)
 
 
 def cache_structs(cfg: tf.TransformerConfig, B: int, Lmax: int) -> dict:

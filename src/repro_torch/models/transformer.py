@@ -1,14 +1,15 @@
-"""Transformer LM serving (twin of ``repro/models/transformer.py``).
+"""Transformer LM serving and training (twin of ``repro/models/transformer.py``).
 
-The reference covers five architectures, and the port serves all of them
-on one card: :func:`prefill` and :func:`decode_step` for dense GQA
-(internlm2, gemma2's local/global layers and soft-caps, phi3), MoE
+The reference covers five architectures, and the port serves and trains
+all of them on one card: :func:`prefill` and :func:`decode_step` for dense
+GQA (internlm2, gemma2's local/global layers and soft-caps, phi3), MoE
 (qwen3-moe: :func:`moe_block`, the reference's per-sequence grouped top-k
 dispatch with its capacity drops) and MLA (deepseek-v2: the latent cache and
-the absorbed decode, with its first dense layers).  Training (``lm_loss``)
-is not ported.  The reference's sharding constraints are identity on one
-card and have no twin; its expert FFN is its one-device (``not
-cfg.seq_shard``) path.
+the absorbed decode, with its first dense layers); :func:`lm_loss`, the
+causal cross-entropy whose gradients ``models.lm_steps.make_lm_train_step``
+takes.  The reference's sharding constraints are identity on one card and
+have no twin; its expert FFN is its one-device (``not cfg.seq_shard``)
+path.
 
 Parameters keep the reference's stacked layout: ``{"embed" [V, d],
 "layers": {"ln1", "ln2" [n, d], "attn": {"wq", "wk", "wv", "wo"} (MLA:
@@ -16,9 +17,13 @@ Parameters keep the reference's stacked layout: ``{"embed" [V, d],
 {"wg", "wu", "wd"} (MoE layers: "moe": {"router", "wg", "wu", "wd",
 "shared"?})} (each [n, ...]), "dense_layers" (the first
 ``first_dense_layers``, the same with "mlp"), "final_norm" [d], "unembed"
-[d, V] (untied only)}``; serving holds them in bf16.  The layers run in a
-plain Python loop, the dense_layers first, layer ``i`` of a stack reading
-slice ``i`` of each stacked leaf.
+[d, V] (untied only)}``; serving holds them in bf16, training reads the
+bf16 ``hi`` halves of its Split-SGD state.  The layers run in a plain
+Python loop, the dense_layers first, layer ``i`` of a stack reading slice
+``i`` of each stacked leaf.  Training rematerialises each layer (gemma2's
+each (local, global) pair) in backward, as the reference's ``jax.checkpoint``
+of its scan body does, and writes each layer's gradient into its slice of
+one stacked gradient (:class:`_LayerStack`).
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.hybrid import topk_stable
 from repro_torch.models.attention import _softmax, attention, decode_attention, rms_norm, rope
+from repro_torch.optim.data_parallel import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +150,18 @@ def check_supported(cfg: TransformerConfig) -> None:
             "reference cannot run it either (ROADMAP.md, queue 3)")
 
 
+def check_trainable(cfg: TransformerConfig) -> None:
+    """:func:`check_supported`, and training needs ``attn_impl="chunked"``:
+    the flash kernel has no backward, and the reference cannot train
+    through its ``flash_attention`` either (no transpose rule or
+    ``custom_vjp``): ``ROADMAP.md``, queue 3.  Serving keeps the kernel."""
+    check_supported(cfg)
+    if cfg.attn_impl == "pallas":
+        raise NotImplementedError(
+            f"{cfg.name}: training runs on attn_impl='chunked' only; the flash kernel has no "
+            "backward, and the reference cannot train through it either (ROADMAP.md, queue 3)")
+
+
 def _attn_shapes(cfg: TransformerConfig, n: int) -> dict:
     d, H = cfg.d_model, cfg.n_heads
     if cfg.mla:
@@ -198,32 +217,38 @@ def cache_shapes(cfg: TransformerConfig, B: int, L: int) -> dict:
     return {"k": shape, "v": shape}
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda",
+                dtype: torch.dtype = torch.bfloat16, leaf=None) -> dict:
     """The reference's distributions: each projection ~ N(0, 1/s) with s
     its per-layer leaf's first dim (its fan-in; an expert stack's expert
     count, as the reference draws it), the embedding (and unembedding) ~
     N(0, 0.02²), the norms' weights 0; drawn in fp32 one matrix at a time
-    and stored in bf16, as the serving step holds them.  ``generator`` must
-    live on ``device``; the numbers differ from the reference's
+    and stored in ``dtype`` (bf16, as the serving step holds them; fp32 for
+    a training state), each finished leaf mapped by ``leaf`` where given
+    (``init_lm_state`` splits it there, one leaf at a time).  ``generator``
+    must live on ``device``; the numbers differ from the reference's
     (``jax.random`` is not ported)."""
     dev = resolve_device(device)
+    leaf = leaf or (lambda t: t)
 
     def normal(shape, scale):
-        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
         for part in (out.flatten(0, -3) if len(shape) >= 3 else [out]):
             part.copy_(torch.randn(part.shape, generator=generator, device=dev) * scale)
-        return out
+        return leaf(out)
+
+    def zeros(shape):
+        return leaf(torch.zeros(shape, dtype=dtype, device=dev))
 
     def draw(tree):   # a stack: every leaf of rank 2 is a norm ([n, width])
         return {k: draw(s) if isinstance(s, dict) else
-                normal(s, s[1] ** -0.5) if len(s) >= 3 else
-                torch.zeros(s, dtype=torch.bfloat16, device=dev) for k, s in tree.items()}
+                normal(s, s[1] ** -0.5) if len(s) >= 3 else zeros(s) for k, s in tree.items()}
 
     shapes = param_shapes(cfg)
     params = {"embed": normal(shapes["embed"], 0.02), "layers": draw(shapes["layers"])}
     if "dense_layers" in shapes:
         params["dense_layers"] = draw(shapes["dense_layers"])
-    params["final_norm"] = torch.zeros(shapes["final_norm"], dtype=torch.bfloat16, device=dev)
+    params["final_norm"] = zeros(shapes["final_norm"])
     if "unembed" in shapes:
         params["unembed"] = normal(shapes["unembed"], 0.02)
     return params
@@ -276,30 +301,93 @@ def _expert_ffn(buf, wg, wu, wd):
     return torch.bmm(h, wd).to(buf.dtype)
 
 
-def moe_block(x, p, cfg: TransformerConfig):
-    """The reference's per-sequence grouped top-k dispatch, forward only: x
-    [B, L, d] -> [B, L, d].  :func:`moe_route` places each kept pair in its
-    expert's slots; a scatter of pair ids, then a gather of their tokens'
-    features, fills the [E, B*C, d] buffer (the reference's [B, E*C, d],
-    expert-major so that each expert's products are one batch entry; empty
-    slots are zeros); the expert FFN; each kept pair gathers its slot's row,
-    times its gate in the activation dtype, summed over the k ranks; then
-    the shared experts through :func:`swiglu`."""
-    B, L, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    gate, _, _, keep, dest, C = moe_route(x, p["router"], cfg)
-    Lk, dev = L * k, x.device
+def moe_slots(dest, L: int, k: int, E: int, C: int) -> tuple:
+    """The gathers' indices of :func:`moe_block` from the router's ``dest``
+    [B, L*k] (:func:`moe_route`): ``rows`` [E, B*C], the token row of
+    ``x.view(B*L, d)`` each slot reads; ``filled`` [E, B*C], the slots a
+    kept pair holds; ``at`` [B, L*k], the row of the flat expert-major
+    output [E*B*C, d] each pair reads (clamped where it dropped); ``src_row``
+    [E, B*C], the row of the pairs' [B*L*k, d] each slot's cotangent comes
+    from (clamped where empty)."""
+    B, Lk = dest.shape
+    dev = dest.device
     # each slot's pair id (the dropped pairs scatter into a spare slot, cut off)
     src_pair = torch.full((B, E * C + 1), Lk, dtype=torch.int64, device=dev)
     src_pair.scatter_(1, dest, torch.arange(Lk, device=dev).expand(B, Lk))
     src_pair = src_pair[:, :E * C].reshape(B, E, C).transpose(0, 1).reshape(E, B * C)
     seq = torch.arange(B, device=dev).repeat_interleave(C)[None, :]       # [1, B*C]
     rows = seq * L + (src_pair // k).clamp_max(L - 1)
-    buf = torch.where((src_pair < Lk)[..., None], x.reshape(B * L, d)[rows], 0)
-    out = _expert_ffn(buf, p["wg"], p["wu"], p["wd"]).reshape(E * B * C, d)
-    # combine: pair (b, i) reads row (e * B + b) * C + c of the expert-major output
-    at = (dest // C * B + torch.arange(B, device=dev)[:, None]) * C + dest % C
-    y_pair = torch.where(keep[..., None], out[at.clamp_max(E * B * C - 1)], 0)
+    # pair (b, i) reads row (e * B + b) * C + c of the expert-major output
+    at = ((dest // C * B + torch.arange(B, device=dev)[:, None]) * C
+          + dest % C).clamp_max(E * B * C - 1)
+    return rows, src_pair < Lk, at, seq * Lk + src_pair.clamp_max(Lk - 1)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The MoE dispatch as a gather, with the reference's gather backward
+    (its ``_moe_dispatch`` custom_vjp).  Forward: x [B, L, d] -> buf [E,
+    B*C, d], slot ``s`` of expert ``e`` reading row ``rows[e, s]`` of
+    ``x.view(B*L, d)`` where ``filled``, else zeros.  Backward: each (token,
+    rank) pair gathers its slot's cotangent (row ``at`` of the flat buffer;
+    zero where the pair dropped), summed over the k ranks in ``[B, L, k,
+    d]`` order: no scatter, so the sum's order is fixed on the card too."""
+
+    @staticmethod
+    def forward(ctx, x, rows, filled, at, keep, k: int):
+        B, L, d = x.shape
+        ctx.save_for_backward(at, keep)
+        ctx.k = k
+        return torch.where(filled[..., None], x.reshape(B * L, d)[rows], 0)
+
+    @staticmethod
+    def backward(ctx, d_buf):
+        at, keep = ctx.saved_tensors
+        B, Lk = keep.shape
+        d = d_buf.shape[-1]
+        dp = torch.where(keep[..., None], d_buf.reshape(-1, d)[at], 0)
+        return dp.view(B, Lk // ctx.k, ctx.k, d).sum(dim=2).to(d_buf.dtype), *[None] * 5
+
+
+class _Combine(torch.autograd.Function):
+    """The MoE combine as a gather, with the reference's gather backward
+    (its ``_moe_combine`` custom_vjp).  Forward: out [E, B*C, d] -> per-pair
+    rows [B, L*k, d], pair ``(b, i)`` reading row ``at[b, i]`` of the flat
+    output where ``keep``, else zeros.  Backward: each slot gathers its
+    pair's cotangent (row ``src_row`` of ``d_y.view(B*L*k, d)``; zero where
+    the slot is empty)."""
+
+    @staticmethod
+    def forward(ctx, out, at, keep, src_row, filled):
+        ctx.save_for_backward(src_row, filled)
+        d = out.shape[-1]
+        return torch.where(keep[..., None], out.reshape(-1, d)[at], 0)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        src_row, filled = ctx.saved_tensors
+        d = d_y.shape[-1]
+        return torch.where(filled[..., None], d_y.reshape(-1, d)[src_row], 0), *[None] * 4
+
+
+def moe_block(x, p, cfg: TransformerConfig):
+    """The reference's per-sequence grouped top-k dispatch: x [B, L, d] ->
+    [B, L, d].  :func:`moe_route` places each kept pair in its expert's
+    slots; a scatter of pair ids, then a gather of their tokens' features
+    (:class:`_Dispatch`), fills the [E, B*C, d] buffer (the reference's [B,
+    E*C, d], expert-major so that each expert's products are one batch
+    entry; empty slots are zeros); the expert FFN; each kept pair gathers
+    its slot's row (:class:`_Combine`), times its gate in the activation
+    dtype, summed over the k ranks; then the shared experts through
+    :func:`swiglu`.  Under autograd the gradients reach the router through
+    the gates, as the reference's do; a dropped pair's are zero."""
+    B, L, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gate, _, _, keep, dest, C = moe_route(x, p["router"], cfg)
+    rows, filled, at, src_row = moe_slots(dest, L, k, E, C)
+    buf = _Dispatch.apply(x, rows, filled, at, keep, k)
+    out = _expert_ffn(buf, p["wg"], p["wu"], p["wd"])
+    y_pair = _Combine.apply(out, at, keep, src_row, filled)
+    Lk = L * k
     y_pair = y_pair * (keep * gate.reshape(B, Lk)).to(y_pair.dtype)[..., None]
     y = y_pair.view(B, L, k, d).sum(dim=2).to(x.dtype)
     if "shared" in p:
@@ -399,6 +487,118 @@ def _unembed(params, x, cfg: TransformerConfig):
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss
+# ---------------------------------------------------------------------------
+
+class _LayerStack(torch.autograd.Function):
+    """The layers of one stacked parameter tree, a group at a time (one
+    layer, or gemma2's (local, global) pair), rematerialised in backward as
+    the reference's ``jax.checkpoint`` of its scan body: forward keeps each
+    group's input alone; backward reruns the group on it with autograd on,
+    takes its gradients and writes each layer's into its slice of one
+    gradient a stacked leaf, so that every slice is written once (autograd
+    of ``leaf[i]`` would add a zero-padded gradient of the whole stack, a
+    layer at a time).  ``run(h, lp, j)`` applies layer ``j`` with ``lp`` its
+    parameter slices; ``tree`` is the stack's structure for ``leaves``."""
+
+    @staticmethod
+    def forward(ctx, x, run, tree, groups, *leaves):
+        ctx.run, ctx.tree, ctx.groups = run, tree, groups
+        ctx.inputs = []
+        for grp in groups:
+            ctx.inputs.append(x)
+            for j in grp:
+                x = run(x, tree_unflatten(tree, [leaf[j] for leaf in leaves]), j)
+        ctx.save_for_backward(*leaves)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        leaves = ctx.saved_tensors
+        grads = [torch.empty_like(leaf) for leaf in leaves]
+        for grp, x in zip(reversed(ctx.groups), reversed(ctx.inputs)):
+            h = x.detach().requires_grad_()
+            slices = [[leaf[j].detach().requires_grad_() for leaf in leaves] for j in grp]
+            with torch.enable_grad():
+                out = h
+                for j, sl in zip(grp, slices):
+                    out = ctx.run(out, tree_unflatten(ctx.tree, sl), j)
+            got = torch.autograd.grad(out, [h] + [t for sl in slices for t in sl], dy,
+                                      allow_unused=True)
+            dy, got = got[0], got[1:]
+            for n, j in enumerate(grp):
+                for g, t, buf in zip(got[n * len(leaves):], slices[n], grads):
+                    if g is None:
+                        buf[j].zero_()
+                    else:
+                        buf[j].copy_(g)
+        ctx.inputs = None
+        return (dy, None, None, None, *grads)
+
+
+def _train_layers(x, params, cfg: TransformerConfig, positions):
+    """The layer stacks of :func:`lm_loss`: the dense_layers (no window),
+    then the main stack, in groups of one layer or, for gemma2, of a (local,
+    global) pair, as the reference's ``_scan_layers`` scans them."""
+    plan = _layer_plan(cfg)
+    for stack in ("dense_layers", "layers"):
+        if stack not in params:
+            continue
+        rows = {j: (moe_layer, window) for st, j, moe_layer, window, _ in plan if st == stack}
+        per = 2 if cfg.local_global and stack == "layers" else 1
+        groups = [list(range(i, min(i + per, len(rows)))) for i in range(0, len(rows), per)]
+
+        def run(h, lp, j, rows=rows):
+            moe_layer, window = rows[j]
+            return layer_fwd(h, lp, cfg, positions, window, moe_layer)[0]
+
+        x = _LayerStack.apply(x, run, params[stack], groups, *tree_leaves(params[stack]))
+    return x
+
+
+def _ce_sum(params, x, labels, cfg: TransformerConfig):
+    """The summed cross-entropy of one token chunk: fp32 logits (soft-capped
+    for gemma2), their log-sum-exp less the label's logit."""
+    logits = _unembed(params, x, cfg)
+    lab = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - lab).sum()
+
+
+def _chunked_ce(params, x, labels, cfg: TransformerConfig):
+    """The cross-entropy summed over token chunks of ``c`` (the largest
+    divisor of L not above ``cfg.loss_chunk``), each chunk's [B, c, V]
+    logits rematerialised in backward (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint`` of its scan body), so the full [B, L, V]
+    is never held; the chunks' sums added in order in fp32."""
+    B, L, _ = x.shape
+    c = min(cfg.loss_chunk, L)
+    while L % c:
+        c -= 1
+    if c == L:
+        return _ce_sum(params, x, labels, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for i in range(0, L, c):
+        args = (params, x[:, i:i + c], labels[:, i:i + c], cfg)
+        total = total + (torch.utils.checkpoint.checkpoint(_ce_sum, *args, use_reentrant=False)
+                         if remat else _ce_sum(*args))
+    return total
+
+
+def lm_loss(params, tokens, labels, cfg: TransformerConfig):
+    """The causal LM cross-entropy, the mean over the B·L tokens (fp32 0-d);
+    ``params`` the bf16 tree, tokens and labels [B, L] int.  Gradients to
+    ``params`` by autograd: every layer rematerialised (:class:`_LayerStack`),
+    each attention q chunk and each loss chunk too."""
+    check_trainable(cfg)
+    B, L = tokens.shape
+    x = _embed(params, tokens, cfg)
+    x = _train_layers(x, params, cfg, torch.arange(L, device=x.device))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _chunked_ce(params, x, labels, cfg) / (B * L)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 
@@ -73,19 +72,28 @@ def update_leaf(hi: torch.Tensor, lo: torch.Tensor, g: torch.Tensor, lr: float,
     (and ``mom``).  Returns ``(hi, lo)``, or ``(hi, lo, mom)``.
 
     The step is ``w = fma(-lr, g, w)`` on ``w = combine(hi, lo)`` with ``g``
-    cast to fp32, then split again: the function jitted JAX makes of
-    ``w - lr * g``.  Without momentum it is one launch of the split_sgd
-    kernel on the flattened leaf on the card (its plain version on the
-    CPU); with it, ``mom = fma(beta, mom, g)`` first, then the same step by
-    ``mom``, in plain PyTorch on either device."""
-    from repro_torch.kernels import ops, ref
-    g32 = g.to(torch.float32).reshape(-1)
-    if mom is not None:
-        mom.copy_(ref.fma32(np.float32(beta), mom, g32.view(mom.shape)))
-        ref.split_sgd(hi.view(-1), lo.view(-1), mom.reshape(-1), lr)
-        return hi, lo, mom
-    ops.split_sgd(hi.view(-1), lo.view(-1), g32.contiguous(), lr)
-    return hi, lo
+    (fp32 or bf16) cast to fp32, then split again: the function jitted JAX
+    makes of ``w - lr * g``; with momentum ``mom = fma(beta, mom, g)``
+    first and the step by ``mom``.  On the card one launch of the split_sgd
+    kernel on the flattened leaf; on the CPU its plain version,
+    :data:`CPU_CHUNK` values at a time (the reference scans a stacked leaf a
+    layer at a time), so that its float64 temporaries stay small."""
+    from repro_torch.kernels import ops
+    if not (hi.is_contiguous() and lo.is_contiguous()):
+        raise ValueError("update_leaf steps contiguous hi and lo in place")
+    flat = [hi.view(-1), lo.view(-1), g.reshape(-1).contiguous(),
+            None if mom is None else mom.view(-1)]
+    if flat[2].dtype not in (torch.float32, torch.bfloat16):
+        flat[2] = flat[2].to(torch.float32)
+    step = CPU_CHUNK if hi.device.type == "cpu" else max(hi.numel(), 1)
+    for s in range(0, hi.numel(), step):
+        ops.split_sgd(*(None if t is None else t[s:s + step] for t in flat[:3]), lr,
+                      None if mom is None else flat[3][s:s + step], beta)
+    return (hi, lo) if mom is None else (hi, lo, mom)
+
+
+#: values a call of the plain step takes on the CPU (its float64 temporaries)
+CPU_CHUNK = 1 << 22
 
 
 def apply_updates(state: SplitSGDState, grads: Any, lr: float, beta: float = 0.0

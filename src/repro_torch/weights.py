@@ -20,7 +20,9 @@
   device.
 * :func:`lm_params_from_numpy`, :func:`init_lm_params` and
   :func:`lm_params_to` do the same for an LM's serving parameters (bf16,
-  in the reference's stacked layout).
+  in the reference's stacked layout); :func:`lm_state_from_numpy` and
+  :func:`lm_state_to_numpy` carry an LM training state (``{"hi", "lo",
+  "mom"?}``) across both ways, bit for bit.
 * :func:`params_from_numpy`, :func:`split_state_from_numpy` and
   :func:`split_state_to_numpy` carry a plain parameter tree and the
   reference's ``SplitSGDState`` across (the Fig. 16 convergence run).
@@ -406,6 +408,49 @@ def lm_params_from_numpy(params_np: dict, cfg: tf.TransformerConfig, device="cud
         return out
 
     return walk(params_np, lm_steps.param_structs(cfg), "")
+
+
+def lm_state_from_numpy(state_np: dict, cfg: tf.TransformerConfig, device="cuda") -> dict:
+    """The reference's LM training state as numpy arrays
+    (``jax.tree.map(np.asarray, state)`` of ``init_lm_state``'s or a train
+    step's: ``hi`` bf16, ``lo`` uint16, ``mom`` fp32 where present) -> the
+    port's on ``device``, bit for bit, ``lo`` as its int16 bits."""
+    dev = resolve_device(device)
+    want = lm_steps.lm_state_structs(cfg, momentum="mom" in state_np)
+
+    def walk(tree, structs, path):
+        if set(tree) != set(structs):
+            raise ValueError(f"state{path} holds {sorted(tree)}, the config needs "
+                             f"{sorted(structs)}")
+        out = {}
+        for k, w in structs.items():
+            if isinstance(w, dict):
+                out[k] = walk(tree[k], w, f"{path}[{k!r}]")
+                continue
+            t = to_torch(tree[k], dev)
+            if tuple(t.shape) != w[0] or t.dtype != w[1]:
+                raise ValueError(f"state{path}[{k!r}] is {t.dtype} {tuple(t.shape)}, the config "
+                                 f"needs {w[1]} {w[0]}")
+            out[k] = t
+        return out
+
+    return walk(state_np, want, "")
+
+
+def lm_state_to_numpy(state: dict) -> dict:
+    """A port LM training state -> numpy trees in the reference's types
+    (``hi`` as ``ml_dtypes.bfloat16``, ``lo`` as uint16, ``mom`` fp32)."""
+    import ml_dtypes
+
+    def to_np(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        if t.dtype == torch.int16:
+            return t.numpy().view(np.uint16)
+        return t.numpy()
+
+    return dp.tree_map(to_np, state)
 
 
 def init_lm_params(cfg: tf.TransformerConfig, generator: torch.Generator, device="cuda") -> dict:

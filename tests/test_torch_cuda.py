@@ -1935,3 +1935,82 @@ def test_mla_decode_on_the_card_matches_the_cpu(dev):
         keep = torch.ones(B, Lmax, dtype=torch.bool)
         keep[rows, pos.long()] = False
         assert torch.equal(gc[k][:, keep], cache[k][:, keep])
+
+
+@pytest.mark.parametrize("n,layers", [(1, 1), (7, 1), (8, 1), (1001, 1), (4096 * 3 + 5, 1),
+                                      (5 * 7, 3), (64 * 33, 4)])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_split_sgd_momentum_kernel_bitwise_to_plain(dev, n, layers, gdtype):
+    """The split_sgd kernel with momentum (one launch: ``mom = fmaf(beta,
+    mom, g)``, the step by ``mom``) and without, the gradient fp32 or bf16,
+    against the plain version, bit for bit on ``hi``, ``lo`` and ``mom``: at
+    odd lengths (the tail of n % 8) and on a stacked leaf through
+    ``update_leaf`` (one launch for the whole stack on the card, a layer at
+    a time on the CPU)."""
+    from repro_torch.optim.split_sgd import split_fp32, update_leaf
+    gen = torch.Generator().manual_seed(n + layers)
+    shape = (layers, 1, n) if layers > 1 else (n,)
+    hi, lo = split_fp32(torch.randn(shape, generator=gen))
+    g = (torch.randn(shape, generator=gen) * 1e-2).to(gdtype)
+    mom = torch.randn(shape, generator=gen) * 1e-2
+    for m in (mom, None):
+        want = [t.clone() for t in (hi, lo)] + ([] if m is None else [m.clone()])
+        update_leaf(*want[:2], g, 0.1, want[2] if m is not None else None, 0.9)
+        got = [t.to(dev) for t in (hi, lo)] + ([] if m is None else [m.to(dev)])
+        before = ops.split_sgd.launches
+        update_leaf(*got[:2], g.to(dev), 0.1, got[2] if m is not None else None, 0.9)
+        torch.cuda.synchronize()
+        assert ops.split_sgd.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().view(torch.int16) if a.dtype == torch.bfloat16 else a.cpu(),
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def test_moe_functions_backward_deterministic_and_plain(dev):
+    """The MoE dispatch and combine Functions' backward on the card: two runs
+    bit for bit, and bit for bit the CPU's (gathers, and a sum of the k = 2
+    ranks rounded once), with pairs dropped; a dropped pair's cotangent is
+    zero."""
+    from repro_torch.models import transformer as tf
+    cfg = _small_moe_lm()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    router = (torch.randn((cfg.d_model, cfg.n_experts), generator=gen) * 0.2).to(torch.bfloat16)
+    _, _, _, keep, dest, C = tf.moe_route(x, router, cfg)
+    assert not bool(keep.all())
+    E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    d_buf = torch.randn((E, 2 * C, d), generator=gen).to(torch.bfloat16)
+    out = torch.randn((E, 2 * C, d), generator=gen).to(torch.bfloat16)
+    d_y = torch.randn((2, 64 * k, d), generator=gen).to(torch.bfloat16)
+    runs = []
+    for device in ("cpu", dev, dev):
+        idx = [t.to(device) for t in tf.moe_slots(dest.to(device), 64, k, E, C)]
+        rows, filled, at, src_row = idx
+        xx = x.to(device).requires_grad_()
+        buf = tf._Dispatch.apply(xx, rows, filled, at, keep.to(device), k)
+        (dx,) = torch.autograd.grad(buf, [xx], d_buf.to(device))
+        oo = out.to(device).requires_grad_()
+        y = tf._Combine.apply(oo, at, keep.to(device), src_row, filled)
+        (dout,) = torch.autograd.grad(y, [oo], d_y.to(device))
+        runs.append([t.cpu() for t in (buf, dx, y, dout)])
+    for a, b, c in zip(*runs):
+        assert torch.equal(b, c) and torch.equal(a, b)
+    assert not runs[0][2][~keep].any()
+
+
+def test_chunked_attention_remat_grads_on_the_card(dev):
+    """``chunked_attention``'s gradients with per-chunk checkpointing equal
+    those without it on the card, bit for bit (a local window, the
+    soft-cap, GQA; 4 chunks)."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen).to(torch.bfloat16).to(dev)
+               for s in ((2, 8, 256, 64), (2, 2, 256, 64), (2, 2, 256, 64)))
+    ct = torch.randn((2, 8, 256, 64), generator=gen).to(torch.bfloat16).to(dev)
+    out = []
+    for remat in (True, False):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = attention.chunked_attention(qq, kk, vv, window=100, softcap=50.0, bq=64, remat=remat)
+        out.append((o, *torch.autograd.grad(o, [qq, kk, vv], ct)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -85,9 +85,9 @@ def test_unknown_optimizer_fails_in_both(monkeypatch):
             call()
 
 
-# what the port still refuses: the LM archs
+# what the port still refuses: an LM arch on a mesh
 PORT_REFUSALS = {
-    "lm": (["--arch", "internlm2-1.8b"], "item 8"),
+    "lm": (["--arch", "internlm2-1.8b", "--ranks", "2"], "item 8"),
 }
 
 
@@ -96,6 +96,36 @@ def test_port_refusals_name_their_roadmap_item(case):
     argv, item = PORT_REFUSALS[case]
     text = _exit_text(lambda: t_launch.main(argv))
     assert f"ROADMAP queue 1 {item}" in text
+
+
+LM_ARCHS = ("internlm2-1.8b", "gemma2-27b", "phi3-medium-14b", "qwen3-moe-30b-a3b",
+            "deepseek-v2-236b")
+LM_ARGV = ["--device", "cpu", "--batch", "4", "--seq", "32"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_branch_trains(arch, capsys):
+    """Each LM arch at the reference's ``reduced_lm`` size trains 3 steps on
+    the CPU: three finite losses near ln 512 (a random model over the
+    reduced vocab), from step 0."""
+    out = t_launch.main(["--arch", arch, "--steps", "3"] + LM_ARGV)
+    assert out["start_step"] == 0 and len(out["losses"]) == 3 and _finite(out["losses"])
+    assert all(abs(x - np.log(512)) < 0.5 for x in out["losses"])
+    assert f"[train] {arch}: reduced to 2 layers" in capsys.readouterr().out
+
+
+def test_lm_branch_restarts_bit_for_bit(tmp_path):
+    """``--ckpt-dir`` with ``--preempt-at 1``: the run stops after step 2
+    with a checkpoint at 2; the relaunch restores it, reads the stream on
+    from batch 2, and its losses are the uninterrupted 4-step run's, bit for
+    bit."""
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--steps", "4"] + LM_ARGV
+    whole = t_launch.main(argv)
+    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    first = t_launch.main(argv + ck + ["--preempt-at", "1"])
+    assert first["losses"] == whole["losses"][:2]
+    second = t_launch.main(argv + ck)
+    assert second["start_step"] == 2 and second["losses"] == whole["losses"][2:]
 
 
 # publishing and serving at two ranks, which the port refused before it served on a mesh
