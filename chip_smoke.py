@@ -297,7 +297,18 @@ from the root of a checkout.  Phases, each of which fails the run:
     reference's ``reduced_lm`` sizes, a restart from ``--ckpt-dir`` after
     ``--preempt-at`` whose losses are the uninterrupted run's bit for bit,
     and ``python -m repro_torch.launch.train --arch internlm2-1.8b`` as a
-    subprocess (:func:`lm_launcher_phase`).
+    subprocess (:func:`lm_launcher_phase`);
+33. the EGNN family at ``configs/egnn_arch.py``'s widths (4 layers, hidden
+    64), Split-SGD at lr 1e-2, row 4 once a leaf (18) a step: 33a cora's
+    shape through ``egnn_arch.build``, one step against the CPU's (30a's
+    rule, row 4 bit for bit on the card's gradients, a rolled ``dst`` that
+    must fail it), 20 steps, the loss falling; 33b ogb_products on all
+    2,449,029 nodes, its edges cut to what leaves 10 GB of the card free, 5
+    steps; 33c minibatch_lg through the fanout sampler on a power-law graph
+    of Reddit's counts, 10 fresh batches; 33d molecule, 20 steps; 33e cora's
+    step on a (1, 2) mesh of two processes on the card, each rank's update 2
+    times the one-rank step's (the reference's ``psum`` transpose) and both
+    ranks' states one (:func:`egnn_cora_phase` to :func:`egnn_mesh_phase`).
 A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
 and the whole run's so far are printed as it ends.
 
@@ -318,7 +329,8 @@ served batches and launcher runs, its stage profiles included; row 13 one
 a layer and a microbatch of the main path's prefills in phases 15 and
 25-27, by model under ``models``; rows 1-3 at dlrm-large's shapes under
 ``large``; row 4 also the LM steps of phases 30, 31 and 32, with its
-momentum variant at internlm2's largest leaf under ``lm``); then
+momentum variant at internlm2's largest leaf under ``lm``, and the EGNN
+steps of phase 33, with its updates of one step timed under ``egnn``); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.  No process it started outlives it: on its way out
@@ -5484,10 +5496,12 @@ class UpdateTap:
     gradients (``err`` the largest difference, ``leaves`` the count).
     ``check=False`` holds nothing; ``zero=(leaf, layer)`` plants a fault (and
     holds nothing): that leaf's gradient at that layer zeroed before the
-    update.  ``seconds``: the updates' host time when nothing is held."""
+    update.  ``seconds``: the updates' host time when nothing is held;
+    ``tag`` the phase a failure names."""
 
-    def __init__(self, failures, check: bool = True, zero=None):
+    def __init__(self, failures, check: bool = True, zero=None, tag: str = "30a"):
         self.failures, self.check, self.zero = failures, check and zero is None, zero
+        self.tag = tag
         self.leaves, self.err, self.seconds = 0, 0.0, 0.0
 
     def __enter__(self):
@@ -5515,7 +5529,7 @@ class UpdateTap:
                 ib = torch.int16 if a.element_size() == 2 else torch.int32
                 if not bool((a.view(ib) == b.view(ib)).all()):
                     self.err = max(self.err, float((a.float() - b.float()).abs().max()))
-                    self.failures.append(f"30a: leaf {i}: row 4 not bit for bit its plain "
+                    self.failures.append(f"{self.tag}: leaf {i}: row 4 not bit for bit its plain "
                                          "version on the card's gradients")
             return out
         split_sgd.update_leaf = tapped
@@ -5915,6 +5929,539 @@ def lm_launcher_phase(dev, failures) -> tuple[dict, dict]:
     return {"split_sgd": ops.split_sgd.launches - before}, nums
 
 
+# phases 33a-e: the EGNN family (models/egnn.py, models/egnn_steps.py) at the widths of
+# configs/egnn_arch.py (4 layers, hidden 64, each shape's d_feat and n_classes), Split-SGD
+# at lr 1e-2, weights split from fp32 draws of seed 0
+EGNN_LR = 1e-2
+# 33d: the pooled MSE of a random model diverges at lr 1e-2 on the CPU (15.27, 9.2e5, then
+# NaN; at 3e-5 NaN by step 6: the reference's model, its sums of 30 nodes' outputs); at
+# 1e-5 it climbs to 2e4 by step 4 and falls to 1.83 by step 20 (on the CPU)
+EGNN_MOLECULE_LR = 1e-5
+# 33b: ogb_products' sums over a node's in-edges (the reference's segment sums, no mean)
+# grow the random model's logits with the degree: its first loss 39.27 at a mean in-degree of
+# 8 and 1288 at 25 (the published graph's) on a CPU graph of 9,796 nodes, where lr 1e-2
+# reaches NaN within 5 steps at both, 1e-3 at 25; 1e-4 stays finite at both
+EGNN_OGB_LR = 1e-4
+EGNN_STEPS = dict(cora=20, ogb=5, minibatch=10, molecule=20)
+# 33a: the first cora step on the card against the CPU's, 30a's rule: the loss within 1e-4
+# relative, each leaf's update within 3e-2 of its largest
+EGNN_GATE_TOL = {"loss": 1e-4, "update": 3e-2}
+# 33a: the card's first step again this many times from the same start (the bf16 atomics
+# add in another order each run): the gaps' spread, logged
+EGNN_GATE_REPEATS = 8
+# 33b: ogb_products' edge list cut to the largest multiple of 1,000,000 edges whose step's
+# peak leaves EGNN_FREE bytes of the card free, the peak's growth an edge read from one step
+# at each of EGNN_PROBE_EDGES; the peak is PyTorch's reserved memory (an H100 reading: the
+# allocated peak at 2 M and 4 M edges predicted 72.1 GB at 26 M, where 73.6 GB allocated and
+# 4.7 GB reserved beside it left no room)
+EGNN_PROBE_EDGES = (4_000_000, 12_000_000)
+EGNN_FREE = 10e9
+# 33c: the counts of PyG's Reddit dataset, whose 602 features and 41 classes the shape uses
+REDDIT = dict(n_nodes=232_965, n_edges=114_615_892)
+
+
+def egnn_masters(state) -> list:
+    """Every leaf's fp32 master values, as numpy (no ``ml_dtypes`` on the
+    card's machine)."""
+    from repro_torch.optim.data_parallel import tree_leaves
+    from repro_torch.optim.split_sgd import combine_split
+    return [combine_split(h, lo).cpu().numpy()
+            for h, lo in zip(tree_leaves(state["hi"]), tree_leaves(state["lo"]))]
+
+
+def egnn_node_batch(cfg, structs: dict, n_real: int, src, dst, dev, seed: int) -> dict:
+    """A node-level full-graph batch of ``structs``' padded shapes on
+    ``dev``: features, coordinates and labels drawn there from ``seed``
+    (every node's), ``label_mask`` 1 on the ``n_real`` real nodes; the
+    edges ``src`` / ``dst`` (numpy) padded with masked edges."""
+    import torch
+    N, E = structs["feats"][0][0], structs["src"][0][0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = len(src)
+    pad = np.zeros(E - e, np.int32)
+    return {"feats": torch.randn((N, cfg.d_feat), generator=gen, device=dev).to(torch.bfloat16),
+            "coords": torch.randn((N, cfg.coord_dim), generator=gen, device=dev),
+            "labels": torch.randint(0, cfg.n_classes, (N,), generator=gen, device=dev,
+                                    dtype=torch.int32),
+            "label_mask": (torch.arange(N, device=dev) < n_real).float(),
+            "src": torch.from_numpy(np.concatenate([src, pad])).to(dev),
+            "dst": torch.from_numpy(np.concatenate([dst, pad])).to(dev),
+            "edge_mask": (torch.arange(E, device=dev) < e).float()}
+
+
+def egnn_run(step, state, batches, steps: int) -> dict:
+    """``steps`` train steps, the batch ``batches(i)`` each (the host's work
+    to make it timed apart): the losses, each step's wall ms (host clock,
+    ending in a synchronise), the last step traced (its busy ms on the card
+    alone, the idle share), the host ms a batch took."""
+    import torch
+    losses, walls, host = [], [], []
+    busy, tops = float("nan"), []
+    for i in range(steps):
+        t = time.perf_counter()
+        b = batches(i)
+        host.append((time.perf_counter() - t) * 1e3)
+        out = {}
+
+        def run():
+            out["loss"] = step(state, b)[1]
+        if i < steps - 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        else:
+            wall, busy, tops = device_busy_ms(run, 1, cpu=False)
+        losses.append(float(out["loss"]))
+        walls.append(wall)
+    p50 = float(np.median(walls[1:] if steps > 1 else walls))
+    return {"losses": losses, "step_ms_wall": walls, "step_ms_p50": p50,
+            "last_step_ms_busy": busy, "idle_share": 1 - busy / walls[-1],
+            "host_batch_ms": host, "top": tops[:6]}
+
+
+def egnn_losses_or_fail(tag: str, losses: list, failures, fall: bool = True) -> None:
+    if not all(np.isfinite(losses)):
+        failures.append(f"{tag}: a loss is not finite: {losses}")
+    elif fall and not losses[-1] < losses[0]:
+        failures.append(f"{tag}: the loss did not fall: {losses}")
+
+
+def egnn_row4(state, dev, lr: float) -> dict:
+    """Row 4 on one step's 18 updates of ``state``'s leaves (copies, bf16
+    gradients drawn from the seed), as one CUDA graph: ms a step beside the
+    bound (hi, lo, a bf16 g in; hi, lo out: 10 bytes a value) and the plain
+    version's ms (on the card, eager)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim.data_parallel import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    his = [t.clone() for t in tree_leaves(state["hi"])]
+    los = [t.clone() for t in tree_leaves(state["lo"])]
+    gs = [(torch.randn(t.shape, generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
+          for t in his]
+
+    def updates():
+        for h, lo, g in zip(his, los, gs):
+            ops.split_sgd(h.view(-1), lo.view(-1), g.view(-1), lr)
+
+    def plain():
+        for h, lo, g in zip(his, los, gs):
+            plain_update(h.view(-1), lo.view(-1), g.view(-1), lr, None, 0.0)
+    n = sum(t.numel() for t in his)
+    ms = graph_ms(updates, 10)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    bms, by = bound_ms(n * 10, n * 2, FP32_FLOPS)
+    return {"leaves": len(his), "values": n, "ms_a_step": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def egnn_cora_phase(dev, failures) -> tuple[int, dict]:
+    """Phase 33a: EGNN on cora's shape (``configs/egnn_arch.py``
+    ``full_graph_sm``: 2,708 nodes, 10,556 uniform edges, 1,433 features, 7
+    classes; nothing cut) through ``egnn_arch.build``.  First one step from
+    a state of seed 0 on the card against the same step on the CPU (every
+    kernel's plain version): the loss and every leaf's update within
+    EGNN_GATE_TOL, row 4 bit for bit its plain version on the card's own
+    gradients (:class:`UpdateTap`), and a planted fault (``dst`` rolled by
+    one) that must fail the gate.  Then 20 steps on the batch: losses finite
+    and falling, row 4 launched once a leaf a step.  Returns row 4's
+    launches of the 20 steps and the phase's numbers."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.data import graph
+    from repro_torch.kernels import ops
+    from repro_torch.models import egnn_steps
+    from repro_torch.optim.data_parallel import tree_leaves, tree_map
+
+    sh = egnn_arch.SHAPES["full_graph_sm"]
+    cfg = egnn_arch.config("full_graph_sm")
+    built = egnn_arch.build("full_graph_sm", device=dev)
+    src, dst = graph.random_edge_list(sh["n_nodes"], sh["n_edges"], SEED)
+    batch = egnn_node_batch(cfg, built.args[1], sh["n_nodes"], src, dst, dev, SEED)
+    start = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    names = leaf_names(start["hi"])
+    cpu_state = tree_map(lambda t: t.to("cpu", copy=True), start)
+    t0 = time.perf_counter()
+    _, cpu_loss = egnn_arch.build("full_graph_sm", device="cpu").fn(
+        cpu_state, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+
+    def card_step(b, tap):
+        s = tree_map(torch.clone, start)
+        with tap:
+            _, loss = built.fn(s, b)
+        return s, float(loss)
+
+    tap = UpdateTap(failures, tag="33a")
+    card, loss = card_step(batch, tap)
+    gaps = lm_update_gaps(start, card, cpu_state)
+    loss_gap = abs(loss - float(cpu_loss)) / abs(float(cpu_loss))
+    log(f"33a: loss card {loss:.6f}, CPU {float(cpu_loss):.6f} (relative gap {loss_gap:.2e}, "
+        f"gate {EGNN_GATE_TOL['loss']}); worst update gap {max(gaps):.3e} of the leaf's "
+        f"largest ({names[int(np.argmax(gaps))]}; gate {EGNN_GATE_TOL['update']}); the CPU step "
+        f"{cpu_s:.1f} s; row 4 bit for bit its plain version on {tap.leaves} leaves")
+    if loss_gap > EGNN_GATE_TOL["loss"] or max(gaps) > EGNN_GATE_TOL["update"]:
+        failures.append(f"33a: the card's step is not the CPU's: loss gap {loss_gap:.2e}, "
+                        f"update gap {max(gaps):.3e}")
+    rolled = dict(batch, dst=torch.roll(batch["dst"], 1))
+    s, fl = card_step(rolled, UpdateTap(failures, check=False, tag="33a"))
+    fg = lm_update_gaps(start, s, cpu_state)
+    fl_gap = abs(fl - float(cpu_loss)) / abs(float(cpu_loss))
+    caught = fl_gap > EGNN_GATE_TOL["loss"] or max(fg) > EGNN_GATE_TOL["update"]
+    log(f"33a: fault 'dst rolled by one': loss gap {fl_gap:.2e}, worst update gap {max(fg):.3e} "
+        f"({names[int(np.argmax(fg))]}): {'rejected' if caught else 'PASSED THE GATE'}")
+    if not caught:
+        failures.append("33a: the fault 'dst rolled by one' passed the gate")
+    spread = [max(lm_update_gaps(start, card_step(batch, UpdateTap(failures, check=False,
+                                                                     tag="33a"))[0], cpu_state))
+              for _ in range(EGNN_GATE_REPEATS)]
+    log(f"33a: the card's step {EGNN_GATE_REPEATS} times more from the same start: worst update "
+        f"gaps {min(spread):.3e} to {max(spread):.3e} (logged, not held)")
+    del card, s, cpu_state
+
+    state = tree_map(torch.clone, start)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    run = egnn_run(built.fn, state, lambda i: batch, EGNN_STEPS["cora"])
+    launches = ops.split_sgd.launches - before
+    n_leaves = len(tree_leaves(state["hi"]))
+    egnn_losses_or_fail("33a", run["losses"], failures)
+    if launches != EGNN_STEPS["cora"] * n_leaves:
+        failures.append(f"33a: row 4 launched {launches} times in {EGNN_STEPS['cora']} steps, "
+                        f"not once a leaf ({n_leaves}) a step")
+    row4 = egnn_row4(state, dev, EGNN_LR)
+    row4.update(launches_a_step=launches / EGNN_STEPS["cora"], max_abs_err=tap.err,
+                leaves_bitwise=tap.leaves)
+    nums = {"shape": "full_graph_sm", "n_nodes": sh["n_nodes"], "n_edges": sh["n_edges"],
+            "padded": list(batch["feats"].shape[:1]) + list(batch["src"].shape),
+            "losses": run["losses"], "step_ms_p50": run["step_ms_p50"],
+            "last_step_ms_busy": run["last_step_ms_busy"], "idle_share": run["idle_share"],
+            "edges_per_s": sh["n_edges"] / run["step_ms_p50"] * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "cpu_step_s": cpu_s,
+            "loss_card": loss, "loss_cpu": float(cpu_loss), "loss_rel_gap": loss_gap,
+            "worst_update_gap": max(gaps), "update_gaps": dict(zip(names, gaps)),
+            "fault_dst_rolled": {"loss_rel_gap": fl_gap, "worst_update_gap": max(fg),
+                                 "caught": caught}, "repeated_worst_update_gaps": spread,
+            "row4": row4, "top_kernels": run["top"]}
+    log(f"33a: losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; step p50 "
+        f"{run['step_ms_p50']:.2f} ms wall, the last {run['last_step_ms_busy']:.2f} ms busy (idle "
+        f"{run['idle_share']:.3f}); row 4 {row4['launches_a_step']:.0f} launches a step, "
+        f"{row4['ms_a_step']:.4f} ms a step as a graph, bound {row4['bound_ms']:.4f} ms "
+        f"({row4['values']} values)")
+    return launches, nums
+
+
+def egnn_ogb_phase(dev, failures) -> tuple[int, dict]:
+    """Phase 33b: ogb_products at full width (all 2,449,029 nodes, 100
+    features, 47 classes, uniform edges), its edge list cut: one step at
+    each of EGNN_PROBE_EDGES gives the peak memory's growth an edge, and the
+    run takes the largest multiple of 1,000,000 edges (at most the published
+    61,859,140) whose predicted peak leaves EGNN_FREE bytes free, one step
+    at it measured and the edges cut further until it does.  5 steps on
+    one batch at EGNN_OGB_LR: losses finite; step ms (p50), edges a
+    second, busy ms and idle share of the last (traced), the peak.  Returns
+    row 4's launches and the numbers."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.data import graph
+    from repro_torch.kernels import ops
+    from repro_torch.models import egnn_steps
+    from repro_torch.optim.data_parallel import tree_map
+
+    sh = egnn_arch.SHAPES["ogb_products"]
+    cfg = egnn_arch.config("ogb_products")
+    N = sh["n_nodes"]
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    held0 = torch.cuda.memory_reserved()
+    start = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+    def setup(E):
+        t = time.perf_counter()
+        src, dst = graph.random_edge_list(N, E, SEED)
+        step, (_, bs) = egnn_steps.make_fullgraph_train_step(cfg, None, N, E, EGNN_OGB_LR,
+                                                             device=dev)
+        b = egnn_node_batch(cfg, bs, N, src, dst, dev, SEED)
+        torch.cuda.synchronize()
+        return step, b, time.perf_counter() - t
+
+    peaks = []
+    for E in EGNN_PROBE_EDGES:
+        step, b, _ = setup(E)
+        torch.cuda.reset_peak_memory_stats()
+        step(tree_map(torch.clone, start), b)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_reserved() - held0)
+        del step, b
+        torch.cuda.empty_cache()
+    (e1, e2), (p1, p2) = EGNN_PROBE_EDGES, peaks
+    per_edge = (p2 - p1) / (e2 - e1)
+    fixed = p1 - per_edge * e1
+    E = int(min(sh["n_edges"], (free0 - EGNN_FREE - fixed) / per_edge // 1_000_000 * 1_000_000))
+    log(f"33b: reserved peaks {p1 / 1e9:.3f} / {p2 / 1e9:.3f} GB at {e1} / {e2} edges: "
+        f"{per_edge:.0f} bytes an edge beside {fixed / 1e9:.3f} GB; {free0 / 1e9:.2f} GB free: "
+        f"{E} edges predicted to peak at {(fixed + per_edge * E) / 1e9:.2f} GB")
+    tries = []
+    while True:  # the fit's guess measured, and cut further while it leaves too little free
+        step, b, setup_s = setup(E)
+        torch.cuda.reset_peak_memory_stats()
+        step(tree_map(torch.clone, start), b)
+        torch.cuda.synchronize()
+        tries.append([E, (torch.cuda.max_memory_reserved() - held0) / 1e9])
+        short = EGNN_FREE - (free0 - tries[-1][1] * 1e9)
+        if short <= 0 or E <= 1_000_000:
+            break
+        E = max(1_000_000, E - int(max(1, np.ceil(short / per_edge / 1e6))) * 1_000_000)
+        del step, b
+        torch.cuda.empty_cache()
+    log(f"33b: the edges cut from {sh['n_edges']} to {E} ({E / sh['n_edges']:.1%}); measured "
+        f"[edges, reserved peak GB]: {tries}")
+    state = tree_map(torch.clone, start)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    run = egnn_run(step, state, lambda i: b, EGNN_STEPS["ogb"])
+    launches = ops.split_sgd.launches - before
+    peak = torch.cuda.max_memory_reserved() - held0
+    peak_alloc = torch.cuda.max_memory_allocated()
+    egnn_losses_or_fail("33b", run["losses"], failures, fall=False)
+    if launches != EGNN_STEPS["ogb"] * 18:
+        failures.append(f"33b: row 4 launched {launches} times in {EGNN_STEPS['ogb']} steps")
+    nums = {"shape": "ogb_products", "n_nodes": N, "n_edges_published": sh["n_edges"],
+            "n_edges": E, "edge_share": E / sh["n_edges"], "probe_peaks_gb": [p1 / 1e9, p2 / 1e9],
+            "bytes_an_edge": per_edge, "fixed_gb": fixed / 1e9, "free_gb": free0 / 1e9,
+            "tries": tries,
+            "lr": EGNN_OGB_LR,
+            "setup_s": setup_s, "losses": run["losses"], "step_ms_wall": run["step_ms_wall"],
+            "step_ms_p50": run["step_ms_p50"], "edges_per_s": E / run["step_ms_p50"] * 1e3,
+            "last_step_ms_busy": run["last_step_ms_busy"], "idle_share": run["idle_share"],
+            "peak_reserved_gb": peak / 1e9, "peak_allocated_gb": peak_alloc / 1e9,
+            "free_at_peak_gb": (free0 - peak) / 1e9,
+            "row4_launches_a_step": launches / EGNN_STEPS["ogb"],
+            "row4": egnn_row4(state, dev, EGNN_OGB_LR),
+            "top_kernels": run["top"]}
+    log(f"33b: {E} edges: losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; step p50 "
+        f"{run['step_ms_p50']:.1f} ms wall ({nums['edges_per_s']:.3e} edges/s), the last "
+        f"{run['last_step_ms_busy']:.1f} ms busy (idle {run['idle_share']:.3f}); peak "
+        f"{peak / 1e9:.2f} GB reserved ({peak_alloc / 1e9:.2f} GB allocated), "
+        f"{(free0 - peak) / 1e9:.2f} GB of the card left free; setup {setup_s:.1f} s; its "
+        f"busiest kernels: "
+        f"{top_kernels(run['top'])}")
+    del step, b, state, start
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+def egnn_minibatch_phase(dev, failures) -> tuple[int, dict]:
+    """Phase 33c: ``minibatch_lg`` (fanout 15-10, 192 nodes and 192 edges a
+    subgraph, 1,024 targets a step, 602 features, 41 classes) on a
+    ``random_powerlaw_graph`` of Reddit's counts (REDDIT) with features of
+    seed 0, through ``egnn_arch.build``; the targets drawn among the nodes
+    with neighbours, a fresh batch a step from ``NeighborSampler``.  10
+    steps: losses finite; the CSR build s, the host's sample ms a batch
+    against the step ms (the batch's copy to the card inside the step).
+    Returns row 4's launches and the numbers."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.data import graph
+    from repro_torch.kernels import ops
+    from repro_torch.models import egnn_steps
+
+    sh = egnn_arch.SHAPES["minibatch_lg"]
+    cfg = egnn_arch.config("minibatch_lg")
+    t0 = time.perf_counter()
+    g = graph.random_powerlaw_graph(REDDIT["n_nodes"], REDDIT["n_edges"], SEED)
+    csr_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    feats = rng.standard_normal((REDDIT["n_nodes"], cfg.d_feat), dtype=np.float32)
+    labels = rng.integers(0, cfg.n_classes, REDDIT["n_nodes"])
+    feats_s = time.perf_counter() - t0
+    has = np.flatnonzero(np.diff(g.indptr))
+    log(f"33c: CSR of {g.n_nodes} nodes and {g.n_edges} edges built in {csr_s:.1f} s, features "
+        f"[{REDDIT['n_nodes']}, {cfg.d_feat}] in {feats_s:.1f} s; {len(has)} nodes have "
+        f"neighbours (the largest degree {int(np.diff(g.indptr).max())})")
+    sampler = graph.NeighborSampler(g, sh["fanout"], sh["n_pad"], sh["e_pad"], seed=SEED)
+    built = egnn_arch.build("minibatch_lg", device=dev)
+    state = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    real = []
+
+    def batch(i):
+        b = sampler.sample_batch(rng.choice(has, sh["n_graphs"], replace=False), feats, labels)
+        real.append(float(b["edge_mask"].sum(1).mean()))
+        return b
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    run = egnn_run(built.fn, state, batch, EGNN_STEPS["minibatch"])
+    launches = ops.split_sgd.launches - before
+    egnn_losses_or_fail("33c", run["losses"], failures, fall=False)
+    if launches != EGNN_STEPS["minibatch"] * 18:
+        failures.append(f"33c: row 4 launched {launches} times in {EGNN_STEPS['minibatch']} "
+                        "steps")
+    sample50 = float(np.median(run["host_batch_ms"]))
+    nums = {"shape": "minibatch_lg", "graph": dict(REDDIT), "csr_s": csr_s, "feats_s": feats_s,
+            "nodes_with_neighbours": int(len(has)), "graphs": sh["n_graphs"],
+            "real_edges_a_graph": float(np.mean(real)), "losses": run["losses"],
+            "sample_ms": run["host_batch_ms"], "sample_ms_p50": sample50,
+            "step_ms_wall": run["step_ms_wall"], "step_ms_p50": run["step_ms_p50"],
+            "last_step_ms_busy": run["last_step_ms_busy"], "idle_share": run["idle_share"],
+            "targets_per_s": sh["n_graphs"] / (run["step_ms_p50"] + sample50) * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "row4_launches_a_step": launches / EGNN_STEPS["minibatch"],
+            "row4": egnn_row4(state, dev, EGNN_LR), "top_kernels": run["top"]}
+    log(f"33c: losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; sample p50 "
+        f"{sample50:.1f} ms a batch on the host ({nums['real_edges_a_graph']:.1f} real edges a "
+        f"graph of {sh['e_pad']}), step p50 {run['step_ms_p50']:.1f} ms wall, the last "
+        f"{run['last_step_ms_busy']:.1f} ms busy (idle {run['idle_share']:.3f}); "
+        f"{nums['targets_per_s']:.0f} targets/s sampled and trained in turn")
+    del g, feats, sampler, state
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+def egnn_molecule_phase(dev, failures) -> tuple[int, dict]:
+    """Phase 33d: ``molecule`` (128 graphs of 30 nodes and 64 edges, 11
+    features, the pooled MSE), the full-graph step at EGNN_MOLECULE_LR, the
+    batch drawn on the card from seed 0 (each graph's edges within it).
+    20 steps on the batch: losses finite (the random model's pooled MSE
+    climbs by three orders of magnitude before it falls, on the CPU too).
+    Returns row 4's launches and the numbers."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import egnn_steps
+
+    sh = egnn_arch.SHAPES["molecule"]
+    cfg = egnn_arch.config("molecule")
+    G, per, epg = sh["n_graphs"], sh["nodes_per"], sh["edges_per"]
+    step, (_, bs) = egnn_steps.make_fullgraph_train_step(
+        cfg, None, G * per, G * epg, EGNN_MOLECULE_LR, graph_level_graphs=G, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    off = torch.arange(G, device=dev)[:, None] * per
+    b = {"feats": torch.randn(bs["feats"][0], generator=gen, device=dev).to(torch.bfloat16),
+         "coords": torch.randn(bs["coords"][0], generator=gen, device=dev),
+         "src": (torch.randint(0, per, (G, epg), generator=gen, device=dev) + off).view(-1).int(),
+         "dst": (torch.randint(0, per, (G, epg), generator=gen, device=dev) + off).view(-1).int(),
+         "edge_mask": torch.ones(G * epg, device=dev),
+         "graph_ids": (torch.arange(G * per, device=dev) // per).int(),
+         "targets": torch.randn((G,), generator=gen, device=dev)}
+    state = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    before = ops.split_sgd.launches
+    run = egnn_run(step, state, lambda i: b, EGNN_STEPS["molecule"])
+    launches = ops.split_sgd.launches - before
+    egnn_losses_or_fail("33d", run["losses"], failures, fall=False)
+    if launches != EGNN_STEPS["molecule"] * 18:
+        failures.append(f"33d: row 4 launched {launches} times in {EGNN_STEPS['molecule']} steps")
+    nums = {"shape": "molecule", "graphs": G, "nodes": G * per, "edges": G * epg,
+            "lr": EGNN_MOLECULE_LR, "losses": run["losses"], "step_ms_p50": run["step_ms_p50"],
+            "last_step_ms_busy": run["last_step_ms_busy"], "idle_share": run["idle_share"],
+            "graphs_per_s": G / run["step_ms_p50"] * 1e3,
+            "row4_launches_a_step": launches / EGNN_STEPS["molecule"],
+            "row4": egnn_row4(state, dev, EGNN_MOLECULE_LR)}
+    log(f"33d: losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f} (lr {EGNN_MOLECULE_LR}); "
+        f"step p50 {run['step_ms_p50']:.2f} ms wall, the last {run['last_step_ms_busy']:.2f} ms "
+        f"busy (idle {run['idle_share']:.3f})")
+    return launches, nums
+
+
+def egnn_mesh_rank(rank: int, world: int, device: str = "cuda:0") -> dict:
+    """Phase 33e in one of two processes sharing the card (gloo, the
+    payloads staged through host memory): cora's full-graph step on a (1, 2)
+    mesh from the state of seed 0, one step.  Returns the fp32 masters
+    before and after, the loss, row 4's launches, the collectives' bytes
+    and the step's host ms."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.data import graph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import egnn_steps
+
+    dev = mesh_rank_setup(device)
+    mesh = make_mesh((1, 2), ("data", "model"), dev)
+    sh = egnn_arch.SHAPES["full_graph_sm"]
+    cfg = egnn_arch.config("full_graph_sm")
+    built = egnn_arch.build("full_graph_sm", mesh)
+    src, dst = graph.random_edge_list(sh["n_nodes"], sh["n_edges"], SEED)
+    batch = egnn_node_batch(cfg, built.args[1], sh["n_nodes"], src, dst, dev, SEED)
+    state = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    start = egnn_masters(state)
+    mesh.stats.reset()
+    before = ops.split_sgd.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = built.fn(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"start": start, "after": egnn_masters(state), "loss": float(loss),
+            "launches": ops.split_sgd.launches - before, "stats": mesh.stats.as_dict(),
+            "wall_s": wall, "padded": [int(batch["feats"].shape[0]), int(batch["src"].shape[0])]}
+
+
+def egnn_mesh_phase(dev, failures) -> tuple[int, dict]:
+    """Phase 33e: cora's full-graph step on a (1, 2) mesh, two processes on
+    the card over gloo.  Each rank's update must be 2 times the one-rank
+    step's on the same padded batch (the reference's factor: its psum
+    transposes to psum, ``models/egnn_steps.py::grad_psum``), each leaf
+    within EGNN_GATE_TOL["update"] of its largest; both ranks end with one
+    state, bit for bit.  The loss beside the one-rank loss is logged, not
+    held (a rank's products of half the rows sum in another order, and h
+    is rounded to bf16 after each layer).  Returns both ranks' row 4
+    launches and the numbers."""
+    import torch
+    from repro_torch.configs import egnn_arch
+    from repro_torch.data import graph
+    from repro_torch.launch.local import run_ranks
+    from repro_torch.models import egnn_steps
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(egnn_mesh_rank, 2, (), backend="gloo", timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    sh = egnn_arch.SHAPES["full_graph_sm"]
+    cfg = egnn_arch.config("full_graph_sm")
+    N, E = ranks[0]["padded"]
+    step, (_, bs) = egnn_steps.make_fullgraph_train_step(cfg, None, N, E, EGNN_LR, device=dev)
+    src, dst = graph.random_edge_list(sh["n_nodes"], sh["n_edges"], SEED)
+    batch = egnn_node_batch(cfg, bs, sh["n_nodes"], src, dst, dev, SEED)
+    state = egnn_steps.init_egnn_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    start = egnn_masters(state)
+    _, loss1 = step(state, batch)
+    one = [a - s for a, s in zip(egnn_masters(state), start)]
+    gaps = []
+    for r, res in enumerate(ranks):
+        if not all(np.array_equal(a, b) for a, b in zip(res["start"], start)):
+            failures.append(f"33e: rank {r}'s start state is not the one-rank step's")
+        gaps.append(max(float(np.abs((a - s) - 2 * d).max()) / max(float(np.abs(2 * d).max()),
+                                                                  1e-30)
+                        for a, s, d in zip(res["after"], start, one)))
+    same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+               for a, b in zip(ranks[0]["after"], ranks[1]["after"]))
+    loss_gap = max(abs(res["loss"] - float(loss1)) / abs(float(loss1)) for res in ranks)
+    if max(gaps) > EGNN_GATE_TOL["update"]:
+        failures.append(f"33e: a rank's update is not 2 times the one-rank update: {gaps}")
+    if not same:
+        failures.append("33e: the two ranks end with different states")
+    launches = sum(res["launches"] for res in ranks)
+    if launches != 2 * 18:
+        failures.append(f"33e: row 4 launched {launches} times by two ranks in one step")
+    st = ranks[0]["stats"]
+    nums = {"padded": [N, E], "loss_one_rank": float(loss1),
+            "losses": [res["loss"] for res in ranks], "loss_rel_gap": loss_gap,
+            "update_gap_to_2x": gaps, "ranks_bitwise": same, "spawn_s": spawn_s,
+            "step_wall_s": [res["wall_s"] for res in ranks],
+            "collectives": {k: [st["calls"][k], st["bytes_out"][k]] for k in st["calls"]
+                            if st["calls"][k]},
+            "staging_s": st["staging_s"], "wire_s": st["wire_s"]}
+    log(f"33e: 2 ranks on cuda:0 over gloo in {spawn_s:.1f} s: losses "
+        f"{nums['losses']} against the one-rank {float(loss1):.6f}; each rank's update against 2 "
+        f"times the one-rank update: worst gap {max(gaps):.3e} of the leaf's largest (gate "
+        f"{EGNN_GATE_TOL['update']}); the ranks' states {'bit for bit one' if same else 'DIFFER'}; "
+        f"the step {ranks[0]['wall_s'] * 1e3:.1f} ms (host clock, staged through host memory: not "
+        f"a training rate); collectives (calls, bytes out): {nums['collectives']}")
+    return launches, nums
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -6246,6 +6793,24 @@ def main() -> int:
     counts["split_sgd"] += lm_launches
     log("phase 32 numbers: " + json.dumps(lm_launch))
     clock.mark("32, the launcher's LM branch")
+
+    # the EGNN family: cora, ogb_products with its edges cut, the sampled minibatch on a
+    # graph of Reddit's counts, molecules, cora on a (1, 2) mesh of two processes
+    egnn = {"launches": 0}
+    for tag, name, phase in (("33a", "cora", egnn_cora_phase),
+                             ("33b", "ogb_products", egnn_ogb_phase),
+                             ("33c", "minibatch_lg", egnn_minibatch_phase),
+                             ("33d", "molecule", egnn_molecule_phase),
+                             ("33e", "cora on (1, 2)", egnn_mesh_phase)):
+        got, nums = phase(dev, failures)
+        if failures:
+            raise SystemExit(f"phase {tag}, EGNN {name} failed:\n" + "\n".join(failures))
+        egnn["launches"] += got
+        egnn[tag] = nums
+        log(f"phase {tag} numbers: " + json.dumps(nums))
+        torch.cuda.empty_cache()
+        clock.mark(f"{tag}, EGNN {name}")
+    counts["split_sgd"] += egnn["launches"]
     log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -6311,6 +6876,10 @@ def main() -> int:
         if k["name"] == "split_sgd":  # row 4 on the LM steps: their launches, the largest leaf
             line[-1]["lm"] = {**lm_train["row4"], "launches": lm_launches}
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], lm_train["row4"]["max_abs_err"])
+            # and on the EGNN steps: their launches, one cora step's 18 updates as a graph
+            line[-1]["egnn"] = {**egnn["33a"]["row4"], "launches": egnn["launches"]}
+            line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"],
+                                          egnn["33a"]["row4"]["max_abs_err"])
         if k["name"] in fig16:  # rows 1 and 4 at the Fig. 16 example's shapes
             line[-1]["fig16"] = fig16[k["name"]]
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], fig16[k["name"]]["max_abs_err"])

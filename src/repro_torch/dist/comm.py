@@ -34,6 +34,14 @@ copy.
 Every call adds its operand's bytes (``bytes_in``, what a rank hands in)
 and its result's (``bytes_out``, what the reference's HLO count reads) to
 its kind in :class:`CollectiveStats`.
+
+Under autograd (the EGNN steps, ``models/egnn_steps.py``), the ``_ad``
+forms carry the transposes JAX takes inside the reference's
+``shard_map(check_vma=False)``: :func:`all_gather_ad`'s backward is
+``psum_scatter``, :func:`psum_scatter_ad`'s is ``all_gather``, and
+:func:`psum_ad`'s is ``psum`` (each summing as above, in XLA's order).
+Every rank must run the backward's collectives in one order: the ranks
+build the same graph, which the autograd engine walks alike.
 """
 
 from __future__ import annotations
@@ -254,3 +262,54 @@ def ppermute(x: torch.Tensor, g: Group) -> torch.Tensor:
     out = x if g.pg is None else _run(_shift(g), torch.empty_like(x), x, g)
     g.stats.add("collective-permute", x, out)
     return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return all_gather(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return psum_scatter(gy.contiguous(), ctx.g), None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return psum_scatter(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return all_gather(gy.contiguous(), ctx.g), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return psum(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return psum(gy.contiguous(), ctx.g), None
+
+
+def all_gather_ad(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """:func:`all_gather` under autograd, its backward :func:`psum_scatter`."""
+    return _AllGather.apply(x, g)
+
+
+def psum_scatter_ad(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """:func:`psum_scatter` under autograd, its backward :func:`all_gather`."""
+    return _PsumScatter.apply(x, g)
+
+
+def psum_ad(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """:func:`psum` under autograd, its backward :func:`psum`: the transpose
+    JAX takes of ``psum`` under ``shard_map(check_vma=False)``, which makes
+    a step whose every rank seeds the same psum'd loss apply N times its
+    one-rank gradient at N ranks (``models/egnn_steps.py::grad_psum``)."""
+    return _Psum.apply(x, g)

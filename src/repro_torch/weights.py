@@ -23,6 +23,10 @@
   in the reference's stacked layout); :func:`lm_state_from_numpy` and
   :func:`lm_state_to_numpy` carry an LM training state (``{"hi", "lo",
   "mom"?}``) across both ways, bit for bit.
+* :func:`egnn_params_from_numpy`, :func:`egnn_state_from_numpy` and
+  :func:`egnn_state_to_numpy` carry the EGNN's fp32 parameter tree and its
+  Split-SGD state (``{"hi", "lo"}``) across, bit for bit, always as
+  copies.
 * :func:`params_from_numpy`, :func:`split_state_from_numpy` and
   :func:`split_state_to_numpy` carry a plain parameter tree and the
   reference's ``SplitSGDState`` across (the Fig. 16 convergence run).
@@ -502,3 +506,47 @@ def split_state_to_numpy(state) -> dict:
 
     return {"hi": dp.tree_map(to_np, state.params.hi), "lo": dp.tree_map(to_np, state.params.lo),
             "momentum": dp.tree_map(to_np, state.momentum)}
+
+
+def _egnn_walk(tree, structs, path: str, dev, dtype=None):
+    """``tree`` (numpy leaves) checked against ``structs`` (``(shape,
+    dtype)`` leaves; ``dtype`` in place of theirs where given) and copied to
+    ``dev``."""
+    if isinstance(structs, (dict, list)):
+        keys = sorted(structs) if isinstance(structs, dict) else range(len(structs))
+        have = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+        if list(keys) != list(have):
+            raise ValueError(f"{path} holds {list(have)}, the config needs {list(keys)}")
+        out = {k: _egnn_walk(tree[k], structs[k], f"{path}[{k!r}]", dev, dtype) for k in keys}
+        return out if isinstance(structs, dict) else [out[i] for i in keys]
+    shape, want = structs
+    t = to_torch(np.array(tree, copy=True), dev)
+    if tuple(t.shape) != tuple(shape) or t.dtype != (dtype or want):
+        raise ValueError(f"{path} is {t.dtype} {tuple(t.shape)}, the config needs "
+                         f"{dtype or want} {tuple(shape)}")
+    return t
+
+
+def egnn_params_from_numpy(params_np: dict, cfg, device="cuda") -> dict:
+    """The reference's fp32 EGNN parameter tree as numpy arrays
+    (``jax.tree.map(np.asarray, init_egnn_params(key, cfg))``) -> the same
+    tree on ``device``, bit for bit."""
+    from repro_torch.models import egnn_steps
+    return _egnn_walk(params_np, egnn_steps.egnn_state_structs(cfg)["hi"], "params",
+                      resolve_device(device), torch.float32)
+
+
+def egnn_state_from_numpy(state_np: dict, cfg, device="cuda") -> dict:
+    """The reference's EGNN train state as numpy arrays (``hi`` bf16, ``lo``
+    uint16) -> the port's ``{"hi", "lo"}`` on ``device``, bit for bit, ``lo``
+    as its int16 bits; copies, so that the port's in-place steps leave
+    ``state_np`` as it was."""
+    from repro_torch.models import egnn_steps
+    return _egnn_walk(state_np, egnn_steps.egnn_state_structs(cfg), "state",
+                      resolve_device(device))
+
+
+def egnn_state_to_numpy(state: dict) -> dict:
+    """A port EGNN state -> numpy trees in the reference's types (``hi`` as
+    ``ml_dtypes.bfloat16``, ``lo`` as uint16)."""
+    return lm_state_to_numpy(state)

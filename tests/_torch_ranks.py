@@ -573,3 +573,66 @@ def serve_mesh_rank(rank: int, world_size: int, cases: list) -> list:
             rec["followed"] = follow(fns, mesh)
         out.append(rec)
     return out
+
+
+def egnn_mesh_rank(rank: int, world_size: int, cases: list) -> dict:
+    """The EGNN steps on this rank of a world of 4: each case of ``cases``
+    (``kind`` "full" or "mini", ``ranks`` 4 for the (1, 4) mesh over the
+    world or 2 for the (1, 2) mesh over this rank's pair) from its numpy
+    ``start`` over its ``batches``; per case the losses and the state after
+    each step in the reference's numpy types."""
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import egnn, egnn_steps
+
+    axes = ("data", "model")
+    meshes = {4: make_mesh((1, 4), axes, "cpu")}
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    meshes[2] = make_mesh((1, 2), axes, "cpu", group=pairs[rank // 2])
+    out = {}
+    for c in cases:
+        cfg, mesh = egnn.EGNNConfig(**c["cfg"]), meshes[c["ranks"]]
+        if c["kind"] == "full":
+            step, _ = egnn_steps.make_fullgraph_train_step(cfg, mesh, c["n_nodes"], c["n_edges"],
+                                                           c["lr"], device="cpu")
+        else:
+            step, _ = egnn_steps.make_minibatch_train_step(cfg, mesh, c["n_graphs"], c["n_pad"],
+                                                           c["e_pad"], c["lr"], device="cpu")
+        state = weights.egnn_state_from_numpy(c["start"], cfg, "cpu")
+        losses, states = [], []
+        for b in c["batches"]:
+            state, loss = step(state, b)
+            losses.append(float(loss))
+            states.append(_tree_copy(weights.egnn_state_to_numpy(state)))
+        out[c["name"]] = {"losses": losses, "states": states}
+    return out
+
+
+def egnn_collectives_rank(rank: int, world_size: int, device: str) -> dict:
+    """``comm.all_gather_ad``, ``psum_scatter_ad`` and ``psum_ad`` on this
+    rank's device (``launch.local.rank_device``), fp32 and bf16, each on an
+    input and a cotangent drawn from the seed ``100 + rank``: per case the
+    forward's result and the input's gradient, as fp32 numpy."""
+    from repro_torch.dist import comm
+    from repro_torch.launch.local import rank_device
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh((1, world_size), ("data", "model"), dev)
+    g = mesh.group(mesh.axis_names)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, fn, rows, ct_rows in (("all_gather", comm.all_gather_ad, 4, 4 * world_size),
+                                        ("psum_scatter", comm.psum_scatter_ad, 4 * world_size, 4),
+                                        ("psum", comm.psum_ad, 4, 4)):
+            gen = torch.Generator().manual_seed(100 + rank)
+            x = torch.randn(rows, 3, generator=gen).to(dtype).to(dev).requires_grad_()
+            ct = torch.randn(ct_rows, 3, generator=gen).to(dtype).to(dev)
+            y = fn(x, g)
+            (dx,) = torch.autograd.grad(y, [x], ct)
+            out[(name, str(dtype))] = (y.detach().float().cpu().numpy(),
+                                       dx.float().cpu().numpy())
+    return out

@@ -2014,3 +2014,151 @@ def test_chunked_attention_remat_grads_on_the_card(dev):
         out.append((o, *torch.autograd.grad(o, [qq, kk, vv], ct)))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def _egnn_plain_collectives(world: int) -> dict:
+    """What ``egnn_collectives_rank`` must return at each rank: the inputs
+    and cotangents of every rank redrawn, the forwards and their transposes
+    summed in rank order in fp32 and rounded once (``comm._ordered_sum``)."""
+    out = [{} for _ in range(world)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, rows, ct_rows in (("all_gather", 4, 4 * world),
+                                    ("psum_scatter", 4 * world, 4), ("psum", 4, 4)):
+            xs, cts = [], []
+            for r in range(world):
+                gen = torch.Generator().manual_seed(100 + r)
+                xs.append(torch.randn(rows, 3, generator=gen).to(dtype))
+                cts.append(torch.randn(ct_rows, 3, generator=gen).to(dtype))
+
+            def ordered(ts):
+                acc = ts[0].float()
+                for t in ts[1:]:
+                    acc = acc + t.float()
+                return acc.to(dtype).float().numpy()
+            for r in range(world):
+                if name == "all_gather":
+                    y = torch.cat(xs).float().numpy()
+                    dx = ordered([c[4 * r:4 * r + 4] for c in cts])
+                elif name == "psum_scatter":
+                    y = ordered([x[4 * r:4 * r + 4] for x in xs])
+                    dx = torch.cat(cts).float().numpy()
+                else:
+                    y, dx = ordered(xs), ordered(cts)
+                out[r][(name, str(dtype))] = (y, dx)
+    return out
+
+
+def test_egnn_collectives_backward_on_card_is_the_transpose(dev):
+    """The autograd collectives of the EGNN steps on two processes sharing
+    the card (gloo, staged through host memory): each forward, and each
+    backward the reference's transpose (``all_gather`` <-> ``psum_scatter``,
+    ``psum`` -> ``psum``), bit for bit the sums in rank order."""
+    from _torch_ranks import egnn_collectives_rank
+    from repro_torch.launch.local import run_ranks
+    got = run_ranks(egnn_collectives_rank, 2, ("cuda:0",), timeout_s=300)
+    want = _egnn_plain_collectives(2)
+    for r in range(2):
+        for key, (y, dx) in want[r].items():
+            gy, gdx = got[r][key]
+            assert np.array_equal(gy, y) and np.array_equal(gdx, dx), (r, key)
+
+
+def _egnn_layer_run(device, N, E, seed):
+    from repro_torch.models import egnn
+    cfg = egnn.EGNNConfig("t", n_layers=1, d_hidden=64, d_feat=8)
+    gen = torch.Generator().manual_seed(seed)
+    lp = egnn.unstack_layers(egnn.init_egnn_params(cfg, gen, "cpu")["layers"], 1)[0]
+    lp = {k: {p: [t.to(torch.bfloat16).to(device).requires_grad_() for t in v[p]]
+              for p in ("w", "b")} for k, v in lp.items()}
+    h = torch.randn((N, 64), generator=gen).to(torch.bfloat16).to(device).requires_grad_()
+    x = torch.randn((N, 3), generator=gen).to(device).requires_grad_()
+    src = torch.randint(0, N, (E,), generator=gen, dtype=torch.int32).to(device)
+    dst = torch.randint(0, N, (E,), generator=gen, dtype=torch.int32).to(device)
+    mask = (torch.arange(E) < E - 37).float().to(device)
+    outs = egnn.egnn_layer(h, x, src, dst, lp, mask, num_nodes=N)
+    h2 = egnn.egnn_node_update(h, outs[0], lp)
+    cts = [torch.randn(t.shape, generator=gen).to(device) for t in (outs[0], outs[1], h2)]
+    leaves = [h, x] + [t for v in lp.values() for p in ("w", "b") for t in v[p]]
+    grads = torch.autograd.grad([outs[0], outs[1], h2], leaves, [cts[0], cts[1], cts[2].to(h2.dtype)])
+    return [t.detach().float().cpu() for t in list(outs) + [h2] + list(grads)]
+
+
+def test_egnn_layer_on_card_matches_cpu(dev):
+    """One EGNN layer (``egnn_layer`` and ``egnn_node_update``, hidden 64,
+    37 masked edges) forward and backward on the card against the CPU: each
+    output and gradient within 1e-2 of its largest magnitude (bf16 values
+    between the MLP's layers and bf16 gradients summed by atomics in no
+    fixed order), the degree exactly."""
+    got = _egnn_layer_run(dev, 300, 2000, 0)
+    want = _egnn_layer_run("cpu", 300, 2000, 0)
+    assert torch.equal(got[2], want[2])
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max()), i
+
+
+def test_row4_on_the_egnn_leaves_bitwise_to_plain(dev):
+    """Row 4 on the 18 leaves of cora's EGNN state (``configs/egnn_arch.py``
+    widths), bf16 gradients: one launch a leaf through ``update_leaf``, bit
+    for bit the plain version."""
+    from repro_torch.configs import egnn_arch
+    from repro_torch.models import egnn_steps
+    from repro_torch.optim import split_sgd
+    from repro_torch.optim.data_parallel import tree_leaves
+    cfg = egnn_arch.config("full_graph_sm")
+    state = egnn_steps.init_egnn_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    his, los = tree_leaves(state["hi"]), tree_leaves(state["lo"])
+    assert len(his) == 18
+    before = ops.split_sgd.launches
+    for h, lo in zip(his, los):
+        g = (torch.randn(h.shape, generator=gen) * 1e-2).to(torch.bfloat16)
+        want_h, want_l = ref.split_sgd(h.clone().view(-1), lo.clone().view(-1), g.view(-1), 1e-2)
+        ch, cl = h.to(dev), lo.to(dev)
+        split_sgd.update_leaf(ch, cl, g.to(dev), 1e-2)
+        assert torch.equal(ch.cpu().view(-1).view(torch.int16), want_h.view(torch.int16))
+        assert torch.equal(cl.cpu().view(-1), want_l)
+    assert ops.split_sgd.launches == before + 18
+
+
+@pytest.mark.parametrize("kind", ["full graph", "minibatch"])
+def test_egnn_step_on_card_matches_cpu(dev, kind):
+    """One EGNN step (2 layers, hidden 64) on the card against the CPU's
+    from one state and batch: the loss within 1e-4 relative, each leaf's
+    update within 3e-2 of its largest (chip_smoke 33a's rule)."""
+    from repro_torch.data import graph
+    from repro_torch.models import egnn, egnn_steps
+    from repro_torch.optim.data_parallel import tree_leaves, tree_map
+    from repro_torch.optim.split_sgd import combine_split
+    cfg = egnn.EGNNConfig("t", n_layers=2, d_hidden=64, d_feat=24, n_classes=5)
+    rng = np.random.default_rng(0)
+    if kind == "full graph":
+        N, E = 400, 3000
+        make = lambda d: egnn_steps.make_fullgraph_train_step(cfg, None, N, E, 1e-2, device=d)
+        batch = {"feats": rng.standard_normal((N, 24)).astype(np.float32),
+                 "coords": rng.standard_normal((N, 3)).astype(np.float32),
+                 "src": rng.integers(0, N, E).astype(np.int32),
+                 "dst": rng.integers(0, N, E).astype(np.int32),
+                 "edge_mask": (np.arange(E) < E - 50).astype(np.float32),
+                 "labels": rng.integers(0, 5, N).astype(np.int32),
+                 "label_mask": (rng.random(N) < 0.8).astype(np.float32)}
+    else:
+        g = graph.random_powerlaw_graph(2000, 20_000, seed=0)
+        s = graph.NeighborSampler(g, fanout=(5, 3), n_pad=24, e_pad=24, seed=0)
+        make = lambda d: egnn_steps.make_minibatch_train_step(cfg, None, 32, 24, 24, 1e-2,
+                                                              device=d)
+        batch = s.sample_batch(rng.choice(np.flatnonzero(np.diff(g.indptr)), 32, replace=False),
+                               rng.standard_normal((2000, 24)).astype(np.float32),
+                               rng.integers(0, 5, 2000))
+    start = egnn_steps.init_egnn_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = []
+    for d in ("cpu", dev):
+        state = tree_map(lambda t: t.to(d, copy=True), start)
+        _, loss = make(d)[0](state, batch)
+        runs.append((float(loss), state))
+    (l_cpu, s_cpu), (l_card, s_card) = runs
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for h0, l0, h1, l1, h2, l2 in zip(*(tree_leaves(s[k]) for s in (start, s_cpu, s_card)
+                                        for k in ("hi", "lo"))):
+        w0 = combine_split(h0, l0)
+        d_cpu, d_card = combine_split(h1, l1) - w0, combine_split(h2.cpu(), l2.cpu()) - w0
+        assert float((d_card - d_cpu).abs().max()) <= 3e-2 * float(d_cpu.abs().max())

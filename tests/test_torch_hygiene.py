@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data, repro_torch.data.reader, repro_torch.launch.train, "
             "repro_torch.serve.publish, repro_torch.models.recsys, repro_torch.configs.fm_arch, "
             "repro_torch.configs.bst_arch, repro_torch.configs.sasrec_arch, "
-            "repro_torch.configs.din_arch, repro_torch.configs.recsys_common; "
+            "repro_torch.configs.din_arch, repro_torch.configs.recsys_common, "
+            "repro_torch.models.egnn, repro_torch.models.egnn_steps, repro_torch.data.graph, "
+            "repro_torch.configs.egnn_arch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
