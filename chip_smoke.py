@@ -308,7 +308,21 @@ from the root of a checkout.  Phases, each of which fails the run:
     of Reddit's counts, 10 fresh batches; 33d molecule, 20 steps; 33e cora's
     step on a (1, 2) mesh of two processes on the card, each rank's update 2
     times the one-rank step's (the reference's ``psum`` transpose) and both
-    ranks' states one (:func:`egnn_cora_phase` to :func:`egnn_mesh_phase`).
+    ranks' states one (:func:`egnn_cora_phase` to :func:`egnn_mesh_phase`);
+34. the dry run (``launch/dryrun.py``) on the card: 34a every DLRM, recsys
+    and EGNN cell of the registry at rank 0 of the shape-only 16 x 16
+    production mesh, full size, one step counted and one timed, its built
+    state and batch holding its argument bytes to the byte, its loss or
+    scores finite, its argument, output and peak bytes and collective bytes
+    printed; 34b rank 0's step of dlrm-large ``train`` and
+    ``train_tablewise`` and fm ``train_batch``, each at its own batch, held
+    stage by stage to the same step with the plain versions on the card
+    (the loss by phase 6's rule, the dense shard by phase 21's but in table
+    mode, ``DRYRUN_HELD``), its dense and sparse updates bit for bit the
+    plain updates of the card's own gradient and cotangent (the rows the
+    latter touches; the other rows untouched), and one table's cotangent
+    zeroed, a planted fault that must break the sparse one; 34c the two-pod cells and every LM cell at the structs
+    level (:func:`dryrun_phase`).
 A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
 and the whole run's so far are printed as it ends.
 
@@ -330,7 +344,8 @@ a layer and a microbatch of the main path's prefills in phases 15 and
 25-27, by model under ``models``; rows 1-3 at dlrm-large's shapes under
 ``large``; row 4 also the LM steps of phases 30, 31 and 32, with its
 momentum variant at internlm2's largest leaf under ``lm``, and the EGNN
-steps of phase 33, with its updates of one step timed under ``egnn``); then
+steps of phase 33, with its updates of one step timed under ``egnn``; rows
+1, 2, 4 and 5 also phase 34a's steps of the dry run's cells); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.  No process it started outlives it: on its way out
@@ -5045,17 +5060,27 @@ MLPERF_MARGIN = 4e9     # bytes left free beside the table for the batches and p
 
 
 class PhaseClock:
-    """The seconds of each phase of the run, logged as each ends."""
+    """The seconds of each phase of the run, logged as each ends; once
+    ``counts`` (the run's launch counts by kernel) is set, also what each
+    phase added to them."""
 
     def __init__(self, t_run: float):
         self.t_run = self.t_last = t_run
         self.seconds: dict = {}
+        self.counts: dict | None = None
+        self.seen: dict = {}
 
     def mark(self, tag: str) -> None:
         now = time.perf_counter()
         self.seconds[tag] = round(now - self.t_last, 1)
+        added = ""
+        if self.counts is not None:
+            delta = {k: v - self.seen.get(k, 0) for k, v in self.counts.items()
+                     if isinstance(v, int) and v != self.seen.get(k, 0)}
+            self.seen = {k: v for k, v in self.counts.items() if isinstance(v, int)}
+            added = f"; launches added {delta}"
         log(f"phase {tag}: {now - self.t_last:.1f} s; the whole run so far "
-            f"{now - self.t_run:.1f} s")
+            f"{now - self.t_run:.1f} s{added}")
         self.t_last = now
 
 
@@ -6462,6 +6487,250 @@ def egnn_mesh_phase(dev, failures) -> tuple[int, dict]:
     return launches, nums
 
 
+# the dry run's cells whose rank-0 step phase 34b holds to the plain versions, each at its own
+# batch, and whether its dense shard is held to the plain step's (phase 21's rule).
+# dlrm-large's table-mode stream at B 16,384 is 6.5 M lookups a step on rank 0 (the other 15
+# replicas' ids come back as row 0), whose plain sums gather 6.7 GB of cotangents on the CPU.
+# Its dense shard is not held to the plain step's: its rank's dense update is a few fp32 ulps
+# of the weights, and two steps whose bag and interaction outputs differ in their last fp32
+# bits flip the rounding of w + update (gaps up to 15.8 % of the largest update) and move 37
+# of its 14,592 zero-initialised biases by up to 2.6 % of it, past phase 21's rule (H100,
+# tools/dryrun_dense_gap.py).  Its dense update is held bit for bit instead, as every cell's is
+DRYRUN_HELD = (("dlrm-large", "train", True), ("dlrm-large", "train_tablewise", False),
+               ("fm", "train_batch", True))
+DRYRUN_TIMED = 1      # timed steps a cell, after its counted step
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The kernel wrappers that the DLRM and recsys steps call (rows 1, 2,
+    4 and 5) replaced by their plain versions for card tensors too, so that
+    a step runs "with the plain versions on the card"; the bag in batch
+    chunks of at most PLAIN_BAG_VALUES gathered values (:func:`plain_bag`)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def bag_stage(W, idx, offsets, rows, weights=None, round_bf16=True):
+        B, S, P = idx.shape
+        n = max(1, PLAIN_BAG_VALUES // (S * P * W.shape[1]))
+        return torch.cat([ref.embedding_bag_stage(W, idx[i:i + n], offsets, rows,
+                                                  None if weights is None else weights[i:i + n],
+                                                  round_bf16) for i in range(0, B, n)])
+
+    plain = {"embedding_bag_stage": bag_stage, "dot_interaction": ref.dot_interaction,
+             "split_sgd": ref.split_sgd, "fused_update_split": ref.fused_update_split}
+    kept = {k: getattr(ops, k) for k in plain}
+    for k, fn in plain.items():
+        setattr(ops, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in kept.items():
+            setattr(ops, k, fn)
+
+
+def bit_sum(t) -> int:
+    """The sum of a tensor's bit patterns as int64: a checksum of its rows."""
+    import torch
+    ib = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    return int(t.view(ib).sum(dtype=torch.int64))
+
+
+def dryrun_held(arch: str, shape: str, dense_held: bool, dev, failures) -> dict:
+    """Phase 34b: rank 0's step of a dry-run cell on the card, stage by stage
+    as the step runs them, held to the same step with the plain versions on
+    the card (:func:`plain_kernels`, on a copy of the dense state; the
+    forward reads the same table before either update): the loss within
+    ``TRAIN_TOL["loss"]``; the rank's dense shard bit for bit the plain
+    update (row 4's plain version) of the card's own dense gradient, and
+    where ``dense_held`` within ``TRAIN_TOL["update"]`` of the plain step's
+    largest update plus one fp32 ulp of each weight (phase 21's rule: at
+    dlrm-large's B 16,384 a rank's dense update is a few ulps of the
+    weights it moves, and gradients that differ in their last bits flip the
+    rounding of ``w + update``), else its gap to the plain step logged; the
+    sparse update (row 5) bit for bit the plain update of the card's own
+    cotangent on the rows it touched (the stream's lookups that hit this
+    shard, in the step's sorted order, summed on a compact copy of those
+    rows), every other row's bits unchanged (a checksum); and the same plain
+    update with one table's cotangent zeroed (the slot with the most
+    nonzero lookups; run on the rows its lookups touch) must differ from the
+    card's store."""
+    from repro_torch.launch.mesh import shape_only_meshes
+
+    with shape_only_meshes():
+        return _dryrun_held(f"34b {arch} {shape}", arch, shape, dense_held, dev, failures)
+
+
+def _dryrun_held(tag: str, arch: str, shape: str, dense_held: bool, dev, failures) -> dict:
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs import base
+    from repro_torch.core import hybrid, pipeline
+    from repro_torch.core import sharded_embedding as se
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import data_parallel as dp
+    from repro_torch.optim import row as row_optim
+
+    mesh = make_production_mesh(device=dev)
+    build = base.get(arch).build(shape, mesh)
+    (state, b), _ = dryrun.cell_inputs(build, mesh,
+                                       torch.Generator(device=dev).manual_seed(dryrun.SEED))
+    cfg, st = hybrid.as_hybrid(build.model), build.fn.stages
+    opt = row_optim.resolve(cfg)
+    layout = hybrid.make_layout(cfg, mesh)
+    dense_p, dense_own = (weights.state_to({"emb": {}, "dense": state["dense"]}, dev)["dense"]
+                          for _ in range(2))
+    before = dense_master(state["dense"], mesh.size, mesh.rank).clone()
+    with plain_kernels():
+        idx_fwd, _ = st.index_exchange(b["idx"])
+        emb_p = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd)
+        loss_p, g_p, _ = st.dense_fwd_bwd(dense_p["hi"], emb_p, b)
+        st.dense_update(dense_p, g_p)
+    idx_fwd, idx_upd = st.index_exchange(b["idx"])
+    emb_out = st.embedding_fwd(row_optim.fwd_weights(opt, state["emb"]), idx_fwd)
+    loss, g_dense, d_emb = st.dense_fwd_bwd(state["dense"]["hi"], emb_out, b)
+    dY = st.dY_exchange(d_emb, None, 0)
+    # the stream the step's update sorts, its lookups on this shard, the rows they touch
+    shard = mesh.group(pipeline.emb_axes(cfg, mesh)[0]).index
+    offs = torch.as_tensor(se.local_offsets(layout, shard), dtype=torch.int32, device=dev)
+    stream = se._row_sorted_streams(layout, (idx_upd + offs[None, :, None]).reshape(-1),
+                                    idx_upd.shape[-1], None, shard)
+    keep = stream[2] != 0
+    rows, bags, msk, wgt = (t[keep] for t in stream)
+    T = torch.unique_consecutive(rows)
+    pos = torch.searchsorted(T, rows).to(torch.int32)
+    compact = {k: v[T].clone() for k, v in state["emb"].items()}
+    rest = {k: bit_sum(v) - bit_sum(compact[k]) for k, v in state["emb"].items()}
+    st.sparse_update(state["emb"], idx_upd, dY, None, None)
+    with plain_kernels():
+        st.dense_update(dense_own, dp.tree_map(torch.clone, g_dense))
+    st.dense_update(state["dense"], g_dense)
+    torch.cuda.synchronize()
+    dY2 = dY.reshape(-1, dY.shape[-1])
+    log(f"  {tag}: {int(stream[0].numel())} lookups in the update stream, {int(keep.sum())} on "
+        f"this shard, {int(T.numel())} rows touched; cotangent {dY.dtype} {tuple(dY.shape)}")
+    close_or_fail(f"{tag}: loss vs the plain step on the card", loss, loss_p, TRAIN_TOL["loss"],
+                  0.0, failures)
+    got, want = dense_master(state["dense"], mesh.size, mesh.rank), dense_master(
+        dense_p, mesh.size, mesh.rank)
+    bitwise_or_fail(f"{tag}: dense shard vs the plain update of the card's own gradient", got,
+                    dense_master(dense_own, mesh.size, mesh.rank), failures)
+    upd = float((want - before).abs().max())
+    if not upd > 0:
+        failures.append(f"{tag}: the plain step moved no dense weight")
+    gap = (got - want).abs() / upd
+    dense_gap = {"largest_update": upd, "gap_max": float(gap.max()),
+                 "beyond_1e-2": int((gap > TRAIN_TOL["update"]).sum())}
+    if dense_held:
+        close_or_fail(f"{tag}: dense shard vs the plain step (atol {TRAIN_TOL['update']:g} x the "
+                      f"largest update, {upd:.3e}, rtol one fp32 ulp)", got, want,
+                      RECSYS_DENSE_ULP, TRAIN_TOL["update"] * upd, failures)
+    else:
+        log(f"  {tag}: dense shard vs the plain step (not held, DRYRUN_HELD): largest gap "
+            f"{dense_gap['gap_max']:.4f} of the largest update {upd:.3e}, "
+            f"{dense_gap['beyond_1e-2']} of {got.numel()} values beyond {TRAIN_TOL['update']:g}")
+    plain = {k: v.clone() for k, v in compact.items()}
+    with plain_kernels():
+        row_optim.apply_sparse(opt, plain, (pos, bags, msk, wgt), dY2, cfg.emb_lr)
+    for k, v in plain.items():
+        bitwise_or_fail(f"{tag}: {k} of the {int(T.numel())} touched rows vs the plain update of "
+                        "the card's cotangent", state["emb"][k][T], v, failures)
+        moved = bit_sum(state["emb"][k]) - bit_sum(state["emb"][k][T])
+        if moved != rest[k]:
+            failures.append(f"{tag}: {k}: rows the stream does not touch changed")
+    live = dY2[bags.long()].abs().amax(1) > 0
+    slot = int(torch.bincount(bags[live].long() % dY.shape[1]).argmax())
+    faulty = dY.clone()
+    faulty[:, slot] = 0
+    # the fault moves only the rows that the slot's lookups touch: the plain update of the
+    # faulty cotangent runs on their part of the stream, from their rows before the step, and
+    # every other row keeps the card's store (bit for bit the plain update, held above)
+    mine = torch.isin(pos, pos[bags.long() % dY.shape[1] == slot])
+    at = pos[mine].long()
+    plain = {k: state["emb"][k][T] for k in compact}
+    for k, v in plain.items():
+        v[at] = compact[k][at]
+    with plain_kernels():
+        row_optim.apply_sparse(opt, plain, (pos[mine], bags[mine], msk[mine], wgt[mine]),
+                               faulty.reshape(-1, dY.shape[-1]), cfg.emb_lr)
+    differ = sum(int((state["emb"][k][T].view(torch.int16) != v.view(torch.int16)).sum())
+                 for k, v in plain.items() if v.element_size() == 2)
+    log(f"  {tag}: planted fault (slot {slot}'s cotangent zeroed): {differ} values differ from "
+        "the card's store")
+    if not differ:
+        failures.append(f"{tag}: the planted fault (slot {slot}'s cotangent zeroed) was not seen")
+    return {"loss": float(loss), "loss_plain": float(loss_p), "rows_touched": int(T.numel()),
+            "lookups_here": int(keep.sum()), "fault_values_differ": differ,
+            "dense_gap": dense_gap}
+
+
+def dryrun_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 34: the dry run on the card (34a, 34b, 34c in the module
+    docstring).  Returns rows 1, 2, 4 and 5's launches in 34a's steps and
+    the phase's numbers (each cell's record)."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cells = {"pod1x16x16": [], "pod2x16x16": []}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for arch in base.list_archs():
+        ad = base.get(arch)
+        if ad.family == "lm":
+            continue
+        for cell in ad.cells:
+            try:
+                rec = dryrun.run_cell(arch, cell.shape, make_production_mesh(device="cpu"),
+                                      "pod1x16x16", device=dev, timed=DRYRUN_TIMED)
+            except Exception as e:  # noqa: BLE001  (each failed cell fails the run)
+                failures.append(f"34a {arch} {cell.shape}: {type(e).__name__}: {e}")
+                continue
+            m, c = rec["memory"], rec["collectives"]
+            log(f"  34a {arch} {cell.shape}: {rec['status']}; arguments {m['argument_bytes']} B "
+                f"(built {m['built_bytes']}), outputs {m['output_bytes']} B, peak "
+                f"{m.get('peak_bytes')} B; collectives {c['bytes_out']} ({c['total_bytes']} B); "
+                f"product_flops {rec['cost']['product_flops']:.4g}; step {rec['step_ms']:.3f} ms")
+            if rec["status"] != "ok" or m["built_bytes"] != m["argument_bytes"]:
+                failures.append(f"34a {arch} {cell.shape}: status {rec['status']}, built "
+                                f"{m['built_bytes']} B of {m['argument_bytes']}")
+            cells["pod1x16x16"].append(rec)
+            torch.cuda.empty_cache()
+    got = ops.launches()
+    launches = {k: got[k] for k in ("embedding_bag", "dot_interaction", "split_sgd",
+                                    "embedding_update")}
+    log(f"  34a: {len(cells['pod1x16x16'])} cells in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    for k, n in launches.items():
+        if not n:
+            failures.append(f"34a: the dry run's steps launched no {k}")
+    held = {}
+    for arch, shape, dense_held in DRYRUN_HELD:
+        held[f"{arch} {shape}"] = dryrun_held(arch, shape, dense_held, dev, failures)
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    for name in ("pod1x16x16", "pod2x16x16"):
+        mesh = make_production_mesh(**dryrun.MESHES[name], device="cpu")
+        for arch in base.list_archs():
+            ad = base.get(arch)
+            if ad.family != "lm" and name == "pod1x16x16":
+                continue
+            for cell in ad.cells:
+                rec = dryrun.run_cell(arch, cell.shape, mesh, name, device=dev, step=False)
+                want = "skipped" if cell.skip else "structs_only"
+                if rec["status"] != want:
+                    failures.append(f"34c {arch} {cell.shape} {name}: {rec['status']}, want {want}")
+                cells[name].append(rec)
+    log("  34c: " + "; ".join(
+        f"{r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
+        + (f" {r['memory']['argument_bytes']} B" if "memory" in r else "")
+        for rs in cells.values() for r in rs if r["status"] != "ok"))
+    return launches, {"cells": cells, "held": held}
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -6535,6 +6804,7 @@ def main() -> int:
         raise SystemExit("kernel phase failed:\n" + "\n".join(failures))
     reqs = make_requests(cfg, N_REQUESTS, rng)
     counts = serving_phase(cfg, reg, offsets, dev, reqs, failures)
+    clock.counts = counts
     if failures:
         raise SystemExit("serving phase failed:\n" + "\n".join(failures))
     breakdown_phase(cfg, reg, reqs, dev)
@@ -6811,6 +7081,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         clock.mark(f"{tag}, EGNN {name}")
     counts["split_sgd"] += egnn["launches"]
+
+    # the dry run: every DLRM, recsys and EGNN cell at rank 0 of the production mesh
+    got, dry = dryrun_phase(dev, failures)
+    if failures:
+        raise SystemExit("phase 34, the dry run failed:\n" + "\n".join(failures))
+    for name, v in got.items():
+        counts[name] += v
+    log("phase 34 numbers: " + json.dumps(dry))
+    torch.cuda.empty_cache()
+    clock.mark("34, the dry run")
     log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",

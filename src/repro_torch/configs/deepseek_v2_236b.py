@@ -3,6 +3,7 @@ kv_lora=512 q_lora=1536 qk_nope=128 qk_rope=64 v_head=128; 2 shared + 160
 routed experts top-6 (moe intermediate 1536), first layer dense (ff 12288),
 vocab 102400 (twin of ``repro/configs/deepseek_v2_236b.py``)."""
 
+from repro_torch.configs.base import lm_archdef
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -14,3 +15,9 @@ def config() -> TransformerConfig:
         first_dense_layers=1, capacity_factor=1.0, microbatch=16, prefill_microbatch=2,
         mla=True, q_lora=1536, kv_lora=512, qk_nope=128, qk_rope=64,
         v_head=128, tie_embeddings=False)
+
+
+ARCH = lm_archdef("deepseek-v2-236b", config, sub_quadratic=False,
+                  momentum=False,
+                  notes="MLA latent cache (absorbed decode); EP x TP; "
+                        "momentum-free Split-SGD for capacity")

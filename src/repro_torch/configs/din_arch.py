@@ -2,6 +2,7 @@
 main MLP 200-80 (twin of ``repro/configs/din_arch.py``).  Item vocab 10M
 shared across history+target slots, 4 context fields."""
 
+from repro_torch.configs.recsys_common import recsys_archdef
 from repro_torch.models.recsys import make_din
 
 ITEM_VOCAB = 10_000_000
@@ -12,3 +13,6 @@ TARGET_SLOT = 100
 
 def make_mdef(batch):
     return make_din(ITEM_VOCAB, CTX, batch=batch)
+
+
+ARCH = recsys_archdef("din", make_mdef, target_slot=TARGET_SLOT)

@@ -1,8 +1,12 @@
-"""The paper's three DLRM configs, Tab. I (twin of ``repro/configs/dlrm_paper.py``).
+"""The paper's three DLRM configs, Tab. I, as archs of the registry (twin of
+``repro/configs/dlrm_paper.py``).
 
-Batch sizes are the paper's strong-scaling global minibatches.
+Each gets TWO train cells: row mode (the production placement beyond the
+paper) and table mode (the paper's table-wise hybrid parallelism).  Batch
+sizes are the paper's strong-scaling global minibatches.
 """
 
+from repro_torch.configs.base import ArchDef, Cell, CellBuild, register
 from repro_torch.core.dlrm import DLRMConfig
 
 # the 26 Criteo Terabyte categorical table sizes (copy of repro/configs/fm_arch.py)
@@ -31,3 +35,36 @@ def dlrm_mlperf(mode="row", batch=16384):
         name="dlrm-mlperf", num_dense=13, bottom=(512, 256, 128),
         top=(512, 512, 256), table_rows=CRITEO_TB, emb_dim=128,
         pooling=1, batch=batch, emb_mode=mode)
+
+
+def _archdef(name, cfg_fn, default_batch):
+    cells = [Cell("train", "train"), Cell("train_tablewise", "train")]
+
+    def build(shape: str, mesh, batch: int | None = None,
+              n_layers: int | None = None,
+              cost_mode: bool = False) -> CellBuild:
+        """This rank's train step of the cell on ``mesh`` (``train``: row
+        mode; ``train_tablewise``: table mode); ``args`` are this rank's
+        state and the global batch."""
+        from repro_torch.core import dlrm, hybrid
+
+        mode = "table" if shape == "train_tablewise" else "row"
+        cfg = cfg_fn(mode=mode, batch=batch or default_batch)
+        fn = dlrm.make_train_step(cfg, mesh)
+        sstructs = hybrid.state_struct(cfg, mesh)
+        bstructs = hybrid.batch_struct(cfg, mesh, hybrid.make_layout(cfg, mesh))
+        meta = dict(arch=name, shape=shape, kind="train", family="dlrm",
+                    batch=cfg.batch, slots=len(cfg.table_rows),
+                    pooling=cfg.pooling, emb_dim=cfg.emb_dim,
+                    emb_rows=cfg.spec.total_rows,
+                    bottom=cfg.bottom_sizes, top=cfg.top_sizes,
+                    scan_unit=1, scan_outside=0, n_layers=1)
+        return CellBuild(fn, (sstructs, bstructs), meta, specs=(None, hybrid.batch_specs(cfg, mesh)),
+                         model=cfg)
+
+    return register(ArchDef(name, "dlrm", cells, build, notes="paper Tab. I config"))
+
+
+ARCH_SMALL = _archdef("dlrm-small", dlrm_small, 8192)
+ARCH_LARGE = _archdef("dlrm-large", dlrm_large, 16384)
+ARCH_MLPERF = _archdef("dlrm-mlperf", dlrm_mlperf, 16384)

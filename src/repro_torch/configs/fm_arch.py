@@ -5,6 +5,7 @@ The unified rows are E = 11: dims 0..9 the factor vector, dim 10 the linear
 weight."""
 
 from repro_torch.configs.dlrm_paper import CRITEO_TB
+from repro_torch.configs.recsys_common import recsys_archdef
 from repro_torch.models.recsys import make_fm
 
 TABLES = CRITEO_TB + (1000,) * 13          # 39 fields
@@ -13,3 +14,8 @@ TARGET_SLOT = 0
 
 def make_mdef(batch):
     return make_fm(TABLES, batch=batch)
+
+
+ARCH = recsys_archdef("fm", make_mdef, target_slot=TARGET_SLOT,
+                      notes="unified E=11 rows: dims 0..9 factor vector, "
+                            "dim 10 linear weight")

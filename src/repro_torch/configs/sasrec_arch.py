@@ -2,6 +2,7 @@
 (twin of ``repro/configs/sasrec_arch.py``).  Item vocab 4M shared across
 seq/pos/neg slots."""
 
+from repro_torch.configs.recsys_common import recsys_archdef
 from repro_torch.models.recsys import make_sasrec
 
 ITEM_VOCAB = 4_000_000
@@ -11,3 +12,6 @@ TARGET_SLOT = 50
 
 def make_mdef(batch):
     return make_sasrec(ITEM_VOCAB, batch=batch)
+
+
+ARCH = recsys_archdef("sasrec", make_mdef, target_slot=TARGET_SLOT)

@@ -80,7 +80,7 @@ def cache_struct(cfg, layout: se.ShardedEmbeddingLayout, opt) -> dict:
     positions (-1: cold), ``tick`` the steps taken; K = ``hot_rows`` x tables."""
     K = int(cfg.hot_rows) * layout.spec.num_tables
     return {"hot_w": ((K, layout.spec.dim),
-                      torch.bfloat16 if row_optim.get(opt).split else torch.float32),
+                      torch.bfloat16 if row_optim.make(opt).split else torch.float32),
             "hot_ids": ((K,), torch.int32),
             "hot_pos": ((layout.spec.total_rows,), torch.int32),
             "tick": ((), torch.int32)}
@@ -217,7 +217,7 @@ class CacheEpilogue:
     new_emb)`` advances the cache one step from the updated store."""
 
     def __init__(self, cfg, layout: se.ShardedEmbeddingLayout, opt, group: comm.Group, device):
-        self.layout, self.opt, self.group = layout, row_optim.get(opt), group
+        self.layout, self.opt, self.group = layout, row_optim.make(opt), group
         self.sync_n = parse_hot_sync(getattr(cfg, "hot_sync", "allreduce"))
         self.every = int(getattr(cfg, "promote_every", 1))
         self.hot_rows = int(cfg.hot_rows)

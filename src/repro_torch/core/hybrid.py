@@ -205,7 +205,8 @@ def state_struct(cfg, mesh=None) -> dict:
     return out
 
 
-def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dict:
+def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None, *,
+               shard_only: bool = False) -> dict:
     """This rank's train state, drawn from ``generator`` (which must live on
     the rank's device and be seeded alike on every rank) with the
     reference's distributions: table rows ~ U(-a, a), a = 1 / sqrt(mean
@@ -213,20 +214,26 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
     ``core.dlrm.init_dense_params``.  Each rank draws the global arrays and
     keeps its shard.  ``mesh`` (None: one rank on ``device``).  The numbers
     differ from the reference's ``jax.random`` draw;
-    ``weights.state_from_numpy`` carries a JAX state across instead."""
+    ``weights.state_from_numpy`` carries a JAX state across instead.
+    ``shard_only``: draw this rank's rows alone, a block at a time (the dry
+    run's production meshes, whose global tables no card holds); the rows
+    then depend on the rank's shard, not on the global draw."""
     cfg = as_hybrid(cfg)
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
     layout = make_layout(cfg, mesh)
     a = 1.0 / float(np.sqrt(np.mean(cfg.spec.table_rows)))
-    W = torch.empty((layout.total_rows, cfg.spec.dim), device=dev).uniform_(-a, a,
-                                                                           generator=generator)
-    R, s = layout.rows_per_shard, emb_shard(cfg, mesh)
-    if layout.num_shards > 1:
-        W = W[s * R:(s + 1) * R].clone()
     opt = row_optim.resolve(cfg)
-    emb = row_optim.init_store(opt, W, counters=hot_rows(cfg) > 0)
-    del W
+    R, s = layout.rows_per_shard, emb_shard(cfg, mesh)
+    if shard_only:
+        emb = _drawn_store(opt, R, cfg.spec.dim, a, generator, dev, hot_rows(cfg) > 0)
+    else:
+        W = torch.empty((layout.total_rows, cfg.spec.dim), device=dev).uniform_(
+            -a, a, generator=generator)
+        if layout.num_shards > 1:
+            W = W[s * R:(s + 1) * R].clone()
+        emb = row_optim.init_store(opt, W, counters=hot_rows(cfg) > 0)
+        del W
     params = cfg.init_dense(generator, dev)
     ex = resolve_exchange(cfg)
     dense = dp.init_dp_state(params, mesh.size, mesh.rank, ex.num_buckets, ex.needs_err)
@@ -240,6 +247,22 @@ def init_state(cfg, generator: torch.Generator, device="cuda", mesh=None) -> dic
         from repro_torch.telemetry.metrics import init_metrics
         state["metrics"] = init_metrics(dev)
     return state
+
+
+def _drawn_store(opt, rows: int, E: int, a: float, generator: torch.Generator, dev,
+                 counters: bool, block: int = 1 << 20) -> dict:
+    """A store of ``rows`` rows ~ U(-a, a), drawn ``block`` rows at a time
+    (no fp32 copy of the whole table), the state slabs zero."""
+    from repro_torch.optim.split_sgd import split_fp32
+    store = {k: torch.zeros(shape, dtype=dt, device=dev)
+             for k, (shape, dt) in opt.store_struct(rows, E, counters=counters).items()}
+    for r in range(0, rows, block):
+        W = torch.empty((min(block, rows - r), E), device=dev).uniform_(-a, a, generator=generator)
+        if opt.split:
+            store["hi"][r:r + len(W)], store["lo"][r:r + len(W)] = split_fp32(W)
+        else:
+            store["w"][r:r + len(W)] = W
+    return store
 
 
 def batch_struct(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout,
@@ -263,6 +286,32 @@ def batch_struct(cfg, mesh: Mesh, layout: se.ShardedEmbeddingLayout,
             out[name] = ((ns_emb, L), dt)
     for name, (shape, dtype) in cfg.extras.items():
         out[name] = ((B, *shape), dtype)
+    return out
+
+
+def batch_specs(cfg, mesh: Mesh) -> dict:
+    """How the reference's mesh holds each field of :func:`batch_struct`
+    (``dist.sharding``'s spec tuples): the replicated index stream whole in
+    row mode, in table mode its padded slots over the model axis and its
+    rows over the data axes; a batch-sharded stream and the extras by rows
+    over the whole mesh; the ``psort_*`` fields a row an embedding shard."""
+    cfg = as_hybrid(cfg)
+    all_axes, model, batch_axes = pipeline.mesh_axes(mesh)
+    if cfg.idx_input == "sharded":
+        idx = (all_axes, None, None)
+    elif cfg.emb_mode == "row":
+        idx = (None, None, None)
+    else:
+        idx = (batch_axes if batch_axes else None, model, None)
+    out = {"idx": idx}
+    if cfg.weighted:
+        out["weights"] = idx
+    if cfg.host_presort:
+        emb_ax = pipeline.emb_axes(cfg, mesh)[0]
+        for name in ("psort_rows", "psort_bags", "psort_msk", "psort_wgt"):
+            out[name] = (emb_ax, None)
+    for name, (shape, _) in cfg.extras.items():
+        out[name] = (all_axes,) + (None,) * len(shape)
     return out
 
 
@@ -454,7 +503,7 @@ def make_retrieval_step(mdef, mesh, n_candidates: int, target_slot: int, topk: i
             emb_c[:, target_slot] = cand[c0:c0 + n].float()
             scores[c0:c0 + n] = mdef.dense_score(state["dense"]["hi"], emb_c, broadcast(batch, n))
         v, i = topk_stable(scores, min(topk, per))
-        i = i + g_all.index * per
+        i = (i + g_all.index * per).to(torch.int32)   # the reference's int32 indices on the wire
         vg, ig = comm.all_gather(v, g_all), comm.all_gather(i, g_all)
         vv, pos = topk_stable(vg, min(topk, vg.numel()))
         return vv, ig[pos]

@@ -49,6 +49,23 @@ def dot_interaction(dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return DotInteraction.apply(dense, emb)
 
 
-def interaction_output_dim(num_features: int, dim: int) -> int:
-    """Static output width of the dot interaction (F = S + 1 features)."""
-    return dim + num_features * (num_features - 1) // 2
+def concat_interaction(dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """The paper's simple 'Concat' interaction: ``dense`` [B, E] and the bag
+    outputs ``emb`` [B, S, E] flattened, side by side in fp32: [B, E + S *
+    E].  Plain PyTorch, as the reference's is plain ``jnp``; no config
+    selects it."""
+    B, S, E = emb.shape
+    return torch.cat([dense.float(), emb.reshape(B, S * E).float()], dim=1)
+
+
+def interaction_output_dim(num_features: int, dim: int, kind: str = "dot",
+                           self_interaction: bool = False) -> int:
+    """Static output width of the interaction over ``num_features`` (F = S +
+    1, the bottom MLP's output included): ``F * dim`` for ``"concat"``;
+    for ``"dot"`` the dense vector and the lower triangle's pairs, the
+    diagonal too with ``self_interaction``."""
+    F = num_features
+    if kind == "concat":
+        return F * dim
+    pairs = F * (F + 1) // 2 if self_interaction else F * (F - 1) // 2
+    return dim + pairs

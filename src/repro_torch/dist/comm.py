@@ -35,6 +35,16 @@ Every call adds its operand's bytes (``bytes_in``, what a rank hands in)
 and its result's (``bytes_out``, what the reference's HLO count reads) to
 its kind in :class:`CollectiveStats`.
 
+A shape-only group (:func:`shape_group`, the dry run's production meshes of
+256 and 512 ranks, ``launch.mesh.make_shape_mesh``) has no process group:
+its ``pg`` is the sentinel :data:`SHAPE_ONLY`, never ``None`` (which stays
+the one-rank identity of :func:`local_group`).  A collective over it counts
+its bytes as a real one does and reaches no backend: it returns what the
+collective would if every other rank of the group held zeros.  So a
+gather's or an all-to-all's other blocks are zeros (other shards' index
+exchanges come back as row 0, the reference's clip row for other shards'
+lookups), a sum is this rank's own term, and a ring shift receives zeros.
+
 Under autograd (the EGNN steps, ``models/egnn_steps.py``), the ``_ad``
 forms carry the transposes JAX takes inside the reference's
 ``shard_map(check_vma=False)``: :func:`all_gather_ad`'s backward is
@@ -85,11 +95,22 @@ class CollectiveStats:
                 "wire_s": self.wire_s}
 
 
+class _ShapeOnly:
+    """The ``pg`` of a shape-only group: no process group behind it."""
+
+    def __repr__(self) -> str:
+        return "SHAPE_ONLY"
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
 @dataclasses.dataclass(frozen=True)
 class Group:
     """The ranks of the mesh axes ``axes`` that share the other coordinates:
     ``size`` of them, this rank at ``index``; ``pg`` their process group, or
-    None for a group of one rank that runs its collectives locally."""
+    None for a group of one rank that runs its collectives locally, or
+    :data:`SHAPE_ONLY` for a group of a shape-only mesh."""
 
     axes: tuple
     size: int
@@ -98,8 +119,14 @@ class Group:
     stats: CollectiveStats
 
     @property
+    def shape_only(self) -> bool:
+        return self.pg is SHAPE_ONLY
+
+    @property
     def backend(self) -> Optional[str]:
-        return None if self.pg is None else str(dist.get_backend(self.pg))
+        if self.pg is None or self.shape_only:
+            return None
+        return str(dist.get_backend(self.pg))
 
     def stages(self, x: torch.Tensor) -> bool:
         """Whether a collective of ``x`` goes through pinned host buffers:
@@ -111,6 +138,23 @@ def local_group() -> Group:
     """A group of this rank alone with no process group: every collective
     over it is the identity."""
     return Group((), 1, 0, None, CollectiveStats())
+
+
+def shape_group(axes: tuple, size: int, index: int, stats: CollectiveStats) -> Group:
+    """A group of ``size`` ranks, this one at ``index``, with no process
+    group: its collectives count their bytes and return what they would if
+    every other rank held zeros (module docstring)."""
+    return Group(tuple(axes), size, index, SHAPE_ONLY, stats)
+
+
+def _own_block(shape: tuple, x: torch.Tensor, dim: int, index: int) -> torch.Tensor:
+    """Zeros of ``shape`` (``x``'s type and device) with ``x`` as block
+    ``index`` along ``dim``: a gather's result where every other rank held
+    zeros."""
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    c = x.shape[dim]
+    out.narrow(dim, index * c, c).copy_(x)
+    return out
 
 
 def combined_axis_index(coords: dict, axes, shape: dict) -> int:
@@ -167,14 +211,19 @@ def all_gather(x: torch.Tensor, g: Group, out: Optional[torch.Tensor] = None) ->
     nothing is copied."""
     x = x.contiguous()
     shape = (g.size * x.shape[0],) + tuple(x.shape[1:])
-    if out is None:
-        out = x if g.pg is None else torch.empty(shape, dtype=x.dtype, device=x.device)
-    elif tuple(out.shape) != shape or out.dtype != x.dtype or not out.is_contiguous():
+    if out is not None and (tuple(out.shape) != shape or out.dtype != x.dtype
+                            or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous {x.dtype} {shape}")
-    if g.pg is not None:
-        _run(_gather_fn(), out, x, g)
-    elif out.data_ptr() != x.data_ptr():
-        out.copy_(x)
+    if g.shape_only:
+        got = _own_block(shape, x, 0, g.index)
+        out = got if out is None else out.copy_(got)
+    else:
+        if out is None:
+            out = x if g.pg is None else torch.empty(shape, dtype=x.dtype, device=x.device)
+        if g.pg is not None:
+            _run(_gather_fn(), out, x, g)
+        elif out.data_ptr() != x.data_ptr():
+            out.copy_(x)
     g.stats.add("all-gather", x, out)
     return out
 
@@ -192,6 +241,11 @@ def all_to_all(x: torch.Tensor, g: Group, split_axis: int, concat_axis: int) -> 
     _check(x, g, split_axis)
     if g.pg is None:
         out = x
+    elif g.shape_only:
+        mine = x.chunk(g.size, dim=split_axis)[g.index]
+        shape = list(mine.shape)
+        shape[concat_axis] *= g.size
+        out = _own_block(tuple(shape), mine, concat_axis, g.index)
     else:
         got = _exchange_blocks(torch.stack(x.chunk(g.size, dim=split_axis)).contiguous(), g)
         out = torch.cat(got.unbind(0), dim=concat_axis) if g.size > 1 else got[0]
@@ -218,6 +272,8 @@ def psum_scatter(x: torch.Tensor, g: Group) -> torch.Tensor:
     _check(x, g)
     if g.pg is None:
         out = x
+    elif g.shape_only:
+        out = x.contiguous().chunk(g.size)[g.index].clone()
     else:
         got = _exchange_blocks(x.contiguous().view((g.size, x.shape[0] // g.size)
                                                    + tuple(x.shape[1:])), g)
@@ -232,6 +288,8 @@ def psum(x: torch.Tensor, g: Group) -> torch.Tensor:
     x = x.contiguous()
     if g.pg is None:
         out = x
+    elif g.shape_only:
+        out = x.clone()
     else:
         stacked = torch.empty((g.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         _run(_gather_fn(), stacked, x[None], g)
@@ -259,7 +317,12 @@ def ppermute(x: torch.Tensor, g: Group) -> torch.Tensor:
     index + 1 (the last to the first), and the rank at index - 1's comes
     back."""
     x = x.contiguous()
-    out = x if g.pg is None else _run(_shift(g), torch.empty_like(x), x, g)
+    if g.pg is None:
+        out = x
+    elif g.shape_only:
+        out = torch.zeros_like(x)
+    else:
+        out = _run(_shift(g), torch.empty_like(x), x, g)
     g.stats.add("collective-permute", x, out)
     return out
 

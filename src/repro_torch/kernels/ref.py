@@ -7,6 +7,8 @@ kernel against its plain version on the card.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -63,6 +65,51 @@ def fused_mlp_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, activatio
     return y.to(out_dtype)
 
 
+# values a block of fma32 and sqrt32 on the CPU: each block's f64 temporaries stay in the
+# cache, where whole-tensor temporaries of dlrm-small's uniform stream ran 3-8x slower
+CPU_BLOCK = 1 << 20
+
+
+def _cpu_blocks(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)``, elementwise over their broadcast; on the CPU in blocks
+    of CPU_BLOCK values (a 0-d operand goes whole to every block)."""
+    shape = torch.broadcast_shapes(*(t.shape for t in args))
+    n = math.prod(shape)
+    if n <= CPU_BLOCK or not all(t.is_cpu for t in args):
+        return fn(*args)
+    flat = [t if t.dim() == 0 else t.expand(shape).reshape(-1) for t in args]
+    return torch.cat([fn(*(t if t.dim() == 0 else t[i:i + CPU_BLOCK] for t in flat))
+                      for i in range(0, n, CPU_BLOCK)]).view(shape)
+
+
+def _to_odd(p: torch.Tensor, c64: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``s = p + c64`` (f64) rounded to odd where it is inexact: its exact
+    error by TwoSum, and an even ``s`` moved one f64 ulp toward it."""
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    return torch.where(inexact_even, torch.nextafter(s, toward), s)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    if not s.is_cpu:
+        return _to_odd(p, c64, s).float()
+    # moving an even s by one f64 ulp changes its fp32 rounding only where s is the
+    # midpoint of two fp32 values: among the fp32 normals, where its low 29 bits are 2^28;
+    # below them (an f64 exponent field under 897) every value takes the check.  On the
+    # CPU only those do (a host sync, which the card's path avoids)
+    u = s.view(torch.int64)
+    at = (((u & 0x1FFFFFFF) == 1 << 28) | (((u >> 52) & 0x7FF) < 897)).nonzero().squeeze(1)
+    if at.numel():
+        s.view(-1)[at] = _to_odd(p.expand_as(s).reshape(-1)[at],
+                                 c64.expand_as(s).reshape(-1)[at], s.view(-1)[at])
+    return s.float()
+
+
 def fma32(a, b, c) -> torch.Tensor:
     """``a * b + c`` for fp32 operands, rounded to fp32 ONCE, as the FMA of
     the kernels (``fmaf``) and of jitted JAX (which contracts ``c - lr * x``
@@ -70,15 +117,7 @@ def fma32(a, b, c) -> torch.Tensor:
     is taken in f64 with its exact error (TwoSum) and rounded to odd, from
     which the cast to fp32 rounds correctly (53 >= 24 + 2 bits)."""
     a, b, c = (torch.as_tensor(t, dtype=torch.float32) for t in (a, b, c))
-    p = a.double() * b.double()
-    c64 = c.double()
-    s = p + c64
-    bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where(inexact_even, torch.nextafter(s, toward), s)
-    return s.float()
+    return _cpu_blocks(_fma32, a, b, c)
 
 
 def _combine(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -152,20 +191,40 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(np.float32(x))
 
 
-def sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """The square root of fp32 values >= 0, correctly rounded, as
-    ``__fsqrt_rn`` and XLA round it; torch's CPU ``sqrt`` is not (in fp32 or
-    f64).  A candidate from f64 is within one fp32 ulp; it moves by one where
-    the exact f64 square of the midpoint to its neighbour (25 bits, so 50
-    bits squared) says the root lies beyond it."""
-    x = x.float()
-    r = torch.sqrt(x.double()).float()
-    inf = torch.tensor(float("inf"))
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    d = torch.sqrt(x.double())
+    r = d.float()
+    if x.is_cpu:
+        # r is correctly rounded unless d lies near the midpoint of two fp32 values (its
+        # low 29 bits near 2^28): an f64 root within 2^16 f64 ulps of the exact one is on
+        # the exact root's side of every other midpoint.  Only those values take the check
+        near = ((d.view(torch.int64) & 0x1FFFFFFF) - (1 << 28)).abs() <= (1 << 16)
+        at = near.nonzero().squeeze(1)
+        if at.numel():
+            r[at] = _sqrt32_check(x[at], r[at])
+        return r
+    return _sqrt32_check(x, r)
+
+
+def _sqrt32_check(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``r`` moved to a neighbour where the exact f64 square of the midpoint
+    to it (25 bits, so 50 bits squared) says the root of ``x`` lies beyond."""
+    inf = torch.tensor(float("inf"), device=x.device)
     up, dn = torch.nextafter(r, inf), torch.nextafter(r, -inf)
     xd, rd = x.double(), r.double()
     hi, lo = (rd + up.double()) / 2, (rd + dn.double()) / 2
     r = torch.where(hi * hi < xd, up, r)
     return torch.where((lo * lo > xd) & (x > 0), dn, r)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The square root of fp32 values >= 0, correctly rounded, as
+    ``__fsqrt_rn`` and XLA round it; torch's CPU ``sqrt`` is not (in fp32 or
+    f64).  A candidate from f64 is within one fp32 ulp; it moves by one where
+    the exact f64 square of the midpoint to its neighbour says the root lies
+    beyond it."""
+    x = x.float()
+    return _cpu_blocks(lambda t: _sqrt32(t.reshape(-1)).view(t.shape), x)
 
 
 def _live_runs(W: torch.Tensor, srows, sbags, smsk, swgt, dY, start=None):

@@ -35,6 +35,11 @@ def _child(fn, rank: int, world_size: int, args: tuple, backend: str, store: str
     try:
         dist.init_process_group(backend, init_method=f"file://{store}", world_size=world_size,
                                 rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        if backend == "gloo":
+            # every rank's connections up before any rank may end and close its own: a
+            # rank that finished first and tore its group down broke a peer still
+            # connecting ("Connection closed by peer" in connectFullMesh)
+            dist.barrier()
         try:
             out = fn(rank, world_size, *args)
         finally:
@@ -47,14 +52,19 @@ def _child(fn, rank: int, world_size: int, args: tuple, backend: str, store: str
         conn.close()
 
 
+#: seconds the other ranks get to report after one fails
+FAILURE_GRACE_S = 5.0
+
+
 def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
               timeout_s: float = 300.0, store_dir: str | None = None) -> list:
     """``[fn(r, world_size, *args) for r in ranks]``, each in its own process
     inside one process group of ``backend``.  ``fn`` must be importable by
     name (a module-level function) and its arguments and result picklable.
     ``store_dir``: where the file store goes (a fresh temporary directory
-    when None).  Raises ``RuntimeError`` with the child's traceback if any
-    rank fails, and ``TimeoutError`` past ``timeout_s``; no child outlives
+    when None).  Raises ``RuntimeError`` with the traceback of every rank
+    that failed (those that report within :data:`FAILURE_GRACE_S` of the
+    first failure), and ``TimeoutError`` past ``timeout_s``; no child outlives
     the call, multiprocessing's resource tracker included where the call
     started it."""
     tracker = resource_tracker._resource_tracker
@@ -76,10 +86,13 @@ def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
                 w.close()  # so that a rank that dies reads as the end of its pipe
             readers = {pipes[r][0]: r for r in range(world_size)}
             got: dict = {}
+            failed: dict = {}
             deadline = time.monotonic() + timeout_s
             while readers:
                 left = deadline - time.monotonic()
                 if left <= 0:
+                    if failed:
+                        break
                     raise TimeoutError(f"{world_size} ranks did not finish within {timeout_s} s "
                                        f"(done: {sorted(got)})")
                 for conn in connection.wait(list(readers), timeout=min(left, 1.0)):
@@ -88,11 +101,21 @@ def run_ranks(fn, world_size: int, args: tuple = (), *, backend: str = "gloo",
                         ok, out = conn.recv()
                     except EOFError:
                         procs[rank].join(timeout=5)
-                        raise RuntimeError(f"rank {rank} exited with code "
-                                           f"{procs[rank].exitcode} and no result") from None
-                    if not ok:
-                        raise RuntimeError(f"rank {rank} failed:\n{out}")
-                    got[rank] = out
+                        ok, out = False, (f"exited with code {procs[rank].exitcode} and no "
+                                          "result")
+                    if ok:
+                        got[rank] = out
+                        continue
+                    if not failed:
+                        # a rank that fails tears its process group down, and a peer
+                        # still connecting or in a collective then fails too ("connection
+                        # closed by peer"): wait a little for the others' reports, so that
+                        # the error holds the first cause and not only its echo
+                        deadline = min(deadline, time.monotonic() + FAILURE_GRACE_S)
+                    failed[rank] = out
+            if failed:
+                raise RuntimeError("\n".join(f"rank {r} failed:\n{out}"
+                                             for r, out in sorted(failed.items())))
     finally:
         for p in procs:
             p.join(timeout=5)

@@ -19,10 +19,21 @@ device), and then every collective copies its payload through pinned host
 memory (``dist.comm``).  A mesh of one rank needs no process group: without
 one, its collectives are the identity and the train step is the port's
 one-rank step.
+
+A shape-only mesh (:func:`make_shape_mesh`, :func:`make_production_mesh`)
+is one rank's view of a mesh of any size with no process group behind it:
+its groups are ``dist.comm``'s shape-only groups, whose collectives count
+their bytes and reach no backend.  It exists for the dry run
+(``launch/dryrun.py``) alone: :func:`resolve_mesh` refuses it outside
+:func:`shape_only_meshes`, the run loop and the server refuse it always
+(:func:`refuse_shape_only`), and the launcher builds its mesh with
+:func:`make_mesh`, which never makes one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import itertools
 import math
@@ -68,6 +79,11 @@ class Mesh:
         if axes not in self.groups:
             raise KeyError(f"the mesh has no group over {axes}; it has {sorted(self.groups)}")
         return self.groups[axes]
+
+    @property
+    def shape_only(self) -> bool:
+        """Whether the mesh's groups are shape-only (:func:`make_shape_mesh`)."""
+        return any(g.shape_only for g in self.groups.values())
 
     @property
     def host_staging(self) -> bool:
@@ -140,11 +156,64 @@ def make_mesh(shape, axes, device="cuda", group=None) -> Mesh:
     return Mesh(shape=named, device=dev, rank=rank, groups=groups, stats=stats)
 
 
+def make_shape_mesh(shape, axes, rank: int = 0, device="cuda") -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``shape`` over ``axes`` with no
+    process group: every group is shape-only (``dist.comm.shape_group``),
+    so a step built on it runs this rank's share of the work, and its
+    collectives count their bytes, on ``device`` alone."""
+    shape, axes = tuple(shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    named = dict(zip(axes, shape))
+    n = math.prod(shape)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not in a mesh of {n} ranks")
+    me = dict(zip(axes, np.unravel_index(rank, shape)))
+    stats = comm.CollectiveStats()
+    groups = {t: comm.shape_group(t, math.prod(named[a] for a in t),
+                                  comm.combined_axis_index(me, t, named), stats)
+              for t in group_axes(axes)}
+    return Mesh(shape=named, device=resolve_device(device), rank=rank, groups=groups, stats=stats)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0, device="cuda") -> Mesh:
+    """The reference's production mesh as a shape-only mesh: 16 x 16 chips
+    a pod over ``("data", "model")``, or two pods, ``(2, 16, 16)`` over
+    ``("pod", "data", "model")``; this rank ``rank`` on ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_shape_mesh(shape, axes, rank, device)
+
+
+_SHAPE_ONLY_OK = contextvars.ContextVar("shape_only_ok", default=False)
+
+
+@contextlib.contextmanager
+def shape_only_meshes():
+    """Inside it, :func:`resolve_mesh` takes a shape-only mesh: the dry
+    run's steps are built and run there."""
+    token = _SHAPE_ONLY_OK.set(True)
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY_OK.reset(token)
+
+
+def refuse_shape_only(mesh, what: str) -> None:
+    """Raise where ``mesh`` is shape-only: ``what`` runs real ranks."""
+    if isinstance(mesh, Mesh) and mesh.shape_only:
+        raise ValueError(f"{what} refuses a shape-only mesh ({mesh.shape}): it has no process "
+                         "group and exists for launch/dryrun.py alone")
+
+
 def resolve_mesh(mesh=None, device="cuda") -> Mesh:
     """``mesh``, or where it is None the one-rank ``(1, 1)`` mesh over
-    ``("data", "model")`` on ``device``, with no process group."""
+    ``("data", "model")`` on ``device``, with no process group.  A
+    shape-only mesh is refused outside :func:`shape_only_meshes`."""
     if mesh is None:
         return make_mesh((1, 1), ("data", "model"), device)
     if not isinstance(mesh, Mesh):
         raise TypeError(f"need a launch.mesh.Mesh, got {type(mesh).__name__}")
+    if not _SHAPE_ONLY_OK.get():
+        refuse_shape_only(mesh, "a step outside the dry run")
     return mesh

@@ -104,6 +104,25 @@ def fullgraph_batch_structs(cfg: EGNNConfig, mesh, n_nodes: int, n_edges: int,
     return structs, (N, E)
 
 
+def _mesh_axes(mesh) -> tuple:
+    return ("data", "model") if mesh is None else tuple(mesh.axis_names)
+
+
+def fullgraph_batch_specs(structs: dict, mesh) -> dict:
+    """How the reference's mesh holds each field of
+    :func:`fullgraph_batch_structs` (``dist.sharding``'s spec tuples): the
+    edge arrays by position over the whole mesh, the node arrays whole."""
+    edges = _mesh_axes(mesh)
+    return {k: (edges,) if k in ("src", "dst", "edge_mask") else (None,) * len(s)
+            for k, (s, _) in structs.items()}
+
+
+def minibatch_batch_specs(structs: dict, mesh) -> dict:
+    """How the reference's mesh holds each field of
+    :func:`minibatch_batch_structs`: by graph over the whole mesh."""
+    return {k: (_mesh_axes(mesh),) + (None,) * (len(s) - 1) for k, (s, _) in structs.items()}
+
+
 def _part(batch: dict, structs: dict, cuts: dict, dev: torch.device) -> dict:
     """``batch`` checked against ``structs``' shapes, each key cut to
     ``cuts[key]`` (a slice of dim 0) where given and moved to ``dev``."""

@@ -3,7 +3,9 @@
 
 The reference jits its steps over a mesh; on one card there is no mesh and
 nothing to shard, so a step is a plain function over tensors on ``device``
-(the mesh specs have no twin yet: ROADMAP queue 1, item 8).  Serving holds
+(the steps on a mesh: ROADMAP queue 1, item 8).  The mesh's placement is
+``dist.sharding``'s (the parameters) and :func:`cache_specs` (the decode
+cache), which the dry run reads for the per-rank bytes.  Serving holds
 the parameters in bf16, as the reference's serving steps hold them.
 Training holds the Split-SGD state ``{"hi" bf16, "lo" int16 (the
 reference's uint16 bits), "mom" fp32}``, takes the gradients of
@@ -13,6 +15,8 @@ one launch of the split_sgd kernel a leaf on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -128,6 +132,36 @@ def cache_structs(cfg: tf.TransformerConfig, B: int, Lmax: int) -> dict:
     [n_layers, B, Lmax, qk_rope]}."""
     tf.check_supported(cfg)
     return {k: (s, torch.bfloat16) for k, s in tf.cache_shapes(cfg, B, Lmax).items()}
+
+
+def cache_specs(cfg: tf.TransformerConfig, mesh, B: int) -> dict:
+    """How a mesh holds the decode cache of :func:`cache_structs`, by key
+    (``dist.sharding``'s spec tuples; the reference's choice, HC2).  Decode
+    writes one position a step, and a sequence-sharded cache turns that
+    write into a reshard, so where the batch covers the data axes the heads
+    go over ``model`` when they divide it, else the head dim (MLA: the
+    latent dim, and ``k_rope`` where ``qk_rope`` divides); only the B = 1
+    long-context cell shards the sequence, over the whole mesh."""
+    from repro_torch.dist import sharding as shd
+    bdp = shd.batch_axes(mesh)
+    ndp = math.prod(mesh.shape[a] for a in bdp)
+    tp = mesh.shape[shd.MODEL]
+    batch_ok = B % ndp == 0
+    whole = shd.all_axes(mesh)
+    if cfg.mla:
+        if batch_ok:
+            return {"c_kv": (None, bdp, None, shd.MODEL),
+                    "k_rope": (None, bdp, None, shd.MODEL if cfg.qk_rope % tp == 0 else None)}
+        return {"c_kv": (None, None, whole, None), "k_rope": (None, None, whole, None)}
+    if batch_ok and cfg.n_kv_heads % tp == 0:
+        spec = (None, bdp, shd.MODEL, None, None)
+    elif batch_ok and cfg.d_head % tp == 0:
+        spec = (None, bdp, None, None, shd.MODEL)
+    elif batch_ok:
+        spec = (None, bdp, None, shd.MODEL, None)
+    else:
+        spec = (None, None, None, whole, None)
+    return {"k": spec, "v": spec}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> None:

@@ -17,7 +17,8 @@ lookup stream of ``kernels.embedding_update.sort_lookups``: the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors (the
 wrappers in ``kernels.ops`` decide).  ``kernels.ops``,
 ``core.sharded_embedding`` and ``core.pipeline`` hold no branch on an
-optimizer: a new one is an entry of :data:`OPTIMIZERS` and its kernel.
+optimizer: a new one is a :func:`register` call (its store and its
+``kernel``, which on CPU tensors is the plain update).
 """
 
 from __future__ import annotations
@@ -101,49 +102,84 @@ def _k_adagrad_bf16(opt, store, stream, dY, lr, seed):
     ops.fused_update_adagrad_bf16(store["w"], store["acc"], *stream, dY, lr, opt.eps, seed)
 
 
-# the reference's registrations (repro/optim/row.py:677-710) with their defaults
-OPTIMIZERS = {opt.name: opt for opt in (
-    RowOptimizer("sgd", _k_sgd),
-    RowOptimizer("split_sgd", _k_split_sgd, split=True),
-    RowOptimizer("momentum", _k_momentum, state=(("mom", 0, torch.float32),), beta=0.9),
-    RowOptimizer("adagrad_rowwise", _k_adagrad_rowwise, state=(("acc", 1, torch.float32),)),
-    RowOptimizer("adagrad", _k_adagrad, state=(("acc", 0, torch.float32),)),
-    RowOptimizer("momentum_bf16", _k_momentum_bf16, state=(("mom", 0, torch.bfloat16),), beta=0.9,
-                 stochastic_round=True),
-    RowOptimizer("adagrad_bf16", _k_adagrad_bf16, state=(("acc", 0, torch.bfloat16),),
-                 stochastic_round=True),
-    RowOptimizer("adagrad_freq", _k_adagrad_freq, state=(("cnt", 1, torch.int32),)),
-)}
+#: the registry: name -> optimizer, in registration order
+OPTIMIZERS: dict[str, RowOptimizer] = {}
 
 
-def get(spec, *, beta: Optional[float] = None, eps: Optional[float] = None) -> RowOptimizer:
-    """The optimizer named ``spec`` (or ``spec`` itself), with ``beta`` and
-    ``eps`` overriding its defaults where given."""
-    opt = spec
+def register(opt: RowOptimizer) -> RowOptimizer:
+    """Add ``opt`` under its name, refused (``ValueError``) where the name is
+    taken or no ``kernel`` is given, as the reference refuses them.  The
+    reference also refuses an optimizer with neither ``reference`` nor
+    ``flat_reference`` (its plain transitions); the port's ``kernel`` is
+    both, the hand-written kernel for CUDA tensors and the plain version for
+    CPU tensors, so the second refusal is the first."""
+    if opt.name in OPTIMIZERS:
+        raise ValueError(f"row optimizer {opt.name!r} already registered")
+    if opt.kernel is None:
+        raise ValueError(f"row optimizer {opt.name!r} registered no fused kernel entry (kernel=)")
+    OPTIMIZERS[opt.name] = opt
+    return opt
+
+
+def unregister(name: str) -> None:
+    """Remove a registered optimizer (a test tearing a toy entry down)."""
+    OPTIMIZERS.pop(name, None)
+
+
+def names() -> tuple:
+    """The registered names, in registration order."""
+    return tuple(OPTIMIZERS)
+
+
+# the reference's registrations (repro/optim/row.py:677-710), in its order, with its defaults
+for _opt in (
+        RowOptimizer("sgd", _k_sgd),
+        RowOptimizer("split_sgd", _k_split_sgd, split=True),
+        RowOptimizer("momentum", _k_momentum, state=(("mom", 0, torch.float32),), beta=0.9),
+        RowOptimizer("adagrad_rowwise", _k_adagrad_rowwise, state=(("acc", 1, torch.float32),)),
+        RowOptimizer("adagrad", _k_adagrad, state=(("acc", 0, torch.float32),)),
+        RowOptimizer("momentum_bf16", _k_momentum_bf16, state=(("mom", 0, torch.bfloat16),),
+                     beta=0.9, stochastic_round=True),
+        RowOptimizer("adagrad_bf16", _k_adagrad_bf16, state=(("acc", 0, torch.bfloat16),),
+                     stochastic_round=True),
+        RowOptimizer("adagrad_freq", _k_adagrad_freq, state=(("cnt", 1, torch.int32),))):
+    register(_opt)
+
+
+def get(name: str, *, beta: Optional[float] = None, eps: Optional[float] = None) -> RowOptimizer:
+    """The registered optimizer ``name``, with ``beta`` and ``eps``
+    overriding its defaults where given."""
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown sparse optimizer {name!r}; registered: {sorted(OPTIMIZERS)}")
+    return make(OPTIMIZERS[name], beta=beta, eps=eps)
+
+
+def make(spec, *, beta: Optional[float] = None, eps: Optional[float] = None) -> RowOptimizer:
+    """A config value (a registered name, or a :class:`RowOptimizer`) as an
+    optimizer, with ``beta`` and ``eps`` overriding its defaults where
+    given."""
     if not isinstance(spec, RowOptimizer):
-        if spec not in OPTIMIZERS:
-            raise ValueError(f"unknown sparse optimizer {spec!r}; the port has {sorted(OPTIMIZERS)}")
-        opt = OPTIMIZERS[spec]
+        return get(str(spec), beta=beta, eps=eps)
     over = {k: float(v) for k, v in (("beta", beta), ("eps", eps)) if v is not None}
-    return dataclasses.replace(opt, **over) if over else opt
+    return dataclasses.replace(spec, **over) if over else spec
 
 
 def resolve(cfg) -> RowOptimizer:
     """The sparse optimizer of a config (unset means ``split_sgd``), with its
     ``opt_beta`` / ``opt_eps`` applied."""
-    return get(getattr(cfg, "sparse_optimizer", None) or "split_sgd",
+    return make(getattr(cfg, "sparse_optimizer", None) or "split_sgd",
                beta=getattr(cfg, "opt_beta", None), eps=getattr(cfg, "opt_eps", None))
 
 
 def fwd_weights(opt, store: dict):
     """The slab the forward pass reads (bf16 ``hi`` or fp32 ``w``)."""
-    return store["hi"] if get(opt).split else store["w"]
+    return store["hi"] if make(opt).split else store["w"]
 
 
 def init_store(opt, W: torch.Tensor, counters: bool = False) -> dict:
     """The store from fp32 master rows ``W`` [rows, E], state slabs (and
     with ``counters`` the touch counts ``cnt``) zero."""
-    opt = get(opt)
+    opt = make(opt)
     if opt.split:
         hi, lo = split_fp32(W)
         out = {"hi": hi, "lo": lo}
@@ -193,7 +229,7 @@ def apply_sparse(opt, store: dict, stream: tuple, dY: torch.Tensor, lr: float,
     ``wgt * dY[bag]`` in sorted order and steps its row once; rows outside
     the stream, and runs of masked lookups only, are not touched.  Returns
     ``store``."""
-    opt = get(opt)
+    opt = make(opt)
     if "cnt" in store:
         bump_counters(store["cnt"], stream[0], stream[2])
     if opt.stochastic_round:

@@ -33,7 +33,7 @@ from repro_torch.core import hybrid, pipeline
 from repro_torch.core import sharded_embedding as se
 from repro_torch.core.hybrid import as_hybrid
 from repro_torch.dist import comm
-from repro_torch.launch.mesh import resolve_mesh
+from repro_torch.launch.mesh import refuse_shape_only, resolve_mesh
 from repro_torch.optim import row as row_optim
 from repro_torch.optim.data_parallel import tree_leaves, tree_map
 
@@ -223,6 +223,7 @@ def make_snapshot_score_step(mdef, mesh=None, batch: Optional[int] = None, *, de
 
 def _leader(mesh) -> Optional[comm.Group]:
     """The group over the whole mesh when it spans more than one rank."""
+    refuse_shape_only(mesh, "the server")
     g = mesh.group(pipeline.mesh_axes(mesh)[0])
     return g if g.size > 1 else None
 
@@ -263,6 +264,7 @@ def make_bucket_scorers(cfg, buckets: tuple[int, ...], source: Callable[[], Any]
     from repro_torch.core.hybrid import local_batch
 
     mdef = as_hybrid(cfg)
+    refuse_shape_only(mesh, "the server")
     mesh = resolve_mesh(mesh, device)
     dev = mesh.device
     g_all = mesh.group(pipeline.mesh_axes(mesh)[0])

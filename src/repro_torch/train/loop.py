@@ -304,6 +304,8 @@ class TrainLoop:
         # ``batches`` then yielding global batches; with it the model's
         # ``model_cfg`` (a ``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``), by which the loop cuts the
         # batches and gathers and cuts the state
+        from repro_torch.launch.mesh import refuse_shape_only
+        refuse_shape_only(mesh, "the run loop")
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state

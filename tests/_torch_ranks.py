@@ -636,3 +636,24 @@ def egnn_collectives_rank(rank: int, world_size: int, device: str) -> dict:
             out[(name, str(dtype))] = (y.detach().float().cpu().numpy(),
                                        dx.float().cpu().numpy())
     return out
+
+
+def dryrun_cells_rank(rank: int, world_size: int, cells: list) -> list:
+    """Each ``(arch, shape)`` cell of the registry built on this rank of a
+    real (1, world_size) mesh over the process group, fed the dry run's
+    inputs (``launch.dryrun.cell_inputs``, the same seed on every rank) and
+    stepped once: per cell the mesh's ``CollectiveStats`` calls and result
+    bytes by kind."""
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    out = []
+    for arch, shape in cells:
+        mesh = make_mesh((1, world_size), ("data", "model"), "cpu")
+        build = base.get(arch).build(shape, mesh)
+        args, _ = dryrun.cell_inputs(build, mesh, torch.Generator().manual_seed(dryrun.SEED))
+        mesh.stats.reset()
+        build.fn(*args)
+        out.append(dryrun.collectives(mesh.stats))
+    return out
