@@ -120,8 +120,10 @@ from the root of a checkout.  Phases, each of which fails the run:
     launch a step of the bag, interaction, row-update and Split-SGD
     kernels, the busy time under torch.profiler; then row mode on that mesh
     bit for bit (losses and state) the groupless step of phase 6.  16b: two
-    processes sharing the card (``launch.local.run_ranks``, gloo, every
-    payload staged through pinned host memory), meshes (1, 2) in row and
+    processes sharing the card (gloo, every payload staged through pinned
+    host memory; the two ranks of a ``launch.local.RankPool`` that starts
+    with 16a and serves 16b, 17a, 18d and 23a, another serving 33e and 35,
+    :func:`two_ranks`), meshes (1, 2) in row and
     table mode with Split-SGD and in row mode with row-wise Adagrad: each
     rank's first step held to the same two-rank step on the CPU (loss within
     1e-4, the dense shard (and row mode's Split-SGD shard) within 1e-2 of the
@@ -220,7 +222,8 @@ from the root of a checkout.  Phases, each of which fails the run:
     ``python -m repro_torch.telemetry summarize``, every served bucket's
     line printed, row 9 once a step; ``python -m repro_torch.launch.train
     --arch dlrm-smoke --steps 5`` as a subprocess.  20c:
-    ``examples/train_dlrm_100m_torch.py`` at its defaults (its loss falls);
+    ``examples/train_dlrm_100m_torch.py`` at its defaults (its loss falls;
+    the summary, the smoke and 20c run as three subprocesses at once);
 21. the recsys archetypes (FM, BST, SASRec, DIN) at their published widths:
     rows 1 and 5-12 at E 11, 18, 50, then each archetype's train, serve and
     retrieval steps;
@@ -321,8 +324,42 @@ from the root of a checkout.  Phases, each of which fails the run:
     mode, ``DRYRUN_HELD``), its dense and sparse updates bit for bit the
     plain updates of the card's own gradient and cotangent (the rows the
     latter touches; the other rows untouched), and one table's cotangent
-    zeroed, a planted fault that must break the sparse one; 34c the two-pod cells and every LM cell at the structs
-    level (:func:`dryrun_phase`).
+    zeroed, a planted fault that must break the sparse one; 34d every
+    single-pod LM cell the reference does not skip at rank 0 of that mesh,
+    at full width with the cell's own B and L, cut to its first dense
+    layers plus one scan unit, ``ok``, its built state (or parameters and
+    cache) holding the cut depth's argument bytes, its loss or logits
+    finite, its peak and collective bytes printed (row 4 on the train
+    cells), run in this process while phase 35's two ranks run
+    (:func:`dryrun_lm_phase`); 34c the two-pod cells and every cell without its step at the
+    structs level (:func:`dryrun_phase`);
+35. the LM steps on meshes of two processes sharing the card (gloo, every
+    payload staged through pinned host memory; :func:`lm_mesh_phase`): 35a
+    internlm2-1.8b at full size on (1, 2), Megatron TP 2 with sequence
+    parallelism, 3 steps on one batch of 2 x 2048: every loss finite, the
+    first near ln V, the last below it, row 4 once a leaf-shard a step on
+    each rank, the step's host ms, each rank's collective bytes and peak;
+    35b one step of it at 2 layers, B 2 x 512, held to the one-rank step on
+    the card from the same state (the loss within 1e-3 relative, each
+    leaf's update within 3e-2 of its largest), row 4 bit for bit its plain
+    version on each rank's own gradient blocks, and two planted faults that
+    must fail the gate (the labels shifted by one; one layer's row-parallel
+    reduce skipped on one rank); 35c it served with ``attn_impl="pallas"``:
+    a prefill of 4 x 4096 with row 13 on each rank's 8 q and 4 KV heads, the
+    gathered logits within phase 15's 0.2 of the one-rank prefill's, then
+    32 greedy decode steps, the tokens compared with the one rank's and
+    logged; 35d qwen3-moe-30b-a3b at full width, 2 of 48 layers, on (2, 1):
+    the experts over ``data``, the all-to-all on the card, its MoE block on
+    each rank's row held to the one-rank block with the routing pinned
+    (:class:`MoeRoutes`), 3 train steps on one batch, the loss falling,
+    the dropped share printed; 35e ``python -m repro_torch.launch.train
+    --arch internlm2-1.8b --ranks 2`` as three subprocesses: the
+    uninterrupted run, a ``--ckpt-dir`` run stopped by ``--preempt-at`` and
+    its restart, whose losses must be the uninterrupted run's bit for bit
+    (``--losses-json``); and a fourth, the uninterrupted run at ``--ranks
+    1``, whose losses the ``--ranks 2`` run's must be within 1e-3 relative
+    (on the card they are not bit for bit).  34d and 35e run in this process while 35a-35d's
+    ranks run.
 A failure raises ``SystemExit`` and prints no result.  Each phase's seconds
 and the whole run's so far are printed as it ends.
 
@@ -343,9 +380,11 @@ served batches and launcher runs, its stage profiles included; row 13 one
 a layer and a microbatch of the main path's prefills in phases 15 and
 25-27, by model under ``models``; rows 1-3 at dlrm-large's shapes under
 ``large``; row 4 also the LM steps of phases 30, 31 and 32, with its
-momentum variant at internlm2's largest leaf under ``lm``, and the EGNN
-steps of phase 33, with its updates of one step timed under ``egnn``; rows
-1, 2, 4 and 5 also phase 34a's steps of the dry run's cells); then
+momentum variant at internlm2's largest leaf under ``lm``, the EGNN
+steps of phase 33, with its updates of one step timed under ``egnn``, and
+the mesh LM steps of phases 34d and 35 (both ranks'), by path under
+``lm_mesh``; row 13 also both ranks' prefill of 35c; rows 1, 2, 4 and 5
+also phase 34a's steps of the dry run's cells); then
 the card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device.  No process it started outlives it: on its way out
@@ -464,11 +503,12 @@ STATEFUL = (("momentum", "fused_update_momentum", "beta"),
 # near 2^31, the second negative (both wrap through uint32 in the hash)
 SR_SEEDS = (2 ** 31 - 7, -3)
 # the attention kernel phase: (case, B, H, Hkv, Lq, Lk, causal, window, softcap); the
-# first is the main path's shape (internlm2-1.8b's prefill of 4 x 4096 tokens), gemma2
-# reaches the rest of the kernel's options (softcap 50, window 4096; its global layer
-# also without the softcap, to price it), and the last case's first 400 queries see
-# no key
+# first is the main path's shape (internlm2-1.8b's prefill of 4 x 4096 tokens), the
+# second a rank's share of it on phase 35c's (1, 2) mesh, gemma2 reaches the rest of the
+# kernel's options (softcap 50, window 4096; its global layer also without the softcap,
+# to price it), and the last case's first 400 queries see no key
 ATTN_CASES = (("internlm2 prefill", 4, 16, 8, 4096, 4096, True, 0, 0.0),
+              ("internlm2 prefill, a rank's heads on (1, 2)", 4, 8, 4, 4096, 4096, True, 0, 0.0),
               ("gemma2 local layer", 1, 32, 16, 8192, 8192, True, 4096, 50.0),
               ("gemma2 global layer", 1, 32, 16, 8192, 8192, True, 0, 50.0),
               ("gemma2 global layer, no softcap", 1, 32, 16, 8192, 8192, True, 0, 0.0),
@@ -1070,20 +1110,19 @@ def serving_phase(cfg, reg, offsets, dev, reqs, failures, control: bool = False,
     return counts
 
 
-def device_busy_ms(fn, reps: int, cpu: bool = True) -> tuple[float, float, list]:
+def device_busy_ms(fn, reps: int) -> tuple[float, float, list]:
     """``fn`` run ``reps`` times under torch.profiler: wall ms a run (ending
     in a synchronise), the device's busy ms a run (its kernels' time summed)
     and its kernels as (name, ms a run, launches a run), the longest first.
     The trace can drop events of a short window: its counts are read, not
-    gated on (``graph_nodes`` counts exactly).  ``cpu=False`` traces the
-    card alone (a run of tens of thousands of kernels: the host's operator
-    events made each of phase 30's steps cost about 70 s of trace
-    processing)."""
+    gated on (``graph_nodes`` counts exactly).  It traces the card alone: the
+    host's operator events, which nothing reads, cost seconds of trace
+    processing a call (about 70 s a step of phase 30's LM training), and
+    their recording added to the wall clock beside the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1868,8 +1907,9 @@ def run_loop_phase(cfg, dev, bare_rate, failures) -> dict:
         drill_s = time.perf_counter() - t0
         back_same = bitwise_equal(back, first.state)
         log(f"corruption drill: steps on disk {steps_on_disk}, step {RUN_STEPS} flipped; "
-            f"latest_valid_step {fallback}, restored step {at} in {drill_s:.2f} s (two verifies "
-            f"and a load), bit for bit the first loop's state: {back_same}")
+            f"latest_valid_step {fallback}, restored step {at} in {drill_s:.2f} s (two scans "
+            f"of the steps, the restore's checking the arrays it loads), bit for bit the first "
+            f"loop's state: {back_same}")
         if fallback != RUN_RESTART or at != RUN_RESTART or not back_same:
             failures.append(f"corruption drill: fell back to {fallback}, restored {at}, "
                             f"bitwise {back_same}")
@@ -2970,6 +3010,35 @@ def mesh_rank_setup(device: str):
     return dev
 
 
+# the two ranks that the two-rank phases share (``launch.local.RankPool``): one pool for
+# 16b-23a, another for 33e and 35 (phases 24-33b size their work by the card's free memory,
+# which the ranks' contexts would take from)
+_POOL: list = []
+
+
+def open_pool() -> None:
+    """Start two gloo ranks on the card for the two-rank phases that follow:
+    they start and join their group while this process goes on."""
+    from repro_torch.launch.local import RankPool
+    close_pool()
+    _POOL.append(RankPool(2, backend="gloo", timeout_s=900))
+
+
+def close_pool() -> None:
+    while _POOL:
+        _POOL.pop().close()
+
+
+def two_ranks(fn, args: tuple = (), *, timeout_s: float = 900) -> list:
+    """``fn(rank, 2, *args)`` in two processes sharing the card over gloo:
+    the open pool's (:func:`open_pool`), else two started for the call
+    (``launch.local.run_ranks``)."""
+    from repro_torch.launch.local import run_ranks
+    if _POOL:
+        return _POOL[-1].run(fn, args, timeout_s=timeout_s)
+    return run_ranks(fn, 2, args, backend="gloo", timeout_s=timeout_s)
+
+
 def hybrid_rank(rank: int, world: int, cases: tuple, device: str = "cuda:0") -> list[dict]:
     """Phase 16b in one of two processes sharing the card (gloo, so every
     collective stages its payload through pinned host memory): for each
@@ -3048,15 +3117,14 @@ def hybrid_rank(rank: int, world: int, cases: tuple, device: str = "cuda:0") -> 
 
 
 def hybrid_two_rank_phase(failures) -> dict:
-    """Phase 16b: two processes on the one card (``launch.local.run_ranks``,
-    gloo), meshes (1, 2) in row and table mode with Split-SGD and in row
+    """Phase 16b: two processes on the one card (:func:`two_ranks`, gloo),
+    meshes (1, 2) in row and table mode with Split-SGD and in row
     mode with row-wise Adagrad; any child's failure fails the run.  Prints
     per case the collectives' bytes a step and the step's host-clock ms with
     the staging share apart.  Returns the launch counts of both ranks' timed
     steps, summed."""
-    from repro_torch.launch.local import run_ranks
     t0 = time.perf_counter()
-    ranks = run_ranks(hybrid_rank, 2, (HYBRID_TWO_CASES,), backend="gloo", timeout_s=900)
+    ranks = two_ranks(hybrid_rank, (HYBRID_TWO_CASES,), timeout_s=900)
     log(f"16b: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
     counts: dict = {}
     for i, (mode, opt) in enumerate(HYBRID_TWO_CASES):
@@ -3187,7 +3255,6 @@ def mesh_loop_phase(dev, failures) -> dict:
     from repro_torch.configs.dlrm_paper import dlrm_small
     from repro_torch.core import dlrm
     from repro_torch.data.synthetic import dlrm_stream
-    from repro_torch.launch.local import run_ranks
     from repro_torch.launch.mesh import Mesh, make_mesh
 
     ckdir = ROOT / "build" / "loop_mesh"
@@ -3195,7 +3262,7 @@ def mesh_loop_phase(dev, failures) -> dict:
     ckdir.mkdir(parents=True)
     try:
         t0 = time.perf_counter()
-        ranks = run_ranks(mesh_loop_rank, 2, (str(ckdir),), backend="gloo", timeout_s=900)
+        ranks = two_ranks(mesh_loop_rank, (str(ckdir),), timeout_s=900)
         log(f"17a: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
         counts: dict = {}
         for r, res in enumerate(ranks):
@@ -3842,11 +3909,10 @@ def ring_rank(rank: int, world: int, device: str = "cuda:0") -> dict:
 
 def ring_two_rank_phase(failures) -> dict:
     """Phase 18d: :func:`ring_rank` in two processes on the card
-    (``launch.local.run_ranks``, gloo); any rank's failure fails the run.
+    (:func:`two_ranks`, gloo); any rank's failure fails the run.
     Returns both ranks' launches of the ring steps."""
-    from repro_torch.launch.local import run_ranks
     t0 = time.perf_counter()
-    ranks = run_ranks(ring_rank, 2, (), backend="gloo", timeout_s=600)
+    ranks = two_ranks(ring_rank, timeout_s=600)
     log(f"18d: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
     counts: dict = {}
     for r, res in enumerate(ranks):
@@ -4459,8 +4525,8 @@ def launcher_phase(dev, failures) -> dict:
     last step; ``trace.json`` parses and ``python -m repro_torch.telemetry
     summarize`` reads it; a line for every bucket the serving smoke served;
     row 9 launched once a step (and ``PROFILE_RUNS`` times by each run's
-    stage profile).  Then one subprocess ``python -m repro_torch.launch.train
-    --arch dlrm-smoke --steps 5`` and one ``python
+    stage profile).  Beside the summary, at once, one subprocess ``python -m
+    repro_torch.launch.train --arch dlrm-smoke --steps 5`` and one ``python
     examples/train_dlrm_100m_torch.py`` at its defaults (its own assert: the
     loss falls).  Returns the launch counts of the two in-process runs."""
     import contextlib
@@ -4479,23 +4545,30 @@ def launcher_phase(dev, failures) -> dict:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     counts = {k: 0 for k in ops.launches()}
 
-    def sub(args, timeout=600) -> str:
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=timeout)
+    procs = []
+
+    def start(args):
+        procs.append(subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        return args, time.perf_counter(), procs[-1]
+
+    def finish(run, timeout=600) -> str:
+        args, t, proc = run
+        out, err = proc.communicate(timeout=timeout)
         log(f"20: `{' '.join(args[:4])} ...` exit {proc.returncode} in "
             f"{time.perf_counter() - t:.1f} s; its last lines:\n    "
-            + "\n    ".join(proc.stdout.strip().splitlines()[-3:]))
+            + "\n    ".join(out.strip().splitlines()[-3:]))
         if proc.returncode != 0:
             failures.append(f"20: {' '.join(args)} exited {proc.returncode}:\n"
-                            + proc.stdout[-2000:] + proc.stderr[-4000:])
-        return proc.stdout
+                            + out[-2000:] + err[-4000:])
+        return out
 
     try:
         ds, tr, ck = root / "ds", root / "trace", root / "ckpt"
-        sub(["-m", "repro_torch.data", "synthetic", "--out", str(ds), "--tables",
-             ",".join(["200000"] * 8), "--pooling", "20", "--num-dense", "64", "--num-samples",
-             "16384", "--samples-per-shard", "4096", "--alpha", str(ALPHA)])
+        finish(start(["-m", "repro_torch.data", "synthetic", "--out", str(ds), "--tables",
+                      ",".join(["200000"] * 8), "--pooling", "20", "--num-dense", "64",
+                      "--num-samples", "16384", "--samples-per-shard", "4096", "--alpha",
+                      str(ALPHA)]))
         if failures:
             return counts
         argv = [*LAUNCH_ARGV, "--data-dir", str(ds), "--ckpt-dir", str(ck), "--trace-dir",
@@ -4541,16 +4614,21 @@ def launcher_phase(dev, failures) -> dict:
         if CheckpointManager(ck).latest_valid_step() != 40:
             failures.append("20b: no valid checkpoint at step 40")
         json.loads((tr / "trace.json").read_text())
-        summary = sub(["-m", "repro_torch.telemetry", "summarize", str(tr / "trace.json")])
+        summary, smoke, example = map(finish, [start(a) for a in (
+            ["-m", "repro_torch.telemetry", "summarize", str(tr / "trace.json")],
+            ["-m", "repro_torch.launch.train", "--arch", "dlrm-smoke", "--steps", "5"],
+            ["examples/train_dlrm_100m_torch.py"])])
         if "track: pipeline_stages" not in summary or "train/step" not in summary:
             failures.append("20b: the trace summary lacks the stage profile or the steps")
-        smoke = sub(["-m", "repro_torch.launch.train", "--arch", "dlrm-smoke", "--steps", "5"])
         if "[train] done: first loss" not in smoke:
             failures.append("20b: the module entry did not finish its run")
-        example = sub(["examples/train_dlrm_100m_torch.py"])
         if "mean loss first-10" not in example:
             failures.append("20c: the 100M example did not report its losses")
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     return counts
@@ -5354,11 +5432,10 @@ def mesh_serving_phase(dev, failures) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
-    from repro_torch.launch.local import run_ranks
 
     counts: dict = {}
     t0 = time.perf_counter()
-    ranks = run_ranks(mesh_serve_rank, 2, (), backend="gloo", timeout_s=900)
+    ranks = two_ranks(mesh_serve_rank, timeout_s=900)
     log(f"23a: 2 processes on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s")
     for i, mode in enumerate(MESH_SERVE_MODES):
         for r, res in enumerate(rk[i] for rk in ranks):
@@ -5617,7 +5694,7 @@ def lm_train_phase(dev, failures) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         else:  # the last step traced: the card's kernels alone
-            wall, busy, tops = device_busy_ms(run, 1, cpu=False)
+            wall, busy, tops = device_busy_ms(run, 1)
         losses.append(float(out["loss"]))
         walls.append(wall)
         log(f"  step {i}: loss {losses[-1]:.4f}, wall {wall:.1f} ms")
@@ -6037,7 +6114,7 @@ def egnn_run(step, state, batches, steps: int) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         else:
-            wall, busy, tops = device_busy_ms(run, 1, cpu=False)
+            wall, busy, tops = device_busy_ms(run, 1)
         losses.append(float(out["loss"]))
         walls.append(wall)
     p50 = float(np.median(walls[1:] if steps > 1 else walls))
@@ -6437,12 +6514,11 @@ def egnn_mesh_phase(dev, failures) -> tuple[int, dict]:
     import torch
     from repro_torch.configs import egnn_arch
     from repro_torch.data import graph
-    from repro_torch.launch.local import run_ranks
     from repro_torch.models import egnn_steps
 
     t0 = time.perf_counter()
-    ranks = run_ranks(egnn_mesh_rank, 2, (), backend="gloo", timeout_s=600)
-    spawn_s = time.perf_counter() - t0
+    ranks = two_ranks(egnn_mesh_rank, timeout_s=600)
+    ranks_s = time.perf_counter() - t0
     sh = egnn_arch.SHAPES["full_graph_sm"]
     cfg = egnn_arch.config("full_graph_sm")
     N, E = ranks[0]["padded"]
@@ -6473,12 +6549,12 @@ def egnn_mesh_phase(dev, failures) -> tuple[int, dict]:
     st = ranks[0]["stats"]
     nums = {"padded": [N, E], "loss_one_rank": float(loss1),
             "losses": [res["loss"] for res in ranks], "loss_rel_gap": loss_gap,
-            "update_gap_to_2x": gaps, "ranks_bitwise": same, "spawn_s": spawn_s,
+            "update_gap_to_2x": gaps, "ranks_bitwise": same, "ranks_s": ranks_s,
             "step_wall_s": [res["wall_s"] for res in ranks],
             "collectives": {k: [st["calls"][k], st["bytes_out"][k]] for k in st["calls"]
                             if st["calls"][k]},
             "staging_s": st["staging_s"], "wire_s": st["wire_s"]}
-    log(f"33e: 2 ranks on cuda:0 over gloo in {spawn_s:.1f} s: losses "
+    log(f"33e: 2 ranks on cuda:0 over gloo in {ranks_s:.1f} s: losses "
         f"{nums['losses']} against the one-rank {float(loss1):.6f}; each rank's update against 2 "
         f"times the one-rank update: worst gap {max(gaps):.3e} of the leaf's largest (gate "
         f"{EGNN_GATE_TOL['update']}); the ranks' states {'bit for bit one' if same else 'DIFFER'}; "
@@ -6731,6 +6807,634 @@ def dryrun_phase(dev, failures) -> tuple[dict, dict]:
     return launches, {"cells": cells, "held": held}
 
 
+# phase 35: LM training and serving on a mesh, two processes sharing the card over gloo
+# (every payload staged through pinned host memory), one call of the pool's ranks for 35a-35d.
+# 35a: internlm2-1.8b at full size on (1, 2), TP 2 with sequence parallelism, 3 steps on
+# one batch
+LM_MESH_TRAIN = dict(batch=2, seq=2048, steps=3, lr=1e-2, beta=0.9)
+# 35b: one step at full width cut to 2 layers on (1, 2) against the one-rank step on the
+# card from the same state: the loss within 1e-3 relative, each leaf's update within 3e-2
+# of its largest (30a's rule); the mesh's sums (row-parallel partial sums reduced in fp32,
+# each rank's bf16 gradient blocks) round apart from one rank's
+LM_MESH_GATE = dict(layers=2, batch=2, seq=512)
+LM_MESH_GATE_TOL = {"loss": 1e-3, "update": 3e-2}
+# 35c: internlm2-1.8b served on (1, 2) with attn_impl="pallas": the gathered prefill logits
+# held to the one-rank prefill within phase 15's gate, then greedy decode steps
+LM_MESH_SERVE = dict(batch=LM_BATCH, prompt=LM_PROMPT, decode=LM_DECODE)
+LM_MESH_SERVE_TOL = 0.2
+# 35d: qwen3-moe-30b-a3b at full width cut to 2 of 48 layers on (2, 1): experts over data,
+# the all-to-all on the card; its first MoE block held to the one-rank block on the rank's
+# rows with the routing pinned, within MOE_MESH_TOL of the largest output
+MOE_MESH = dict(layers=2, batch=2, seq=2048, steps=3, lr=1e-2)
+MOE_MESH_TOL = 2 ** -6
+# 35e: the launcher at --ranks 2; its uninterrupted run is also held to the same run at
+# --ranks 1 within 35b's loss gate (on the card the two are not bit for bit: the ranks'
+# gradients sum in another order than one rank's)
+LM_MESH_LAUNCH_ARGV = ("--arch", "internlm2-1.8b", "--batch", "8", "--seq", "128", "--steps",
+                       "4")
+
+
+def lm_mesh_cfg(layers: int = 0):
+    """internlm2-1.8b (its published widths) on the (1, 2) mesh: TP 2 over
+    ``model``, sequence parallel, no microbatches; ``layers`` cuts its
+    depth."""
+    from repro_torch.configs import internlm2_1_8b
+    cfg = dataclasses.replace(internlm2_1_8b.config(), dp_axes=("data",), tp_size=2,
+                              seq_shard=True, microbatch=1)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def lm_mesh_rank_train(mesh, dev, failures) -> dict:
+    """35a on this rank: the state drawn from the seed and cut, 3 steps on
+    one batch; per step the loss, the host ms and the collectives' bytes;
+    row 4's launches, the peak memory."""
+    import torch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+    from repro_torch.optim.data_parallel import tree_leaves
+
+    c, cfg = LM_MESH_TRAIN, lm_mesh_cfg()
+    B, L = c["batch"], c["seq"]
+    t0 = time.perf_counter()
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    batch = lm_steps.local_batch(cfg, mesh, {k: torch.as_tensor(v, device=dev) for k, v in
+                                             next(token_stream(SEED, cfg.vocab, B, L)).items()})
+    step, _ = lm_steps.make_lm_train_step(cfg, mesh, B, L, lr=c["lr"], beta=c["beta"])
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.split_sgd.launches
+    losses, walls, stats = [], [], []
+    for _ in range(c["steps"]):
+        mesh.stats.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss = step(state, batch)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t) * 1e3)
+        stats.append(mesh.stats.as_dict())
+    leaves = len(tree_leaves(state["hi"]))
+    launches = ops.split_sgd.launches - before
+    if launches != c["steps"] * leaves:
+        failures.append(f"35a: rank {mesh.rank}: row 4 launched {launches} times in "
+                        f"{c['steps']} steps, not once a leaf-shard ({leaves}) a step")
+    out = {"losses": losses, "step_ms_wall": walls, "launches": launches, "leaves": leaves,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "draw_s": draw_s,
+           "state_gb": sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9,
+           "bytes_out": {k: v for k, v in stats[-1]["bytes_out"].items() if v},
+           "calls": {k: v for k, v in stats[-1]["calls"].items() if v},
+           "staging_s": stats[-1]["staging_s"], "wire_s": stats[-1]["wire_s"]}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+class SkippedReduce:
+    """Inside ``with``, this rank's row-parallel product on ``w`` (a layer's
+    weight, found by its memory) keeps its own partial sums: the reduce
+    still runs, so the ranks stay in step, and its result is dropped (kept
+    in the graph at zero weight, so the backward's collectives run too)."""
+
+    def __init__(self, w, on: bool):
+        self.ptr, self.on = w.data_ptr(), on
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.orig = row = tf.MeshPlan.row
+        ptr, on = self.ptr, self.on
+
+        def skipped(plan, x, w):
+            out = row(plan, x, w)
+            if not on or w.data_ptr() != ptr:
+                return out
+            return plan.own_tokens(x.float() @ w.float()).to(x.dtype) + 0 * out
+        tf.MeshPlan.row = skipped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf.MeshPlan.row = self.orig
+        return False
+
+
+def lm_mesh_block_gaps(start: dict, mesh_after: dict, one_after: dict, mesh) -> list:
+    """Each leaf's largest gap between the mesh's and the one-rank update
+    (fp32 masters less the start's) over the one-rank update's largest:
+    every argument this rank's blocks, the two maxima of each leaf taken
+    over the mesh (an all-gather of two numbers a leaf), so no state is
+    gathered."""
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.optim.data_parallel import tree_leaves
+    from repro_torch.optim.split_sgd import combine_split
+    part = []
+    for h0, l0, h1, l1, h2, l2 in zip(*(tree_leaves(s[k]) for s in (start, mesh_after, one_after)
+                                        for k in ("hi", "lo"))):
+        w0 = combine_split(h0, l0)
+        d_one = combine_split(h2, l2) - w0
+        part.append(torch.stack([(combine_split(h1, l1) - w0 - d_one).abs().max(),
+                                 d_one.abs().max()]))
+    top = comm.all_gather(torch.stack(part)[None], mesh.group(mesh.axis_names)).amax(dim=0)
+    return [float(n) / max(float(d), 1e-30) for n, d in top.tolist()]
+
+
+def lm_mesh_rank_gate(mesh, dev, failures) -> dict:
+    """35b on this rank: one step at full width cut to LM_MESH_GATE["layers"]
+    on (1, 2), row 4 held bit for bit to its plain version on the rank's own
+    gradient blocks; each rank also runs the one-rank step on the card from
+    the same state (drawn whole from the same seed, which must cut to the
+    mesh's start bit for bit) and holds its blocks of the mesh step to its
+    blocks of it (LM_MESH_GATE_TOL; :func:`lm_mesh_block_gaps`), then the
+    two planted faults, which must fail the gate.  ``launches``: row 4's in
+    the mesh step alone (not in the faults' steps or the one-rank step)."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+    from repro_torch.optim.data_parallel import tree_leaves, tree_map
+
+    g, cfg = LM_MESH_GATE, lm_mesh_cfg(LM_MESH_GATE["layers"])
+    B, L = g["batch"], g["seq"]
+    lr, beta = LM_MESH_TRAIN["lr"], LM_MESH_TRAIN["beta"]
+    start = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), mesh)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(token_stream(SEED + 1, cfg.vocab, B, L)).items()}
+    step, _ = lm_steps.make_lm_train_step(cfg, mesh, B, L, lr=lr, beta=beta)
+
+    def mesh_step(b, tap, skip=None):
+        s = tree_map(torch.clone, start)
+        with tap, SkippedReduce(s["hi"]["layers"]["mlp"]["wd"][1], skip == mesh.rank):
+            _, loss = step(s, lm_steps.local_batch(cfg, mesh, b))
+        return s, float(loss)
+
+    tap = UpdateTap(failures, tag="35b")
+    before = ops.split_sgd.launches
+    got, loss = mesh_step(batch, tap)
+    launches = ops.split_sgd.launches - before
+    if launches != len(tree_leaves(start["hi"])):
+        failures.append(f"35b: rank {mesh.rank}: row 4 launched {launches} times in the mesh "
+                        "step, not once a leaf-shard")
+    shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
+    faults = [("labels shifted by one", shifted, None),
+              ("layer 1's mlp row-parallel reduce skipped on rank 1", batch, 1)]
+    faulty = [mesh_step(b, UpdateTap(failures, check=False), skip) for _, b, skip in faults]
+    # the one-rank step from the same state, whole on this rank, then cut to its blocks
+    whole = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    cut = weights.lm_state_from_global(whole, cfg, mesh)
+    if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(tree_leaves(cut), tree_leaves(start))):
+        failures.append(f"35b: rank {mesh.rank}: the mesh's start is not the one-rank draw cut")
+    _, one_loss = lm_steps.make_lm_train_step(cfg, B, L, lr=lr, beta=beta, device=dev)[0](
+        whole, batch)
+    one_loss = float(one_loss)
+    one = weights.lm_state_from_global(whole, cfg, mesh)
+    del whole
+    names = leaf_names(start["hi"])
+
+    def gaps(state, fl):
+        return abs(fl - one_loss) / abs(one_loss), lm_mesh_block_gaps(start, state, one, mesh)
+
+    lg, ug = gaps(got, loss)
+    out = {"row4_leaves_bitwise": tap.leaves, "row4_max_abs_err": tap.err, "launches": launches,
+           "loss_mesh": loss,
+           "loss_one_rank": one_loss, "loss_rel_gap": lg, "update_gaps": dict(zip(names, ug))}
+    lead = mesh.rank == 0
+    if lead:
+        log(f"35b: loss (1, 2) {loss:.6f}, one rank {one_loss:.6f} (relative gap {lg:.2e}, gate "
+            f"{LM_MESH_GATE_TOL['loss']}); worst update gap {max(ug):.3e} of the leaf's largest "
+            f"({names[int(np.argmax(ug))]}; gate {LM_MESH_GATE_TOL['update']}); row 4 bit for "
+            f"bit its plain version on {tap.leaves} leaf-shards of rank 0")
+    if lg > LM_MESH_GATE_TOL["loss"] or max(ug) > LM_MESH_GATE_TOL["update"]:
+        failures.append(f"35b: rank {mesh.rank}: the (1, 2) step is not the one-rank step: "
+                        f"loss gap {lg:.2e}, update gap {max(ug):.3e}")
+    for (fault, _, _), (state, fl) in zip(faults, faulty):
+        flg, fug = gaps(state, fl)
+        caught = flg > LM_MESH_GATE_TOL["loss"] or max(fug) > LM_MESH_GATE_TOL["update"]
+        out[f"fault: {fault}"] = {"loss_rel_gap": flg, "worst_update_gap": max(fug),
+                                  "caught": caught}
+        if lead:
+            log(f"35b: fault '{fault}': loss gap {flg:.2e}, worst update gap {max(fug):.3e} "
+                f"({names[int(np.argmax(fug))]}): {'rejected' if caught else 'PASSED THE GATE'}")
+        if not caught:
+            failures.append(f"35b: rank {mesh.rank}: the fault '{fault}' passed the gate")
+    del got, faulty, one, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_want(path, timeout_s: float = 600.0) -> dict:
+    """35c's one-rank reference, which the parent writes to ``path`` (an
+    ``.npz``, then ``path`` + ``.done``) while the ranks run 35b and 35a."""
+    done = Path(str(path) + ".done")
+    t0 = time.perf_counter()
+    while not done.exists():
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"35c: no one-rank reference at {path} within {timeout_s} s")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def lm_mesh_rank_serve(mesh, dev, failures, want) -> dict:
+    """35c on this rank: internlm2-1.8b's bf16 weights drawn from the seed and
+    cut, ``attn_impl="pallas"``: the prefill of LM_MESH_SERVE's prompts (row
+    13 on the rank's 8 q and 4 KV heads, one launch a layer), its logits
+    gathered; then greedy decode steps on the grown cache, each step's
+    logits gathered and its argmax fed back.  ``want``: where the parent
+    writes the one-rank prefill's prompts, logits and greedy tokens
+    (:func:`lm_mesh_want`)."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+
+    s = LM_MESH_SERVE
+    cfg = dataclasses.replace(lm_mesh_cfg(), attn_impl="pallas")
+    B, L, N = s["batch"], s["prompt"], s["decode"]
+    params = weights.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                    mesh=mesh)
+    want = lm_mesh_want(want)
+    prompts = torch.as_tensor(want["prompts"], device=dev)
+    prefill, _ = lm_steps.make_prefill_step(cfg, mesh, B, L)
+    decode, _ = lm_steps.make_decode_step(cfg, mesh, B, L + N)
+    spec = (("data",), "model")
+    flash0 = ops.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts)
+    full = shd.gather_block(logits, spec, mesh)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    flash = ops.flash_attention.launches - flash0
+    gap = float((full.cpu() - torch.as_tensor(want["logits"])).abs().max())
+    if flash != cfg.n_layers:
+        failures.append(f"35c: rank {mesh.rank}: row 13 launched {flash} times in the prefill, "
+                        f"not once a layer ({cfg.n_layers})")
+    if gap > LM_MESH_SERVE_TOL or not bool(torch.isfinite(full).all()):
+        failures.append(f"35c: the (1, 2) prefill's logits are {gap:.3e} from the one-rank "
+                        f"prefill's (gate {LM_MESH_SERVE_TOL})")
+    big = {}
+    for k, c in cache.items():
+        big[k] = torch.zeros(c.shape[:3] + (L + N,) + c.shape[4:], dtype=c.dtype, device=dev)
+        big[k][:, :, :, :L] = c
+    del cache
+    tok = full.argmax(-1).to(torch.int32)
+    tokens, walls = [tok.cpu().tolist()], []
+    for i in range(N - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, big = decode(params, big, tok, torch.full((B,), L + i, dtype=torch.int32, device=dev))
+        whole = shd.gather_block(lg, spec, mesh)
+        tok = whole.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        if not bool(torch.isfinite(whole).all()):
+            failures.append(f"35c: decode step {i}'s logits are not finite")
+        tokens.append(tok.cpu().tolist())
+    same = sum(a == b for x, y in zip(tokens, want["tokens"].tolist()) for a, b in zip(x, y))
+    out = {"prefill_logit_gap": gap, "ttft_s": ttft, "flash_launches": flash,
+           "decode_ms_wall": walls, "tokens": tokens,
+           "tokens_as_one_rank": same, "tokens_total": B * N}
+    del params, big
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank_moe(mesh, dev, failures) -> dict:
+    """35d on this rank of the (2, 1) mesh: qwen3-moe at full width cut to
+    MOE_MESH["layers"], experts over ``data``: the first MoE block on the
+    rank's row against the one-rank block (:func:`models.transformer.moe_block`,
+    the whole experts gathered) with the routing pinned
+    (:class:`MoeRoutes`), then 3 train steps on one batch; the dropped share
+    of (token, expert) pairs."""
+    import torch
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.data_parallel import tree_leaves
+
+    m = MOE_MESH
+    cfg = dataclasses.replace(qwen3_moe_30b_a3b.config(), n_layers=m["layers"],
+                              dp_axes=("data",), tp_size=1, seq_shard=True, microbatch=1)
+    B, L = m["batch"], m["seq"]
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh)
+    par = tf.mesh_plan(cfg, mesh, ("data",))
+    p = {k: v[0] for k, v in state["hi"]["layers"]["moe"].items()}
+    s = tf._layer_specs(par.specs["layers"])["moe"]
+    x = (torch.randn((B, L, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev) * 0.5).to(torch.bfloat16)
+    rows = x[mesh.rank * (B // 2):(mesh.rank + 1) * (B // 2)]
+    whole = {k: shd.gather_block(v, s[k], mesh) for k, v in p.items()}
+    routes = MoeRoutes(cfg)
+    with torch.no_grad():
+        with routes.record():
+            want = tf.moe_block(rows, whole, cfg)
+        a2a0 = mesh.stats.calls["all-to-all"]
+        with routes.replay("all"):
+            got = tf.mesh_moe_block(par, rows, p, s)
+    keep = routes.calls[0][2]
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    if err > MOE_MESH_TOL or mesh.stats.calls["all-to-all"] - a2a0 != 2:
+        failures.append(f"35d: rank {mesh.rank}: the expert-parallel block is {err:.3e} of its "
+                        f"largest from the one-rank block (gate {MOE_MESH_TOL})")
+    del whole, want, got
+    batch = lm_steps.local_batch(cfg, mesh, {k: torch.as_tensor(v, device=dev) for k, v in
+                                             next(token_stream(SEED, cfg.vocab, B, L)).items()})
+    step, _ = lm_steps.make_lm_train_step(cfg, mesh, B, L, lr=m["lr"])
+    before = ops.split_sgd.launches
+    losses, walls = [], []
+    for _ in range(m["steps"]):
+        mesh.stats.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(state, batch)[1]))
+        walls.append((time.perf_counter() - t) * 1e3)
+    launches = ops.split_sgd.launches - before
+    leaves = len(tree_leaves(state["hi"]))
+    if launches != m["steps"] * leaves:
+        failures.append(f"35d: rank {mesh.rank}: row 4 launched {launches} times, not "
+                        f"{leaves} a step")
+    out = {"block_rel_err": err, "route_flips": routes.flips,
+           "dropped_share": 1 - float(keep.float().mean()), "losses": losses,
+           "step_ms_wall": walls, "launches": launches,
+           "a2a_bytes_a_step": mesh.stats.bytes_out["all-to-all"],
+           "bytes_out": {k: v for k, v in mesh.stats.bytes_out.items() if v}}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, want: str, device: str = "cuda:0") -> dict:
+    """Phases 35a-35d in one of two processes sharing the card: the (1, 2)
+    and (2, 1) meshes made, then each part in turn, 35b's small gate first
+    (every part runs on both ranks: their collectives pair).  Returns each part's numbers, the
+    failures, and row 4's and row 13's launches on the mesh paths alone, by part: 35a's and
+    35d's train steps, 35b's mesh step (not its faults' or its one-rank step), 35c's
+    prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = mesh_rank_setup(device)
+    tp = make_mesh((1, 2), ("data", "model"), dev)
+    ep = make_mesh((2, 1), ("data", "model"), dev)
+    failures, out = [], {}
+    ops.reset_launches()
+    for tag, fn in (("35b", lambda: lm_mesh_rank_gate(tp, dev, failures)),
+                    ("35a", lambda: lm_mesh_rank_train(tp, dev, failures)),
+                    ("35c", lambda: lm_mesh_rank_serve(tp, dev, failures, want)),
+                    ("35d", lambda: lm_mesh_rank_moe(ep, dev, failures))):
+        t0 = time.perf_counter()
+        out[tag] = fn()
+        out[tag]["seconds"] = time.perf_counter() - t0
+    out["failures"] = failures
+    out["launches"] = {"split_sgd": {t: out[t]["launches"] for t in ("35a", "35b", "35d")},
+                       "flash_attention": {"35c": out["35c"]["flash_launches"]}}
+    return out
+
+
+def lm_mesh_reference(dev, path) -> None:
+    """35c's one-rank reference on the card: internlm2-1.8b's weights from
+    the seed (the draw the ranks cut), its prefill of seeded prompts with
+    ``attn_impl="pallas"`` and the greedy tokens of LM_MESH_SERVE's decode
+    steps; written to ``path`` for :func:`lm_mesh_want`."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.models import lm_steps
+
+    s = LM_MESH_SERVE
+    cfg = dataclasses.replace(lm_mesh_cfg(), attn_impl="pallas")
+    B, L, N = s["batch"], s["prompt"], s["decode"]
+    params = weights.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab, (B, L), dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+    logits, cache = lm_steps.make_prefill_step(cfg, B, L, device=dev)[0](params, prompts)
+    decode, _ = lm_steps.make_decode_step(cfg, B, L + N, device=dev)
+    big = {k: torch.zeros(c.shape[:3] + (L + N,) + c.shape[4:], dtype=c.dtype, device=dev)
+           for k, c in cache.items()}
+    for k, c in cache.items():
+        big[k][:, :, :, :L] = c
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+    tokens = [tok.cpu().tolist()]
+    for i in range(N - 1):
+        lg, big = decode(params, big, tok, torch.full((B,), L + i, dtype=torch.int32, device=dev))
+        tok = lg.argmax(-1).to(torch.int32)
+        tokens.append(tok.cpu().tolist())
+    np.savez(path, prompts=prompts.cpu().numpy(), logits=logits.cpu().numpy(),
+             tokens=np.array(tokens))
+    Path(str(path) + ".done").touch()
+    del params, big, logits
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_phase(dev, failures, meanwhile=None) -> tuple[dict, dict]:
+    """Phase 35: the LM steps on meshes of two processes sharing the card
+    (gloo, payloads staged through host memory).  35e's launcher runs start
+    first, as subprocesses (:class:`LauncherRuns`); then 35a-35d on the
+    pool's two ranks (:func:`lm_mesh_rank`); while they run (their time goes to
+    gloo's host copies) this process computes 35c's one-rank reference
+    (:func:`lm_mesh_reference`), runs ``meanwhile()`` (phase 34d's rank-0
+    steps) and ends 35e.  Returns rows 4 and 13's launches and the phase's
+    numbers."""
+    import threading
+    import torch
+
+    want = ROOT / "build" / "lm_mesh_want.npz"
+    for f in (want, Path(str(want) + ".done")):
+        f.unlink(missing_ok=True)
+    launcher = LauncherRuns(failures)
+    t0 = time.perf_counter()
+    box = {}
+
+    def ranks_run():
+        try:
+            box["ranks"] = two_ranks(lm_mesh_rank, (str(want),), timeout_s=900)
+        except BaseException as e:  # noqa: BLE001  (raised below, in this thread)
+            box["error"] = e
+    runner = threading.Thread(target=ranks_run)
+    runner.start()
+    try:
+        lm_mesh_reference(dev, want)
+        if meanwhile is not None:
+            meanwhile()
+        box["35e"] = launcher.finish()
+    finally:
+        runner.join()
+        launcher.stop()
+        for f in (want, Path(str(want) + ".done")):
+            f.unlink(missing_ok=True)
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        failures += r["failures"]
+    nums = {"ranks_s": ranks_s, **{tag: [r[tag] for r in ranks] for tag in
+                                   ("35a", "35b", "35c", "35d")}}
+    a = [r["35a"] for r in ranks]
+    if not all(np.isfinite(x["losses"]).all() for x in a):
+        failures.append(f"35a: a loss is not finite: {[x['losses'] for x in a]}")
+    if abs(a[0]["losses"][0] - np.log(lm_mesh_cfg().vocab)) > 0.5 or \
+            not a[0]["losses"][-1] < a[0]["losses"][0]:
+        failures.append(f"35a: losses {a[0]['losses']}: not near ln V, then falling")
+    log(f"35a: internlm2-1.8b on (1, 2): losses {a[0]['losses']}; step ms (host clock, both "
+        f"ranks on one card, gloo through host memory) {[x['step_ms_wall'] for x in a]}; "
+        f"collective bytes out a step {a[0]['bytes_out']} (calls {a[0]['calls']}), staging "
+        f"{a[0]['staging_s']:.2f} s, wire {a[0]['wire_s']:.2f} s; state "
+        f"{[round(x['state_gb'], 2) for x in a]} GB a rank, peak "
+        f"{[round(x['peak_gb'], 2) for x in a]} GB a rank")
+    c = ranks[0]["35c"]
+    log(f"35c: prefill logits {c['prefill_logit_gap']:.3e} from the one-rank prefill's (gate "
+        f"{LM_MESH_SERVE_TOL}); row 13 {c['flash_launches']} launches a rank; TTFT "
+        f"{c['ttft_s']:.2f} s; decode ms (host clock) p50 {np.median(c['decode_ms_wall']):.1f}; "
+        f"greedy tokens as the one rank's: {c['tokens_as_one_rank']} of {c['tokens_total']}")
+    for r, d in enumerate(x["35d"] for x in ranks):
+        log(f"35d rank {r}: the expert-parallel block {d['block_rel_err']:.3e} of its largest "
+            f"from the one-rank block ({d['route_flips']} routes pinned that flipped); dropped "
+            f"share {d['dropped_share']:.4f}; losses {d['losses']}; all-to-all bytes a step "
+            f"{d['a2a_bytes_a_step']}")
+    if not ranks[0]["35d"]["losses"][-1] < ranks[0]["35d"]["losses"][0]:
+        failures.append(f"35d: the loss did not fall: {ranks[0]['35d']['losses']}")
+    # each kernel's launches on the mesh paths, summed over the ranks, by part and in all
+    launches = {k: {t: sum(r["launches"][k][t] for r in ranks) for t in ranks[0]["launches"][k]}
+                for k in ("split_sgd", "flash_attention")}
+    launches = {k: {**v, "all": sum(v.values())} for k, v in launches.items()}
+
+    nums["35e"] = box["35e"]
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+class LauncherRuns:
+    """Phase 35e: ``python -m repro_torch.launch.train`` at ``--ranks 2``
+    (two processes on the card over gloo) as subprocesses: the
+    uninterrupted run, a ``--ckpt-dir`` run stopped by ``--preempt-at 1``
+    after its checkpoint at step 2, and the uninterrupted run at ``--ranks
+    1`` start at once; :meth:`finish` starts the second's restart when it
+    ends, holds the restart's losses to the uninterrupted run's bit for bit
+    and the uninterrupted run's to the one-rank run's within
+    LM_MESH_GATE_TOL["loss"] relative (each run writes them with
+    ``--losses-json``)."""
+
+    def __init__(self, failures):
+        import os
+        import shutil
+        self.failures, self.runs, self.procs = failures, {}, {}
+        self.dir = ROOT / "build" / "lm_mesh_launch"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        self.env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        self.ck = ["--ckpt-dir", str(self.dir / "ckpt"), "--ckpt-every", "2"]
+        self.start("uninterrupted", [])
+        self.start("first", self.ck + ["--preempt-at", "1"])
+        self.start("one_rank", [], ranks=1)
+
+    def start(self, name: str, extra: list, ranks: int = 2) -> None:
+        import subprocess
+        self.procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *LM_MESH_LAUNCH_ARGV, "--ranks",
+             str(ranks), *extra,
+             "--losses-json", str(self.dir / f"{name}.json")], cwd=ROOT, env=self.env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def wait(self, name: str) -> bool:
+        t0, proc = self.procs[name]
+        _, err = proc.communicate(timeout=600)
+        path = self.dir / f"{name}.json"
+        if proc.returncode != 0 or not path.exists():
+            self.failures.append(f"35e: the launcher's {name} run exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+            return False
+        self.runs[name] = {**json.loads(path.read_text()), "seconds": time.perf_counter() - t0}
+        return True
+
+    def finish(self) -> dict:
+        if not self.wait("first"):
+            return {}
+        self.start("restart", self.ck)
+        if not all([self.wait("restart"), self.wait("uninterrupted"), self.wait("one_rank")]):
+            return {}
+        whole, first, again, one = (self.runs[k]["losses"] for k in
+                                    ("uninterrupted", "first", "restart", "one_rank"))
+        bitwise = (self.runs["restart"]["start_step"] == len(first) == 2
+                   and first + again == whole)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(whole, one))
+        log(f"35e: the launcher at --ranks 2 "
+            f"({ {k: round(r['seconds'], 1) for k, r in self.runs.items()} } s): uninterrupted "
+            f"{whole}; stopped after {len(first)} steps, restored at "
+            f"{self.runs['restart']['start_step']}, its losses bit for bit the uninterrupted "
+            f"run's: {bitwise}; at --ranks 1 {one}, {gap:.3e} relative from --ranks 2 (gate "
+            f"{LM_MESH_GATE_TOL['loss']}), bit for bit: {whole == one}")
+        if not bitwise:
+            self.failures.append(f"35e: the restart's losses {first} + {again} are not the "
+                                 f"uninterrupted {whole}")
+        if len(one) != len(whole) or gap > LM_MESH_GATE_TOL["loss"]:
+            self.failures.append(f"35e: the losses at --ranks 2 {whole} are {gap:.3e} relative "
+                                 f"from those at --ranks 1 {one}")
+        return {**self.runs, "bitwise": bitwise, "ranks_1_vs_2_rel_gap": gap,
+                "ranks_1_vs_2_bitwise": whole == one}
+
+    def stop(self) -> None:
+        import shutil
+        for _, proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_lm_phase(dev, failures) -> tuple[dict, dict]:
+    """Phase 34d: every single-pod LM cell the reference does not skip at
+    rank 0 of the 16 x 16 mesh (the module docstring).  Returns row 4's
+    launches and each cell's record."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cells = []
+    # 34d: every single-pod LM cell, rank 0's step cut to its dense layers and one scan unit
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for arch in base.list_archs():
+        ad = base.get(arch)
+        if ad.family != "lm":
+            continue
+        for cell in ad.cells:
+            if cell.skip:
+                continue
+            try:
+                rec = dryrun.run_cell(arch, cell.shape, make_production_mesh(device="cpu"),
+                                      "pod1x16x16", device=dev, timed=0)
+            except Exception as e:  # noqa: BLE001  (each failed cell fails the run)
+                failures.append(f"34d {arch} {cell.shape}: {type(e).__name__}: {e}")
+                continue
+            m, c = rec["memory"], rec.get("collectives", {})
+            log(f"  34d {arch} {cell.shape}: {rec['status']}; {rec['meta'].get('stepped_layers')} "
+                f"of {rec['meta']['n_layers']} layers stepped; arguments {m['argument_bytes']} B "
+                f"(full depth), {m.get('stepped_argument_bytes')} B stepped (built "
+                f"{m.get('built_bytes')}), peak {m.get('peak_bytes')} B; collectives "
+                f"{c.get('bytes_out')} ({c.get('total_bytes')} B)")
+            if rec["status"] != "ok" or m["built_bytes"] != m["stepped_argument_bytes"]:
+                failures.append(f"34d {arch} {cell.shape}: status {rec['status']} "
+                                f"{rec.get('error', '')}")
+            cells.append(rec)
+            torch.cuda.empty_cache()
+    got = ops.launches()
+    lm_s = time.perf_counter() - t0
+    log(f"  34d: the LM cells in {lm_s:.1f} s; row 4 launches {got['split_sgd']}")
+    if not got["split_sgd"]:
+        failures.append("34d: the LM train cells launched no split_sgd")
+    return {"split_sgd": got["split_sgd"]}, {"cells": cells, "seconds": lm_s}
+
+
 def shutil_rmtree(path) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -6909,7 +7613,9 @@ def main() -> int:
     lm_runs = [lm]
     clock.mark("14, 15, attention and LM serving")
 
-    # the hybrid step: table mode on one rank over NCCL, then two ranks on the one card
+    # the hybrid step: table mode on one rank over NCCL, then two ranks on the one card (the
+    # pool of phases 16b-23a starts meanwhile)
+    open_pool()
     h_batches = stage_batches(t_cfg, N_TRAIN, dev)
     h_one, fp32_wire = hybrid_one_rank_phase(dev, h_batches, failures)
     if failures:
@@ -7003,6 +7709,7 @@ def main() -> int:
     # serving on a mesh (two ranks on the card), the serve_recsys twin, the launcher's
     # smoke at two ranks
     got = mesh_serving_phase(dev, failures)
+    close_pool()
     if failures:
         raise SystemExit("phase 23, serving on a mesh failed:\n" + "\n".join(failures))
     for name, v in got.items():
@@ -7072,6 +7779,8 @@ def main() -> int:
                              ("33c", "minibatch_lg", egnn_minibatch_phase),
                              ("33d", "molecule", egnn_molecule_phase),
                              ("33e", "cora on (1, 2)", egnn_mesh_phase)):
+        if tag == "33c":  # the pool of 33e and 35 starts once 33b has sized its edges
+            open_pool()
         got, nums = phase(dev, failures)
         if failures:
             raise SystemExit(f"phase {tag}, EGNN {name} failed:\n" + "\n".join(failures))
@@ -7091,6 +7800,25 @@ def main() -> int:
     log("phase 34 numbers: " + json.dumps(dry))
     torch.cuda.empty_cache()
     clock.mark("34, the dry run")
+
+    # the LM steps on meshes of two processes on the card, and the launcher at --ranks 2;
+    # the dry run's LM cells (34d) step at rank 0 in this process while the ranks run
+    dry_lm = {}
+
+    def dry_lm_cells():
+        dry_lm["launches"], dry_lm["nums"] = dryrun_lm_phase(dev, failures)
+        log("phase 34d numbers: " + json.dumps(dry_lm["nums"]))
+    mesh_launches, lm_mesh = lm_mesh_phase(dev, failures, dry_lm_cells)
+    close_pool()
+    if failures:
+        raise SystemExit("phases 34d and 35, the LM steps on a mesh failed:\n"
+                         + "\n".join(failures))
+    counts["split_sgd"] += dry_lm["launches"]["split_sgd"]
+    counts["split_sgd"] += mesh_launches["split_sgd"]["all"]
+    counts["flash_attention"] += mesh_launches["flash_attention"]["all"]
+    log("phase 35 numbers: " + json.dumps(lm_mesh))
+    torch.cuda.empty_cache()
+    clock.mark("34d and 35, the LM steps on a mesh")
     log("phase seconds: " + json.dumps(clock.seconds))
 
     routes = {"embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -7158,6 +7886,9 @@ def main() -> int:
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"], lm_train["row4"]["max_abs_err"])
             # and on the EGNN steps: their launches, one cora step's 18 updates as a graph
             line[-1]["egnn"] = {**egnn["33a"]["row4"], "launches": egnn["launches"]}
+            # and on the mesh LM steps: the dry run's LM cells, phase 35's ranks by part
+            line[-1]["lm_mesh"] = {"34d": dry_lm["launches"]["split_sgd"],
+                                   "35": mesh_launches["split_sgd"]}
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"],
                                           egnn["33a"]["row4"]["max_abs_err"])
         if k["name"] in fig16:  # rows 1 and 4 at the Fig. 16 example's shapes
@@ -7177,6 +7908,7 @@ def main() -> int:
         if k["name"] == "flash_attention":  # the LM phases: launches and shapes by model
             line[-1]["models"] = [{f: r[f] for f in ("model", "flash_launches", "flash")
                                    if f in r} for r in lm_runs]
+            line[-1]["lm_mesh"] = {"35c": mesh_launches["flash_attention"]["35c"]}
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

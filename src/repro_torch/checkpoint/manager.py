@@ -6,8 +6,8 @@ either package restores the other's checkpoints.
   into place only when complete;
 * verified restore: ``meta.json`` carries the format version and a CRC32 an
   array; restore checks the structure (the treedef string, the key set) and
-  the content, and ``latest_valid_step`` falls back to the newest
-  checkpoint that verifies;
+  the content, on the arrays it restores (read once), and
+  ``latest_valid_step`` falls back to the newest checkpoint that verifies;
 * bounded retry of ``OSError`` with exponential backoff; an
   :class:`repro_torch.faults.InjectedCrash` is never retried;
 * async save: the host copy of the state is taken before any later kernel
@@ -41,6 +41,7 @@ rank count.  Both move values and change no bit.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -347,6 +348,12 @@ class CheckpointManager:
         """Raise :class:`CheckpointCorruptError` unless checkpoint ``step``
         is structurally complete and (format >= 2) every array's CRC32
         matches ``meta.json``."""
+        self._checked(step, keep=False)
+
+    def _checked(self, step: int, keep: bool) -> tuple[dict, Optional[dict]]:
+        """:meth:`verify` of ``step``: its ``meta.json``, and with ``keep``
+        its arrays as read for their checksums (so a verified restore reads
+        them once), else None."""
         cdir = self.dir / f"step_{step}"
         meta_p = cdir / "meta.json"
         arrays_p = cdir / "arrays.npz"
@@ -366,23 +373,29 @@ class CheckpointManager:
                 f"step {step}: meta.json records step {meta.get('step')!r}"
             )
         sums = meta.get("checksums")
+        arrays = {} if keep else None
         try:
             with np.load(arrays_p) as data:
                 keys = sorted(data.files)
                 if keys != sorted(meta.get("keys", keys)):
                     raise CheckpointCorruptError(f"step {step}: array keys do not match meta.json")
-                if sums is not None:
+                if sums is not None or keep:
                     for k in keys:
-                        crc = _crc(data[k])
-                        if crc != sums.get(k):
-                            raise CheckpointCorruptError(
-                                f"step {step}: checksum mismatch on {k!r} "
-                                f"(stored {sums.get(k)}, computed {crc})"
-                            )
+                        arr = data[k]
+                        if sums is not None:
+                            crc = _crc(arr)
+                            if crc != sums.get(k):
+                                raise CheckpointCorruptError(
+                                    f"step {step}: checksum mismatch on {k!r} "
+                                    f"(stored {sums.get(k)}, computed {crc})"
+                                )
+                        if keep:
+                            arrays[k] = arr
         except CheckpointCorruptError:
             raise
         except Exception as e:  # noqa: BLE001 — any load failure IS corruption
             raise CheckpointCorruptError(f"step {step}: unreadable arrays.npz: {e!r}") from e
+        return meta, arrays
 
     def is_valid(self, step: int) -> bool:
         try:
@@ -407,14 +420,18 @@ class CheckpointManager:
         """Newest step that passes :meth:`verify`.  Corrupt or incomplete
         checkpoints are skipped (and logged): the fallback scan that keeps a
         torn latest checkpoint from wedging a restart."""
+        return self._latest_valid(keep=False)[0]
+
+    def _latest_valid(self, keep: bool) -> tuple[Optional[int], Optional[dict], Optional[dict]]:
+        """``(step, meta, arrays)`` of :meth:`latest_valid_step` (its
+        :meth:`_checked`), or Nones."""
         for step in sorted(self.steps(), reverse=True):
             try:
-                self.verify(step)
-                return step
+                return (step, *self._checked(step, keep))
             except CheckpointCorruptError as e:
                 self._record("ckpt_corrupt_skipped", step=step, error=str(e))
                 print(f"[ckpt] skipping corrupt checkpoint step {step}: {e}")
-        return None
+        return None, None, None
 
     def restore(
         self,
@@ -438,14 +455,17 @@ class CheckpointManager:
         """
         dev = resolve_device(device)
         verify = self.verify_on_restore if verify is None else verify
+        arrays = None   # with verification, the arrays as its checksums read them
         if step is None:
-            step = self.latest_valid_step() if verify else self.latest_step()
+            step, meta, arrays = (self._latest_valid(keep=True) if verify
+                                  else (self.latest_step(), None, None))
             if step is None:
                 raise FileNotFoundError(f"no {'valid ' if verify else ''}checkpoints in {self.dir}")
         elif verify:
-            self.verify(step)
+            meta, arrays = self._checked(step, keep=True)
         cdir = self.dir / f"step_{step}"
-        meta = json.loads((cdir / "meta.json").read_text())
+        if arrays is None:
+            meta = json.loads((cdir / "meta.json").read_text())
         # dtype tags: older checkpoints lack them and trust the target alone
         tags = meta.get("dtypes", {})
         if verify and meta.get("treedef") is not None:
@@ -457,7 +477,8 @@ class CheckpointManager:
                 )
         paths = tree_paths(like)
         values = []
-        with np.load(cdir / "arrays.npz") as data:
+        with (np.load(cdir / "arrays.npz") if arrays is None
+              else contextlib.nullcontext(arrays)) as data:
             for key, leaf in paths:
                 arr = data[key]
                 tag = tags.get(key)

@@ -6,10 +6,10 @@ module registers an :class:`ArchDef` whose (arch x shape) cells the dry run
 rank's step of the cell on ``mesh`` (a ``launch.mesh.Mesh``; on a
 shape-only mesh inside ``launch.mesh.shape_only_meshes``), the structs of
 its arguments with their specs (``dist.sharding``'s tuples), and the
-reference's metadata of the cell.  The LM archs' steps take no mesh yet
-(ROADMAP queue 1 item 8): on a mesh of more than one rank their ``build``
-raises, and their ``plan`` gives the cell's config and metadata, from which
-the dry run counts the per-rank bytes.
+reference's metadata of the cell.  The LM archs' ``build`` gives the
+``models.lm_steps`` step of the cell on the mesh (one card's on a one-rank
+mesh), and their ``plan`` the cell's config and metadata, from which the
+dry run also counts the per-rank bytes at full depth.
 """
 
 from __future__ import annotations
@@ -164,22 +164,35 @@ def lm_archdef(name: str, cfg_fn: Callable, sub_quadratic: bool,
 
     def build(shape: str, mesh, n_layers: int | None = None,
               batch: int | None = None, cost_mode: bool = False) -> CellBuild:
-        """The cell's one-card step on a one-rank ``mesh`` (the mesh's
-        device); on a larger mesh the LM steps are ROADMAP queue 1 item 8."""
-        from repro_torch.models import lm_steps
-
+        """The cell's step on ``mesh``: the one-card step on a one-rank mesh
+        (the mesh's device), else this rank's (``models.lm_steps``), with
+        the specs of its arguments."""
         p = plan(shape, mesh, n_layers=n_layers, batch=batch, cost_mode=cost_mode)
-        if mesh.size > 1:
-            raise NotImplementedError(
-                f"{name} {shape} on a mesh of {mesh.size} ranks: the port runs the LM steps on "
-                "one rank; LM training and serving on a mesh is ROADMAP queue 1 item 8")
-        if p.kind == "train":
-            fn, structs = lm_steps.make_lm_train_step(p.cfg, p.B, p.L, momentum=momentum,
-                                                      device=mesh.device)
-        elif p.kind == "prefill":
-            fn, structs = lm_steps.make_prefill_step(p.cfg, p.B, p.L, device=mesh.device)
-        else:
-            fn, structs = lm_steps.make_decode_step(p.cfg, p.B, p.L, device=mesh.device)
-        return CellBuild(fn, structs, p.meta, model=p.cfg)
+        return lm_cell_build(p.cfg, mesh, p.kind, p.B, p.L, p.meta, momentum)
 
     return register(ArchDef(name, "lm", cells, build, notes=notes, plan=plan))
+
+
+def lm_cell_build(cfg, mesh, kind: str, B: int, L: int, meta: dict,
+                  momentum: bool = True) -> CellBuild:
+    """An LM cell's ``kind`` step (train, prefill or decode) of ``cfg`` on
+    ``mesh`` (``models.lm_steps``): the one-card step on a one-rank mesh
+    (the mesh's device), else this rank's, with the specs of its arguments
+    (the train batch over the config's data axes; the tokens, and the
+    decode rows where B divides them, over the mesh's)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm_steps
+
+    bdp = shd.batch_axes(mesh)
+    if kind == "train":
+        fn, structs = lm_steps.make_lm_train_step(cfg, mesh, B, L, momentum=momentum)
+        specs = (shd.lm_state_specs(cfg, momentum),
+                 dict.fromkeys(("tokens", "labels"), (cfg.dp_axes, None)))
+    elif kind == "prefill":
+        fn, structs = lm_steps.make_prefill_step(cfg, mesh, B, L)
+        specs = (shd.lm_config_specs(cfg), (bdp, None))
+    else:
+        fn, structs = lm_steps.make_decode_step(cfg, mesh, B, L)
+        rows = (bdp,) if lm_steps.decode_rows(B, mesh) else ()
+        specs = (shd.lm_config_specs(cfg), lm_steps.cache_specs(cfg, mesh, B), rows, rows)
+    return CellBuild(fn, structs, meta, specs=specs if mesh.size > 1 else None, model=cfg)

@@ -48,8 +48,9 @@ lookups), a sum is this rank's own term, and a ring shift receives zeros.
 Under autograd (the EGNN steps, ``models/egnn_steps.py``), the ``_ad``
 forms carry the transposes JAX takes inside the reference's
 ``shard_map(check_vma=False)``: :func:`all_gather_ad`'s backward is
-``psum_scatter``, :func:`psum_scatter_ad`'s is ``all_gather``, and
-:func:`psum_ad`'s is ``psum`` (each summing as above, in XLA's order).
+``psum_scatter``, :func:`psum_scatter_ad`'s is ``all_gather``,
+:func:`psum_ad`'s is ``psum`` (each summing as above, in XLA's order) and
+:func:`all_to_all_ad`'s the inverse ``all_to_all``.
 Every rank must run the backward's collectives in one order: the ranks
 build the same graph, which the autograd engine walks alike.
 """
@@ -349,6 +350,18 @@ class _PsumScatter(torch.autograd.Function):
         return all_gather(gy.contiguous(), ctx.g), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, split_axis, concat_axis):
+        ctx.g, ctx.axes = g, (split_axis, concat_axis)
+        return all_to_all(x, g, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, gy):
+        split_axis, concat_axis = ctx.axes
+        return all_to_all(gy.contiguous(), ctx.g, concat_axis, split_axis), None, None, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
@@ -368,6 +381,14 @@ def all_gather_ad(x: torch.Tensor, g: Group) -> torch.Tensor:
 def psum_scatter_ad(x: torch.Tensor, g: Group) -> torch.Tensor:
     """:func:`psum_scatter` under autograd, its backward :func:`all_gather`."""
     return _PsumScatter.apply(x, g)
+
+
+def all_to_all_ad(x: torch.Tensor, g: Group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """:func:`all_to_all` under autograd, its backward the inverse
+    ``all_to_all`` (``concat_axis`` split, ``split_axis`` concatenated): the
+    transpose of ``jax.lax.all_to_all`` in the reference's MoE
+    ``shard_map``."""
+    return _AllToAll.apply(x, g, split_axis, concat_axis)
 
 
 def psum_ad(x: torch.Tensor, g: Group) -> torch.Tensor:

@@ -18,10 +18,13 @@ A spec is a plain tuple, one entry a dim: an axis name, a tuple of axis
 names (their product shards the dim, first axis major), or None
 (replicated); a spec shorter than its leaf leaves the remaining dims
 replicated.  The reference's ``PartitionSpec`` trees become these tuples;
-there is no ``NamedSharding``: the collectives that apply the specs are
-``dist.comm``'s (ROADMAP queue 1 item 8).  :func:`shard_shape` gives a
+there is no ``NamedSharding``: a rank holds its block of each leaf
+(:func:`local_block`), and the collectives that compute with the blocks
+are ``dist.comm``'s (``models/transformer.py``'s mesh path);
+:func:`gather_block` puts a leaf back together.  :func:`shard_shape` gives a
 leaf's per-rank shape under a spec, each sharded dim rounded up as XLA pads
-a dim that does not divide.
+a dim that does not divide (the dry run's byte counts); a block that is cut
+or gathered must divide.
 
 Leaves are classified by their dict key (``wq``/``wo``/``embed``/...);
 leading stack dims (layers, experts) stay unsharded.
@@ -87,6 +90,82 @@ def lm_param_specs(params, fsdp: bool = True, tp: bool = True):
         return spec(keys, tree)
 
     return walk(params, [])
+
+
+def lm_config_specs(cfg) -> dict:
+    """:func:`lm_param_specs` of an LM config's parameters under its own
+    policy (``fsdp``, TP where ``tp_size`` > 1), as the reference's steps
+    take them."""
+    from repro_torch.models import transformer as tf
+    return lm_param_specs(tf.param_shapes(cfg), fsdp=cfg.fsdp, tp=cfg.tp_size > 1)
+
+
+def lm_state_specs(cfg, momentum: bool = True) -> dict:
+    """The spec trees of an LM training state ``{"hi", "lo"[, "mom"]}``, each
+    :func:`lm_config_specs` (the reference's ``lm_state_structs``)."""
+    specs = lm_config_specs(cfg)
+    return {k: specs for k in (("hi", "lo", "mom") if momentum else ("hi", "lo"))}
+
+
+def lm_leaf_cut(cfg, mesh):
+    """``cut(t, keys)``: the rank's block of the LM parameter leaf at path
+    ``keys`` (a contiguous copy), for ``models.transformer.init_params``."""
+    specs = lm_config_specs(cfg)
+
+    def cut(t, keys):
+        spec = specs
+        for k in keys:
+            spec = spec[k]
+        return local_block(t, spec, mesh, "/".join(keys)).clone(
+            memory_format=torch.contiguous_format)
+    return cut
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, as a tuple (empty for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _padded(spec, n: int) -> tuple:
+    spec = tuple(spec)
+    if len(spec) > n:
+        raise ValueError(f"spec {spec} has more entries than the leaf has dims ({n})")
+    return spec + (None,) * (n - len(spec))
+
+
+def local_block(t: torch.Tensor, spec, mesh, name: str = "leaf") -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec`` on
+    ``mesh`` (a ``launch.mesh.Mesh``): each sharded dim cut into as many
+    blocks as its axes hold ranks, the block at the rank's combined index
+    over them (first axis major).  A view where the cut allows; raises
+    naming ``name`` where a dim does not divide."""
+    from repro_torch.dist.comm import combined_axis_index
+    coords = mesh.coords
+    for dim, entry in enumerate(_padded(spec, t.dim())):
+        n = axis_size(entry, mesh.shape)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does not divide over "
+                             f"{spec_axes(entry)} ({n} ranks)")
+        c = t.shape[dim] // n
+        t = t.narrow(dim, combined_axis_index(coords, spec_axes(entry), mesh.shape) * c, c)
+    return t
+
+
+def gather_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor of which ``t`` is this rank's block under ``spec``
+    (the inverse of :func:`local_block`): one ``dist.comm.all_gather`` over
+    each sharded dim's axes.  Every rank of the mesh must call it."""
+    from repro_torch.dist import comm
+    for dim, entry in enumerate(_padded(spec, t.dim())):
+        if axis_size(entry, mesh.shape) == 1:
+            continue
+        g = mesh.group(spec_axes(entry))
+        t = comm.all_gather(t.movedim(dim, 0).contiguous(), g).movedim(0, dim)
+    return t.contiguous()
 
 
 def _fsdp_axis(fsdp: bool, tp: bool):

@@ -37,10 +37,17 @@ a cell's record holds what the port can count:
   comparable with XLA's flops) and the step's wall ``step_ms``.  The step
   runs the port's kernels on the card as the main path does, their plain
   versions on the CPU;
+* for every single-pod LM cell, the same numbers from one step of rank 0
+  cut to the config's first dense layers plus one scan unit (gemma2's
+  local/global pair; ``meta.stepped_layers``), at full width and with the
+  cell's own B and L: the rank's blocks of the state (or parameters and
+  cache) drawn from a seed at their per-rank shapes; ``argument_bytes``
+  stays the full depth's, and ``memory.stepped_argument_bytes`` (the cut
+  depth's, from the structs) must equal the built bytes;
 * ``status``: ``ok``; ``skipped`` (the reference's reasons, word for word);
-  ``structs_only`` (the LM cells: their steps on a mesh are ROADMAP queue 1
-  item 8, so only their argument bytes are counted; or a cell whose step
-  the caller did not ask for); or ``error``.
+  ``structs_only`` (the two-pod LM cells, as the reference's two-pod LM
+  cells are argument bytes alone, or a cell whose step the caller did not
+  ask for); or ``error``.
 
 Over a shape-only group a collective returns what it would if every other
 rank held zeros (``dist.comm``): other shards' index exchanges come back as
@@ -67,8 +74,8 @@ RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 MESHES = {"pod1x16x16": dict(multi_pod=False), "pod2x16x16": dict(multi_pod=True)}
 
-LM_REASON = ("structs only: the LM steps take no mesh yet (ROADMAP queue 1 item 8), so the "
-             "per-rank argument bytes are counted from the structs and specs")
+LM_REASON = ("structs only: a two-pod LM cell's per-rank argument bytes are counted from the "
+             "structs and specs; its step is not run")
 
 SEED = 0
 
@@ -119,10 +126,9 @@ def lm_argument_bytes(plan, mesh) -> int:
     ``lm_steps.cache_specs``, its tokens and positions over the data axes
     where the batch covers them."""
     from repro_torch.models import lm_steps
-    from repro_torch.models import transformer as tf
 
     cfg, B, L = plan.cfg, plan.B, plan.L
-    ps = shd.lm_param_specs(tf.param_shapes(cfg), fsdp=cfg.fsdp, tp=cfg.tp_size > 1)
+    ps = shd.lm_config_specs(cfg)
     if plan.kind == "train":
         structs = lm_steps.lm_state_structs(cfg, plan.momentum)
         tokens = {"tokens": ((B, L), torch.int32), "labels": ((B, L), torch.int32)}
@@ -236,6 +242,37 @@ def cell_inputs(build, mesh, gen: torch.Generator) -> tuple[tuple, int]:
     return args, tensor_bytes(args)
 
 
+def lm_inputs(build, mesh, gen: torch.Generator) -> tuple:
+    """Rank 0's arguments of a built LM cell on the mesh's device, each
+    leaf at its per-rank shape under its spec: bf16 values (weights, the
+    cache) N(0, 0.02²), ``lo`` random bits, ``mom`` zeros, tokens uniform
+    over the vocabulary, the decode positions the cache's last slot."""
+    cfg, dev = build.model, mesh.device
+
+    def draw(struct, spec, name):
+        shape, dtype = struct
+        shape = shd.shard_shape(shape, spec or (), mesh.shape)
+        if dtype == torch.bfloat16:
+            return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+        if dtype == torch.int16:
+            return torch.randint(-2 ** 15, 2 ** 15, shape, generator=gen, device=dev,
+                                 dtype=torch.int16)
+        if dtype == torch.float32:
+            return torch.zeros(shape, device=dev)
+        if name == "pos":
+            return torch.full(shape, build.meta["seq"] - 1, dtype=dtype, device=dev)
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev, dtype=dtype)
+
+    def walk(tree, specs, name):
+        if _is_struct(tree):
+            return draw(tree, specs, name)
+        return {k: walk(v, specs[k], k) for k, v in tree.items()}
+
+    names = {"train": ("state", "batch"), "prefill": ("params", "tokens"),
+             "decode": ("params", "cache", "tokens", "pos")}[build.meta["kind"]]
+    return tuple(walk(a, sp, n) for a, sp, n in zip(build.args, build.specs, names))
+
+
 def collectives(stats) -> dict:
     """A ``CollectiveStats``' calls and result bytes by kind (the kinds that
     ran) and their total, the reference's ``parse_collective_bytes``
@@ -243,6 +280,14 @@ def collectives(stats) -> dict:
     by = {k: v for k, v in stats.bytes_out.items() if stats.calls[k]}
     return {"calls": {k: v for k, v in stats.calls.items() if v}, "bytes_out": by,
             "total_bytes": sum(by.values())}
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for v in tree for t in _tensors(v)] if isinstance(tree, (list, tuple)) else []
 
 
 def _sync(dev) -> None:
@@ -257,7 +302,11 @@ def run_step(build, mesh, gen: torch.Generator, timed: int = 1) -> tuple[dict, t
     from torch.utils.flop_counter import FlopCounterMode
 
     dev = mesh.device
-    args, built = cell_inputs(build, mesh, gen)
+    if build.meta["family"] == "lm":
+        args = lm_inputs(build, mesh, gen)
+        built = tensor_bytes(args)
+    else:
+        args, built = cell_inputs(build, mesh, gen)
     _sync(dev)
     mesh.stats.reset()
     if dev.type == "cuda":
@@ -272,8 +321,7 @@ def run_step(build, mesh, gen: torch.Generator, timed: int = 1) -> tuple[dict, t
     if dev.type == "cuda":
         rec["memory"]["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     values = out[1] if build.meta["kind"] == "train" else out
-    finite = all(bool(torch.isfinite(v.float()).all()) for v in
-                 (values if isinstance(values, tuple) else (values,)))
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in _tensors(values))
     if not finite:
         raise FloatingPointError(f"{build.meta['arch']} {build.meta['shape']}: the step's "
                                  "outputs are not finite")
@@ -300,16 +348,27 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str, overrides=None, device
         rec.update(status="skipped", skip_reason=cell.skip)
         return rec
     t0 = time.perf_counter()
+    held = "argument_bytes"
     if ad.plan is not None:
         plan = ad.plan(shape, mesh, **(overrides or {}))
         rec["meta"] = _plain_meta(plan.meta)
         rec["memory"] = {"argument_bytes": lm_argument_bytes(plan, mesh)}
-        rec.update(status="structs_only", reason=LM_REASON)
-        return rec
+        if len(mesh.shape) > 2:
+            rec.update(status="structs_only", reason=LM_REASON)
+            return rec
+        # one scan unit past the dense layers, at full width
+        cut = min(plan.cfg.n_layers, plan.cfg.first_dense_layers
+                  + (2 if plan.cfg.local_global else 1))
+        overrides = dict(overrides or {}, n_layers=cut)
+        rec["meta"]["stepped_layers"] = cut
+        rec["memory"]["stepped_argument_bytes"] = lm_argument_bytes(
+            ad.plan(shape, mesh, **overrides), mesh)
+        held = "stepped_argument_bytes"
     with shape_only_meshes():
         build = ad.build(shape, mesh, **(overrides or {}))
-        rec["meta"] = _plain_meta(build.meta)
-        rec["memory"] = {"argument_bytes": rank_bytes(build.args, build.specs, mesh)}
+        if ad.plan is None:
+            rec["meta"] = _plain_meta(build.meta)
+            rec["memory"] = {"argument_bytes": rank_bytes(build.args, build.specs, mesh)}
         rec["build_s"] = time.perf_counter() - t0
         if not step:
             rec.update(status="structs_only", reason="the step was not asked for")
@@ -318,10 +377,10 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str, overrides=None, device
         got, _ = run_step(build, mesh, gen, timed)
     rec["memory"].update(got.pop("memory"))
     rec.update(got)
-    if rec["memory"]["built_bytes"] != rec["memory"]["argument_bytes"]:
+    if rec["memory"]["built_bytes"] != rec["memory"][held]:
         raise ValueError(f"{arch} {shape}: the built state and batch hold "
                          f"{rec['memory']['built_bytes']} bytes, the structs "
-                         f"{rec['memory']['argument_bytes']}")
+                         f"{rec['memory'][held]}")
     rec["status"] = "ok"
     return rec
 

@@ -47,8 +47,10 @@ local/global layers and soft-caps) trained on ``token_stream`` by
 ``models.lm_steps.make_lm_train_step`` (Split-SGD with momentum, lr
 ``--lr``) through ``TrainLoop`` on one rank, with ``--ckpt-dir`` and
 ``--preempt-at`` as for the DLRM; a restart reads the token stream on from
-the step it restores, so that its losses are the uninterrupted run's.  Refused, naming its ROADMAP item: an LM
-arch at ``--ranks`` > 1 (the mesh: queue 1, item 8).
+the step it restores, so that its losses are the uninterrupted run's.  At
+``--ranks`` N > 1 every rank runs it on the mesh: the reference's pure FSDP
+(``tp_size`` 1, no sequence sharding), each leaf over the whole mesh, the
+batch over ``data``, the checkpoint the whole state (rank 0 writes).
 """
 
 from __future__ import annotations
@@ -315,12 +317,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks, one process each (default: one a card, one "
                          "on the CPU)")
+    ap.add_argument("--losses-json", default=None,
+                    help="write rank 0's start step and losses (full precision) "
+                         "to this JSON file at the end")
     return ap
 
 
 def refuse(args) -> None:
-    """Every refusal of the reference's launcher, with its message, and the
-    port's own: an LM arch on more than one rank.  Raises ``SystemExit``."""
+    """Every refusal of the reference's launcher, with its message.  Raises
+    ``SystemExit``."""
     if args.data_format is None:
         args.data_format = "packed" if args.data_dir else "synthetic"
     if args.data_format == "packed" and not args.data_dir:
@@ -377,9 +382,6 @@ def refuse(args) -> None:
             "--publish-every/--serve-smoke publish the recsys serving "
             "snapshot (dlrm/fm/bst/sasrec/din); LM archs have no "
             "serving path")
-    if args.ranks is not None and args.ranks > 1:
-        raise SystemExit(f"--arch {args.arch} --ranks {args.ranks}: the port trains the LM "
-                         "archs on one rank; LM training on a mesh is ROADMAP queue 1 item 8")
 
 
 def run(rank: int, world: int, args) -> dict:
@@ -401,7 +403,7 @@ def run(rank: int, world: int, args) -> dict:
         tracer = telemetry.configure(enabled=True, trace_dir=args.trace_dir)
         tracer.reset()  # this run's trace holds this run's events
     if is_lm(args.arch):
-        return run_lm(args, dev)
+        return run_lm(args, dev, mesh if world > 1 else None)
     common = dict(sparse_optimizer=args.optimizer, opt_beta=args.beta, opt_eps=args.eps,
                   microbatches=args.microbatches, host_presort=args.host_presort,
                   weighted=args.weighted, sr_seed=args.seed, hot_rows=args.hot_rows,
@@ -485,11 +487,12 @@ def run(rank: int, world: int, args) -> dict:
     return out
 
 
-def run_lm(args, dev: torch.device) -> dict:
-    """The LM branch on one rank: :func:`reduced_lm` trained from a seeded
-    state on ``token_stream(0, ...)`` through ``TrainLoop``; returns its
-    losses and the step it started from (a restore, which reads the stream
-    on from that step)."""
+def run_lm(args, dev: torch.device, mesh=None) -> dict:
+    """The LM branch: :func:`reduced_lm` trained from a seeded state on
+    ``token_stream(0, ...)`` through ``TrainLoop``, on one rank or on this
+    rank of ``mesh`` (its block of the state drawn from the same seed);
+    returns its losses and the step it started from (a restore, which reads
+    the stream on from that step)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.synthetic import token_stream
     from repro_torch.models import lm_steps
@@ -498,16 +501,19 @@ def run_lm(args, dev: torch.device) -> dict:
     # a restart reads the stream on from the step it restores (the reference's
     # starts it over), so that its losses are the uninterrupted run's
     start = (CheckpointManager(args.ckpt_dir).latest_valid_step() or 0) if args.ckpt_dir else 0
-    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    step, _ = lm_steps.make_lm_train_step(cfg, B, L, lr=args.lr, device=dev)
-    print(f"[train] {args.arch}: reduced to {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"~{cfg.param_count() / 1e6:.2f}M params; batch {B} x {L} tokens")
+    lead = mesh is None or mesh.rank == 0
+    where = mesh if mesh is not None else make_mesh((1, 1), ("data", "model"), device=dev)
+    state = lm_steps.init_lm_state(cfg, torch.Generator(device=dev).manual_seed(0), where)
+    step, _ = lm_steps.make_lm_train_step(cfg, where, B, L, lr=args.lr)
+    if lead:
+        print(f"[train] {args.arch}: reduced to {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"~{cfg.param_count() / 1e6:.2f}M params; batch {B} x {L} tokens")
     event_log = None
-    if args.event_log or args.trace_dir:
+    if lead and (args.event_log or args.trace_dir):
         from repro_torch.faults import FailureLog
         event_log = FailureLog(args.event_log or str(Path(args.trace_dir) / "events.jsonl"))
     faults = None
-    if args.preempt_at is not None:
+    if args.preempt_at is not None:  # on every rank: all stop at one step
         from repro_torch.faults import FaultPlan
         faults = FaultPlan.single("train.step", "preempt", step=args.preempt_at)
         faults.log = event_log
@@ -515,24 +521,24 @@ def run_lm(args, dev: torch.device) -> dict:
         TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                         prefetch=args.prefetch, skip_batch_budget=args.skip_batch_budget,
                         heartbeat_path=(str(Path(args.trace_dir) / "heartbeat.jsonl")
-                                        if args.trace_dir else None),
+                                        if args.trace_dir and lead else None),
                         heartbeat_every=args.metrics_every, metrics_every=args.metrics_every),
         step, state, itertools.islice(token_stream(0, cfg.vocab, B, L), start, None), device=dev,
-        faults=faults, event_log=event_log)
+        faults=faults, event_log=event_log, mesh=mesh, model_cfg=cfg if mesh is not None else None)
     if loop.start_step != start:
         raise RuntimeError(f"restored step {loop.start_step}, the stream was set to {start}")
     out = {"start_step": loop.start_step}
     try:
         loop.run()
     finally:
-        if args.trace_dir:
+        if args.trace_dir and lead:
             path = telemetry.export()
             telemetry.configure(enabled=False)
             print(f"[train] trace written: {path}")
     out["losses"] = list(loop.losses)
-    if loop.losses:
+    if lead and loop.losses:
         print(f"[train] done: first loss {loop.losses[0]:.4f} -> last {loop.losses[-1]:.4f}")
-    if loop.monitor.events:
+    if lead and loop.monitor.events:
         print(f"[train] stragglers observed: {len(loop.monitor.events)}")
     return out
 
@@ -548,12 +554,18 @@ def main(argv=None) -> dict:
     world = args.ranks or (torch.cuda.device_count() if dev.type == "cuda" and not is_lm(args.arch)
                            else 1)
     if world == 1:
-        return run(0, 1, args)
-    if dev.type == "cuda":
-        from repro_torch.kernels import build
-        build.load()  # once here, so that the ranks find the libraries built
-    return run_ranks(run, world, (args,), backend=backend_for(args.device, world),
-                     timeout_s=3600)[0]
+        out = run(0, 1, args)
+    else:
+        if dev.type == "cuda":
+            from repro_torch.kernels import build
+            build.load()  # once here, so that the ranks find the libraries built
+        out = run_ranks(run, world, (args,), backend=backend_for(args.device, world),
+                        timeout_s=3600)[0]
+    if args.losses_json:
+        import json
+        Path(args.losses_json).write_text(json.dumps(
+            {"start_step": out["start_step"], "losses": out["losses"]}))
+    return out
 
 
 if __name__ == "__main__":

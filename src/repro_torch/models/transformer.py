@@ -1,15 +1,18 @@
 """Transformer LM serving and training (twin of ``repro/models/transformer.py``).
 
 The reference covers five architectures, and the port serves and trains
-all of them on one card: :func:`prefill` and :func:`decode_step` for dense
+all of them on one card and on a mesh: :func:`prefill` and
+:func:`decode_step` for dense
 GQA (internlm2, gemma2's local/global layers and soft-caps, phi3), MoE
 (qwen3-moe: :func:`moe_block`, the reference's per-sequence grouped top-k
 dispatch with its capacity drops) and MLA (deepseek-v2: the latent cache and
 the absorbed decode, with its first dense layers); :func:`lm_loss`, the
 causal cross-entropy whose gradients ``models.lm_steps.make_lm_train_step``
-takes.  The reference's sharding constraints are identity on one card and
-have no twin; its expert FFN is its one-device (``not cfg.seq_shard``)
-path.
+takes.  On one card the reference's sharding constraints are identity and
+its expert FFN is its one-device (``not cfg.seq_shard``) path; on a mesh
+(the section "On a mesh" below: :class:`MeshPlan`, :func:`mesh_lm_loss`,
+:func:`mesh_prefill`, :func:`mesh_decode_step`) the collectives GSPMD
+inserts are written out.
 
 Parameters keep the reference's stacked layout: ``{"embed" [V, d],
 "layers": {"ln1", "ln2" [n, d], "attn": {"wq", "wk", "wv", "wo"} (MLA:
@@ -218,39 +221,44 @@ def cache_shapes(cfg: TransformerConfig, B: int, L: int) -> dict:
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda",
-                dtype: torch.dtype = torch.bfloat16, leaf=None) -> dict:
+                dtype: torch.dtype = torch.bfloat16, leaf=None, cut=None) -> dict:
     """The reference's distributions: each projection ~ N(0, 1/s) with s
     its per-layer leaf's first dim (its fan-in; an expert stack's expert
     count, as the reference draws it), the embedding (and unembedding) ~
     N(0, 0.02²), the norms' weights 0; drawn in fp32 one matrix at a time
     and stored in ``dtype`` (bf16, as the serving step holds them; fp32 for
     a training state), each finished leaf mapped by ``leaf`` where given
-    (``init_lm_state`` splits it there, one leaf at a time).  ``generator``
-    must live on ``device``; the numbers differ from the reference's
-    (``jax.random`` is not ported)."""
+    (``init_lm_state`` splits it there, one leaf at a time).  With ``cut``,
+    each drawn leaf is first replaced by ``cut(t, keys)`` (``keys`` its path
+    in the tree): a rank's block of it, so that a mesh's rank never holds
+    more than one whole leaf.  ``generator`` must live on ``device``; the
+    numbers differ from the reference's (``jax.random`` is not ported)."""
     dev = resolve_device(device)
     leaf = leaf or (lambda t: t)
+    cut = cut or (lambda t, keys: t)
 
-    def normal(shape, scale):
+    def normal(shape, scale, keys):
         out = torch.empty(shape, dtype=dtype, device=dev)
         for part in (out.flatten(0, -3) if len(shape) >= 3 else [out]):
             part.copy_(torch.randn(part.shape, generator=generator, device=dev) * scale)
-        return leaf(out)
+        return leaf(cut(out, keys))
 
-    def zeros(shape):
-        return leaf(torch.zeros(shape, dtype=dtype, device=dev))
+    def zeros(shape, keys):
+        return leaf(cut(torch.zeros(shape, dtype=dtype, device=dev), keys))
 
-    def draw(tree):   # a stack: every leaf of rank 2 is a norm ([n, width])
-        return {k: draw(s) if isinstance(s, dict) else
-                normal(s, s[1] ** -0.5) if len(s) >= 3 else zeros(s) for k, s in tree.items()}
+    def draw(tree, keys):   # a stack: every leaf of rank 2 is a norm ([n, width])
+        return {k: draw(s, keys + (k,)) if isinstance(s, dict) else
+                normal(s, s[1] ** -0.5, keys + (k,)) if len(s) >= 3 else zeros(s, keys + (k,))
+                for k, s in tree.items()}
 
     shapes = param_shapes(cfg)
-    params = {"embed": normal(shapes["embed"], 0.02), "layers": draw(shapes["layers"])}
+    params = {"embed": normal(shapes["embed"], 0.02, ("embed",)),
+              "layers": draw(shapes["layers"], ("layers",))}
     if "dense_layers" in shapes:
-        params["dense_layers"] = draw(shapes["dense_layers"])
-    params["final_norm"] = zeros(shapes["final_norm"])
+        params["dense_layers"] = draw(shapes["dense_layers"], ("dense_layers",))
+    params["final_norm"] = zeros(shapes["final_norm"], ("final_norm",))
     if "unembed" in shapes:
-        params["unembed"] = normal(shapes["unembed"], 0.02)
+        params["unembed"] = normal(shapes["unembed"], 0.02, ("unembed",))
     return params
 
 
@@ -697,3 +705,646 @@ def decode_step(params, cache, tokens, pos, cfg: TransformerConfig):
                           pos, w if w > 0 else 1 << 30, moe_layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: FSDP, Megatron TP and sequence parallelism, expert parallelism
+# ---------------------------------------------------------------------------
+#
+# Each rank holds its block of every leaf (``dist.sharding.lm_param_specs``)
+# and its rows of the batch.  GSPMD runs the reference's one-device function
+# over the mesh; here the collectives are written out (``dist.comm``'s
+# autograd forms), so each rank computes its share of that function, up to
+# the order of sums:
+#
+# * FSDP: a leaf is all-gathered over its data axes just before use; the
+#   gather's backward reduce-scatters its gradient onto the rank's block.
+# * TP over ``model`` (``MeshPlan.tp``): the column-parallel products (wq, wk,
+#   wv, wg, wu, MLA's wq_b and wkv_b, the unembedding) keep the rank's
+#   columns, the row-parallel ones (wo, wd) its rows, whose partial sums are
+#   reduced over ``model`` (``MeshPlan.leave``): a ``psum``, or with
+#   ``seq_shard`` a reduce-scatter onto the rank's block of tokens, the
+#   reference's Megatron-SP layout between blocks (``MeshPlan.enter``
+#   all-gathers them before the next column-parallel pair).  Heads that do
+#   not divide ``model`` are computed whole on every rank and the rank keeps
+#   the block of ``o`` that wo's rows want; KV heads that do not divide are
+#   computed whole and each local q head takes its GQA group's.  The
+#   embedding is vocab-parallel (a masked lookup, then the reduce), the loss
+#   a vocab-parallel log-softmax.
+# * MoE: routing, dispatch and combine on the rank's rows with the router
+#   replicated; with ``seq_shard`` the expert FFN is the reference's
+#   ``shard_map`` (an all-to-all over the last data axis splits the experts,
+#   the rank's f columns, fp32 partial sums reduced over ``model``, one bf16
+#   rounding, the all-to-all back), else its one-device einsums over the
+#   gathered weights.
+#
+# Gradients.  Every rank's loss is its share of the global loss (its rows'
+# summed cross-entropy over the global token count, over the ranks that
+# hold the same rows), and every collective's backward is its transpose:
+# ``psum``'s a ``psum`` (the reference's ``shard_map(check_vma=False)``
+# rule), a gather's a reduce-scatter, an all-to-all's the inverse one.  So
+# a value that every rank of an axis holds alike carries a partial
+# cotangent on each, whose sum over the axis is the true one, and the step
+# (``models/lm_steps.py``) sums each leaf's gradient over the mesh axes its
+# spec does not shard: the gradient of the global loss, with no factor.
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """How one rank of ``mesh`` (a ``launch.mesh.Mesh``) runs ``cfg``: the
+    parameter ``specs`` (``lm_param_specs``), the mesh axes the batch rows
+    are cut over, whether the products are Megatron TP over ``model``
+    (``tp``) and whether the tokens are sharded over ``model`` between
+    blocks (``sp``)."""
+
+    cfg: TransformerConfig
+    mesh: object
+    specs: dict
+    batch_axes: tuple
+    tp: bool
+    sp: bool
+
+    @property
+    def model(self):
+        return self.mesh.group(("model",))
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape["model"] if self.tp else 1
+
+    @property
+    def tp_index(self) -> int:
+        return self.model.index if self.tp else 0
+
+    @property
+    def n_batch(self) -> int:
+        """The ranks among which the batch rows are cut."""
+        return int(np.prod([self.mesh.shape[a] for a in self.batch_axes]))
+
+    @property
+    def n_rep(self) -> int:
+        """The ranks that hold the same rows."""
+        return self.mesh.size // self.n_batch
+
+    def group(self, axes):
+        return self.mesh.group(tuple(a for a in self.mesh.axis_names if a in axes))
+
+    def w(self, t, spec, keep: tuple = ()):
+        """Leaf (or layer slice) ``t`` under ``spec``, all-gathered over
+        every sharded dim but those sharded over exactly one of ``keep``'s
+        axes (``dist.comm.all_gather_ad``: its gradient reduce-scattered
+        back onto the block)."""
+        from repro_torch.dist import comm
+        from repro_torch.dist.sharding import axis_size, spec_axes
+        for dim, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if not axes or axis_size(entry, self.mesh.shape) == 1 or (
+                    len(axes) == 1 and axes[0] in keep):
+                continue
+            t = comm.all_gather_ad(t.movedim(dim, 0), self.group(axes)).movedim(0, dim)
+        return t
+
+    @property
+    def cols(self) -> tuple:
+        """The ``keep`` of a TP product: the rank's columns (rows) stay."""
+        return ("model",) if self.tp else ()
+
+    def enter(self, x):
+        """Before a column-parallel pair: the whole sequence (sequence
+        parallel: all-gathered over ``model``; x [B, L, d])."""
+        if not self.sp:
+            return x
+        from repro_torch.dist import comm
+        return comm.all_gather_ad(x.movedim(1, 0), self.model).movedim(0, 1)
+
+    def leave(self, y, dtype=torch.bfloat16):
+        """After a row-parallel product: its fp32 partial sums ``y`` reduced
+        over ``model`` (sequence parallel: reduce-scattered onto the rank's
+        tokens), then rounded to ``dtype`` once, as the one-device product
+        rounds its fp32 sum."""
+        from repro_torch.dist import comm
+        if self.sp:
+            y = comm.psum_scatter_ad(y.movedim(1, 0), self.model).movedim(0, 1)
+        elif self.tp:
+            y = comm.psum_ad(y, self.model)
+        return y.to(dtype)
+
+    def row(self, x, w):
+        """A row-parallel product ``x @ w`` of bf16 operands, reduced by
+        :meth:`leave`: the rank's partial sums kept in fp32 (the whole
+        product, rounded once, where there is no TP)."""
+        if not self.tp:
+            return (x @ w).to(x.dtype)
+        return self.leave(x.float() @ w.float(), x.dtype)
+
+    def own_tokens(self, y):
+        """The rank's block of tokens of a whole-sequence value (sequence
+        parallel), else ``y``."""
+        if not self.sp:
+            return y
+        n = y.shape[1] // self.tp_size
+        return y[:, self.tp_index * n:(self.tp_index + 1) * n]
+
+
+def mesh_plan(cfg: TransformerConfig, mesh, batch_axes) -> MeshPlan:
+    """The :class:`MeshPlan` of ``cfg`` on ``mesh`` with the batch rows cut
+    over ``batch_axes``: TP where ``cfg.tp_size`` > 1 and the mesh's
+    ``model`` axis has more than one rank (the two must then agree), sequence
+    parallel where TP and ``cfg.seq_shard``."""
+    from repro_torch.dist import sharding as shd
+    tp_mesh = mesh.shape.get("model", 1)
+    tp = cfg.tp_size > 1 and tp_mesh > 1
+    if tp and cfg.tp_size != tp_mesh:
+        raise ValueError(f"{cfg.name}: tp_size {cfg.tp_size}, the mesh's model axis {tp_mesh}")
+    batch_axes = tuple(batch_axes)
+    if tp and "model" in batch_axes:
+        raise ValueError(f"{cfg.name}: the batch cannot be cut over 'model' with TP on it")
+    if cfg.moe and cfg.seq_shard and cfg.dp_axes[-1] != "data":
+        raise ValueError(f"{cfg.name}: expert parallelism runs over 'data' (the experts' spec), "
+                         f"not {cfg.dp_axes[-1]!r}")
+    return MeshPlan(cfg, mesh, shd.lm_config_specs(cfg), batch_axes, tp, tp and cfg.seq_shard)
+
+
+def _layer_specs(tree: dict) -> dict:
+    """A stack's spec tree with the stack dim dropped: a layer slice's."""
+    return {k: _layer_specs(v) if isinstance(v, dict) else tuple(v[1:]) for k, v in tree.items()}
+
+
+def _heads(par: MeshPlan, n: int) -> tuple:
+    """``(local, count, first)``: whether ``n`` heads divide over ``model``
+    (TP), and the rank's count of them and its first one."""
+    if par.tp and n % par.tp_size == 0:
+        c = n // par.tp_size
+        return True, c, par.tp_index * c
+    return False, n, 0
+
+
+def _o_block(par: MeshPlan, o):
+    """The columns of o [B, L, H * Dv] that the rank's rows of wo take (TP
+    with all heads computed)."""
+    if not par.tp:
+        return o
+    n = o.shape[-1]
+    if n % par.tp_size:
+        raise ValueError(f"wo: {n} rows do not divide over model ({par.tp_size} ranks)")
+    c = n // par.tp_size
+    return o[..., par.tp_index * c:(par.tp_index + 1) * c]
+
+
+def mesh_swiglu(par: MeshPlan, x, p, s):
+    """:func:`swiglu` with wg / wu column- and wd row-parallel, reduced by
+    :meth:`MeshPlan.leave`; ``x`` as :meth:`MeshPlan.enter` gives it."""
+    wg, wu, wd = (par.w(p[k], s[k], par.cols) for k in ("wg", "wu", "wd"))
+    g = x @ wg
+    u = x @ wu
+    return par.row(torch.nn.functional.silu(g.float()).to(x.dtype) * u, wd)
+
+
+def _mesh_gqa_qkv(par: MeshPlan, x, ap, s, positions):
+    """q [B, Hq, L, dh] for the rank's q heads (all where they do not
+    divide), k / v for each of those heads' KV heads, and the cache entry:
+    (k, v) of the rank's KV heads, or of all of them, with the flag
+    ``kv_local``."""
+    cfg = par.cfg
+    B, L, _ = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q_local, Hq, q0 = _heads(par, H)
+    kv_local, Hk, _ = _heads(par, Hkv)
+    kv_local = kv_local and q_local
+    if not kv_local:
+        Hk = Hkv
+    wq = par.w(ap["wq"], s["wq"], par.cols if q_local else ())
+    wk, wv = (par.w(ap[k], s[k], par.cols if kv_local else ()) for k in ("wk", "wv"))
+    q = rope((x @ wq).reshape(B, L, Hq, dh).transpose(1, 2), positions[None, None, :],
+             cfg.rope_theta)
+    k = rope((x @ wk).reshape(B, L, Hk, dh).transpose(1, 2), positions[None, None, :],
+             cfg.rope_theta).contiguous()
+    v = (x @ wv).reshape(B, L, Hk, dh).transpose(1, 2).contiguous()
+    entry = (k, v)
+    if q_local and not kv_local:     # each local q head's GQA group
+        idx = (q0 + torch.arange(Hq, device=x.device)) // (H // Hkv)
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
+    return q.contiguous(), k, v, entry, kv_local, q_local
+
+
+def _mesh_mla_qkv(par: MeshPlan, x, ap, s, positions):
+    """MLA's decompression on a mesh: wq_a and wkv_a gathered whole (q_norm,
+    kv_norm and the RoPE split need the whole latent), wq_b and wkv_b on the
+    rank's heads where they divide.  Returns q, k, v, the latent cache
+    entry (whole) and whether the heads are local."""
+    cfg = par.cfg
+    B, L, _ = x.shape
+    nope, rd = cfg.qk_nope, cfg.qk_rope
+    local, Hq, _ = _heads(par, cfg.n_heads)
+    keep = par.cols if local else ()
+    cq = rms_norm(x @ par.w(ap["wq_a"], s["wq_a"]), ap["q_norm"], cfg.norm_eps)
+    q_nope, q_rope = (cq @ par.w(ap["wq_b"], s["wq_b"], keep)).reshape(
+        B, L, Hq, nope + rd).split([nope, rd], dim=-1)
+    c_kv, k_rope = (x @ par.w(ap["wkv_a"], s["wkv_a"])).split([cfg.kv_lora, rd], dim=-1)
+    c_kv = rms_norm(c_kv, ap["kv_norm"], cfg.norm_eps)
+    k_nope, v = (c_kv @ par.w(ap["wkv_b"], s["wkv_b"], keep)).reshape(
+        B, L, Hq, nope + cfg.v_head).split([nope, cfg.v_head], dim=-1)
+    q_rope = rope(q_rope.transpose(1, 2), positions[None, None, :], cfg.rope_theta)
+    k_rope = rope(k_rope, positions[None, :], cfg.rope_theta)
+    q = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
+    k = torch.cat([k_nope.transpose(1, 2), k_rope[:, None].expand(B, Hq, L, rd)], dim=-1)
+    return q, k, v.transpose(1, 2).contiguous(), (c_kv, k_rope), local
+
+
+def mesh_attn_block(par: MeshPlan, x, ap, s, positions, window: int):
+    """:func:`attn_block` on a mesh; ``x`` the whole sequence of the rank's
+    rows (:meth:`MeshPlan.enter`).  Returns the block's output (reduced by
+    :meth:`MeshPlan.leave`) and the cache entry with whether it holds the
+    rank's KV heads alone."""
+    cfg = par.cfg
+    B, L, _ = x.shape
+    if cfg.mla:
+        q, k, v, entry, local = _mesh_mla_qkv(par, x, ap, s, positions)
+        kv_local = False
+    else:
+        q, k, v, entry, kv_local, local = _mesh_gqa_qkv(par, x, ap, s, positions)
+    o = attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window,
+                  scale=cfg.attn_scale, impl=cfg.attn_impl, bq=cfg.attn_chunk)
+    o = o.transpose(1, 2).reshape(B, L, q.shape[1] * v.shape[-1])
+    if not local:
+        o = _o_block(par, o)
+    return par.row(o, par.w(ap["wo"], s["wo"], par.cols)), (entry, kv_local)
+
+
+def _ep_ffn(par: MeshPlan, buf, p, s):
+    """The reference's expert-parallel FFN (its ``_expert_ffn`` under
+    ``seq_shard``): buf [E, N, d] -> all-to-all over the last data axis
+    (split E, concatenate the rows) -> the rank's E / ep experts and f
+    columns, the down projection's partial sums in fp32, reduced over
+    ``model`` and rounded to bf16 once -> the all-to-all back."""
+    from repro_torch.dist import comm
+    ep = par.mesh.group((par.cfg.dp_axes[-1],))
+    bx = comm.all_to_all_ad(buf, ep, 0, 1)
+    wg, wu, wd = (par.w(p[k], s[k], ("data", "model")) for k in ("wg", "wu", "wd"))
+    g = torch.bmm(bx, wg)
+    u = torch.bmm(bx, wu)
+    h = torch.nn.functional.silu(g.float()).to(bx.dtype) * u
+    o = comm.psum_ad(torch.bmm(h.float(), wd.float()), par.model).to(bx.dtype)
+    return comm.all_to_all_ad(o, ep, 1, 0)
+
+
+def mesh_moe_block(par: MeshPlan, x, p, s):
+    """:func:`moe_block` on a mesh; ``x`` the whole sequence of the rank's
+    rows.  The routed output is the rank's tokens (sequence parallel) and
+    the shared experts are :func:`mesh_swiglu`."""
+    cfg = par.cfg
+    B, L, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gate, _, _, keep, dest, C = moe_route(x, p["router"], cfg)
+    rows, filled, at, src_row = moe_slots(dest, L, k, E, C)
+    buf = _Dispatch.apply(x, rows, filled, at, keep, k)
+    if cfg.seq_shard:
+        out = _ep_ffn(par, buf, p, s)
+    else:
+        out = _expert_ffn(buf, *(par.w(p[n], s[n]) for n in ("wg", "wu", "wd")))
+    y_pair = _Combine.apply(out, at, keep, src_row, filled)
+    y_pair = y_pair * (keep * gate.reshape(B, L * k)).to(y_pair.dtype)[..., None]
+    y = par.own_tokens(y_pair.view(B, L, k, d).sum(dim=2).to(x.dtype))
+    if "shared" in p:
+        y = y + mesh_swiglu(par, x, p["shared"], s["shared"])
+    return y
+
+
+def mesh_layer_fwd(par: MeshPlan, x, lp, ls, positions, window: int, moe_layer: bool):
+    """:func:`layer_fwd` on a mesh: ``x`` the rank's rows (and with
+    sequence parallelism its tokens), ``ls`` the layer's spec tree."""
+    h, entry = mesh_attn_block(par, par.enter(rms_norm(x, lp["ln1"], par.cfg.norm_eps)),
+                               lp["attn"], ls["attn"], positions, window)
+    x = x + h
+    z = par.enter(rms_norm(x, lp["ln2"], par.cfg.norm_eps))
+    if moe_layer:
+        return x + mesh_moe_block(par, z, lp["moe"], ls["moe"]), entry
+    return x + mesh_swiglu(par, z, lp["mlp"], ls["mlp"]), entry
+
+
+def _mesh_embed(par: MeshPlan, params, tokens):
+    """The vocab-parallel lookup: each rank's rows of the table, the other
+    rows' lookups zeros, reduced over ``model`` (:meth:`MeshPlan.leave`)."""
+    cfg = par.cfg
+    w = par.w(params["embed"], par.specs["embed"], par.cols)
+    ids = tokens.long()
+    if par.tp:
+        n = w.shape[0]
+        ids = ids - par.tp_index * n
+        inside = (ids >= 0) & (ids < n)
+        x = par.leave(torch.where(inside[..., None], w[ids.clamp(0, n - 1)], 0).to(torch.bfloat16))
+        # (each token's row is on one rank, the others' lookups zeros: the sum is exact)
+    else:
+        x = w[ids].to(torch.bfloat16)
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=torch.bfloat16, device=x.device)
+    return x
+
+
+def _mesh_logits(par: MeshPlan, params, x):
+    """fp32 logits of the rank's vocabulary columns (column-parallel
+    unembedding; gemma2's soft-cap on each shard)."""
+    cfg = par.cfg
+    if cfg.tie_embeddings:
+        w = par.w(params["embed"], par.specs["embed"], par.cols).T
+    else:
+        w = par.w(params["unembed"], par.specs["unembed"], par.cols)
+    logits = x.float() @ w.to(x.dtype).float()
+    if cfg.final_softcap > 0:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _pmax(x, g):
+    """The elementwise max of ``x`` over the group (no gradient)."""
+    from repro_torch.dist import comm
+    return comm.all_gather(x.detach()[None].contiguous(), g).amax(dim=0)
+
+
+def _mesh_ce_sum(par: MeshPlan, params, x, labels):
+    """:func:`_ce_sum` vocab-parallel: the max over ``model`` of the rank's
+    maxima, the sum of exponentials and the label's logit (from the rank
+    that holds it) each reduced over ``model``."""
+    from repro_torch.dist import comm
+    logits = _mesh_logits(par, params, x)
+    if not par.tp:
+        lab = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - lab).sum()
+    n = logits.shape[-1]
+    m = _pmax(logits.amax(dim=-1), par.model)
+    se = comm.psum_ad(torch.exp(logits - m[..., None]).sum(dim=-1), par.model)
+    ids = labels.long() - par.tp_index * n
+    inside = (ids >= 0) & (ids < n)
+    lab = torch.where(inside, logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+    lab = comm.psum_ad(lab, par.model)
+    return (torch.log(se) + m - lab).sum()
+
+
+def _mesh_train_layers(par: MeshPlan, x, params, positions):
+    """:func:`_train_layers` on a mesh (the same groups and remat)."""
+    cfg = par.cfg
+    plan = _layer_plan(cfg)
+    for stack in ("dense_layers", "layers"):
+        if stack not in params:
+            continue
+        rows = {j: (moe_layer, window) for st, j, moe_layer, window, _ in plan if st == stack}
+        per = 2 if cfg.local_global and stack == "layers" else 1
+        groups = [list(range(i, min(i + per, len(rows)))) for i in range(0, len(rows), per)]
+        ls = _layer_specs(par.specs[stack])
+
+        def run(h, lp, j, rows=rows, ls=ls):
+            moe_layer, window = rows[j]
+            return mesh_layer_fwd(par, h, lp, ls, positions, window, moe_layer)[0]
+
+        x = _LayerStack.apply(x, run, params[stack], groups, *tree_leaves(params[stack]))
+    return x
+
+
+def mesh_lm_loss(par: MeshPlan, params, tokens, labels, n_tokens: int):
+    """The rank's share of :func:`lm_loss` on a mesh (fp32 0-d): its rows'
+    summed cross-entropy over ``n_tokens`` (the global batch's token count)
+    and over the ranks that hold the same rows; summed over the mesh it is
+    the reference's loss.  ``params`` the rank's blocks, tokens and labels
+    its rows [b, L]."""
+    cfg = par.cfg
+    check_trainable(cfg)
+    L = tokens.shape[1]
+    x = _mesh_embed(par, params, tokens)
+    x = _mesh_train_layers(par, x, params, torch.arange(L, device=x.device))
+    x = par.enter(rms_norm(x, params["final_norm"], cfg.norm_eps))
+    c = min(cfg.loss_chunk, L)
+    while L % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled() and c < L
+    for i in range(0, L, c):
+        args = (par, params, x[:, i:i + c], labels[:, i:i + c])
+        total = total + (torch.utils.checkpoint.checkpoint(_mesh_ce_sum, *args, use_reentrant=False)
+                         if remat else _mesh_ce_sum(*args))
+    return total / n_tokens / par.n_rep
+
+
+def _last_token(par: MeshPlan, x):
+    """The last token's row [B, 1, d] of the sequence (with sequence
+    parallelism, on the last rank of ``model``: gathered)."""
+    if not par.sp:
+        return x[:, -1:]
+    from repro_torch.dist import comm
+    return comm.all_gather(x[:, -1:].transpose(0, 1).contiguous(), par.model)[-1:].transpose(0, 1)
+
+
+def mesh_prefill(par: MeshPlan, params, tokens, cache_specs: dict, out: dict):
+    """:func:`prefill` on a mesh: the rank's rows [b, L]; logits [b, V / tp]
+    (the rank's vocabulary block, fp32) of the last token, and each layer's
+    cache entry written into ``out`` (the rank's blocks under
+    ``cache_specs``)."""
+    from repro_torch.dist.sharding import local_block
+    cfg = par.cfg
+    L = tokens.shape[1]
+    x = _mesh_embed(par, params, tokens)
+    positions = torch.arange(L, device=x.device)
+    specs = {st: _layer_specs(par.specs[st]) for st in ("dense_layers", "layers")
+             if st in par.specs}
+    for i, (stack, j, moe_layer, window, _) in enumerate(_layer_plan(cfg)):
+        x, (entry, kv_local) = mesh_layer_fwd(par, x, _layer(params[stack], j), specs[stack],
+                                              positions, window, moe_layer)
+        for key, t in zip(_cache_keys(cfg), entry):
+            out[key][i] = t if kv_local else local_block(t, (None,) + tuple(cache_specs[key][2:]),
+                                                         par.mesh, key)
+    x = rms_norm(_last_token(par, x), params["final_norm"], cfg.norm_eps)
+    return _mesh_logits(par, params, x)[:, 0], out
+
+
+# -------------------------- decode on a mesh --------------------------------
+
+def _write(cache, new, pos, off: int, dim: int):
+    """``cache[b, ..., pos[b] - off, ...] = new[b]`` along ``dim`` for each
+    row whose position falls in this block of ``cache.shape[dim]``
+    positions from ``off`` (the others keep their entry; no host sync)."""
+    n = cache.shape[dim]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    p = pos - off
+    mine = (p >= 0) & (p < n)
+    p = p.clamp(0, n - 1)
+    view = cache.movedim(dim, 1)                      # [B, n, ...]
+    shape = (-1,) + (1,) * (new.dim() - 1)
+    view[rows, p] = torch.where(mine.view(shape), new, view[rows, p])
+
+
+def _flash_combine(s, v, g, out_dtype):
+    """Softmax-attention over keys split across the ranks of ``g``: s [..., T]
+    this rank's fp32 scores (masked -inf), v [..., T, Dv] its values.  The
+    max over the group, the sum of exponentials reduced over it, ``p``
+    rounded to v's dtype before each rank's PV product, the products
+    reduced in fp32."""
+    from repro_torch.dist import comm
+    e = torch.exp(s - _pmax(s.amax(dim=-1, keepdim=True), g))
+    p = e / _sum_at_least_tiny(e, g)
+    return comm.psum(p.to(v.dtype).float() @ v.float(), g).to(out_dtype)
+
+
+def _sum_at_least_tiny(e, g):
+    """The sum of ``e`` over its last dim and the group, at least fp32's
+    smallest normal: the rank that holds the max adds exp(0) = 1, so only a
+    shape-only group (its other ranks' terms zeros) can sum to 0, where every
+    ``e`` is 0 too."""
+    from repro_torch.dist import comm
+    return comm.psum(e.sum(dim=-1, keepdim=True), g).clamp_min(torch.finfo(torch.float32).tiny)
+
+
+def _one_rank_none(spec, mesh) -> tuple:
+    """``spec`` with each entry over axes of one rank in all made None."""
+    from repro_torch.dist.sharding import axis_size
+    return tuple(None if axis_size(e, mesh.shape) == 1 else e for e in spec)
+
+
+def _mesh_decode_gqa(par: MeshPlan, z, ap, s, cache, spec, pos, window: int):
+    """One decode layer's GQA attention on a mesh, by the cache's layout
+    (``lm_steps.cache_specs``): KV heads over ``model`` (the rank's q and KV
+    heads), the head dim over ``model`` (the scores' partial sums reduced),
+    or the sequence over ``model`` or the whole mesh (the softmax combined
+    across the ranks).  Writes this token's k / v into the rank's block."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import spec_axes
+    cfg = par.cfg
+    B = z.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    spec = _one_rank_none(spec, par.mesh)
+    heads = spec[2] is not None
+    keep = par.cols if heads else ()
+    Hq, Hk = (H // par.tp_size, Hkv // par.tp_size) if heads else (H, Hkv)
+    q = rope((z @ par.w(ap["wq"], s["wq"], keep)).reshape(B, 1, Hq, dh).transpose(1, 2),
+             pos[:, None, None], cfg.rope_theta)
+    k = rope((z @ par.w(ap["wk"], s["wk"], keep)).reshape(B, 1, Hk, dh).transpose(1, 2),
+             pos[:, None, None], cfg.rope_theta)
+    v = (z @ par.w(ap["wv"], s["wv"], keep)).reshape(B, 1, Hk, dh).transpose(1, 2)
+    ck, cv = cache["k"], cache["v"]
+    if spec[3] is None and spec[4] is None:
+        _write(ck, k[:, :, 0], pos, 0, 2)
+        _write(cv, v[:, :, 0], pos, 0, 2)
+        o = decode_attention(q, ck, cv, softcap=cfg.attn_softcap, window=window,
+                             scale=cfg.attn_scale, kv_len=pos + 1)
+    else:
+        rep = H // Hkv
+        kpos = torch.arange(ck.shape[2], device=z.device)
+        if spec[4] is not None:              # the head dim over 'model'
+            n = ck.shape[3]
+            blk = slice(par.tp_index * n, (par.tp_index + 1) * n)
+            _write(ck, k[:, :, 0, blk], pos, 0, 2)
+            _write(cv, v[:, :, 0, blk], pos, 0, 2)
+            qg = q[..., blk].reshape(B, Hkv, rep, n)
+            sc = comm.psum(qg.float() @ ck.float().transpose(-1, -2), par.model)
+            g = None
+        else:                                # the sequence over spec[3]'s axes
+            g = par.group(spec_axes(spec[3]))
+            off = g.index * ck.shape[2]
+            kpos = kpos + off
+            _write(ck, k[:, :, 0], pos, off, 2)
+            _write(cv, v[:, :, 0], pos, off, 2)
+            sc = q.reshape(B, Hkv, rep, dh).float() @ ck.float().transpose(-1, -2)
+        sc = sc * cfg.attn_scale
+        if cfg.attn_softcap > 0:
+            sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+        valid = kpos[None, :] < (pos + 1)[:, None]
+        if window > 0:
+            valid &= kpos[None, :] > pos[:, None] - window
+        sc = torch.where(valid[:, None, None, :], sc, -torch.inf)
+        if g is None:
+            o = (_softmax(sc).to(cv.dtype).float() @ cv.float()).to(cv.dtype)
+            o = comm.all_gather(o.movedim(-1, 0).contiguous(), par.model).movedim(0, -1)
+        else:
+            o = _flash_combine(sc, cv, g, cv.dtype)
+        o = o.reshape(B, H, 1, dh)
+    o = o.transpose(1, 2).reshape(B, 1, Hq * dh)
+    if not heads:
+        o = _o_block(par, o)
+    return par.row(o, par.w(ap["wo"], s["wo"], par.cols))
+
+
+def _mesh_decode_mla(par: MeshPlan, z, ap, s, cache, specs, pos):
+    """The absorbed MLA decode on a mesh (fp32, as :func:`_mla_decode_attn`),
+    every head on every rank: the latent cache over ``model`` (each rank's
+    latent block; the scores' and the context's partial sums reduced) or
+    the sequence over the whole mesh (the softmax combined across it)."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import spec_axes
+    cfg = par.cfg
+    B = z.shape[0]
+    H, nope, rd = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    c_new, kr_new = (z @ par.w(ap["wkv_a"], s["wkv_a"])).split([cfg.kv_lora, rd], dim=-1)
+    c_new = rms_norm(c_new, ap["kv_norm"], cfg.norm_eps)[:, 0]
+    kr_new = rope(kr_new, pos[:, None], cfg.rope_theta)[:, 0]
+    cq = rms_norm(z @ par.w(ap["wq_a"], s["wq_a"]), ap["q_norm"], cfg.norm_eps)
+    q_nope, q_rope = (cq @ par.w(ap["wq_b"], s["wq_b"])).reshape(B, H, nope + rd).split(
+        [nope, rd], dim=-1)
+    q_rope = rope(q_rope[:, :, None, :], pos[:, None, None], cfg.rope_theta)[:, :, 0].float()
+    wkv_b = par.w(ap["wkv_b"], s["wkv_b"]).reshape(cfg.kv_lora, H, nope + cfg.v_head).float()
+    specs = {k: _one_rank_none(v, par.mesh) for k, v in specs.items()}
+    ckv, krc = cache["c_kv"], cache["k_rope"]
+    T = ckv.shape[1]
+    kpos = torch.arange(T, device=z.device)
+    if specs["c_kv"][2] is None:             # the latent dim over 'model' (or whole)
+        n = ckv.shape[2]
+        blk = slice(par.tp_index * n, (par.tp_index + 1) * n)
+        _write(ckv, c_new[:, blk], pos, 0, 1)
+        kr_sharded = specs["k_rope"][3] is not None
+        nr = krc.shape[2]
+        _write(krc, kr_new[:, par.tp_index * nr:(par.tp_index + 1) * nr] if kr_sharded
+               else kr_new, pos, 0, 1)
+        wk, wv = wkv_b[blk, :, :nope], wkv_b[blk, :, nope:]
+        q_eff = torch.einsum("bhn,lhn->bhl", q_nope.float(), wk)
+        sc = torch.einsum("bhl,btl->bht", q_eff, ckv.float())
+        sr = torch.einsum("bhr,btr->bht", q_rope[..., par.tp_index * nr:(par.tp_index + 1) * nr]
+                          if kr_sharded else q_rope, krc.float())
+        sc = comm.psum(sc + sr, par.model) if kr_sharded else comm.psum(sc, par.model) + sr
+        sc = sc * cfg.attn_scale
+        sc = torch.where(kpos[None, None, :] < pos[:, None, None] + 1, sc, -torch.inf)
+        ctx = torch.einsum("bht,btl->bhl", _softmax(sc), ckv.float())
+        o = comm.psum(torch.einsum("bhl,lhv->bhv", ctx, wv), par.model)
+    else:                                    # the sequence over the whole mesh
+        g = par.group(spec_axes(specs["c_kv"][2]))
+        off = g.index * T
+        _write(ckv, c_new, pos, off, 1)
+        _write(krc, kr_new, pos, off, 1)
+        wk, wv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]
+        q_eff = torch.einsum("bhn,lhn->bhl", q_nope.float(), wk)
+        sc = (torch.einsum("bhl,btl->bht", q_eff, ckv.float())
+              + torch.einsum("bhr,btr->bht", q_rope, krc.float())) * cfg.attn_scale
+        sc = torch.where((kpos + off)[None, None, :] < pos[:, None, None] + 1, sc, -torch.inf)
+        e = torch.exp(sc - _pmax(sc.amax(dim=-1, keepdim=True), g))
+        p = e / _sum_at_least_tiny(e, g)
+        ctx = comm.psum(torch.einsum("bht,btl->bhl", p, ckv.float()), g)
+        o = torch.einsum("bhl,lhv->bhv", ctx, wv)
+    o = _o_block(par, o.reshape(B, 1, H * cfg.v_head).to(z.dtype))
+    return par.row(o, par.w(ap["wo"], s["wo"], par.cols))
+
+
+def mesh_decode_step(par: MeshPlan, params, cache, tokens, pos, cache_specs: dict):
+    """:func:`decode_step` on a mesh: tokens / pos the rank's rows (all rows
+    where the batch does not cover the data axes), ``cache`` the rank's
+    blocks under ``cache_specs``, written in place.  Returns logits [b,
+    V / tp] (the rank's vocabulary block) and the cache.  The residual is
+    whole on every rank of ``model`` (one token: no sequence to shard)."""
+    cfg = par.cfg
+    par = dataclasses.replace(par, sp=False)
+    pos = pos.long()
+    x = _mesh_embed(par, params, tokens[:, None])
+    specs = {st: _layer_specs(par.specs[st]) for st in ("dense_layers", "layers")
+             if st in par.specs}
+    for i, (stack, j, moe_layer, _, w) in enumerate(_layer_plan(cfg)):
+        lp, ls = _layer(params[stack], j), specs[stack]
+        layer_cache = {k: c[i] for k, c in cache.items()}
+        z = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.mla:
+            h = _mesh_decode_mla(par, z, lp["attn"], ls["attn"], layer_cache, cache_specs, pos)
+        else:
+            h = _mesh_decode_gqa(par, z, lp["attn"], ls["attn"], layer_cache, cache_specs["k"],
+                                 pos, w if w > 0 else 1 << 30)
+        x = x + h
+        z2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if moe_layer:
+            x = x + mesh_moe_block(par, z2, lp["moe"], ls["moe"])
+        else:
+            x = x + mesh_swiglu(par, z2, lp["mlp"], ls["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mesh_logits(par, params, x)[:, 0], cache

@@ -49,6 +49,12 @@ reads the same stream and a scheduler signals every process.  Restoring
 onto another shard count is ``checkpoint.reshard_store`` and
 ``reshard_dense`` (``examples/elastic_restart_torch.py``).
 
+An LM on a mesh (``model_cfg`` a ``models.transformer.TransformerConfig``)
+runs the same way: its batches cut by ``models.lm_steps.local_batch``, its
+checkpoint the whole state gathered by ``weights.lm_state_to_global`` (the
+files a one-rank LM loop writes), and a restore cut again by
+``weights.lm_state_from_global``, onto a mesh of any shape.
+
 A state that carries the in-graph step metrics (``metrics``, the model's
 ``step_metrics``) is drained every ``metrics_every`` steps and at the end:
 one device -> host copy, a ``repro.metrics`` counter on the trace, and the
@@ -260,6 +266,11 @@ class DataRebalancer:
         return raw
 
 
+def _is_lm(cfg) -> bool:
+    from repro_torch.models.transformer import TransformerConfig
+    return isinstance(cfg, TransformerConfig)
+
+
 class LocalBatches:
     """The iterator a loop on a mesh reads: each global batch of ``batches``
     (a dict of numpy arrays or tensors) cut to this rank's block
@@ -281,7 +292,11 @@ class LocalBatches:
         from repro_torch.weights import to_torch
         batch = {k: to_torch(v) if isinstance(v, np.ndarray) else v
                  for k, v in next(self._src).items()}
-        batch = hybrid.local_batch(self._cfg, self._mesh, batch)
+        if _is_lm(self._cfg):
+            from repro_torch.models import lm_steps
+            batch = lm_steps.local_batch(self._cfg, self._mesh, batch)
+        else:
+            batch = hybrid.local_batch(self._cfg, self._mesh, batch)
         if self._device is not None:
             batch = {k: v.to(self._device) for k, v in batch.items()}
         return batch
@@ -302,7 +317,8 @@ class TrainLoop:
         # device: where prefetched batches and a restored state go (the mesh's
         # device when ``mesh`` is given).  mesh: this rank's ``launch.mesh.Mesh``,
         # ``batches`` then yielding global batches; with it the model's
-        # ``model_cfg`` (a ``core.hybrid.HybridDef`` or a ``core.dlrm.DLRMConfig``), by which the loop cuts the
+        # ``model_cfg`` (a ``core.hybrid.HybridDef``, a ``core.dlrm.DLRMConfig`` or an LM's
+        # ``models.transformer.TransformerConfig``), by which the loop cuts the
         # batches and gathers and cuts the state
         from repro_torch.launch.mesh import refuse_shape_only
         refuse_shape_only(mesh, "the run loop")
@@ -340,17 +356,25 @@ class TrainLoop:
         self._metrics_prev: Optional[dict] = None
         self._metrics_window: Optional[dict] = None
         if self.ckpt and self.mesh is None:
-            if self.ckpt.latest_valid_step() is not None:
+            try:  # the newest valid checkpoint, verified on the arrays it restores
                 self.start_step, self.state = self.ckpt.restore(self.state, device=self.device)
+            except FileNotFoundError:  # none: a fresh start
+                pass
+            else:
                 print(f"[train] restored checkpoint at step {self.start_step}")
         elif self.ckpt:
             step = self._from_rank0(self.ckpt.latest_valid_step() if self.mesh.rank == 0
                                     else None)
             if step is not None:
                 from repro_torch import weights
-                _, glob = self.ckpt.restore(weights.global_like(model_cfg, self.mesh), step=step,
-                                            device="cpu")
-                self.state = weights.state_from_global(glob, model_cfg, self.mesh)
+                if _is_lm(model_cfg):
+                    like = weights.lm_global_like(model_cfg, momentum="mom" in self.state)
+                    _, glob = self.ckpt.restore(like, step=step, device="cpu")
+                    self.state = weights.lm_state_from_global(glob, model_cfg, self.mesh)
+                else:
+                    _, glob = self.ckpt.restore(weights.global_like(model_cfg, self.mesh),
+                                                step=step, device="cpu")
+                    self.state = weights.state_from_global(glob, model_cfg, self.mesh)
                 self.start_step = step
                 print(f"[train] rank {self.mesh.rank}: restored checkpoint at step {step}")
 
@@ -372,7 +396,8 @@ class TrainLoop:
             return
         from repro_torch import weights
         t0 = time.perf_counter()
-        glob = weights.state_to_global(self.state, self.mesh, self.model_cfg)
+        glob = (weights.lm_state_to_global if _is_lm(self.model_cfg) else
+                weights.state_to_global)(self.state, self.mesh, self.model_cfg)
         self.gather_durations.append(time.perf_counter() - t0)
         if self.mesh.rank == 0:
             self.ckpt.save(step, glob, blocking=blocking)

@@ -22,7 +22,11 @@
   :func:`lm_params_to` do the same for an LM's serving parameters (bf16,
   in the reference's stacked layout); :func:`lm_state_from_numpy` and
   :func:`lm_state_to_numpy` carry an LM training state (``{"hi", "lo",
-  "mom"?}``) across both ways, bit for bit.
+  "mom"?}``) across both ways, bit for bit; with ``mesh=`` the first two
+  keep the rank's block of each leaf (``dist.sharding.lm_param_specs``).
+  :func:`lm_state_to_global` gathers a mesh's LM state into whole CPU
+  tensors (every rank calls it: the run loop's checkpoint) and
+  :func:`lm_state_from_global` cuts them for a mesh of any shape.
 * :func:`egnn_params_from_numpy`, :func:`egnn_state_from_numpy` and
   :func:`egnn_state_to_numpy` carry the EGNN's fp32 parameter tree and its
   Split-SGD state (``{"hi", "lo"}``) across, bit for bit, always as
@@ -389,10 +393,32 @@ def state_to(state: dict, device) -> dict:
     return out
 
 
-def lm_params_from_numpy(params_np: dict, cfg: tf.TransformerConfig, device="cuda") -> dict:
+def _cut_lm(tree: dict, cfg: tf.TransformerConfig, mesh) -> dict:
+    """Each leaf of a parameter-shaped tree (or a state's ``{"hi", "lo",
+    "mom"}`` of them) cut to the rank's block, as contiguous copies."""
+    from repro_torch.dist import sharding as shd
+    cut = shd.lm_leaf_cut(cfg, mesh)
+
+    def walk(t, keys):
+        if isinstance(t, dict):
+            return {k: walk(v, keys + (k,)) for k, v in t.items()}
+        return cut(t, keys)
+
+    if set(tree) <= {"hi", "lo", "mom"}:
+        return {k: walk(v, ()) for k, v in tree.items()}
+    return walk(tree, ())
+
+
+def lm_params_from_numpy(params_np: dict, cfg: tf.TransformerConfig, device="cuda",
+                         mesh=None) -> dict:
     """The reference's LM parameter tree as numpy arrays, in bf16
     (``jax.tree.map(np.asarray, params)`` of the serving step's params) ->
-    the port's serving parameters on ``device``, bit for bit."""
+    the port's serving parameters on ``device``, bit for bit; with a
+    ``mesh`` of more than one rank the rank's block of each leaf on the
+    mesh's device."""
+    if mesh is not None and mesh.size > 1:
+        whole = lm_params_from_numpy(params_np, cfg, "cpu")
+        return dp.tree_map(lambda t: t.to(mesh.device), _cut_lm(whole, cfg, mesh))
     dev = resolve_device(device)
 
     def walk(tree, structs, path):
@@ -414,11 +440,16 @@ def lm_params_from_numpy(params_np: dict, cfg: tf.TransformerConfig, device="cud
     return walk(params_np, lm_steps.param_structs(cfg), "")
 
 
-def lm_state_from_numpy(state_np: dict, cfg: tf.TransformerConfig, device="cuda") -> dict:
+def lm_state_from_numpy(state_np: dict, cfg: tf.TransformerConfig, device="cuda",
+                        mesh=None) -> dict:
     """The reference's LM training state as numpy arrays
     (``jax.tree.map(np.asarray, state)`` of ``init_lm_state``'s or a train
     step's: ``hi`` bf16, ``lo`` uint16, ``mom`` fp32 where present) -> the
-    port's on ``device``, bit for bit, ``lo`` as its int16 bits."""
+    port's on ``device``, bit for bit, ``lo`` as its int16 bits; with a
+    ``mesh`` of more than one rank the rank's blocks (copies) on the mesh's
+    device."""
+    if mesh is not None and mesh.size > 1:
+        return lm_state_from_global(lm_state_from_numpy(state_np, cfg, "cpu"), cfg, mesh)
     dev = resolve_device(device)
     want = lm_steps.lm_state_structs(cfg, momentum="mom" in state_np)
 
@@ -457,11 +488,59 @@ def lm_state_to_numpy(state: dict) -> dict:
     return dp.tree_map(to_np, state)
 
 
-def init_lm_params(cfg: tf.TransformerConfig, generator: torch.Generator, device="cuda") -> dict:
+def lm_state_to_global(state: dict, mesh, cfg: tf.TransformerConfig) -> dict:
+    """A mesh's LM training state (the rank's blocks) -> the whole state as
+    CPU tensors of the same types, gathered by each leaf's spec: every rank
+    of the mesh must call it, and every rank gets the whole state.  A
+    one-rank state is copied."""
+    from repro_torch.dist import sharding as shd
+    if mesh is None or mesh.size == 1:
+        return dp.tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+    specs = shd.lm_config_specs(cfg)
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k]) for k, v in t.items()}
+        return shd.gather_block(t.detach(), spec, mesh).to("cpu", copy=True)
+
+    return {k: walk(v, specs) for k, v in state.items()}
+
+
+def lm_global_like(cfg: tf.TransformerConfig, momentum: bool = True) -> dict:
+    """Zeros of the whole LM training state's shapes and types on the CPU:
+    a checkpoint's restore target on a mesh."""
+    return {k: _zeros_like_structs(tree)
+            for k, tree in lm_steps.lm_state_structs(cfg, momentum).items()}
+
+
+def _zeros_like_structs(tree: dict) -> dict:
+    return {k: _zeros_like_structs(v) if isinstance(v, dict) else torch.zeros(v[0], dtype=v[1])
+            for k, v in tree.items()}
+
+
+def lm_state_from_global(glob: dict, cfg: tf.TransformerConfig, mesh=None, *,
+                         device="cuda") -> dict:
+    """The whole LM training state (CPU tensors, :func:`lm_state_to_global`'s
+    or a checkpoint's) -> the rank's blocks on the mesh's device (a mesh of
+    any shape: an elastic restore cuts again), or the whole state on
+    ``device`` where ``mesh`` is None or one rank; always copies."""
+    if mesh is None or mesh.size == 1:
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        return dp.tree_map(lambda t: t.to(dev, copy=True), glob)
+    return dp.tree_map(lambda t: t.to(mesh.device), _cut_lm(glob, cfg, mesh))
+
+
+def init_lm_params(cfg: tf.TransformerConfig, generator: torch.Generator, device="cuda",
+                   mesh=None) -> dict:
     """Port-native serving parameters in bf16, drawn on ``device``
     (``generator`` must live there) by
-    :func:`repro_torch.models.transformer.init_params`."""
-    return tf.init_params(cfg, generator, device)
+    :func:`repro_torch.models.transformer.init_params`; with a ``mesh`` of
+    more than one rank each leaf is cut to the rank's block as it is drawn
+    (the one-rank draw's blocks, no rank holding the whole model)."""
+    if mesh is None or mesh.size == 1:
+        return tf.init_params(cfg, generator, device)
+    from repro_torch.dist import sharding as shd
+    return tf.init_params(cfg, generator, mesh.device, cut=shd.lm_leaf_cut(cfg, mesh))
 
 
 def lm_params_to(params: dict, device) -> dict:

@@ -467,6 +467,18 @@ def rank_echo(rank: int, world: int, fail_rank: int):
     return rank
 
 
+def rank_pid_sum(rank: int, world: int, add: int):
+    """This rank's process id and the sum over the default group of
+    ``rank + add`` (an ``all_reduce``)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([rank + add], dtype=torch.int64)
+    dist.all_reduce(t)
+    return os.getpid(), int(t)
+
+
 def recsys_table_rank(rank: int, world_size: int, c: dict) -> dict:
     """One rank of BST in table mode on a (1, world_size) mesh: the smoke-size
     model of ``tests/test_torch_recsys.py`` (``c["item_vocab"]``,
@@ -656,4 +668,204 @@ def dryrun_cells_rank(rank: int, world_size: int, cells: list) -> list:
         mesh.stats.reset()
         build.fn(*args)
         out.append(dryrun.collectives(mesh.stats))
+    return out
+
+
+def lm_meshes(rank: int, world_size: int) -> dict:
+    """The LM mesh tests' meshes, made in one order on every rank of a world
+    of 4: (2, 2) over the world, (1, 2) and (2, 1) over this rank's pair
+    (ranks 0-1 or 2-3), (1, 1) with no process group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    axes = ("data", "model")
+    meshes = {(2, 2): make_mesh((2, 2), axes, "cpu")}
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    meshes[(1, 2)] = make_mesh((1, 2), axes, "cpu", group=pairs[rank // 2])
+    meshes[(2, 1)] = make_mesh((2, 1), axes, "cpu", group=pairs[rank // 2])
+    meshes[(1, 1)] = make_mesh((1, 1), axes, "cpu")
+    return meshes
+
+
+def _lm_state_bits(glob: dict) -> dict:
+    """A whole LM state (CPU tensors) as numpy: ``hi`` and ``lo`` their
+    16-bit patterns, ``mom`` fp32."""
+    from repro_torch.optim import data_parallel as dp
+    return dp.tree_map(lambda t: (t.view(torch.int16) if t.element_size() == 2 else t).numpy(),
+                       glob)
+
+
+def _lm_train_case(mesh, c: dict) -> dict:
+    """``c["starts"][i]`` (a numpy state of the reference's) cut onto
+    ``mesh``, one port step on ``c["batches"][i]``, the state gathered."""
+    from repro_torch import weights
+    from repro_torch.models import lm_steps
+    from repro_torch.models import transformer as tf
+
+    cfg = tf.TransformerConfig(**c["cfg"])
+    step, _ = lm_steps.make_lm_train_step(cfg, mesh, c["B"], c["L"], lr=c["lr"])
+    losses, states = [], []
+    for start, b in zip(c["starts"], c["batches"]):
+        state = weights.lm_state_from_numpy(start, cfg, "cpu", mesh=mesh)
+        batch = lm_steps.local_batch(cfg, mesh, {k: torch.from_numpy(np.ascontiguousarray(v))
+                                                 for k, v in b.items()})
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        states.append(_lm_state_bits(weights.lm_state_to_global(state, mesh, cfg)))
+    return {"losses": losses, "states": states}
+
+
+def _lm_serve_case(mesh, c: dict) -> dict:
+    """The prefill of ``c["prompt"]`` (where B divides the data axes) and
+    ``N`` decode steps from ``c["cache"]`` (the reference's prefill cache,
+    whole, cut onto the mesh), each output gathered whole."""
+    from repro_torch import weights
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm_steps
+    from repro_torch.models import transformer as tf
+
+    cfg = tf.TransformerConfig(**c["cfg"])
+    B, L, N = c["B"], c["L"], c["N"]
+    params = weights.lm_params_from_numpy(c["params"], cfg, "cpu", mesh=mesh)
+    cut = lm_steps.decode_rows(B, mesh)
+    bdp = shd.batch_axes(mesh)
+    g = mesh.group(bdp)
+    rows = (lambda t: t.reshape(g.size, -1, *t.shape[1:])[g.index]) if cut else (lambda t: t)
+    logit_spec = (bdp if cut else None, "model")
+    out = {}
+    if cut:
+        prefill, _ = lm_steps.make_prefill_step(cfg, mesh, B, L)
+        logits, cache = prefill(params, rows(torch.from_numpy(c["prompt"])))
+        specs = lm_steps.cache_specs(cfg, mesh, B)
+        out["logits"] = shd.gather_block(logits, logit_spec, mesh).numpy()
+        out["cache"] = {k: shd.gather_block(v, specs[k], mesh).float().numpy()
+                        for k, v in cache.items()}
+    decode, (_, cstructs, _, _) = lm_steps.make_decode_step(cfg, mesh, B, L + N)
+    specs = lm_steps.cache_specs(cfg, mesh, B)
+    cache = {}
+    for k, (shape, dtype) in cstructs.items():
+        whole = torch.zeros(shape, dtype=dtype)
+        ref = torch.from_numpy(c["cache"][k]).to(dtype)
+        whole.narrow(3 if len(shape) == 5 else 2, 0, L).copy_(ref)
+        cache[k] = shd.local_block(whole, specs[k], mesh, k).clone()
+    steps = []
+    for i in range(N):
+        tok = rows(torch.from_numpy(np.ascontiguousarray(c["next"][:, i])))
+        logits, cache = decode(params, cache, tok, torch.full(tok.shape, L + i, dtype=torch.int32))
+        steps.append(shd.gather_block(logits, logit_spec, mesh).numpy())
+    out["steps"] = steps
+    out["final"] = {k: shd.gather_block(v, specs[k], mesh).float().numpy()
+                    for k, v in cache.items()}
+    return out
+
+
+def _lm_ep_case(mesh, c: dict) -> dict:
+    """The expert-parallel FFN (``transformer._ep_ffn``) in fp32 on the
+    rank's rows of ``c["buf"]`` ([B, E, C, d], the reference's layout) and
+    its blocks of the weights: the output and the gradients of the sum of
+    ``out * c["cot"]`` (each rank's share: over the ranks of ``model``, which
+    hold the same rows), gathered whole."""
+    from repro_torch.dist import comm
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import transformer as tf
+
+    cfg = tf.TransformerConfig(**c["cfg"])
+    par = tf.mesh_plan(cfg, mesh, ("data",))
+    B, E, C, d = c["buf"].shape
+    spec = {"wg": ("data", None, "model"), "wu": ("data", None, "model"),
+            "wd": ("data", "model", None)}
+    w = {k: shd.local_block(torch.from_numpy(c[k]), spec[k], mesh, k).clone().requires_grad_()
+         for k in spec}
+    rows = (("data",), None, None, None)
+    buf = shd.local_block(torch.from_numpy(c["buf"]), rows, mesh, "buf").clone().requires_grad_()
+    cot = shd.local_block(torch.from_numpy(c["cot"]), rows, mesh, "cot")
+    b = buf.shape[0]
+    flat = buf.transpose(0, 1).reshape(E, b * C, d)
+    out = tf._ep_ffn(par, flat, w, spec).reshape(E, b, C, d).transpose(0, 1)
+    share = (out * cot).sum() / mesh.shape["model"]
+    grads = torch.autograd.grad(share, [buf] + [w[k] for k in spec])
+    gbuf = comm.psum(grads[0], mesh.group(("model",)))
+    return {"out": shd.gather_block(out.detach(), rows, mesh).numpy(),
+            "gbuf": shd.gather_block(gbuf, rows, mesh).numpy(),
+            **{"g" + k: shd.gather_block(g, spec[k], mesh).numpy()
+               for k, g in zip(spec, grads[1:])}}
+
+
+def _lm_state_ckpt_case(meshes: dict, rank: int, c: dict) -> dict:
+    """An LM state drawn on (1, 2) (``init_lm_state`` with the mesh: the
+    one-rank draw cut, checked here), one step, saved whole by rank 0 of
+    each pair; restored onto (2, 1) and gathered back, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.data_parallel import tree_leaves
+
+    cfg = tf.TransformerConfig(**c["cfg"])
+    src, dst = meshes[(1, 2)], meshes[(2, 1)]
+    state = lm_steps.init_lm_state(cfg, torch.Generator().manual_seed(3), src)
+    whole = lm_steps.init_lm_state(cfg, torch.Generator().manual_seed(3), "cpu")
+    drawn = weights.lm_state_to_global(state, src, cfg)
+    init_cut = all(torch.equal(a, b) for a, b in zip(tree_leaves(drawn), tree_leaves(whole)))
+    step, _ = lm_steps.make_lm_train_step(cfg, src, c["B"], c["L"], lr=c["lr"])
+    step(state, lm_steps.local_batch(cfg, src, {k: torch.from_numpy(v) for k, v in
+                                               c["batch"].items()}))
+    glob = weights.lm_state_to_global(state, src, cfg)
+    path = f"{c['dir']}/pair{rank // 2}"
+    if src.rank == 0:
+        CheckpointManager(path).save(1, glob, blocking=True)
+    dist.barrier()
+    _, back = CheckpointManager(path).restore(weights.lm_global_like(cfg), step=1, device="cpu")
+    moved = weights.lm_state_from_global(back, cfg, dst)
+    again = weights.lm_state_to_global(moved, dst, cfg)
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(tree_leaves(glob), tree_leaves(again)))
+    return {"init_cut": init_cut, "restored": same, "path": path,
+            "state": _lm_state_bits(glob)}
+
+
+def _lm_counts_case(mesh, c: dict) -> dict:
+    """The collectives' calls and bytes of one train step, one prefill and
+    one decode step of a small config on ``mesh``, kind by kind."""
+    from repro_torch.models import transformer as tf
+
+    return lm_step_counts(tf.TransformerConfig(**c["cfg"]), mesh, c["B"], c["L"])
+
+
+def lm_step_counts(cfg, mesh, B: int, L: int) -> dict:
+    """Per step kind (train, prefill, decode) the mesh's ``CollectiveStats``
+    calls and result bytes of one step of rank ``mesh.rank`` on seeded
+    inputs (the dry run's ``lm_inputs`` on the configs' cells)."""
+    from repro_torch.configs.base import lm_cell_build
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for kind in ("train", "prefill", "decode"):
+        build = lm_cell_build(cfg, mesh, kind, B, L, {"kind": kind, "seq": L, "family": "lm"})
+        args = dryrun.lm_inputs(build, mesh, torch.Generator().manual_seed(0))
+        mesh.stats.reset()
+        build.fn(*args)
+        out[kind] = {"calls": dict(mesh.stats.calls), "bytes_out": dict(mesh.stats.bytes_out)}
+    return out
+
+
+def lm_mesh_rank(rank: int, world_size: int, cases: list) -> dict:
+    """One rank's part of ``tests/test_torch_lm_mesh.py`` in a world of 4:
+    each case (``kind`` train, serve, ep, ckpt or counts) on its mesh, a
+    (1, 2) or (2, 1) case on both pairs.  Returns the cases' results on
+    rank 0 (the first pair's for the pairs' meshes), by name."""
+    meshes = lm_meshes(rank, world_size)
+    out = {}
+    for c in cases:
+        if c["kind"] == "ckpt":
+            got = _lm_state_ckpt_case(meshes, rank, c)
+        else:
+            mesh = meshes[tuple(c["mesh"])]
+            if c["mesh"] == (1, 1) and rank:
+                continue
+            got = {"train": _lm_train_case, "serve": _lm_serve_case, "ep": _lm_ep_case,
+                   "counts": _lm_counts_case}[c["kind"]](mesh, c)
+        if rank == 0:
+            out[c["name"]] = got
     return out

@@ -63,6 +63,8 @@ CELLS = {
     "qwen3-moe/decode_32k": ("qwen3-moe-30b-a3b", "decode_32k", {"n_layers": 2, "batch": 8}),
 }
 STEPPED = [k for k, (arch, _, _) in CELLS.items() if arch in ("dlrm-small", "fm", "egnn")]
+# the LM cells stepped here: the decode cells (a train_4k step at full width is the card's)
+LM_STEPPED = ["internlm2/decode_32k", "qwen3-moe/decode_32k"]
 
 REF = """
 import os, pickle, sys
@@ -106,7 +108,7 @@ def runs(tmp_path_factory):
     try:
         mesh = make_shape_mesh((2, 4), ("data", "model"), device="cpu")
         port = {k: dryrun.run_cell(arch, shape, mesh, "2x4", over, device="cpu",
-                                   step=k in STEPPED, timed=0)
+                                   step=k in STEPPED + LM_STEPPED, timed=0)
                 for k, (arch, shape, over) in CELLS.items()}
         gloo = run_ranks(dryrun_cells_rank, 2, ([("egnn", "full_graph_sm"), ("egnn", "molecule")],),
                          timeout_s=240)
@@ -266,13 +268,28 @@ def test_records_of_the_stepped_cells(runs):
 
 
 def test_lm_cells_are_structs_only_and_skips_the_reference_s(runs):
-    """The LM cells are recorded ``structs_only`` with their argument bytes
-    and a reason that names item 8; the reference's skips are ``skipped``
-    with its reason word for word."""
+    """The stepped LM cells are recorded ``ok``: rank 0's step cut to one
+    layer at full width (``meta.stepped_layers``), its built state,
+    parameters and cache equal to the cut depth's structs, its outputs and
+    collectives counted (the decode's gathers, the MoE's all-to-alls), the
+    argument bytes still the full depth's; a cell whose step is not asked
+    for stays ``structs_only``; a two-pod LM cell is ``structs_only`` with
+    its argument bytes; the reference's skips are ``skipped`` with its
+    reason word for word."""
     _, port, _, _ = runs
-    for key in ("internlm2/train_4k", "internlm2/decode_32k", "qwen3-moe/decode_32k"):
-        assert port[key]["status"] == "structs_only" and "item 8" in port[key]["reason"]
-        assert port[key]["meta"]["family"] == "lm"
+    for key in LM_STEPPED:
+        rec = port[key]
+        assert rec["status"] == "ok" and rec["meta"]["family"] == "lm", rec.get("error")
+        assert rec["meta"]["stepped_layers"] == 1
+        m = rec["memory"]
+        assert m["built_bytes"] == m["stepped_argument_bytes"] < m["argument_bytes"]
+        assert m["output_bytes"] > 0 and rec["collectives"]["calls"]["all-gather"] > 0
+    assert port["qwen3-moe/decode_32k"]["collectives"]["calls"]["all-to-all"] > 0
+    assert port["internlm2/train_4k"]["status"] == "structs_only"
+    two = make_shape_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    rec = dryrun.run_cell("internlm2-1.8b", "decode_32k", two, "2x2x2",
+                          {"n_layers": 2, "batch": 8}, device="cpu")
+    assert rec["status"] == "structs_only" and rec["memory"]["argument_bytes"] > 0
     mesh = make_shape_mesh((16, 16), ("data", "model"), device="cpu")
     rec = dryrun.run_cell("phi3-medium-14b", "long_500k", mesh, "pod1x16x16", device="cpu")
     assert rec["status"] == "skipped"

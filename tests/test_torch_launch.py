@@ -3,13 +3,15 @@ path) against the reference's ``repro.launch.train``, on the CPU.
 
 The refusal matrix: every refusal of the reference's launcher raises the
 same ``SystemExit`` text from both (the weighted refusal names each
-package's own packer), and the port's own refusals name their ROADMAP
-items.  ``main(argv)`` with ``--device cpu``: the synthetic stream; a packed
-dataset with ``--host-presort --optimizer adagrad_rowwise``; ``--trace-dir``
-with a preemption and a resume; publishing and the serving smoke; two ranks
-(two spawned gloo processes), whose first loss is the one-rank run's within
-1e-6.  The launcher parity case: the reference's launcher checkpoints step 3
-of a packed ``dlrm-smoke`` run (batch 64) in format v2; both launchers
+package's own packer).  ``main(argv)`` with ``--device cpu``: the synthetic
+stream; a packed dataset with ``--host-presort --optimizer
+adagrad_rowwise``; ``--trace-dir`` with a preemption and a resume;
+publishing and the serving smoke; two ranks (two spawned gloo processes),
+whose first loss is the one-rank run's within 1e-6; each LM arch at
+``--ranks 2``, bit for bit its one-rank run, and its restart.  The ranks
+(``run_ranks``, ``RankPool``) leave no process behind.  The launcher
+parity case: the reference's launcher checkpoints step 3 of a packed
+``dlrm-smoke`` run (batch 64) in format v2; both launchers
 resume copies of it to step 6 on the same dataset, and the two step-6
 checkpoints agree within the tolerances of
 ``tests/test_torch_train_loop.py::test_quickstart_contract_matches_the_reference_loop``.
@@ -33,9 +35,9 @@ from repro_torch.core import dlrm as t_dlrm
 from repro_torch.data import format as t_format
 from repro_torch.data.synthetic import dlrm_stream
 from repro_torch.launch import train as t_launch
-from repro_torch.launch.local import run_ranks
+from repro_torch.launch.local import RankPool, run_ranks
 from repro_torch.testing import to_torch
-from _torch_ranks import rank_echo
+from _torch_ranks import rank_echo, rank_pid_sum
 from test_torch_train_loop import _assert_logits_close
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,19 +87,6 @@ def test_unknown_optimizer_fails_in_both(monkeypatch):
             call()
 
 
-# what the port still refuses: an LM arch on a mesh
-PORT_REFUSALS = {
-    "lm": (["--arch", "internlm2-1.8b", "--ranks", "2"], "item 8"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(PORT_REFUSALS))
-def test_port_refusals_name_their_roadmap_item(case):
-    argv, item = PORT_REFUSALS[case]
-    text = _exit_text(lambda: t_launch.main(argv))
-    assert f"ROADMAP queue 1 {item}" in text
-
-
 LM_ARCHS = ("internlm2-1.8b", "gemma2-27b", "phi3-medium-14b", "qwen3-moe-30b-a3b",
             "deepseek-v2-236b")
 LM_ARGV = ["--device", "cpu", "--batch", "4", "--seq", "32"]
@@ -112,6 +101,32 @@ def test_lm_branch_trains(arch, capsys):
     assert out["start_step"] == 0 and len(out["losses"]) == 3 and _finite(out["losses"])
     assert all(abs(x - np.log(512)) < 0.5 for x in out["losses"])
     assert f"[train] {arch}: reduced to 2 layers" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_branch_at_two_ranks_is_the_one_rank_run(arch):
+    """``--ranks 2`` trains each LM arch on a (1, 2) mesh of two gloo
+    processes: the reference's pure FSDP (every leaf over both ranks, the
+    batch on each), whose losses are the one-rank run's bit for bit (each
+    rank's share of the loss is half of it, and each gradient the sum of two
+    equal halves)."""
+    argv = ["--arch", arch, "--steps", "3"] + LM_ARGV
+    assert t_launch.main(argv + ["--ranks", "2"])["losses"] == t_launch.main(argv)["losses"]
+
+
+def test_lm_branch_restarts_at_two_ranks_bit_for_bit(tmp_path):
+    """At ``--ranks 2`` a ``--ckpt-dir`` run stopped by ``--preempt-at 1``
+    checkpoints the whole state (rank 0 writes) and the relaunch cuts it
+    again: its losses are the uninterrupted run's, bit for bit."""
+    argv = ["--arch", "gemma2-27b", "--steps", "4", "--ranks", "2"] + LM_ARGV
+    whole = t_launch.main(argv)
+    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    first = t_launch.main(argv + ck + ["--preempt-at", "1"])
+    assert first["losses"] == whole["losses"][:2]
+    second = t_launch.main(argv + ck + ["--losses-json", str(tmp_path / "second.json")])
+    assert second["start_step"] == 2 and second["losses"] == whole["losses"][2:]
+    assert json.loads((tmp_path / "second.json").read_text()) == {
+        "start_step": 2, "losses": second["losses"]}
 
 
 def test_lm_branch_restarts_bit_for_bit(tmp_path):
@@ -329,6 +344,28 @@ def test_run_ranks_leaves_no_process(fail_rank):
         with pytest.raises(RuntimeError, match="fails on purpose"):
             run_ranks(rank_echo, 2, (fail_rank,))
     assert _children() == before
+
+
+@pytest.mark.parametrize("fail_rank", [-1, 1], ids=["returns", "a-rank-raises"])
+def test_rank_pool_runs_calls_in_one_group_and_leaves_no_process(fail_rank):
+    """A pool's ranks serve call after call in the same processes and the
+    same process group; a rank that raises fails its call, which closes the
+    pool; either way, once closed, the caller has the children it had
+    before."""
+    before = _children()
+    with RankPool(2, timeout_s=60) as pool:
+        first = pool.run(rank_pid_sum, (1,), timeout_s=120)
+        assert [s for _, s in first] == [3, 3]
+        assert pool.run(rank_pid_sum, (10,)) == [(pid, 21) for pid, _ in first]
+        if fail_rank < 0:
+            assert pool.run(rank_echo, (fail_rank,)) == [0, 1]
+        else:
+            with pytest.raises(RuntimeError, match="fails on purpose"):
+                pool.run(rank_echo, (fail_rank,))
+            assert pool.closed
+            with pytest.raises(RuntimeError, match="closed"):
+                pool.run(rank_echo, (-1,))
+    assert pool.closed and _children() == before
 
 
 def test_launcher_parity_from_a_reference_checkpoint(tmp_path, monkeypatch):

@@ -119,13 +119,23 @@ def test_registry_whole_after_one_config_module():
 
 
 def test_lm_build_refuses_a_mesh_and_runs_one_rank():
-    """An LM cell's ``build`` on a mesh of more than one rank raises the
-    error that names item 8; on a one-rank mesh it returns the one-card
-    step with ``lm_steps``' structs."""
+    """An LM cell's ``build`` on a shape-only mesh is refused outside the dry
+    run's context; inside it, it returns rank 0's mesh step with the specs
+    of its arguments (the state's, the batch over the config's data axes);
+    on a one-rank mesh it returns the one-card step with ``lm_steps``'
+    structs and no specs."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import shape_only_meshes
     from repro_torch.models import lm_steps
     ad = t_base.get("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ad.build("train_4k", make_shape_mesh((2, 4), ("data", "model"), device="cpu"))
+    shape_only = make_shape_mesh((2, 4), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="shape-only"):
+        ad.build("train_4k", shape_only)
+    with shape_only_meshes():
+        on_mesh = ad.build("train_4k", shape_only, n_layers=2, batch=4)
+    assert on_mesh.specs == (shd.lm_state_specs(on_mesh.model, momentum=False),
+                             {"tokens": (("data",), None), "labels": (("data",), None)})
+    assert on_mesh.model.tp_size == 4 and on_mesh.model.dp_axes == ("data",)
     one = make_mesh((1, 1), ("data", "model"), "cpu")
     built = ad.build("train_4k", one, n_layers=2, batch=4)
     plan = ad.plan("train_4k", one, n_layers=2, batch=4)
